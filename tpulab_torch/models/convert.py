@@ -1,0 +1,54 @@
+"""The weight bridge: tpulab parameter trees -> the port's module.
+
+tpulab's ``init_transformer_params`` (or a checkpoint import) yields a
+pytree of JAX arrays; ``np.asarray`` on each leaf gives the numpy tree
+this module takes, with the same keys (``embed``, ``final_norm``,
+``layer{i}.{ln1,ln2,wqkv,wo,w1,w2,w3}``, ``lm_head``).  Nothing here
+imports JAX: the caller does the ``np.asarray`` on its side.  bf16 leaves
+arrive as numpy arrays of the ``bfloat16`` extension dtype; their bits
+are carried over unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from tpulab_torch.models.transformer import Transformer
+
+
+def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """One numpy leaf -> a tensor on ``device`` (bit-exact; bf16 leaves
+    travel as their 16-bit patterns)."""
+    arr = np.array(arr, copy=True, order="C")   # writable, contiguous
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    t = t.to(device)
+    return t.to(dtype) if dtype is not None else t
+
+
+def tree_from_numpy(tree: Dict[str, Any], device,
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Map :func:`tensor_from_numpy` over a (nested dict) param tree."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        out[k] = (tree_from_numpy(v, device, dtype) if isinstance(v, dict)
+                  else tensor_from_numpy(v, device, dtype))
+    return out
+
+
+def params_from_numpy(tree: Dict[str, Any], device, dtype=None, *,
+                      n_heads: int, n_kv_heads: Optional[int] = None,
+                      rope_theta: Optional[float] = None) -> Transformer:
+    """tpulab's numpy param tree -> the port's :class:`Transformer` on
+    ``device`` (``dtype`` optionally recasts every leaf)."""
+    from tpulab_torch.cuda.platform import resolve_device
+
+    dev = resolve_device(device)
+    return Transformer(tree_from_numpy(tree, dev, dtype), n_heads=n_heads,
+                       n_kv_heads=n_kv_heads, rope_theta=rope_theta)

@@ -1,0 +1,314 @@
+"""Decoder-only transformer — the port of ``tpulab/models/transformer.py``.
+
+The math is plain functions on tensors over a parameter *tree* with
+tpulab's keys (``embed``, ``final_norm``, ``layer{i}.{ln1,ln2,wqkv,wo,w1,
+w2,w3}``, ``lm_head``); :class:`Transformer` is the ``nn.Module`` that owns
+those tensors and hands the tree out through :attr:`Transformer.params`.
+
+Dtypes follow JAX's result type op by op, because ``torch.matmul``
+refuses mixed operands where ``jnp`` promotes silently:
+
+- ``_rmsnorm`` returns ``x.dtype`` and then multiplies by the scale, so an
+  f32 scale under bf16 compute yields f32;
+- ``h @ qmat(w, compute)`` runs in the promoted type of ``h`` and the
+  compute dtype;
+- ``_lm_head`` works in f32.
+
+Only float weights are ported (tpulab's int8 ``{"w_int8", "scale"}``
+entries are a later slice).  Float32 products use full f32 on the card:
+callers keep ``torch.backends.cuda.matmul.allow_tf32`` False (its
+default).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Tree = Dict[str, Any]
+
+
+def init_transformer_params(vocab: int = 32000, d_model: int = 512,
+                            n_heads: int = 8, n_layers: int = 6,
+                            d_ff: int = 2048, seed: int = 0,
+                            n_kv_heads: Optional[int] = None,
+                            ffn: str = "gelu",
+                            tie_embeddings: bool = True,
+                            device=None, dtype=torch.float32) -> Tree:
+    """Random weights with tpulab's shapes and scale (N(0, 0.02), unit
+    norms), drawn layer by layer from one seeded ``torch.Generator`` on
+    ``device`` (``None`` = the CUDA card).  The draws differ from
+    ``jax.random``'s; to compare with tpulab, build the weights there and
+    bring them over with :func:`tpulab_torch.models.convert.params_from_numpy`."""
+    from tpulab_torch.cuda.platform import resolve_device
+
+    dev = resolve_device(device)
+    n_kv = n_kv_heads or n_heads
+    if n_heads % n_kv:
+        raise ValueError(f"n_heads {n_heads} not divisible by "
+                         f"n_kv_heads {n_kv}")
+    if ffn not in ("gelu", "swiglu"):
+        raise ValueError(f"unknown ffn {ffn!r}")
+    head_dim = d_model // n_heads
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def normal(*shape):
+        w = torch.empty(shape, dtype=dtype, device=dev)
+        return w.normal_(0.0, 0.02, generator=gen)
+
+    def ones(n):
+        return torch.ones((n,), dtype=dtype, device=dev)
+
+    params: Tree = {"embed": normal(vocab, d_model),
+                    "final_norm": {"scale": ones(d_model)}}
+    for i in range(n_layers):
+        layer = {
+            "ln1": {"scale": ones(d_model)},
+            "ln2": {"scale": ones(d_model)},
+            "wqkv": normal(d_model, (n_heads + 2 * n_kv) * head_dim),
+            "wo": normal(d_model, d_model),
+            "w1": normal(d_model, d_ff),
+            "w2": normal(d_ff, d_model),
+        }
+        if ffn == "swiglu":
+            layer["w3"] = normal(d_model, d_ff)
+        params[f"layer{i}"] = layer
+    if not tie_embeddings:
+        params["lm_head"] = normal(d_model, vocab)
+    return params
+
+
+class _Block(nn.Module):
+    def __init__(self, p: Tree):
+        super().__init__()
+        self.ln1 = nn.Parameter(p["ln1"]["scale"], requires_grad=False)
+        self.ln2 = nn.Parameter(p["ln2"]["scale"], requires_grad=False)
+        for name in ("wqkv", "wo", "w1", "w2", "w3"):
+            if name in p:
+                setattr(self, name,
+                        nn.Parameter(p[name], requires_grad=False))
+
+    def tree(self) -> Tree:
+        out: Tree = {"ln1": {"scale": self.ln1}, "ln2": {"scale": self.ln2}}
+        for name in ("wqkv", "wo", "w1", "w2", "w3"):
+            if hasattr(self, name):
+                out[name] = getattr(self, name)
+        return out
+
+
+class Transformer(nn.Module):
+    """Owner of a transformer's weights (no copies: the tree's tensors
+    become the module's parameters).  ``params`` rebuilds the tpulab-keyed
+    tree the functional code takes."""
+
+    def __init__(self, params: Tree, n_heads: int,
+                 n_kv_heads: Optional[int] = None,
+                 rope_theta: Optional[float] = None):
+        super().__init__()
+        n_layers = sum(1 for k in params if k.startswith("layer"))
+        self.n_heads = n_heads
+        self.n_kv_heads = n_kv_heads or n_heads
+        self.n_layers = n_layers
+        self.rope_theta = rope_theta
+        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.final_norm = nn.Parameter(params["final_norm"]["scale"],
+                                       requires_grad=False)
+        self.layers = nn.ModuleList(_Block(params[f"layer{i}"])
+                                    for i in range(n_layers))
+        self.lm_head = (nn.Parameter(params["lm_head"], requires_grad=False)
+                        if "lm_head" in params else None)
+
+    @property
+    def params(self) -> Tree:
+        tree: Tree = {"embed": self.embed,
+                      "final_norm": {"scale": self.final_norm}}
+        for i, blk in enumerate(self.layers):
+            tree[f"layer{i}"] = blk.tree()
+        if self.lm_head is not None:
+            tree["lm_head"] = self.lm_head
+        return tree
+
+    def forward(self, tokens: torch.Tensor,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+        """tokens (B, T) -> logits (B, T, vocab) f32 (causal)."""
+        return transformer_apply(
+            self.params, {"tokens": tokens}, n_heads=self.n_heads,
+            n_layers=self.n_layers, compute_dtype=compute_dtype,
+            n_kv_heads=self.n_kv_heads,
+            rope_theta=self.rope_theta)["logits"]
+
+
+def split_qkv(qkv, b, t, n_heads, n_kv_heads, head_dim):
+    """Split a fused QKV projection into (q (B,T,Hq,D), k/v (B,T,Hkv,D))."""
+    q_dim = n_heads * head_dim
+    kv_dim = n_kv_heads * head_dim
+    q = qkv[..., :q_dim].reshape(b, t, n_heads, head_dim)
+    k = qkv[..., q_dim:q_dim + kv_dim].reshape(b, t, n_kv_heads, head_dim)
+    v = qkv[..., q_dim + kv_dim:].reshape(b, t, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def repeat_kv(kv, n_heads):
+    """Broadcast (…, Hkv, D) K/V heads up to the query head count (GQA)."""
+    hkv = kv.shape[-2]
+    if hkv == n_heads:
+        return kv
+    return torch.repeat_interleave(kv, n_heads // hkv, dim=-2)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotary position embedding (HF Llama rotate-half convention).
+
+    x (..., T, H, D); positions (..., T) int.  Computed in f32, returned
+    in ``x.dtype``."""
+    d = x.shape[-1]
+    half = d // 2
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half))
+    ang = positions.to(torch.float32)[..., None] * inv     # (..., T, half)
+    cos = torch.cat([torch.cos(ang)] * 2, -1)[..., None, :]
+    sin = torch.cat([torch.sin(ang)] * 2, -1)[..., None, :]
+    xf = x.to(torch.float32)
+    x1, x2 = xf[..., :half], xf[..., half:]
+    rot = torch.cat([-x2, x1], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
+
+
+def qmat(w, compute_dtype):
+    """Weight matrix ready for matmul (float weights only in this port)."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "int8 weight-only quantization is not ported yet "
+            "(ROADMAP queue 1: int8 weights and fp8 KV)")
+    return w.to(compute_dtype)
+
+
+def _mm(a, b):
+    """``a @ b`` in JAX's promoted result type of the two operands."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def _mul(a, b):
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) * b.to(dt)
+
+
+def _rmsnorm(x, scale):
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return _mul((xf * torch.rsqrt(var + 1e-6)).to(x.dtype), scale)
+
+
+def _add(x, y):
+    """``x + y`` in JAX's promoted type (the attention residual: an f32
+    ``attn @ wo`` lifts a bf16 residual stream to f32, as in tpulab)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt) + y.to(dt)
+
+
+def dense_attention(q, k, v, causal: bool = True):
+    """Single-device attention (B, T, H, D), optionally causal."""
+    b, t, h, d = q.shape
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(d)
+    if causal:
+        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask[None, None], scores,
+                             torch.tensor(-1e30, dtype=scores.dtype,
+                                          device=q.device))
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def causal_attention(q, k, v):
+    """Default single-device causal attention (B, T, H, D)."""
+    return dense_attention(q, k, v, causal=True)
+
+
+def _dense_ffn(p, h, compute_dtype):
+    """SwiGLU when the layer has a ``w3`` gate (Llama family), else
+    w1/gelu(tanh)/w2 — ``jax.nn.gelu``'s default is the tanh form."""
+    if "w3" in p:
+        gate = F.silu(_mm(h, qmat(p["w1"], compute_dtype)))
+        return _mm(gate * _mm(h, qmat(p["w3"], compute_dtype)),
+                   qmat(p["w2"], compute_dtype))
+    return _mm(F.gelu(_mm(h, qmat(p["w1"], compute_dtype)),
+                      approximate="tanh"), qmat(p["w2"], compute_dtype))
+
+
+def _lm_head(params, x):
+    """Final projection in f32: untied ``lm_head`` when present, else tied
+    to the embedding.  Under bf16 weights this casts the whole vocab
+    matrix to f32 per call, as tpulab does (cost recorded in PERF.md)."""
+    xf = x.to(torch.float32)
+    if "lm_head" in params:
+        return xf @ qmat(params["lm_head"], torch.float32)
+    return xf @ params["embed"].to(torch.float32).T
+
+
+def _embed(params, tokens, compute_dtype):
+    """``embed.astype(compute)[tokens]`` — rows cast after the gather
+    (the same values, without casting the whole table)."""
+    return params["embed"][tokens].to(compute_dtype)
+
+
+def _forward(params, tokens, n_heads, n_layers, compute_dtype, attention_fn,
+             collect_kv: bool = False, ffn_fn=_dense_ffn,
+             n_kv_heads: Optional[int] = None,
+             rope_theta: Optional[float] = None):
+    """Shared trunk: (B, T) tokens -> (logits, kvs or None); ``collect_kv``
+    returns the compact (B, T, Hkv, D) K/V per layer."""
+    n_kv = n_kv_heads or n_heads
+    x = _embed(params, tokens, compute_dtype)
+    b, t, d_model = x.shape
+    head_dim = d_model // n_heads
+    kvs = [] if collect_kv else None
+    positions = (torch.arange(t, device=x.device) if rope_theta else None)
+    for i in range(n_layers):
+        p = params[f"layer{i}"]
+        h = _rmsnorm(x, p["ln1"]["scale"])
+        qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
+        q, k, v = split_qkv(qkv, b, t, n_heads, n_kv, head_dim)
+        if rope_theta:
+            q = apply_rope(q, positions, rope_theta)
+            k = apply_rope(k, positions, rope_theta)
+        if collect_kv:
+            kvs.append((k, v))
+        attn = attention_fn(q, repeat_kv(k, n_heads),
+                            repeat_kv(v, n_heads)).reshape(b, t, d_model)
+        x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
+        h = _rmsnorm(x, p["ln2"]["scale"])
+        x = x + ffn_fn(p, h, compute_dtype).to(x.dtype)
+    x = _rmsnorm(x, params["final_norm"]["scale"])
+    return _lm_head(params, x), kvs
+
+
+def transformer_apply(params: Tree, inputs: Dict[str, torch.Tensor],
+                      n_heads: int = 8, n_layers: int = 6,
+                      compute_dtype=torch.bfloat16,
+                      attention_fn: Callable = causal_attention,
+                      n_kv_heads: Optional[int] = None,
+                      rope_theta: Optional[float] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """tokens (B, T) int -> logits (B, T, vocab) f32."""
+    logits, _ = _forward(params, inputs["tokens"], n_heads, n_layers,
+                         compute_dtype, attention_fn,
+                         n_kv_heads=n_kv_heads, rope_theta=rope_theta)
+    return {"logits": logits}
+
+
+def transformer_forward_collect_kv(params: Tree, tokens: torch.Tensor,
+                                   n_heads: int = 8, n_layers: int = 6,
+                                   compute_dtype=torch.bfloat16,
+                                   attention_fn: Callable = causal_attention,
+                                   n_kv_heads: Optional[int] = None,
+                                   rope_theta: Optional[float] = None):
+    """Causal forward that also returns each layer's K/V (B, T, Hkv, Dh)."""
+    return _forward(params, tokens, n_heads, n_layers, compute_dtype,
+                    attention_fn, collect_kv=True, n_kv_heads=n_kv_heads,
+                    rope_theta=rope_theta)
