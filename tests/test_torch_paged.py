@@ -163,18 +163,37 @@ def test_decode_block_equals_chained_steps(weights):
     assert torch.equal(kv_a[:, 1:], kv_b[:, 1:])   # page 0 is scratch
 
 
-def test_gather_path_matches_kernel_path(weights):
-    """use_kernel=False (tpulab's gather math) and the ragged kernel family
-    (its plain version on the CPU) give the same decode tokens."""
+@pytest.mark.parametrize("program", ["mixed_step", "decode_block"])
+def test_every_layer_attends_through_the_ragged_family(weights, monkeypatch,
+                                                       program):
+    """The paged programs have no other attention path: each layer of each
+    forward calls ``ragged_paged_attention`` exactly once (on CUDA that is
+    one kernel launch)."""
     _pj, pt = weights
-    _kv_j, kv_t, lengths, tokens = _prefilled(weights)
-    a = _block_args(lengths, tokens)
-    outs = [tp.paged_decode_block(pt, kv_t.clone(), *_torch_args(a), k=4,
-                                  compute_dtype=torch.float32,
-                                  use_kernel=uk, **KW) for uk in (True,
-                                                                  False)]
-    assert torch.equal(outs[0][0], outs[1][0])
-    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-5, atol=1e-5)
+    calls = []
+    real = tp.ragged_paged_attention
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(tp, "ragged_paged_attention", counted)
+    if program == "mixed_step":
+        _pool_j, kv_t = _pool()
+        seq = np.random.default_rng(4).integers(0, VOCAB, (B, 5))
+        tp.paged_mixed_step(
+            pt, kv_t, torch.from_numpy(_tables()), torch.from_numpy(seq),
+            torch.tensor([5, 2, 0]), torch.tensor([5, 2, 0]),
+            torch.zeros(B), torch.zeros(B, 2, dtype=torch.long),
+            compute_dtype=torch.float32, **KW)
+        assert calls == [(B, 5, N_HEADS, D_MODEL // N_HEADS)] * N_LAYERS
+    else:
+        _kv_j, kv_t, lengths, tokens = _prefilled(weights)
+        calls.clear()
+        tp.paged_decode_block(pt, kv_t, *_torch_args(
+            _block_args(lengths, tokens)), k=4, compute_dtype=torch.float32,
+            **KW)
+        assert calls == [(B, 1, N_HEADS, D_MODEL // N_HEADS)] * (4 * N_LAYERS)
 
 
 def test_pool_accounting():

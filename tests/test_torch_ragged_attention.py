@@ -154,8 +154,10 @@ def test_gather_attend_matches_plain_version():
                                     ("float32", "float32"),
                                     ("float32", "bfloat16")])
 def test_cuda_kernel_matches_plain_version(dtypes):
-    """On the card: the CUDA kernel against its plain version (bf16 2e-2,
-    f32 1e-4), with every launch counted."""
+    """On the card: the CUDA kernel against its plain version, with every
+    launch counted.  Both sum the same values in f32, so the tolerance
+    follows the OUTPUT dtype: f32 1e-4; bf16 one last-place flip of the
+    final rounding (rtol 8e-3) with atol 4e-3 near zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,5 +175,6 @@ def test_cuda_kernel_matches_plain_version(dtypes):
     torch.cuda.synchronize()
     assert ragged_paged_attention.launches == n0 + 1
     want = ragged_paged_attention_reference(*args)
-    tol = 2e-2 if torch.bfloat16 in (q_dt, kv_dt) else 1e-4
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    rtol, atol = (8e-3, 4e-3) if q_dt == torch.bfloat16 else (1e-4, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)

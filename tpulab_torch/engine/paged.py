@@ -195,7 +195,7 @@ class PagedKVPool:
 
 def _gather_attend(q, k_layer, v_layer, tables, qpos, compute_dtype):
     """Dense-gather paged attention: tpulab's own XLA fallback math, kept
-    as the plain reference of the paged programs.
+    as a reference the tests hold the ragged kernel family against.
 
     q (B, M, H, D); k_layer/v_layer (P, S, Hkv, D); tables (B, MP);
     qpos (B, M) global position of each query (context j visible iff
@@ -224,18 +224,14 @@ def _write_kv(kv_pool, layer, page_idx, slot_idx, k, v):
     kv_pool[layer, :, 1][page_idx, slot_idx] = v.to(kv_pool.dtype)
 
 
-def _attend(use_kernel, q, kv_pool, layer, tables, q_lens, kv_lens, qpos,
-            compute_dtype):
-    """One layer's attention: the ragged kernel family (kernel on CUDA,
-    plain version on CPU) or, with ``use_kernel=False``, the gather
-    reference.  Returns (B, M, H*D) in ``compute_dtype``."""
+def _attend(q, kv_pool, layer, tables, q_lens, kv_lens, compute_dtype):
+    """One layer's attention through the ragged kernel family (the kernel
+    on CUDA, its plain version on CPU).  Returns (B, M, H*D) in
+    ``compute_dtype``."""
     b, m, h, d = q.shape
-    if use_kernel:
-        out = ragged_paged_attention(q.contiguous(), kv_pool[layer], tables,
-                                     q_lens, kv_lens)
-        return out.to(compute_dtype).reshape(b, m, h * d)
-    return _gather_attend(q, kv_pool[layer, :, 0], kv_pool[layer, :, 1],
-                          tables, qpos, compute_dtype)
+    out = ragged_paged_attention(q.contiguous(), kv_pool[layer], tables,
+                                 q_lens, kv_lens)
+    return out.to(compute_dtype).reshape(b, m, h * d)
 
 
 def _pick(logits, temps, seeds, positions):
@@ -248,7 +244,6 @@ def _pick(logits, temps, seeds, positions):
 
 def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
                       n_heads: int, n_layers: int, compute_dtype,
-                      use_kernel: bool = True,
                       n_kv_heads: Optional[int] = None,
                       rope_theta: Optional[float] = None,
                       temps=None, seeds=None):
@@ -285,8 +280,8 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
             knew = apply_rope(knew, lengths[:, None], rope_theta)
         _write_kv(kv_pool, layer, safe_page, safe_slot, knew[:, 0],
                   vnew[:, 0])
-        attn = _attend(use_kernel, q, kv_pool, layer, tables, q_lens,
-                       kv_lens, lengths[:, None], compute_dtype)
+        attn = _attend(q, kv_pool, layer, tables, q_lens, kv_lens,
+                       compute_dtype)
         x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
         h2 = _rmsnorm(x, p["ln2"]["scale"])
         x = x + _dense_ffn(p, h2, compute_dtype).to(x.dtype)
@@ -303,7 +298,7 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
 def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
                        temps, seeds, steps_rem, stop_ids,
                        n_heads: int, n_layers: int, compute_dtype,
-                       k: int = 8, use_kernel: bool = True,
+                       k: int = 8,
                        n_kv_heads: Optional[int] = None,
                        rope_theta: Optional[float] = None):
     """K chained decode ticks with on-device sampling and a per-lane stop
@@ -323,8 +318,8 @@ def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
         nt, lp, _logits = paged_decode_step(
             params, kv_pool, tables, lens, toks, live, n_heads=n_heads,
             n_layers=n_layers, compute_dtype=compute_dtype,
-            use_kernel=use_kernel, n_kv_heads=n_kv_heads,
-            rope_theta=rope_theta, temps=temps, seeds=seeds)
+            n_kv_heads=n_kv_heads, rope_theta=rope_theta, temps=temps,
+            seeds=seeds)
         emitted = live
         nt = torch.where(live, nt, toks)          # dead lanes hold position
         lens = lens + emitted.long()
@@ -341,7 +336,6 @@ def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
 
 def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
                          n_heads: int, n_layers: int, compute_dtype,
-                         use_kernel: bool = True,
                          n_kv_heads: Optional[int] = None,
                          rope_theta: Optional[float] = None,
                          last_only: bool = False):
@@ -378,8 +372,8 @@ def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
             q = apply_rope(q, pos, rope_theta)
             knew = apply_rope(knew, pos, rope_theta)
         _write_kv(kv_pool, layer, page_idx, slot_idx, knew, vnew)
-        attn = _attend(use_kernel, q, kv_pool, layer, tables, q_lens32,
-                       kv_lens32, pos, compute_dtype)
+        attn = _attend(q, kv_pool, layer, tables, q_lens32, kv_lens32,
+                       compute_dtype)
         x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
         h2 = _rmsnorm(x, p["ln2"]["scale"])
         x = x + _dense_ffn(p, h2, compute_dtype).to(x.dtype)
@@ -393,7 +387,7 @@ def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
 
 def paged_mixed_step(params, kv_pool, tables, seq, q_lens, kv_lens,
                      temps, seeds, n_heads: int, n_layers: int,
-                     compute_dtype, use_kernel: bool = True,
+                     compute_dtype,
                      n_kv_heads: Optional[int] = None,
                      rope_theta: Optional[float] = None):
     """One mixed prefill+decode round: a ragged forward plus each lane's
@@ -404,8 +398,7 @@ def paged_mixed_step(params, kv_pool, tables, seq, q_lens, kv_lens,
     last = paged_ragged_forward(
         params, kv_pool, tables, seq, q_lens, kv_lens, n_heads=n_heads,
         n_layers=n_layers, compute_dtype=compute_dtype,
-        use_kernel=use_kernel, n_kv_heads=n_kv_heads,
-        rope_theta=rope_theta, last_only=True)
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True)
     pos_last = (kv_lens.long() - 1).clamp_min(0)
     next_tokens, logprobs = _pick(last, temps, seeds, pos_last)
     return next_tokens, logprobs, last
@@ -995,6 +988,21 @@ class ContinuousBatcher:
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(arr).to(self.device)
 
+    def _fetch(self, *tensors) -> List[np.ndarray]:
+        """ONE blocking device->host copy of several device tensors, each
+        returned as a numpy array of its own dtype and shape (packed as
+        float64, which holds token ids, f32 values and masks exactly).
+        Counted in ``decode_host_syncs``."""
+        host = torch.cat([t.reshape(-1).to(torch.float64)
+                          for t in tensors]).cpu()
+        self.decode_host_syncs += 1
+        out, i = [], 0
+        for t in tensors:
+            n = t.numel()
+            out.append(host[i:i + n].reshape(t.shape).to(t.dtype).numpy())
+            i += n
+        return out
+
     @staticmethod
     def _seed_words(sp: SamplingParams):
         return (sp.seed & 0xFFFFFFFF, (sp.seed >> 32) & 0xFFFFFFFF)
@@ -1087,23 +1095,20 @@ class ContinuousBatcher:
         self.decode_dispatches += 1
         self.forward_steps += 1
         self._note_dispatch("mixed")
-        next_tokens = nt_dev.cpu().numpy().astype(np.int64)
-        logprobs_arr = lp_dev.cpu().numpy().astype(np.float32)
-        self.decode_host_syncs += 1
-        if host_lanes:
-            # fetch ONLY the host-sampled rows
-            rows = last_dev[self._to_dev(np.asarray(host_lanes))].cpu()
-            rows = rows.numpy()
-            self.decode_host_syncs += 1
-            for i, lane in enumerate(host_lanes):
-                req = lane_reqs[lane]
-                next_tokens[lane] = req.sampling.pick(rows[i])
-                if req.want_logprobs:
-                    row = rows[i].astype(np.float32)
-                    row = row - row.max()
-                    logprobs_arr[lane] = float(
-                        row[next_tokens[lane]]
-                        - np.log(np.exp(row).sum()))
+        # one fetch: picks, logprobs and ONLY the host-sampled rows
+        rows_dev = (last_dev[self._to_dev(np.asarray(host_lanes))]
+                    if host_lanes else last_dev[:0])
+        next_tokens, logprobs_arr, rows = self._fetch(nt_dev, lp_dev,
+                                                      rows_dev)
+        for i, lane in enumerate(host_lanes):
+            req = lane_reqs[lane]
+            next_tokens[lane] = req.sampling.pick(rows[i])
+            if req.want_logprobs:
+                row = rows[i].astype(np.float32)
+                row = row - row.max()
+                logprobs_arr[lane] = float(
+                    row[next_tokens[lane]]
+                    - np.log(np.exp(row).sum()))
         now = _time.perf_counter()
         self._step_ewma_s = (0.8 * self._step_ewma_s + 0.2 * (now - t0)
                              if self._step_ewma_s else now - t0)
@@ -1341,10 +1346,7 @@ class ContinuousBatcher:
         lane), emit its tokens, and dispatch the next block ahead of the
         emit callbacks when the lane set is unchanged."""
         k = stash["k"]
-        toks = stash["dev"][0].cpu().numpy()
-        lps = stash["dev"][1].cpu().numpy()
-        ems = stash["dev"][2].cpu().numpy()
-        self.decode_host_syncs += 1
+        toks, lps, ems = self._fetch(*stash["dev"])
         now = _time.perf_counter()
         self._step_ewma_s = (
             0.8 * self._step_ewma_s + 0.2 * ((now - stash["t0"]) / k)
@@ -1430,27 +1432,27 @@ class ContinuousBatcher:
             tok_dev, logp_dev, logits = paged_decode_step(
                 *args, temps=self._to_dev(temps), seeds=self._to_dev(seeds),
                 **self._step_kw)
-            next_tokens = tok_dev.cpu().numpy().astype(np.int64)
-            logprobs_arr = logp_dev.cpu().numpy().astype(np.float32)
         else:
             logits = paged_decode_step(*args, **self._step_kw)
-            next_tokens = logits.argmax(-1).cpu().numpy().astype(np.int64)
+            tok_dev, logp_dev = logits.argmax(-1), None
         self.decode_dispatches += 1
         self.forward_steps += 1
         self._note_dispatch("decode")
-        self.decode_host_syncs += 1
-        if host_lanes:
-            rows = logits[self._to_dev(np.asarray(host_lanes))].cpu()
-            rows = rows.numpy()
-            self.decode_host_syncs += 1
-            for i, lane in enumerate(host_lanes):
-                next_tokens[lane] = lane_reqs[lane].sampling.pick(rows[i])
-                if logprobs_arr is not None:
-                    row = rows[i].astype(np.float32)
-                    row = row - row.max()
-                    logprobs_arr[lane] = float(
-                        row[next_tokens[lane]]
-                        - np.log(np.exp(row).sum()))
+        rows_dev = (logits[self._to_dev(np.asarray(host_lanes))]
+                    if host_lanes else logits[:0])
+        if logp_dev is None:
+            next_tokens, rows = self._fetch(tok_dev, rows_dev)
+        else:
+            next_tokens, logprobs_arr, rows = self._fetch(tok_dev, logp_dev,
+                                                          rows_dev)
+        for i, lane in enumerate(host_lanes):
+            next_tokens[lane] = lane_reqs[lane].sampling.pick(rows[i])
+            if logprobs_arr is not None:
+                row = rows[i].astype(np.float32)
+                row = row - row.max()
+                logprobs_arr[lane] = float(
+                    row[next_tokens[lane]]
+                    - np.log(np.exp(row).sum()))
         emits: List = []
         completed: List = []
         now = _time.perf_counter()

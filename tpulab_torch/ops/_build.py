@@ -11,7 +11,8 @@ The library lands in ``build/tpulab_torch/`` at the repository root (git
 ignores it), named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one loads as it is.  Nothing is built
 when a module is imported: only a kernel launch on a CUDA tensor (or
-``chip_smoke.py``) calls :func:`load`.
+``chip_smoke.py``) calls :func:`load`; the kernel's own module declares
+its C functions' types.
 """
 
 from __future__ import annotations
@@ -25,23 +26,12 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpulab_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-
-# name -> {C function: (argtypes, restype)}
-_SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    "ragged_attention": {
-        "tpulab_ragged_paged_attention": (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
-            + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
-        "tpulab_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    },
-}
 
 
 def _nvcc() -> str:
@@ -85,16 +75,5 @@ def compile_library(name: str) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, with every C
-    function's ``argtypes`` / ``restype`` declared."""
-    lib = ctypes.CDLL(str(compile_library(name)[0]))
-    for fn, (argtypes, restype) in _SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = restype
-    return lib
-
-
-def kernel_names():
-    """Every kernel library the port builds (one per ``csrc/*.cu``)."""
-    return sorted(_SIGNATURES)
+    """Build ``csrc/<name>.cu`` (if needed) and load its library."""
+    return ctypes.CDLL(str(compile_library(name)[0]))

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int KT = 32;              // key positions per stage (one per lane)
@@ -44,6 +46,7 @@ constexpr int NWARPS = 8;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int TILE_ROWS = NWARPS * ROWS_PER_WARP;   // query rows per block
 constexpr float NEG = -1e30f;
+constexpr int MAX_DEVICES = 64;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -265,9 +268,17 @@ int launch(const void* q, const void* pool, const int* tables,
            cudaStream_t stream) {
   const size_t smem = Geometry<KVT, D>::smem_bytes;
   auto kern = ragged_attn_kernel<QT, KVT, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the shared-memory opt-in is set once per instantiation and device
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES || !smem_set[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < MAX_DEVICES) smem_set[dev].store(true, std::memory_order_release);
+  }
   const int G = Hq / Hkv;
   dim3 grid((M * G + TILE_ROWS - 1) / TILE_ROWS, Hkv, B);
   kern<<<grid, NWARPS * 32, smem, stream>>>(

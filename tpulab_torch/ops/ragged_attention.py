@@ -17,6 +17,9 @@ launches (the plain version does not count).
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import functools
 import math
 
 import torch
@@ -89,6 +92,21 @@ def _check(q, kv_pool, tables, q_lens, kv_lens):
         raise ValueError("kv_pool must be 16-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, its C functions typed."""
+    from tpulab_torch.ops._build import load
+
+    lib = load("ragged_attention")
+    f = lib.tpulab_ragged_paged_attention
+    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+                  + [ctypes.c_float, ctypes.c_void_p])
+    f.restype = ctypes.c_int
+    lib.tpulab_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.tpulab_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     """Ragged paged attention; (B, M, Hq, D) in q's dtype.
 
@@ -100,16 +118,16 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, kv_pool, tables, q_lens, kv_lens)
-    from tpulab_torch.ops._build import load
-
-    lib = load("ragged_attention")
+    lib = _lib()
     b, m, hq, d = q.shape
     n_pages, _, s, hkv, _ = kv_pool.shape
     tables = tables.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()
     kv_lens = kv_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    # the launch goes to the calling thread's current device
+    same = q.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tpulab_ragged_paged_attention(
             q.data_ptr(), kv_pool.data_ptr(), tables.data_ptr(),
