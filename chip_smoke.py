@@ -3,33 +3,48 @@
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
 
-Phases, each reported on its own lines; any failure raises and the
-script exits non-zero without printing a result:
+Phases, each reported on its own lines with its seconds; any failure
+raises and the script exits non-zero without printing a result:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions.  TF32 is switched off for matmuls and cuDNN.
-2. build   — the kernel source ``tpulab_torch/ops/csrc/ragged_attention.cu``
-   compiled by ``nvcc``.
-3. kernels — the kernel's wrapper on the card at the serving geometry
-   (Hq 32, Hkv 8, D 128, page 16, 8 lanes x 128 pages) held against its
-   plain PyTorch version, with the tolerance set by the output dtype
-   (f32 rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3).
-   At 2048 context the same check must REJECT the plain version with
-   one page skipped, so the tolerance is tight enough to catch that.
+2. build   — the three kernel sources under ``tpulab_torch/ops/csrc/``
+   compiled by ``nvcc``, one process per source, all started together;
+   build seconds, registers and spills per kernel.
+3. kernels — every kernel's wrapper on the card held against its plain
+   PyTorch version, with the tolerance set by the output dtype (f32
+   rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3), and a
+   planted error per kernel that the same check must REJECT:
+   - ragged_paged_attention at the serving geometry (Hq 32, Hkv 8, D 128,
+     page 16, 8 lanes x 128 pages), seven shapes; planted: one page
+     skipped at 2048 context;
+   - flash_attention at B 1, H 32, D 128, T in {8, 128, 512, 2048},
+     causal and not; planted: the diagonal K tile of every causal row
+     past the first tile dropped, at T 2048;
+   - paged_decode_attention at the serving geometry, positions 1023 and
+     2047; planted: one page skipped at 2048 context; kernel 1's time at
+     the same shape beside it.
    Kernel, plain, bound and ``F.scaled_dot_product_attention`` (a
-   labelled yardstick over the pre-gathered context; the port never
-   calls it) times per case.
-4. invariants — at full width with 2 layers: ``paged_decode_block(k=8)``
-   equals 8 chained ``paged_decode_step`` calls bit for bit (tokens,
-   logprobs, pool), and ``paged_mixed_step`` equals
-   ``paged_ragged_forward`` + the device pick.
-5. serve   — a ``ContinuousBatcher`` at the full width of
-   Meta-Llama-3-8B (32 layers, random bf16 weights from a seed) serves
-   greedy / stop-token / device-sampled / logprobs / host-sampled
-   requests and one that arrives mid-stream; checks lengths, ranges,
-   dispatch kinds, kernel launches == n_layers x forward steps, and that
-   a second identical run gives identical greedy and device-sampled
-   streams.  Prints tokens/s and time to first token.
+   labelled yardstick; the port never calls it) times per case, CUDA
+   events with the L2 flushed.
+4. invariants — at full width with 2 layers: in bf16,
+   ``paged_decode_block(k=8)`` equals 8 chained ``paged_decode_step``
+   calls bit for bit, ``paged_mixed_step`` equals ``paged_ragged_forward``
+   + the device pick, and the ``paged_decode_attention`` op, driven over
+   every layer of that pool, agrees with the ragged kernel at decode
+   shape; in f32, ``paged_prefill`` (flash) and ``paged_ragged_forward``
+   over one 1500-token prompt give the same live pages and last logits,
+   and the split and ragged plans give the same greedy tokens wherever
+   the port's own top-1 margin exceeds 1e-3.
+5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
+   (32 layers, random bf16 weights from a seed) serves a greedy /
+   stop-token / device-sampled / logprobs / host-sampled / streaming
+   request mix under the ragged plan, then (that batcher shut down) under
+   the split plan (``ragged=False``: flash prefill, then K-blocks).  Per
+   plan: lengths, ranges, stop token, logprobs, dispatch kinds, kernel
+   launches == n_layers x the forwards that run each kernel, and a
+   second identical run giving identical streams.  Prints tokens/s and
+   time to first token per plan; no gain is claimed.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -51,14 +66,21 @@ LLAMA3_8B = dict(vocab=128256, d_model=4096, n_heads=32, n_kv_heads=8,
                  d_ff=14336, n_layers=32, rope_theta=500000.0)
 SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
              prefill_chunk=256)
+# the split plan: one full-prompt flash prefill per request, then K-blocks
+SPLIT = dict(ragged=False, prefill_chunk=None, prefix_cache=False)
+KERNELS = ("ragged_attention", "flash_attention", "paged_attention")
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
-# (rtol, atol) by the OUTPUT dtype.  Both sides read the same K/V values
-# and sum in f32; only the order differs (f32: ~1e-6 measured).  A bf16
+# (rtol, atol) by the OUTPUT dtype.  Both sides read the same values and
+# sum in f32; only the order differs (f32: ~1e-6 measured).  A bf16
 # output is rounded at the end on both sides, so a last-place flip
 # (2^-8 to 2^-7 relative) is the expected difference; rtol 8e-3 allows
 # one and atol 4e-3 covers outputs near zero (1.95e-3 measured).
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3)}
+# the split and ragged plans may pick different greedy tokens only where
+# the two best f32 logits lie closer than this (their logits differ by
+# ~1e-5: summation order)
+MARGIN_TOL = 1e-3
 
 
 def log(*a):
@@ -68,8 +90,8 @@ def log(*a):
 # ---------------------------------------------------------------- timing
 class Timer:
     """CUDA-event timing of single launches with the 50 MB L2 flushed in
-    between (outside the timed span): each launch finds K/V cold, as a
-    layer of a real step does.  A short device spin before the start
+    between (outside the timed span): each launch finds its inputs cold,
+    as a layer of a real step does.  A short device spin before the start
     event keeps the wrapper's host-side cost out of the measured span."""
 
     def __init__(self, torch):
@@ -94,6 +116,87 @@ class Timer:
         return total / iters
 
 
+def dtype_name(dt) -> str:
+    return str(dt).split(".")[-1]
+
+
+def check_close(torch, label, got, want):
+    """Kernel vs plain at the output dtype's tolerance; returns the max
+    abs error or raises."""
+    rtol, atol = TOL[dtype_name(got.dtype)]
+    err = (got.float() - want.float()).abs().max().item()
+    if (not torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+            or not torch.isfinite(got).all()):
+        raise AssertionError(f"kernel != plain: {label} max_abs_err={err} "
+                             f"rtol={rtol} atol={atol}")
+    return err
+
+
+def check_rejects(torch, label, got, planted):
+    """The same comparison must FAIL against a planted error."""
+    rtol, atol = TOL[dtype_name(got.dtype)]
+    shift = (got.float() - planted.float()).abs().max().item()
+    if torch.allclose(got.float(), planted.float(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: the tolerance passes the planted "
+                             f"error (max shift {shift:.2e})")
+    log(f"kernels: planted {label}: max shift {shift:.2e}, rejected at "
+        f"rtol {rtol:g} atol {atol:g}")
+
+
+def bound(nbytes, ops, kind):
+    """Least time (ms) for the work, and what bounds it."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[kind] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_decode_ms(torch, timer, q, pool, tables, vis, rep):
+    """Yardstick: SDPA over the pre-gathered, GQA-expanded context with an
+    additive mask (the gather is not timed).  q (B, M, Hq, D); vis
+    (B, M, T) visible positions."""
+    import torch.nn.functional as F
+
+    b, m, hq, d = q.shape
+    _, _, s, hkv, _ = pool.shape
+    t = tables.shape[1] * s
+    ctx = pool[tables.long()]
+    kd = ctx[:, :, 0].reshape(b, t, hkv, d).repeat_interleave(rep, 2)
+    vd = ctx[:, :, 1].reshape(b, t, hkv, d).repeat_interleave(rep, 2)
+    kd, vd = (x.transpose(1, 2).to(q.dtype).contiguous() for x in (kd, vd))
+    qd = q.transpose(1, 2).contiguous()
+    mask = torch.zeros(vis.shape, dtype=q.dtype, device="cuda")
+    mask = mask.masked_fill(~vis, -1e30)[:, None]
+    return timer(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask), iters=5)
+
+
+# ---------------------------------------------------------------- phase 2
+def phase_build():
+    """One nvcc per source, all started together; then load each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpulab_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        built = list(ex.map(_build.compile_library, KERNELS))
+    for name, (path, secs, nvlog) in zip(KERNELS, built):
+        lines = nvlog.splitlines()
+        regs = [int(w) for line in lines if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        spills = sum(1 for line in lines if "spill" in line
+                     and not line.strip().startswith(
+                         "0 bytes stack frame, 0 bytes spill stores, "
+                         "0 bytes spill loads"))
+        log(f"build: {name} -> {os.path.relpath(path, HERE)} ({secs:.1f} s; "
+            f"{len(regs)} instantiations, registers "
+            f"{min(regs, default=0)}-{max(regs, default=0)}, "
+            f"{spills} with spills)")
+        _build.load(name)
+    log(f"build: phase {time.perf_counter() - t0:.1f} s (parallel)")
+
+
 # ---------------------------------------------------------------- phase 3
 RA_GEOM = dict(hq=32, hkv=8, d=128, s=16, b=8, mp=128)
 
@@ -114,49 +217,54 @@ def ra_cases():
 
 
 def ra_bound(q_lens, kv_lens, m, q_es, kv_es, kind):
-    """Least time for the work: K/V rows each lane's queries can see plus
-    valid q rows read once, the whole output written once; operations
-    4*D*Hq per (query, visible key) pair."""
+    """K/V rows each lane's queries can see plus valid q rows read once,
+    the whole output written once; 4*D*Hq operations per (query, visible
+    key) pair."""
     g = RA_GEOM
     kv_bytes = sum(kv if q else 0 for q, kv in zip(q_lens, kv_lens)) \
         * g["hkv"] * g["d"] * 2 * kv_es
     q_bytes = sum(q_lens) * g["hq"] * g["d"] * q_es
     out_bytes = g["b"] * m * g["hq"] * g["d"] * q_es
     meta = g["b"] * g["mp"] * 4 + 2 * g["b"] * 4
-    nbytes = kv_bytes + q_bytes + out_bytes + meta
     pairs = sum(kv - q + j + 1 for q, kv in zip(q_lens, kv_lens)
                 for j in range(q))
-    ops = 4 * g["d"] * g["hq"] * pairs
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[kind] * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes, ops)
+    return bound(kv_bytes + q_bytes + out_bytes + meta,
+                 4 * g["d"] * g["hq"] * pairs, kind)
 
 
-def phase_kernels(torch, timer):
+def serving_pool(torch, np, rng):
+    """An f32 pool at the serving geometry and scattered page tables, as
+    a long-running pool hands them out."""
+    g = RA_GEOM
+    n_pages = g["b"] * g["mp"] + 1
+    pool32 = torch.from_numpy(rng.standard_normal(
+        (n_pages, 2, g["s"], g["hkv"], g["d"])).astype(np.float32)).cuda()
+    tables = torch.from_numpy(
+        (rng.permutation(n_pages - 1) + 1).astype(np.int32).reshape(
+            g["b"], g["mp"])).cuda()
+    return pool32, tables
+
+
+DTYPE_MIXES = (("bf16/bf16", "bfloat16", "bfloat16"),
+               ("f32/f32", "float32", "float32"),
+               ("f32/bf16", "float32", "bfloat16"))
+
+
+def phase_ragged(torch, timer):
     import numpy as np
-    import torch.nn.functional as F
 
     from tpulab_torch.ops.ragged_attention import (
         ragged_paged_attention, ragged_paged_attention_reference)
 
     g = RA_GEOM
     rng = np.random.default_rng(0)
-    n_pages = g["b"] * g["mp"] + 1
-    pool32 = torch.from_numpy(rng.standard_normal(
-        (n_pages, 2, g["s"], g["hkv"], g["d"])).astype(np.float32)).cuda()
-    # scattered page ids, as a long-running pool hands them out
-    tables = torch.from_numpy(
-        (rng.permutation(n_pages - 1) + 1).astype(np.int32).reshape(
-            g["b"], g["mp"])).cuda()
+    pool32, tables = serving_pool(torch, np, rng)
+    t = g["mp"] * g["s"]
     rows = []
-    for dname, q_dt, kv_dt in (("bf16/bf16", torch.bfloat16, torch.bfloat16),
-                               ("f32/f32", torch.float32, torch.float32),
-                               ("f32/bf16", torch.float32, torch.bfloat16)):
+    for dname, q_name, kv_name in DTYPE_MIXES:
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
         pool = pool32.to(kv_dt)
-        kind = "bf16" if (q_dt, kv_dt) == (torch.bfloat16,
-                                           torch.bfloat16) else "f32"
-        rtol, atol = TOL[str(q_dt).split(".")[-1]]
+        kind = "bf16" if dname == "bf16/bf16" else "f32"
         for name, q_lens_l, kv_lens_l in ra_cases():
             m = max(q_lens_l)
             q = torch.from_numpy(rng.standard_normal(
@@ -168,80 +276,183 @@ def phase_kernels(torch, timer):
             args = (q, pool, tables, q_lens, kv_lens)
             got = ragged_paged_attention(*args)
             torch.cuda.synchronize()
-            want = ragged_paged_attention_reference(*args)
-            err = (got.float() - want.float()).abs().max().item()
-            ok = torch.allclose(got.float(), want.float(), rtol=rtol,
-                                atol=atol)
-            if not ok or not torch.isfinite(got).all():
-                raise AssertionError(
-                    f"kernel != plain: {name} {dname} max_abs_err={err} "
-                    f"rtol={rtol} atol={atol}")
+            err = check_close(torch, f"ragged {name} {dname}", got,
+                              ragged_paged_attention_reference(*args))
             if name == "long_decode":
-                planted_skip_rejected(torch, got, args, rtol, atol, dname)
+                # a kernel that skipped page 5 of every lane at decode
+                skip = torch.cat([tables[:, :5], tables[:, 6:],
+                                  tables[:, :1]], 1)
+                check_rejects(torch, f"ragged skipped page, 2048 context, "
+                              f"{dname}", got,
+                              ragged_paged_attention_reference(
+                                  q, pool, skip, q_lens, kv_lens - g["s"]))
             ms = timer(lambda: ragged_paged_attention(*args), iters=20)
             plain_ms = timer(lambda: ragged_paged_attention_reference(*args),
                              iters=3, warmup=1)
-            # yardstick: SDPA over the pre-gathered, GQA-expanded context
-            # with an additive causal/length mask (gather not timed)
-            t = g["mp"] * g["s"]
-            ctx = pool[tables.long()]
-            kd = ctx[:, :, 0].reshape(g["b"], t, g["hkv"], g["d"])
-            vd = ctx[:, :, 1].reshape(g["b"], t, g["hkv"], g["d"])
-            rep = g["hq"] // g["hkv"]
-            kd = kd.repeat_interleave(rep, 2).transpose(1, 2).to(q_dt)
-            vd = vd.repeat_interleave(rep, 2).transpose(1, 2).to(q_dt)
-            qd = q.transpose(1, 2)
             pos = (kv_lens - q_lens)[:, None] + torch.arange(m,
                                                              device="cuda")
-            vis = ((torch.arange(t, device="cuda")[None, None] <= pos[..., None])
-                   & (torch.arange(t, device="cuda")[None, None]
-                      < kv_lens[:, None, None]))
-            mask = torch.zeros(vis.shape, dtype=q_dt, device="cuda")
-            mask = mask.masked_fill(~vis, -1e30)[:, None]
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qd, kd, vd, attn_mask=mask), iters=5)
-            del ctx, kd, vd, mask
-            bound_ms, bound_by, nbytes, ops = ra_bound(
-                q_lens_l, kv_lens_l, m, q.element_size(), pool.element_size(),
-                kind)
-            row = dict(case=name, dtypes=dname, max_abs_err=err,
-                       rtol=rtol, atol=atol,
-                       ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=lib_ms, bytes=nbytes,
-                       ops=ops)
-            rows.append(row)
-            log(f"kernels: ragged_paged_attention {name:<15} {dname:<9} "
-                f"err={err:.2e} (rtol {rtol:g} atol {atol:g}) "
-                f"kernel={ms:.4f} ms "
-                f"plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms "
-                f"({bound_by}) | reference line, not used by the port: "
-                f"sdpa_dense={lib_ms:.4f} ms")
+            ar = torch.arange(t, device="cuda")[None, None]
+            vis = (ar <= pos[..., None]) & (ar < kv_lens[:, None, None])
+            lib_ms = sdpa_decode_ms(torch, timer, q, pool, tables, vis,
+                                    g["hq"] // g["hkv"])
+            bound_ms, bound_by = ra_bound(q_lens_l, kv_lens_l, m,
+                                          q.element_size(),
+                                          pool.element_size(), kind)
+            rows.append(dict(case=name, dtypes=dname, max_abs_err=err,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms))
+            log(f"kernels: ragged {name:<14} {dname:<9} err={err:.2e} "
+                f"kernel={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f} "
+                f"({bound_by}) ms | yardstick, unused by the port: "
+                f"sdpa={lib_ms:.4f} ms")
         del pool
     return rows
 
 
-def planted_skip_rejected(torch, got, args, rtol, atol, dname):
-    """The comparison must fail for a kernel that skipped one page: the
-    plain version over every lane's context with page 5 taken out of
-    the table (and the length cut by a page) is what such a kernel would
-    return at decode.  Raises if the tolerance would let it pass."""
-    from tpulab_torch.ops.ragged_attention import \
-        ragged_paged_attention_reference
+FA_GEOM = dict(b=1, h=32, d=128)
+FA_TS = (8, 128, 512, 2048)
+FA_TILE = 64                     # the kernel's query tile
 
-    q, pool, tables, q_lens, kv_lens = args
-    skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]], 1)
-    want = ragged_paged_attention_reference(q, pool, skip, q_lens,
-                                            kv_lens - RA_GEOM["s"])
-    shift = (got.float() - want.float()).abs().max().item()
-    if torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol):
-        raise AssertionError(f"{dname}: the tolerance passes a kernel that "
-                             f"skips a page (max shift {shift:.2e})")
-    log(f"kernels: planted skipped page at 2048 context, {dname}: max "
-        f"shift {shift:.2e}, rejected at rtol {rtol:g} atol {atol:g}")
+
+def masked_plain(torch, q, k, v, mask):
+    """The plain f32 attention under an explicit (T, T) mask."""
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     q.float() * (1.0 / math.sqrt(q.shape[3])), k.float())
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def phase_flash(torch, timer):
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tpulab_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_reference)
+
+    g = FA_GEOM
+    rng = np.random.default_rng(1)
+    rows = []
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        kind = "bf16" if dt == torch.bfloat16 else "f32"
+        for t in FA_TS:
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (g["b"], t, g["h"], g["d"])).astype(np.float32)).cuda().to(dt)
+                for _ in range(3))
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            for causal in (True, False):
+                label = f"T={t} {'causal' if causal else 'full'}"
+                got = flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = check_close(torch, f"flash {label} {dname}", got,
+                                  flash_attention_reference(q, k, v, causal))
+                if causal and t == FA_TS[-1]:
+                    # a kernel that skipped the diagonal tile of every row
+                    # past the first tile
+                    i = torch.arange(t, device="cuda")
+                    qi, ki = i[:, None] // FA_TILE, i[None, :] // FA_TILE
+                    mask = (i[None, :] <= i[:, None]) & ~((ki == qi) & (qi > 0))
+                    check_rejects(torch, f"flash diagonal tile dropped, T={t}, "
+                                  f"{dname}", got,
+                                  masked_plain(torch, q, k, v, mask))
+                ms = timer(lambda: flash_attention(q, k, v, causal=causal),
+                           iters=10)
+                plain_ms = timer(lambda: flash_attention_reference(
+                    q, k, v, causal), iters=3, warmup=1)
+                lib_ms = timer(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal), iters=10)
+                pairs = g["b"] * (t * (t + 1) // 2 if causal else t * t)
+                bound_ms, bound_by = bound(
+                    4 * g["b"] * t * g["h"] * g["d"] * q.element_size(),
+                    4 * g["d"] * g["h"] * pairs, kind)
+                rows.append(dict(case=label, dtypes=dname, max_abs_err=err,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=lib_ms))
+                log(f"kernels: flash {label:<12} {dname:<8} err={err:.2e} "
+                    f"kernel={ms:.4f} plain={plain_ms:.4f} "
+                    f"bound={bound_ms:.4f} ({bound_by}) ms | yardstick, "
+                    f"unused by the port: sdpa={lib_ms:.4f} ms")
+    return rows
+
+
+PD_POSITIONS = (1023, 2047)      # inclusive current positions
+
+
+def phase_paged(torch, timer):
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    g = RA_GEOM
+    rng = np.random.default_rng(2)
+    pool32, tables = serving_pool(torch, np, rng)
+    t = g["mp"] * g["s"]
+    ones = torch.ones(g["b"], dtype=torch.int32, device="cuda")
+    rows = []
+    for dname, q_name, kv_name in DTYPE_MIXES:
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        pool = pool32.to(kv_dt)
+        kind = "bf16" if dname == "bf16/bf16" else "f32"
+        for pos in PD_POSITIONS:
+            q = torch.from_numpy(rng.standard_normal(
+                (g["b"], g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+            lengths = torch.full((g["b"],), pos, dtype=torch.int32,
+                                 device="cuda")
+            args = (q, pool, tables, lengths)
+            got = paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            err = check_close(torch, f"paged position {pos} {dname}", got,
+                              paged_decode_attention_reference(*args))
+            if pos == PD_POSITIONS[-1]:
+                skip = torch.cat([tables[:, :5], tables[:, 6:],
+                                  tables[:, :1]], 1)
+                check_rejects(torch, f"paged skipped page, 2048 context, "
+                              f"{dname}", got,
+                              paged_decode_attention_reference(
+                                  q, pool, skip, lengths - g["s"]))
+            ms = timer(lambda: paged_decode_attention(*args), iters=20)
+            plain_ms = timer(lambda: paged_decode_attention_reference(*args),
+                             iters=3, warmup=1)
+            ragged_ms = timer(lambda: ragged_paged_attention(
+                q[:, None], pool, tables, ones, lengths + 1), iters=20)
+            vis = (torch.arange(t, device="cuda")[None, None]
+                   <= lengths[:, None, None])
+            lib_ms = sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
+                                    vis, g["hq"] // g["hkv"])
+            n_ctx = g["b"] * (pos + 1)
+            bound_ms, bound_by = bound(
+                n_ctx * g["hkv"] * g["d"] * 2 * pool.element_size()
+                + 2 * g["b"] * g["hq"] * g["d"] * q.element_size()
+                + g["b"] * g["mp"] * 4 + g["b"] * 4,
+                4 * g["d"] * g["hq"] * n_ctx, kind)
+            rows.append(dict(case=f"8 x {pos + 1}", dtypes=dname,
+                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms, ragged_ms=ragged_ms))
+            log(f"kernels: paged 8 x {pos + 1:<5} {dname:<9} err={err:.2e} "
+                f"kernel={ms:.4f} ragged(kernel 1)={ragged_ms:.4f} "
+                f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by}) ms"
+                f" | yardstick, unused by the port: sdpa={lib_ms:.4f} ms")
+        del pool
+    return rows
 
 
 # ---------------------------------------------------------------- phase 4
+def full_width_params(torch, n_layers, dtype, seed):
+    from tpulab_torch.models.transformer import init_transformer_params
+
+    c = LLAMA3_8B
+    return init_transformer_params(
+        c["vocab"], c["d_model"], c["n_heads"], n_layers, c["d_ff"],
+        seed=seed, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, device="cuda", dtype=dtype)
+
+
 def phase_invariants(torch):
+    """bf16 invariants, then the paged_decode_attention op over the same
+    pool; returns that op path's launch count."""
     import numpy as np
 
     from tpulab_torch.engine.paged import (PagedKVPool, paged_decode_block,
@@ -249,14 +460,10 @@ def phase_invariants(torch):
                                            paged_mixed_step,
                                            paged_ragged_forward)
     from tpulab_torch.engine.prng import device_sample_tokens
-    from tpulab_torch.models.transformer import init_transformer_params
 
     c = LLAMA3_8B
     n_layers = 2
-    params = init_transformer_params(
-        c["vocab"], c["d_model"], c["n_heads"], n_layers, c["d_ff"], seed=1,
-        n_kv_heads=c["n_kv_heads"], ffn="swiglu", tie_embeddings=False,
-        device="cuda", dtype=torch.bfloat16)
+    params = full_width_params(torch, n_layers, torch.bfloat16, seed=1)
     kw = dict(n_heads=c["n_heads"], n_layers=n_layers,
               n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
               compute_dtype=torch.bfloat16)
@@ -289,6 +496,7 @@ def phase_invariants(torch):
             raise AssertionError("paged_mixed_step != paged_ragged_forward "
                                  f"+ device pick: {diff}")
         del kv_d
+        launches = decode_op_path(torch, rng, kv_c, tables, kv_lens - 1)
         rem = torch.tensor([8, 3, 8, 8, 5, 8, 8, 8], device="cuda")
         stops = torch.full((b, 2), -1, dtype=torch.long, device="cuda")
         stops[2, 0] = int(nt[2])        # lane 2 stops when it repeats
@@ -315,46 +523,177 @@ def phase_invariants(torch):
                 and (blk[0] >= 0).all() and (blk[0] < c["vocab"]).all()):
             raise AssertionError("decode block emitted invalid tokens")
     emitted = blk[2].sum(1).tolist()
-    log(f"invariants: full width, {n_layers} layers: K-block(k=8) == 8 "
+    log(f"invariants: full width, {n_layers} layers, bf16: K-block(k=8) == 8 "
         f"chained steps bit for bit (emitted per lane {emitted}); "
         "mixed step == ragged forward + device pick")
     pool.close()
     del params, kv_a, kv_b, kv_c
     torch.cuda.empty_cache()
+    return launches
+
+
+def decode_op_path(torch, rng, kv, tables, positions):
+    """The public ``paged_decode_attention`` op driven over every layer of
+    a model-written pool (the path's launches are counted from 0), then
+    held against the ragged kernel at decode shape and the plain version
+    on the same inputs (those launches are not counted)."""
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    b = tables.shape[0]
+    q = torch.from_numpy(rng.standard_normal(
+        (b, c["n_heads"], c["d_model"] // c["n_heads"])).astype(
+            "float32")).cuda().to(kv.dtype)
+    paged_decode_attention.launches = 0
+    outs = [paged_decode_attention(q, kv[layer], tables, positions)
+            for layer in range(kv.shape[0])]
+    torch.cuda.synchronize()
+    launches = paged_decode_attention.launches
+    if launches != kv.shape[0]:
+        raise AssertionError(f"decode op: {launches} launches over "
+                             f"{kv.shape[0]} layers")
+    ones = torch.ones(b, dtype=torch.int32, device="cuda")
+    errs = []
+    for layer, out in enumerate(outs):
+        errs.append(check_close(torch, f"decode op layer {layer}", out,
+                                paged_decode_attention_reference(
+                                    q, kv[layer], tables, positions)))
+        errs.append(check_close(torch, f"decode op vs ragged, layer {layer}",
+                                out, ragged_paged_attention(
+                                    q[:, None], kv[layer], tables, ones,
+                                    positions + 1)[:, 0]))
+    log(f"invariants: paged_decode_attention op over {kv.shape[0]} layers of "
+        f"the mixed round's pool: {launches} launches; == plain and == the "
+        f"ragged kernel at decode shape (max err {max(errs):.2e})")
+    return launches
+
+
+def phase_plans_f32(torch):
+    """f32, full width, 2 layers: paged_prefill (flash) vs the ragged
+    forward over one prompt, and the split vs the ragged plan's greedy
+    tokens."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import (ContinuousBatcher, PagedKVPool,
+                                           paged_prefill,
+                                           paged_ragged_forward)
+    from tpulab_torch.models.transformer import transformer_apply
+    from tpulab_torch.ops.flash_attention import make_flash_attention_fn
+
+    c = LLAMA3_8B
+    n_layers = 2
+    params = full_width_params(torch, n_layers, torch.float32, seed=3)
+    kw = dict(n_heads=c["n_heads"], n_layers=n_layers,
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    s, mp, t = 16, 128, 1500
+    pool = PagedKVPool(mp + 1, s, n_layers, c["n_kv_heads"],
+                       c["d_model"] // c["n_heads"], torch.float32, "cuda")
+    table = torch.arange(1, mp + 1, dtype=torch.int32, device="cuda")
+    prompt = rng.integers(0, c["vocab"], (t,))
+    padded = np.zeros((1, 2048), np.int64)
+    padded[0, :t] = prompt
+    with torch.inference_mode():
+        kv_a, kv_b = pool.kv, pool.kv.clone()
+        last_a = paged_prefill(params, kv_a, table,
+                               torch.from_numpy(padded).cuda(), t,
+                               attention_fn=make_flash_attention_fn(), **kw)
+        last_b = paged_ragged_forward(
+            params, kv_b, table[None], torch.from_numpy(padded[:, :t]).cuda(),
+            torch.tensor([t], device="cuda"), torch.tensor([t], device="cuda"),
+            last_only=True, **kw)[0]
+        live = (t + s - 1) // s
+        rtol, atol = TOL["float32"]
+        err_l = (last_a - last_b).abs().max().item()
+        err_p = (kv_a[:, 1:live + 1] - kv_b[:, 1:live + 1]).abs().max().item()
+        if not (torch.allclose(last_a, last_b, rtol=rtol, atol=atol)
+                and torch.allclose(kv_a[:, 1:live + 1], kv_b[:, 1:live + 1],
+                                   rtol=rtol, atol=atol)):
+            raise AssertionError(f"paged_prefill(flash) != ragged forward: "
+                                 f"logits {err_l:.2e}, pool {err_p:.2e}")
+    log(f"invariants: full width, {n_layers} layers, f32: paged_prefill "
+        f"(flash, T={padded.shape[1]}) == ragged forward over a {t}-token "
+        f"prompt (last logits err {err_l:.2e}, {live} live pages err "
+        f"{err_p:.2e}; rtol {rtol:g} atol {atol:g})")
+    pool.close()
+    del kv_a, kv_b
+
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (5, 300, 1000)]
+    streams = {}
+    for plan, extra in (("ragged", {}), ("split", {"ragged": False})):
+        cb = ContinuousBatcher(params, n_heads=c["n_heads"],
+                               n_layers=n_layers, n_kv_heads=c["n_kv_heads"],
+                               rope_theta=c["rope_theta"],
+                               compute_dtype=torch.float32, device="cuda",
+                               lanes=4, max_len=1024 + 16, page_size=s,
+                               **extra)
+        try:
+            futs = [cb.submit(p, 8) for p in prompts]
+            streams[plan] = [list(f.result(timeout=300)) for f in futs]
+        finally:
+            cb.shutdown()
+    notes = []
+    for p, a, b in zip(prompts, streams["ragged"], streams["split"]):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = np.concatenate([p, np.asarray(a[:i], np.int32)])[None]
+        with torch.inference_mode():
+            row = transformer_apply(
+                params, {"tokens": torch.from_numpy(seq).long().cuda()},
+                **kw)["logits"][0, -1]
+        top2 = row.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        if margin >= MARGIN_TOL:
+            raise AssertionError(f"split != ragged greedy tokens at step {i} "
+                                 f"of a {len(p)}-token prompt with top-1 "
+                                 f"margin {margin:.2e}")
+        notes.append(f"{len(p)}-token prompt differs at step {i} "
+                     f"(margin {margin:.2e} < {MARGIN_TOL:g})")
+    log(f"invariants: split vs ragged plan, greedy, prompts of "
+        f"{[len(p) for p in prompts]} tokens x 8 steps: "
+        + ("; ".join(notes) if notes else "identical streams"))
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5
-def device_breakdown(torch, prof, wall_s, card):
+def device_breakdown(torch, prof, wall_s, card, plan):
     """Device time by kernel (torch.profiler, CUDA activity) over one
-    serve run: the classes attention / matmul / other, the top kernels,
-    and the device's busy share of the run's wall time."""
+    serve run: the classes attention kernels / matmul / other, the top
+    kernels, and the device's busy share of the run's wall time."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+
     def dev_ms(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0)) / 1e3
-    classes = {"attention (ragged_attn_kernel)": 0.0, "matmul": 0.0,
+
+    classes = {"attention (ragged_attn_kernel)": 0.0,
+               "attention (flash_fwd_kernel)": 0.0, "matmul": 0.0,
                "other": 0.0}
     for e in kernels:
         n = e.key.lower()
         cls = ("attention (ragged_attn_kernel)" if "ragged_attn" in n
+               else "attention (flash_fwd_kernel)" if "flash_fwd" in n
                else "matmul" if any(w in n for w in (
                    "gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"))
                else "other")
         classes[cls] += dev_ms(e)
     busy = sum(classes.values())
-    top = sorted(kernels, key=dev_ms, reverse=True)[:10]
-    out = dict(wall_ms=wall_s * 1e3, device_busy_ms=busy,
-               busy_share=busy / (wall_s * 1e3), classes=classes,
-               top=[(e.key[:90], e.count, dev_ms(e)) for e in top])
-    log(f"profile: serve run 3 wall {wall_s * 1e3:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100 * out['busy_share']:.1f}%) [{card}]")
+    top = sorted(kernels, key=dev_ms, reverse=True)[:8]
+    log(f"profile: {plan} plan, serve run 3 wall {wall_s * 1e3:.1f} ms, "
+        f"device busy {busy:.1f} ms ({100 * busy / (wall_s * 1e3):.1f}%) "
+        f"[{card}]")
     for cls, ms in classes.items():
         log(f"profile:   {cls:<32} {ms:10.1f} ms "
             f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
-    for name, count, ms in out["top"]:
-        log(f"profile:   {ms:10.1f} ms {count:6d}x {name}")
-    return out
+    for e in top:
+        log(f"profile:   {dev_ms(e):10.1f} ms {e.count:6d}x {e.key[:80]}")
 
 
 class Metrics:
@@ -379,8 +718,9 @@ class Metrics:
         pass
 
 
-def serve_once(torch, cb, prompts, stop_token, ra):
-    """Submit the request mix; returns (outputs dict, stats)."""
+def serve_once(torch, cb, prompts, stop_token, counted):
+    """Submit the request mix with every kernel's count set to 0; returns
+    (outputs dict, stats)."""
     from tpulab_torch.engine.paged import SamplingParams
 
     futs = {}
@@ -402,10 +742,10 @@ def serve_once(torch, cb, prompts, stop_token, ra):
             temperature=0.9, top_k=50, seed=5))),
         ("greedy_logprobs", prompts[1500], 40, dict(logprobs=True)),
     ]
-    ra.launches = 0
-    f0 = cb.forward_steps
-    kinds0 = dict(cb.dispatch_kinds)
-    tok0 = cb.tokens_generated
+    for fn in counted.values():
+        fn.launches = 0
+    before = (cb.forward_steps, cb.prefill_forwards, cb.prefill_dispatches,
+              dict(cb.dispatch_kinds), cb.tokens_generated)
     t0 = time.perf_counter()
     # submit the mix atomically (the scheduler's lock is re-entrant), so
     # both runs schedule identical rounds
@@ -417,53 +757,63 @@ def serve_once(torch, cb, prompts, stop_token, ra):
         time.sleep(0.001)
     outs["late"] = late["late"].result(timeout=900)
     wall = time.perf_counter() - t0
-    launches = ra.launches
-    fwd = cb.forward_steps - f0
-    kinds = {k: cb.dispatch_kinds[k] - kinds0[k] for k in kinds0}
-    stats = dict(wall_s=wall, tokens=cb.tokens_generated - tok0,
-                 launches=launches, forward_steps=fwd, kinds=kinds,
+    launches = {name: fn.launches for name, fn in counted.items()}
+    stats = dict(wall_s=wall, tokens=cb.tokens_generated - before[4],
+                 launches=launches,
+                 forward_steps=cb.forward_steps - before[0],
+                 prefill_forwards=cb.prefill_forwards - before[1],
+                 prefill_dispatches=cb.prefill_dispatches - before[2],
+                 kinds={k: cb.dispatch_kinds[k] - before[3][k]
+                        for k in before[3]},
                  steps={name: s for name, _, s, _ in specs} | {"late": 48})
     return outs, stats
 
 
-def phase_serve(torch, card, profile=False):
-    import numpy as np
+def check_plan(plan, st, n_layers, n_requests):
+    """Dispatch kinds and launch counts of one serve run."""
+    ra, fa = st["launches"]["ragged"], st["launches"]["flash"]
+    if ra != n_layers * st["forward_steps"]:
+        raise AssertionError(f"{plan}: ragged launches {ra} != n_layers x "
+                             f"forward steps {n_layers} x "
+                             f"{st['forward_steps']}")
+    if fa != n_layers * st["prefill_forwards"]:
+        raise AssertionError(f"{plan}: flash launches {fa} != n_layers x "
+                             f"prefill forwards {n_layers} x "
+                             f"{st['prefill_forwards']}")
+    kinds = st["kinds"]
+    if plan == "ragged":
+        ok = (kinds["mixed"] > 0 and kinds["decode"] > 0
+              and st["prefill_dispatches"] == 0 and fa == 0)
+    else:
+        ok = (kinds["mixed"] == 0 and kinds["decode"] > 0
+              and st["prefill_dispatches"] == n_requests
+              and st["prefill_forwards"] == n_requests and fa > 0)
+    if not ok:
+        raise AssertionError(f"{plan}: dispatch kinds {kinds}, prefill "
+                             f"dispatches {st['prefill_dispatches']}, "
+                             f"forwards {st['prefill_forwards']}, flash "
+                             f"launches {fa}")
 
+
+def serve_plan(torch, model, prompts, plan, card, profile):
+    """Three runs of the mix on one batcher: run 1 picks the stop token
+    (greedy_stop's 9th token), runs 2 and 3 must be identical."""
     from tpulab_torch.engine.paged import ContinuousBatcher
-    from tpulab_torch.models.transformer import Transformer, \
-        init_transformer_params
-    from tpulab_torch.ops import ragged_attention as ra_mod
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    ra = ra_mod.ragged_paged_attention
     c = LLAMA3_8B
-    t0 = time.perf_counter()
-    model = Transformer(init_transformer_params(
-        c["vocab"], c["d_model"], c["n_heads"], c["n_layers"], c["d_ff"],
-        seed=0, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
-        tie_embeddings=False, device="cuda", dtype=torch.bfloat16),
-        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
-        rope_theta=c["rope_theta"])
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"serve: Llama-3-8B geometry, {n_params / 1e9:.3f} B params bf16, "
-        f"random init {time.perf_counter() - t0:.1f} s")
+    counted = {"ragged": ragged_paged_attention, "flash": flash_attention}
     metrics = Metrics()
+    cfg = dict(SERVE, **(SPLIT if plan == "split" else {}))
     cb = ContinuousBatcher(model, n_heads=c["n_heads"],
                            n_layers=c["n_layers"],
                            n_kv_heads=c["n_kv_heads"],
                            rope_theta=c["rope_theta"],
                            compute_dtype=torch.bfloat16, device="cuda",
-                           metrics=metrics, **SERVE)
-    log(f"serve: pool {cb.pool.n_pages} pages, "
-        f"{cb.pool.hbm_bytes / 1e9:.3f} GB; weights "
-        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB")
-    rng = np.random.default_rng(7)
-    prompts = {n: rng.integers(0, c["vocab"], (n,)).astype(np.int32)
-               for n in (5, 64, 300, 700, 1000, 1500)}
-    prompts["late"] = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+                           metrics=metrics, **cfg)
     try:
-        # run 1 picks the stop token: greedy_stop's 9th token
-        out1, st1 = serve_once(torch, cb, prompts, None, ra)
+        out1, _ = serve_once(torch, cb, prompts, None, counted)
         stop = out1["greedy_stop"][8]
         runs = []
         for i in range(2):
@@ -474,66 +824,103 @@ def phase_serve(torch, card, profile=False):
                 from torch.profiler import ProfilerActivity
                 with torch.profiler.profile(activities=[
                         ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    out, st = serve_once(torch, cb, prompts, stop, ra)
-                device_breakdown(torch, prof, st["wall_s"], card)
+                    out, st = serve_once(torch, cb, prompts, stop, counted)
+                device_breakdown(torch, prof, st["wall_s"], card, plan)
             else:
-                out, st = serve_once(torch, cb, prompts, stop, ra)
+                out, st = serve_once(torch, cb, prompts, stop, counted)
             st["ttft_s"] = sorted(metrics.ttft)
             runs.append((out, st))
     finally:
         cb.shutdown()
     (out2, st2), (out3, st3) = runs
-    vocab = c["vocab"]
     for name, toks in out2.items():
         toks = toks[0] if isinstance(toks, tuple) else toks
-        want = st2["steps"][name]
         if name == "greedy_stop":
             cut = out1[name].index(stop) + 1
             if toks != out1[name][:cut]:
-                raise AssertionError("stop token did not end greedy_stop "
-                                     "where the unstopped run emits it")
-        elif len(toks) != want:
-            raise AssertionError(f"{name}: {len(toks)} tokens, want {want}")
-        if not all(0 <= t < vocab for t in toks):
-            raise AssertionError(f"{name}: token outside [0, vocab)")
+                raise AssertionError(f"{plan}: stop token did not end "
+                                     "greedy_stop where the unstopped run "
+                                     "emits it")
+        elif len(toks) != st2["steps"][name]:
+            raise AssertionError(f"{plan} {name}: {len(toks)} tokens, want "
+                                 f"{st2['steps'][name]}")
+        if not all(0 <= t < c["vocab"] for t in toks):
+            raise AssertionError(f"{plan} {name}: token outside [0, vocab)")
     lps = out2["greedy_logprobs"][1]
     if not all(math.isfinite(x) and x <= 0 for x in lps):
-        raise AssertionError("logprobs must be finite and <= 0")
+        raise AssertionError(f"{plan}: logprobs must be finite and <= 0")
     # runs 2 and 3 are the same requests scheduled into the same rounds;
     # run 1 (no stop token) schedules differently once greedy_stop would
     # have stopped, so only its prefix up to the stop is compared above
     for name in ("greedy_stop", "device_a", "device_b", "greedy_logprobs",
                  "stream_trigger", "late"):
         if out2[name] != out3[name]:
-            raise AssertionError(f"{name}: the second run differs")
+            raise AssertionError(f"{plan} {name}: the second run differs")
     for st in (st2, st3):
-        if st["kinds"]["mixed"] <= 0 or st["kinds"]["decode"] <= 0:
-            raise AssertionError(f"dispatch kinds {st['kinds']}")
-        if st["launches"] != c["n_layers"] * st["forward_steps"]:
-            raise AssertionError(
-                f"kernel launches {st['launches']} != n_layers x forward "
-                f"steps {c['n_layers']} x {st['forward_steps']}")
-    tok_s = st2["tokens"] / st2["wall_s"]
+        check_plan(plan, st, c["n_layers"], len(out2))
     ttft = st2["ttft_s"]
-    log(f"serve: {len(out2)} requests, {st2['tokens']} tokens in "
-        f"{st2['wall_s']:.3f} s = {tok_s:.1f} tok/s; TTFT "
-        f"min {ttft[0] * 1e3:.1f} / median {ttft[len(ttft) // 2] * 1e3:.1f} "
-        f"/ max {ttft[-1] * 1e3:.1f} ms; dispatches {st2['kinds']}; "
-        f"forward steps {st2['forward_steps']}; kernel launches "
-        f"{st2['launches']} = {c['n_layers']} x {st2['forward_steps']} "
-        f"[{card}]")
-    log(f"serve: second identical run {st3['wall_s']:.3f} s, "
-        f"{st3['tokens'] / st3['wall_s']:.1f} tok/s; greedy and "
-        "device-sampled streams identical")
+    log(f"serve: {plan} plan: {len(out2)} requests, {st2['tokens']} tokens "
+        f"in {st2['wall_s']:.3f} s = {st2['tokens'] / st2['wall_s']:.1f} "
+        f"tok/s; TTFT min {ttft[0] * 1e3:.1f} / median "
+        f"{ttft[len(ttft) // 2] * 1e3:.1f} / max {ttft[-1] * 1e3:.1f} ms; "
+        f"dispatches {st2['kinds']}, prefill dispatches "
+        f"{st2['prefill_dispatches']}; launches ragged "
+        f"{st2['launches']['ragged']} = {c['n_layers']} x "
+        f"{st2['forward_steps']} forward steps, flash "
+        f"{st2['launches']['flash']} = {c['n_layers']} x "
+        f"{st2['prefill_forwards']} prefill forwards [{card}]")
+    log(f"serve: {plan} plan: second identical run {st3['wall_s']:.3f} s, "
+        f"{st3['tokens'] / st3['wall_s']:.1f} tok/s; streams identical")
     return st2
 
 
+def phase_serve(torch, card, profile=False):
+    import numpy as np
+
+    from tpulab_torch.models.transformer import Transformer
+
+    c = LLAMA3_8B
+    t0 = time.perf_counter()
+    model = Transformer(full_width_params(torch, c["n_layers"],
+                                          torch.bfloat16, seed=0),
+                        n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+                        rope_theta=c["rope_theta"])
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve: Llama-3-8B geometry, {n_params / 1e9:.3f} B params bf16, "
+        f"random init {time.perf_counter() - t0:.1f} s; weights "
+        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB")
+    rng = np.random.default_rng(7)
+    prompts = {n: rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (5, 64, 300, 700, 1000, 1500)}
+    prompts["late"] = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+    out = {}
+    for plan in ("ragged", "split"):
+        t1 = time.perf_counter()
+        out[plan] = serve_plan(torch, model, prompts, plan, card, profile)
+        log(f"serve: {plan} plan {time.perf_counter() - t1:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
+def kernel_entry(name, source, replaces, launches, rows, main, case):
+    """One kernel's line: times of its main case, the max error over
+    that case's dtype mix."""
+    row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in rows
+                                if r["dtypes"] == main[1]),
+                ms=row["ms"], plain_ms=row["plain_ms"],
+                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                library_ms=row["library_ms"], case=case)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace serve run 3 with torch.profiler and print "
-                         "device time by kernel class")
+                    help="trace serve run 3 of each plan with torch.profiler "
+                         "and print device time by kernel class")
     args = ap.parse_args(argv)
 
     import torch
@@ -542,8 +929,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, HERE)
     from tpulab_torch.cuda.platform import card_name_and_power_limit
-    from tpulab_torch.ops import _build
 
+    t_all = time.perf_counter()
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -555,47 +942,47 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_capability(0)}; TF32 off for matmul and "
         "cuDNN")
 
-    # phase 2: build the kernel
-    path, secs, nvlog = _build.compile_library("ragged_attention")
-    regs = [int(w) for line in nvlog.splitlines() if "registers" in line
-            for w, nxt in zip(line.split(), line.split()[1:])
-            if nxt == "registers,"]
-    spills = sum(1 for line in nvlog.splitlines()
-                 if "spill" in line and not line.strip().startswith(
-                     "0 bytes stack frame, 0 bytes spill stores, "
-                     "0 bytes spill loads"))
-    log(f"build: ragged_attention -> {os.path.relpath(path, HERE)} "
-        f"({secs:.1f} s; {len(regs)} instantiations, registers "
-        f"{min(regs, default=0)}-{max(regs, default=0)}, "
-        f"{spills} with spills)")
-    _build.load("ragged_attention")
+    phase_build()
 
-    # phase 3: every kernel against its plain version
     timer = Timer(torch)
-    t0 = time.perf_counter()
-    rows = phase_kernels(torch, timer)
-    log(f"kernels: phase {time.perf_counter() - t0:.1f} s")
+    rows = {}
+    for name, phase in (("ragged", phase_ragged), ("flash", phase_flash),
+                        ("paged", phase_paged)):
+        t0 = time.perf_counter()
+        rows[name] = phase(torch, timer)
+        log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    phase_invariants(torch)
+    op_launches = phase_invariants(torch)
+    phase_plans_f32(torch)
     log(f"invariants: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     st = phase_serve(torch, card, args.profile)
     log(f"serve: phase {time.perf_counter() - t0:.1f} s")
 
-    main_case = next(r for r in rows if r["case"] == "all_decode"
-                     and r["dtypes"] == "bf16/bf16")
-    kernels = [dict(
-        name="ragged_paged_attention", route="cuda",
-        source="tpulab_torch/ops/csrc/ragged_attention.cu",
-        replaces="tpulab/ops/ragged_attention.py:190",
-        launches=st["launches"],
-        max_abs_err=max(r["max_abs_err"] for r in rows
-                        if r["dtypes"] == "bf16/bf16"),
-        ms=main_case["ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"],
-        case="all_decode bf16/bf16, 8 lanes x 1024 context")]
+    kernels = [
+        kernel_entry("ragged_paged_attention",
+                     "tpulab_torch/ops/csrc/ragged_attention.cu",
+                     "tpulab/ops/ragged_attention.py:190",
+                     st["ragged"]["launches"]["ragged"], rows["ragged"],
+                     ("all_decode", "bf16/bf16"),
+                     "all_decode bf16/bf16, 8 lanes x 1024 context; "
+                     "launches: ragged-plan serve run"),
+        kernel_entry("flash_attention",
+                     "tpulab_torch/ops/csrc/flash_attention.cu",
+                     "tpulab/ops/flash_attention.py:80",
+                     st["split"]["launches"]["flash"], rows["flash"],
+                     (f"T={FA_TS[-1]} causal", "bfloat16"),
+                     "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
+                     "split-plan serve run"),
+        kernel_entry("paged_decode_attention",
+                     "tpulab_torch/ops/csrc/paged_attention.cu",
+                     "tpulab/ops/paged_attention.py:221", op_launches,
+                     rows["paged"], ("8 x 1024", "bf16/bf16"),
+                     "8 lanes x 1024 positions, bf16/bf16; launches: the "
+                     "decode op over every layer of a model-written pool"),
+    ]
+    log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

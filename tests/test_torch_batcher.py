@@ -1,10 +1,15 @@
 """tpulab_torch ContinuousBatcher vs tpulab's, on the CPU.
 
-The port's batcher (``device="cpu"``: attention through the kernel
-family's plain version) and tpulab's ``ContinuousBatcher(use_kernel=
-False, ragged=True)`` — the same ragged plan, which tpulab's own tests
-hold token-exact to its kernel path — serve the same requests on the
-same weights (bridged bit for bit), f32 compute.
+The port's batcher (``device="cpu"``: attention through the kernels'
+plain versions) and tpulab's serve the same requests on the same weights
+(bridged bit for bit), f32 compute, under both dispatch plans:
+
+- ragged: tpulab's ``ContinuousBatcher(use_kernel=False, ragged=True)``
+  — the same ragged plan, which tpulab's own tests hold token-exact to
+  its kernel path;
+- split: the port's ``ragged=False, prefill_flash=True`` against
+  tpulab's ``use_kernel=False, prefill_flash=True`` (its legacy split
+  dispatch, flash prefill in Pallas interpret mode).
 
 Greedy streams must match.  Where one diverges, the test accepts it only
 if tpulab's own top-1 margin at the divergent step is below
@@ -237,10 +242,154 @@ def test_cancel_and_deadline(lm):
         cb.shutdown()
 
 
+# -- the split plan --------------------------------------------------------
+SPLIT = dict(ragged=False, prefill_flash=True)
+
+
+@pytest.fixture(scope="module")
+def served_split(lm):
+    pj, model = lm
+    ref = JaxBatcher(pj, use_kernel=False, prefill_flash=True,
+                     compute_dtype=jnp.float32, **CFG)
+    try:
+        want = _serve(ref, JaxSampling)
+    finally:
+        ref.shutdown()
+    cb = ContinuousBatcher(model, compute_dtype=torch.float32, device="cpu",
+                           **SPLIT, **CFG)
+    try:
+        got = _serve(cb, SamplingParams)
+        stats = dict(hits=cb.prefix_cache.hits,
+                     kinds=dict(cb.dispatch_kinds),
+                     prefill_dispatches=cb.prefill_dispatches,
+                     prefill_forwards=cb.prefill_forwards,
+                     prefill_flash=cb.prefill_flash)
+    finally:
+        cb.shutdown()
+    return want, got, stats
+
+
+@pytest.mark.parametrize("case,prompt_len", [
+    ("greedy5", 5), ("greedy9", 9), ("stop", 5), ("chunked", 30),
+    ("cached", 30)])
+def test_split_plan_greedy_streams_match_tpulab(lm, served_split, case,
+                                                prompt_len):
+    want, got, _ = served_split
+    assert len(got[case]) == len(want[case])
+    _same_greedy(lm[0], _prompts()[prompt_len], want[case], got[case])
+
+
+def test_split_plan_sampled_streams_and_logprobs_match_tpulab(served_split):
+    """Device- and host-sampled streams exact; chosen-token logprobs
+    within 1e-4 (the first one comes from the prefill's logits row)."""
+    want, got, _ = served_split
+    assert got["device"] == want["device"]
+    assert got["host"] == want["host"]
+    assert got["logprobs"][0] == want["logprobs"][0]
+    np.testing.assert_allclose(got["logprobs"][1], want["logprobs"][1],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_split_plan_prefills_without_mixed_rounds(served_split):
+    """Every prompt fills through a prefill dispatch, the short ones as
+    one full-prompt forward (flash), the 30-token ones as chunks and
+    prefix-cache tails; no mixed round runs."""
+    _, got, stats = served_split
+    assert stats["prefill_dispatches"] == len(got)
+    assert 0 < stats["prefill_forwards"] < stats["prefill_dispatches"]
+    assert stats["prefill_flash"] is True
+    assert stats["kinds"]["mixed"] == 0 and stats["kinds"]["decode"] > 0
+    assert got["cached"] == got["chunked"] and stats["hits"] >= 3
+
+
+def test_split_and_ragged_plans_agree(lm, served, served_split):
+    """On the port, the two plans emit the same streams (tpulab documents
+    them token-exact); logprobs within 1e-5."""
+    _, ragged, _ = served
+    _, split, _ = served_split
+    for case, n in (("greedy5", 5), ("greedy9", 9), ("stop", 5),
+                    ("chunked", 30), ("cached", 30)):
+        _same_greedy(lm[0], _prompts()[n], ragged[case], split[case])
+    assert split["device"] == ragged["device"]
+    assert split["host"] == ragged["host"]
+    assert split["logprobs"][0] == ragged["logprobs"][0]
+    np.testing.assert_allclose(split["logprobs"][1], ragged["logprobs"][1],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_split_plan_preemption_resumes_exactly(lm):
+    """A higher-priority arrival evicts the only lane; the victim resumes
+    by re-prefilling through the split plan, and its greedy stream equals
+    an uninterrupted run (and tpulab's split dispatch)."""
+    pj, model = lm
+    p = _prompts()
+    cfg = dict(CFG, lanes=1, decode_block=2)
+    cb = ContinuousBatcher(model, compute_dtype=torch.float32, device="cpu",
+                           **SPLIT, **cfg)
+    try:
+        alone = list(cb.submit(p[5], 20).result(timeout=300))
+        d0 = cb.prefill_dispatches
+        late = {}
+
+        def arrive(tok, i):            # on the scheduler thread: no race
+            if i == 3:
+                late["f"] = cb.submit(p[9], 4, priority=5)
+
+        low = list(cb.submit(p[5], 20, on_token=arrive).result(timeout=300))
+        high = list(late["f"].result(timeout=300))
+        assert cb.preemptions >= 1
+        assert cb.prefill_dispatches - d0 == 3   # low, high, low's resume
+    finally:
+        cb.shutdown()
+    assert low == alone and len(high) == 4
+    ref = JaxBatcher(pj, use_kernel=False, prefill_flash=True,
+                     compute_dtype=jnp.float32, **cfg)
+    try:
+        want = list(ref.submit(p[5], 20).result(timeout=300))
+    finally:
+        ref.shutdown()
+    _same_greedy(pj, p[5], want, low)
+
+
+def test_failing_prefill_fails_the_request_and_keeps_flash(lm):
+    """A prefill that raises goes to the scheduler's recovery path: the
+    request fails, the pool resets, ``prefill_flash`` stays on (no
+    degrade to dense attention), and the next request is served."""
+    _, model = lm
+    cb = ContinuousBatcher(model, compute_dtype=torch.float32, device="cpu",
+                           **SPLIT, **dict(CFG, lanes=1, prefix_cache=False))
+    try:
+        real = cb._prefill
+
+        def planted(*args, **kw):
+            raise RuntimeError("planted prefill fault")
+
+        cb._prefill = planted
+        with pytest.raises(RuntimeError, match="planted prefill fault"):
+            cb.submit(_prompts()[5], 4).result(timeout=60)
+        assert cb.prefill_flash is True and cb._prefill is planted
+        cb._prefill = real
+        assert len(cb.submit(_prompts()[5], 4).result(timeout=60)) == 4
+        assert cb.pool.free_pages == cb.pool.n_pages - 1
+    finally:
+        cb.shutdown()
+
+
+def test_split_plan_defaults(lm):
+    """``ragged=False`` alone selects the split plan; ``prefill_flash``
+    defaults to the flash kernel on CUDA and to dense attention on the
+    CPU (tpulab's default off the TPU)."""
+    cb = ContinuousBatcher(lm[1], n_heads=N_HEADS, n_layers=N_LAYERS,
+                           n_kv_heads=N_KV, compute_dtype=torch.float32,
+                           device="cpu", ragged=False)
+    try:
+        assert cb.ragged is False and cb.prefill_flash is False
+    finally:
+        cb.shutdown()
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(ragged=False), "split dispatch"),
-    (dict(prefill_flash=True), "split dispatch"),
     (dict(draft_params={}), "speculative"),
     (dict(kv_offload=True), "host tier"),
     (dict(kv_publish=True), "host tier"),

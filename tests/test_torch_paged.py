@@ -1,10 +1,11 @@
 """tpulab_torch paged programs vs tpulab's, plus the port's own invariants.
 
-- ``paged_mixed_step`` and ``paged_decode_block`` against tpulab's on the
-  same weights (bridge), pool and per-lane inputs: tokens must be equal,
-  logprobs/logits within 1e-4 (f32 everywhere; the two backends sum in
-  different orders), and the pool equal within 1e-5 on every page but
-  the scratch page 0.
+- ``paged_mixed_step`` and ``paged_decode_block`` (the ragged plan) and
+  ``paged_prefill`` (dense and flash attention) and ``paged_extend`` (the
+  split plan) against tpulab's on the same weights (bridge), pool and
+  per-lane inputs: tokens must be equal, logprobs/logits within 1e-4
+  (f32 everywhere; the two backends sum in different orders), and the
+  pool equal within 1e-5 on every page but the scratch page 0.
 - Within the port, a K-block is bit-identical to K chained single steps.
 - ``PagedKVPool`` accounting: free list, refcounts, scratch page 0,
   grow/shrink, the allocator gauge.
@@ -18,8 +19,11 @@ import torch
 
 from tpulab.engine import paged as jp
 from tpulab.models.transformer import init_transformer_params
+from tpulab.ops.flash_attention import \
+    make_flash_attention_fn as jax_flash_fn
 from tpulab_torch.engine import paged as tp
 from tpulab_torch.models.convert import params_from_numpy
+from tpulab_torch.ops.flash_attention import make_flash_attention_fn
 
 torch.set_num_threads(2)
 
@@ -194,6 +198,73 @@ def test_every_layer_attends_through_the_ragged_family(weights, monkeypatch,
             _block_args(lengths, tokens)), k=4, compute_dtype=torch.float32,
             **KW)
         assert calls == [(B, 1, N_HEADS, D_MODEL // N_HEADS)] * (4 * N_LAYERS)
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_prefill_then_extend_match_tpulab(weights, attn):
+    """The split plan's programs: ``paged_prefill`` (dense or flash
+    attention) over a 7-token prompt padded to 8, then ``paged_extend`` of
+    one token and of a 5-token tail padded to 8.  Last logits within 1e-4
+    and live pool pages within 1e-5 of tpulab's, f32."""
+    pj, pt = weights
+    rng = np.random.default_rng(6)
+    kv_j, kv_t = _pool()
+    table = _tables()[0]
+    prompt = np.zeros((1, 8), np.int64)
+    prompt[0, :7] = rng.integers(0, VOCAB, 7)
+    fn_j = jax_flash_fn(causal=True) if attn == "flash" else None
+    fn_t = make_flash_attention_fn(causal=True) if attn == "flash" else None
+    last_j, kv_j = jp.paged_prefill(
+        pj, kv_j, jnp.asarray(table), jnp.asarray(prompt, jnp.int32),
+        jnp.int32(7), compute_dtype=jnp.float32, attention_fn=fn_j, **KW)
+    last_t = tp.paged_prefill(pt, kv_t, torch.from_numpy(table),
+                              torch.from_numpy(prompt), 7,
+                              compute_dtype=torch.float32, attention_fn=fn_t,
+                              **KW)
+    assert last_t.shape == (VOCAB,)
+    np.testing.assert_allclose(last_t.numpy(), np.asarray(last_j),
+                               rtol=1e-4, atol=1e-4)
+    _same_pool(kv_j, kv_t)
+    # one more token at position 7, then a 5-token tail from position 8
+    one = rng.integers(0, VOCAB, (1, 1))
+    last_j, kv_j = jp.paged_extend(
+        pj, kv_j, jnp.asarray(table), jnp.asarray(one, jnp.int32),
+        jnp.int32(7), jnp.int32(8), compute_dtype=jnp.float32, **KW)
+    last_t = tp.paged_extend(pt, kv_t, torch.from_numpy(table),
+                             torch.from_numpy(one), 7, 8,
+                             compute_dtype=torch.float32, **KW)
+    np.testing.assert_allclose(last_t.numpy(), np.asarray(last_j),
+                               rtol=1e-4, atol=1e-4)
+    tail = np.zeros((1, 8), np.int64)
+    tail[0, :5] = rng.integers(0, VOCAB, 5)
+    last_j, kv_j = jp.paged_extend(
+        pj, kv_j, jnp.asarray(table), jnp.asarray(tail, jnp.int32),
+        jnp.int32(8), jnp.int32(13), compute_dtype=jnp.float32, **KW)
+    last_t = tp.paged_extend(pt, kv_t, torch.from_numpy(table),
+                             torch.from_numpy(tail), 8, 13,
+                             compute_dtype=torch.float32, **KW)
+    np.testing.assert_allclose(last_t.numpy(), np.asarray(last_j),
+                               rtol=1e-4, atol=1e-4)
+    _same_pool(kv_j, kv_t)
+
+
+def test_extend_attends_through_the_ragged_family(weights, monkeypatch):
+    """``paged_extend`` has no attention path of its own: one
+    ``ragged_paged_attention`` call per layer."""
+    _pj, pt = weights
+    calls = []
+    real = tp.ragged_paged_attention
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(tp, "ragged_paged_attention", counted)
+    _kv_j, kv_t = _pool()
+    tp.paged_extend(pt, kv_t, torch.from_numpy(_tables()[0]),
+                    torch.zeros((1, 4), dtype=torch.long), 4, 7,
+                    compute_dtype=torch.float32, **KW)
+    assert calls == [(1, 4, N_HEADS, D_MODEL // N_HEADS)] * N_LAYERS
 
 
 def test_pool_accounting():

@@ -1,34 +1,43 @@
 """Paged KV cache + continuous batching — the port of
-``tpulab/engine/paged.py`` (the ragged dispatch plan).
+``tpulab/engine/paged.py`` (the ragged and the split dispatch plans).
 
 K/V live in a global pool of fixed-size pages (fused ``(L, P, 2, S, Hkv,
 D)`` layout, page 0 reserved as scratch); sessions own block tables of
-page ids; a scheduler thread advances every active session through
+page ids; a scheduler thread advances every active session through one
+of two plans:
 
-- fused mixed rounds (:func:`paged_mixed_step` over
-  :func:`paged_ragged_forward`): prompt chunks and decode tokens of all
-  lanes in one forward, and
-- K-token decode blocks (:func:`paged_decode_block`, K chained
-  :func:`paged_decode_step` calls with on-device sampling and stop
-  masks): one host sync per K tokens.
+- the ragged plan (``ragged=True``, the default): fused mixed rounds
+  (:func:`paged_mixed_step` over :func:`paged_ragged_forward`) carry
+  prompt chunks and decode tokens of all lanes in one forward;
+- the split plan (``ragged=False``): each new prompt runs one full-prompt
+  causal forward (:func:`paged_prefill`, flash attention when
+  ``prefill_flash``), and prefix-cache tails and chunks of long prompts
+  run :func:`paged_extend` against the resident context.
 
-Every attention call goes through
-:func:`tpulab_torch.ops.ragged_attention.ragged_paged_attention` — the
-hand-written Hopper kernel for CUDA tensors, its plain version for CPU
-tensors.  JAX donates the pool through each jitted step; the port writes
-it IN PLACE (``index_put_`` into ``pool.kv``).  Writes of invalid
-positions all land on scratch page 0, which is harmless only because
-nothing ever reads page 0 as live data.
+Decode runs K-token blocks (:func:`paged_decode_block`, K chained
+:func:`paged_decode_step` calls with on-device sampling and stop masks:
+one host sync per K tokens) under both plans.
+
+Every paged attention call goes through
+:func:`tpulab_torch.ops.ragged_attention.ragged_paged_attention`, and the
+split plan's full-prompt attention through
+:func:`tpulab_torch.ops.flash_attention.flash_attention` — hand-written
+Hopper kernels for CUDA tensors, their plain versions for CPU tensors.
+JAX donates the pool through each jitted step; the port writes it IN
+PLACE (``index_put_`` into ``pool.kv``).  Writes of invalid positions all
+land on scratch page 0, which is harmless only because nothing ever
+reads page 0 as live data.
 
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
-counterpart.  The legacy split dispatch (``use_kernel=False``), flash
-prefill, speculative decoding, the KV host tier, meshes, the HBM arbiter,
-tracing and the flight recorder are later slices: their constructor arguments
+counterpart.  The XLA-gather escape hatch (``use_kernel=False``),
+speculative decoding, the KV host tier, meshes, the HBM arbiter, tracing
+and the flight recorder are not ported: their constructor arguments
 raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time as _time
@@ -42,10 +51,11 @@ from tpulab_torch.core.deadline import Deadline, DeadlineExceeded
 from tpulab_torch.cuda.allocators import DeviceRawAllocator
 from tpulab_torch.cuda.platform import resolve_device
 from tpulab_torch.engine.prng import device_sample_tokens
-from tpulab_torch.models.transformer import (_add, _dense_ffn, _embed,
-                                             _lm_head, _mm, _rmsnorm,
-                                             apply_rope, qmat, repeat_kv,
-                                             split_qkv)
+from tpulab_torch.models.transformer import (
+    _add, _dense_ffn, _embed, _lm_head, _mm, _rmsnorm, apply_rope,
+    causal_attention, qmat, repeat_kv, split_qkv,
+    transformer_forward_collect_kv)
+from tpulab_torch.ops.flash_attention import make_flash_attention_fn
 from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
 _log = logging.getLogger("tpulab_torch.engine")
@@ -404,6 +414,62 @@ def paged_mixed_step(params, kv_pool, tables, seq, q_lens, kv_lens,
     return next_tokens, logprobs, last
 
 
+def paged_prefill(params, kv_pool, tables, tokens, valid_len,
+                  n_heads: int, n_layers: int, compute_dtype,
+                  n_kv_heads: Optional[int] = None,
+                  rope_theta: Optional[float] = None,
+                  attention_fn=None):
+    """Fused prefill: ONE causal forward over the (padded) prompt, with each
+    layer's K/V scattered into the lane's pages (in place).
+
+    tokens (1, T_pad) (padded tail arbitrary); valid_len the prompt length
+    (int or 0-d tensor); tables (MP,) this lane's page ids.  Padded
+    positions write to the scratch page 0.  ``attention_fn`` (default:
+    dense causal attention) takes (B, T, H, D) q and K/V repeated to H —
+    :func:`make_flash_attention_fn` puts the flash kernel there.  Returns
+    the last valid token's logits (vocab,) f32."""
+    page_size = kv_pool.shape[3]
+    t_pad = tokens.shape[1]
+    logits, kvs = transformer_forward_collect_kv(
+        params, tokens, n_heads=n_heads, n_layers=n_layers,
+        compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
+        rope_theta=rope_theta, attention_fn=attention_fn or causal_attention)
+    pos = torch.arange(t_pad, device=tokens.device)
+    valid = pos < valid_len
+    # JAX clamps an out-of-range gather; PyTorch would fault — clamp
+    col = (pos // page_size).clamp(max=tables.shape[0] - 1)
+    page_idx = torch.where(valid, tables.long()[col], 0)
+    slot_idx = torch.where(valid, pos % page_size, 0)
+    for layer, (k, v) in enumerate(kvs):
+        _write_kv(kv_pool, layer, page_idx, slot_idx, k[0], v[0])
+    return logits[0, valid_len - 1]
+
+
+def paged_extend(params, kv_pool, tables, tokens, start, valid_total,
+                 n_heads: int, n_layers: int, compute_dtype,
+                 n_kv_heads: Optional[int] = None,
+                 rope_theta: Optional[float] = None):
+    """Chunked/tail prefill against EXISTING paged context.
+
+    One forward over the tail tokens at positions ``start ..
+    valid_total-1`` of a lane whose positions ``[0, start)`` are already
+    in the pool (prefix-cache hits or earlier chunks).  tokens (1, M_pad)
+    (padded tail arbitrary); start page-aligned (the tail never writes a
+    shared prefix page); tables (MP,) covering all of it.  It is the
+    ragged forward of one lane with ``q_lens = valid_total - start`` and
+    ``kv_lens = valid_total``: per layer the tail's K/V scatter first,
+    then attention walks the whole block table under global causality —
+    the function of tpulab's gather-after-scatter, through the ragged
+    kernel family.  Returns the last valid token's logits (vocab,) f32."""
+    dev = tokens.device
+    q_lens = torch.as_tensor([valid_total - start], device=dev)
+    kv_lens = torch.as_tensor([valid_total], device=dev)
+    return paged_ragged_forward(
+        params, kv_pool, tables[None], tokens, q_lens, kv_lens,
+        n_heads=n_heads, n_layers=n_layers, compute_dtype=compute_dtype,
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True)[0]
+
+
 class PrefixCache:
     """Prompt prefix cache over the paged pool (full-page granularity).
 
@@ -598,16 +664,27 @@ def _has_int8(tree) -> bool:
 
 
 class ContinuousBatcher:
-    """Continuous-batching scheduler over the paged pool, ragged plan.
+    """Continuous-batching scheduler over the paged pool.
 
     ``submit(prompt, steps) -> Future[list[int]]``; a scheduler thread
-    advances up to ``lanes`` requests: pending prompts and decode lanes
-    together in fused mixed rounds (:func:`paged_mixed_step`), then
-    decode-only lanes in adaptive K-token blocks (:func:`paged_decode_block`,
-    one host sync per block, the next block dispatched ahead while the
-    host emits), or K=1 ticks when a host-sampled lane is present.
-    Priority preemption evicts the weakest lane, which resumes by
-    re-prefilling prompt + generated tokens (exact tokens).
+    advances up to ``lanes`` requests.  Prompts enter by one of two plans:
+
+    - ragged (``ragged=None`` or ``True``): pending prompts and decode
+      lanes advance together in fused mixed rounds
+      (:func:`paged_mixed_step`);
+    - split (``ragged=False``, tpulab's legacy split dispatch, token-exact
+      against the ragged plan): each new prompt runs one full-prompt
+      forward (:func:`paged_prefill`, flash attention when
+      ``prefill_flash`` — by default on CUDA, not on the CPU), and
+      prefix-cache tails and chunks of prompts longer than
+      ``prefill_chunk`` run :func:`paged_extend`.
+
+    Decode-only lanes then advance in adaptive K-token blocks
+    (:func:`paged_decode_block`, one host sync per block, the next block
+    dispatched ahead while the host emits), or K=1 ticks when a
+    host-sampled lane is present.  Priority preemption evicts the weakest
+    lane, which resumes by re-prefilling prompt + generated tokens (exact
+    tokens).
 
     ``params`` is a :class:`~tpulab_torch.models.transformer.Transformer`
     or a tpulab-keyed tree of tensors.  ``device=None`` means the CUDA
@@ -639,11 +716,13 @@ class ContinuousBatcher:
                  ragged: Optional[bool] = None,
                  kv_publish: bool = False):
         compute_dtype = compute_dtype or torch.bfloat16
-        split = "the legacy split dispatch and flash_attention (kernel 2)"
-        if use_kernel is False or ragged is False:
-            raise _unported("use_kernel=False / ragged=False", split)
-        if prefill_flash:
-            raise _unported("prefill_flash", split)
+        if use_kernel is False:
+            raise NotImplementedError(
+                "use_kernel=False (tpulab's XLA-gather escape hatch of the "
+                "split dispatch) is not carried to tpulab_torch: on the "
+                "card it would route decode attention to plain math "
+                "(ROADMAP, decisions: use_kernel=False); ragged=False "
+                "selects the split plan on the kernels")
         if draft_params is not None:
             raise _unported("draft_params", "speculative decoding")
         if kv_offload or kv_publish:
@@ -681,19 +760,37 @@ class ContinuousBatcher:
         self._step_kw = dict(n_heads=n_heads, n_layers=n_layers,
                              compute_dtype=compute_dtype,
                              n_kv_heads=n_kv, rope_theta=rope_theta)
+        #: dispatch plan: fused mixed rounds (ragged) or per-prompt prefill
+        #: forwards then decode (split)
+        self.ragged = True if ragged is None else bool(ragged)
+        if prefill_flash is None:
+            prefill_flash = self.device.type == "cuda"
+        #: the split plan's full-prompt forward attends through the flash
+        #: kernel; a failure there fails the requests (the scheduler's
+        #: recovery path) and leaves this as set
+        self.prefill_flash = bool(prefill_flash)
+        self._prefill = self._build_prefill(self.prefill_flash)
+        self._extend = functools.partial(paged_extend, **self._step_kw)
         self.decode_block = min(int(decode_block), self.BLOCK_K_MENU[-1])
         self._pending_block: Optional[Dict[str, Any]] = None
         self._step_ewma_s = 0.0
         # -- dispatch/sync accounting ------------------------------------
         self.decode_dispatches = 0   # device dispatches (mixed + decode)
-        self.decode_host_syncs = 0   # blocking device->host fetches
-        self.prefill_dispatches = 0  # stays 0: prompts ride mixed rounds
+        self.decode_host_syncs = 0   # blocking device->host decode fetches
+        #: prompt fills of the split plan (one per prompt, chunked or not;
+        #: stays 0 under the ragged plan — prompts ride mixed rounds)
+        self.prefill_dispatches = 0
         self.ragged_dispatches = 0   # dispatches through the kernel family
         self.dispatch_kinds: Dict[str, int] = {"decode": 0, "verify": 0,
                                                "mixed": 0}
-        #: model forwards dispatched (1 per mixed round or K=1 tick, K per
-        #: block): the attention kernel runs ``n_layers`` times in each
+        #: forwards whose attention is the ragged kernel family (1 per
+        #: mixed round, K=1 tick or extend chunk, K per block): the kernel
+        #: runs ``n_layers`` times in each
         self.forward_steps = 0
+        #: full-prompt forwards of the split plan (:func:`paged_prefill`):
+        #: with ``prefill_flash`` the flash kernel runs ``n_layers`` times
+        #: in each
+        self.prefill_forwards = 0
         self.prefix_cache = PrefixCache(self.pool) if prefix_cache else None
         if prefill_chunk is not None:
             if prefill_chunk < page_size:
@@ -919,7 +1016,13 @@ class ContinuousBatcher:
                         "generation deadline exceeded "
                         f"({len(req.tokens_out)}/{req.steps} tokens)"))
             try:
-                prefilled = self._ragged_round(snapshot)
+                if self.ragged:
+                    prefilled = self._ragged_round(snapshot)
+                else:
+                    prefilled = False
+                    for req in snapshot:
+                        if req is not None and req.pending_prompt:
+                            prefilled |= self._do_prefill(req)
                 if prefilled:
                     # a steps==1 request can complete at prefill
                     done_reqs = []
@@ -951,6 +1054,124 @@ class ContinuousBatcher:
                 if self.prefix_cache is not None:
                     self.prefix_cache.drop_all()
                 self.pool.reset()
+
+    # -- split dispatch plan (per-prompt prefill forwards) --------------------
+    def _build_prefill(self, flash: bool):
+        """The full-prompt prefill program; ``flash`` selects the flash
+        attention kernel for the prompt's causal attention."""
+        attn_fn = make_flash_attention_fn(causal=True) if flash else None
+        return functools.partial(paged_prefill, attention_fn=attn_fn,
+                                 **self._step_kw)
+
+    def _do_prefill(self, req: _PagedRequest) -> bool:
+        """Fill the whole prompt's KV pages and pick the first token.  One
+        full-prompt forward per pow2 length bucket; with a prefix cache
+        the shared full-page prefix is reused and only the tail runs
+        (:func:`paged_extend`); with ``prefill_chunk`` long prompts run in
+        page-aligned chunks.  False (retry later) when the pool cannot
+        yet supply the prompt's pages."""
+        if req.cancelled or req.length != 0:   # swept / already started
+            return False
+        t = len(req.pending_prompt)
+        prompt = np.asarray(req.pending_prompt, np.int32)
+        shared: List[int] = []
+        digests: List[bytes] = []
+        if self.prefix_cache is not None:
+            shared, digests = self.prefix_cache.lookup(prompt,
+                                                       self.page_size)
+        # shared prefix pages first, then private pages (the admission
+        # page + extras) for the tail and the decode writes
+        req.pages = shared + req.pages
+        needed = (t + self.page_size - 1) // self.page_size
+        while len(req.pages) < needed:
+            page = self._alloc_page()
+            if page is None:
+                # page pressure: release partial holdings before retrying —
+                # two starved prefills must not hold-and-wait each other
+                self.pool.release_pages(req.pages)
+                req.pages = []
+                return False
+            req.pages.append(page)
+        start = len(shared) * self.page_size
+        tables = np.zeros((self.max_pages,), np.int32)
+        tables[:len(req.pages)] = req.pages
+        tables_d = self._to_dev(tables)
+        # pages secured: the queue wait ends here (first prefill only — a
+        # preemption resume re-prefills but left the queue once already)
+        t_pf0 = _time.perf_counter()
+        if req.t_prefill0 is None:
+            req.t_prefill0 = t_pf0
+            if self.metrics is not None:
+                self.metrics.observe_queue_wait(t_pf0 - req.t_submit)
+        self.prefill_dispatches += 1
+        if start == 0 and (self.prefill_chunk is None
+                           or t <= self.prefill_chunk):
+            t_pad = 1 << (t - 1).bit_length()   # pow2 length bucket
+            tokens = np.zeros((1, t_pad), np.int64)
+            tokens[0, :t] = prompt
+            last = self._prefill(self.params, self.pool.kv, tables_d,
+                                 self._to_dev(tokens), t)
+            self.prefill_forwards += 1
+        else:
+            # tail (and/or chunked) prefill against resident context
+            chunk = self.prefill_chunk or (t - start)
+            while start < t:
+                m = min(chunk, t - start)
+                m_pad = 1 << (m - 1).bit_length()
+                tokens = np.zeros((1, m_pad), np.int64)
+                tokens[0, :m] = prompt[start:start + m]
+                last = self._extend(self.params, self.pool.kv, tables_d,
+                                    self._to_dev(tokens), start, start + m)
+                self.forward_steps += 1
+                start += m
+        req.length = t
+        req.pending_prompt = []
+        was_resumed = req.resumed
+        if was_resumed:
+            # preemption resume: the fed tail ends at tokens_out[-2]; the
+            # last emitted token was picked before eviction — discard these
+            # logits and continue decoding
+            req.resumed = False
+        else:
+            tok, lp = self._first_token(req, last, t)
+            req.tokens_out.append(tok)
+            self.tokens_generated += 1
+            if req.want_logprobs:
+                req.logprobs_out.append(lp)
+            self._emit(req, tok, 0, lp)
+            now = _time.perf_counter()
+            req.t_last = now
+            if self.metrics is not None:
+                self.metrics.observe_ttft(now - req.t_submit)
+        if self.prefix_cache is not None and not was_resumed:
+            # count each logical request once and publish first-prefill
+            # pages only: full prompt pages are immutable from here on
+            self.prefix_cache.count_lookup(len(shared), len(digests))
+            self.prefix_cache.insert(digests, req.pages[:len(digests)])
+        return True
+
+    def _first_token(self, req: _PagedRequest, last, t: int):
+        """The prompt's first token from its last logits row (one host
+        copy): device-sampled at position t-1 — the same (seed, position)
+        stream as the decode ticks — or picked on the host.  Returns
+        ``(token, logprob or None)``; the logprob is the f32 log-softmax
+        of the row, as in the decode programs."""
+        sp = req.sampling
+        row = last.float()
+        on_device = sp.device and sp.temperature > 0.0
+        pick = row
+        if on_device:
+            dev = row.device
+            pick = device_sample_tokens(
+                row[None], torch.tensor([sp.temperature], device=dev),
+                torch.tensor([self._seed_words(sp)], device=dev),
+                torch.tensor([t - 1], device=dev))
+        parts = [pick]
+        if req.want_logprobs:
+            parts.append(torch.log_softmax(row, dim=-1))
+        host = self._to_host(*parts)
+        tok = int(host[0][0]) if on_device else sp.pick(host[0])
+        return tok, (float(host[1][tok]) if req.want_logprobs else None)
 
     # -- ragged dispatch plan (mixed prefill+decode rounds) ------------------
     def _ragged_prefill_start(self, req: _PagedRequest) -> bool:
@@ -989,13 +1210,17 @@ class ContinuousBatcher:
         return torch.as_tensor(arr).to(self.device)
 
     def _fetch(self, *tensors) -> List[np.ndarray]:
+        """:meth:`_to_host`, counted in ``decode_host_syncs``."""
+        self.decode_host_syncs += 1
+        return self._to_host(*tensors)
+
+    @staticmethod
+    def _to_host(*tensors) -> List[np.ndarray]:
         """ONE blocking device->host copy of several device tensors, each
         returned as a numpy array of its own dtype and shape (packed as
-        float64, which holds token ids, f32 values and masks exactly).
-        Counted in ``decode_host_syncs``."""
+        float64, which holds token ids, f32 values and masks exactly)."""
         host = torch.cat([t.reshape(-1).to(torch.float64)
                           for t in tensors]).cpu()
-        self.decode_host_syncs += 1
         out, i = [], 0
         for t in tensors:
             n = t.numel()

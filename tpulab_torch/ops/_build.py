@@ -8,8 +8,9 @@ seconds)::
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
 The library lands in ``build/tpulab_torch/`` at the repository root (git
-ignores it), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads as it is.  Nothing is built
+ignores it), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one loads as it is.  Nothing is built
 when a module is imported: only a kernel launch on a CUDA tensor (or
 ``chip_smoke.py``) calls :func:`load`; the kernel's own module declares
 its C functions' types.
@@ -51,8 +52,11 @@ def compile_library(name: str) -> tuple:
     at once: each compiles into a private temporary file and renames it
     into place."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out, 0.0, ""

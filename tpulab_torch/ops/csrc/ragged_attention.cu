@@ -33,52 +33,17 @@
 // the bf16 tensor cores (wgmma), TMA and split-KV for long contexts at
 // small batch to later work, so prefill runs far from its bound.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "common.cuh"
 
 namespace {
+
+using namespace tpulab;
 
 constexpr int KT = 32;              // key positions per stage (one per lane)
 constexpr int NWARPS = 8;
 constexpr int ROWS_PER_WARP = 4;
 constexpr int TILE_ROWS = NWARPS * ROWS_PER_WARP;   // query rows per block
 constexpr float NEG = -1e30f;
-constexpr int MAX_DEVICES = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// 16-byte global->shared async copy; src_bytes == 0 zero-fills the row
-// chunk without reading global memory.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -90,26 +55,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Eight bf16 or four f32 values from one 16-byte shared-memory chunk.
-__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
-                                           float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load_chunk(const float* p, float* out) {
-  float4 raw = *reinterpret_cast<const float4*>(p);
-  out[0] = raw.x;
-  out[1] = raw.y;
-  out[2] = raw.z;
-  out[3] = raw.w;
 }
 
 template <typename KVT, int D>
@@ -223,7 +168,7 @@ __global__ void __launch_bounds__(NWARPS * 32)
 #pragma unroll
         for (int d = 0; d < D; d += EPC) {
           float kv8[EPC];
-          load_chunk(kr + d, kv8);
+          load_vals<EPC>(kr + d, kv8);
 #pragma unroll
           for (int e = 0; e < EPC; ++e) a = fmaf(qr[d + e], kv8[e], a);
         }
@@ -268,17 +213,8 @@ int launch(const void* q, const void* pool, const int* tables,
            cudaStream_t stream) {
   const size_t smem = Geometry<KVT, D>::smem_bytes;
   auto kern = ragged_attn_kernel<QT, KVT, D>;
-  // the shared-memory opt-in is set once per instantiation and device
   static std::atomic<bool> smem_set[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= MAX_DEVICES || !smem_set[dev].load(std::memory_order_acquire)) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < MAX_DEVICES) smem_set[dev].store(true, std::memory_order_release);
-  }
+  if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int G = Hq / Hkv;
   dim3 grid((M * G + TILE_ROWS - 1) / TILE_ROWS, Hkv, B);
   kern<<<grid, NWARPS * 32, smem, stream>>>(
@@ -333,9 +269,4 @@ extern "C" int tpulab_ragged_paged_attention(
     default:
       return -1;
   }
-}
-
-extern "C" const char* tpulab_cuda_error_string(int code) {
-  return code < 0 ? "unsupported head dim"
-                  : cudaGetErrorString(static_cast<cudaError_t>(code));
 }
