@@ -310,7 +310,7 @@ def phase_ragged(torch, timer):
 
 
 FA_GEOM = dict(b=1, h=32, d=128)
-FA_TS = (8, 128, 512, 2048)
+FA_TS = (8, 64, 128, 512, 1024, 2048)   # the split serve's buckets among them
 FA_TILE = 64                     # the kernel's query tile
 
 

@@ -351,28 +351,51 @@ def test_split_plan_preemption_resumes_exactly(lm):
     _same_greedy(pj, p[5], want, low)
 
 
-def test_failing_prefill_fails_the_request_and_keeps_flash(lm):
-    """A prefill that raises goes to the scheduler's recovery path: the
-    request fails, the pool resets, ``prefill_flash`` stays on (no
-    degrade to dense attention), and the next request is served."""
+def test_failing_prefill_fails_the_request_and_keeps_flash(lm, monkeypatch):
+    """A prefill whose flash attention raises goes to the scheduler's
+    recovery path: the request fails, the pool resets, ``prefill_flash``
+    stays on (no degrade to dense attention), and the next prompt's
+    forward attends through flash again, once per layer."""
+    import importlib
+    # the module, not the function of the same name tpulab_torch.ops exports
+    fa = importlib.import_module("tpulab_torch.ops.flash_attention")
+    real = fa.flash_attention
+    calls, fault = [0], [True]
+
+    def counted(q, k, v, **kw):
+        calls[0] += 1
+        if fault[0]:
+            raise RuntimeError("planted prefill fault")
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention", counted)
     _, model = lm
     cb = ContinuousBatcher(model, compute_dtype=torch.float32, device="cpu",
                            **SPLIT, **dict(CFG, lanes=1, prefix_cache=False))
     try:
-        real = cb._prefill
-
-        def planted(*args, **kw):
-            raise RuntimeError("planted prefill fault")
-
-        cb._prefill = planted
+        prefill = cb._prefill
         with pytest.raises(RuntimeError, match="planted prefill fault"):
             cb.submit(_prompts()[5], 4).result(timeout=60)
-        assert cb.prefill_flash is True and cb._prefill is planted
-        cb._prefill = real
+        assert calls[0] == 1
+        assert cb.prefill_flash is True and cb._prefill is prefill
+        fault[0] = False
         assert len(cb.submit(_prompts()[5], 4).result(timeout=60)) == 4
+        assert calls[0] == 1 + N_LAYERS
         assert cb.pool.free_pages == cb.pool.n_pages - 1
     finally:
         cb.shutdown()
+
+
+def test_dense_prefill_refused_on_cuda(lm):
+    """``prefill_flash=False`` would put the split plan's prompt
+    attention on plain math on the card: a CUDA batcher refuses it
+    before it allocates anything (a stand-in pool names the device)."""
+    import types
+    with pytest.raises(NotImplementedError, match="prefill_flash=False"):
+        ContinuousBatcher(lm[1], n_heads=N_HEADS, n_layers=N_LAYERS,
+                          pool=types.SimpleNamespace(
+                              device=torch.device("cuda", 0)),
+                          ragged=False, prefill_flash=False)
 
 
 def test_split_plan_defaults(lm):

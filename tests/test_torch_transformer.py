@@ -91,6 +91,28 @@ def test_collect_kv_matches_tpulab():
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("last", [0, T - 1, "tensor"])
+def test_collect_kv_last_index_matches_tpulab_row(last):
+    """``last_index`` runs the vocab head on one position: its logits
+    equal that row of tpulab's full (B, T, vocab) logits."""
+    from tpulab.models.transformer import transformer_forward_collect_kv
+    p = _jax_params(2, "swiglu", False, "float32")
+    tokens = np.random.default_rng(4).integers(0, VOCAB, (1, T), np.int32)
+    want, _ = transformer_forward_collect_kv(
+        p, jnp.asarray(tokens), n_heads=N_HEADS, n_layers=N_LAYERS,
+        compute_dtype=jnp.float32, n_kv_heads=2, rope_theta=10000.0)
+    idx = torch.tensor(T // 2) if last == "tensor" else last
+    model = params_from_numpy(_np_tree(p), "cpu", n_heads=N_HEADS,
+                              n_kv_heads=2)
+    got, _ = tt.transformer_forward_collect_kv(
+        model.params, torch.as_tensor(tokens).long(), n_heads=N_HEADS,
+        n_layers=N_LAYERS, compute_dtype=torch.float32, n_kv_heads=2,
+        rope_theta=10000.0, last_index=idx)
+    assert got.shape == (1, VOCAB)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, int(idx)],
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_init_params_shapes_and_seed():
     a = tt.init_transformer_params(VOCAB, D_MODEL, N_HEADS, N_LAYERS, D_FF,
                                    seed=5, n_kv_heads=2, ffn="swiglu",

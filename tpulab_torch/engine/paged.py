@@ -424,16 +424,22 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
 
     tokens (1, T_pad) (padded tail arbitrary); valid_len the prompt length
     (int or 0-d tensor); tables (MP,) this lane's page ids.  Padded
-    positions write to the scratch page 0.  ``attention_fn`` (default:
-    dense causal attention) takes (B, T, H, D) q and K/V repeated to H —
-    :func:`make_flash_attention_fn` puts the flash kernel there.  Returns
-    the last valid token's logits (vocab,) f32."""
+    positions write to the scratch page 0.  ``attention_fn`` takes (B, T,
+    H, D) q and K/V repeated to H; ``None`` means the flash kernel
+    (:func:`make_flash_attention_fn`) on CUDA tensors and dense causal
+    attention, tpulab's default, on the CPU.  The final norm and vocab
+    head run on the last valid position only; returns its logits
+    (vocab,) f32."""
     page_size = kv_pool.shape[3]
     t_pad = tokens.shape[1]
+    if attention_fn is None:
+        attention_fn = (make_flash_attention_fn(causal=True)
+                        if tokens.is_cuda else causal_attention)
     logits, kvs = transformer_forward_collect_kv(
         params, tokens, n_heads=n_heads, n_layers=n_layers,
         compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
-        rope_theta=rope_theta, attention_fn=attention_fn or causal_attention)
+        rope_theta=rope_theta, attention_fn=attention_fn,
+        last_index=valid_len - 1)
     pos = torch.arange(t_pad, device=tokens.device)
     valid = pos < valid_len
     # JAX clamps an out-of-range gather; PyTorch would fault — clamp
@@ -442,7 +448,7 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
     slot_idx = torch.where(valid, pos % page_size, 0)
     for layer, (k, v) in enumerate(kvs):
         _write_kv(kv_pool, layer, page_idx, slot_idx, k[0], v[0])
-    return logits[0, valid_len - 1]
+    return logits[0]
 
 
 def paged_extend(params, kv_pool, tables, tokens, start, valid_total,
@@ -675,7 +681,7 @@ class ContinuousBatcher:
     - split (``ragged=False``, tpulab's legacy split dispatch, token-exact
       against the ragged plan): each new prompt runs one full-prompt
       forward (:func:`paged_prefill`, flash attention when
-      ``prefill_flash`` — by default on CUDA, not on the CPU), and
+      ``prefill_flash`` — always on CUDA, by default off on the CPU), and
       prefix-cache tails and chunks of prompts longer than
       ``prefill_chunk`` run :func:`paged_extend`.
 
@@ -745,6 +751,12 @@ class ContinuousBatcher:
         n_kv = n_kv_heads or n_heads
         self.device = (pool.device if pool is not None
                        else resolve_device(device))
+        if prefill_flash is False and self.device.type == "cuda":
+            raise NotImplementedError(
+                "prefill_flash=False (dense prompt attention) is not "
+                "carried to tpulab_torch on the card: it would route the "
+                "split plan's prompt attention to plain math (ROADMAP, "
+                "decisions: prefill_flash=False)")
         self.lanes = lanes
         self.max_len = max_len
         self.page_size = page_size
@@ -1059,7 +1071,8 @@ class ContinuousBatcher:
     def _build_prefill(self, flash: bool):
         """The full-prompt prefill program; ``flash`` selects the flash
         attention kernel for the prompt's causal attention."""
-        attn_fn = make_flash_attention_fn(causal=True) if flash else None
+        attn_fn = (make_flash_attention_fn(causal=True) if flash
+                   else causal_attention)
         return functools.partial(paged_prefill, attention_fn=attn_fn,
                                  **self._step_kw)
 

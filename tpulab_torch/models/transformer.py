@@ -260,9 +260,11 @@ def _embed(params, tokens, compute_dtype):
 def _forward(params, tokens, n_heads, n_layers, compute_dtype, attention_fn,
              collect_kv: bool = False, ffn_fn=_dense_ffn,
              n_kv_heads: Optional[int] = None,
-             rope_theta: Optional[float] = None):
+             rope_theta: Optional[float] = None, last_index=None):
     """Shared trunk: (B, T) tokens -> (logits, kvs or None); ``collect_kv``
-    returns the compact (B, T, Hkv, D) K/V per layer."""
+    returns the compact (B, T, Hkv, D) K/V per layer.  ``last_index``
+    (int or 0-d tensor) runs the final norm and vocab head on that one
+    position only: logits (B, vocab) instead of (B, T, vocab)."""
     n_kv = n_kv_heads or n_heads
     x = _embed(params, tokens, compute_dtype)
     b, t, d_model = x.shape
@@ -284,6 +286,9 @@ def _forward(params, tokens, n_heads, n_layers, compute_dtype, attention_fn,
         x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
         h = _rmsnorm(x, p["ln2"]["scale"])
         x = x + ffn_fn(p, h, compute_dtype).to(x.dtype)
+    if last_index is not None:
+        idx = torch.as_tensor(last_index, device=x.device).reshape(1)
+        x = x.index_select(1, idx.long())[:, 0]
     x = _rmsnorm(x, params["final_norm"]["scale"])
     return _lm_head(params, x), kvs
 
@@ -307,8 +312,10 @@ def transformer_forward_collect_kv(params: Tree, tokens: torch.Tensor,
                                    compute_dtype=torch.bfloat16,
                                    attention_fn: Callable = causal_attention,
                                    n_kv_heads: Optional[int] = None,
-                                   rope_theta: Optional[float] = None):
-    """Causal forward that also returns each layer's K/V (B, T, Hkv, Dh)."""
+                                   rope_theta: Optional[float] = None,
+                                   last_index=None):
+    """Causal forward that also returns each layer's K/V (B, T, Hkv, Dh).
+    ``last_index`` keeps the logits of that one position: (B, vocab)."""
     return _forward(params, tokens, n_heads, n_layers, compute_dtype,
                     attention_fn, collect_kv=True, n_kv_heads=n_kv_heads,
-                    rope_theta=rope_theta)
+                    rope_theta=rope_theta, last_index=last_index)
