@@ -9,24 +9,32 @@ raises and the script exits non-zero without printing a result:
 1. device  — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions.  TF32 is switched off for matmuls and cuDNN.
 2. build   — the three kernel sources under ``tpulab_torch/ops/csrc/``
+   (with the shared headers ``common.cuh`` and ``attn_wgmma.cuh``)
    compiled by ``nvcc``, one process per source, all started together;
    build seconds, registers and spills per kernel.
 3. kernels — every kernel's wrapper on the card held against its plain
    PyTorch version, with the tolerance set by the output dtype (f32
    rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3), and a
-   planted error per kernel that the same check must REJECT:
+   planted error per kernel that the same check must REJECT.  For the
+   ragged and flash kernels each case also prints the body that ran
+   (``wgmma``: bf16 on the tensor cores; ``fma``: f32 FMAs on CUDA cores)
+   and, for ragged, its split-KV count, and checks that a second launch
+   gives a bit-identical output:
    - ragged_paged_attention at the serving geometry (Hq 32, Hkv 8, D 128,
      page 16, 8 lanes x 128 pages), seven shapes; planted: one page
      skipped at 2048 context;
-   - flash_attention at B 1, H 32, D 128, T in {8, 128, 512, 2048},
-     causal and not; planted: the diagonal K tile of every causal row
-     past the first tile dropped, at T 2048;
+   - flash_attention at B 1, H 32, D 128, T in {8, 64, 128, 512, 1024,
+     2048} (the split serve's buckets among them), causal and not;
+     planted: the diagonal K tile of every causal row past the first
+     tile dropped, at T 2048;
    - paged_decode_attention at the serving geometry, positions 1023 and
      2047; planted: one page skipped at 2048 context; kernel 1's time at
      the same shape beside it.
    Kernel, plain, bound and ``F.scaled_dot_product_attention`` (a
    labelled yardstick; the port never calls it) times per case, CUDA
-   events with the L2 flushed.
+   events with the L2 flushed.  Then the host time of one flash and one
+   ragged wrapper call per body (the tensor-map encodes, the split-KV
+   scratch).
 4. invariants — at full width with 2 layers: in bf16,
    ``paged_decode_block(k=8)`` equals 8 chained ``paged_decode_step``
    calls bit for bit, ``paged_mixed_step`` equals ``paged_ragged_forward``
@@ -42,9 +50,10 @@ raises and the script exits non-zero without printing a result:
    request mix under the ragged plan, then (that batcher shut down) under
    the split plan (``ragged=False``: flash prefill, then K-blocks).  Per
    plan: lengths, ranges, stop token, logprobs, dispatch kinds, kernel
-   launches == n_layers x the forwards that run each kernel, and a
-   second identical run giving identical streams.  Prints tokens/s and
-   time to first token per plan; no gain is claimed.
+   launches == n_layers x the forwards that run each kernel, every one
+   of them on the ``wgmma`` body (bf16), and a second identical run
+   giving identical streams.  Prints tokens/s and time to first token
+   per plan; no gain is claimed.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -71,11 +80,13 @@ SPLIT = dict(ragged=False, prefill_chunk=None, prefix_cache=False)
 KERNELS = ("ragged_attention", "flash_attention", "paged_attention")
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
-# (rtol, atol) by the OUTPUT dtype.  Both sides read the same values and
-# sum in f32; only the order differs (f32: ~1e-6 measured).  A bf16
-# output is rounded at the end on both sides, so a last-place flip
-# (2^-8 to 2^-7 relative) is the expected difference; rtol 8e-3 allows
-# one and atol 4e-3 covers outputs near zero (1.95e-3 measured).
+# (rtol, atol) by the OUTPUT dtype.  f32: both sides read the same values
+# and sum in f32, only the order differs (~1e-6 measured).  bf16: the
+# kernel's tensor-core body also rounds P to bf16 before P V (2^-9
+# relative per weight, averaged over the keys a row sees), and both sides
+# round the output to bf16 at the end, so a last-place flip (2^-8 to
+# 2^-7 relative) is the expected difference; rtol 8e-3 allows one and
+# atol 4e-3 covers outputs near zero.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3)}
 # the split and ragged plans may pick different greedy tokens only where
 # the two best f32 logits lie closer than this (their logits differ by
@@ -141,6 +152,22 @@ def check_rejects(torch, label, got, planted):
                              f"error (max shift {shift:.2e})")
     log(f"kernels: planted {label}: max shift {shift:.2e}, rejected at "
         f"rtol {rtol:g} atol {atol:g}")
+
+
+def launch_twice(torch, label, wrapper, call, body):
+    """Two launches through ``wrapper`` (``call()`` launches it once):
+    both must run ``body`` and give bit-identical outputs.  Returns the
+    first output."""
+    before = dict(wrapper.launches_by_body)
+    got = call()
+    again = call()
+    torch.cuda.synchronize()
+    ran = {k: n - before[k] for k, n in wrapper.launches_by_body.items()}
+    if ran != {k: 2 if k == body else 0 for k in ran}:
+        raise AssertionError(f"{label}: bodies {ran}, want 2 x {body}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: a second launch is not bit-identical")
+    return got
 
 
 def bound(nbytes, ops, kind):
@@ -254,12 +281,14 @@ def phase_ragged(torch, timer):
     import numpy as np
 
     from tpulab_torch.ops.ragged_attention import (
-        ragged_paged_attention, ragged_paged_attention_reference)
+        _sm_count, ragged_body, ragged_paged_attention,
+        ragged_paged_attention_reference, ragged_splits)
 
     g = RA_GEOM
     rng = np.random.default_rng(0)
     pool32, tables = serving_pool(torch, np, rng)
     t = g["mp"] * g["s"]
+    n_sm = _sm_count(torch.cuda.current_device())
     rows = []
     for dname, q_name, kv_name in DTYPE_MIXES:
         q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
@@ -274,8 +303,12 @@ def phase_ragged(torch, timer):
             kv_lens = torch.tensor(kv_lens_l, dtype=torch.int32,
                                    device="cuda")
             args = (q, pool, tables, q_lens, kv_lens)
-            got = ragged_paged_attention(*args)
-            torch.cuda.synchronize()
+            body = ragged_body(q_dt, kv_dt, g["d"])
+            splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"],
+                                   g["s"], n_sm, body)
+            got = launch_twice(torch, f"ragged {name} {dname}",
+                               ragged_paged_attention,
+                               lambda: ragged_paged_attention(*args), body)
             err = check_close(torch, f"ragged {name} {dname}", got,
                               ragged_paged_attention_reference(*args))
             if name == "long_decode":
@@ -300,11 +333,12 @@ def phase_ragged(torch, timer):
                                           pool.element_size(), kind)
             rows.append(dict(case=name, dtypes=dname, max_abs_err=err,
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=lib_ms))
-            log(f"kernels: ragged {name:<14} {dname:<9} err={err:.2e} "
-                f"kernel={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f} "
-                f"({bound_by}) ms | yardstick, unused by the port: "
-                f"sdpa={lib_ms:.4f} ms")
+                             bound_by=bound_by, library_ms=lib_ms,
+                             body=f"{body} x{splits}"))
+            log(f"kernels: ragged {name:<14} {dname:<9} {body:<5} x{splits:<2} "
+                f"err={err:.2e} kernel={ms:.4f} plain={plain_ms:.4f} "
+                f"bound={bound_ms:.4f} ({bound_by}) ms | yardstick, unused "
+                f"by the port: sdpa={lib_ms:.4f} ms")
         del pool
     return rows
 
@@ -327,7 +361,8 @@ def phase_flash(torch, timer):
     import torch.nn.functional as F
 
     from tpulab_torch.ops.flash_attention import (flash_attention,
-                                                  flash_attention_reference)
+                                                  flash_attention_reference,
+                                                  flash_body)
 
     g = FA_GEOM
     rng = np.random.default_rng(1)
@@ -342,8 +377,10 @@ def phase_flash(torch, timer):
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             for causal in (True, False):
                 label = f"T={t} {'causal' if causal else 'full'}"
-                got = flash_attention(q, k, v, causal=causal)
-                torch.cuda.synchronize()
+                body = flash_body(dt, g["d"])
+                got = launch_twice(
+                    torch, f"flash {label} {dname}", flash_attention,
+                    lambda: flash_attention(q, k, v, causal=causal), body)
                 err = check_close(torch, f"flash {label} {dname}", got,
                                   flash_attention_reference(q, k, v, causal))
                 if causal and t == FA_TS[-1]:
@@ -367,12 +404,64 @@ def phase_flash(torch, timer):
                     4 * g["d"] * g["h"] * pairs, kind)
                 rows.append(dict(case=label, dtypes=dname, max_abs_err=err,
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=lib_ms))
-                log(f"kernels: flash {label:<12} {dname:<8} err={err:.2e} "
-                    f"kernel={ms:.4f} plain={plain_ms:.4f} "
+                                 bound_by=bound_by, library_ms=lib_ms,
+                                 body=body))
+                log(f"kernels: flash {label:<12} {dname:<8} {body:<5} "
+                    f"err={err:.2e} kernel={ms:.4f} plain={plain_ms:.4f} "
                     f"bound={bound_ms:.4f} ({bound_by}) ms | yardstick, "
                     f"unused by the port: sdpa={lib_ms:.4f} ms")
     return rows
+
+
+def host_us(torch, call, n=200):
+    """Mean host time (us) of one wrapper call: what the host spends to
+    enqueue it (fewer launches than the device queue holds, drained
+    before and after)."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def phase_host(torch):
+    """Host cost per call of the two redesigned wrappers: a wgmma flash
+    call encodes three TMA tensor maps, a split ragged call allocates
+    its f32 scratch and launches the merge as well."""
+    import numpy as np
+
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import (_sm_count,
+                                                   ragged_paged_attention,
+                                                   ragged_splits)
+
+    g, rng = RA_GEOM, np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal(
+        (3, 1, 512, FA_GEOM["h"], FA_GEOM["d"])).astype(np.float32)).cuda()
+    us = {}
+    for name, dt in (("wgmma", torch.bfloat16), ("fma", torch.float32)):
+        q, k, v = qkv.to(dt)
+        us[f"flash {name}"] = host_us(torch, lambda: flash_attention(q, k, v))
+    pool32, tables = serving_pool(torch, np, rng)
+    pool = pool32.to(torch.bfloat16)
+    n_sm = _sm_count(torch.cuda.current_device())
+    for m, kv in ((1, 1024), (256, 1024)):
+        splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"],
+                               g["s"], n_sm)
+        q = torch.from_numpy(rng.standard_normal(
+            (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda().to(
+                torch.bfloat16)
+        lens = [torch.full((g["b"],), n, dtype=torch.int32, device="cuda")
+                for n in (m, kv)]
+        us[f"ragged wgmma x{splits}"] = host_us(
+            torch, lambda: ragged_paged_attention(q, pool, tables, *lens))
+    log("kernels: host time per wrapper call (enqueue, mean of 200): "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
+        + " (flash wgmma: three tensor-map encodes; a split ragged call: "
+        "scratch allocation and the merge launch)")
 
 
 PD_POSITIONS = (1023, 2047)      # inclusive current positions
@@ -673,13 +762,13 @@ def device_breakdown(torch, prof, wall_s, card, plan):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0)) / 1e3
 
-    classes = {"attention (ragged_attn_kernel)": 0.0,
-               "attention (flash_fwd_kernel)": 0.0, "matmul": 0.0,
+    classes = {"attention (ragged_attn_*)": 0.0,
+               "attention (flash_fwd_*)": 0.0, "matmul": 0.0,
                "other": 0.0}
     for e in kernels:
         n = e.key.lower()
-        cls = ("attention (ragged_attn_kernel)" if "ragged_attn" in n
-               else "attention (flash_fwd_kernel)" if "flash_fwd" in n
+        cls = ("attention (ragged_attn_*)" if "ragged_attn" in n
+               else "attention (flash_fwd_*)" if "flash_fwd" in n
                else "matmul" if any(w in n for w in (
                    "gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"))
                else "other")
@@ -744,6 +833,7 @@ def serve_once(torch, cb, prompts, stop_token, counted):
     ]
     for fn in counted.values():
         fn.launches = 0
+        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
     before = (cb.forward_steps, cb.prefill_forwards, cb.prefill_dispatches,
               dict(cb.dispatch_kinds), cb.tokens_generated)
     t0 = time.perf_counter()
@@ -758,8 +848,10 @@ def serve_once(torch, cb, prompts, stop_token, counted):
     outs["late"] = late["late"].result(timeout=900)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
+    by_body = {name: dict(fn.launches_by_body)
+               for name, fn in counted.items()}
     stats = dict(wall_s=wall, tokens=cb.tokens_generated - before[4],
-                 launches=launches,
+                 launches=launches, by_body=by_body,
                  forward_steps=cb.forward_steps - before[0],
                  prefill_forwards=cb.prefill_forwards - before[1],
                  prefill_dispatches=cb.prefill_dispatches - before[2],
@@ -780,6 +872,12 @@ def check_plan(plan, st, n_layers, n_requests):
         raise AssertionError(f"{plan}: flash launches {fa} != n_layers x "
                              f"prefill forwards {n_layers} x "
                              f"{st['prefill_forwards']}")
+    for name, n in st["launches"].items():
+        # the serve is bf16 at D 128: every launch takes the wgmma body
+        if st["by_body"][name] != {"fma": 0, "wgmma": n}:
+            raise AssertionError(f"{plan}: {name} launches by body "
+                                 f"{st['by_body'][name]}, want all {n} "
+                                 "on wgmma")
     kinds = st["kinds"]
     if plan == "ragged":
         ok = (kinds["mixed"] > 0 and kinds["decode"] > 0
@@ -868,7 +966,8 @@ def serve_plan(torch, model, prompts, plan, card, profile):
         f"{st2['launches']['ragged']} = {c['n_layers']} x "
         f"{st2['forward_steps']} forward steps, flash "
         f"{st2['launches']['flash']} = {c['n_layers']} x "
-        f"{st2['prefill_forwards']} prefill forwards [{card}]")
+        f"{st2['prefill_forwards']} prefill forwards, all on the wgmma "
+        f"body [{card}]")
     log(f"serve: {plan} plan: second identical run {st3['wall_s']:.3f} s, "
         f"{st3['tokens'] / st3['wall_s']:.1f} tok/s; streams identical")
     return st2
@@ -905,15 +1004,20 @@ def phase_serve(torch, card, profile=False):
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case):
     """One kernel's line: times of its main case, the max error over
-    that case's dtype mix."""
+    that case's dtype mix, and (kernels with several bodies) the body,
+    with its split count, that ran each case."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
-    return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches,
-                max_abs_err=max(r["max_abs_err"] for r in rows
-                                if r["dtypes"] == main[1]),
-                ms=row["ms"], plain_ms=row["plain_ms"],
-                bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                library_ms=row["library_ms"], case=case)
+    entry = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=launches,
+                 max_abs_err=max(r["max_abs_err"] for r in rows
+                                 if r["dtypes"] == main[1]),
+                 ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                 library_ms=row["library_ms"], case=case)
+    if "body" in row:       # "<body> x<splits>" for ragged, "<body>" flash
+        entry["bodies"] = {f"{r['case']} {r['dtypes']}": r["body"]
+                           for r in rows}
+    return entry
 
 
 def main(argv=None) -> int:
@@ -950,7 +1054,11 @@ def main(argv=None) -> int:
                         ("paged", phase_paged)):
         t0 = time.perf_counter()
         rows[name] = phase(torch, timer)
-        log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s")
+        relaunch = ("; every case on its stated body, a second launch "
+                    "bit-identical" if name != "paged" else "")
+        log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s"
+            f"{relaunch}")
+    phase_host(torch)
 
     t0 = time.perf_counter()
     op_launches = phase_invariants(torch)

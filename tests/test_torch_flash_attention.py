@@ -7,34 +7,43 @@ numpy inputs.  Tolerances: f32 2e-5 (summation order differs); bf16
 3e-2 (tpulab's own for bf16 inputs and outputs); gradients 2e-3 (tpulab's
 backward test); logits of a transformer with flash attention 2e-4.
 
-The CUDA kernel has no CPU mode: its test is marked ``cuda`` and skips
+The CUDA kernel has no CPU mode: its tests are marked ``cuda`` and skip
 without a card (``chip_smoke.py`` holds it against the plain version on
-the H100).
+the H100).  The card's machine has no JAX, so the reference imports are
+optional there and only the ``cuda`` tests run:
+``python -m pytest --noconftest -m cuda tests/test_torch_flash_attention.py``
+(``tests/conftest.py`` sets up JAX).
+The body rule (:func:`flash_body`) is plain Python and tested here.
 """
 
 from functools import partial
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from tpulab.models.transformer import init_transformer_params
-from tpulab.models.transformer import transformer_apply as jax_apply
-from tpulab.ops.flash_attention import flash_attention as tpu_flash
-from tpulab.ops.flash_attention import \
-    make_flash_attention_fn as tpu_make_flash
+try:            # the reference; absent on the card's machine
+    import jax
+    import jax.numpy as jnp
+
+    from tpulab.models.transformer import init_transformer_params
+    from tpulab.models.transformer import transformer_apply as jax_apply
+    from tpulab.ops.flash_attention import flash_attention as tpu_flash
+    from tpulab.ops.flash_attention import \
+        make_flash_attention_fn as tpu_make_flash
+except ImportError:
+    jax = jnp = None
 from tpulab_torch.models.convert import params_from_numpy
 from tpulab_torch.models.transformer import transformer_apply
 from tpulab_torch.ops.flash_attention import (flash_attention,
                                               flash_attention_reference,
+                                              flash_body,
                                               make_flash_attention_fn)
 
 torch.set_num_threads(2)
 
-_DT = {"float32": (jnp.float32, torch.float32),
-       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+_DT = {"float32": (jnp and jnp.float32, torch.float32),
+       "bfloat16": (jnp and jnp.bfloat16, torch.bfloat16)}
 _TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
 
@@ -123,14 +132,25 @@ def test_attention_fn_in_transformer():
                                atol=2e-4)
 
 
+@pytest.mark.parametrize("dtype,d,body", [
+    ("bfloat16", 128, "wgmma"), ("bfloat16", 64, "wgmma"),
+    ("bfloat16", 256, "fma"), ("float32", 128, "fma"),
+    ("float32", 64, "fma"), ("float32", 256, "fma")])
+def test_body_rule(dtype, d, body):
+    """bf16 with D 64 or 128 runs on the tensor cores; f32 (no TF32) and
+    D 256 keep the CUDA-core body."""
+    assert flash_body(getattr(torch, dtype), d) == body
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("t", [8, 200, 256])
 def test_cuda_kernel_matches_plain_version(dtype, t):
     """On the card: the kernel against its plain version, causal and not,
-    a launch counted per call.  Both sum the same values in f32, so the
-    tolerance follows the output dtype: f32 1e-4; bf16 one last-place
-    flip of the final rounding (rtol 8e-3) with atol 4e-3 near zero."""
+    a launch counted per call.  f32 sums the same values as the plain
+    version in another order: 1e-4.  bf16 also rounds P to bf16 before
+    P V on the tensor cores, and both round the output to bf16: one
+    last-place flip (rtol 8e-3) with atol 4e-3 near zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dev = torch.device("cuda")
@@ -145,3 +165,45 @@ def test_cuda_kernel_matches_plain_version(dtype, t):
         want = flash_attention_reference(*arrs, causal=causal)
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol)
+
+
+_CARD_TS = [1, 8, 63, 64, 65, 200, 2048]
+
+
+def _strided_qkv(seed, t, h, d, dtype):
+    """q, k, v as strided (B, T, H, D) views of one fused projection, as
+    the transformer hands them over."""
+    rng = np.random.default_rng(seed)
+    fused = torch.from_numpy(rng.standard_normal(
+        (1, t, 3 * h, d)).astype(np.float32)).to("cuda", dtype)
+    return fused[:, :, :h], fused[:, :, h:2 * h], fused[:, :, 2 * h:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", _CARD_TS)
+def test_cuda_bodies_on_strided_views(t, d):
+    """On the card, bf16: strided q/k/v views at every ragged edge (T
+    below, at and past one 64-row tile, not a multiple of it, and the
+    serve's largest bucket), causal and not.  Each call runs the body
+    :func:`flash_body` names and a second launch is bit-identical.
+    Tolerance as in the test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    h = 8 if t == 2048 else 4
+    q, k, v = _strided_qkv(t * d, t, h, d, torch.bfloat16)
+    body = flash_body(torch.bfloat16, d)
+    assert body == ("fma" if d == 256 else "wgmma")
+    for causal in (True, False):
+        n0 = dict(flash_attention.launches_by_body)
+        got = flash_attention(q, k, v, causal=causal, block_q=t, block_k=t)
+        again = flash_attention(q, k, v, causal=causal, block_q=t,
+                                block_k=t)
+        torch.cuda.synchronize()
+        ran = {b: n - n0[b] for b, n in flash_attention.launches_by_body.items()}
+        assert ran == {b: 2 if b == body else 0 for b in ran}
+        assert torch.equal(got, again)
+        want = flash_attention_reference(q, k, v, causal=causal)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=4e-3)

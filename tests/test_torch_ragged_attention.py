@@ -8,25 +8,38 @@ page size {4, 8} x raggedness shape, plus the long walk and a q f32 /
 bf16 pool mix.  Tolerances: f32 2e-5 (summation order differs); bf16
 2e-2 (P.V rounds to bf16 at different points, output is bf16).
 
-The CUDA kernel itself has no CPU mode: its test is marked ``cuda`` and
-skips without a card (``chip_smoke.py`` holds it against the plain
-version on the H100).
+The CUDA kernel itself has no CPU mode: its tests are marked ``cuda``
+and skip without a card (``chip_smoke.py`` holds it against the plain
+version on the H100).  The card's machine has no JAX, so the reference
+imports are optional there and only the ``cuda`` tests run:
+``python -m pytest --noconftest -m cuda tests/test_torch_ragged_attention.py``
+(``tests/conftest.py`` sets up JAX).  The host rules
+(:func:`ragged_body`, :func:`ragged_splits`) are plain Python and tested
+here.
 """
 
-import jax.numpy as jnp
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
-from tpulab.ops.ragged_attention import ragged_paged_attention as tpu_rpa
+try:            # the reference; absent on the card's machine
+    import jax.numpy as jnp
+
+    from tpulab.ops.ragged_attention import \
+        ragged_paged_attention as tpu_rpa
+except ImportError:
+    jnp = None
 from tpulab_torch.engine.paged import _gather_attend
 from tpulab_torch.ops.ragged_attention import (
-    ragged_paged_attention, ragged_paged_attention_reference)
+    MAX_SPLITS, STAGE_KEYS, ragged_body, ragged_paged_attention,
+    ragged_paged_attention_reference, ragged_splits)
 
 torch.set_num_threads(2)
 
-_DT = {"float32": (jnp.float32, torch.float32),
-       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+_DT = {"float32": (jnp and jnp.float32, torch.float32),
+       "bfloat16": (jnp and jnp.bfloat16, torch.bfloat16)}
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -155,9 +168,10 @@ def test_gather_attend_matches_plain_version():
                                     ("float32", "bfloat16")])
 def test_cuda_kernel_matches_plain_version(dtypes):
     """On the card: the CUDA kernel against its plain version, with every
-    launch counted.  Both sum the same values in f32, so the tolerance
-    follows the OUTPUT dtype: f32 1e-4; bf16 one last-place flip of the
-    final rounding (rtol 8e-3) with atol 4e-3 near zero."""
+    launch counted.  The tolerance follows the OUTPUT dtype: f32 sums the
+    same values in another order, 1e-4; bf16 also rounds P to bf16 before
+    P V on the tensor cores, and both round the output to bf16: one
+    last-place flip (rtol 8e-3) with atol 4e-3 near zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -178,3 +192,133 @@ def test_cuda_kernel_matches_plain_version(dtypes):
     rtol, atol = (8e-3, 4e-3) if q_dt == torch.bfloat16 else (1e-4, 1e-4)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+# ---------------------------------------------------------------- host rules
+N_SM = 132          # an H100's SMs
+SERVE = dict(hq=32, hkv=8, mp=128, page_size=16)   # chip_smoke's serve
+
+
+@pytest.mark.parametrize("q_dt,kv_dt,d,body", [
+    ("bfloat16", "bfloat16", 128, "wgmma"),
+    ("bfloat16", "bfloat16", 64, "wgmma"),
+    ("bfloat16", "bfloat16", 256, "fma"),
+    ("float32", "float32", 128, "fma"),
+    ("float32", "bfloat16", 128, "fma"),
+    ("bfloat16", "float32", 128, "fma")])
+def test_body_rule(q_dt, kv_dt, d, body):
+    """Only bf16 q over a bf16 pool (D 64 or 128) goes to the tensor
+    cores; f32 products keep f32 FMAs (no TF32)."""
+    assert ragged_body(getattr(torch, q_dt), getattr(torch, kv_dt), d) == body
+
+
+def test_split_count_depends_on_shapes_only():
+    """The split count takes shapes, the SM count and the body, and no
+    lengths: equal shapes give equal splits, so equal launches give equal
+    bits (the K-block equals chained steps)."""
+    assert list(inspect.signature(ragged_splits).parameters) == [
+        "b", "m", "hq", "hkv", "mp", "page_size", "n_sm", "body"]
+    counts = {ragged_splits(8, 1, n_sm=N_SM, **SERVE) for _ in range(3)}
+    assert len(counts) == 1
+
+
+@pytest.mark.parametrize("m", [256, 100])
+def test_one_split_when_tiles_fill_the_card(m):
+    """A mixed round (up to 256 rows a lane) at the serving geometry has
+    >= 132 blocks already: one pass writes the output directly."""
+    assert ragged_splits(8, m, n_sm=N_SM, **SERVE) == 1
+
+
+@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("mp", [64, 128])
+def test_decode_and_verify_split(m, mp):
+    """8-lane decode (and K+1 = 5 verify) over 1024 or 2048 positions has
+    64 blocks for 132 SMs: the context is split across blocks."""
+    serve = dict(SERVE, mp=mp)
+    n = ragged_splits(8, m, n_sm=N_SM, **serve)
+    assert 1 < n <= MAX_SPLITS
+    assert n * 8 * 8 <= 2 * N_SM      # about two blocks per SM, one wave
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 32])
+@pytest.mark.parametrize("mp,page_size", [(1, 4), (2, 16), (8, 8),
+                                          (128, 16)])
+def test_splits_fit_the_context(b, mp, page_size):
+    """Never more splits than 64-key stages in ``mp * page_size``, and
+    the CUDA-core body never splits."""
+    for m in (1, 5, 16, 64, 256):
+        n = ragged_splits(b, m, 32, 8, mp, page_size, N_SM)
+        assert 1 <= n <= max(1, -(-mp * page_size // STAGE_KEYS))
+        assert ragged_splits(b, m, 32, 8, mp, page_size, N_SM, "fma") == 1
+
+
+# ---------------------------------------------------------------- on the card
+# chip_smoke.py's seven shapes, then lanes with no query rows over a live
+# context and over none: (q_lens, kv_lens) over 8 lanes x 128 pages
+_CARD_CASES = {
+    "all_decode": ([1] * 8, [1024] * 8),
+    "all_prefill": ([256] * 8, [256] * 8),
+    "chunk_over_ctx": ([256] * 8, [1024] * 8),
+    "mixed": ([1, 256, 5, 0, 1, 100, 1, 17],
+              [1024, 1280, 37, 0, 2000, 600, 16, 33]),
+    "verify": ([5] * 8, [5, 21, 200, 512, 1024, 1500, 2000, 2048]),
+    "page_cross": ([4, 4, 1, 1, 16, 16, 3, 2],
+                   [18, 32, 17, 16, 48, 16, 33, 64]),
+    "long_decode": ([1] * 8, [2048] * 8),
+    "idle_lanes": ([0, 3, 1, 0, 40, 0, 1, 2],
+                   [300, 40, 77, 0, 100, 1, 2000, 2]),
+}
+
+
+def _card_inputs(case, g, seed):
+    """bf16 q and pool at a small width (Hkv 2, D 128, G query heads per
+    KV head), scattered tables, and every position a lane does not hold
+    set to NaN (a dead page must never be read)."""
+    q_lens, kv_lens = _CARD_CASES[case]
+    b, mp, s, hkv, d = 8, 128, 16, 2, 128
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    pool = torch.from_numpy(rng.standard_normal(
+        (b * mp + 1, 2, s, hkv, d)).astype(np.float32)).to(dev, torch.bfloat16)
+    tables = torch.from_numpy((rng.permutation(b * mp) + 1).astype(
+        np.int32).reshape(b, mp)).to(dev)
+    pos = torch.arange(mp * s, device=dev)
+    dead = pos[None] >= torch.tensor(kv_lens, device=dev)[:, None]
+    lane, p = dead.nonzero(as_tuple=True)
+    pool[tables[lane, p // s].long(), :, p % s] = float("nan")
+    q = torch.from_numpy(rng.standard_normal(
+        (b, max(q_lens), hkv * g, d)).astype(np.float32)).to(dev,
+                                                            torch.bfloat16)
+    return (q, pool, tables, torch.tensor(q_lens, device=dev),
+            torch.tensor(kv_lens, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("case", list(_CARD_CASES))
+def test_cuda_wgmma_body_over_the_smoke_cases(case, g):
+    """On the card, bf16: each of chip_smoke.py's shapes, and lanes with
+    no query rows (over a live context and over none), at a small width
+    and GQA group 1, 4 or 8 (a group of 4 splits over 16 positions a
+    tile), with NaN in every position past a lane's length, runs the
+    tensor-core body (split-KV where the tiles do not fill the card),
+    matches the plain version (rtol 8e-3, atol 4e-3: P and the output
+    rounded to bf16) and gives the same bits on a second launch; rows
+    past q_len and a lane with kv_len 0 are zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _card_inputs(case, g, seed=g)
+    n0 = dict(ragged_paged_attention.launches_by_body)
+    got = ragged_paged_attention(*args)
+    again = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    ran = {k: n - n0[k]
+           for k, n in ragged_paged_attention.launches_by_body.items()}
+    assert ran == {"fma": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    want = ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=4e-3)
+    for lane, n in enumerate(_CARD_CASES[case][0]):
+        assert not got[lane, n:].any()

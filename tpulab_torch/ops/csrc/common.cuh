@@ -126,9 +126,9 @@ inline int enable_smem(Kernel kern, size_t smem,
 
 }  // namespace tpulab
 
-// Each library's error text for a launch's return code: -1 means a shape
-// the kernel is not built for, anything else a cudaError_t.
+// Each library's error text for a launch's return code: -1 means a body,
+// dtype or shape the kernel is not built for, anything else a cudaError_t.
 extern "C" const char* tpulab_cuda_error_string(int code) {
-  return code < 0 ? "shape not built (head dim or GQA group size)"
+  return code < 0 ? "not built for this body, dtype or shape"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -7,31 +7,44 @@
 // (`paged_prefill` with `make_flash_attention_fn`), one launch per layer.
 //
 // What it computes.  o[b, t, h] = softmax_s(q[b, t, h] . k[b, s, h] / sqrt(D))
-// . v[b, s, h], over s < T (causal: s <= t).  q is scaled by 1/sqrt(D) in
-// f32 before the dot, as the TPU kernel does; max, normaliser and the
+// . v[b, s, h], over s < T (causal: s <= t).  Max, normaliser and the
 // output accumulator are f32; the output is acc / max(l, 1e-30) in q's
 // dtype.  K/V already carry q's head count (GQA callers repeat them).
-// There is no TF32 anywhere: every product is an f32 FMA on CUDA cores.
+// There is no TF32 anywhere.
 //
 // What bounds it on an H100.  At T = 2048, H = 32, D = 128, causal, bf16:
 // 4 * D * H * T(T+1)/2 = 34.4 GFLOP, 35 us at the bf16 tensor-core peak;
-// q, k, v and o are 67 MB, 20 us at 3.35 TB/s.  It is bound by operations.
+// q, k, v and o are 67 MB, 20 us at 3.35 TB/s.  It is bound by operations,
+// so the bf16 products belong on the tensor cores.
 //
-// What the design does about it.  One block per (query tile of 64 rows,
-// b * H + h); tiles are issued heaviest (latest causal tile) first.  The
-// k-walk is an in-block loop up to the causal limit, so fully-future K
-// tiles are never loaded.  K and V tiles of BK rows are staged through
-// shared memory by cp.async, double-buffered so the next tile's loads are
-// in flight while this one computes; rows past T are zero-filled and
-// masked.  The block's 256 threads form a 16 x 16 grid: a thread owns 4
-// query rows and BK/16 keys of S = Q K^T (a register tile, ~10 FMAs per
-// shared-memory load), then the same 4 rows and D/16 output dims of
-// O += P V, with P passed through shared memory.  The 16 threads of a row
-// group sit in one half-warp, so row max and row sum are shuffles.  q, k
-// and v are read through their (B, T, H) strides; only the last dim must
-// be contiguous.  This is the simple, right first kernel: it leaves the
-// bf16 tensor cores (wgmma), TMA and warp specialisation to later work.
+// Two bodies; the caller names one (flash_attention.py `flash_body`), and
+// the launcher refuses a body that does not fit the dtype and D:
+//
+// * `flash_fwd_wgmma_kernel<D>`, bf16 with D 64 or 128: a block of three
+//   warpgroups owns 128 query rows of one (b, h), heaviest causal tile
+//   first.  Warpgroup 0 is the producer: one thread issues TMA loads of
+//   the Q tile and of a 3-stage ring of 64-key K and V tiles (two boxes
+//   of 64 columns per 128-column row, 128-byte swizzle) through a 4-d
+//   tensor map of the strided (B, T, H, D) view, with full/empty
+//   mbarriers, and gives its registers up (setmaxnreg).  Warpgroups 1 and
+//   2 each take 64 rows and run the shared tile step (attn_wgmma.cuh):
+//   S = Q K^T and O += P V on `wgmma`, P in bf16 from registers, the
+//   online softmax in f32 registers.  The k-walk stops at the causal limit
+//   min(T, q0 + 128); rows past T are zero-filled by TMA and never stored;
+//   keys past T or past a row's position weigh 0.  Scores are scaled in
+//   f32 after the product, so besides f32 summation order the one new
+//   rounding against the plain version is P to bf16.
+// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 with D 256: every
+//   product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before the dot.  One block per (64-row query tile,
+//   b * H + h), heaviest first; K and V tiles staged by cp.async, double-
+//   buffered; a 16 x 16 thread grid holds 4 rows x BK/16 keys of S and
+//   4 rows x D/16 dims of O in registers, P through shared memory.  D 256
+//   stays here in bf16 because its O accumulator (128 f32 a thread) with S
+//   does not fit the tensor-core tile's register budget.
 
+#include <cuda.h>
+
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -263,22 +276,226 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// ---------------------------------------------------------------- wgmma
+namespace tc {
+
+constexpr int BQ = 128;        // query rows per block: two consumer warpgroups
+constexpr int NST = 3;         // K/V stages in flight
+constexpr int NTHREADS = 384;  // producer + two consumers
+
+template <int D>
+struct Smem {
+  static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
+  static constexpr int Q = 0;                    // [2][TILE]
+  static constexpr int K = 2 * TILE;             // [NST][TILE]
+  static constexpr int V = K + NST * TILE;       // [NST][TILE]
+  static constexpr int BAR = V + NST * TILE;     // full[NST], empty[NST], q
+  static constexpr size_t bytes = BAR + 8 * (2 * NST + 1) + 1024;  // + align
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ out, int Tlen, int H,
+                           int causal, float scale_log2) {
+  using Tile = wg::AttnTile<D>;
+  using L = Smem<D>;
+  constexpr int BK = Tile::BK;
+  constexpr int NCB = D / 64;                    // 64-column boxes per row
+  constexpr uint32_t BOX = 64 * 128;             // bytes of one box
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int n_stages = (kend + BK - 1) / BK;
+  const int n_cons = min(2, (Tlen - q0 + 63) / 64);   // warpgroups with rows
+
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tc) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
+  uint64_t* empty = full + NST;
+  uint64_t* qbar = empty + NST;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      wg::mbar_init(&full[i], 1);
+      wg::mbar_init(&empty[i], 4 * n_cons);     // one arrive per warp
+    }
+    wg::mbar_init(qbar, 1);
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer ----
+    wg::setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(qbar, n_cons * NCB * BOX);
+      for (int c = 0; c < n_cons; ++c)
+        for (int cb = 0; cb < NCB; ++cb)
+          wg::tma_load_4d(sm + L::Q + c * L::TILE + cb * BOX, &tq, qbar,
+                          cb * 64, h, q0 + 64 * c, b);
+      for (int s = 0; s < n_stages; ++s) {
+        const int slot = s % NST;
+        if (s >= NST) wg::mbar_wait(&empty[slot], ((s / NST) - 1) & 1);
+        wg::mbar_expect_tx(&full[slot], 2 * NCB * BOX);
+        for (int cb = 0; cb < NCB; ++cb) {
+          wg::tma_load_4d(sm + L::K + slot * L::TILE + cb * BOX, &tk,
+                          &full[slot], cb * 64, h, s * BK, b);
+          wg::tma_load_4d(sm + L::V + slot * L::TILE + cb * BOX, &tv,
+                          &full[slot], cb * 64, h, s * BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63 ----
+    wg::setmaxnreg_inc<232>();
+    const int c = wgi - 1;
+    if (c >= n_cons) return;
+    const int row_lo = q0 + 64 * c;
+    const int my_end = causal ? min(Tlen, row_lo + 64) : Tlen;
+    const int my_stages = (my_end + BK - 1) / BK;
+    const uint32_t qa = wg::smem_u32(sm + L::Q + c * L::TILE);
+    Tile t;
+    t.init();
+    wg::mbar_wait(qbar, 0);
+    for (int s = 0; s < n_stages; ++s) {
+      const int slot = s % NST;
+      wg::mbar_wait(&full[slot], (s / NST) & 1);
+      if (s < my_stages) {
+        const int k0 = s * BK;
+        const uint32_t ka = wg::smem_u32(sm + L::K + slot * L::TILE);
+        const uint32_t va = wg::smem_u32(sm + L::V + slot * L::TILE);
+        auto visible = [&](int i, int key) {
+          const int kpos = k0 + key;
+          return kpos < Tlen && (!causal || kpos <= row_lo + Tile::row(i));
+        };
+        if (k0 + BK > Tlen || (causal && k0 + BK - 1 > row_lo))
+          t.template step<true>(qa, ka, va, scale_log2, visible);
+        else
+          t.template step<false>(qa, ka, va, scale_log2, visible);
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&empty[slot]);
+    }
+    t.finish();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = row_lo + Tile::row(i);
+      if (r >= Tlen) continue;
+      const float inv = 1.f / fmaxf(t.l[i], 1e-30f);
+      __nv_bfloat16* o = out + (((size_t)b * Tlen + r) * H + h) * D;
+#pragma unroll
+      for (int cc = 0; cc < D / 8; ++cc)
+        *reinterpret_cast<__nv_bfloat162*>(o + Tile::col(cc, 0)) =
+            __floats2bfloat162_rn(t.o[4 * cc + 2 * i] * inv,
+                                  t.o[4 * cc + 2 * i + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no -lcuda at link time).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult st = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &st);
+#endif
+    return (e == cudaSuccess && st == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d map {D, H, T, B} over a strided bf16 (B, T, H, D) view; the box is
+// 64 columns x 1 head x 64 rows x 1, swizzled 128B; rows past T read 0.
+int make_map(CUtensorMap* map, const void* base, int B, int Tlen, int H,
+             int D, long long sb, long long st, long long sh) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Tlen,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), dims, strides, box, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Tlen, int H, const long long* st, int causal, float sm_scale,
+           cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (int e = make_map(&mq, q, B, Tlen, H, D, st[0], st[1], st[2])) return e;
+  if (int e = make_map(&mk, k, B, Tlen, H, D, st[3], st[4], st[5])) return e;
+  if (int e = make_map(&mv, v, B, Tlen, H, D, st[6], st[7], st[8])) return e;
+  const size_t smem = Smem<D>::bytes;
+  auto kern = flash_fwd_wgmma_kernel<D>;
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  if (int e = enable_smem(kern, smem, smem_set)) return e;
+  const int n_qt = (Tlen + BQ - 1) / BQ;
+  if (n_qt > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid(B * H, n_qt);
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Tlen, H, causal,
+      sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // C interface (bound with ctypes).  q, k, v (B, T, H, D) with element
 // strides (b, t, h) given in that order for q, then k, then v (the last
-// dim contiguous); out (B, T, H, D) contiguous.  Returns 0 or a
-// cudaError_t code; -1 for a head dim the kernel is not built for.
+// dim contiguous, rows 16-byte aligned); out (B, T, H, D) contiguous.
+// body 1 is the tensor-core body (bf16, D 64 or 128), body 0 the CUDA-core
+// body (f32 with D 64, 128 or 256, and bf16 with D 256).  Returns 0 or a cudaError_t code;
+// -1 for a body, dtype and head dim the kernel is not built for.
 extern "C" int tpulab_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int T,
     int H, int D, long long qsb, long long qst, long long qsh, long long ksb,
     long long kst, long long ksh, long long vsb, long long vst, long long vsh,
-    int causal, int bf16, float sm_scale, void* stream) {
+    int causal, int bf16, int body, float sm_scale, void* stream) {
   if (B == 0 || T == 0 || H == 0) return 0;
   const long long st[9] = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_t<__nv_bfloat16>(D, q, k, v, out, B, T, H, st, causal,
-                                   sm_scale, s);
+  if (body == 1) {
+    if (!bf16) return -1;
+    if (D == 64)
+      return tc::launch<64>(q, k, v, out, B, T, H, st, causal, sm_scale, s);
+    if (D == 128)
+      return tc::launch<128>(q, k, v, out, B, T, H, st, causal, sm_scale, s);
+    return -1;
+  }
+  if (body != 0) return -1;
+  if (bf16)   // D 64 and 128 run the tensor-core body
+    return D == 256 ? launch<__nv_bfloat16, 256>(q, k, v, out, B, T, H, st,
+                                                 causal, sm_scale, s)
+                    : -1;
   return launch_t<float>(D, q, k, v, out, B, T, H, st, causal, sm_scale, s);
 }

@@ -8,31 +8,48 @@
 // What it computes.  Lane b holds q_lens[b] left-packed query rows; row j
 // sits at position kv_lens[b] - q_lens[b] + j and attends every position
 // <= its own through the lane's block table over the fused page pool
-// (P, 2, S, Hkv, D).  Softmax is online, in f32; q is scaled by 1/sqrt(D)
-// before the dot.  Rows j >= q_lens[b] (and lanes with kv_lens == 0) are
-// written as zeros; no position >= kv_lens[b] ever enters a sum (its
-// shared-memory row is zero-filled and lies past every row's loop bound).
-// There is no TF32 anywhere: every product is an f32 FMA on CUDA cores.
+// (P, 2, S, Hkv, D).  Softmax is online, in f32.  Rows j >= q_lens[b] (and
+// lanes with kv_lens == 0) are written as zeros; no position >= kv_lens[b]
+// is ever read (a dead page may hold NaN).  There is no TF32 anywhere.
 //
 // What bounds it on an H100.  At decode (8 lanes x 1024 context, Hkv 8,
 // D 128, bf16) a layer must read 33.6 MB of K/V for ~0.13 GFLOP: it is
-// bound by bytes (~10 us at 3.35 TB/s).  A 256-token prefill chunk over
-// 1024 context is ~34 GFLOP: bound by operations (~35 us at the bf16
+// bound by bytes (~10 us at 3.35 TB/s), and one block per (KV head, lane)
+// is only 64 blocks for 132 SMs.  A 256-token prefill chunk over 1024
+// context is ~34 GFLOP: bound by operations (~35 us at the bf16
 // tensor-core peak).
 //
-// What the design does about it.  One block per (query-row tile, KV head,
-// lane).  The GQA group's Hq/Hkv query heads are packed into the tile's
-// rows, so each K/V row is read from device memory once per group and
-// not once per query head (the bandwidth point of the compact Hkv
-// layout).  A block walks the lane's positions only up to the last one
-// its rows can see, KT positions per stage, staging K and V rows in
-// shared memory with cp.async, double-buffered so the next stage's loads
-// are in flight while this stage computes.  Each warp owns whole query
-// rows: for QK^T a lane owns one key of the stage, for P.V a lane owns
-// D/32 output dims.  This is the simple, right first kernel: it leaves
-// the bf16 tensor cores (wgmma), TMA and split-KV for long contexts at
-// small batch to later work, so prefill runs far from its bound.
+// Every body packs the GQA group's Hq/Hkv query heads into a tile's rows
+// (row = j * G + g), so each K/V row is read once per group and not once
+// per query head.  The caller names the body and the split count
+// (ragged_attention.py `ragged_body`, `ragged_splits`, functions of dtype
+// and shapes only); the launcher refuses a body that does not fit.
+//
+// * `ragged_attn_wgmma_kernel<D>`, bf16 q over a bf16 pool, D 64 or 128:
+//   one warpgroup per (64-row tile, KV head, lane, split), latest rows
+//   first.  The Q tile and 64-key stages of K and V are gathered page by
+//   page with cp.async into the 128-byte-swizzled layout of
+//   attn_wgmma.cuh, double-buffered; a position past the last one the
+//   tile's rows see is zero-filled without a read, and the page index is
+//   clamped to [0, P).  Each stage is the shared tile step: S = Q K^T and
+//   O += P V on `wgmma`, P in bf16 from registers, online softmax in f32
+//   (scores scaled after the product; P to bf16 is the one rounding the
+//   plain version does not make).
+// * Split-KV, for launches whose tiles do not fill the card (decode and
+//   verify: M * G <= 64 rows): the grid gains a split axis, and split i of
+//   n walks stages [i * n_st / n, (i + 1) * n_st / n) of the tile's own
+//   walk.  Each split writes f32 partials (unnormalised O, m in log2
+//   units, l) to scratch, and `ragged_attn_merge_kernel` combines them in
+//   split order: no atomics, so a launch is bit-reproducible.  With one
+//   split the tile writes the output directly.
+// * `ragged_attn_kernel<QT, KVT, D>`, f32, f32 over bf16, bf16 over f32,
+//   and bf16 with D 256: every product an f32 FMA on CUDA cores, q scaled
+//   by 1/sqrt(D) before the dot.  One block per (32-row tile, KV head,
+//   lane); KT positions per stage through a cp.async double buffer; each
+//   warp owns whole query rows, a lane one key of QK^T and D/32 output
+//   dims of P.V.
 
+#include "attn_wgmma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -230,9 +247,12 @@ int launch_d(int q_bf16, int kv_bf16, const void* q, const void* pool,
              void* out, int B, int M, int Hq, int Hkv, int P, int S, int MP,
              float sm_scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  if (q_bf16 && kv_bf16)
-    return launch<bf, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
-                             Hq, Hkv, P, S, MP, sm_scale, st);
+  if (q_bf16 && kv_bf16) {   // D 64 and 128 run the tensor-core body
+    if constexpr (D == 256)
+      return launch<bf, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
+                               Hq, Hkv, P, S, MP, sm_scale, st);
+    return -1;
+  }
   if (q_bf16)
     return launch<bf, float, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
                                 Hq, Hkv, P, S, MP, sm_scale, st);
@@ -243,17 +263,263 @@ int launch_d(int q_bf16, int kv_bf16, const void* q, const void* pool,
                                  M, Hq, Hkv, P, S, MP, sm_scale, st);
 }
 
+// ---------------------------------------------------------------- wgmma
+namespace tc {
+
+constexpr int BQ = 64;          // query rows per block: one warpgroup
+constexpr int NTHREADS = 128;
+
+template <int D>
+struct Smem {
+  static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
+  static constexpr int Q = 0;                  // [TILE]
+  static constexpr int K = TILE;               // [2][TILE]
+  static constexpr int V = 3 * TILE;           // [2][TILE]
+  static constexpr size_t bytes = 5 * TILE + 1024;   // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+    ragged_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ pool,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ q_lens,
+                             const int* __restrict__ kv_lens,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ part_o,
+                             float* __restrict__ part_ml, int B, int M,
+                             int Hq, int Hkv, int P, int S, int MP,
+                             int n_split, float scale_log2) {
+  using Tile = wg::AttnTile<D>;
+  using L = Smem<D>;
+  constexpr int BK = Tile::BK;
+  constexpr int CPR = D / 8;                    // 16-byte chunks per row
+
+  const int tile = gridDim.x - 1 - blockIdx.x;  // latest rows first
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x;
+  const int qn = q_lens[b], kvn = kv_lens[b];
+  const int start = kvn - qn;                   // position of query row 0
+  const int row0 = tile * BQ;
+  const int rows_total = M * G;
+
+  // keys [0, limit) are all this tile's rows can see
+  const int j_lo = row0 / G;
+  const int j_last = min(min((row0 + BQ - 1) / G, M - 1), qn - 1);
+  int limit = 0;
+  if (j_last >= j_lo) limit = min(start + j_last + 1, kvn);
+  limit = max(0, min(limit, MP * S));
+  const int n_st = (limit + BK - 1) / BK;
+  const int s_lo = split * n_st / n_split;
+  const int s_hi = (split + 1) * n_st / n_split;
+
+  extern __shared__ __align__(1024) unsigned char smem_tc[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tc) + 1023) & ~uintptr_t(1023));
+
+  // Copies: thread tid moves 16-byte chunk tid % CPR of rows tid / CPR +
+  // RSTEP * i, so it works out one row's address (and one page index) per
+  // K/V pair of chunks, and a stage's page lookups are independent loads.
+  constexpr int RSTEP = NTHREADS / CPR;          // rows a pass covers
+  constexpr int RPT = BQ / RSTEP;                // rows a thread copies
+  static_assert(BQ == BK, "Q tiles and K/V stages share the copy pattern");
+  const int ch = tid % CPR, r_base = tid / CPR;
+
+  // the Q tile; rows past M * G or past q_lens[b] are zeros
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = r_base + RSTEP * i;
+    const int rr = row0 + r, j = rr / G, g = rr - j * G;
+    const bool valid = rr < rows_total && j < qn;
+    const __nv_bfloat16* src =
+        valid ? q + (((size_t)b * M + j) * Hq + hk * G + g) * D + ch * 8 : q;
+    cp_async16(sm + L::Q + wg::swz(r, ch, BQ), src, valid ? 16 : 0);
+  }
+  const int* tab = tables + (size_t)b * MP;
+  const size_t v_off = (size_t)S * Hkv * D;      // K -> V inside a page
+  auto load_stage = [&](int stage, int buf) {
+    const int t0 = stage * BK;
+    int page[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int pos = t0 + r_base + RSTEP * i;
+      page[i] = pos < limit ? min(max(tab[pos / S], 0), P - 1) : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int t = r_base + RSTEP * i, pos = t0 + t;
+      const bool valid = page[i] >= 0;
+      const __nv_bfloat16* src =
+          valid ? pool + (((size_t)page[i] * 2 * S + pos % S) * Hkv + hk) * D +
+                      ch * 8
+                : pool;
+      const uint32_t dst = buf * L::TILE + wg::swz(t, ch, BK);
+      cp_async16(sm + L::K + dst, src, valid ? 16 : 0);
+      cp_async16(sm + L::V + dst, valid ? src + v_off : pool, valid ? 16 : 0);
+    }
+  };
+
+  // this thread's two rows: the last position each may see (-1: none)
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = row0 + Tile::row(i), j = rr / G;
+    qpos[i] = (rr < rows_total && j < qn) ? start + j : -1;
+  }
+  const int first_pos = start + j_lo;   // the tile's earliest row position
+
+  Tile t;
+  t.init();
+  if (s_lo < s_hi) load_stage(s_lo, 0);
+  cp_async_commit();                     // the Q tile rides with stage s_lo
+  for (int s = s_lo; s < s_hi; ++s) {
+    const int buf = (s - s_lo) & 1;
+    if (s + 1 < s_hi) load_stage(s + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    wg::fence_proxy_async();
+    __syncthreads();
+    const int k0 = s * BK;
+    const uint32_t qa = wg::smem_u32(sm + L::Q);
+    const uint32_t ka = wg::smem_u32(sm + L::K + buf * L::TILE);
+    const uint32_t va = wg::smem_u32(sm + L::V + buf * L::TILE);
+    auto visible = [&](int i, int key) { return k0 + key <= qpos[i]; };
+    if (k0 + BK - 1 > first_pos)
+      t.template step<true>(qa, ka, va, scale_log2, visible);
+    else
+      t.template step<false>(qa, ka, va, scale_log2, visible);
+    __syncthreads();                     // buffer `buf` is refilled next
+  }
+  cp_async_wait_all();
+  t.finish();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rr = row0 + Tile::row(i);
+    if (rr >= rows_total) continue;
+    const int j = rr / G, g = rr % G;
+    const size_t orow = ((size_t)b * M + j) * Hq + hk * G + g;
+    if (n_split == 1) {
+      const float inv = j < qn ? 1.f / fmaxf(t.l[i], 1e-30f) : 0.f;
+      __nv_bfloat16* o = out + orow * D;
+#pragma unroll
+      for (int cc = 0; cc < D / 8; ++cc)
+        *reinterpret_cast<__nv_bfloat162*>(o + Tile::col(cc, 0)) =
+            __floats2bfloat162_rn(t.o[4 * cc + 2 * i] * inv,
+                                  t.o[4 * cc + 2 * i + 1] * inv);
+    } else if (j < qn) {
+      const size_t prow = (size_t)split * B * M * Hq + orow;
+      float* o = part_o + prow * D;
+#pragma unroll
+      for (int cc = 0; cc < D / 8; ++cc)
+        *reinterpret_cast<float2*>(o + Tile::col(cc, 0)) =
+            make_float2(t.o[4 * cc + 2 * i], t.o[4 * cc + 2 * i + 1]);
+      if ((tid & 3) == 0)
+        *reinterpret_cast<float2*>(part_ml + prow * 2) =
+            make_float2(t.m[i], t.l[i]);
+    }
+  }
+}
+
+// Combine the splits of each (lane, row, query head) in split order; rows
+// j >= q_lens[b] are zeros.  One warp per row, D/32 dims a lane.
+template <int D>
+__global__ void __launch_bounds__(128)
+    ragged_attn_merge_kernel(const float* __restrict__ part_o,
+                             const float* __restrict__ part_ml,
+                             const int* __restrict__ q_lens,
+                             __nv_bfloat16* __restrict__ out, int B, int M,
+                             int Hq, int n_split) {
+  constexpr int DPL = D / 32;
+  const int row = blockIdx.x * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const size_t rows = (size_t)B * M * Hq;
+  if (row >= rows) return;
+  const int j = (row / Hq) % M, b = row / (M * Hq);
+  float acc[DPL];
+#pragma unroll
+  for (int x = 0; x < DPL; ++x) acc[x] = 0.f;
+  float den = 0.f;
+  if (j < q_lens[b]) {
+    float mx = wg::NEG;
+    for (int s = 0; s < n_split; ++s)
+      mx = fmaxf(mx, part_ml[(s * rows + row) * 2]);
+    for (int s = 0; s < n_split; ++s) {
+      const float2 ml =
+          *reinterpret_cast<const float2*>(part_ml + (s * rows + row) * 2);
+      const float w = exp2f(ml.x - mx);
+      den += w * ml.y;
+      const float* po = part_o + (s * rows + row) * D + lane * DPL;
+#pragma unroll
+      for (int x = 0; x < DPL; ++x) acc[x] += w * po[x];
+    }
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  __nv_bfloat16* o = out + (size_t)row * D + lane * DPL;
+#pragma unroll
+  for (int x = 0; x < DPL; ++x) o[x] = __float2bfloat16(acc[x] * inv);
+}
+
+template <int D>
+int launch(const void* q, const void* pool, const int* tables,
+           const int* q_lens, const int* kv_lens, void* out, void* scratch,
+           int B, int M, int Hq, int Hkv, int P, int S, int MP, int n_split,
+           float sm_scale, cudaStream_t stream) {
+  using bf = __nv_bfloat16;
+  const size_t smem = Smem<D>::bytes;
+  auto kern = ragged_attn_wgmma_kernel<D>;
+  static std::atomic<bool> smem_set[MAX_DEVICES];
+  if (int e = enable_smem(kern, smem, smem_set)) return e;
+  const int G = Hq / Hkv;
+  const size_t rows = (size_t)B * M * Hq;
+  float* part_o = static_cast<float*>(scratch);
+  float* part_ml = part_o + (size_t)n_split * rows * D;
+  if ((long long)B * n_split > 65535 || n_split < 1 ||
+      (n_split > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((M * G + BQ - 1) / BQ, Hkv, B * n_split);
+  kern<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(pool), tables, q_lens,
+      kv_lens, static_cast<bf*>(out), part_o, part_ml, B, M, Hq, Hkv, P, S,
+      MP, n_split, sm_scale * 1.4426950408889634f);
+  if (n_split == 1) return (int)cudaGetLastError();
+  if (cudaError_t e = cudaGetLastError()) return (int)e;
+  ragged_attn_merge_kernel<D><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+      part_o, part_ml, q_lens, static_cast<bf*>(out), B, M, Hq, n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// C interface (bound with ctypes).  Returns 0 or a cudaError_t code; -1
-// for a head dim the kernel is not built for.
+// C interface (bound with ctypes).  body 1 is the tensor-core body (bf16
+// q and pool, D 64 or 128) with `n_split` splits over the context and, when
+// n_split > 1, f32 scratch of n_split * B * M * Hq * (D + 2) values; body
+// 0 the CUDA-core body (an f32 q or pool at D 64, 128 or 256, and bf16
+// over bf16 at D 256; n_split 1).
+// Returns 0 or a cudaError_t code; -1 for a body, dtype and head dim the
+// kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
-    const int* kv_lens, void* out, int B, int M, int Hq, int Hkv, int D,
-    int P, int S, int MP, int q_bf16, int kv_bf16, float sm_scale,
-    void* stream) {
+    const int* kv_lens, void* out, void* scratch, int B, int M, int Hq,
+    int Hkv, int D, int P, int S, int MP, int q_bf16, int kv_bf16, int body,
+    int n_split, float sm_scale, void* stream) {
   if (B == 0 || M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == 1) {
+    if (!(q_bf16 && kv_bf16)) return -1;
+    if (D == 64)
+      return tc::launch<64>(q, pool, tables, q_lens, kv_lens, out, scratch,
+                            B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+    if (D == 128)
+      return tc::launch<128>(q, pool, tables, q_lens, kv_lens, out, scratch,
+                             B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+    return -1;
+  }
+  if (body != 0 || n_split != 1) return -1;
   switch (D) {
     case 64:
       return launch_d<64>(q_bf16, kv_bf16, q, pool, tables, q_lens, kv_lens,

@@ -9,8 +9,12 @@ does) and returns (B, T, H, D) in q's dtype, causal or not.
 CUDA tensors launch the hand-written Hopper kernel
 (``csrc/flash_attention.cu``); CPU tensors take the plain version,
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
-version: a build or launch failure raises.  ``flash_attention.launches``
-counts kernel launches (the plain version does not count).
+version: a build or launch failure raises.  The kernel has two bodies,
+chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
+(bf16 on the tensor cores, D 64 or 128) and ``"fma"`` (f32 FMAs on CUDA
+cores: f32, and bf16 with D 256).  ``flash_attention.launches`` counts
+kernel launches and ``flash_attention.launches_by_body`` splits them by
+body (the plain version counts in neither).
 
 ``block_q`` / ``block_k`` keep tpulab's contract (they clamp to ``T`` and
 must divide it, else ``ValueError``) but do not shape the kernel, which
@@ -30,6 +34,8 @@ import torch
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
+_WGMMA_HEAD_DIMS = (64, 128)
+_BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
 _NEG = -1e30
 
 
@@ -62,11 +68,21 @@ def _check(q, k, v):
             raise ValueError(f"{name} on {x.device}, q on {q.device}")
 
 
+def flash_body(dtype, head_dim: int) -> str:
+    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 with D 64 or
+    128, else ``"fma"``.  A function of dtype and head dim only."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
 def _rows_aligned(x) -> bool:
-    """Last dim contiguous and every row 16-byte aligned (cp.async)."""
+    """Last dim contiguous, every row 16-byte aligned and every stride
+    positive (cp.async; TMA's tensor map takes strides that are non-zero
+    multiples of 16 bytes)."""
     epc = 16 // x.element_size()
     return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(s % epc == 0 for s in x.stride()[:3]))
+            and all(s > 0 and s % epc == 0 for s in x.stride()[:3]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     lib = load("flash_attention")
     f = lib.tpulab_flash_attention
     f.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                  + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                  + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
                   + [ctypes.c_float, ctypes.c_void_p])
     f.restype = ctypes.c_int
     lib.tpulab_cuda_error_string.argtypes = [ctypes.c_int]
@@ -96,6 +112,7 @@ def _forward(q, k, v, causal: bool):
     q, k, v = (x if _rows_aligned(x) else x.contiguous() for x in (q, k, v))
     lib = _lib()
     b, t, h, d = q.shape
+    body = flash_body(q.dtype, d)
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     strides = [s for x in (q, k, v) for s in x.stride()[:3]]
     # the launch goes to the calling thread's current device
@@ -105,11 +122,14 @@ def _forward(q, k, v, causal: bool):
         rc = lib.tpulab_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, t, h, d, *strides, int(causal),
-            int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+            int(q.dtype == torch.bfloat16), _BODY_CODE[body],
+            1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_attention launch failed: {msg}")
+        raise RuntimeError(f"flash_attention launch failed ({body} body): "
+                           f"{msg}")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[body] += 1
     return out
 
 
@@ -194,6 +214,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
 
 
 def make_flash_attention_fn(causal: bool = True, block_q: int = 128,

@@ -11,8 +11,16 @@ shape is ``q_lens == 1, kv_lens == position + 1``.
 (``csrc/ragged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`ragged_paged_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  ``ragged_paged_attention.launches`` counts kernel
-launches (the plain version does not count).
+launch failure raises.  The kernel has two bodies, chosen by
+:func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (bf16 q
+over a bf16 pool on the tensor cores, D 64 or 128) and ``"fma"`` (f32 FMAs
+on CUDA cores: every other mix, and D 256).  A ``"wgmma"`` launch whose
+tiles do not fill the card splits each lane's context into
+:func:`ragged_splits` parts (split-KV) and merges them in a second, small
+kernel.  ``ragged_paged_attention.launches`` counts calls that launched
+(one per call, merge included) and
+``ragged_paged_attention.launches_by_body`` splits them by body (the
+plain version counts in neither).
 """
 
 from __future__ import annotations
@@ -26,6 +34,46 @@ import torch
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
+_WGMMA_HEAD_DIMS = (64, 128)
+_BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
+TILE_ROWS = 64       # query rows (j, g) of one wgmma tile
+STAGE_KEYS = 64      # key positions of one wgmma stage
+MAX_SPLITS = 16
+
+
+def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
+    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 q over a
+    bf16 pool with D 64 or 128, else ``"fma"``.  A function of dtypes and
+    head dim only."""
+    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+            and head_dim in _WGMMA_HEAD_DIMS):
+        return "wgmma"
+    return "fma"
+
+
+def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
+                  page_size: int, n_sm: int, body: str = "wgmma") -> int:
+    """How many parts the ``"wgmma"`` body splits each lane's context into.
+
+    A function of shapes and the SM count only, never of ``kv_lens`` or
+    timing, so equal shapes give equal splits and bit-equal results.  One
+    split when the (tile, KV head, lane) blocks already fill the card, as a
+    256-row mixed round does; otherwise enough splits for about two blocks
+    per SM (two fit at once), at most one per 64-key stage of the longest
+    context (``mp * page_size``) and at most ``MAX_SPLITS``."""
+    if body != "wgmma":
+        return 1
+    tiles = -(-m * (hq // hkv) // TILE_ROWS)
+    blocks = tiles * hkv * b
+    if blocks >= n_sm:
+        return 1
+    stages = -(-mp * page_size // STAGE_KEYS)
+    return max(1, min(2 * n_sm // blocks, stages, MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ragged_paged_attention_reference(q, kv_pool, tables, q_lens, kv_lens):
@@ -99,7 +147,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("ragged_attention")
     f = lib.tpulab_ragged_paged_attention
-    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
                   + [ctypes.c_float, ctypes.c_void_p])
     f.restype = ctypes.c_int
     lib.tpulab_cuda_error_string.argtypes = [ctypes.c_int]
@@ -124,7 +172,17 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     tables = tables.to(torch.int32).contiguous()
     q_lens = q_lens.to(torch.int32).contiguous()
     kv_lens = kv_lens.to(torch.int32).contiguous()
+    mp = tables.shape[1]
+    body = ragged_body(q.dtype, kv_pool.dtype, d)
+    n_split = ragged_splits(b, m, hq, hkv, mp, s, _sm_count(q.device.index),
+                            body)
     out = torch.empty_like(q)
+    # f32 partials of every split: O (b, m, hq, d), then (m, l) per row.
+    # Freed on return: the caching allocator hands the block out again
+    # only to later work on this stream, which runs after the merge.
+    scratch = (torch.empty(n_split * b * m * hq * (d + 2),
+                           dtype=torch.float32, device=q.device)
+               if n_split > 1 else None)
     # the launch goes to the calling thread's current device
     same = q.device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if same else torch.cuda.device(q.device):
@@ -132,15 +190,19 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
         rc = lib.tpulab_ragged_paged_attention(
             q.data_ptr(), kv_pool.data_ptr(), tables.data_ptr(),
             q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            b, m, hq, hkv, d, n_pages, s, tables.shape[1],
+            None if scratch is None else scratch.data_ptr(),
+            b, m, hq, hkv, d, n_pages, s, mp,
             int(q.dtype == torch.bfloat16),
-            int(kv_pool.dtype == torch.bfloat16),
+            int(kv_pool.dtype == torch.bfloat16), _BODY_CODE[body], n_split,
             1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
-        raise RuntimeError(f"ragged_paged_attention launch failed: {msg}")
+        raise RuntimeError(f"ragged_paged_attention launch failed ({body} "
+                           f"body, {n_split} splits): {msg}")
     ragged_paged_attention.launches += 1
+    ragged_paged_attention.launches_by_body[body] += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
