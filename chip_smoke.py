@@ -15,11 +15,11 @@ raises and the script exits non-zero without printing a result:
 3. kernels — every kernel's wrapper on the card held against its plain
    PyTorch version, with the tolerance set by the output dtype (f32
    rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3), and a
-   planted error per kernel that the same check must REJECT.  For the
-   ragged and flash kernels each case also prints the body that ran
-   (``wgmma``: bf16 on the tensor cores; ``fma``: f32 FMAs on CUDA cores)
-   and, for ragged, its split-KV count, and checks that a second launch
-   gives a bit-identical output:
+   planted error per kernel that the same check must REJECT.  Each case
+   also prints the body that ran (``wgmma``: bf16 on the tensor cores;
+   ``fma``: f32 FMAs on CUDA cores; ``ring``: the paged kernel's one body)
+   and, for ragged and paged, its split-KV count, and checks that a
+   second launch gives a bit-identical output:
    - ragged_paged_attention at the serving geometry (Hq 32, Hkv 8, D 128,
      page 16, 8 lanes x 128 pages), seven shapes; planted: one page
      skipped at 2048 context;
@@ -27,14 +27,13 @@ raises and the script exits non-zero without printing a result:
      2048} (the split serve's buckets among them), causal and not;
      planted: the diagonal K tile of every causal row past the first
      tile dropped, at T 2048;
-   - paged_decode_attention at the serving geometry, positions 1023 and
-     2047; planted: one page skipped at 2048 context; kernel 1's time at
-     the same shape beside it.
+   - paged_decode_attention at the serving geometry: 8 lanes at positions
+     1023 and 2047, and one lane at 2047; planted: one page skipped at
+     2048 context; kernel 1's time at the same shape beside it.
    Kernel, plain, bound and ``F.scaled_dot_product_attention`` (a
    labelled yardstick; the port never calls it) times per case, CUDA
-   events with the L2 flushed.  Then the host time of one flash and one
-   ragged wrapper call per body (the tensor-map encodes, the split-KV
-   scratch).
+   events with the L2 flushed.  Then the host time of one wrapper call
+   per kernel and body (the tensor-map encodes, the split-KV scratch).
 4. invariants — at full width with 2 layers: in bf16,
    ``paged_decode_block(k=8)`` equals 8 chained ``paged_decode_step``
    calls bit for bit, ``paged_mixed_step`` equals ``paged_ragged_forward``
@@ -103,19 +102,26 @@ class Timer:
     """CUDA-event timing of single launches with the 50 MB L2 flushed in
     between (outside the timed span): each launch finds its inputs cold,
     as a layer of a real step does.  A short device spin before the start
-    event keeps the wrapper's host-side cost out of the measured span."""
+    event keeps the wrapper's host-side cost out of the measured span.
+    ``flush``: "dirty" (the default: 64 MB written, so the launch also
+    pays to write back the dirty lines it evicts), "clean" (64 MB read)
+    or "warm" (no flush: inputs may sit in L2)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters: int, warmup: int = 2) -> float:
+    def __call__(self, fn, iters: int, warmup: int = 2,
+                 flush: str = "dirty") -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         total = 0.0
         for _ in range(iters):
-            self.flush.zero_()
+            if flush == "dirty":
+                self.flush.zero_()
+            elif flush == "clean":
+                self.flush.sum(dtype=torch.int32)
             torch.cuda._sleep(1_000_000)    # ~0.5 ms: the host enqueues fn
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
@@ -154,17 +160,21 @@ def check_rejects(torch, label, got, planted):
         f"rtol {rtol:g} atol {atol:g}")
 
 
-def launch_twice(torch, label, wrapper, call, body):
+def launch_twice(torch, label, wrapper, call, body=None):
     """Two launches through ``wrapper`` (``call()`` launches it once):
-    both must run ``body`` and give bit-identical outputs.  Returns the
-    first output."""
-    before = dict(wrapper.launches_by_body)
+    both must run ``body`` (a wrapper with one body: both must count)
+    and give bit-identical outputs.  Returns the first output."""
+    before = dict(wrapper.launches_by_body) if body else wrapper.launches
     got = call()
     again = call()
     torch.cuda.synchronize()
-    ran = {k: n - before[k] for k, n in wrapper.launches_by_body.items()}
-    if ran != {k: 2 if k == body else 0 for k in ran}:
-        raise AssertionError(f"{label}: bodies {ran}, want 2 x {body}")
+    if body:
+        ran = {k: n - before[k] for k, n in wrapper.launches_by_body.items()}
+        if ran != {k: 2 if k == body else 0 for k in ran}:
+            raise AssertionError(f"{label}: bodies {ran}, want 2 x {body}")
+    elif wrapper.launches - before != 2:
+        raise AssertionError(f"{label}: {wrapper.launches - before} "
+                             "launches counted, want 2")
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: a second launch is not bit-identical")
     return got
@@ -428,12 +438,14 @@ def host_us(torch, call, n=200):
 
 
 def phase_host(torch):
-    """Host cost per call of the two redesigned wrappers: a wgmma flash
-    call encodes three TMA tensor maps, a split ragged call allocates
-    its f32 scratch and launches the merge as well."""
+    """Host cost per wrapper call: a wgmma flash call encodes three TMA
+    tensor maps, a split ragged or paged call allocates its f32 scratch
+    and launches the merge as well."""
     import numpy as np
 
     from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.paged_attention import (paged_decode_attention,
+                                                  paged_splits)
     from tpulab_torch.ops.ragged_attention import (_sm_count,
                                                    ragged_paged_attention,
                                                    ragged_splits)
@@ -458,43 +470,59 @@ def phase_host(torch):
                 for n in (m, kv)]
         us[f"ragged wgmma x{splits}"] = host_us(
             torch, lambda: ragged_paged_attention(q, pool, tables, *lens))
+    for b in (g["b"], 1):
+        splits = paged_splits(b, g["hkv"], g["mp"], g["s"], n_sm)
+        q = torch.from_numpy(rng.standard_normal(
+            (b, g["hq"], g["d"])).astype(np.float32)).cuda().to(
+                torch.bfloat16)
+        pos = torch.full((b,), 1023, dtype=torch.int32, device="cuda")
+        us[f"paged ring {b} lanes x{splits}"] = host_us(
+            torch, lambda: paged_decode_attention(q, pool, tables[:b], pos))
     log("kernels: host time per wrapper call (enqueue, mean of 200): "
         + ", ".join(f"{k} {v:.1f} us" for k, v in us.items())
-        + " (flash wgmma: three tensor-map encodes; a split ragged call: "
-        "scratch allocation and the merge launch)")
+        + " (flash wgmma: three tensor-map encodes; a split ragged or "
+        "paged call: scratch allocation and the merge launch)")
 
 
-PD_POSITIONS = (1023, 2047)      # inclusive current positions
+# (lanes, inclusive current position) of each case
+PD_CASES = ((8, 1023), (8, 2047), (1, 2047))
 
 
 def phase_paged(torch, timer):
     import numpy as np
 
     from tpulab_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_reference)
-    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_splits)
+    from tpulab_torch.ops.ragged_attention import (_sm_count,
+                                                   ragged_paged_attention)
 
     g = RA_GEOM
     rng = np.random.default_rng(2)
-    pool32, tables = serving_pool(torch, np, rng)
+    pool32, tables8 = serving_pool(torch, np, rng)
     t = g["mp"] * g["s"]
-    ones = torch.ones(g["b"], dtype=torch.int32, device="cuda")
+    n_sm = _sm_count(torch.cuda.current_device())
     rows = []
     for dname, q_name, kv_name in DTYPE_MIXES:
         q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
         pool = pool32.to(kv_dt)
         kind = "bf16" if dname == "bf16/bf16" else "f32"
-        for pos in PD_POSITIONS:
+        for lanes, pos in PD_CASES:
+            tables = tables8[:lanes]
+            ones = torch.ones(lanes, dtype=torch.int32, device="cuda")
             q = torch.from_numpy(rng.standard_normal(
-                (g["b"], g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
-            lengths = torch.full((g["b"],), pos, dtype=torch.int32,
+                (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+            lengths = torch.full((lanes,), pos, dtype=torch.int32,
                                  device="cuda")
             args = (q, pool, tables, lengths)
-            got = paged_decode_attention(*args)
-            torch.cuda.synchronize()
-            err = check_close(torch, f"paged position {pos} {dname}", got,
+            case = f"{lanes} x {pos + 1}"
+            splits = paged_splits(lanes, g["hkv"], g["mp"], g["s"], n_sm)
+            got = launch_twice(torch, f"paged {case} {dname}",
+                               paged_decode_attention,
+                               lambda: paged_decode_attention(*args))
+            err = check_close(torch, f"paged {case} {dname}", got,
                               paged_decode_attention_reference(*args))
-            if pos == PD_POSITIONS[-1]:
+            if (lanes, pos) == (8, 2047):
                 skip = torch.cat([tables[:, :5], tables[:, 6:],
                                   tables[:, :1]], 1)
                 check_rejects(torch, f"paged skipped page, 2048 context, "
@@ -510,20 +538,33 @@ def phase_paged(torch, timer):
                    <= lengths[:, None, None])
             lib_ms = sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
                                     vis, g["hq"] // g["hkv"])
-            n_ctx = g["b"] * (pos + 1)
+            n_ctx = lanes * (pos + 1)
             bound_ms, bound_by = bound(
                 n_ctx * g["hkv"] * g["d"] * 2 * pool.element_size()
-                + 2 * g["b"] * g["hq"] * g["d"] * q.element_size()
-                + g["b"] * g["mp"] * 4 + g["b"] * 4,
+                + 2 * lanes * g["hq"] * g["d"] * q.element_size()
+                + lanes * g["mp"] * 4 + lanes * 4,
                 4 * g["d"] * g["hq"] * n_ctx, kind)
-            rows.append(dict(case=f"8 x {pos + 1}", dtypes=dname,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=lib_ms, ragged_ms=ragged_ms))
-            log(f"kernels: paged 8 x {pos + 1:<5} {dname:<9} err={err:.2e} "
-                f"kernel={ms:.4f} ragged(kernel 1)={ragged_ms:.4f} "
-                f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by}) ms"
-                f" | yardstick, unused by the port: sdpa={lib_ms:.4f} ms")
+            rows.append(dict(case=case, dtypes=dname, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=lib_ms,
+                             ragged_ms=ragged_ms, body=f"ring x{splits}"))
+            if dname == "bf16/bf16" and lanes == 8:
+                # what the default timing holds besides the kernel's reads
+                clean, warm = (timer(lambda: paged_decode_attention(*args),
+                                     iters=20, flush=f)
+                               for f in ("clean", "warm"))
+                floor1, floor2 = (timer(lambda: [torch.cuda._sleep(0)
+                                                 for _ in range(n)],
+                                        iters=20) for n in (1, 2))
+                log(f"kernels: paged {case} {dname} timing context: kernel "
+                    f"{ms:.4f} ms (dirty flush), {clean:.4f} (clean flush),"
+                    f" {warm:.4f} (warm L2); timer floor {floor1:.4f} ms "
+                    f"one empty launch, {floor2:.4f} two")
+            log(f"kernels: paged {case:<8} {dname:<9} ring x{splits:<2} "
+                f"err={err:.2e} kernel={ms:.4f} ragged(kernel 1)="
+                f"{ragged_ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f} "
+                f"({bound_by}) ms | yardstick, unused by the port: "
+                f"sdpa={lib_ms:.4f} ms")
         del pool
     return rows
 
@@ -1014,7 +1055,7 @@ def kernel_entry(name, source, replaces, launches, rows, main, case):
                  ms=row["ms"], plain_ms=row["plain_ms"],
                  bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                  library_ms=row["library_ms"], case=case)
-    if "body" in row:       # "<body> x<splits>" for ragged, "<body>" flash
+    if "body" in row:   # "<body> x<splits>" ragged and paged, "<body>" flash
         entry["bodies"] = {f"{r['case']} {r['dtypes']}": r["body"]
                            for r in rows}
     return entry
@@ -1054,10 +1095,8 @@ def main(argv=None) -> int:
                         ("paged", phase_paged)):
         t0 = time.perf_counter()
         rows[name] = phase(torch, timer)
-        relaunch = ("; every case on its stated body, a second launch "
-                    "bit-identical" if name != "paged" else "")
-        log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s"
-            f"{relaunch}")
+        log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s; "
+            "every case on its stated body, a second launch bit-identical")
     phase_host(torch)
 
     t0 = time.perf_counter()

@@ -10,19 +10,30 @@ Tolerances: f32 2e-5 (summation order differs); the poisoned cases
 1e-6 (tpulab's own: the output must be exactly the live page's value);
 bf16 2e-2 (output rounding to bf16).
 
-The CUDA kernel has no CPU mode: its test is marked ``cuda`` and skips
+The CUDA kernel has no CPU mode: its tests are marked ``cuda`` and skip
 without a card (``chip_smoke.py`` holds it against the plain version on
-the H100).
+the H100).  The card's machine has no JAX, so the reference imports are
+optional there and only the ``cuda`` tests run:
+``python -m pytest --noconftest -m cuda tests/test_torch_paged_attention.py``.
+The split rule (:func:`paged_splits`) is plain Python and tested here.
 """
 
-import jax.numpy as jnp
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
-from tpulab.ops.paged_attention import paged_decode_attention as tpu_pda
+try:            # the reference; absent on the card's machine
+    import jax.numpy as jnp
+
+    from tpulab.ops.paged_attention import paged_decode_attention as tpu_pda
+except ImportError:
+    jnp = None
+from tpulab_torch.ops import paged_attention as pa
 from tpulab_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_reference)
+    MAX_SPLITS, paged_decode_attention, paged_decode_attention_reference,
+    paged_splits)
 from tpulab_torch.ops.ragged_attention import \
     ragged_paged_attention_reference
 
@@ -118,31 +129,123 @@ def test_cpu_tensors_take_the_plain_version():
     assert paged_decode_attention.launches == n0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"),
-                                    ("float32", "float32"),
-                                    ("float32", "bfloat16")])
-def test_cuda_kernel_matches_plain_version(dtypes):
-    """On the card: the kernel against its plain version with a dead page
-    poisoned with NaN, a launch counted.  Tolerance by output dtype, as
-    for the ragged kernel: f32 1e-4; bf16 rtol 8e-3, atol 4e-3."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+# ---------------------------------------------------------------- split rule
+N_SM = 132          # an H100's SMs
+SERVE = dict(hkv=8, mp=128, page_size=16)   # chip_smoke's geometry
+
+
+def test_split_count_depends_on_shapes_only():
+    """The split count takes shapes and the SM count, and no lengths:
+    equal shapes give equal splits, so equal launches give equal bits."""
+    assert list(inspect.signature(paged_splits).parameters) == [
+        "b", "hkv", "mp", "page_size", "n_sm"]
+    assert len({paged_splits(8, n_sm=N_SM, **SERVE) for _ in range(3)}) == 1
+
+
+@pytest.mark.parametrize("b,hkv", [(32, 8), (17, 8), (132, 1), (8, 32)])
+def test_one_split_when_blocks_fill_the_card(b, hkv):
+    """(KV head, lane) blocks that already fill the SMs are not split."""
+    assert paged_splits(b, hkv, 128, 16, N_SM) == 1
+
+
+@pytest.mark.parametrize("b,mp,want", [(8, 64, 4), (8, 128, 4),
+                                       (1, 128, 16), (1, 256, 16)])
+def test_serving_decode_splits(b, mp, want):
+    """8 lanes x 1024 positions (64 blocks for 132 SMs) split 4 ways, about
+    two blocks an SM; one lane x 2048 (8 blocks) splits 16 ways."""
+    n = paged_splits(b, 8, mp, 16, N_SM)
+    assert n == want and n >= 2
+    assert n * b * 8 <= 2 * N_SM       # one wave of two blocks an SM
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 32])
+@pytest.mark.parametrize("mp,page_size", [(1, 4), (2, 16), (8, 8), (5, 1),
+                                          (128, 16)])
+def test_splits_bounded_by_the_table_and_the_cap(b, mp, page_size):
+    """Never more splits than 128-position rounds in ``mp * page_size``
+    (each split keeps its four consumer warps busy) nor than the cap."""
+    for hkv in (1, 2, 8):
+        n = paged_splits(b, hkv, mp, page_size, N_SM)
+        assert 1 <= n <= MAX_SPLITS
+        assert n <= max(1, -(-mp * page_size // 128))
+
+
+# ---------------------------------------------------------------- on the card
+def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
+    """q and pool at D 128, pages of 16, scattered tables; every position
+    past a lane's inclusive length (the tail of its last live page and
+    every dead page) set to NaN."""
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    q, pool, tables = _inputs(5, 4, 32, 8, 128, 16, 20)
-    lengths = [0, 15, 16, 300]
-    pool[tables[1, 1]] = np.nan               # past lane 1's position 15
+    s, d = 16, 128
+    rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
-    args = (torch.from_numpy(q).to(dev, dt[dtypes[0]]),
-            torch.from_numpy(pool).to(dev, dt[dtypes[1]]),
-            torch.from_numpy(tables).to(dev),
-            torch.tensor(lengths, dtype=torch.int32, device=dev))
+    q = torch.from_numpy(rng.standard_normal(
+        (b, hkv * g, d)).astype(np.float32)).to(dev, dt[dtypes[0]])
+    pool = torch.from_numpy(rng.standard_normal(
+        (b * mp + 1, 2, s, hkv, d)).astype(np.float32)).to(dev, dt[dtypes[1]])
+    tables = torch.from_numpy((rng.permutation(b * mp) + 1).astype(
+        np.int32).reshape(b, mp)).to(dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    dead = torch.arange(mp * s, device=dev)[None] > lengths[:, None]
+    lane, p = dead.nonzero(as_tuple=True)
+    pool[tables[lane, p // s].long(), :, p % s] = float("nan")
+    return q, pool, tables, lengths
+
+
+def _check_on_card(args):
+    """Two launches: bit-identical, finite, one count each, and equal to
+    the plain version at the output dtype's tolerance (f32 1e-4; bf16
+    rtol 8e-3, one last-place flip, atol 4e-3 near zero)."""
     n0 = paged_decode_attention.launches
     got = paged_decode_attention(*args)
+    again = paged_decode_attention(*args)
     torch.cuda.synchronize()
-    assert paged_decode_attention.launches == n0 + 1
-    want = paged_decode_attention_reference(*args)
+    assert paged_decode_attention.launches == n0 + 2
+    assert torch.equal(got, again)
     assert torch.isfinite(got).all()
-    rtol, atol = ((8e-3, 4e-3) if dtypes[0] == "bfloat16" else (1e-4, 1e-4))
+    want = paged_decode_attention_reference(*args)
+    rtol, atol = ((8e-3, 4e-3) if got.dtype == torch.bfloat16
+                  else (1e-4, 1e-4))
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+_DTYPES = [("bfloat16", "bfloat16"), ("float32", "float32"),
+           ("float32", "bfloat16")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _DTYPES)
+def test_cuda_kernel_matches_plain_version(dtypes):
+    """On the card: the kernel against its plain version at lengths 0, 15
+    and 16 (a page's last slot and the next page's first), 300 and 2047,
+    with the tail of each last live page and every dead page poisoned with
+    NaN, and a second launch bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    _check_on_card(_card_args(dtypes, [0, 15, 16, 300, 2047], 5, 128, 5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", _DTYPES)
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_cuda_one_lane_long_context(dtypes, g):
+    """One lane over 2048 positions (16 splits on an H100) and 2040 (a
+    page tail poisoned), GQA group 1, 4 and 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    for pos in (2047, 2039):
+        _check_on_card(_card_args(dtypes, [pos], 1, 128, 6 + g, g=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", range(1, MAX_SPLITS + 1))
+def test_cuda_every_split_count(n_split, monkeypatch):
+    """Each split count the rule can give, forced on one shape whose lanes
+    give some splits no live stage (length 0, 31, 32 beside 1000 and
+    2047): neutral partials merge to the plain version's output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(pa, "paged_splits", lambda *a: n_split)
+    _check_on_card(_card_args(("bfloat16", "bfloat16"),
+                              [0, 31, 32, 1000, 2047], 5, 128, 7, hkv=2))

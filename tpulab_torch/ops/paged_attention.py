@@ -12,10 +12,17 @@ kernel's ``kv_lens``.  Tables are padded with the scratch page 0.
 (``csrc/paged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`paged_decode_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  ``paged_decode_attention.launches`` counts kernel
-launches.  tpulab's ``g_pages`` / ``nbuf`` (pages per DMA block and the
-pipeline depth in TPU VMEM) are not taken: the kernel stages its own
-tiles in shared memory.
+launch failure raises.  One body serves every dtype mix and head dim: a
+producer warp fills a ring of 32-position stages with 16-byte async
+copies tracked by mbarriers, and the consumer warps (one a ring slot)
+run the online softmax on f32 FMAs.
+Where the (KV head, lane) blocks do not fill the card, each lane's
+context is split into :func:`paged_splits` parts (split-KV) whose f32
+partials a second, small kernel merges in split order.
+``paged_decode_attention.launches`` counts calls that launched (one per
+call, merge included).  tpulab's ``g_pages`` / ``nbuf`` (pages per DMA
+block and the pipeline depth in TPU VMEM) are not taken: the kernel
+stages its own tiles in shared memory.
 """
 
 from __future__ import annotations
@@ -27,9 +34,32 @@ import math
 
 import torch
 
+from tpulab_torch.ops.ragged_attention import _sm_count
+
 _FLOATS = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8
+STAGE_POSITIONS = 32    # positions of a stage: one a consumer lane
+ROUND_STAGES = 4        # stages a round (the ring's slots at bf16 D <= 128)
+MAX_SPLITS = 16
+
+
+def paged_splits(b: int, hkv: int, mp: int, page_size: int,
+                 n_sm: int) -> int:
+    """How many parts the kernel splits each lane's context into.
+
+    A function of shapes and the SM count only, never of ``lengths`` or
+    timing, so equal shapes give equal splits and bit-equal results.  One
+    split when the (KV head, lane) blocks already fill the card;
+    otherwise enough splits for about two blocks per SM (two fit at
+    once), at most one per round of four 32-position stages over the
+    table (``mp * page_size`` positions, 128 a round) and at most
+    ``MAX_SPLITS``."""
+    blocks = b * hkv
+    if blocks >= n_sm:
+        return 1
+    rounds = -(-mp * page_size // (STAGE_POSITIONS * ROUND_STAGES))
+    return max(1, min(2 * n_sm // blocks, rounds, MAX_SPLITS))
 
 
 def paged_decode_attention_reference(q, kv_pool, tables, lengths):
@@ -97,7 +127,7 @@ def _lib() -> ctypes.CDLL:
 
     lib = load("paged_attention")
     f = lib.tpulab_paged_decode_attention
-    f.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    f.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                   + [ctypes.c_float, ctypes.c_void_p])
     f.restype = ctypes.c_int
     lib.tpulab_cuda_error_string.argtypes = [ctypes.c_int]
@@ -120,21 +150,30 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
     n_pages, _, s, hkv, _ = kv_pool.shape
     tables = tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
+    mp = tables.shape[1]
+    n_split = paged_splits(b, hkv, mp, s, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    # f32 partials of every split: O (b, hq, d), then (m, l) per row.
+    # Freed on return: the caching allocator hands the block out again
+    # only to later work on this stream, which runs after the merge.
+    scratch = (torch.empty(n_split * b * hq * (d + 2), dtype=torch.float32,
+                           device=q.device)
+               if n_split > 1 else None)
     # the launch goes to the calling thread's current device
     same = q.device.index == torch.cuda.current_device()
     with contextlib.nullcontext() if same else torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tpulab_paged_decode_attention(
             q.data_ptr(), kv_pool.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, hq, hkv, d, n_pages, s,
-            tables.shape[1], int(q.dtype == torch.bfloat16),
+            lengths.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), b, hq, hkv, d,
+            n_pages, s, mp, n_split, int(q.dtype == torch.bfloat16),
             int(kv_pool.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
-        raise RuntimeError(f"paged_decode_attention launch failed: {msg}")
+        raise RuntimeError(f"paged_decode_attention launch failed "
+                           f"({n_split} splits): {msg}")
     paged_decode_attention.launches += 1
     return out
-
 
 paged_decode_attention.launches = 0
