@@ -21,8 +21,9 @@ raises and the script exits non-zero without printing a result:
    and, for ragged and paged, its split-KV count, and checks that a
    second launch gives a bit-identical output:
    - ragged_paged_attention at the serving geometry (Hq 32, Hkv 8, D 128,
-     page 16, 8 lanes x 128 pages), seven shapes; planted: one page
-     skipped at 2048 context;
+     page 16, 8 lanes x 128 pages), eight shapes (``verify_k8``: the
+     speculative verify forward at K=8, 9 rows a lane over 1033
+     positions); planted: one page skipped at 2048 context;
    - flash_attention at B 1, H 32, D 128, T in {8, 64, 128, 512, 1024,
      2048} (the split serve's buckets among them), causal and not;
      planted: the diagonal K tile of every causal row past the first
@@ -42,7 +43,12 @@ raises and the script exits non-zero without printing a result:
    shape; in f32, ``paged_prefill`` (flash) and ``paged_ragged_forward``
    over one 1500-token prompt give the same live pages and last logits,
    and the split and ragged plans give the same greedy tokens wherever
-   the port's own top-1 margin exceeds 1e-3.
+   the port's own top-1 margin exceeds 1e-3.  Speculation, f32 (layer
+   1's wo / w2 scaled by 0.05): batchers with the 1-layer early-exit
+   draft and with the target as its own draft give the streams of plain
+   blocks (greedy and device-sampled) under the same margin rule, the
+   self-draft accepts >= 90 % of a lone request's proposals, and the
+   dense ``SpeculativeGenerator`` equals ``make_generate_fn``.
 5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
    (32 layers, random bf16 weights from a seed) serves a greedy /
    stop-token / device-sampled / logprobs / host-sampled / streaming
@@ -52,7 +58,15 @@ raises and the script exits non-zero without printing a result:
    launches == n_layers x the forwards that run each kernel, every one
    of them on the ``wgmma`` body (bf16), and a second identical run
    giving identical streams.  Prints tokens/s and time to first token
-   per plan; no gain is claimed.
+   per plan; no gain is claimed.  Then the speculative serve: layers
+   4-31's wo / w2 scaled by 0.05 in place (trained-model emulation), an
+   8-request x 64-step mix (greedy, stop token, logprobs, device-sampled;
+   no host-sampled lane) through a plain batcher and one with the
+   early-exit draft of 4 layers (two page tables a lane); per mode runs
+   2 and 3 identical, ragged launches == 32 x forward steps + 4 x draft
+   forward steps, all on ``wgmma``, every page home at the end, and
+   speculation really ran; tok/s, tokens per decode dispatch, host syncs
+   per token and acceptance side by side.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -250,6 +264,8 @@ def ra_cases():
         ("page_cross", [4, 4, 1, 1, 16, 16, 3, 2],
          [18, 32, 17, 16, 48, 16, 33, 64]),
         ("long_decode", [1] * 8, [2048] * 8),
+        # a speculative verify forward at K=8: 9 rows a lane
+        ("verify_k8", [9] * 8, [1033] * 8),
     ]
 
 
@@ -709,7 +725,6 @@ def phase_plans_f32(torch):
     from tpulab_torch.engine.paged import (ContinuousBatcher, PagedKVPool,
                                            paged_prefill,
                                            paged_ragged_forward)
-    from tpulab_torch.models.transformer import transformer_apply
     from tpulab_torch.ops.flash_attention import make_flash_attention_fn
 
     c = LLAMA3_8B
@@ -766,28 +781,156 @@ def phase_plans_f32(torch):
             streams[plan] = [list(f.result(timeout=300)) for f in futs]
         finally:
             cb.shutdown()
-    notes = []
-    for p, a, b in zip(prompts, streams["ragged"], streams["split"]):
-        if a == b:
-            continue
-        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-        seq = np.concatenate([p, np.asarray(a[:i], np.int32)])[None]
-        with torch.inference_mode():
-            row = transformer_apply(
-                params, {"tokens": torch.from_numpy(seq).long().cuda()},
-                **kw)["logits"][0, -1]
-        top2 = row.topk(2).values
-        margin = (top2[0] - top2[1]).item()
-        if margin >= MARGIN_TOL:
-            raise AssertionError(f"split != ragged greedy tokens at step {i} "
-                                 f"of a {len(p)}-token prompt with top-1 "
-                                 f"margin {margin:.2e}")
-        notes.append(f"{len(p)}-token prompt differs at step {i} "
-                     f"(margin {margin:.2e} < {MARGIN_TOL:g})")
+    notes = [same_or_near_tie(torch, params, kw, f"split vs ragged, "
+                              f"{len(p)}-token prompt", p, a, b)
+             for p, a, b in zip(prompts, streams["ragged"], streams["split"])]
+    notes = [n for n in notes if n]
     log(f"invariants: split vs ragged plan, greedy, prompts of "
         f"{[len(p) for p in prompts]} tokens x 8 steps: "
         + ("; ".join(notes) if notes else "identical streams"))
     del params
+    torch.cuda.empty_cache()
+
+
+def pick_margin(torch, row, temp, seed, pos):
+    """The gap between the two best scores a pick compares at position
+    ``pos``: the logits (greedy) or logits / T + the (seed, position)
+    Gumbel draw (device sampling), as ``device_sample_tokens`` scores."""
+    from tpulab_torch.engine.prng import fold_in, gumbel, prng_key
+
+    z = row.float()
+    if temp > 0:
+        key = prng_key(0, row.device, (1,))
+        for word in (seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF, pos):
+            key = fold_in(key, torch.tensor([word], device=row.device))
+        z = z / temp + gumbel(key, z.shape[-1])[0]
+    top2 = z.topk(2).values
+    return (top2[0] - top2[1]).item()
+
+
+def same_or_near_tie(torch, params, kw, label, prompt, want, got, temp=0.0,
+                     seed=0):
+    """``got`` equals ``want``, or first differs where the f32 model's own
+    pick margin (:func:`pick_margin` over ``transformer_apply``'s logits)
+    is below ``MARGIN_TOL``; returns a note for the log."""
+    import numpy as np
+
+    from tpulab_torch.models.transformer import transformer_apply
+
+    if got == want:
+        return None
+    i = next((j for j, (x, y) in enumerate(zip(want, got)) if x != y),
+             min(len(want), len(got)))
+    if i == min(len(want), len(got)):
+        raise AssertionError(f"{label}: lengths {len(want)} != {len(got)}")
+    seq = np.concatenate([prompt, np.asarray(want[:i], np.int32)])[None]
+    with torch.inference_mode():
+        row = transformer_apply(
+            params, {"tokens": torch.from_numpy(seq).long().cuda()},
+            **kw)["logits"][0, -1]
+    margin = pick_margin(torch, row, temp, seed, seq.shape[1] - 1)
+    if margin >= MARGIN_TOL:
+        raise AssertionError(f"{label}: streams differ at step {i} with "
+                             f"pick margin {margin:.2e}")
+    return (f"{label} differs at step {i} (margin {margin:.2e} < "
+            f"{MARGIN_TOL:g})")
+
+
+def phase_spec_f32(torch):
+    """f32, full width, 2 layers, layer 1's wo / w2 scaled by 0.05 (so the
+    1-layer early-exit draft agrees): speculating batchers (early-exit
+    draft; the target as its own draft) against plain blocks, greedy and
+    device-sampled, and the dense SpeculativeGenerator against
+    make_generate_fn, each under the margin rule."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
+    from tpulab_torch.engine.speculative import SpeculativeGenerator
+    from tpulab_torch.models.transformer import (early_exit_draft,
+                                                 make_generate_fn)
+
+    c = LLAMA3_8B
+    n_layers, s = 2, 16
+    params = full_width_params(torch, n_layers, torch.float32, seed=5)
+    with torch.inference_mode():
+        for w in ("wo", "w2"):
+            params["layer1"][w].mul_(0.05)
+    kw = dict(n_heads=c["n_heads"], n_layers=n_layers,
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (5, 300, 1000)]
+    temps = (0.0, 0.8, 0.0)
+    seeds = (0, 4321, 0)
+    max_len, steps = 1024 + 32, 24
+    streams, stats = {}, {}
+    for mode, draft, dl in (("plain", None, None),
+                            ("early_exit", early_exit_draft(params, 1), 1),
+                            ("self", params, n_layers)):
+        cb = ContinuousBatcher(
+            params, device="cuda", lanes=4, max_len=max_len, page_size=s,
+            n_pages=2 * 4 * (max_len // s) + 1, draft_params=draft,
+            draft_n_layers=dl, **kw)
+        try:
+            futs = [cb.submit(p, steps, sampling=SamplingParams(
+                temperature=t, seed=sd, device=True))
+                for p, t, sd in zip(prompts, temps, seeds)]
+            streams[mode] = [list(f.result(timeout=300)) for f in futs]
+            stats[mode] = (cb.spec_dispatches, cb.spec_tokens_drafted,
+                           cb.spec_tokens_accepted)
+            if mode == "self":
+                # acceptance over one lone request of 1 + 7 x 9 tokens: no
+                # block reaches past its budget (drafts there count as
+                # drafted, never as accepted)
+                before = stats[mode]
+                cb.submit(prompts[1], 64).result(timeout=300)
+                stats["self_lone"] = tuple(
+                    now - was for now, was in zip(
+                        (cb.spec_dispatches, cb.spec_tokens_drafted,
+                         cb.spec_tokens_accepted), before))
+        finally:
+            cb.shutdown()
+    notes = []
+    for mode in ("early_exit", "self"):
+        if stats[mode][0] == 0:
+            raise AssertionError(f"f32 spec ({mode}): no speculative "
+                                 "dispatch ran")
+        for p, t, sd, want, got in zip(prompts, temps, seeds,
+                                       streams["plain"], streams[mode]):
+            note = same_or_near_tie(
+                torch, params, kw, f"spec ({mode}) vs plain, {len(p)}-token "
+                f"prompt, T {t}", p, want, got, t, sd)
+            if note:
+                notes.append(note)
+    acc = {m: stats[m][2] / max(1, stats[m][1]) for m in stats}
+    if acc["self_lone"] < 0.9:
+        raise AssertionError(f"self-draft acceptance {acc['self_lone']:.3f} "
+                             "< 0.9")
+    log(f"invariants: full width, {n_layers} layers, f32: speculating "
+        f"batchers vs plain blocks, prompts {[len(p) for p in prompts]} x "
+        f"{steps} steps (greedy, device-sampled T 0.8, greedy): "
+        + ("; ".join(notes) if notes else "identical streams")
+        + f"; acceptance early-exit draft {acc['early_exit']:.3f} "
+        f"({stats['early_exit'][2]}/{stats['early_exit'][1]} over "
+        f"{stats['early_exit'][0]} dispatches), self-draft "
+        f"{acc['self']:.3f}, over a lone 64-step request "
+        f"{acc['self_lone']:.3f} ({stats['self_lone'][2]}/"
+        f"{stats['self_lone'][1]}, >= 0.9)")
+    dense_p = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+    gen = SpeculativeGenerator(params, early_exit_draft(params, 1),
+                               draft_n_layers=1, k=4, max_len=128,
+                               device="cuda", **kw)
+    got = gen.generate(dense_p, steps)
+    want = make_generate_fn(params, max_len=128, **kw)(
+        dense_p[None], steps)[0].tolist()
+    note = same_or_near_tie(torch, params, kw, "dense SpeculativeGenerator "
+                            "vs make_generate_fn", dense_p, want, got)
+    log(f"invariants: dense SpeculativeGenerator (early-exit draft, k 4) vs "
+        f"make_generate_fn greedy, 64-token prompt x {steps}: "
+        f"{note or 'identical'}; {gen.rounds} rounds, {gen.accepted} "
+        "accepted")
+    del params, gen
     torch.cuda.empty_cache()
 
 
@@ -848,12 +991,51 @@ class Metrics:
         pass
 
 
+# the batcher counters a serve run reads (deltas over the run)
+COUNTERS = ("forward_steps", "prefill_forwards", "prefill_dispatches",
+            "tokens_generated", "decode_dispatches", "decode_host_syncs",
+            "draft_forward_steps", "spec_dispatches", "spec_tokens_drafted",
+            "spec_tokens_accepted", "spec_fallbacks", "spec_probes")
+
+
+def run_mix(torch, cb, specs, counted, late=None):
+    """Submit ``specs`` (name, prompt, steps, submit kwargs) at once with
+    every kernel's count set to 0, wait for them (and for the request
+    ``late["late"]`` a callback submits); returns (outputs dict, stats:
+    wall seconds, counter deltas, launches by kernel and body)."""
+    futs = {}
+    for fn in counted.values():
+        fn.launches = 0
+        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+    before = {n: getattr(cb, n) for n in COUNTERS}
+    kinds = dict(cb.dispatch_kinds)
+    t0 = time.perf_counter()
+    # submit the mix atomically (the scheduler's lock is re-entrant), so
+    # repeated runs schedule identical rounds
+    with cb._cv:
+        for name, prompt, steps, kw in specs:
+            futs[name] = cb.submit(prompt, steps, **kw)
+    outs = {name: f.result(timeout=900) for name, f in futs.items()}
+    if late is not None:
+        while "late" not in late:
+            time.sleep(0.001)
+        outs["late"] = late["late"].result(timeout=900)
+    wall = time.perf_counter() - t0
+    stats = {n: getattr(cb, n) - before[n] for n in COUNTERS}
+    stats.update(wall_s=wall, tokens=stats["tokens_generated"],
+                 launches={name: fn.launches for name, fn in counted.items()},
+                 by_body={name: dict(fn.launches_by_body)
+                          for name, fn in counted.items()},
+                 kinds={k: cb.dispatch_kinds[k] - kinds[k] for k in kinds},
+                 steps={name: st for name, _, st, _ in specs})
+    return outs, stats
+
+
 def serve_once(torch, cb, prompts, stop_token, counted):
     """Submit the request mix with every kernel's count set to 0; returns
     (outputs dict, stats)."""
     from tpulab_torch.engine.paged import SamplingParams
 
-    futs = {}
     late = {}
 
     def trigger(tok, i):            # runs on the scheduler thread
@@ -872,33 +1054,8 @@ def serve_once(torch, cb, prompts, stop_token, counted):
             temperature=0.9, top_k=50, seed=5))),
         ("greedy_logprobs", prompts[1500], 40, dict(logprobs=True)),
     ]
-    for fn in counted.values():
-        fn.launches = 0
-        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
-    before = (cb.forward_steps, cb.prefill_forwards, cb.prefill_dispatches,
-              dict(cb.dispatch_kinds), cb.tokens_generated)
-    t0 = time.perf_counter()
-    # submit the mix atomically (the scheduler's lock is re-entrant), so
-    # both runs schedule identical rounds
-    with cb._cv:
-        for name, prompt, steps, kw in specs:
-            futs[name] = cb.submit(prompt, steps, **kw)
-    outs = {name: f.result(timeout=900) for name, f in futs.items()}
-    while "late" not in late:
-        time.sleep(0.001)
-    outs["late"] = late["late"].result(timeout=900)
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    by_body = {name: dict(fn.launches_by_body)
-               for name, fn in counted.items()}
-    stats = dict(wall_s=wall, tokens=cb.tokens_generated - before[4],
-                 launches=launches, by_body=by_body,
-                 forward_steps=cb.forward_steps - before[0],
-                 prefill_forwards=cb.prefill_forwards - before[1],
-                 prefill_dispatches=cb.prefill_dispatches - before[2],
-                 kinds={k: cb.dispatch_kinds[k] - before[3][k]
-                        for k in before[3]},
-                 steps={name: s for name, _, s, _ in specs} | {"late": 48})
+    outs, stats = run_mix(torch, cb, specs, counted, late)
+    stats["steps"]["late"] = 48
     return outs, stats
 
 
@@ -1014,6 +1171,145 @@ def serve_plan(torch, model, prompts, plan, card, profile):
     return st2
 
 
+# the speculative serve: SERVE plus an early-exit draft of the first 4
+# layers, and a pool for two page tables a lane (2 x 8 x 128 + 1 pages)
+SPEC_DRAFT_LAYERS = 4
+SPEC = dict(draft_n_layers=SPEC_DRAFT_LAYERS,
+            n_pages=2 * SERVE["lanes"] * SERVE["max_len"]
+            // SERVE["page_size"] + 1)
+SPEC_TAIL_SCALE = 0.05
+
+
+def spec_specs(prompts, stop_token):
+    """The speculative serve's mix: 8 requests x 64 steps; five greedy
+    (one with a stop token, one with logprobs), three device-sampled at
+    T 0.8.  No host-sampled lane: one would make every dispatch plain."""
+    from tpulab_torch.engine.paged import SamplingParams
+
+    def dev(seed):
+        return dict(sampling=SamplingParams(temperature=0.8, seed=seed,
+                                            device=True))
+
+    kinds = [("greedy_stop", dict(stop_tokens=(
+                [stop_token] if stop_token is not None else None))),
+             ("device_a", dev(1234)), ("greedy_b", {}), ("device_b", dev(99)),
+             ("greedy_c", {}), ("greedy_logprobs", dict(logprobs=True)),
+             ("greedy_d", {}), ("device_c", dev(7))]
+    return [(name, p, 64, kw) for (name, kw), p in zip(kinds, prompts)]
+
+
+def serve_spec(torch, model, card, profile):
+    """The same mix through a plain and a speculating batcher on the same
+    weights (layers 4-31's wo / w2 scaled by 0.05 IN PLACE first: the
+    trained-model emulation, without which an early-exit draft agrees
+    with almost nothing).  Per mode three runs: run 1 picks the stop
+    token (greedy_stop's 9th), runs 2 and 3 must be identical."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.models.transformer import early_exit_draft
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    with torch.inference_mode():
+        for layer in model.layers[SPEC_DRAFT_LAYERS:]:
+            layer.wo.mul_(SPEC_TAIL_SCALE)
+            layer.w2.mul_(SPEC_TAIL_SCALE)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (5, 64, 300, 700, 1000, 1500, 64, 300)]
+    counted = {"ragged": ragged_paged_attention}
+    res = {}
+    for mode in ("plain", "spec"):
+        extra = (dict(SPEC, draft_params=early_exit_draft(
+            model, SPEC_DRAFT_LAYERS)) if mode == "spec" else {})
+        cb = ContinuousBatcher(model, n_heads=c["n_heads"],
+                               n_layers=c["n_layers"],
+                               n_kv_heads=c["n_kv_heads"],
+                               rope_theta=c["rope_theta"],
+                               compute_dtype=torch.bfloat16, device="cuda",
+                               **SERVE, **extra)
+        try:
+            out1, _ = run_mix(torch, cb, spec_specs(prompts, None), counted)
+            stop = out1["greedy_stop"][8]
+            runs = []
+            for i in range(2):
+                torch.cuda.synchronize()
+                if profile and mode == "spec" and i == 1:
+                    from torch.profiler import ProfilerActivity
+                    with torch.profiler.profile(activities=[
+                            ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+                        runs.append(run_mix(torch, cb,
+                                            spec_specs(prompts, stop),
+                                            counted))
+                    device_breakdown(torch, prof, runs[-1][1]["wall_s"],
+                                     card, "spec")
+                else:
+                    runs.append(run_mix(torch, cb, spec_specs(prompts, stop),
+                                        counted))
+            # every request resolved: its lane, both tables, went home
+            free = cb.pool.free_pages
+            n_pages = cb.pool.n_pages
+        finally:
+            cb.shutdown()
+        (out2, st2), (out3, st3) = runs
+        if free != n_pages - 1:
+            raise AssertionError(f"{mode} serve: {free} free pages after the "
+                                 f"last request, want {n_pages - 1}")
+        cut = out1["greedy_stop"].index(stop) + 1
+        if out2["greedy_stop"] != out1["greedy_stop"][:cut]:
+            raise AssertionError(f"{mode} serve: the stop token did not end "
+                                 "greedy_stop where run 1 emits it")
+        for name, toks in out2.items():
+            toks = toks[0] if isinstance(toks, tuple) else toks
+            if name != "greedy_stop" and len(toks) != 64:
+                raise AssertionError(f"{mode} {name}: {len(toks)} tokens")
+            if not all(0 <= t < c["vocab"] for t in toks):
+                raise AssertionError(f"{mode} {name}: token outside vocab")
+            if out3[name] != out2[name]:
+                raise AssertionError(f"{mode} {name}: run 3 differs")
+        lps = out2["greedy_logprobs"][1]
+        if not all(math.isfinite(x) and x <= 0 for x in lps):
+            raise AssertionError(f"{mode}: logprobs must be finite and <= 0")
+        for st in (st2, st3):
+            ra = st["launches"]["ragged"]
+            want = (c["n_layers"] * st["forward_steps"]
+                    + SPEC_DRAFT_LAYERS * st["draft_forward_steps"])
+            if ra != want or st["by_body"]["ragged"] != {"fma": 0,
+                                                         "wgmma": ra}:
+                raise AssertionError(
+                    f"{mode} serve: ragged launches {ra} (by body "
+                    f"{st['by_body']['ragged']}), want {c['n_layers']} x "
+                    f"{st['forward_steps']} + {SPEC_DRAFT_LAYERS} x "
+                    f"{st['draft_forward_steps']}, all on wgmma")
+            spec_ran = (st["spec_dispatches"] > 0 and st["kinds"]["verify"]
+                        == st["spec_dispatches"]
+                        and st["spec_tokens_accepted"] > 0)
+            if spec_ran != (mode == "spec"):
+                raise AssertionError(f"{mode} serve: spec dispatches "
+                                     f"{st['spec_dispatches']}, kinds "
+                                     f"{st['kinds']}, accepted "
+                                     f"{st['spec_tokens_accepted']}")
+        res[mode] = st2 | {"wall3_s": st3["wall_s"]}
+    for mode, st in res.items():
+        tok = st["tokens"]
+        acc = st["spec_tokens_accepted"] / max(1, st["spec_tokens_drafted"])
+        log(f"serve: spec serve, {mode:<5}: {tok} tokens in "
+            f"{st['wall_s']:.3f} s = {tok / st['wall_s']:.1f} tok/s (run 3: "
+            f"{tok / st['wall3_s']:.1f}); {tok / st['decode_dispatches']:.2f} "
+            f"tokens per decode dispatch ({st['kinds']}); "
+            f"{st['decode_host_syncs'] / tok:.4f} host syncs per token; "
+            f"acceptance {acc:.3f} ({st['spec_tokens_accepted']}/"
+            f"{st['spec_tokens_drafted']}), fallbacks {st['spec_fallbacks']}, "
+            f"probes {st['spec_probes']}; ragged launches "
+            f"{st['launches']['ragged']} = {c['n_layers']} x "
+            f"{st['forward_steps']} + {SPEC_DRAFT_LAYERS} x "
+            f"{st['draft_forward_steps']} draft forwards, all wgmma; "
+            f"streams of runs 2 and 3 identical [{card}]")
+    return res
+
+
 def phase_serve(torch, card, profile=False):
     import numpy as np
 
@@ -1039,6 +1335,10 @@ def phase_serve(torch, card, profile=False):
         t1 = time.perf_counter()
         out[plan] = serve_plan(torch, model, prompts, plan, card, profile)
         log(f"serve: {plan} plan {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["spec"] = serve_spec(torch, model, card, profile)
+    log(f"serve: spec serve (plain and speculating batchers) "
+        f"{time.perf_counter() - t1:.1f} s")
     return out
 
 
@@ -1064,8 +1364,9 @@ def kernel_entry(name, source, replaces, launches, rows, main, case):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace serve run 3 of each plan with torch.profiler "
-                         "and print device time by kernel class")
+                    help="trace serve run 3 of each plan and of the "
+                         "speculating batcher with torch.profiler and print "
+                         "device time by kernel class")
     args = ap.parse_args(argv)
 
     import torch
@@ -1102,6 +1403,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     op_launches = phase_invariants(torch)
     phase_plans_f32(torch)
+    phase_spec_f32(torch)
     log(f"invariants: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     st = phase_serve(torch, card, args.profile)
@@ -1111,10 +1413,12 @@ def main(argv=None) -> int:
         kernel_entry("ragged_paged_attention",
                      "tpulab_torch/ops/csrc/ragged_attention.cu",
                      "tpulab/ops/ragged_attention.py:190",
-                     st["ragged"]["launches"]["ragged"], rows["ragged"],
-                     ("all_decode", "bf16/bf16"),
+                     st["ragged"]["launches"]["ragged"]
+                     + st["spec"]["spec"]["launches"]["ragged"],
+                     rows["ragged"], ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
-                     "launches: ragged-plan serve run"),
+                     "launches: ragged-plan serve run + speculative serve "
+                     "run"),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",

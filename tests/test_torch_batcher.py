@@ -413,7 +413,6 @@ def test_split_plan_defaults(lm):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(draft_params={}), "speculative"),
     (dict(kv_offload=True), "host tier"),
     (dict(kv_publish=True), "host tier"),
     (dict(mesh=object()), "parallelism"),

@@ -38,7 +38,8 @@ def test_forbidden_matches_exact_names():
 
 def test_importing_every_module_loads_no_jax_or_tpulab():
     mods = _modules()
-    assert "tpulab_torch.engine.paged" in mods
+    assert {"tpulab_torch.engine.paged", "tpulab_torch.engine.speculative",
+            "tpulab_torch.chaos"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -31,7 +31,7 @@ try:            # the reference; absent on the card's machine
         ragged_paged_attention as tpu_rpa
 except ImportError:
     jnp = None
-from tpulab_torch.engine.paged import _gather_attend
+from tpulab_torch.engine.paged import ContinuousBatcher, _gather_attend
 from tpulab_torch.ops.ragged_attention import (
     MAX_SPLITS, STAGE_KEYS, ragged_body, ragged_paged_attention,
     ragged_paged_attention_reference, ragged_splits)
@@ -271,15 +271,19 @@ _CARD_CASES = {
 
 
 def _card_inputs(case, g, seed):
-    """bf16 q and pool at a small width (Hkv 2, D 128, G query heads per
-    KV head), scattered tables, and every position a lane does not hold
-    set to NaN (a dead page must never be read)."""
-    q_lens, kv_lens = _CARD_CASES[case]
+    return _nan_inputs(*_CARD_CASES[case], g, seed)
+
+
+def _nan_inputs(q_lens, kv_lens, g, seed, q_dt=torch.bfloat16,
+                kv_dt=torch.bfloat16):
+    """q and pool (bf16 by default) at a small width (Hkv 2, D 128, G query
+    heads per KV head), scattered tables, and every position a lane does
+    not hold set to NaN (a dead page must never be read)."""
     b, mp, s, hkv, d = 8, 128, 16, 2, 128
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     pool = torch.from_numpy(rng.standard_normal(
-        (b * mp + 1, 2, s, hkv, d)).astype(np.float32)).to(dev, torch.bfloat16)
+        (b * mp + 1, 2, s, hkv, d)).astype(np.float32)).to(dev, kv_dt)
     tables = torch.from_numpy((rng.permutation(b * mp) + 1).astype(
         np.int32).reshape(b, mp)).to(dev)
     pos = torch.arange(mp * s, device=dev)
@@ -287,8 +291,7 @@ def _card_inputs(case, g, seed):
     lane, p = dead.nonzero(as_tuple=True)
     pool[tables[lane, p // s].long(), :, p % s] = float("nan")
     q = torch.from_numpy(rng.standard_normal(
-        (b, max(q_lens), hkv * g, d)).astype(np.float32)).to(dev,
-                                                            torch.bfloat16)
+        (b, max(q_lens), hkv * g, d)).astype(np.float32)).to(dev, q_dt)
     return (q, pool, tables, torch.tensor(q_lens, device=dev),
             torch.tensor(kv_lens, device=dev))
 
@@ -321,4 +324,45 @@ def test_cuda_wgmma_body_over_the_smoke_cases(case, g):
     torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
                                atol=4e-3)
     for lane, n in enumerate(_CARD_CASES[case][0]):
+        assert not got[lane, n:].any()
+
+
+def _verify_lens(k):
+    """(q_lens, kv_lens) of a speculative verify forward at draft length
+    ``k``: windows of k+1 rows, three of them crossing a page boundary
+    (kv_lens 16c + k//2 + 1 put the window's start in page c-1), one at
+    the start of a context, one at 2048, and two lanes with no rows (one
+    over a live context, one over none)."""
+    w = k + 1
+    return ([w, 0, w, w, 0, w, w, w],
+            [w, 300, 48 + k // 2 + 1, 1024 + k // 2 + 1, 0, 2048,
+             16 + k // 2 + 1, 700])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"),
+                                    ("float32", "float32"),
+                                    ("float32", "bfloat16")])
+@pytest.mark.parametrize("k", ContinuousBatcher.BLOCK_K_MENU)
+def test_cuda_kernel_at_verify_shapes(k, dtypes):
+    """On the card: the kernel at the speculative verify shape q = K+1 for
+    every K of the block menu, GQA group 4, in every dtype mix, with NaN
+    past each lane's length, against the plain version (f32 1e-4; bf16
+    rtol 8e-3, atol 4e-3) and bit-identical on a second launch; rows past
+    q_len and the lanes with no rows are zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q_dt, kv_dt = (_DT[d][1] for d in dtypes)
+    q_lens, kv_lens = _verify_lens(k)
+    args = _nan_inputs(q_lens, kv_lens, 4, seed=k, q_dt=q_dt, kv_dt=kv_dt)
+    got = ragged_paged_attention(*args)
+    again = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.isfinite(got).all()
+    want = ragged_paged_attention_reference(*args)
+    rtol, atol = (8e-3, 4e-3) if q_dt == torch.bfloat16 else (1e-4, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    for lane, n in enumerate(q_lens):
         assert not got[lane, n:].any()

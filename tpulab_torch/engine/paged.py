@@ -16,7 +16,10 @@ of two plans:
 
 Decode runs K-token blocks (:func:`paged_decode_block`, K chained
 :func:`paged_decode_step` calls with on-device sampling and stop masks:
-one host sync per K tokens) under both plans.
+one host sync per K tokens) under both plans, or, with a draft model
+(``draft_params``), speculative blocks (:func:`paged_speculative_block`:
+K draft steps through a second page table on the same pool, one target
+verify forward, acceptance on the device: up to K+1 tokens a sync).
 
 Every paged attention call goes through
 :func:`tpulab_torch.ops.ragged_attention.ragged_paged_attention`, and the
@@ -29,10 +32,10 @@ land on scratch page 0, which is harmless only because nothing ever
 reads page 0 as live data.
 
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
-counterpart.  The XLA-gather escape hatch (``use_kernel=False``),
-speculative decoding, the KV host tier, meshes, the HBM arbiter, tracing
-and the flight recorder are not ported: their constructor arguments
-raise ``NotImplementedError`` naming the ROADMAP item.
+counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the KV
+host tier, meshes, the HBM arbiter, tracing and the flight recorder are
+not ported: their constructor arguments raise ``NotImplementedError``
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,12 +50,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from tpulab_torch import chaos
 from tpulab_torch.core.deadline import Deadline, DeadlineExceeded
 from tpulab_torch.cuda.allocators import DeviceRawAllocator
 from tpulab_torch.cuda.platform import resolve_device
 from tpulab_torch.engine.prng import device_sample_tokens
 from tpulab_torch.models.transformer import (
-    _add, _dense_ffn, _embed, _lm_head, _mm, _rmsnorm, apply_rope,
+    _add, _dense_ffn, _embed, _lm_head, _mm, _rmsnorm, _tree, apply_rope,
     causal_attention, qmat, repeat_kv, split_qkv,
     transformer_forward_collect_kv)
 from tpulab_torch.ops.flash_attention import make_flash_attention_fn
@@ -344,6 +348,84 @@ def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
             torch.stack(out_em, 1), lens, toks, live, rem)
 
 
+def paged_speculative_block(params, draft_params, kv_pool, tables,
+                            draft_tables, lengths, tokens, active, temps,
+                            seeds, steps_rem, stop_ids,
+                            n_heads: int, n_layers: int,
+                            draft_n_heads: int, draft_n_layers: int,
+                            compute_dtype, k: int = 4,
+                            n_kv_heads: Optional[int] = None,
+                            draft_n_kv_heads: Optional[int] = None,
+                            rope_theta: Optional[float] = None):
+    """Speculative decode: draft-propose, target-verify and per-lane
+    accept, enqueued without a host sync (the pool is written in place).
+
+    The draft proposes through a SECOND page table on the same pool:
+    ``k + 1`` single-token :func:`paged_decode_step` calls (the last
+    proposal is discarded, so a fully accepted round leaves no hole in
+    the draft KV); a lane is active in step i only while ``i <
+    steps_rem``.  The target verifies ``[cur, d_0 .. d_{k-1}]`` in ONE
+    :func:`paged_ragged_forward` (``q_lens = min(k+1, steps_rem)`` on
+    active lanes, 0 elsewhere), and picks its own choice at every
+    position with the plain stream's (seed, position) key, so the emitted
+    tokens are exactly the non-speculative stream.  Each lane emits the
+    agreeing prefix plus the target's correction (or bonus), truncated
+    after a stop token and at the steps budget.  The draft samples
+    through the same function on its own logits.
+
+    The caller reserves BOTH tables for positions ``lengths .. lengths +
+    k``.  Returns ``(tokens (B, k+1), logprobs (B, k+1), emitted (B, k+1)
+    prefix mask, lengths, last_tokens, live, steps_rem, drafted (B,),
+    accepted (B,))``."""
+    lens, toks = lengths.long(), tokens.long()
+    rem = steps_rem.long()
+    props = []
+    tok = toks
+    for i in range(k + 1):
+        tok, _lp, _logits = paged_decode_step(
+            draft_params, kv_pool, draft_tables, lens + i, tok,
+            active & (i < rem), n_heads=draft_n_heads,
+            n_layers=draft_n_layers, compute_dtype=compute_dtype,
+            n_kv_heads=draft_n_kv_heads, rope_theta=rope_theta,
+            temps=temps, seeds=seeds)
+        props.append(tok)
+    drafts = torch.stack(props[:k], 1)                        # (B, k)
+    # position j's write is real only while the lane can still emit
+    # token j (query j consumes writes 0..j only)
+    seq = torch.cat([toks[:, None], drafts], 1)               # (B, k+1)
+    q_lens = torch.where(active, rem.clamp_min(0).clamp_max(k + 1), 0)
+    logits = paged_ragged_forward(
+        params, kv_pool, tables, seq, q_lens, lens + q_lens,
+        n_heads=n_heads, n_layers=n_layers, compute_dtype=compute_dtype,
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta)         # (B, k+1, V)
+    b, w, vocab = logits.shape
+    pos = lens[:, None] + torch.arange(w, device=lens.device)[None, :]
+    flat = logits.reshape(b * w, vocab)
+    cand = device_sample_tokens(
+        flat, temps.repeat_interleave(w), seeds.repeat_interleave(w, 0),
+        pos.reshape(-1)).reshape(b, w)
+    lps = torch.log_softmax(flat.float(), dim=-1).gather(
+        1, cand.reshape(-1, 1))[:, 0].reshape(b, w)
+    # accept on device: the agreeing prefix + the correction, cut after
+    # the first stop token and at the steps budget
+    agree = (drafts == cand[:, :k]).long()
+    acc = torch.cumprod(agree, 1).sum(1)                      # (B,)
+    hit = (cand[:, :, None] == stop_ids[:, None, :]).any(2)   # (B, k+1)
+    any_hit = hit.any(1)
+    first_stop = hit.long().argmax(1)
+    stop_cap = torch.where(any_hit, first_stop + 1, k + 1)
+    n = torch.minimum(torch.minimum(acc + 1, stop_cap), rem)
+    n = torch.where(active, n, 0)
+    emitted = torch.arange(w, device=n.device)[None, :] < n[:, None]
+    last = cand.gather(1, (n - 1).clamp_min(0)[:, None])[:, 0]
+    rem = rem - n
+    live = active & (rem > 0) & ~(any_hit & (stop_cap <= n))
+    drafted = torch.where(active, k, 0)
+    accepted = torch.where(active, torch.minimum(acc, n), 0)
+    return (cand, lps, emitted, lens + n, torch.where(n > 0, last, toks),
+            live, rem, drafted, accepted)
+
+
 def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
                          n_heads: int, n_layers: int, compute_dtype,
                          n_kv_heads: Optional[int] = None,
@@ -619,7 +701,10 @@ class _PagedRequest:
                  "sampling", "priority", "resumed", "admit_seq",
                  "stop_tokens", "want_logprobs", "logprobs_out", "deadline",
                  "pf_started", "pf_digests", "pf_shared",
-                 "t_submit", "t_prefill0", "t_last")
+                 "t_submit", "t_prefill0", "t_last",
+                 "draft_pages", "draft_len", "spec_enabled", "spec_ewma",
+                 "spec_drafted", "spec_accepted", "spec_probe_in",
+                 "spec_probing")
 
     def __init__(self, prompt: np.ndarray, steps: int, on_token=None,
                  sampling: Optional[SamplingParams] = None,
@@ -643,6 +728,21 @@ class _PagedRequest:
         self.want_logprobs = logprobs
         self.logprobs_out: List[float] = []
         self.deadline = deadline   # absolute monotonic expiry or None
+        # speculative decode lane state (the draft's second page table)
+        self.draft_pages: List[int] = []  # draft KV page ids (never shared)
+        self.draft_len = 0         # context positions the draft KV covers
+        self.spec_enabled = True   # False: plain blocks (a verify trip
+        #                            degrades for the rest of the request;
+        #                            an acceptance-EWMA degrade is transient
+        #                            — see spec_probe_in)
+        self.spec_probe_in = None  # plain dispatches until the next probe
+        #                            block re-tries speculation (None: no
+        #                            probe scheduled)
+        self.spec_probing = False  # the next/current spec dispatch is a
+        #                            probe: its acceptance decides recovery
+        self.spec_ewma = 1.0       # rolling acceptance (optimistic start)
+        self.spec_drafted = 0      # draft proposals verified for this lane
+        self.spec_accepted = 0     # of those, emitted (accepted) ones
         # ragged plan: multi-round chunked-prefill state
         self.pf_started = False
         self.pf_digests = None
@@ -688,9 +788,14 @@ class ContinuousBatcher:
     Decode-only lanes then advance in adaptive K-token blocks
     (:func:`paged_decode_block`, one host sync per block, the next block
     dispatched ahead while the host emits), or K=1 ticks when a
-    host-sampled lane is present.  Priority preemption evicts the weakest
-    lane, which resumes by re-prefilling prompt + generated tokens (exact
-    tokens).
+    host-sampled lane is present.  With ``draft_params`` (a draft tree or
+    :class:`~tpulab_torch.models.transformer.Transformer` of the target's
+    KV geometry, e.g. :func:`~tpulab_torch.models.transformer.
+    early_exit_draft`, and ``draft_n_layers``) decode-only batches whose
+    lanes are all eligible run speculative blocks instead
+    (:func:`paged_speculative_block`), with the same tokens.  Priority
+    preemption evicts the weakest lane, which resumes by re-prefilling
+    prompt + generated tokens (exact tokens).
 
     ``params`` is a :class:`~tpulab_torch.models.transformer.Transformer`
     or a tpulab-keyed tree of tensors.  ``device=None`` means the CUDA
@@ -718,6 +823,10 @@ class ContinuousBatcher:
                  decode_block: int = 8,
                  kv_offload=None,
                  draft_params=None,
+                 draft_n_layers: Optional[int] = None,
+                 draft_n_heads: Optional[int] = None,
+                 draft_n_kv_heads: Optional[int] = None,
+                 spec_accept_floor: float = 0.35,
                  mesh=None, hbm=None, flight=None,
                  ragged: Optional[bool] = None,
                  kv_publish: bool = False):
@@ -729,8 +838,6 @@ class ContinuousBatcher:
                 "card it would route decode attention to plain math "
                 "(ROADMAP, decisions: use_kernel=False); ragged=False "
                 "selects the split plan on the kernels")
-        if draft_params is not None:
-            raise _unported("draft_params", "speculative decoding")
         if kv_offload or kv_publish:
             raise _unported("kv_offload / kv_publish", "the KV host tier")
         if mesh is not None:
@@ -743,7 +850,7 @@ class ContinuousBatcher:
         if kv_dtype is not None and kv_dtype != compute_dtype:
             raise _unported("a kv_dtype other than the compute dtype",
                             "int8 weights and fp8 KV")
-        tree = params.params if hasattr(params, "params") else params
+        tree = _tree(params)
         if _has_int8(tree):
             raise _unported("int8 weights", "int8 weights and fp8 KV")
         if decode_block < 1:
@@ -763,6 +870,19 @@ class ContinuousBatcher:
         self.max_pages = (max_len + page_size - 1) // page_size
         d_model = tree["layer0"]["wqkv"].shape[0]
         self.vocab = int(tree["embed"].shape[0])
+        if draft_params is not None:
+            dtree = _tree(draft_params)
+            dl = draft_n_layers or n_layers
+            dh = draft_n_heads or n_heads
+            dkv = draft_n_kv_heads or (n_kv if draft_n_heads is None else dh)
+            if (dtree["layer0"]["wqkv"].shape[0] // dh != d_model // n_heads
+                    or dkv != n_kv):
+                raise ValueError(
+                    "draft model KV geometry (head_dim, n_kv_heads) must "
+                    "match the target's — both write the shared paged pool")
+            if dl > n_layers:
+                raise ValueError("draft_n_layers must be <= n_layers (the "
+                                 "draft shares the pool's layer axis)")
         self._owns_pool = pool is None
         self.pool = pool or PagedKVPool(
             n_pages or self.max_pages * lanes + 1, page_size, n_layers,
@@ -783,6 +903,45 @@ class ContinuousBatcher:
         self.prefill_flash = bool(prefill_flash)
         self._prefill = self._build_prefill(self.prefill_flash)
         self._extend = functools.partial(paged_extend, **self._step_kw)
+        # -- speculative decoding: a draft model riding the SAME pool
+        #    through a second per-lane page table.  ``draft_params`` arms
+        #    it: each dispatch drafts K tokens per lane, verifies them in
+        #    one target forward and emits up to K+1 accepted tokens,
+        #    exactly the non-speculative stream (greedy and device
+        #    sampled).  Host-sampled lanes never speculate; a lane whose
+        #    acceptance EWMA falls under ``spec_accept_floor`` degrades to
+        #    plain blocks (with periodic probes), a verify trip for the
+        #    rest of its request.
+        self._spec: Optional[Dict[str, Any]] = None
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_dispatches = 0        # speculative decode dispatches
+        self.spec_fallbacks = 0         # lanes degraded to plain blocks
+        self.spec_draft_prefills = 0    # draft-table warm-up forwards
+        self.spec_tokens_drafted = 0    # proposals verified by the target
+        self.spec_tokens_accepted = 0   # of those, emitted (accepted)
+        self.spec_probes = 0            # probe blocks re-trying a lane
+        self.spec_probe_recoveries = 0  # probes whose lane stayed
+        #                                 speculative
+        #: draft forwards (K+1 per speculative dispatch, one per warm-up):
+        #: the ragged kernel runs ``draft_n_layers`` times in each
+        self.draft_forward_steps = 0
+        if draft_params is not None:
+            self._spec = {"params": _tree_to(dtree, self.device)}
+            self._spec_kw = dict(n_heads=n_heads, n_layers=n_layers,
+                                 draft_n_heads=dh, draft_n_layers=dl,
+                                 compute_dtype=compute_dtype,
+                                 n_kv_heads=n_kv, draft_n_kv_heads=dkv,
+                                 rope_theta=rope_theta)
+            # one program for every K (PyTorch runs eagerly: nothing to
+            # compile per draft length)
+            self._spec_block = functools.partial(paged_speculative_block,
+                                                 **self._spec_kw)
+            # draft-table warm-up: one draft forward over whatever context
+            # tail the second table is missing (never synced)
+            self._draft_extend = functools.partial(
+                paged_extend, n_heads=dh, n_layers=dl,
+                compute_dtype=compute_dtype, n_kv_heads=dkv,
+                rope_theta=rope_theta)
         self.decode_block = min(int(decode_block), self.BLOCK_K_MENU[-1])
         self._pending_block: Optional[Dict[str, Any]] = None
         self._step_ewma_s = 0.0
@@ -896,6 +1055,18 @@ class ContinuousBatcher:
         with self._cv:
             return len(self._queue)
 
+    @property
+    def spec_acceptance(self) -> float:
+        """Lifetime draft acceptance rate (accepted / drafted)."""
+        return self.spec_tokens_accepted / max(1, self.spec_tokens_drafted)
+
+    @property
+    def admission_cost_factor(self) -> float:
+        """Cost multiplier an admission frontend applies to this engine's
+        requests: a speculative request holds a second page table and
+        burns draft and verify compute on rejected proposals."""
+        return 2.0 if self._spec is not None else 1.0
+
     # -- metrics hook (a no-op without a sink) -------------------------------
     def _resolve(self, completed: List[_PagedRequest]) -> None:
         for req in completed:
@@ -965,6 +1136,12 @@ class ContinuousBatcher:
         req = self._active[lane]
         self.pool.release_pages(req.pages)
         req.pages = []
+        # the draft table is regenerated at resume (one warm-up forward),
+        # so its pages go home now
+        if req.draft_pages:
+            self.pool.release_pages(req.draft_pages)
+            req.draft_pages = []
+        req.draft_len = 0
         if req.tokens_out:
             req.pending_prompt = (list(req.prompt)
                                   + list(req.tokens_out[:-1]))
@@ -1388,6 +1565,7 @@ class ContinuousBatcher:
             for lane, req in decode_parts:
                 if self._active[lane] is not req or req.cancelled:
                     continue
+                self._probe_countdown_locked(req)
                 req.length += 1
                 tok = int(next_tokens[lane])
                 req.tokens_out.append(tok)
@@ -1500,18 +1678,150 @@ class ContinuousBatcher:
                     new.pop()
         return k_eff, parts
 
+    # -- speculative lane policy ----------------------------------------------
+    #: per-dispatch smoothing of a lane's acceptance EWMA
+    SPEC_EWMA_DECAY = 0.5
+    #: plain dispatches a transiently degraded lane (acceptance EWMA under
+    #: the floor) waits before one speculative PROBE block re-tries it;
+    #: verify-trip degrades never probe
+    SPEC_PROBE_INTERVAL = 4
+
+    def _spec_eligible(self, req: _PagedRequest) -> bool:
+        """May this lane ride a speculative dispatch?  Host-sampled lanes
+        never do (their picks need the logits row on the host every
+        token); degraded lanes stay plain until a probe re-arms them."""
+        sp = req.sampling
+        if sp.temperature > 0.0 and not sp.device:
+            return False
+        return req.spec_enabled
+
+    def _degrade_spec(self, req: _PagedRequest,
+                      probe: bool = False) -> None:
+        """Drop the lane to plain blocks; its draft pages go straight back
+        to the pool.  ``probe=True`` (the acceptance-EWMA and pool-pressure
+        paths) schedules a re-try after ``SPEC_PROBE_INTERVAL`` plain
+        dispatches; ``probe=False`` (verify trips) stays plain for the
+        rest of the request."""
+        if req.spec_enabled:
+            req.spec_enabled = False
+            self.spec_fallbacks += 1
+        req.spec_probe_in = self.SPEC_PROBE_INTERVAL if probe else None
+        req.spec_probing = False
+        if req.draft_pages:
+            self.pool.release_pages(req.draft_pages)
+            req.draft_pages = []
+        req.draft_len = 0
+
+    def _probe_countdown_locked(self, req: _PagedRequest) -> None:
+        """One plain dispatch elapsed for a transiently degraded lane; at
+        zero the lane re-enters speculation as a PROBE with its EWMA reset
+        to the floor, so the probe block's own acceptance decides."""
+        if (self._spec is None or req.spec_enabled
+                or req.spec_probe_in is None):
+            return
+        req.spec_probe_in -= 1
+        if req.spec_probe_in > 0:
+            return
+        req.spec_probe_in = None
+        req.spec_enabled = True
+        req.spec_probing = True
+        req.spec_ewma = self.spec_accept_floor
+        self.spec_probes += 1
+
+    def _reserve_spec_pages(self, decode_lanes, k: int):
+        """Target + draft page reservation for one speculative block,
+        which writes positions ``length .. length + k`` on BOTH tables.
+        Target pages are reserved first; a draft-table shortfall shrinks
+        the block's k and never takes target pages; pages past the
+        (shrunk) horizon go back to the pool.  Returns ``(kd, [(lane,
+        req, new_target, new_draft), ...])``; ``kd == 0``: the pool
+        cannot support speculation now (the target reservations stay for
+        the plain path, the draft takes are returned)."""
+        parts = []
+        cap = k + 1                   # min covered appends across lanes
+        for lane, req in decode_lanes:
+            rem = req.steps - len(req.tokens_out)
+            want = max(1, min(k + 1, rem))
+            need = (req.length + want - 1) // self.page_size + 1
+            new_t: List[int] = []
+            while len(req.pages) < need:
+                page = self._alloc_page()
+                if page is None:
+                    break
+                req.pages.append(page)
+                new_t.append(page)
+            cov_t = len(req.pages) * self.page_size - req.length
+            if cov_t <= 0:
+                for _ in new_t:   # starved: return the partial take
+                    self.pool.release_pages([req.pages.pop()])
+                continue
+            new_d: List[int] = []
+            while len(req.draft_pages) < need:
+                page = self._alloc_page()
+                if page is None:
+                    break
+                req.draft_pages.append(page)
+                new_d.append(page)
+            cov_d = len(req.draft_pages) * self.page_size - req.length
+            # only a coverage shortfall shrinks the block: a step budget
+            # under k+1 is the device-side steps mask's business
+            if cov_t < want:
+                cap = min(cap, cov_t)
+            if cov_d < want:
+                cap = min(cap, cov_d)
+            parts.append((lane, req, new_t, new_d))
+        if not parts or cap < 2:
+            # not even one proposal + its verify write: hand the draft
+            # takes back; target reservations stay for plain blocks
+            for _lane, req, _new_t, new_d in parts:
+                for _ in new_d:
+                    self.pool.release_pages([req.draft_pages.pop()])
+            return 0, []
+        kd = max(m for m in self.BLOCK_K_MENU if m <= cap - 1)
+        for _lane, req, new_t, new_d in parts:
+            rem = req.steps - len(req.tokens_out)
+            want = max(1, min(kd + 1, rem))
+            need = (req.length + want - 1) // self.page_size + 1
+            while len(req.pages) > need and new_t:
+                self.pool.release_pages([req.pages.pop()])
+                new_t.pop()
+            while len(req.draft_pages) > need and new_d:
+                self.pool.release_pages([req.draft_pages.pop()])
+                new_d.pop()
+        return kd, parts
+
     def _plan_decode(self, snapshot):
-        """This dispatch's decode lanes, block size and reservations."""
+        """This dispatch's decode lanes, mode, block size and reservations.
+        The dispatch is speculative iff a draft model is armed and EVERY
+        lane is eligible (one program serves the batch); otherwise, or
+        when the pool cannot cover the draft tables, it is a plain
+        block."""
         decode_lanes = [(lane, req) for lane, req in enumerate(snapshot)
                         if req is not None and not req.cancelled
                         and not req.pending_prompt and req.tokens_out]
         if not decode_lanes:
             return None
-        k, parts = self._reserve_block_pages(
-            decode_lanes, self._pick_block_k(decode_lanes))
+        k = self._pick_block_k(decode_lanes)
+        if (self._spec is not None
+                and all(self._spec_eligible(r) for _, r in decode_lanes)):
+            kd, parts = self._reserve_spec_pages(decode_lanes, k)
+            if kd >= 1 and parts:
+                return {"k": kd, "parts": parts, "mode": "spec"}
+        k, parts = self._reserve_block_pages(decode_lanes, k)
+        if not parts and any(req.draft_pages for _, req in decode_lanes):
+            # every lane page-starved while draft tables hold pages: the
+            # draft KV is regenerable, so release the draft tables as a
+            # transient degrade (arming the probe countdown) and retry
+            # plain; without this target and draft tables can deadlock
+            # holding every page
+            for _lane, req in decode_lanes:
+                if req.draft_pages:
+                    self._degrade_spec(req, probe=True)
+            k, parts = self._reserve_block_pages(
+                decode_lanes, self._pick_block_k(decode_lanes))
         if not parts:
             return None  # every lane page-starved: caller backs off
-        return {"k": k, "parts": parts}
+        return {"k": k, "parts": parts, "mode": "plain"}
 
     def _tick(self, snapshot) -> bool:
         """Consume the dispatched-ahead block if one is in flight, else
@@ -1522,6 +1832,18 @@ class ContinuousBatcher:
         plan = self._plan_decode(snapshot)
         if plan is None:
             return False
+        if plan["mode"] == "spec":
+            stash = self._dispatch_spec_block(plan["parts"], plan["k"])
+            if stash is not None:
+                return self._consume_spec_block(stash)
+            # a verify trip before dispatch: the lanes just degraded, so
+            # this tick runs plain (their target pages are reserved)
+            lanes = [(lane, req) for lane, req, _nt, _nd in plan["parts"]]
+            k, parts = self._reserve_block_pages(
+                lanes, self._pick_block_k(lanes))
+            if not parts:
+                return False
+            plan = {"k": k, "parts": parts, "mode": "plain"}
         if plan["k"] == 1:
             return self._tick_single(plan["parts"])
         return self._consume_block(
@@ -1598,6 +1920,7 @@ class ContinuousBatcher:
                     # released or preempted since dispatch: discard
                     clean = False
                     continue
+                self._probe_countdown_locked(req)
                 n = int(ems[lane].sum())   # prefix mask: first n are valid
                 if n == 0:
                     continue
@@ -1624,11 +1947,166 @@ class ContinuousBatcher:
         if (clean and not completed and k > 1
                 and self._pending_block is None and not self._shutdown):
             lanes_now = list(stash["lane_reqs"].items())
-            if self._pick_block_k(lanes_now) == k:
+            # a lane that just re-armed speculation (a probe countdown
+            # expiring above) must go back through _plan_decode: a plain
+            # chain-ahead here would starve the probe forever
+            spec_next = (self._spec is not None
+                         and all(self._spec_eligible(r)
+                                 for _, r in lanes_now))
+            if not spec_next and self._pick_block_k(lanes_now) == k:
                 k2, parts2 = self._reserve_block_pages(lanes_now, k)
                 if k2 == k and len(parts2) == len(lanes_now):
                     self._pending_block = self._dispatch_block(
                         parts2, k, carry=stash["carry"], host=stash["host"])
+        for req, tok, i, lp in emits:
+            self._emit(req, tok, i, lp)
+        self._resolve(completed)
+        return True
+
+    # -- speculative decode dispatch ----------------------------------------
+    def _warm_draft(self, req: _PagedRequest) -> None:
+        """Bring the lane's draft KV up to the target context (positions
+        ``[draft_len, length)``): one draft forward over the missing tail
+        through the second table (``start`` need not be page-aligned),
+        never synced.  Runs at first speculative entry, after a preemption
+        resume and after plain-block interludes."""
+        t = req.length
+        if req.draft_len >= t:
+            return
+        ctx = np.concatenate([req.prompt,
+                              np.asarray(req.tokens_out[:-1], np.int32)])
+        start = req.draft_len
+        m = t - start
+        tokens = np.zeros((1, 1 << (m - 1).bit_length()), np.int64)
+        tokens[0, :m] = ctx[start:t]
+        tables = np.zeros((self.max_pages,), np.int32)
+        tables[:len(req.draft_pages)] = req.draft_pages
+        self._draft_extend(self._spec["params"], self.pool.kv,
+                           self._to_dev(tables), self._to_dev(tokens),
+                           start, t)
+        req.draft_len = t
+        self.spec_draft_prefills += 1
+        self.draft_forward_steps += 1
+
+    def _dispatch_spec_block(self, parts, k: int):
+        """Enqueue one speculative dispatch (draft, verify and on-device
+        accept).  Returns None when the ``engine.verify`` fault site trips:
+        the lanes degrade to plain blocks for the rest of their requests
+        and NOTHING was dispatched, so no token is emitted twice or lost."""
+        try:
+            tripped = chaos.trip("engine.verify")
+        except chaos.ChaosError:
+            tripped = "error"
+        if tripped is not None:
+            for _lane, req, _nt, _nd in parts:
+                self._degrade_spec(req)
+            return None
+        for _lane, req, _nt, _nd in parts:
+            self._warm_draft(req)
+        b = self.lanes
+        tables = np.zeros((b, self.max_pages), np.int32)
+        dtables = np.zeros((b, self.max_pages), np.int32)
+        lengths = np.zeros((b,), np.int64)
+        tokens = np.zeros((b,), np.int64)
+        active = np.zeros((b,), bool)
+        temps = np.zeros((b,), np.float32)
+        seeds = np.zeros((b, 2), np.int64)
+        rem = np.zeros((b,), np.int64)
+        n_stop = max((len(r.stop_tokens) for _, r, _nt, _nd in parts),
+                     default=0)
+        width = (1 << (n_stop - 1).bit_length()) if n_stop > 1 else 1
+        stops = np.full((b, width), -1, np.int64)  # ids >= 0: pad safe
+        lane_reqs = {}
+        for lane, req, _nt, _nd in parts:
+            lane_reqs[lane] = req
+            tables[lane, :len(req.pages)] = req.pages
+            dtables[lane, :len(req.draft_pages)] = req.draft_pages
+            lengths[lane] = req.length
+            tokens[lane] = req.tokens_out[-1]
+            active[lane] = True
+            rem[lane] = req.steps - len(req.tokens_out)
+            sp = req.sampling
+            if sp.device and sp.temperature > 0.0:
+                temps[lane] = sp.temperature
+                seeds[lane] = self._seed_words(sp)
+            if req.stop_tokens:
+                st = sorted(req.stop_tokens)
+                stops[lane, :len(st)] = st
+        t0 = _time.perf_counter()
+        toks, lps, ems, _len, _tok, _live, _rem, drafted, accepted = \
+            self._spec_block(
+                self.params, self._spec["params"], self.pool.kv,
+                self._to_dev(tables), self._to_dev(dtables),
+                self._to_dev(lengths), self._to_dev(tokens),
+                self._to_dev(active), self._to_dev(temps),
+                self._to_dev(seeds), self._to_dev(rem), self._to_dev(stops),
+                k=k)
+        self.decode_dispatches += 1
+        self.spec_dispatches += 1
+        self.forward_steps += 1
+        self.draft_forward_steps += k + 1
+        self._note_dispatch("verify")
+        return {"k": k, "lane_reqs": lane_reqs,
+                "dev": (toks, lps, ems, drafted, accepted), "t0": t0}
+
+    def _consume_spec_block(self, stash) -> bool:
+        """Fetch a speculative dispatch (ONE host sync for up to K+1
+        accepted tokens per lane), update each lane's acceptance EWMA and
+        emit.  Rejected proposals are counted (``spec_tokens_*``) but
+        never emitted and never enter ``tokens_generated``.  A speculative
+        block is never chained ahead."""
+        k = stash["k"]
+        toks, lps, ems, drafted, accepted = self._fetch(*stash["dev"])
+        now = _time.perf_counter()
+        self._step_ewma_s = (
+            0.8 * self._step_ewma_s + 0.2 * ((now - stash["t0"]) / (k + 1))
+            if self._step_ewma_s else (now - stash["t0"]) / (k + 1))
+        emits: List = []
+        completed: List = []
+        with self._cv:
+            for lane, req in stash["lane_reqs"].items():
+                if self._active[lane] is not req or req.cancelled:
+                    continue  # released since dispatch: block discarded
+                d, a = int(drafted[lane]), int(accepted[lane])
+                self.spec_tokens_drafted += d
+                self.spec_tokens_accepted += a
+                req.spec_drafted += d
+                req.spec_accepted += a
+                rate = a / d if d else 0.0
+                req.spec_ewma = (self.SPEC_EWMA_DECAY * req.spec_ewma
+                                 + (1.0 - self.SPEC_EWMA_DECAY) * rate)
+                if req.spec_probing:
+                    # this dispatch WAS the probe: its acceptance decides
+                    req.spec_probing = False
+                    if req.spec_ewma >= self.spec_accept_floor:
+                        self.spec_probe_recoveries += 1
+                if req.spec_ewma < self.spec_accept_floor:
+                    self._degrade_spec(req, probe=True)
+                n = int(ems[lane].sum())   # prefix mask: first n are valid
+                if n == 0:
+                    continue
+                dt = (now - req.t_last) / n if req.t_last is not None \
+                    else None
+                for j in range(n):
+                    tok = int(toks[lane, j])
+                    req.length += 1
+                    req.tokens_out.append(tok)
+                    self.tokens_generated += 1
+                    if self.metrics is not None and dt is not None:
+                        self.metrics.observe_itl(dt)
+                    lp = float(lps[lane, j]) if req.want_logprobs else None
+                    if req.want_logprobs:
+                        req.logprobs_out.append(lp)
+                    emits.append((req, tok, len(req.tokens_out) - 1, lp))
+                req.t_last = now
+                if req.draft_pages:
+                    # the block's own draft writes cover every accepted
+                    # position (k+1 draft steps: no holes)
+                    req.draft_len = req.length
+                if req.finished():
+                    self._release_lane_locked(lane, req)
+                    completed.append(req)
+            self._admit_locked()
         for req, tok, i, lp in emits:
             self._emit(req, tok, i, lp)
         self._resolve(completed)
@@ -1700,6 +2178,7 @@ class ContinuousBatcher:
             for lane, req in lane_reqs.items():
                 if req.cancelled:
                     continue  # the _run sweep releases it next round
+                self._probe_countdown_locked(req)
                 req.length += 1
                 req.tokens_out.append(int(next_tokens[lane]))
                 self.tokens_generated += 1
@@ -1730,6 +2209,9 @@ class ContinuousBatcher:
 
     def _release_lane_locked(self, lane: int, req: _PagedRequest) -> None:
         self.pool.release_pages(req.pages)
+        if req.draft_pages:
+            self.pool.release_pages(req.draft_pages)
+            req.draft_pages = []
         self._active[lane] = None
         self._requests.pop(req.future, None)
 

@@ -319,3 +319,154 @@ def transformer_forward_collect_kv(params: Tree, tokens: torch.Tensor,
     return _forward(params, tokens, n_heads, n_layers, compute_dtype,
                     attention_fn, collect_kv=True, n_kv_heads=n_kv_heads,
                     rope_theta=rope_theta, last_index=last_index)
+
+
+def _tree(params) -> Tree:
+    """The tpulab-keyed tree of a :class:`Transformer` or of a tree."""
+    return params.params if isinstance(params, Transformer) else params
+
+
+def early_exit_draft(target_params, draft_layers: int) -> Tree:
+    """Self-speculative draft: the target's first ``draft_layers`` layers
+    plus its embed, final norm and vocab head ('early-exit' drafting).
+
+    ``target_params`` is a :class:`Transformer` or a tree.  The returned
+    tree SHARES the target's tensors (no copy, no extra device memory)
+    and so its head geometry, which the paged speculative path requires:
+    the draft's KV rides the target's pool through a second page table
+    (``ContinuousBatcher(draft_params=..., draft_n_layers=...)``).  The
+    dense :class:`~tpulab_torch.engine.speculative.SpeculativeGenerator`
+    takes the same tree."""
+    tree = _tree(target_params)
+    p = {"embed": tree["embed"], "final_norm": tree["final_norm"]}
+    if "lm_head" in tree:
+        p["lm_head"] = tree["lm_head"]
+    for i in range(draft_layers):
+        p[f"layer{i}"] = tree[f"layer{i}"]
+    return p
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode (dense, one max_len cache per sequence)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_len: int, n_layers: int, n_heads: int,
+                  head_dim: int, dtype=torch.bfloat16, device=None) -> Tree:
+    """Zeroed per-layer K/V caches (B, T_max, H, Dh) on ``device`` (``None``
+    = the CUDA card) — pass the KV head count (``n_kv_heads`` under GQA)."""
+    from tpulab_torch.cuda.platform import resolve_device
+
+    dev = resolve_device(device)
+    shape = (batch, max_len, n_heads, head_dim)
+    return {f"layer{i}": {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                          "v": torch.zeros(shape, dtype=dtype, device=dev)}
+            for i in range(n_layers)}
+
+
+def transformer_chunk_step(params, cache: Tree, tokens: torch.Tensor,
+                           pos0: int, n_heads: int = 8, n_layers: int = 6,
+                           compute_dtype=torch.bfloat16,
+                           n_kv_heads: Optional[int] = None,
+                           rope_theta: Optional[float] = None):
+    """Multi-token decode: M new tokens (B, M) from position ``pos0`` (an
+    int) against the KV cache in ONE forward.
+
+    Chunk token m attends every cache position <= pos0 + m.  The chunk's
+    K/V are written into ``cache`` IN PLACE (JAX returns a new cache).
+    Returns ``(logits (B, M, vocab) f32, cache)``.  This is the chunked
+    prefill AND the speculative verify primitive: entries written past an
+    eventual acceptance point are harmless, because positions only
+    advance and stale slots are overwritten before they are attended."""
+    params = _tree(params)
+    n_kv = n_kv_heads or n_heads
+    pos0 = int(pos0)
+    x = _embed(params, tokens.long(), compute_dtype)           # (B, M, D)
+    b, m, d_model = x.shape
+    head_dim = d_model // n_heads
+    max_len = next(iter(cache.values()))["k"].shape[1]
+    if pos0 < 0 or pos0 + m > max_len:
+        raise ValueError(f"chunk [{pos0}, {pos0 + m}) outside the cache's "
+                         f"{max_len} positions")
+    chunk_pos = pos0 + torch.arange(m, device=x.device)
+    # chunk token m sees cache position j iff j <= pos0 + m
+    vis = (torch.arange(max_len, device=x.device)[None, :]
+           <= chunk_pos[:, None])                               # (M, T)
+    g = n_heads // n_kv
+    for i in range(n_layers):
+        p = params[f"layer{i}"]
+        h = _rmsnorm(x, p["ln1"]["scale"])
+        qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
+        q, k, v = split_qkv(qkv, b, m, n_heads, n_kv, head_dim)
+        if rope_theta:
+            q = apply_rope(q, chunk_pos, rope_theta)
+            k = apply_rope(k, chunk_pos, rope_theta)
+        ck, cv = cache[f"layer{i}"]["k"], cache[f"layer{i}"]["v"]
+        ck[:, pos0:pos0 + m] = k.to(ck.dtype)
+        cv[:, pos0:pos0 + m] = v.to(cv.dtype)
+        qg = q.reshape(b, m, n_kv, g, head_dim)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                              ck.float()) / math.sqrt(head_dim)
+        scores = torch.where(vis[None, None, None], scores,
+                             torch.tensor(-1e30, device=x.device))
+        probs = torch.softmax(scores, dim=-1).to(compute_dtype)
+        attn = torch.einsum("bhgqk,bkhd->bqhgd", probs,
+                            cv.to(compute_dtype)).reshape(b, m, d_model)
+        x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
+        h2 = _rmsnorm(x, p["ln2"]["scale"])
+        x = x + _dense_ffn(p, h2, compute_dtype).to(x.dtype)
+    x = _rmsnorm(x, params["final_norm"]["scale"])
+    return _lm_head(params, x), cache
+
+
+def transformer_decode_step(params, cache: Tree, tokens: torch.Tensor,
+                            pos: int, n_heads: int = 8, n_layers: int = 6,
+                            compute_dtype=torch.bfloat16,
+                            n_kv_heads: Optional[int] = None,
+                            rope_theta: Optional[float] = None):
+    """One decode step: tokens (B,) at position ``pos``; the M=1 case of
+    :func:`transformer_chunk_step`.  Returns ``(logits (B, vocab) f32,
+    cache)``."""
+    logits, cache = transformer_chunk_step(
+        params, cache, tokens[:, None], pos, n_heads=n_heads,
+        n_layers=n_layers, compute_dtype=compute_dtype,
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta)
+    return logits[:, 0], cache
+
+
+def make_generate_fn(params, n_heads: int, n_layers: int, max_len: int,
+                     compute_dtype=torch.bfloat16,
+                     n_kv_heads: Optional[int] = None,
+                     rope_theta: Optional[float] = None):
+    """Greedy generation: ``generate(prompt (B, T_p), steps) -> (B, steps)``
+    int64 on the weights' device.
+
+    As tpulab: the prompt is replayed through single-token decode steps
+    to fill the cache, then ``steps - 1`` cached decode steps follow the
+    first greedy token (PyTorch runs eagerly; nothing is compiled)."""
+    params = _tree(params)
+    n_kv = n_kv_heads or n_heads
+    kw = dict(n_heads=n_heads, n_layers=n_layers,
+              compute_dtype=compute_dtype, n_kv_heads=n_kv,
+              rope_theta=rope_theta)
+
+    @torch.inference_mode()
+    def generate(prompt, steps: int) -> torch.Tensor:
+        dev = params["embed"].device
+        prompt = torch.as_tensor(prompt, device=dev).long()
+        b, t_p = prompt.shape
+        head_dim = params["embed"].shape[1] // n_heads
+        cache = init_kv_cache(b, max_len, n_layers, n_kv, head_dim,
+                              compute_dtype, dev)
+        for i in range(t_p):
+            logits, cache = transformer_decode_step(params, cache,
+                                                    prompt[:, i], i, **kw)
+        tok = logits.argmax(-1)
+        out = [tok]
+        for i in range(steps - 1):
+            logits, cache = transformer_decode_step(params, cache, tok,
+                                                    t_p + i, **kw)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        return torch.stack(out, 1)
+
+    return generate
