@@ -48,7 +48,14 @@ raises and the script exits non-zero without printing a result:
    draft and with the target as its own draft give the streams of plain
    blocks (greedy and device-sampled) under the same margin rule, the
    self-draft accepts >= 90 % of a lone request's proposals, and the
-   dense ``SpeculativeGenerator`` equals ``make_generate_fn``.
+   dense ``SpeculativeGenerator`` equals ``make_generate_fn``.  The host
+   KV tier: a bf16 pool round trip of 98 scattered pages through the
+   side stream, twice (bit-identical, no other page touched, page 0
+   included); f32, both plans, a preempted victim resumed from the tier
+   (no re-prefill), by re-prefill (``kv_offload=None``) and through a
+   ``kvcache.swap`` chaos re-prefill against its unpreempted stream, and
+   a prefill-batcher -> wire -> decode-batcher shipment against the
+   unified stream, all under the margin rule.
 5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
    (32 layers, random bf16 weights from a seed) serves a greedy /
    stop-token / device-sampled / logprobs / host-sampled / streaming
@@ -58,7 +65,17 @@ raises and the script exits non-zero without printing a result:
    launches == n_layers x the forwards that run each kernel, every one
    of them on the ``wgmma`` body (bf16), and a second identical run
    giving identical streams.  Prints tokens/s and time to first token
-   per plan; no gain is claimed.  Then the speculative serve: layers
+   per plan; no gain is claimed.  Then a preempting serve (4 lanes:
+   victims of 300, 700, 1000 and 1500 tokens x 64 steps, outranked by
+   two priority-10 requests once every victim has emitted its first
+   token) on a batcher with the host tier (1 GiB) and one without:
+   swap-outs == swap-ins == 2, no failure or drop, one prompt fill per
+   request on the tier side and more without it, ragged launches == 32 x
+   forward steps, pages balanced; swap bytes and times, each victim's
+   resume time, and a synced round trip at each evicted lane's page
+   count.  Then a disagg serve: a prefill and a decode batcher ship three
+   prompts (1500, 700, 64 tokens) through the wire; zero prompt fills on
+   the decode side.  Then the speculative serve: layers
    4-31's wo / w2 scaled by 0.05 in place (trained-model emulation), an
    8-request x 64-step mix (greedy, stop token, logprobs, device-sampled;
    no host-sampled lane) through a plain batcher and one with the
@@ -788,8 +805,206 @@ def phase_plans_f32(torch):
     log(f"invariants: split vs ragged plan, greedy, prompts of "
         f"{[len(p) for p in prompts]} tokens x 8 steps: "
         + ("; ".join(notes) if notes else "identical streams"))
-    del params
-    torch.cuda.empty_cache()
+    return params, kw
+
+
+# ---------------------------------------------------------------- kvtier
+KV_BUDGET = 1 << 30     # host tier of the kvtier phases: holds every victim
+
+
+def gbps(nbytes, seconds):
+    return nbytes / max(seconds, 1e-9) / 1e9
+
+
+def phase_kvtier_pool(torch):
+    """bf16, full width, 2 layers: a 98-page snapshot (one 1500-token
+    lane's page count at 32 layers) of scattered pages through the side
+    stream and back into other pages, twice; the pages come back bit for
+    bit and no other page (scratch page 0 included) changes."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import PagedKVPool
+    from tpulab_torch.kvcache import KVOffloadManager
+
+    c = LLAMA3_8B
+    n = 98
+    n_pages = 4 * n + 1                  # two trips, fresh pages each
+    pool = PagedKVPool(n_pages, 16, 2, c["n_kv_heads"],
+                       c["d_model"] // c["n_heads"], torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    pool.kv.copy_(torch.randn(pool.kv.shape, generator=gen, device="cuda"))
+    perm = np.random.default_rng(9).permutation(n_pages - 1) + 1
+    mgr = KVOffloadManager(pool, KV_BUDGET)
+    times = []
+    try:
+        for trip in range(2):
+            src = [int(p) for p in perm[trip * 2 * n:trip * 2 * n + n]]
+            dst = [int(p) for p in perm[trip * 2 * n + n:
+                                        (trip + 1) * 2 * n]]
+            before = pool.kv.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = mgr.swap_out(src, n * 16 - 5, pool.kv)
+            if h is None or not h.wait(60):
+                raise AssertionError("kvtier: the snapshot did not land")
+            t1 = time.perf_counter()
+            if mgr.restore(h, dst, pool.kv) is not pool.kv:
+                raise AssertionError("kvtier: the restore degraded")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bits = pool.kv.view(torch.int16)
+            was = before.view(torch.int16)
+            rest = sorted(set(range(n_pages)) - set(dst))
+            if not torch.equal(bits[:, dst], was[:, src]):
+                raise AssertionError("kvtier: restored pages differ")
+            if not torch.equal(bits[:, rest], was[:, rest]):
+                raise AssertionError("kvtier: a page outside the targets "
+                                     "changed (scratch page 0 or a "
+                                     "neighbour)")
+            times.append((t1 - t0, t2 - t1))
+            del before, was
+        if (mgr.swap_outs, mgr.swap_ins, mgr.swap_failures,
+                mgr.swap_drops) != (2, 2, 0, 0):
+            raise AssertionError(f"kvtier: counters {mgr.swap_outs} out, "
+                                 f"{mgr.swap_ins} in, {mgr.swap_failures} "
+                                 f"failures, {mgr.swap_drops} drops")
+        nbytes = n * mgr.page_nbytes
+    finally:
+        mgr.close()
+        pool.close()
+    log(f"invariants: kvtier, bf16 pool round trip of {n} scattered pages "
+        f"({nbytes / 2**20:.2f} MiB, 2 layers) twice: bit-identical, page 0 "
+        "and every other page unchanged; "
+        + "; ".join(f"trip {i + 1}: swap-out landed {o * 1e3:.2f} ms "
+                    f"({gbps(nbytes, o):.2f} GB/s), restore synced "
+                    f"{r * 1e3:.2f} ms ({gbps(nbytes, r):.2f} GB/s)"
+                    for i, (o, r) in enumerate(times)))
+
+
+def preempted_run(cb, victim, hi, steps, hi_steps=4):
+    """The victim with an on_token that submits the outranking request at
+    its 4th token (on the scheduler thread: the preemption always lands
+    while the victim decodes); returns both streams."""
+    late = {}
+
+    def arrive(tok, i):
+        if i == 3 and "f" not in late:
+            late["f"] = cb.submit(hi, hi_steps, priority=10)
+
+    low = list(cb.submit(victim, steps, on_token=arrive).result(timeout=600))
+    return low, list(late["f"].result(timeout=600))
+
+
+def phase_kvtier_serve_f32(torch, params, kw):
+    """f32, full width, 2 layers, both plans: a preempted victim resumed
+    from the host tier and by re-prefill (``kv_offload=None``) against
+    its unpreempted stream; one ``kvcache.swap`` chaos resume; then a
+    prefill-batcher -> wire -> decode-batcher shipment against the
+    unified stream.  Streams agree under the margin rule."""
+    import numpy as np
+
+    from tpulab_torch import chaos
+    from tpulab_torch.disagg import KVShipper, prompt_digest
+    from tpulab_torch.engine.paged import ContinuousBatcher
+
+    c = LLAMA3_8B
+    rng = np.random.default_rng(10)
+    victim = rng.integers(0, c["vocab"], (1000,)).astype(np.int32)
+    hi = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+    steps = 16
+    cfg = dict(device="cuda", lanes=1, max_len=1024 + 32, page_size=16,
+               **kw)
+    notes = []
+    for plan, extra in (("ragged", {}), ("split", {"ragged": False})):
+        tier = ContinuousBatcher(params, kv_offload=KV_BUDGET, **cfg,
+                                 **extra)
+        plain = ContinuousBatcher(params, **cfg, **extra)
+        try:
+            alone = list(tier.submit(victim, steps).result(timeout=600))
+            f0 = tier.prompt_fills
+            offl, _ = preempted_run(tier, victim, hi, steps)
+            f1 = tier.prompt_fills
+            g0 = plain.prompt_fills
+            repf, _ = preempted_run(plain, victim, hi, steps)
+            g1 = plain.prompt_fills
+            mgr = tier.kv_offload
+            if not (mgr.swap_outs == mgr.swap_ins == 1 and f1 - f0 == 2
+                    and mgr.swap_failures == mgr.swap_drops == 0
+                    and g1 - g0 == 3 and tier.preemptions == 1
+                    and plain.preemptions == 1):
+                raise AssertionError(
+                    f"kvtier f32 {plan}: swaps {mgr.swap_outs}/"
+                    f"{mgr.swap_ins}, failures {mgr.swap_failures}, drops "
+                    f"{mgr.swap_drops}, prompt fills {f1 - f0} (want 2) "
+                    f"and {g1 - g0} without the tier (want 3)")
+            if plan == "ragged":
+                with chaos.inject("kvcache.swap=error+1") as sched:
+                    f2 = tier.prompt_fills
+                    chao, _ = preempted_run(tier, victim, hi, steps)
+                if not (sched.fired("kvcache.swap") == 1
+                        and mgr.swap_failures == 1 and mgr.swap_ins == 1
+                        and tier.prompt_fills - f2 == 3):
+                    raise AssertionError(
+                        f"kvtier chaos: fired {sched.fired('kvcache.swap')}"
+                        f", failures {mgr.swap_failures}, swap-ins "
+                        f"{mgr.swap_ins}, fills {tier.prompt_fills - f2}")
+                streams = (("offloaded", offl), ("re-prefilled", repf),
+                           ("chaos re-prefilled", chao))
+            else:
+                streams = (("offloaded", offl), ("re-prefilled", repf))
+            for label, got in streams:
+                note = same_or_near_tie(torch, params, kw, f"kvtier {plan} "
+                                        f"{label} vs unpreempted", victim,
+                                        alone, got)
+                if note:
+                    notes.append(note)
+        finally:
+            tier.shutdown()
+            plain.shutdown()
+        for cb in (tier, plain):
+            if cb.pool.free_pages != cb.pool.n_pages - 1:
+                raise AssertionError(f"kvtier f32 {plan}: pages unbalanced")
+    log(f"invariants: kvtier, f32, 2 layers, ragged and split plans: a "
+        f"{len(victim)}-token victim x {steps} steps preempted at its 4th "
+        "token resumed from the host tier (1 swap-out, 1 swap-in, no "
+        "re-prefill), by re-prefill, and (ragged) through a kvcache.swap "
+        "chaos re-prefill: "
+        + ("; ".join(notes) if notes else "every stream == the unpreempted"))
+
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (300, 1000)]
+    cfg2 = dict(cfg, lanes=2, kv_offload=KV_BUDGET)
+    pre, dec, uni = (ContinuousBatcher(params, **cfg2) for _ in range(3))
+    try:
+        want = [list(uni.submit(p, steps).result(timeout=600))
+                for p in prompts]
+        got = []
+        for p in prompts:
+            dig = prompt_digest(p)
+            fut = pre.submit(p, 1, export_digest=dig)
+            first = fut.result(timeout=600)[0]
+            blob = KVShipper(pre.kv_offload).export(
+                fut._tpulab_kv_export, digest=dig, first_token=first)
+            ship = KVShipper(dec.kv_offload).import_shipment(blob)
+            if blob is None or ship is None:
+                raise AssertionError("kvtier f32 shipment lost")
+            got.append(list(dec.submit_shipped(
+                p, steps, first, ship.handle).result(timeout=600)))
+        if (dec.prompt_fills, dec.kv_offload.swap_ins) != (0, 2):
+            raise AssertionError(f"kvtier f32 shipment: decode side "
+                                 f"{dec.prompt_fills} prompt fills, "
+                                 f"{dec.kv_offload.swap_ins} swap-ins")
+    finally:
+        for cb in (pre, dec, uni):
+            cb.shutdown()
+    notes = [same_or_near_tie(torch, params, kw, f"shipped vs unified, "
+                              f"{len(p)}-token prompt", p, a, b)
+             for p, a, b in zip(prompts, want, got)]
+    notes = [n for n in notes if n]
+    log(f"invariants: kvtier, f32, ragged plan: prefill batcher -> wire -> "
+        f"decode batcher, prompts {[len(p) for p in prompts]} x {steps}: "
+        "0 prompt fills on the decode side; "
+        + ("; ".join(notes) if notes else "streams == the unified batcher"))
 
 
 def pick_margin(torch, row, temp, seed, pos):
@@ -1171,6 +1386,252 @@ def serve_plan(torch, model, prompts, plan, card, profile):
     return st2
 
 
+# the preempting serve: 4 lanes of the serving geometry (513 pages)
+KVSERVE = dict(SERVE, lanes=4)
+VICTIMS = (300, 700, 1000, 1500)    # admitted in this order: the 1500- and
+#                                     1000-token lanes are evicted first
+
+
+class TierMetrics(Metrics):
+    """Metrics hook plus the resume and host-tier swap observations."""
+
+    def __init__(self):
+        super().__init__()
+        self.resumes, self.swaps = [], []
+
+    def observe_resume(self, s, kind):
+        self.resumes.append((kind, s))
+
+    def observe_swap_out(self, s, nbytes):
+        self.swaps.append(("out", nbytes, s))
+
+    def observe_swap_in(self, s, nbytes):
+        self.swaps.append(("in", nbytes, s))
+
+
+def preempting_run(torch, cb, victims, his, counted):
+    """The four victims (64 steps) submitted at once; once every one has
+    emitted its first token, its on_token (on the scheduler thread)
+    submits the two priority-10 requests (32 steps).  Launch counts set
+    to 0 before, read after; returns (streams, stats)."""
+    first, late = set(), {}
+
+    def arrive(name):
+        def hook(tok, i):
+            if i == 0:
+                first.add(name)
+                if len(first) == len(victims) and "hi" not in late:
+                    late["hi"] = [cb.submit(p, 32, priority=10) for p in his]
+        return hook
+
+    for fn in counted.values():
+        fn.launches = 0
+        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+    names = ("forward_steps", "prompt_fills", "preemptions",
+             "tokens_generated")
+    before = {n: getattr(cb, n) for n in names}
+    t0 = time.perf_counter()
+    with cb._cv:
+        futs = [cb.submit(p, 64, on_token=arrive(len(p))) for p in victims]
+    outs = [list(f.result(timeout=900)) for f in futs]
+    outs += [list(f.result(timeout=900)) for f in late["hi"]]
+    wall = time.perf_counter() - t0
+    st = {n: getattr(cb, n) - before[n] for n in names}
+    st.update(wall_s=wall, launches={k: f.launches for k, f in
+                                     counted.items()})
+    return outs, st
+
+
+def serve_kvtier(torch, model, card):
+    """The same preempting traffic on one batcher with the host tier
+    (budget KV_BUDGET: every victim fits) and one without, same weights;
+    then, on the tier's pool, a synced swap-out and restore at each
+    victim's page count."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    rng = np.random.default_rng(11)
+    victims = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in VICTIMS]
+    his = [rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+           for _ in range(2)]
+    counted = {"ragged": ragged_paged_attention}
+    res = {}
+    for side, opt in (("tier", KV_BUDGET), ("no tier", None)):
+        metrics = TierMetrics()
+        cb = ContinuousBatcher(model, n_heads=c["n_heads"],
+                               n_layers=c["n_layers"],
+                               n_kv_heads=c["n_kv_heads"],
+                               rope_theta=c["rope_theta"],
+                               compute_dtype=torch.bfloat16, device="cuda",
+                               metrics=metrics, kv_offload=opt, **KVSERVE)
+        mgr = cb.kv_offload
+        if mgr is not None:
+            mgr.metrics = metrics
+        try:
+            outs, st = preempting_run(torch, cb, victims, his, counted)
+            st.update(resumes=list(metrics.resumes),
+                      swaps=list(metrics.swaps), synced=[])
+            if mgr is not None:
+                mgr.metrics = None
+                if not mgr.drain(60):
+                    raise AssertionError("kvtier serve: write-behind stuck")
+                st.update(swap_outs=mgr.swap_outs, swap_ins=mgr.swap_ins,
+                          failures=mgr.swap_failures, drops=mgr.swap_drops,
+                          saved=mgr.recompute_tokens_saved,
+                          out_bytes=mgr.swap_out_bytes,
+                          in_bytes=mgr.swap_in_bytes)
+                # device-inclusive times at each evicted lane's page count
+                for _d, nbytes, _s in [w for w in st["swaps"]
+                                       if w[0] == "out"]:
+                    n = nbytes // mgr.page_nbytes
+                    pages = [cb.pool.allocate_page() for _ in range(2 * n)]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    h = mgr.swap_out(pages[:n], n * 16, cb.pool.kv)
+                    if h is None or not h.wait(60):
+                        raise AssertionError("kvtier: synced swap failed")
+                    t1 = time.perf_counter()
+                    mgr.restore(h, pages[n:], cb.pool.kv)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    cb.pool.release_pages(pages)
+                    st["synced"].append((n, nbytes, t1 - t0, t2 - t1))
+        finally:
+            cb.shutdown()
+        st["balanced"] = cb.pool.free_pages == cb.pool.n_pages - 1
+        res[side] = (outs, st)
+    n_req = len(victims) + len(his)
+    for side, (outs, st) in res.items():
+        ra = st["launches"]["ragged"]
+        if ra != c["n_layers"] * st["forward_steps"] or not st["balanced"]:
+            raise AssertionError(f"kvtier serve ({side}): ragged launches "
+                                 f"{ra} vs {c['n_layers']} x "
+                                 f"{st['forward_steps']}, pages balanced "
+                                 f"{st['balanced']}")
+        if [len(o) for o in outs] != [64] * len(victims) + [32] * len(his):
+            raise AssertionError(f"kvtier serve ({side}): stream lengths")
+        if st["preemptions"] != len(his):
+            raise AssertionError(f"kvtier serve ({side}): "
+                                 f"{st['preemptions']} preemptions")
+    st = res["tier"][1]
+    kinds = [k for k, _ in st["resumes"]]
+    if not (st["swap_outs"] == st["swap_ins"] == len(his)
+            and st["failures"] == st["drops"] == 0
+            and st["prompt_fills"] == n_req
+            and kinds == ["swap_in"] * len(his)):
+        raise AssertionError(f"kvtier serve (tier): swaps {st['swap_outs']}"
+                             f"/{st['swap_ins']}, failures "
+                             f"{st['failures']}, drops {st['drops']}, "
+                             f"prompt fills {st['prompt_fills']} (want "
+                             f"{n_req}), resumes {kinds}")
+    st0 = res["no tier"][1]
+    if not (st0["prompt_fills"] > n_req and [k for k, _ in st0["resumes"]]
+            == ["re_prefill"] * len(his)):
+        raise AssertionError(f"kvtier serve (no tier): prompt fills "
+                             f"{st0['prompt_fills']}, resumes "
+                             f"{st0['resumes']}")
+    same = sum(a == b for a, b in zip(res["tier"][0], res["no tier"][0]))
+    for side, (outs, s) in res.items():
+        log(f"serve: kvtier serve, {side:<7}: {n_req} requests (victims "
+            f"{list(VICTIMS)} x 64, 2 x 64-token priority 10 x 32), "
+            f"{s['tokens_generated']} tokens in {s['wall_s']:.3f} s = "
+            f"{s['tokens_generated'] / s['wall_s']:.1f} tok/s; preemptions "
+            f"{s['preemptions']}, prompt fills {s['prompt_fills']}; ragged "
+            f"launches {s['launches']['ragged']} = {c['n_layers']} x "
+            f"{s['forward_steps']}; resumes "
+            + ", ".join(f"{k} {t * 1e3:.1f} ms" for k, t in s["resumes"])
+            + f"; pages balanced [{card}]")
+    log(f"serve: kvtier serve, tier: swap-outs {st['swap_outs']}, swap-ins "
+        f"{st['swap_ins']}, failures {st['failures']}, drops {st['drops']} "
+        f"(budget {KV_BUDGET >> 20} MiB holds every victim); "
+        f"recompute_tokens_saved {st['saved']}; bytes out "
+        f"{st['out_bytes']}, in {st['in_bytes']}; "
+        + "; ".join(f"swap-{d} {n / 2**20:.1f} MiB {s * 1e3:.2f} ms "
+                    f"({gbps(n, s):.2f} GB/s, {'write-behind landed' if d == 'out' else 'host time to the enqueued scatter'})"
+                    for d, n, s in st["swaps"])
+        + f"; {same}/{n_req} streams identical to the no-tier side (bf16)")
+    log("serve: kvtier serve, tier pool, synced round trip at each evicted "
+        "lane's page count: "
+        + "; ".join(f"{n} pages {b / 2**20:.1f} MiB: swap-out landed "
+                    f"{o * 1e3:.2f} ms ({gbps(b, o):.2f} GB/s), restore "
+                    f"synced {r * 1e3:.2f} ms ({gbps(b, r):.2f} GB/s)"
+                    for n, b, o, r in st["synced"]) + f" [{card}]")
+    return res
+
+
+def serve_disagg(torch, model, card):
+    """A prefill batcher and a decode batcher on the same weights (two
+    pools of the serving geometry): three prompts prefilled with
+    ``export_digest``, shipped through the wire, admitted with
+    ``submit_shipped`` (32 steps)."""
+    import numpy as np
+
+    from tpulab_torch.disagg import KVShipper, prompt_digest
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (1500, 700, 64)]
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16, device="cuda",
+              kv_offload=KV_BUDGET, **SERVE)
+    pre = ContinuousBatcher(model, **kw)
+    dec = ContinuousBatcher(model, **kw)
+    ragged_paged_attention.launches = 0
+    rows, futs = [], []
+    try:
+        out_sh, in_sh = KVShipper(pre.kv_offload), KVShipper(dec.kv_offload)
+        t0 = time.perf_counter()
+        for p in prompts:
+            dig = prompt_digest(p)
+            fut = pre.submit(p, 1, export_digest=dig)
+            first = fut.result(timeout=600)[0]
+            t1 = time.perf_counter()
+            blob = out_sh.export(fut._tpulab_kv_export, digest=dig,
+                                 first_token=first)
+            t2 = time.perf_counter()
+            ship = in_sh.import_shipment(blob) if blob else None
+            t3 = time.perf_counter()
+            if ship is None:
+                raise AssertionError(f"disagg serve: the {len(p)}-token "
+                                     "shipment was lost")
+            futs.append(dec.submit_shipped(p, 32, first, ship.handle))
+            rows.append((len(p), len(blob), t2 - t1, t3 - t2))
+        outs = [list(f.result(timeout=600)) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = ragged_paged_attention.launches
+        fs = pre.forward_steps + dec.forward_steps
+        st = dict(pre_fills=pre.prompt_fills, dec_fills=dec.prompt_fills,
+                  swap_ins=dec.kv_offload.swap_ins,
+                  tokens=dec.tokens_generated)
+    finally:
+        pre.shutdown()
+        dec.shutdown()
+    if not (st["dec_fills"] == 0 and st["pre_fills"] == len(prompts)
+            and st["swap_ins"] == len(prompts)
+            and [len(o) for o in outs] == [32] * len(prompts)
+            and launches == c["n_layers"] * fs
+            and pre.pool.free_pages == pre.pool.n_pages - 1
+            and dec.pool.free_pages == dec.pool.n_pages - 1):
+        raise AssertionError(f"disagg serve: {st}, launches {launches} vs "
+                             f"{c['n_layers']} x {fs}")
+    log(f"serve: disagg serve, prefill + decode batchers: "
+        + "; ".join(f"{n}-token prompt: wire {b} bytes, export {e * 1e3:.1f}"
+                    f" ms, import {i * 1e3:.1f} ms" for n, b, e, i in rows)
+        + f"; decode side 0 prompt fills, {st['swap_ins']} swap-ins, "
+        f"{st['tokens']} tokens ({len(prompts)} x 32, index 0 shipped); "
+        f"ragged launches {launches} = {c['n_layers']} x {fs}; "
+        f"{wall:.3f} s; pages balanced [{card}]")
+    return launches
+
+
 # the speculative serve: SERVE plus an early-exit draft of the first 4
 # layers, and a pool for two page tables a lane (2 x 8 x 128 + 1 pages)
 SPEC_DRAFT_LAYERS = 4
@@ -1336,6 +1797,10 @@ def phase_serve(torch, card, profile=False):
         out[plan] = serve_plan(torch, model, prompts, plan, card, profile)
         log(f"serve: {plan} plan {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
+    out["kvtier"] = serve_kvtier(torch, model, card)
+    out["disagg"] = serve_disagg(torch, model, card)
+    log(f"serve: kvtier and disagg serves {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
     out["spec"] = serve_spec(torch, model, card, profile)
     log(f"serve: spec serve (plain and speculating batchers) "
         f"{time.perf_counter() - t1:.1f} s")
@@ -1402,7 +1867,11 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     op_launches = phase_invariants(torch)
-    phase_plans_f32(torch)
+    params32, kw32 = phase_plans_f32(torch)
+    phase_kvtier_pool(torch)
+    phase_kvtier_serve_f32(torch, params32, kw32)
+    del params32
+    torch.cuda.empty_cache()
     phase_spec_f32(torch)
     log(f"invariants: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1414,11 +1883,14 @@ def main(argv=None) -> int:
                      "tpulab_torch/ops/csrc/ragged_attention.cu",
                      "tpulab/ops/ragged_attention.py:190",
                      st["ragged"]["launches"]["ragged"]
-                     + st["spec"]["spec"]["launches"]["ragged"],
+                     + st["spec"]["spec"]["launches"]["ragged"]
+                     + st["kvtier"]["tier"][1]["launches"]["ragged"]
+                     + st["disagg"],
                      rows["ragged"], ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + speculative serve "
-                     "run"),
+                     "run + preempting serve (host tier side) + disagg "
+                     "serve"),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",

@@ -413,13 +413,14 @@ def test_split_plan_defaults(lm):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(kv_offload=True), "host tier"),
+    (dict(kv_offload=True, kv_publish=True), "host tier"),
     (dict(kv_publish=True), "host tier"),
     (dict(mesh=object()), "parallelism"),
     (dict(hbm=object()), "HBM economy"),
     (dict(flight=object()), "queue 1"),
     (dict(trace=object()), "observability"),
     (dict(kv_dtype=torch.bfloat16), "fp8 KV"),
+    (dict(kv_publish=True), "fleet KV fabric"),
 ])
 def test_unported_arguments_raise(lm, kw, item):
     _, model = lm

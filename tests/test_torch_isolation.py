@@ -1,5 +1,6 @@
-"""The port stands alone: tpulab_torch and chip_smoke.py import no JAX and
-nothing of the tpulab package (the machine with the card has neither).
+"""The port stands alone: tpulab_torch and chip_smoke.py import no JAX, no
+ml_dtypes and nothing of the tpulab package (the machine with the card
+has none of them).
 
 Module names are matched exactly: ``tpulab_torch`` starts with the
 letters ``tpulab`` but is not ``tpulab`` or ``tpulab.*``.
@@ -21,7 +22,8 @@ PKG = ROOT / "tpulab_torch"
 def _forbidden(name: str) -> bool:
     return (name == "jax" or name.startswith("jax.") or name == "jaxlib"
             or name.startswith("jaxlib.") or name == "tpulab"
-            or name.startswith("tpulab."))
+            or name.startswith("tpulab.") or name == "ml_dtypes"
+            or name.startswith("ml_dtypes."))
 
 
 def _modules():
@@ -32,6 +34,7 @@ def _modules():
 def test_forbidden_matches_exact_names():
     assert _forbidden("jax") and _forbidden("jax.numpy")
     assert _forbidden("tpulab") and _forbidden("tpulab.engine.paged")
+    assert _forbidden("ml_dtypes") and _forbidden("tpulab.disagg.wire")
     assert not _forbidden("tpulab_torch") and not _forbidden(
         "tpulab_torch.engine.paged") and not _forbidden("jaxtyping")
 
@@ -39,7 +42,10 @@ def test_forbidden_matches_exact_names():
 def test_importing_every_module_loads_no_jax_or_tpulab():
     mods = _modules()
     assert {"tpulab_torch.engine.paged", "tpulab_torch.engine.speculative",
-            "tpulab_torch.chaos"} <= set(mods)
+            "tpulab_torch.chaos", "tpulab_torch.cuda.transfer",
+            "tpulab_torch.kvcache.host_store", "tpulab_torch.kvcache.offload",
+            "tpulab_torch.disagg.wire",
+            "tpulab_torch.disagg.shipper"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

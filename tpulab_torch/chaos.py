@@ -31,6 +31,16 @@ Injection points planted in the port:
                     degrade the dispatch's lanes to plain decode blocks for
                     the rest of each request (nothing was emitted yet, so
                     never a corrupt or duplicated token)
+    kvcache.swap    KVOffloadManager swap-out / restore / demote / promote
+                    (tpulab_torch.kvcache), once per call: error/drop
+                    degrade that swap to the pre-offload recompute path
+                    (a preempted lane re-prefills, a prefix entry is
+                    recomputed; the lane or entry is never corrupted, the
+                    failure is counted in ``swap_failures``)
+    disagg.ship     KVShipper export / import (tpulab_torch.disagg), once
+                    per call on each side: error/drop lose that KV
+                    shipment, and the decode replica degrades to a local
+                    prefill — never a corrupt lane or a stuck request
 """
 
 from __future__ import annotations

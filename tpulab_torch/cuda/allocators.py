@@ -1,13 +1,20 @@
-"""Tracked device allocator (the port's counterpart of
-``tpulab/tpu/allocators.py``'s ``TpuRawAllocator``).
+"""Tracked allocators: device memory (the port's counterpart of
+``tpulab/tpu/allocators.py``'s ``TpuRawAllocator``) and host memory (of
+``tpulab/memory``'s ``MallocAllocator`` behind ``make_allocator``, as the
+host KV tier uses it).
 
-The KV page store is a block owned by this allocator: ``allocate_array``
-hands out a zeroed tensor under a synthetic address, every live byte is
-counted (``bytes_in_use`` is the gauge), and ``replace`` swaps a block's
-tensor for its successor when the pool grows or shrinks — so
-``PagedKVPool.hbm_bytes`` reads the allocator's count exactly as it does
-in tpulab.  The addresses are keys, not pointers: PyTorch's caching
-allocator owns the real memory.
+The KV page store is a block owned by :class:`DeviceRawAllocator`:
+``allocate_array`` hands out a zeroed tensor under a synthetic address,
+every live byte is counted (``bytes_in_use`` is the gauge), and
+``replace`` swaps a block's tensor for its successor when the pool grows
+or shrinks — so ``PagedKVPool.hbm_bytes`` reads the allocator's count
+exactly as it does in tpulab.  :class:`HostRawAllocator` hands out the
+host tier's blocks the same way: page-locked when they feed a CUDA pool
+(so a copy to or from the card runs asynchronously), plain otherwise
+(a CPU-only PyTorch refuses ``pin_memory``).  The addresses are keys,
+not pointers: PyTorch's caching allocators own the real memory, and a
+pinned block handed back keeps living until every copy recorded against
+it has completed.
 """
 
 from __future__ import annotations
@@ -28,19 +35,21 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-class DeviceRawAllocator:
-    """Tracked raw allocator over one device's memory."""
+class _TrackedAllocator:
+    """Blocks under synthetic addresses, every live byte counted."""
 
-    def __init__(self, device: torch.device):
-        self.device = torch.device(device)
+    def __init__(self):
         self._lock = threading.Lock()
         self._next = itertools.count()
         self._buffers: Dict[int, torch.Tensor] = {}
         self._sizes: Dict[int, int] = {}
 
+    def _new(self, shape, dtype) -> torch.Tensor:
+        raise NotImplementedError
+
     def allocate_array(self, shape, dtype) -> Tuple[int, torch.Tensor]:
-        """A zeroed device tensor owned by this allocator."""
-        buf = torch.zeros(tuple(shape), dtype=dtype, device=self.device)
+        """A tensor owned by this allocator, under a new address."""
+        buf = self._new(tuple(shape), dtype)
         with self._lock:
             addr = _ADDR_BASE + next(self._next) * _ADDR_STRIDE
             self._buffers[addr] = buf
@@ -62,16 +71,43 @@ class DeviceRawAllocator:
         with self._lock:
             return self._sizes.get(addr, 0)
 
-    def deallocate_node(self, addr: int) -> None:
-        """Free one block (its bytes leave the gauge)."""
+    def deallocate_node(self, addr: int) -> torch.Tensor:
+        """Free one block (its bytes leave the gauge).  Returns its tensor,
+        which a caller may keep using: the memory itself goes back to
+        PyTorch once the last reference dies."""
         with self._lock:
             buf = self._buffers.pop(addr, None)
             self._sizes.pop(addr, None)
         if buf is None:
             raise KeyError(f"0x{addr:x} is not a block of this allocator")
+        return buf
 
     @property
     def bytes_in_use(self) -> int:
         """Every live tracked byte (the device-memory gauge)."""
         with self._lock:
             return sum(self._sizes.values())
+
+
+class DeviceRawAllocator(_TrackedAllocator):
+    """Tracked raw allocator over one device's memory (blocks zeroed)."""
+
+    def __init__(self, device: torch.device):
+        super().__init__()
+        self.device = torch.device(device)
+
+    def _new(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+
+class HostRawAllocator(_TrackedAllocator):
+    """Tracked raw allocator over host memory (blocks uninitialised);
+    ``pinned`` blocks are page-locked, for asynchronous copies to and
+    from a CUDA device."""
+
+    def __init__(self, pinned: bool = False):
+        super().__init__()
+        self.pinned = bool(pinned)
+
+    def _new(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=self.pinned)

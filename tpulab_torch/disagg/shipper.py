@@ -1,0 +1,168 @@
+"""KVShipper: exports finished prefills to wire form and imports
+shipments on decode replicas (the port of ``tpulab/disagg/shipper.py``).
+
+One shipper wraps one :class:`~tpulab_torch.kvcache.offload.
+KVOffloadManager` (hence one pool and one host tier) and is the ONLY
+disaggregation code that touches KV bytes:
+
+- **export** (prefill replica): waits out the write-behind fence of the
+  export handle the batcher produced (``submit(export_digest=...)``),
+  pops the snapshot from the host tier and wire-encodes it.  The wait IS
+  the drain fence — a shipment is never serialized from a snapshot still
+  in flight.
+- **import** (decode replica): decodes + CRC-checks the wire payload,
+  validates its geometry against the LOCAL pool (dtype, page size, layer
+  count, head layout — mismatched replicas reject, never corrupt), lands
+  it in the local host tier and mints the resident
+  :class:`~tpulab_torch.kvcache.offload.SwapHandle` that
+  ``ContinuousBatcher.submit_shipped`` restores through
+  ``KVOffloadManager.restore``.
+
+Every failure on either side returns ``None`` (after counting): the
+decode replica prefills locally, the request is never stuck and a lane
+is never corrupted.  The ``disagg.ship`` chaos point trips on both
+sides.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Optional
+
+import torch
+
+from tpulab_torch import chaos
+from tpulab_torch.disagg.wire import (WireFormatError, deserialize_snapshot,
+                                      serialize_snapshot)
+
+log = logging.getLogger("tpulab_torch.disagg")
+
+
+class ShippedKV:
+    """One imported shipment, ready to admit: the resident host-tier
+    handle plus the metadata the decode lane needs."""
+
+    __slots__ = ("handle", "digest", "length", "first_token", "nbytes")
+
+    def __init__(self, handle, digest: bytes, length: int,
+                 first_token: int, nbytes: int):
+        self.handle = handle
+        self.digest = digest
+        self.length = length
+        self.first_token = first_token
+        self.nbytes = nbytes
+
+
+class KVShipper:
+    """Wire-format export/import over one KVOffloadManager (module
+    docstring)."""
+
+    #: bound on waiting for an export's write-behind snapshot to land
+    EXPORT_WAIT_S = 10.0
+
+    def __init__(self, manager):
+        self.manager = manager
+        self._lock = threading.Lock()
+        self._seq = 0
+        # -- counters -------------------------------------------------------
+        self.exports = 0           # shipments serialized
+        self.imports = 0           # shipments admitted into the host tier
+        self.export_failures = 0   # export degraded (nothing shipped)
+        self.import_failures = 0   # import rejected/degraded
+        self.bytes_out = 0
+        self.bytes_in = 0
+
+    # -- prefill side ---------------------------------------------------------
+    def export(self, handle, *, digest: bytes, first_token: int,
+               timeout: Optional[float] = None) -> Optional[bytes]:
+        """Wire-encode the finished prefill behind ``handle``.  None =
+        degraded (chaos / snapshot dropped / evicted): the caller ships
+        nothing and the decode side prefills locally."""
+        try:
+            if chaos.trip("disagg.ship") == "drop":
+                raise chaos.ChaosError("injected shipment drop")
+            if handle is None:
+                raise WireFormatError("no export snapshot (swap degraded)")
+            snap = self.manager.take_snapshot(
+                handle, self.EXPORT_WAIT_S if timeout is None else timeout)
+            if snap is None:
+                raise WireFormatError("export snapshot unavailable")
+            blob = serialize_snapshot(
+                snap, digest=digest, length=handle.length,
+                page_size=self.manager.pool.page_size,
+                first_token=first_token)
+        except Exception as e:  # noqa: BLE001 - degrade, never corrupt
+            self.export_failures += 1
+            log.warning("KV export degraded (decode side will prefill "
+                        "locally): %s: %s", type(e).__name__, e)
+            return None
+        self.exports += 1
+        self.bytes_out += len(blob)
+        return blob
+
+    # -- decode side ----------------------------------------------------------
+    def import_shipment(self, blob: bytes) -> Optional[ShippedKV]:
+        """Admit a wire shipment into the LOCAL host tier.  None =
+        rejected (corrupt payload, geometry mismatch, budget refusal,
+        chaos) — the caller degrades to local prefill."""
+        try:
+            if chaos.trip("disagg.ship") == "drop":
+                raise chaos.ChaosError("injected shipment drop")
+            snap, header = deserialize_snapshot(blob)
+            self._check_geometry(snap, header)
+        except Exception as e:  # noqa: BLE001 - degrade, never corrupt
+            self.import_failures += 1
+            log.warning("KV import rejected (degrading to local prefill): "
+                        "%s: %s", type(e).__name__, e)
+            return None
+        with self._lock:
+            self._seq += 1
+            key = ("shipin", self._seq)
+        handle = self.manager.adopt(key, snap, header["length"])
+        if handle is None:  # budget refused (already counted as swap_drop)
+            self.import_failures += 1
+            return None
+        self.imports += 1
+        self.bytes_in += len(blob)
+        return ShippedKV(handle, header["digest"], header["length"],
+                         header["first_token"], len(blob))
+
+    def discard(self, ship: ShippedKV) -> None:
+        """Drop an imported-but-unadmittable shipment so it stops holding
+        host-tier budget."""
+        self.manager.discard(ship.handle)
+
+    def check_geometry(self, snap: torch.Tensor, header: dict) -> None:
+        """Public face of the reject-don't-corrupt gate: every path that
+        admits foreign KV bytes into this pool runs the SAME validation as
+        an import.  Raises :class:`WireFormatError`."""
+        self._check_geometry(snap, header)
+
+    def _check_geometry(self, snap: torch.Tensor, header: dict) -> None:
+        """The shipment's layout must match the local pool axis for axis
+        (page count excepted)."""
+        pool = self.manager.pool
+        local = tuple(pool.kv.shape)       # (L, P, 2, S, Hkv, D)
+        if snap.dim() != len(local):
+            raise WireFormatError(
+                f"shipment rank {snap.dim()} != pool rank {len(local)}")
+        ship_geo = tuple(snap.shape[:1]) + tuple(snap.shape[2:])
+        local_geo = local[:1] + local[2:]
+        if ship_geo != local_geo:
+            raise WireFormatError(
+                f"shipment geometry {ship_geo} != pool {local_geo} "
+                "(layer/page-size/head layout mismatch)")
+        if snap.dtype != pool.dtype:
+            raise WireFormatError(
+                f"shipment dtype {snap.dtype} != pool dtype {pool.dtype}")
+        if int(header["page_size"]) != int(pool.page_size):
+            raise WireFormatError(
+                f"shipment page_size {header['page_size']} != pool "
+                f"{pool.page_size}")
+        n = int(snap.shape[1])
+        length = int(header["length"])
+        if length <= 0 or length > n * pool.page_size:
+            raise WireFormatError(
+                f"shipment length {length} outside (0, "
+                f"{n * pool.page_size}] for {n} pages")

@@ -31,11 +31,19 @@ PLACE (``index_put_`` into ``pool.kv``).  Writes of invalid positions all
 land on scratch page 0, which is harmless only because nothing ever
 reads page 0 as live data.
 
+With ``kv_offload`` the batcher rides the host KV tier
+(:mod:`tpulab_torch.kvcache`): a preempted lane's pages are snapshotted
+to host memory and restored at resume with no prefill, and an evicted
+prefix-cache page is demoted to the host tier and promoted back on the
+next hit.  ``submit(export_digest=...)`` and :meth:`ContinuousBatcher.
+submit_shipped` are the two halves of disaggregated serving
+(:mod:`tpulab_torch.disagg`).
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
-counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the KV
-host tier, meshes, the HBM arbiter, tracing and the flight recorder are
-not ported: their constructor arguments raise ``NotImplementedError``
-naming the ROADMAP item.
+counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the
+fleet KV fabric's publish (``kv_publish``), meshes, the HBM arbiter,
+tracing and the flight recorder are not ported: their constructor
+arguments raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -541,9 +549,13 @@ def paged_extend(params, kv_pool, tables, tokens, start, valid_total,
 
     One forward over the tail tokens at positions ``start ..
     valid_total-1`` of a lane whose positions ``[0, start)`` are already
-    in the pool (prefix-cache hits or earlier chunks).  tokens (1, M_pad)
-    (padded tail arbitrary); start page-aligned (the tail never writes a
-    shared prefix page); tables (MP,) covering all of it.  It is the
+    in the pool (prefix-cache hits, earlier chunks, or a draft table's
+    resident context).  tokens (1, M_pad) (padded tail arbitrary);
+    tables (MP,) covering all of it.  ``start`` need not be page-aligned
+    (the draft warm-up starts mid-page): positions come from ``kv_lens -
+    q_lens``.  The tail writes every page it covers, so a caller sharing
+    prefix pages (the prefix cache) starts the tail at or after the last
+    shared page's end, as the page-granular cache does.  It is the
     ragged forward of one lane with ``q_lens = valid_total - start`` and
     ``kv_lens = valid_total``: per layer the tail's K/V scatter first,
     then attention walks the whole block table under global causality —
@@ -565,7 +577,13 @@ class PrefixCache:
     K/V; a hit shares the page (``add_ref``) and prefills only the tail.
     Only FULL prompt pages enter the cache and the last prompt token is
     never served from it, so shared pages are read-only by construction.
-    LRU eviction under pool pressure; scheduler-thread only."""
+    LRU eviction under pool pressure; scheduler-thread only.
+
+    Host-tier hooks (set by the batcher with ``kv_offload``):
+    ``on_evict(digest, page)`` fires on pressure eviction BEFORE the page
+    is released (the demotion window); ``promote_fn(digest) ->
+    Optional[page]`` may resurrect a demoted entry during ``lookup`` (the
+    returned page's one pool reference belongs to the cache)."""
 
     def __init__(self, pool: PagedKVPool):
         from collections import OrderedDict
@@ -573,6 +591,9 @@ class PrefixCache:
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
         self.hits = 0
         self.misses = 0
+        self.on_evict = None
+        self.promote_fn = None
+        self.host_promotions = 0  # lookup pages served from the host tier
 
     @staticmethod
     def _digests(prompt: np.ndarray, page_size: int, n_pages: int):
@@ -594,6 +615,11 @@ class PrefixCache:
         shared: List[int] = []
         for i in range(cacheable):
             page = self._entries.get(digests[i])
+            if page is None and self.promote_fn is not None:
+                page = self.promote_fn(digests[i])
+                if page is not None:
+                    self._entries[digests[i]] = page
+                    self.host_promotions += 1
             if page is None:
                 break
             self._entries.move_to_end(digests[i])
@@ -626,6 +652,12 @@ class PrefixCache:
         for dig, page in self._entries.items():
             if self._pool.refcount(page) == 1:
                 del self._entries[dig]
+                if self.on_evict is not None:
+                    # the demotion's gather is enqueued before the release
+                    # below, so a recycled page's later writes follow it
+                    # (the hook degrades on its own; a device error in it
+                    # goes to the scheduler's recovery path)
+                    self.on_evict(dig, page)
                 self._pool.release_pages([page])
                 return True
         return False
@@ -704,7 +736,8 @@ class _PagedRequest:
                  "t_submit", "t_prefill0", "t_last",
                  "draft_pages", "draft_len", "spec_enabled", "spec_ewma",
                  "spec_drafted", "spec_accepted", "spec_probe_in",
-                 "spec_probing")
+                 "spec_probing", "kv_handle", "export_digest",
+                 "t_resume0", "resume_kind")
 
     def __init__(self, prompt: np.ndarray, steps: int, on_token=None,
                  sampling: Optional[SamplingParams] = None,
@@ -747,6 +780,14 @@ class _PagedRequest:
         self.pf_started = False
         self.pf_digests = None
         self.pf_shared = 0
+        # host KV tier: the snapshot a resume restores (a preemption's or a
+        # shipped one), and the disagg export key
+        self.kv_handle = None
+        self.export_digest: Optional[bytes] = None
+        # a resume in progress: its start and kind ("swap_in" or
+        # "re_prefill"), read at the next emitted token
+        self.t_resume0: Optional[float] = None
+        self.resume_kind: Optional[str] = None
         self.t_submit = _time.perf_counter()
         self.t_prefill0: Optional[float] = None
         self.t_last: Optional[float] = None
@@ -795,7 +836,8 @@ class ContinuousBatcher:
     lanes are all eligible run speculative blocks instead
     (:func:`paged_speculative_block`), with the same tokens.  Priority
     preemption evicts the weakest lane, which resumes by re-prefilling
-    prompt + generated tokens (exact tokens).
+    prompt + generated tokens (exact tokens) or, with ``kv_offload``, by
+    restoring its KV snapshot from host memory.
 
     ``params`` is a :class:`~tpulab_torch.models.transformer.Transformer`
     or a tpulab-keyed tree of tensors.  ``device=None`` means the CUDA
@@ -838,8 +880,9 @@ class ContinuousBatcher:
                 "card it would route decode attention to plain math "
                 "(ROADMAP, decisions: use_kernel=False); ragged=False "
                 "selects the split plan on the kernels")
-        if kv_offload or kv_publish:
-            raise _unported("kv_offload / kv_publish", "the KV host tier")
+        if kv_publish:
+            raise _unported("kv_publish (the fleet publish of host tier KV)",
+                            "item 5, the fleet KV fabric")
         if mesh is not None:
             raise _unported("mesh", "parallelism")
         if hbm is not None:
@@ -962,7 +1005,34 @@ class ContinuousBatcher:
         #: with ``prefill_flash`` the flash kernel runs ``n_layers`` times
         #: in each
         self.prefill_forwards = 0
+        #: prompt fills under either plan: a first prefill or the
+        #: re-prefill of a resume (the split plan's ``prefill_dispatches``;
+        #: under the ragged plan, the prompts that start their mixed
+        #: rounds).  A resume restored from the host tier adds nothing.
+        self.prompt_fills = 0
         self.prefix_cache = PrefixCache(self.pool) if prefix_cache else None
+        # the host KV tier: None/False = off; True = a manager with the
+        # default host budget; an int = budget bytes; a KVOffloadManager =
+        # bring your own (shared store / transfer engine).  On, a
+        # preemption swaps the lane's KV to host memory and its resume
+        # swaps it back (no re-prefill), and prefix-cache eviction demotes
+        # to / promotes from the host tier.
+        self._owns_offload = False
+        if kv_offload is None or kv_offload is False:
+            self.kv_offload = None
+        else:
+            from tpulab_torch.kvcache import (DEFAULT_HOST_BUDGET,
+                                              KVOffloadManager)
+            if isinstance(kv_offload, KVOffloadManager):
+                self.kv_offload = kv_offload
+            else:
+                budget = (DEFAULT_HOST_BUDGET if kv_offload is True
+                          else int(kv_offload))
+                self.kv_offload = KVOffloadManager(self.pool, budget)
+                self._owns_offload = True
+        if self.kv_offload is not None and self.prefix_cache is not None:
+            self.prefix_cache.on_evict = self._demote_prefix
+            self.prefix_cache.promote_fn = self._promote_prefix
         if prefill_chunk is not None:
             if prefill_chunk < page_size:
                 raise ValueError("prefill_chunk must be >= page_size")
@@ -986,7 +1056,8 @@ class ContinuousBatcher:
     def submit(self, prompt, steps: int, on_token=None,
                sampling: Optional[SamplingParams] = None,
                priority: int = 0, stop_tokens=None,
-               logprobs: bool = False, deadline=None) -> Future:
+               logprobs: bool = False, deadline=None,
+               export_digest: Optional[bytes] = None) -> Future:
         """Queue one generation request (tpulab's contract).
 
         ``on_token(token, index)`` streams tokens (``(token, index,
@@ -994,33 +1065,113 @@ class ContinuousBatcher:
         to ``(tokens, logprobs)``); ``stop_tokens`` end generation with
         the stop token emitted last; ``priority`` orders admission and
         arms preemption; ``deadline`` (a Deadline or seconds) bounds the
-        request."""
-        flat = np.asarray(prompt).reshape(-1)
-        if isinstance(deadline, Deadline):
-            deadline = deadline.expiry
-        elif deadline is not None:
-            deadline = _time.monotonic() + float(deadline)
-        n_prompt = len(flat)
-        if n_prompt == 0:
-            raise ValueError("empty prompt")
-        if steps < 1:
-            raise ValueError("steps must be >= 1")
-        if n_prompt + steps > self.max_len:
-            raise ValueError(f"prompt+steps exceeds max_len {self.max_len}")
-        if flat.min() < 0 or flat.max() >= self.vocab:
-            # an out-of-range id would fault the embedding gather on the
-            # card; reject at the host boundary
-            raise ValueError(f"prompt token ids outside [0, {self.vocab})")
+        request.  ``export_digest`` (requires ``kv_offload``) snapshots
+        the finished request's KV to the host tier under ``("ship",
+        digest)`` when its lane is released — the prefill-replica half of
+        disaggregated serving: submit with ``steps=1`` and the snapshot
+        covers exactly the prompt.  The export
+        :class:`~tpulab_torch.kvcache.SwapHandle` lands on the future as
+        ``_tpulab_kv_export`` (tpulab's name; None when the swap
+        degraded) before it resolves."""
+        deadline = self._check_request(prompt, steps, deadline)
+        if export_digest is not None and self.kv_offload is None:
+            raise ValueError("export_digest requires kv_offload")
         req = _PagedRequest(prompt, steps, on_token=on_token,
                             sampling=sampling, priority=priority,
                             stop_tokens=stop_tokens, logprobs=logprobs,
                             deadline=deadline)
+        req.export_digest = export_digest
         with self._cv:
             if self._shutdown:
                 raise RuntimeError("ContinuousBatcher is shut down")
             self._enqueue_locked(req, front_of_class=False)
             self._requests[req.future] = req
             self._cv.notify()
+        return req.future
+
+    def _check_request(self, prompt, steps: int, deadline):
+        """Reject a malformed request at the host boundary; returns the
+        deadline as an absolute monotonic time (or None)."""
+        flat = np.asarray(prompt).reshape(-1)
+        if isinstance(deadline, Deadline):
+            deadline = deadline.expiry
+        elif deadline is not None:
+            deadline = _time.monotonic() + float(deadline)
+        if len(flat) == 0:
+            raise ValueError("empty prompt")
+        if steps < 1:
+            raise ValueError("steps must be >= 1")
+        if len(flat) + steps > self.max_len:
+            raise ValueError(f"prompt+steps exceeds max_len {self.max_len}")
+        if flat.min() < 0 or flat.max() >= self.vocab:
+            # an out-of-range id would fault the embedding gather on the
+            # card; reject at the host boundary
+            raise ValueError(f"prompt token ids outside [0, {self.vocab})")
+        return deadline
+
+    def submit_shipped(self, prompt, steps: int, first_token: int, handle,
+                       on_token=None,
+                       sampling: Optional[SamplingParams] = None,
+                       priority: int = 0, stop_tokens=None,
+                       deadline=None) -> Future:
+        """Admit a request whose prompt KV arrived SHIPPED from a prefill
+        replica — the decode-replica half of disaggregated serving
+        (tpulab's contract).
+
+        ``handle`` is the resident host-tier snapshot a
+        :class:`~tpulab_torch.disagg.KVShipper` import minted (None = the
+        shipment was lost: the request still admits and prefills
+        locally), and ``first_token`` the prefill replica's index-0 pick,
+        emitted to ``on_token`` here so the stream the consumer sees is a
+        unified replica's.  Admission restores the snapshot through
+        ``KVOffloadManager.restore``: the lane starts decoding with ZERO
+        prefill dispatches.  Every degraded shipment (lost, corrupt,
+        chaos-tripped, budget-refused, restore failure) falls back to the
+        exact local prefill, which recomputes the same KV.
+
+        Host-sampled requests (``temperature > 0`` without device
+        sampling) are rejected: their PRNG stream is keyed by draw order,
+        which does not survive the replica hop; greedy and device-sampled
+        streams are keyed by (seed, position) and do."""
+        deadline = self._check_request(prompt, steps, deadline)
+        n_prompt = np.asarray(prompt).size
+        if not 0 <= int(first_token) < self.vocab:
+            raise ValueError(
+                f"shipped first token outside [0, {self.vocab})")
+        sp = sampling or SamplingParams()
+        if sp.temperature > 0.0 and not sp.device:
+            raise ValueError(
+                "shipped-KV admission requires greedy or device sampling "
+                "(host-side PRNG streams do not survive the replica hop)")
+        if handle is not None and self.kv_offload is None:
+            raise ValueError("shipped-KV admission requires kv_offload")
+        if handle is not None and handle.length != n_prompt:
+            raise ValueError(
+                f"shipment covers {handle.length} positions, prompt has "
+                f"{n_prompt}")
+        req = _PagedRequest(prompt, steps, on_token=on_token, sampling=sp,
+                            priority=priority, stop_tokens=stop_tokens,
+                            deadline=deadline)
+        # the first-token pick happened on the prefill replica: seed the
+        # lane as a resume (a degraded restore then re-prefills and
+        # DISCARDS its pick, exactly like a preemption resume)
+        req.tokens_out.append(int(first_token))
+        req.kv_handle = handle
+        req.resumed = True
+        self._emit(req, int(first_token), 0, None)
+        with self._cv:
+            self.tokens_generated += 1
+            if self._shutdown:
+                raise RuntimeError("ContinuousBatcher is shut down")
+            if not req.finished():
+                self._enqueue_locked(req, front_of_class=False)
+                self._requests[req.future] = req
+                self._cv.notify()
+                return req.future
+            self._discard_handle(req)
+            self.completed_requests += 1
+        # steps == 1, or the first token is a stop token
+        req.future.set_result(self._result_of(req))
         return req.future
 
     def cancel(self, future: Future) -> None:
@@ -1032,6 +1183,7 @@ class ContinuousBatcher:
                 if req in self._queue:  # never started: finish immediately
                     self._queue.remove(req)
                     self._requests.pop(future, None)
+                    self._discard_handle(req)
         if req is not None and req not in self._active and not future.done():
             future.cancel()
 
@@ -1041,7 +1193,10 @@ class ContinuousBatcher:
             self._cv.notify()
         self._thread.join(timeout=30)
         if not self._thread.is_alive() and self.prefix_cache is not None:
+            self.prefix_cache.on_evict = None  # shutdown clear != pressure
             self.prefix_cache.clear()
+        if self._owns_offload and not self._thread.is_alive():
+            self.kv_offload.close()  # settle write-behind, free the tier
         if self._owns_pool and not self._thread.is_alive():
             self.pool.close()
 
@@ -1097,6 +1252,66 @@ class ContinuousBatcher:
             page = self.pool.allocate_page()
         return page
 
+    # -- host KV tier (kv_offload) -------------------------------------------
+    def _demote_prefix(self, digest: bytes, page: int) -> None:
+        """PrefixCache.on_evict hook: spill the evicted page host-side."""
+        self.kv_offload.demote(digest, page, self.pool.kv)
+
+    def _promote_prefix(self, digest: bytes) -> Optional[int]:
+        """PrefixCache.promote_fn hook: resurrect a demoted entry into a
+        fresh pool page (a plain allocate: promotion must not evict OTHER
+        device entries and thrash the cache against itself)."""
+        mgr = self.kv_offload
+        if not mgr.has_prefix(digest):
+            return None
+        page = self.pool.allocate_page()
+        if page is None:
+            return None
+        if mgr.promote(digest, page, self.pool.kv) is None:
+            self.pool.release_pages([page])
+            return None
+        return page
+
+    def _try_swap_in(self, req: _PagedRequest, t: int) -> Optional[bool]:
+        """Restore a resume's host-tier snapshot into freshly allocated
+        pages instead of re-prefilling.  ``t`` is the resume length, by
+        construction the snapshot's covered positions.  True = restored
+        (the lane decodes next); False = page-starved (pages released,
+        snapshot kept, retry later); None = the swap degraded (snapshot
+        consumed): the caller re-prefills."""
+        handle = req.kv_handle
+        while len(req.pages) < handle.n_pages:
+            page = self._alloc_page()
+            if page is None:
+                self.pool.release_pages(req.pages)
+                req.pages = []
+                return False
+            req.pages.append(page)
+        t0 = _time.perf_counter()
+        # the restore writes the pool in place on this thread's stream,
+        # ahead of the lane's next forward
+        restored = self.kv_offload.restore(handle, req.pages[:handle.n_pages],
+                                           self.pool.kv)
+        req.kv_handle = None
+        if restored is None:
+            self.pool.release_pages(req.pages)
+            req.pages = []
+            return None
+        req.length = t
+        req.pending_prompt = []
+        req.pf_started = False
+        req.resumed = False     # the last pick happened before preemption
+        req.t_resume0, req.resume_kind = t0, "swap_in"
+        return True
+
+    def _discard_handle(self, req: _PagedRequest) -> None:
+        """Drop a never-to-be-restored snapshot (cancel, expiry, failure)
+        so it stops holding host-tier budget."""
+        if req.kv_handle is not None:
+            if self.kv_offload is not None:
+                self.kv_offload.discard(req.kv_handle)
+            req.kv_handle = None
+
     def _admit_to_lane_locked(self, lane: int) -> bool:
         page = self._alloc_page()
         if page is None:
@@ -1132,8 +1347,19 @@ class ContinuousBatcher:
 
     def _preempt_locked(self, lane: int) -> None:
         """Evict the lane's request and re-queue it for an exact-token
-        resume (re-prefill of prompt + generated, minus the last token)."""
+        resume (re-prefill of prompt + generated, minus the last token).
+        With ``kv_offload`` the lane's live pages are first snapshotted to
+        the host tier (only the gather is enqueued here, on this stream
+        and after any dispatched-ahead block); the resume then restores
+        them with no prefill, and the re-prefill is the fallback of a
+        degraded swap.  A mid-prompt lane is never snapshotted: its
+        partial KV does not match the resume length."""
         req = self._active[lane]
+        if (self.kv_offload is not None and req.length > 0
+                and not req.pending_prompt):
+            needed = (req.length + self.page_size - 1) // self.page_size
+            req.kv_handle = self.kv_offload.swap_out(
+                req.pages[:needed], req.length, self.pool.kv)
         self.pool.release_pages(req.pages)
         req.pages = []
         # the draft table is regenerated at resume (one warm-up forward),
@@ -1187,6 +1413,7 @@ class ContinuousBatcher:
                     for req in self._queue:
                         if req.deadline is not None and now >= req.deadline:
                             self._requests.pop(req.future, None)
+                            self._discard_handle(req)
                             expired.append(req)
                         else:
                             still.append(req)
@@ -1239,6 +1466,7 @@ class ContinuousBatcher:
                             if not req.future.done():
                                 req.future.set_exception(e)
                             self._requests.pop(req.future, None)
+                            self._discard_handle(req)
                             self._active[lane] = None
                 if self.prefix_cache is not None:
                     self.prefix_cache.drop_all()
@@ -1258,11 +1486,17 @@ class ContinuousBatcher:
         full-prompt forward per pow2 length bucket; with a prefix cache
         the shared full-page prefix is reused and only the tail runs
         (:func:`paged_extend`); with ``prefill_chunk`` long prompts run in
-        page-aligned chunks.  False (retry later) when the pool cannot
-        yet supply the prompt's pages."""
+        page-aligned chunks.  A resume holding a host-tier snapshot
+        restores it instead (True, no forward) unless the swap degrades.
+        False (retry later) when the pool cannot yet supply the prompt's
+        pages."""
         if req.cancelled or req.length != 0:   # swept / already started
             return False
         t = len(req.pending_prompt)
+        if req.kv_handle is not None:
+            swapped = self._try_swap_in(req, t)
+            if swapped is not None:
+                return swapped
         prompt = np.asarray(req.pending_prompt, np.int32)
         shared: List[int] = []
         digests: List[bytes] = []
@@ -1293,7 +1527,10 @@ class ContinuousBatcher:
             req.t_prefill0 = t_pf0
             if self.metrics is not None:
                 self.metrics.observe_queue_wait(t_pf0 - req.t_submit)
+        if req.resumed:
+            req.t_resume0, req.resume_kind = t_pf0, "re_prefill"
         self.prefill_dispatches += 1
+        self.prompt_fills += 1
         if start == 0 and (self.prefill_chunk is None
                            or t <= self.prefill_chunk):
             t_pad = 1 << (t - 1).bit_length()   # pow2 length bucket
@@ -1389,8 +1626,12 @@ class ContinuousBatcher:
         req.length = len(shared) * self.page_size
         del req.pending_prompt[:req.length]
         req.pf_started = True
+        self.prompt_fills += 1
+        now = _time.perf_counter()
+        if req.resumed:
+            req.t_resume0, req.resume_kind = now, "re_prefill"
         if req.t_prefill0 is None:
-            req.t_prefill0 = _time.perf_counter()
+            req.t_prefill0 = now
             if self.metrics is not None:
                 self.metrics.observe_queue_wait(req.t_prefill0
                                                 - req.t_submit)
@@ -1426,16 +1667,24 @@ class ContinuousBatcher:
         """One fused mixed round: every prefilling lane advances one prompt
         chunk and — with no dispatched-ahead block in flight — every
         decoding lane one token, in ONE :func:`paged_mixed_step`.  No-op
-        without pending prompts.  True when any lane progressed."""
+        without pending prompts.  A resume holding a host-tier snapshot
+        restores it instead of joining the round.  True when any lane
+        progressed."""
         segs: List = []
+        restored = False
         for lane, req in enumerate(snapshot):
             if req is None or not req.pending_prompt or req.cancelled:
                 continue
+            if req.kv_handle is not None:
+                swapped = self._try_swap_in(req, len(req.pending_prompt))
+                if swapped is not None:
+                    restored |= swapped
+                    continue     # restored, or page-starved: retry later
             if not req.pf_started and not self._ragged_prefill_start(req):
                 continue
             segs.append((lane, req))
         if not segs:
-            return False
+            return restored
         decode_parts: List = []
         if self._pending_block is None:
             for lane, req in enumerate(snapshot):
@@ -1588,11 +1837,17 @@ class ContinuousBatcher:
         self._resolve(completed)
         return True
 
-    @staticmethod
-    def _emit(req: _PagedRequest, token: int, index: int,
+    def _emit(self, req: _PagedRequest, token: int, index: int,
               logprob: Optional[float] = None) -> None:
         """``on_token(tok, i)``, or ``on_token(tok, i, logprob)`` iff the
-        request asked for logprobs."""
+        request asked for logprobs.  The first token after a resume also
+        reports the resume's time (its start to this emit) and kind to
+        ``metrics.observe_resume(seconds, kind)`` where the sink has it."""
+        if req.t_resume0 is not None:
+            t0, req.t_resume0 = req.t_resume0, None
+            observe = getattr(self.metrics, "observe_resume", None)
+            if observe is not None:
+                observe(_time.perf_counter() - t0, req.resume_kind)
         if req.on_token is not None:
             try:
                 if req.want_logprobs:
@@ -2208,10 +2463,21 @@ class ContinuousBatcher:
         return toks
 
     def _release_lane_locked(self, lane: int, req: _PagedRequest) -> None:
+        if (req.export_digest is not None and self.kv_offload is not None
+                and not req.cancelled and req.length > 0
+                and req.finished()):
+            # disagg export: snapshot the finished KV BEFORE the pages are
+            # released (the same window as a preemption swap-out); the
+            # shipper's export wait is the write-behind fence
+            needed = (req.length + self.page_size - 1) // self.page_size
+            req.future._tpulab_kv_export = self.kv_offload.swap_out(
+                req.pages[:needed], req.length, self.pool.kv,
+                key=("ship", req.export_digest))
         self.pool.release_pages(req.pages)
         if req.draft_pages:
             self.pool.release_pages(req.draft_pages)
             req.draft_pages = []
+        self._discard_handle(req)   # a cancelled resume never restores
         self._active[lane] = None
         self._requests.pop(req.future, None)
 
