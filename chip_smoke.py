@@ -30,7 +30,15 @@ raises and the script exits non-zero without printing a result:
      tile dropped, at T 2048;
    - paged_decode_attention at the serving geometry: 8 lanes at positions
      1023 and 2047, and one lane at 2047; planted: one page skipped at
-     2048 context; kernel 1's time at the same shape beside it.
+     2048 context; kernel 1's time at the same shape beside it;
+   - e4m3 pools (the pages the kernels upcast themselves): kernel 1 at
+     all_decode, chunk_over_ctx and verify_k8 with bf16 q (the ``wgmma``
+     body, pages staged raw and converted in shared memory) and all_decode
+     with f32 q (``fma``), kernel 3 at 8 x 1024 and 1 x 2048 (bf16 q);
+     each also relaunched over a copy with 0x7F (NaN) in every dead
+     position, which must not change one bit, and a skipped page
+     rejected; times at 1 byte a KV element beside the 16-bit pool's
+     (no library call takes e4m3 K/V: the SDPA column is n/a).
    Kernel, plain, bound and ``F.scaled_dot_product_attention`` (a
    labelled yardstick; the port never calls it) times per case, CUDA
    events with the L2 flushed.  Then the host time of one wrapper call
@@ -55,12 +63,25 @@ raises and the script exits non-zero without printing a result:
    (no re-prefill), by re-prefill (``kv_offload=None``) and through a
    ``kvcache.swap`` chaos re-prefill against its unpreempted stream, and
    a prefill-batcher -> wire -> decode-batcher shipment against the
-   unified stream, all under the margin rule.
+   unified stream, all under the margin rule.  int8 weights and e4m3
+   pages: ``to_kv_dtype`` on the card == on the CPU over every bf16
+   pattern and the f32 specials, one full-width layer quantized and
+   ``qmat``'d on the card == on the CPU, bit for bit; at f32 over an
+   e4m3 pool the K-block / mixed-step invariants and the decode op (f32
+   queries), the e4m3 pool round trip (random bytes, NaN codes
+   included), the preempt / chaos / shipment checks (wire bytes of the
+   predicted length), and an int8 tree's speculating batcher against
+   plain blocks, under the margin rule over an e4m3 replay.
 5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
    (32 layers, random bf16 weights from a seed) serves a greedy /
    stop-token / device-sampled / logprobs / host-sampled / streaming
    request mix under the ragged plan, then (that batcher shut down) under
-   the split plan (``ragged=False``: flash prefill, then K-blocks).  Per
+   the split plan (``ragged=False``: flash prefill, then K-blocks); then
+   the same two serves with the int8 tree quantized on the card from the
+   same weights over e4m3 pages (pool and weight bytes, tok/s and TTFT
+   beside the bf16 serves', run 3 of each ragged serve profiled for the
+   device's busy share), and one decode forward's device time with each
+   weight and page kind.  Per
    plan: lengths, ranges, stop token, logprobs, dispatch kinds, kernel
    launches == n_layers x the forwards that run each kernel, every one
    of them on the ``wgmma`` body (bf16), and a second identical run
@@ -602,6 +623,156 @@ def phase_paged(torch, timer):
     return rows
 
 
+# e4m3 pools: kernel 1's shapes on both bodies (q dtype, cases), kernel 3's
+# (lanes, inclusive position) cases
+E4M3_RAGGED = (("bf16/e4m3", "bfloat16", ("all_decode", "chunk_over_ctx",
+                                         "verify_k8")),
+               ("f32/e4m3", "float32", ("all_decode",)))
+E4M3_PAGED = ((8, 1023), (1, 2047))
+
+
+def nan_dead_tails(torch, pool, tables, first_dead):
+    """A copy of an e4m3 pool with 0x7F (NaN) in every position at or past
+    ``first_dead[b]`` of each lane's table: the dead tail of its last live
+    page and every dead page."""
+    s = pool.shape[2]
+    pos = torch.arange(tables.shape[1] * s, device=pool.device)
+    lane, p = (pos[None] >= first_dead[:, None]).nonzero(as_tuple=True)
+    out = pool.clone()
+    out.view(torch.uint8)[tables[lane, p // s].long(), :, p % s] = 0x7F
+    return out
+
+
+def phase_e4m3_kernels(torch, timer, rows):
+    """Kernels 1 and 3 over e4m3 pools (the serving geometry's pool cast
+    from f32 on the card): each case held against its plain version over
+    the same bytes, relaunched bit-identically, and launched again over a
+    copy with 0x7F in every dead position, which must not change one bit
+    of the output; a skipped page is rejected.  Times at 1 byte a KV
+    element beside the bf16 (f32 q: f32/bf16) pool's time of the same
+    case from ``rows``; no library call takes e4m3 K/V ("n/a")."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_splits)
+    from tpulab_torch.ops.ragged_attention import (
+        _sm_count, ragged_body, ragged_paged_attention,
+        ragged_paged_attention_reference, ragged_splits)
+
+    g = RA_GEOM
+    e4m3 = torch.float8_e4m3fn
+    rng = np.random.default_rng(13)
+    pool32, tables = serving_pool(torch, np, rng)
+    pool = pool32.to(e4m3)
+    del pool32
+    n_sm = _sm_count(torch.cuda.current_device())
+    cases = dict((n, (q, kv)) for n, q, kv in ra_cases())
+    new = {"ragged": [], "paged": []}
+
+    def beside(kernel, case, dname):
+        pair = "bf16/bf16" if dname.startswith("bf16") else "f32/bf16"
+        return next(r["ms"] for r in rows[kernel]
+                    if (r["case"], r["dtypes"]) == (case, pair))
+
+    for dname, q_name, names in E4M3_RAGGED:
+        q_dt = getattr(torch, q_name)
+        for name in names:
+            q_lens_l, kv_lens_l = cases[name]
+            m = max(q_lens_l)
+            q = torch.from_numpy(rng.standard_normal(
+                (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda()
+            q = q.to(q_dt)
+            q_lens, kv_lens = (torch.tensor(x, dtype=torch.int32,
+                                            device="cuda")
+                               for x in (q_lens_l, kv_lens_l))
+            args = (q, pool, tables, q_lens, kv_lens)
+            body = ragged_body(q_dt, e4m3, g["d"])
+            splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"],
+                                   g["s"], n_sm, body)
+            label = f"ragged {name} {dname}"
+            got = launch_twice(torch, label, ragged_paged_attention,
+                               lambda: ragged_paged_attention(*args), body)
+            err = check_close(torch, label, got,
+                              ragged_paged_attention_reference(*args))
+            poisoned = nan_dead_tails(torch, pool, tables, kv_lens)
+            if not torch.equal(ragged_paged_attention(
+                    q, poisoned, tables, q_lens, kv_lens), got):
+                raise AssertionError(f"{label}: 0x7F in dead positions "
+                                     "changed the output")
+            del poisoned
+            if name == "all_decode":
+                skip = torch.cat([tables[:, :5], tables[:, 6:],
+                                  tables[:, :1]], 1)
+                check_rejects(torch, f"ragged skipped page, 1024 context, "
+                              f"{dname}", got,
+                              ragged_paged_attention_reference(
+                                  q, pool, skip, q_lens, kv_lens - g["s"]))
+            ms = timer(lambda: ragged_paged_attention(*args), iters=20)
+            plain_ms = timer(lambda: ragged_paged_attention_reference(*args),
+                             iters=3, warmup=1)
+            kind = "bf16" if q_dt == torch.bfloat16 else "f32"
+            bound_ms, bound_by = ra_bound(q_lens_l, kv_lens_l, m,
+                                          q.element_size(), 1, kind)
+            bf16_ms = beside("ragged", name, dname)
+            new["ragged"].append(dict(
+                case=name, dtypes=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, bf16_pool_ms=bf16_ms,
+                body=f"{body} x{splits}"))
+            log(f"kernels: ragged {name:<14} {dname:<9} {body:<5} "
+                f"x{splits:<2} err={err:.2e} kernel={ms:.4f} (16-bit pool "
+                f"{bf16_ms:.4f}) plain={plain_ms:.4f} bound={bound_ms:.4f} "
+                f"({bound_by}, 1 byte a KV element) ms; sdpa n/a (no "
+                "library call takes e4m3 K/V); 0x7F dead tails: output "
+                "unchanged")
+
+    for lanes, pos in E4M3_PAGED:
+        tab = tables[:lanes]
+        q = torch.from_numpy(rng.standard_normal(
+            (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(
+                torch.bfloat16)
+        lengths = torch.full((lanes,), pos, dtype=torch.int32, device="cuda")
+        args = (q, pool, tab, lengths)
+        case = f"{lanes} x {pos + 1}"
+        label = f"paged {case} bf16/e4m3"
+        splits = paged_splits(lanes, g["hkv"], g["mp"], g["s"], n_sm)
+        got = launch_twice(torch, label, paged_decode_attention,
+                           lambda: paged_decode_attention(*args))
+        err = check_close(torch, label, got,
+                          paged_decode_attention_reference(*args))
+        poisoned = nan_dead_tails(torch, pool, tab, lengths + 1)
+        if not torch.equal(paged_decode_attention(q, poisoned, tab, lengths),
+                           got):
+            raise AssertionError(f"{label}: 0x7F in dead positions changed "
+                                 "the output")
+        del poisoned
+        if lanes == 8:
+            skip = torch.cat([tab[:, :5], tab[:, 6:], tab[:, :1]], 1)
+            check_rejects(torch, "paged skipped page, 1024 context, "
+                          "bf16/e4m3", got, paged_decode_attention_reference(
+                              q, pool, skip, lengths - g["s"]))
+        ms = timer(lambda: paged_decode_attention(*args), iters=20)
+        plain_ms = timer(lambda: paged_decode_attention_reference(*args),
+                         iters=3, warmup=1)
+        n_ctx = lanes * (pos + 1)
+        bound_ms, bound_by = bound(
+            n_ctx * g["hkv"] * g["d"] * 2
+            + 2 * lanes * g["hq"] * g["d"] * q.element_size()
+            + lanes * g["mp"] * 4 + lanes * 4,
+            4 * g["d"] * g["hq"] * n_ctx, "f32")
+        bf16_ms = beside("paged", case, "bf16/e4m3")
+        new["paged"].append(dict(
+            case=case, dtypes="bf16/e4m3", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, bf16_pool_ms=bf16_ms, body=f"ring x{splits}"))
+        log(f"kernels: paged {case:<8} bf16/e4m3 ring x{splits:<2} "
+            f"err={err:.2e} kernel={ms:.4f} (16-bit pool {bf16_ms:.4f}) "
+            f"plain={plain_ms:.4f} bound={bound_ms:.4f} ({bound_by}, 1 byte "
+            "a KV element) ms; sdpa n/a; 0x7F dead tails: output unchanged")
+    return new
+
+
 # ---------------------------------------------------------------- phase 4
 def full_width_params(torch, n_layers, dtype, seed):
     from tpulab_torch.models.transformer import init_transformer_params
@@ -613,9 +784,11 @@ def full_width_params(torch, n_layers, dtype, seed):
         tie_embeddings=False, device="cuda", dtype=dtype)
 
 
-def phase_invariants(torch):
-    """bf16 invariants, then the paged_decode_attention op over the same
-    pool; returns that op path's launch count."""
+def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
+    """The K-block and mixed-step invariants at full width, 2 layers (bf16
+    weights and pool, or the given f32 ``params`` over a ``kv_dtype``
+    pool), then the paged_decode_attention op over the same pool; returns
+    that op path's launch count."""
     import numpy as np
 
     from tpulab_torch.engine.paged import (PagedKVPool, paged_decode_block,
@@ -623,16 +796,21 @@ def phase_invariants(torch):
                                            paged_mixed_step,
                                            paged_ragged_forward)
     from tpulab_torch.engine.prng import device_sample_tokens
+    from tpulab_torch.ops.ragged_attention import pool_bytes as bits
 
     c = LLAMA3_8B
     n_layers = 2
-    params = full_width_params(torch, n_layers, torch.bfloat16, seed=1)
+    compute = compute or torch.bfloat16
+    kv_dtype = kv_dtype or compute
+    own = params is None
+    if own:
+        params = full_width_params(torch, n_layers, compute, seed=1)
     kw = dict(n_heads=c["n_heads"], n_layers=n_layers,
               n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
-              compute_dtype=torch.bfloat16)
+              compute_dtype=compute)
     b, mp, s = 8, 128, 16
     pool = PagedKVPool(b * mp + 1, s, n_layers, c["n_kv_heads"],
-                       c["d_model"] // c["n_heads"], torch.bfloat16, "cuda")
+                       c["d_model"] // c["n_heads"], kv_dtype, "cuda")
     rng = np.random.default_rng(2)
     tables = torch.arange(1, b * mp + 1, dtype=torch.int32,
                           device="cuda").reshape(b, mp)
@@ -654,12 +832,14 @@ def phase_invariants(torch):
         diff = [n for n, same in (
             ("logits", torch.equal(last, last2)),
             ("tokens", torch.equal(nt, nt2)),
-            ("pool", torch.equal(kv_c[:, 1:], kv_d[:, 1:]))) if not same]
+            ("pool", torch.equal(bits(kv_c[:, 1:]),
+                                 bits(kv_d[:, 1:])))) if not same]
         if diff:
             raise AssertionError("paged_mixed_step != paged_ragged_forward "
                                  f"+ device pick: {diff}")
         del kv_d
-        launches = decode_op_path(torch, rng, kv_c, tables, kv_lens - 1)
+        launches = decode_op_path(torch, rng, kv_c, tables, kv_lens - 1,
+                                  compute)
         rem = torch.tensor([8, 3, 8, 8, 5, 8, 8, 8], device="cuda")
         stops = torch.full((b, 2), -1, dtype=torch.long, device="cuda")
         stops[2, 0] = int(nt[2])        # lane 2 stops when it repeats
@@ -680,22 +860,25 @@ def phase_invariants(torch):
                 raise AssertionError(f"K-block != chained steps at step {j}")
             lens, r, toks = lens + live.long(), r - live.long(), t
             live = live & (r > 0) & ~(t[:, None] == stops).any(1)
-        if not torch.equal(kv_a[:, 1:], kv_b[:, 1:]):
+        if not torch.equal(bits(kv_a[:, 1:]), bits(kv_b[:, 1:])):
             raise AssertionError("K-block pool != chained-steps pool")
         if not (torch.isfinite(blk[1]).all() and (blk[1] <= 0).all()
                 and (blk[0] >= 0).all() and (blk[0] < c["vocab"]).all()):
             raise AssertionError("decode block emitted invalid tokens")
     emitted = blk[2].sum(1).tolist()
-    log(f"invariants: full width, {n_layers} layers, bf16: K-block(k=8) == 8 "
-        f"chained steps bit for bit (emitted per lane {emitted}); "
-        "mixed step == ragged forward + device pick")
+    log(f"invariants: full width, {n_layers} layers, {dtype_name(compute)} "
+        f"over a {dtype_name(kv_dtype)} pool: K-block(k=8) == 8 chained "
+        f"steps bit for bit (emitted per lane {emitted}); mixed step == "
+        "ragged forward + device pick")
     pool.close()
-    del params, kv_a, kv_b, kv_c
+    if own:
+        del params
+    del kv_a, kv_b, kv_c
     torch.cuda.empty_cache()
     return launches
 
 
-def decode_op_path(torch, rng, kv, tables, positions):
+def decode_op_path(torch, rng, kv, tables, positions, q_dtype):
     """The public ``paged_decode_attention`` op driven over every layer of
     a model-written pool (the path's launches are counted from 0), then
     held against the ragged kernel at decode shape and the plain version
@@ -708,7 +891,7 @@ def decode_op_path(torch, rng, kv, tables, positions):
     b = tables.shape[0]
     q = torch.from_numpy(rng.standard_normal(
         (b, c["n_heads"], c["d_model"] // c["n_heads"])).astype(
-            "float32")).cuda().to(kv.dtype)
+            "float32")).cuda().to(q_dtype)
     paged_decode_attention.launches = 0
     outs = [paged_decode_attention(q, kv[layer], tables, positions)
             for layer in range(kv.shape[0])]
@@ -728,7 +911,9 @@ def decode_op_path(torch, rng, kv, tables, positions):
                                     q[:, None], kv[layer], tables, ones,
                                     positions + 1)[:, 0]))
     log(f"invariants: paged_decode_attention op over {kv.shape[0]} layers of "
-        f"the mixed round's pool: {launches} launches; == plain and == the "
+        f"the mixed round's {dtype_name(kv.dtype)} pool, "
+        f"{dtype_name(q_dtype)} queries: {launches} launches; == plain and "
+        f"== the "
         f"ragged kernel at decode shape (max err {max(errs):.2e})")
     return launches
 
@@ -816,11 +1001,12 @@ def gbps(nbytes, seconds):
     return nbytes / max(seconds, 1e-9) / 1e9
 
 
-def phase_kvtier_pool(torch):
-    """bf16, full width, 2 layers: a 98-page snapshot (one 1500-token
-    lane's page count at 32 layers) of scattered pages through the side
-    stream and back into other pages, twice; the pages come back bit for
-    bit and no other page (scratch page 0 included) changes."""
+def phase_kvtier_pool(torch, dtype):
+    """A bf16 or e4m3 pool, full width, 2 layers, filled with random bytes
+    (NaN codes included): a 98-page snapshot (one 1500-token lane's page
+    count at 32 layers) of scattered pages through the side stream and
+    back into other pages, twice; the pages come back bit for bit and no
+    other page (scratch page 0 included) changes."""
     import numpy as np
 
     from tpulab_torch.engine.paged import PagedKVPool
@@ -830,9 +1016,11 @@ def phase_kvtier_pool(torch):
     n = 98
     n_pages = 4 * n + 1                  # two trips, fresh pages each
     pool = PagedKVPool(n_pages, 16, 2, c["n_kv_heads"],
-                       c["d_model"] // c["n_heads"], torch.bfloat16, "cuda")
+                       c["d_model"] // c["n_heads"], dtype, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(9)
-    pool.kv.copy_(torch.randn(pool.kv.shape, generator=gen, device="cuda"))
+    raw = pool.kv.view(torch.uint8)
+    raw.copy_(torch.randint(0, 256, raw.shape, generator=gen, device="cuda",
+                            dtype=torch.uint8))
     perm = np.random.default_rng(9).permutation(n_pages - 1) + 1
     mgr = KVOffloadManager(pool, KV_BUDGET)
     times = []
@@ -852,8 +1040,8 @@ def phase_kvtier_pool(torch):
                 raise AssertionError("kvtier: the restore degraded")
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            bits = pool.kv.view(torch.int16)
-            was = before.view(torch.int16)
+            bits = pool.kv.view(torch.uint8)
+            was = before.view(torch.uint8)
             rest = sorted(set(range(n_pages)) - set(dst))
             if not torch.equal(bits[:, dst], was[:, src]):
                 raise AssertionError("kvtier: restored pages differ")
@@ -872,7 +1060,8 @@ def phase_kvtier_pool(torch):
     finally:
         mgr.close()
         pool.close()
-    log(f"invariants: kvtier, bf16 pool round trip of {n} scattered pages "
+    log(f"invariants: kvtier, {dtype_name(dtype)} pool round trip of {n} "
+        "scattered pages "
         f"({nbytes / 2**20:.2f} MiB, 2 layers) twice: bit-identical, page 0 "
         "and every other page unchanged; "
         + "; ".join(f"trip {i + 1}: swap-out landed {o * 1e3:.2f} ms "
@@ -895,12 +1084,15 @@ def preempted_run(cb, victim, hi, steps, hi_steps=4):
     return low, list(late["f"].result(timeout=600))
 
 
-def phase_kvtier_serve_f32(torch, params, kw):
-    """f32, full width, 2 layers, both plans: a preempted victim resumed
-    from the host tier and by re-prefill (``kv_offload=None``) against
-    its unpreempted stream; one ``kvcache.swap`` chaos resume; then a
-    prefill-batcher -> wire -> decode-batcher shipment against the
-    unified stream.  Streams agree under the margin rule."""
+def phase_kvtier_serve_f32(torch, params, kw, kv_dtype=None):
+    """f32, full width, 2 layers, both plans, over an f32 pool or a
+    ``kv_dtype`` one: a preempted victim resumed from the host tier and by
+    re-prefill (``kv_offload=None``) against its unpreempted stream; one
+    ``kvcache.swap`` chaos resume; then a prefill-batcher -> wire ->
+    decode-batcher shipment against the unified stream, whose wire bytes
+    have the length of the wire layout (magic, version, header, CRC and
+    one payload byte per element at e4m3).  Streams agree under the
+    margin rule (over a ``kv_dtype`` pool, its replay through one)."""
     import numpy as np
 
     from tpulab_torch import chaos
@@ -913,7 +1105,8 @@ def phase_kvtier_serve_f32(torch, params, kw):
     hi = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
     steps = 16
     cfg = dict(device="cuda", lanes=1, max_len=1024 + 32, page_size=16,
-               **kw)
+               kv_dtype=kv_dtype, **kw)
+    pool_name = dtype_name(kv_dtype or kw["compute_dtype"])
     notes = []
     for plan, extra in (("ragged", {}), ("split", {"ragged": False})):
         tier = ContinuousBatcher(params, kv_offload=KV_BUDGET, **cfg,
@@ -955,7 +1148,7 @@ def phase_kvtier_serve_f32(torch, params, kw):
             for label, got in streams:
                 note = same_or_near_tie(torch, params, kw, f"kvtier {plan} "
                                         f"{label} vs unpreempted", victim,
-                                        alone, got)
+                                        alone, got, kv_dtype=kv_dtype)
                 if note:
                     notes.append(note)
         finally:
@@ -964,7 +1157,8 @@ def phase_kvtier_serve_f32(torch, params, kw):
         for cb in (tier, plain):
             if cb.pool.free_pages != cb.pool.n_pages - 1:
                 raise AssertionError(f"kvtier f32 {plan}: pages unbalanced")
-    log(f"invariants: kvtier, f32, 2 layers, ragged and split plans: a "
+    log(f"invariants: kvtier, f32 over a {pool_name} pool, 2 layers, ragged "
+        "and split plans: a "
         f"{len(victim)}-token victim x {steps} steps preempted at its 4th "
         "token resumed from the host tier (1 swap-out, 1 swap-in, no "
         "re-prefill), by re-prefill, and (ragged) through a kvcache.swap "
@@ -975,6 +1169,7 @@ def phase_kvtier_serve_f32(torch, params, kw):
                for n in (300, 1000)]
     cfg2 = dict(cfg, lanes=2, kv_offload=KV_BUDGET)
     pre, dec, uni = (ContinuousBatcher(params, **cfg2) for _ in range(3))
+    sizes = []
     try:
         want = [list(uni.submit(p, steps).result(timeout=600))
                 for p in prompts]
@@ -988,6 +1183,7 @@ def phase_kvtier_serve_f32(torch, params, kw):
             ship = KVShipper(dec.kv_offload).import_shipment(blob)
             if blob is None or ship is None:
                 raise AssertionError("kvtier f32 shipment lost")
+            sizes.append((len(blob), wire_length(pre.pool, len(p), blob)))
             got.append(list(dec.submit_shipped(
                 p, steps, first, ship.handle).result(timeout=600)))
         if (dec.prompt_fills, dec.kv_offload.swap_ins) != (0, 2):
@@ -997,13 +1193,19 @@ def phase_kvtier_serve_f32(torch, params, kw):
     finally:
         for cb in (pre, dec, uni):
             cb.shutdown()
+    if any(n != want_n for n, want_n in sizes):
+        raise AssertionError(f"kvtier {pool_name} shipment: wire bytes "
+                             f"{sizes} (got, want)")
     notes = [same_or_near_tie(torch, params, kw, f"shipped vs unified, "
-                              f"{len(p)}-token prompt", p, a, b)
+                              f"{len(p)}-token prompt", p, a, b,
+                              kv_dtype=kv_dtype)
              for p, a, b in zip(prompts, want, got)]
     notes = [n for n in notes if n]
-    log(f"invariants: kvtier, f32, ragged plan: prefill batcher -> wire -> "
-        f"decode batcher, prompts {[len(p) for p in prompts]} x {steps}: "
-        "0 prompt fills on the decode side; "
+    log(f"invariants: kvtier, f32 over a {pool_name} pool, ragged plan: "
+        f"prefill batcher -> wire -> decode batcher, prompts "
+        f"{[len(p) for p in prompts]} x {steps}: wire bytes "
+        f"{[n for n, _ in sizes]} as the layout predicts; 0 prompt fills on "
+        "the decode side; "
         + ("; ".join(notes) if notes else "streams == the unified batcher"))
 
 
@@ -1023,14 +1225,55 @@ def pick_margin(torch, row, temp, seed, pos):
     return (top2[0] - top2[1]).item()
 
 
-def same_or_near_tie(torch, params, kw, label, prompt, want, got, temp=0.0,
-                     seed=0):
-    """``got`` equals ``want``, or first differs where the f32 model's own
-    pick margin (:func:`pick_margin` over ``transformer_apply``'s logits)
-    is below ``MARGIN_TOL``; returns a note for the log."""
-    import numpy as np
+def wire_length(pool, length, blob):
+    """The byte count of a shipment of ``length`` positions from ``pool``
+    by the wire layout: magic, version and header length, the JSON header,
+    the payload's CRC-32, then every element of the page-granular snapshot
+    at the pool's itemsize."""
+    import struct
 
-    from tpulab_torch.models.transformer import transformer_apply
+    from tpulab_torch.disagg import wire
+
+    pages = -(-length // pool.page_size)
+    base = len(wire.MAGIC) + struct.calcsize("<HI")
+    (hdr_len,) = struct.unpack_from("<I", blob, len(wire.MAGIC) + 2)
+    return (base + hdr_len + struct.calcsize("<I")
+            + pages * pool.kv[:, 0].numel() * pool.kv.element_size())
+
+
+def replay_logits(torch, params, kw, seq, kv_dtype):
+    """The last position's f32 logits of ``seq`` (1, T): the dense
+    forward, or with ``kv_dtype`` one ragged forward over a fresh pool of
+    that dtype (the K/V rounded as the serve rounds them)."""
+    from tpulab_torch.engine.paged import PagedKVPool, paged_ragged_forward
+    from tpulab_torch.models.transformer import (transformer_apply,
+                                                 weight_shape)
+
+    tokens = torch.from_numpy(seq).long().cuda()
+    with torch.inference_mode():
+        if kv_dtype is None:
+            return transformer_apply(params, {"tokens": tokens},
+                                     **kw)["logits"][0, -1]
+        t, s = seq.shape[1], 16
+        d_model = weight_shape(params["layer0"]["wqkv"])[0]
+        pool = PagedKVPool(-(-t // s) + 1, s, kw["n_layers"],
+                           kw["n_kv_heads"], d_model // kw["n_heads"],
+                           kv_dtype, "cuda")
+        table = torch.arange(1, pool.n_pages, dtype=torch.int32,
+                             device="cuda")[None]
+        n = torch.tensor([t], device="cuda")
+        out = paged_ragged_forward(params, pool.kv, table, tokens, n, n,
+                                   last_only=True, **kw)[0]
+        pool.close()
+        return out
+
+
+def same_or_near_tie(torch, params, kw, label, prompt, want, got, temp=0.0,
+                     seed=0, kv_dtype=None):
+    """``got`` equals ``want``, or first differs where the f32 model's own
+    pick margin (:func:`pick_margin` over :func:`replay_logits`) is below
+    ``MARGIN_TOL``; returns a note for the log."""
+    import numpy as np
 
     if got == want:
         return None
@@ -1039,10 +1282,7 @@ def same_or_near_tie(torch, params, kw, label, prompt, want, got, temp=0.0,
     if i == min(len(want), len(got)):
         raise AssertionError(f"{label}: lengths {len(want)} != {len(got)}")
     seq = np.concatenate([prompt, np.asarray(want[:i], np.int32)])[None]
-    with torch.inference_mode():
-        row = transformer_apply(
-            params, {"tokens": torch.from_numpy(seq).long().cuda()},
-            **kw)["logits"][0, -1]
+    row = replay_logits(torch, params, kw, seq, kv_dtype)
     margin = pick_margin(torch, row, temp, seed, seq.shape[1] - 1)
     if margin >= MARGIN_TOL:
         raise AssertionError(f"{label}: streams differ at step {i} with "
@@ -1149,18 +1389,141 @@ def phase_spec_f32(torch):
     torch.cuda.empty_cache()
 
 
+def phase_cast_and_qmat(torch):
+    """The e4m3 page cast and the int8 dequantization, on the card against
+    the CPU (which the tests hold to tpulab): ``to_kv_dtype`` over all
+    65536 bf16 patterns and the f32 specials, and one full-width layer's
+    projections (random bf16 weights) quantized on the card and on the
+    CPU, then ``qmat``'d at bf16 and f32 on each, all bit for bit."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import to_kv_dtype
+    from tpulab_torch.models.quantization import quantize_matrix
+    from tpulab_torch.models.transformer import qmat
+
+    e4m3 = torch.float8_e4m3fn
+    pats = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    tiny = 2.0 ** -9
+    specials = torch.tensor(
+        [0.0, -0.0, 448.0, -448.0, 456.0, 463.99997, 464.0, -464.0,
+         464.00003, 465.0, -466.0, 1e30, float("inf"), float("-inf"),
+         float("nan"), tiny, -tiny, tiny / 2, tiny * 1.5, 2.0 ** -6],
+        dtype=torch.float32)
+    noise = torch.from_numpy(np.random.default_rng(15).normal(
+        0, 100, 1 << 20).astype(np.float32))
+    for label, x in (("bf16 patterns", pats), ("f32 specials", specials),
+                     ("f32 N(0, 100^2)", noise)):
+        want = to_kv_dtype(x, e4m3).view(torch.uint8)
+        got = to_kv_dtype(x.cuda(), e4m3).view(torch.uint8).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"to_kv_dtype on the card != CPU over "
+                                 f"{label}: {int((got != want).sum())} codes")
+    c = LLAMA3_8B
+    d, hd = c["d_model"], c["d_model"] // c["n_heads"]
+    shapes = {"wqkv": (d, (c["n_heads"] + 2 * c["n_kv_heads"]) * hd),
+              "wo": (d, d), "w1": (d, c["d_ff"]), "w2": (c["d_ff"], d),
+              "w3": (d, c["d_ff"])}
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for name, shape in shapes.items():
+        w = torch.empty(shape, device="cuda").normal_(
+            0, 0.02, generator=gen).to(torch.bfloat16)
+        on_card = quantize_matrix(w)
+        on_cpu = quantize_matrix(w.cpu())
+        for k in ("w_int8", "scale"):
+            if not torch.equal(on_card[k].cpu(), on_cpu[k]):
+                raise AssertionError(f"quantize {name}.{k}: card != CPU")
+        for dt in (torch.bfloat16, torch.float32):
+            got = qmat(on_card, dt).cpu()
+            if not torch.equal(got, qmat(on_cpu, dt)):
+                raise AssertionError(f"qmat {name} {dtype_name(dt)}: card "
+                                     "!= CPU")
+        del w, on_card, on_cpu
+    log("invariants: to_kv_dtype(e4m3) on the card == the CPU over all 65536 "
+        "bf16 patterns, the f32 specials and 2^20 f32 N(0, 100^2) samples; "
+        "one full-width layer's projections quantized on the card == on the "
+        "CPU (w_int8 and scale), and qmat at bf16 and f32 == the CPU's, bit "
+        "for bit")
+
+
+def phase_int8_spec_f32(torch):
+    """f32, full width, 2 layers, int8 weights (quantized on the card after
+    layer 1's wo / w2 are scaled by 0.05) over an e4m3 pool: a batcher
+    with the 1-layer early-exit draft against plain blocks, greedy and
+    device-sampled, under the margin rule over an e4m3 replay."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
+    from tpulab_torch.models.quantization import quantize_transformer_params
+    from tpulab_torch.models.transformer import early_exit_draft
+
+    c = LLAMA3_8B
+    n_layers, s = 2, 16
+    e4m3 = torch.float8_e4m3fn
+    params = full_width_params(torch, n_layers, torch.float32, seed=17)
+    with torch.inference_mode():
+        for w in ("wo", "w2"):
+            params["layer1"][w].mul_(0.05)
+    qparams = quantize_transformer_params(params)
+    del params
+    torch.cuda.empty_cache()
+    kw = dict(n_heads=c["n_heads"], n_layers=n_layers,
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.float32)
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in (5, 300, 1000)]
+    temps, seeds = (0.0, 0.8, 0.0), (0, 4321, 0)
+    max_len, steps = 1024 + 32, 24
+    streams, stats = {}, {}
+    for mode in ("plain", "spec"):
+        extra = (dict(draft_params=early_exit_draft(qparams, 1),
+                      draft_n_layers=1) if mode == "spec" else {})
+        cb = ContinuousBatcher(
+            qparams, device="cuda", lanes=4, max_len=max_len, page_size=s,
+            n_pages=2 * 4 * (max_len // s) + 1, kv_dtype=e4m3, **extra,
+            **kw)
+        try:
+            futs = [cb.submit(p, steps, sampling=SamplingParams(
+                temperature=t, seed=sd, device=True))
+                for p, t, sd in zip(prompts, temps, seeds)]
+            streams[mode] = [list(f.result(timeout=300)) for f in futs]
+            stats[mode] = (cb.spec_dispatches, cb.spec_tokens_drafted,
+                           cb.spec_tokens_accepted)
+        finally:
+            cb.shutdown()
+    if stats["spec"][0] == 0:
+        raise AssertionError("int8/e4m3 spec: no speculative dispatch ran")
+    notes = [same_or_near_tie(torch, qparams, kw, f"int8/e4m3 spec vs plain, "
+                              f"{len(p)}-token prompt, T {t}", p, want, got,
+                              t, sd, kv_dtype=e4m3)
+             for p, t, sd, want, got in zip(prompts, temps, seeds,
+                                            streams["plain"],
+                                            streams["spec"])]
+    notes = [n for n in notes if n]
+    d, dr, ac = stats["spec"]
+    log(f"invariants: full width, {n_layers} layers, int8 weights, f32 over "
+        f"an e4m3 pool: speculating batcher (early-exit draft) vs plain "
+        f"blocks, prompts {[len(p) for p in prompts]} x {steps} steps: "
+        + ("; ".join(notes) if notes else "identical streams")
+        + f"; acceptance {ac / max(1, dr):.3f} ({ac}/{dr} over {d} "
+        "dispatches)")
+    del qparams
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------- phase 5
-def device_breakdown(torch, prof, wall_s, card, plan):
-    """Device time by kernel (torch.profiler, CUDA activity) over one
-    serve run: the classes attention kernels / matmul / other, the top
-    kernels, and the device's busy share of the run's wall time."""
+def dev_ms(e):
+    """A profiler event's own device time, ms."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
+def kernel_classes(torch, prof):
+    """The profiled device kernels and their device time (ms) by class:
+    attention kernels, matmul, other."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_ms(e):
-        return (getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0)) / 1e3
-
     classes = {"attention (ragged_attn_*)": 0.0,
                "attention (flash_fwd_*)": 0.0, "matmul": 0.0,
                "other": 0.0}
@@ -1172,9 +1535,17 @@ def device_breakdown(torch, prof, wall_s, card, plan):
                    "gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"))
                else "other")
         classes[cls] += dev_ms(e)
+    return kernels, classes
+
+
+def device_breakdown(torch, prof, wall_s, card, plan):
+    """Device time by kernel (torch.profiler, CUDA activity) over one
+    serve run: the classes attention kernels / matmul / other, the top
+    kernels, and the device's busy share of the run's wall time."""
+    kernels, classes = kernel_classes(torch, prof)
     busy = sum(classes.values())
     top = sorted(kernels, key=dev_ms, reverse=True)[:8]
-    log(f"profile: {plan} plan, serve run 3 wall {wall_s * 1e3:.1f} ms, "
+    log(f"profile: {plan}, serve run 3 wall {wall_s * 1e3:.1f} ms, "
         f"device busy {busy:.1f} ms ({100 * busy / (wall_s * 1e3):.1f}%) "
         f"[{card}]")
     for cls, ms in classes.items():
@@ -1182,6 +1553,7 @@ def device_breakdown(torch, prof, wall_s, card, plan):
             f"({100 * ms / max(busy, 1e-9):.1f}% of device time)")
     for e in top:
         log(f"profile:   {dev_ms(e):10.1f} ms {e.count:6d}x {e.key[:80]}")
+    return dict(busy_ms=busy, share=busy / (wall_s * 1e3), classes=classes)
 
 
 class Metrics:
@@ -1306,9 +1678,12 @@ def check_plan(plan, st, n_layers, n_requests):
                              f"launches {fa}")
 
 
-def serve_plan(torch, model, prompts, plan, card, profile):
-    """Three runs of the mix on one batcher: run 1 picks the stop token
-    (greedy_stop's 9th token), runs 2 and 3 must be identical."""
+def serve_plan(torch, model, prompts, plan, card, profile, kv_dtype=None,
+               weights="bf16"):
+    """Three runs of the mix on one batcher (pages of ``kv_dtype``, the
+    compute dtype by default): run 1 picks the stop token (greedy_stop's
+    9th token), runs 2 and 3 must be identical; ``profile`` traces run
+    3."""
     from tpulab_torch.engine.paged import ContinuousBatcher
     from tpulab_torch.ops.flash_attention import flash_attention
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
@@ -1322,7 +1697,9 @@ def serve_plan(torch, model, prompts, plan, card, profile):
                            n_kv_heads=c["n_kv_heads"],
                            rope_theta=c["rope_theta"],
                            compute_dtype=torch.bfloat16, device="cuda",
-                           metrics=metrics, **cfg)
+                           metrics=metrics, kv_dtype=kv_dtype, **cfg)
+    label = f"{plan} plan, {weights} weights, {dtype_name(cb.pool.dtype)} KV"
+    pool_bytes = cb.pool.hbm_bytes
     try:
         out1, _ = serve_once(torch, cb, prompts, None, counted)
         stop = out1["greedy_stop"][8]
@@ -1336,7 +1713,8 @@ def serve_plan(torch, model, prompts, plan, card, profile):
                 with torch.profiler.profile(activities=[
                         ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     out, st = serve_once(torch, cb, prompts, stop, counted)
-                device_breakdown(torch, prof, st["wall_s"], card, plan)
+                st["busy"] = device_breakdown(torch, prof, st["wall_s"],
+                                              card, label)
             else:
                 out, st = serve_once(torch, cb, prompts, stop, counted)
             st["ttft_s"] = sorted(metrics.ttft)
@@ -1370,7 +1748,10 @@ def serve_plan(torch, model, prompts, plan, card, profile):
     for st in (st2, st3):
         check_plan(plan, st, c["n_layers"], len(out2))
     ttft = st2["ttft_s"]
-    log(f"serve: {plan} plan: {len(out2)} requests, {st2['tokens']} tokens "
+    st2.update(pool_bytes=pool_bytes, busy3=st3.get("busy"),
+               wall3_s=st3["wall_s"], ttft3_s=st3["ttft_s"])
+    log(f"serve: {label}: pool {pool_bytes} bytes ({cb.pool.n_pages} pages)")
+    log(f"serve: {label}: {len(out2)} requests, {st2['tokens']} tokens "
         f"in {st2['wall_s']:.3f} s = {st2['tokens'] / st2['wall_s']:.1f} "
         f"tok/s; TTFT min {ttft[0] * 1e3:.1f} / median "
         f"{ttft[len(ttft) // 2] * 1e3:.1f} / max {ttft[-1] * 1e3:.1f} ms; "
@@ -1381,7 +1762,7 @@ def serve_plan(torch, model, prompts, plan, card, profile):
         f"{st2['launches']['flash']} = {c['n_layers']} x "
         f"{st2['prefill_forwards']} prefill forwards, all on the wgmma "
         f"body [{card}]")
-    log(f"serve: {plan} plan: second identical run {st3['wall_s']:.3f} s, "
+    log(f"serve: {label}: second identical run {st3['wall_s']:.3f} s, "
         f"{st3['tokens'] / st3['wall_s']:.1f} tok/s; streams identical")
     return st2
 
@@ -1705,7 +2086,7 @@ def serve_spec(torch, model, card, profile):
                                             spec_specs(prompts, stop),
                                             counted))
                     device_breakdown(torch, prof, runs[-1][1]["wall_s"],
-                                     card, "spec")
+                                     card, "spec serve, speculating batcher")
                 else:
                     runs.append(run_mix(torch, cb, spec_specs(prompts, stop),
                                         counted))
@@ -1771,9 +2152,69 @@ def serve_spec(torch, model, card, profile):
     return res
 
 
+def forward_device_ms(torch, params, kv_dtype, card, label):
+    """Device time of one decode forward (``paged_decode_step``) at the
+    serve's width, 32 layers, 8 lanes at position 1023 over a
+    ``kv_dtype`` pool: the kernels' device time summed over 3 profiled
+    forwards (torch.profiler, CUDA activity) / 3, by class; and the
+    forward's stream time (CUDA events, mean of 3)."""
+    from torch.profiler import ProfilerActivity
+
+    from tpulab_torch.engine.paged import PagedKVPool, paged_decode_step
+
+    c = LLAMA3_8B
+    b, mp, s = 8, 64, 16
+    pool = PagedKVPool(b * mp + 1, s, c["n_layers"], c["n_kv_heads"],
+                       c["d_model"] // c["n_heads"], kv_dtype, "cuda")
+    tables = torch.arange(1, b * mp + 1, dtype=torch.int32,
+                          device="cuda").reshape(b, mp)
+    lengths = torch.full((b,), mp * s - 1, dtype=torch.int32, device="cuda")
+    tokens = torch.arange(b, device="cuda") * 1000 % c["vocab"]
+    active = torch.ones(b, dtype=torch.bool, device="cuda")
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+
+    def step():
+        return paged_decode_step(params, pool.kv, tables, lengths, tokens,
+                                 active, **kw)
+
+    with torch.inference_mode():
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(3):
+            step()
+        e.record()
+        e.synchronize()
+        stream_ms = a.elapsed_time(e) / 3
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+    pool.close()
+    classes = {k: ms / 3 for k, ms in kernel_classes(torch, p)[1].items()}
+    total = sum(classes.values())
+    if total == 0:
+        log(f"serve: one decode forward, {label}: device time not measured "
+            f"(the profiler saw no device activity); stream time "
+            f"{stream_ms:.3f} ms [{card}]")
+        return dict(device_ms=None, stream_ms=stream_ms, classes=classes)
+    log(f"serve: one decode forward, {label}, 8 lanes at position 1023: "
+        f"device {total:.3f} ms (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in classes.items())
+        + f"); stream time {stream_ms:.3f} ms [{card}]")
+    return dict(device_ms=total, stream_ms=stream_ms, classes=classes)
+
+
 def phase_serve(torch, card, profile=False):
     import numpy as np
 
+    from tpulab_torch.models.quantization import (quantize_transformer_params,
+                                                  transformer_param_bytes)
     from tpulab_torch.models.transformer import Transformer
 
     c = LLAMA3_8B
@@ -1786,7 +2227,7 @@ def phase_serve(torch, card, profile=False):
     n_params = sum(p.numel() for p in model.parameters())
     log(f"serve: Llama-3-8B geometry, {n_params / 1e9:.3f} B params bf16, "
         f"random init {time.perf_counter() - t0:.1f} s; weights "
-        f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.3f} GB")
+        f"{transformer_param_bytes(model) / 1e9:.3f} GB")
     rng = np.random.default_rng(7)
     prompts = {n: rng.integers(0, c["vocab"], (n,)).astype(np.int32)
                for n in (5, 64, 300, 700, 1000, 1500)}
@@ -1794,8 +2235,49 @@ def phase_serve(torch, card, profile=False):
     out = {}
     for plan in ("ragged", "split"):
         t1 = time.perf_counter()
-        out[plan] = serve_plan(torch, model, prompts, plan, card, profile)
+        out[plan] = serve_plan(torch, model, prompts, plan, card,
+                               profile or plan == "ragged")
         log(f"serve: {plan} plan {time.perf_counter() - t1:.1f} s")
+    # W8A16 with e4m3 pages: the int8 tree quantized on the card from the
+    # same bf16 weights (before the spec serve scales them)
+    t1 = time.perf_counter()
+    qmodel = Transformer(quantize_transformer_params(model),
+                         n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+                         rope_theta=c["rope_theta"])
+    torch.cuda.synchronize()
+    out["weight_bytes"] = (transformer_param_bytes(model),
+                           transformer_param_bytes(qmodel))
+    log(f"serve: int8 weights quantized on the card in "
+        f"{time.perf_counter() - t1:.1f} s: {out['weight_bytes'][1]} bytes "
+        f"({out['weight_bytes'][1] / 1e9:.3f} GB) against "
+        f"{out['weight_bytes'][0]} bf16")
+    e4m3 = torch.float8_e4m3fn
+    for plan in ("ragged", "split"):
+        t1 = time.perf_counter()
+        out[f"int8 {plan}"] = serve_plan(
+            torch, qmodel, prompts, plan, card, profile or plan == "ragged",
+            kv_dtype=e4m3, weights="int8")
+        log(f"serve: int8/e4m3 {plan} plan {time.perf_counter() - t1:.1f} s")
+    out["forward"] = {
+        "bf16": forward_device_ms(torch, model.params, torch.bfloat16,
+                                  card, "bf16 weights, bf16 KV"),
+        "int8": forward_device_ms(torch, qmodel.params, e4m3, card,
+                                  "int8 weights, e4m3 KV")}
+    for plan in ("ragged", "split"):
+        a, q = out[plan], out[f"int8 {plan}"]
+        log(f"serve: {plan} plan, bf16 weights + bf16 KV vs int8 weights + "
+            f"e4m3 KV (same call, same mix): tok/s "
+            f"{a['tokens'] / a['wall_s']:.1f} / "
+            f"{a['tokens'] / a['wall3_s']:.1f} vs "
+            f"{q['tokens'] / q['wall_s']:.1f} / "
+            f"{q['tokens'] / q['wall3_s']:.1f} (runs 2 / 3); TTFT max "
+            f"{a['ttft_s'][-1] * 1e3:.1f} vs {q['ttft_s'][-1] * 1e3:.1f} ms;"
+            f" pool {a['pool_bytes']} vs {q['pool_bytes']} bytes"
+            + (f"; device busy (run 3) {100 * a['busy3']['share']:.1f} % vs "
+               f"{100 * q['busy3']['share']:.1f} %" if q["busy3"] else "")
+            + f" [{card}]")
+    del qmodel
+    torch.cuda.empty_cache()
     t1 = time.perf_counter()
     out["kvtier"] = serve_kvtier(torch, model, card)
     out["disagg"] = serve_disagg(torch, model, card)
@@ -1808,10 +2290,12 @@ def phase_serve(torch, card, profile=False):
 
 
 # ---------------------------------------------------------------- main
-def kernel_entry(name, source, replaces, launches, rows, main, case):
+def kernel_entry(name, source, replaces, launches, rows, main, case,
+                 e4m3=None):
     """One kernel's line: times of its main case, the max error over
-    that case's dtype mix, and (kernels with several bodies) the body,
-    with its split count, that ran each case."""
+    that case's dtype mix, (kernels with several bodies) the body, with
+    its split count, that ran each case, and the main case over an e4m3
+    pool (``e4m3``: its case and dtype mix)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -1823,15 +2307,21 @@ def kernel_entry(name, source, replaces, launches, rows, main, case):
     if "body" in row:   # "<body> x<splits>" ragged and paged, "<body>" flash
         entry["bodies"] = {f"{r['case']} {r['dtypes']}": r["body"]
                            for r in rows}
+    if e4m3:
+        r = next(r for r in rows if (r["case"], r["dtypes"]) == e4m3)
+        entry["e4m3"] = {k: r[k] for k in (
+            "case", "dtypes", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "bf16_pool_ms")}
     return entry
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace serve run 3 of each plan and of the "
-                         "speculating batcher with torch.profiler and print "
-                         "device time by kernel class")
+                    help="also trace serve run 3 of the split plans and "
+                         "of the speculating batcher with torch.profiler "
+                         "(run 3 of each ragged-plan serve is always "
+                         "traced) and print device time by kernel class")
     args = ap.parse_args(argv)
 
     import torch
@@ -1863,16 +2353,25 @@ def main(argv=None) -> int:
         rows[name] = phase(torch, timer)
         log(f"kernels: {name} phase {time.perf_counter() - t0:.1f} s; "
             "every case on its stated body, a second launch bit-identical")
+    t0 = time.perf_counter()
+    e4m3_rows = phase_e4m3_kernels(torch, timer, rows)
+    log(f"kernels: e4m3 pools {time.perf_counter() - t0:.1f} s")
     phase_host(torch)
 
     t0 = time.perf_counter()
     op_launches = phase_invariants(torch)
+    phase_cast_and_qmat(torch)
     params32, kw32 = phase_plans_f32(torch)
-    phase_kvtier_pool(torch)
+    op_launches += phase_invariants(torch, params32, torch.float32,
+                                    torch.float8_e4m3fn)
+    for dt in (torch.bfloat16, torch.float8_e4m3fn):
+        phase_kvtier_pool(torch, dt)
     phase_kvtier_serve_f32(torch, params32, kw32)
+    phase_kvtier_serve_f32(torch, params32, kw32, torch.float8_e4m3fn)
     del params32
     torch.cuda.empty_cache()
     phase_spec_f32(torch)
+    phase_int8_spec_f32(torch)
     log(f"invariants: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     st = phase_serve(torch, card, args.profile)
@@ -1883,27 +2382,34 @@ def main(argv=None) -> int:
                      "tpulab_torch/ops/csrc/ragged_attention.cu",
                      "tpulab/ops/ragged_attention.py:190",
                      st["ragged"]["launches"]["ragged"]
+                     + st["int8 ragged"]["launches"]["ragged"]
+                     + st["int8 split"]["launches"]["ragged"]
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
                      + st["disagg"],
-                     rows["ragged"], ("all_decode", "bf16/bf16"),
+                     rows["ragged"] + e4m3_rows["ragged"],
+                     ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
-                     "launches: ragged-plan serve run + speculative serve "
-                     "run + preempting serve (host tier side) + disagg "
-                     "serve"),
+                     "launches: ragged-plan serve run + int8/e4m3 ragged- "
+                     "and split-plan serve runs + speculative serve run + "
+                     "preempting serve (host tier side) + disagg serve",
+                     ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
-                     st["split"]["launches"]["flash"], rows["flash"],
+                     st["split"]["launches"]["flash"]
+                     + st["int8 split"]["launches"]["flash"], rows["flash"],
                      (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
-                     "split-plan serve run"),
+                     "split-plan serve runs, bf16 and int8/e4m3"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,
-                     rows["paged"], ("8 x 1024", "bf16/bf16"),
+                     rows["paged"] + e4m3_rows["paged"],
+                     ("8 x 1024", "bf16/bf16"),
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
-                     "decode op over every layer of a model-written pool"),
+                     "decode op over every layer of a model-written pool, "
+                     "bf16 and e4m3", ("8 x 1024", "bf16/e4m3")),
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)

@@ -419,8 +419,9 @@ def test_split_plan_defaults(lm):
     (dict(hbm=object()), "HBM economy"),
     (dict(flight=object()), "queue 1"),
     (dict(trace=object()), "observability"),
-    (dict(kv_dtype=torch.bfloat16), "fp8 KV"),
+    (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
     (dict(kv_publish=True), "fleet KV fabric"),
+    (dict(kv_dtype=torch.float16), "float16 KV"),
 ])
 def test_unported_arguments_raise(lm, kw, item):
     _, model = lm
@@ -430,13 +431,21 @@ def test_unported_arguments_raise(lm, kw, item):
 
 
 def test_int8_weights_raise(lm):
-    tree = dict(lm[1].params)
-    layer = dict(tree["layer0"])
-    layer["w1"] = {"w_int8": torch.zeros(1), "scale": torch.ones(1)}
-    tree["layer0"] = layer
-    with pytest.raises(NotImplementedError, match="int8"):
-        ContinuousBatcher(tree, n_heads=N_HEADS, n_layers=N_LAYERS,
-                          device="cpu")
+    """Weight-only int8 trees no longer raise: the batcher takes them and
+    holds the int8 payloads as they are (the streams are held against
+    tpulab in tests/test_torch_quantization.py)."""
+    from tpulab_torch.models.quantization import quantize_transformer_params
+
+    tree = quantize_transformer_params(lm[1])
+    cb = ContinuousBatcher(tree, n_heads=N_HEADS, n_layers=N_LAYERS,
+                           n_kv_heads=N_KV, compute_dtype=torch.float32,
+                           device="cpu")
+    try:
+        w1 = cb.params["layer0"]["w1"]
+        assert w1["w_int8"].dtype == torch.int8
+        assert torch.equal(w1["w_int8"], tree["layer0"]["w1"]["w_int8"])
+    finally:
+        cb.shutdown()
 
 
 def test_no_device_means_cuda_or_raise(lm):

@@ -174,8 +174,9 @@ def test_splits_bounded_by_the_table_and_the_cap(b, mp, page_size):
 def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
     """q and pool at D 128, pages of 16, scattered tables; every position
     past a lane's inclusive length (the tail of its last live page and
-    every dead page) set to NaN."""
-    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    every dead page) set to NaN (0x7F in an e4m3 pool)."""
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float8_e4m3fn": torch.float8_e4m3fn}
     s, d = 16, 128
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -188,7 +189,10 @@ def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     dead = torch.arange(mp * s, device=dev)[None] > lengths[:, None]
     lane, p = dead.nonzero(as_tuple=True)
-    pool[tables[lane, p // s].long(), :, p % s] = float("nan")
+    if pool.dtype == torch.float8_e4m3fn:    # e4m3's NaN code
+        pool.view(torch.uint8)[tables[lane, p // s].long(), :, p % s] = 0x7F
+    else:
+        pool[tables[lane, p // s].long(), :, p % s] = float("nan")
     return q, pool, tables, lengths
 
 
@@ -211,7 +215,8 @@ def _check_on_card(args):
 
 
 _DTYPES = [("bfloat16", "bfloat16"), ("float32", "float32"),
-           ("float32", "bfloat16")]
+           ("float32", "bfloat16"), ("bfloat16", "float8_e4m3fn"),
+           ("float32", "float8_e4m3fn")]
 
 
 @pytest.mark.cuda
@@ -249,3 +254,15 @@ def test_cuda_every_split_count(n_split, monkeypatch):
     monkeypatch.setattr(pa, "paged_splits", lambda *a: n_split)
     _check_on_card(_card_args(("bfloat16", "bfloat16"),
                               [0, 31, 32, 1000, 2047], 5, 128, 7, hkv=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", range(1, MAX_SPLITS + 1))
+def test_cuda_every_split_count_over_e4m3_pages(n_split, monkeypatch):
+    """The same forced split counts over an e4m3 pool, bf16 q: stages of
+    half the bytes, the same 16-byte chunks, NaN page tails."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    monkeypatch.setattr(pa, "paged_splits", lambda *a: n_split)
+    _check_on_card(_card_args(("bfloat16", "float8_e4m3fn"),
+                              [0, 31, 32, 1000, 2047], 5, 128, 8, hkv=2))

@@ -39,7 +39,9 @@ from tpulab_torch.ops.ragged_attention import (
 torch.set_num_threads(2)
 
 _DT = {"float32": (jnp and jnp.float32, torch.float32),
-       "bfloat16": (jnp and jnp.bfloat16, torch.bfloat16)}
+       "bfloat16": (jnp and jnp.bfloat16, torch.bfloat16),
+       "float8_e4m3fn": (jnp and jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+E4M3 = torch.float8_e4m3fn
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
@@ -165,7 +167,9 @@ def test_gather_attend_matches_plain_version():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"),
                                     ("float32", "float32"),
-                                    ("float32", "bfloat16")])
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "float8_e4m3fn"),
+                                    ("float32", "float8_e4m3fn")])
 def test_cuda_kernel_matches_plain_version(dtypes):
     """On the card: the CUDA kernel against its plain version, with every
     launch counted.  The tolerance follows the OUTPUT dtype: f32 sums the
@@ -205,10 +209,15 @@ SERVE = dict(hq=32, hkv=8, mp=128, page_size=16)   # chip_smoke's serve
     ("bfloat16", "bfloat16", 256, "fma"),
     ("float32", "float32", 128, "fma"),
     ("float32", "bfloat16", 128, "fma"),
-    ("bfloat16", "float32", 128, "fma")])
+    ("bfloat16", "float32", 128, "fma"),
+    ("bfloat16", "float8_e4m3fn", 128, "wgmma"),
+    ("bfloat16", "float8_e4m3fn", 64, "wgmma"),
+    ("bfloat16", "float8_e4m3fn", 256, "fma"),
+    ("float32", "float8_e4m3fn", 128, "fma")])
 def test_body_rule(q_dt, kv_dt, d, body):
-    """Only bf16 q over a bf16 pool (D 64 or 128) goes to the tensor
-    cores; f32 products keep f32 FMAs (no TF32)."""
+    """Only bf16 q over a bf16 or e4m3 pool (D 64 or 128) goes to the
+    tensor cores (e4m3 pages upcast to bf16 first, exactly); f32 products
+    keep f32 FMAs (no TF32)."""
     assert ragged_body(getattr(torch, q_dt), getattr(torch, kv_dt), d) == body
 
 
@@ -270,6 +279,14 @@ _CARD_CASES = {
 }
 
 
+def _poison(pool, pages, slots):
+    """NaN into the rows (pages, slots) of K and V."""
+    if pool.dtype == E4M3:
+        pool.view(torch.uint8)[pages, :, slots] = 0x7F
+    else:
+        pool[pages, :, slots] = float("nan")
+
+
 def _card_inputs(case, g, seed):
     return _nan_inputs(*_CARD_CASES[case], g, seed)
 
@@ -278,7 +295,8 @@ def _nan_inputs(q_lens, kv_lens, g, seed, q_dt=torch.bfloat16,
                 kv_dt=torch.bfloat16):
     """q and pool (bf16 by default) at a small width (Hkv 2, D 128, G query
     heads per KV head), scattered tables, and every position a lane does
-    not hold set to NaN (a dead page must never be read)."""
+    not hold set to NaN (a dead page must never be read; in an e4m3 pool
+    the NaN code 0x7F)."""
     b, mp, s, hkv, d = 8, 128, 16, 2, 128
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -289,7 +307,7 @@ def _nan_inputs(q_lens, kv_lens, g, seed, q_dt=torch.bfloat16,
     pos = torch.arange(mp * s, device=dev)
     dead = pos[None] >= torch.tensor(kv_lens, device=dev)[:, None]
     lane, p = dead.nonzero(as_tuple=True)
-    pool[tables[lane, p // s].long(), :, p % s] = float("nan")
+    _poison(pool, tables[lane, p // s].long(), p % s)
     q = torch.from_numpy(rng.standard_normal(
         (b, max(q_lens), hkv * g, d)).astype(np.float32)).to(dev, q_dt)
     return (q, pool, tables, torch.tensor(q_lens, device=dev),
@@ -342,7 +360,9 @@ def _verify_lens(k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtypes", [("bfloat16", "bfloat16"),
                                     ("float32", "float32"),
-                                    ("float32", "bfloat16")])
+                                    ("float32", "bfloat16"),
+                                    ("bfloat16", "float8_e4m3fn"),
+                                    ("float32", "float8_e4m3fn")])
 @pytest.mark.parametrize("k", ContinuousBatcher.BLOCK_K_MENU)
 def test_cuda_kernel_at_verify_shapes(k, dtypes):
     """On the card: the kernel at the speculative verify shape q = K+1 for
@@ -366,3 +386,56 @@ def test_cuda_kernel_at_verify_shapes(k, dtypes):
                                atol=atol)
     for lane, n in enumerate(q_lens):
         assert not got[lane, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("case", list(_CARD_CASES))
+def test_cuda_wgmma_body_over_e4m3_pages(case, g):
+    """On the card, bf16 q over an e4m3 pool: each smoke shape and the idle
+    lanes, GQA group 1, 4 or 8, with 0x7F (NaN) in every position past a
+    lane's length, runs the tensor-core body (the pages staged raw and
+    upcast to bf16 in shared memory), matches the plain version over the
+    same bytes (rtol 8e-3, atol 4e-3: P and the output rounded to bf16)
+    and gives the same bits on a second launch; rows past q_len and a
+    lane with kv_len 0 are zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    args = _nan_inputs(*_CARD_CASES[case], g, seed=10 + g, kv_dt=E4M3)
+    n0 = dict(ragged_paged_attention.launches_by_body)
+    got = ragged_paged_attention(*args)
+    again = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    ran = {k: n - n0[k]
+           for k, n in ragged_paged_attention.launches_by_body.items()}
+    assert ran == {"fma": 0, "wgmma": 2}
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    want = ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=4e-3)
+    for lane, n in enumerate(_CARD_CASES[case][0]):
+        assert not got[lane, n:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", range(1, MAX_SPLITS + 1))
+def test_cuda_every_split_count_over_e4m3_pages(n_split, monkeypatch):
+    """Each split count forced on the decode and verify shapes over an
+    e4m3 pool (lanes whose context some splits never reach: kv_len 1, 16,
+    17 beside 2048): the partials merge to the plain version's output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from tpulab_torch.ops import ragged_attention as ra
+
+    monkeypatch.setattr(ra, "ragged_splits", lambda *a: n_split)
+    for q_lens in ([1] * 8, [3, 1, 3, 3, 3, 3, 0, 3]):
+        kv_lens = [1, 16, 17, 64, 300, 1024, 2000, 2048]
+        args = _nan_inputs(q_lens, kv_lens, 4, seed=n_split, kv_dt=E4M3)
+        got = ragged_paged_attention(*args)
+        again = ragged_paged_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.isfinite(got).all()
+        want = ragged_paged_attention_reference(*args)
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=4e-3)

@@ -129,9 +129,14 @@ def test_init_params_shapes_and_seed():
 
 
 def test_int8_weights_are_not_ported():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tt.qmat({"w_int8": torch.zeros(2, 2), "scale": torch.ones(2)},
-                torch.float32)
+    """int8 entries are ported now: ``qmat`` dequantizes them (the
+    bit-level check against tpulab is in tests/test_torch_quantization.py)
+    and ``weight_shape`` reads their shape."""
+    w = {"w_int8": torch.tensor([[1, -127], [0, 5]], dtype=torch.int8),
+         "scale": torch.tensor([0.5, 2.0])}
+    got = tt.qmat(w, torch.float32)
+    assert torch.equal(got, torch.tensor([[0.5, -254.0], [0.0, 10.0]]))
+    assert tt.weight_shape(w) == (2, 2)
 
 
 def test_no_cuda_means_no_silent_cpu():

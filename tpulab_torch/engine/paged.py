@@ -39,6 +39,12 @@ next hit.  ``submit(export_digest=...)`` and :meth:`ContinuousBatcher.
 submit_shipped` are the two halves of disaggregated serving
 (:mod:`tpulab_torch.disagg`).
 
+Pages may store a narrower dtype than the compute path
+(``kv_dtype=torch.float8_e4m3fn``): every write rounds through
+:func:`to_kv_dtype`, tpulab's cast bit for bit, and the kernels read the
+narrow pages themselves.  Weight-only int8 trees serve unchanged: the
+forwards dequantize through ``qmat``.
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the
 fleet KV fabric's publish (``kv_publish``), meshes, the HBM arbiter,
@@ -66,9 +72,10 @@ from tpulab_torch.engine.prng import device_sample_tokens
 from tpulab_torch.models.transformer import (
     _add, _dense_ffn, _embed, _lm_head, _mm, _rmsnorm, _tree, apply_rope,
     causal_attention, qmat, repeat_kv, split_qkv,
-    transformer_forward_collect_kv)
+    transformer_forward_collect_kv, weight_shape)
 from tpulab_torch.ops.flash_attention import make_flash_attention_fn
-from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+from tpulab_torch.ops.ragged_attention import (KV_CODE, pool_bytes,
+                                               ragged_paged_attention)
 
 _log = logging.getLogger("tpulab_torch.engine")
 
@@ -239,11 +246,32 @@ def _gather_attend(q, k_layer, v_layer, tables, qpos, compute_dtype):
                         v_ctx.to(compute_dtype)).reshape(b, m, h * d)
 
 
+#: |x| above this rounds past e4m3's largest finite value (448)
+_E4M3_ROUND_LIMIT = 464.0
+
+
+def to_kv_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
+    """``x`` cast to a pool's page dtype as tpulab casts it (``x.astype(
+    kv_pool.dtype)``).  For ``float8_e4m3fn`` that is ml_dtypes' cast:
+    round to nearest even, and NaN (code 0x7F, 0xFF when negative) where
+    |x| > 464 or x is +-inf, where ``Tensor.to`` saturates to +-448.
+    Other dtypes take a plain ``.to``."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    bits = x.to(dtype).view(torch.uint8)
+    nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
+    return torch.where(x.abs() > _E4M3_ROUND_LIMIT, nan, bits).view(dtype)
+
+
 def _write_kv(kv_pool, layer, page_idx, slot_idx, k, v):
     """Scatter new K/V rows into their pages, in place (JAX donates and
-    rebuilds the pool here)."""
-    kv_pool[layer, :, 0][page_idx, slot_idx] = k.to(kv_pool.dtype)
-    kv_pool[layer, :, 1][page_idx, slot_idx] = v.to(kv_pool.dtype)
+    rebuilds the pool here), each cast by :func:`to_kv_dtype`.  Every
+    pool write of the batcher's programs goes through here."""
+    raw = pool_bytes(kv_pool)
+    raw[layer, :, 0][page_idx, slot_idx] = pool_bytes(
+        to_kv_dtype(k, kv_pool.dtype))
+    raw[layer, :, 1][page_idx, slot_idx] = pool_bytes(
+        to_kv_dtype(v, kv_pool.dtype))
 
 
 def _attend(q, kv_pool, layer, tables, q_lens, kv_lens, compute_dtype):
@@ -805,9 +833,8 @@ def _unported(what: str, item: str):
         f"{item})")
 
 
-def _has_int8(tree) -> bool:
-    return isinstance(tree, dict) and (
-        "w_int8" in tree or any(_has_int8(v) for v in tree.values()))
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 class ContinuousBatcher:
@@ -840,8 +867,13 @@ class ContinuousBatcher:
     restoring its KV snapshot from host memory.
 
     ``params`` is a :class:`~tpulab_torch.models.transformer.Transformer`
-    or a tpulab-keyed tree of tensors.  ``device=None`` means the CUDA
-    card (raises without one); tests pass ``device="cpu"``.
+    or a tpulab-keyed tree of tensors, float or weight-only int8
+    (:func:`~tpulab_torch.models.quantization.quantize_transformer_params`).
+    ``kv_dtype`` (``None``: the compute dtype) is the pages' dtype:
+    float32, bfloat16 or float8_e4m3fn, written through
+    :func:`to_kv_dtype` and upcast by the kernels as they read.
+    ``device=None`` means the CUDA card (raises without one); tests pass
+    ``device="cpu"``.
     """
 
     #: fused-decode block sizes the adaptive K snaps onto (tpulab's menu;
@@ -890,12 +922,24 @@ class ContinuousBatcher:
         if flight is not None or trace is not None:
             raise _unported("flight / trace",
                             "the rest of queue 1 (observability)")
-        if kv_dtype is not None and kv_dtype != compute_dtype:
-            raise _unported("a kv_dtype other than the compute dtype",
-                            "int8 weights and fp8 KV")
+        # the page dtypes the kernels read (e5m2 and float16 pages are
+        # ROADMAP queue 1, left for later)
+        if kv_dtype is not None and kv_dtype not in KV_CODE:
+            raise NotImplementedError(
+                f"kv_dtype={_dtype_name(kv_dtype)} is not ported to "
+                "tpulab_torch (ROADMAP queue 1, left for later: e5m2 fp8 KV "
+                "and float16 KV pages); pages store float32, bfloat16 or "
+                "float8_e4m3fn")
+        # pages may store a NARROWER dtype than the compute path: writes
+        # round on scatter (to_kv_dtype), the kernels upcast as they read,
+        # and attention math stays f32
+        kv_dtype = kv_dtype or compute_dtype
+        if (pool is not None and kv_dtype != compute_dtype
+                and pool.dtype != kv_dtype):
+            raise ValueError(
+                f"kv_dtype={_dtype_name(kv_dtype)} conflicts with the "
+                f"provided pool's dtype {_dtype_name(pool.dtype)}")
         tree = _tree(params)
-        if _has_int8(tree):
-            raise _unported("int8 weights", "int8 weights and fp8 KV")
         if decode_block < 1:
             raise ValueError("decode_block must be >= 1")
         n_kv = n_kv_heads or n_heads
@@ -911,14 +955,15 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.page_size = page_size
         self.max_pages = (max_len + page_size - 1) // page_size
-        d_model = tree["layer0"]["wqkv"].shape[0]
+        d_model = weight_shape(tree["layer0"]["wqkv"])[0]
         self.vocab = int(tree["embed"].shape[0])
         if draft_params is not None:
             dtree = _tree(draft_params)
             dl = draft_n_layers or n_layers
             dh = draft_n_heads or n_heads
             dkv = draft_n_kv_heads or (n_kv if draft_n_heads is None else dh)
-            if (dtree["layer0"]["wqkv"].shape[0] // dh != d_model // n_heads
+            if (weight_shape(dtree["layer0"]["wqkv"])[0] // dh
+                    != d_model // n_heads
                     or dkv != n_kv):
                 raise ValueError(
                     "draft model KV geometry (head_dim, n_kv_heads) must "
@@ -929,7 +974,7 @@ class ContinuousBatcher:
         self._owns_pool = pool is None
         self.pool = pool or PagedKVPool(
             n_pages or self.max_pages * lanes + 1, page_size, n_layers,
-            n_kv, d_model // n_heads, compute_dtype, self.device)
+            n_kv, d_model // n_heads, kv_dtype, self.device)
         self.params = _tree_to(tree, self.device)
         self.n_layers = n_layers
         self._step_kw = dict(n_heads=n_heads, n_layers=n_layers,

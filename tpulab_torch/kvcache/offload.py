@@ -56,6 +56,7 @@ import torch
 from tpulab_torch import chaos
 from tpulab_torch.cuda.transfer import TransferEngine
 from tpulab_torch.kvcache.host_store import HostKVStore
+from tpulab_torch.ops.ragged_attention import pool_bytes
 
 log = logging.getLogger("tpulab_torch.kvcache")
 
@@ -142,7 +143,8 @@ class KVOffloadManager:
         memory raises ChaosError (the degrade path); any other failure
         propagates."""
         try:
-            return kv.index_select(1, self._index(pages, kv))
+            got = pool_bytes(kv).index_select(1, self._index(pages, kv))
+            return got.view(kv.dtype)
         except torch.OutOfMemoryError as e:
             raise chaos.ChaosError(f"snapshot gather: {e}") from e
 
@@ -237,9 +239,11 @@ class KVOffloadManager:
     def _scatter(self, pages: List[int], data: torch.Tensor,
                  kv: torch.Tensor) -> torch.Tensor:
         """``kv[:, pages] = data`` in place, on the caller's stream (a
-        page-locked source copies asynchronously)."""
-        kv.index_copy_(1, self._index(pages, kv),
-                       data.to(kv.device, non_blocking=True))
+        page-locked source copies asynchronously).  An fp8 pool is
+        written through its bytes: ``index_copy_`` has no fp8 kernel."""
+        pool_bytes(kv).index_copy_(
+            1, self._index(pages, kv),
+            pool_bytes(data.to(kv.device, non_blocking=True)))
         return kv
 
     def restore(self, handle: SwapHandle, pages: List[int],

@@ -3,10 +3,11 @@
 tpulab's ``init_transformer_params`` (or a checkpoint import) yields a
 pytree of JAX arrays; ``np.asarray`` on each leaf gives the numpy tree
 this module takes, with the same keys (``embed``, ``final_norm``,
-``layer{i}.{ln1,ln2,wqkv,wo,w1,w2,w3}``, ``lm_head``).  Nothing here
+``layer{i}.{ln1,ln2,wqkv,wo,w1,w2,w3}``, ``lm_head``; a weight-only
+quantized matrix is a ``{"w_int8", "scale"}`` sub-tree).  Nothing here
 imports JAX: the caller does the ``np.asarray`` on its side.  bf16 leaves
 arrive as numpy arrays of the ``bfloat16`` extension dtype; their bits
-are carried over unchanged.
+are carried over unchanged, as are int8 leaves'.
 """
 
 from __future__ import annotations
@@ -22,14 +23,16 @@ from tpulab_torch.models.transformer import Transformer
 def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """One numpy leaf -> a tensor on ``device`` (bit-exact; bf16 leaves
-    travel as their 16-bit patterns)."""
+    travel as their 16-bit patterns).  ``dtype`` recasts a floating leaf
+    only: an int8 payload passes through untouched, as tpulab's own
+    bf16 cast of a quantized tree leaves it."""
     arr = np.array(arr, copy=True, order="C")   # writable, contiguous
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
     t = t.to(device)
-    return t.to(dtype) if dtype is not None else t
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
 def tree_from_numpy(tree: Dict[str, Any], device,
@@ -46,7 +49,7 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype=None, *,
                       n_heads: int, n_kv_heads: Optional[int] = None,
                       rope_theta: Optional[float] = None) -> Transformer:
     """tpulab's numpy param tree -> the port's :class:`Transformer` on
-    ``device`` (``dtype`` optionally recasts every leaf)."""
+    ``device`` (``dtype`` optionally recasts every floating leaf)."""
     from tpulab_torch.cuda.platform import resolve_device
 
     dev = resolve_device(device)

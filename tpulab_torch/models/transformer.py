@@ -14,8 +14,11 @@ refuses mixed operands where ``jnp`` promotes silently:
   compute dtype;
 - ``_lm_head`` works in f32.
 
-Only float weights are ported (tpulab's int8 ``{"w_int8", "scale"}``
-entries are a later slice).  Float32 products use full f32 on the card:
+A weight matrix is a float tensor or tpulab's weight-only int8 entry
+``{"w_int8": (I, O) int8, "scale": (O,) f32}``
+(:func:`tpulab_torch.models.quantization.quantize_transformer_params`);
+:func:`qmat` dequantizes it in plain PyTorch before each product, as
+tpulab leaves it to XLA.  Float32 products use full f32 on the card:
 callers keep ``torch.backends.cuda.matmul.allow_tf32`` False (its
 default).
 """
@@ -83,6 +86,20 @@ def init_transformer_params(vocab: int = 32000, d_model: int = 512,
     return params
 
 
+def _weight(w):
+    """A weight leaf as a module attribute: a frozen parameter, or a
+    ``ParameterDict`` of frozen parameters for an int8 entry."""
+    if isinstance(w, dict):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in w.items()})
+    return nn.Parameter(w, requires_grad=False)
+
+
+def _leaf(w):
+    """The tree form of a :func:`_weight` attribute."""
+    return dict(w.items()) if isinstance(w, nn.ParameterDict) else w
+
+
 class _Block(nn.Module):
     def __init__(self, p: Tree):
         super().__init__()
@@ -90,14 +107,13 @@ class _Block(nn.Module):
         self.ln2 = nn.Parameter(p["ln2"]["scale"], requires_grad=False)
         for name in ("wqkv", "wo", "w1", "w2", "w3"):
             if name in p:
-                setattr(self, name,
-                        nn.Parameter(p[name], requires_grad=False))
+                setattr(self, name, _weight(p[name]))
 
     def tree(self) -> Tree:
         out: Tree = {"ln1": {"scale": self.ln1}, "ln2": {"scale": self.ln2}}
         for name in ("wqkv", "wo", "w1", "w2", "w3"):
             if hasattr(self, name):
-                out[name] = getattr(self, name)
+                out[name] = _leaf(getattr(self, name))
         return out
 
 
@@ -120,7 +136,7 @@ class Transformer(nn.Module):
                                        requires_grad=False)
         self.layers = nn.ModuleList(_Block(params[f"layer{i}"])
                                     for i in range(n_layers))
-        self.lm_head = (nn.Parameter(params["lm_head"], requires_grad=False)
+        self.lm_head = (_weight(params["lm_head"])
                         if "lm_head" in params else None)
 
     @property
@@ -130,7 +146,7 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers):
             tree[f"layer{i}"] = blk.tree()
         if self.lm_head is not None:
-            tree["lm_head"] = self.lm_head
+            tree["lm_head"] = _leaf(self.lm_head)
         return tree
 
     def forward(self, tokens: torch.Tensor,
@@ -180,12 +196,21 @@ def apply_rope(x, positions, theta: float = 10000.0):
 
 
 def qmat(w, compute_dtype):
-    """Weight matrix ready for matmul (float weights only in this port)."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 weight-only quantization is not ported yet "
-            "(ROADMAP queue 1: int8 weights and fp8 KV)")
+    """Weight matrix ready for matmul: a float tensor cast to the compute
+    dtype, or an int8 entry dequantized as ``w_int8.to(c) * scale.to(c)``
+    (the int8 cast is exact, so this is one rounding of an exact product,
+    bit-equal to tpulab's ``qmat``).  Eager PyTorch materializes the
+    dequantized matrix for every product."""
+    if isinstance(w, dict) and "w_int8" in w:
+        return (w["w_int8"].to(compute_dtype)
+                * w["scale"].to(compute_dtype))
     return w.to(compute_dtype)
+
+
+def weight_shape(w):
+    """Shape of a (possibly weight-only-quantized) weight matrix."""
+    return (w["w_int8"] if isinstance(w, dict) and "w_int8" in w
+            else w).shape
 
 
 def _mm(a, b):

@@ -3,6 +3,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -15,6 +17,20 @@ constexpr int MAX_DEVICES = 64;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// e4m3 pages.  Every e4m3 value, NaN included, is an f16 value and an f32
+// value, so e4m3 -> f16 (one `cvt` for a pair on sm_90) -> f32 is exact.
+using e4m3 = __nv_fp8_e4m3;
+
+// Two e4m3 values, the first in the low byte, as f32.
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t pair) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(pair & 0xFFFFu), __NV_E4M3);
+  return __half22float2(__half2(h));
+}
+__device__ __forceinline__ float to_f(e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -102,6 +118,34 @@ __device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
           *reinterpret_cast<const __nv_bfloat162*>(p + i));
       out[i] = f.x;
       out[i + 1] = f.y;
+    }
+  }
+}
+
+// N e4m3 values (N even; the address aligned to N values, up to 16).
+template <int N>
+__device__ __forceinline__ void load_vals(const e4m3* p, float* out) {
+  constexpr int W = N % 16 == 0 ? 16 : N % 8 == 0 ? 8 : N % 4 == 0 ? 4 : 2;
+  static_assert(N % 2 == 0, "e4m3 loads come in pairs");
+#pragma unroll
+  for (int i = 0; i < N; i += W) {
+    uint32_t w[W / 4 > 0 ? W / 4 : 1];
+    if constexpr (W == 16) {
+      const uint4 r = *reinterpret_cast<const uint4*>(p + i);
+      w[0] = r.x, w[1] = r.y, w[2] = r.z, w[3] = r.w;
+    } else if constexpr (W == 8) {
+      const uint2 r = *reinterpret_cast<const uint2*>(p + i);
+      w[0] = r.x, w[1] = r.y;
+    } else if constexpr (W == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p + i);
+    } else {
+      w[0] = *reinterpret_cast<const uint16_t*>(p + i);
+    }
+#pragma unroll
+    for (int j = 0; j < W / 2; ++j) {
+      const float2 f = e4m3x2_to_float2(w[j / 2] >> (16 * (j % 2)));
+      out[i + 2 * j] = f.x;
+      out[i + 2 * j + 1] = f.y;
     }
   }
 }

@@ -8,7 +8,10 @@
 // What it computes.  Lane b holds q_lens[b] left-packed query rows; row j
 // sits at position kv_lens[b] - q_lens[b] + j and attends every position
 // <= its own through the lane's block table over the fused page pool
-// (P, 2, S, Hkv, D).  Softmax is online, in f32.  Rows j >= q_lens[b] (and
+// (P, 2, S, Hkv, D), whose pages are f32, bf16 or e4m3 (tpulab's pool may
+// store a narrower dtype than the compute path: the Pallas body upcasts
+// the pages it reads, :150-151, and so does every body here; e4m3 -> bf16
+// and -> f32 are exact).  Softmax is online, in f32.  Rows j >= q_lens[b] (and
 // lanes with kv_lens == 0) are written as zeros; no position >= kv_lens[b]
 // is ever read (a dead page may hold NaN).  There is no TF32 anywhere.
 //
@@ -25,7 +28,8 @@
 // (ragged_attention.py `ragged_body`, `ragged_splits`, functions of dtype
 // and shapes only); the launcher refuses a body that does not fit.
 //
-// * `ragged_attn_wgmma_kernel<D>`, bf16 q over a bf16 pool, D 64 or 128:
+// * `ragged_attn_wgmma_kernel<D, KVT>`, bf16 q over a bf16 or e4m3 pool,
+//   D 64 or 128:
 //   one warpgroup per (64-row tile, KV head, lane, split), latest rows
 //   first.  The Q tile and 64-key stages of K and V are gathered page by
 //   page with cp.async into the 128-byte-swizzled layout of
@@ -34,7 +38,14 @@
 //   clamped to [0, P).  Each stage is the shared tile step: S = Q K^T and
 //   O += P V on `wgmma`, P in bf16 from registers, online softmax in f32
 //   (scores scaled after the product; P to bf16 is the one rounding the
-//   plain version does not make).
+//   plain version does not make).  An e4m3 pool's stages land raw (D
+//   bytes a row) in a double-buffered staging ring instead; after the
+//   wait one pass turns each 16-byte e4m3 chunk into the two 16-byte bf16
+//   chunks of the swizzled K or V tile (one tile each: the next stage is
+//   still in the ring), and the step is the bf16 one.  No fp8 `wgmma`:
+//   it takes both operands in fp8, so Q would be rounded to e4m3, which
+//   tpulab never does.  Staging costs 2 x 64 x D bytes a buffer, the bf16
+//   second K/V buffer it replaces: shared memory stays 5 tiles.
 // * Split-KV, for launches whose tiles do not fill the card (decode and
 //   verify: M * G <= 64 rows): the grid gains a split axis, and split i of
 //   n walks stages [i * n_st / n, (i + 1) * n_st / n) of the tile's own
@@ -42,8 +53,9 @@
 //   units, l) to scratch, and `ragged_attn_merge_kernel` combines them in
 //   split order: no atomics, so a launch is bit-reproducible.  With one
 //   split the tile writes the output directly.
-// * `ragged_attn_kernel<QT, KVT, D>`, f32, f32 over bf16, bf16 over f32,
-//   and bf16 with D 256: every product an f32 FMA on CUDA cores, q scaled
+// * `ragged_attn_kernel<QT, KVT, D>`, f32 q over any pool, bf16 over f32,
+//   and bf16 over bf16 or e4m3 with D 256: every product an f32 FMA on
+//   CUDA cores (a chunk is 16 bytes: 4, 8 or 16 values), q scaled
 //   by 1/sqrt(D) before the dot.  One block per (32-row tile, KV head,
 //   lane); KT positions per stage through a cp.async double buffer; each
 //   warp owns whole query rows, a lane one key of QK^T and D/32 output
@@ -241,24 +253,36 @@ int launch(const void* q, const void* pool, const int* tables,
   return (int)cudaGetLastError();
 }
 
+// kv: the pool's dtype code (0 f32, 1 bf16, 2 e4m3).  bf16 q over a bf16
+// or e4m3 pool runs here at D 256 only (D 64 and 128 run the tensor-core
+// body).
 template <int D>
-int launch_d(int q_bf16, int kv_bf16, const void* q, const void* pool,
+int launch_d(int q_bf16, int kv, const void* q, const void* pool,
              const int* tables, const int* q_lens, const int* kv_lens,
              void* out, int B, int M, int Hq, int Hkv, int P, int S, int MP,
              float sm_scale, cudaStream_t st) {
   using bf = __nv_bfloat16;
-  if (q_bf16 && kv_bf16) {   // D 64 and 128 run the tensor-core body
-    if constexpr (D == 256)
-      return launch<bf, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
-                               Hq, Hkv, P, S, MP, sm_scale, st);
+  if (q_bf16 && kv) {
+    if constexpr (D == 256) {
+      if (kv == 1)
+        return launch<bf, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
+                                 Hq, Hkv, P, S, MP, sm_scale, st);
+      if (kv == 2)
+        return launch<bf, e4m3, D>(q, pool, tables, q_lens, kv_lens, out, B,
+                                   M, Hq, Hkv, P, S, MP, sm_scale, st);
+    }
     return -1;
   }
   if (q_bf16)
     return launch<bf, float, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
                                 Hq, Hkv, P, S, MP, sm_scale, st);
-  if (kv_bf16)
+  if (kv == 1)
     return launch<float, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
                                 Hq, Hkv, P, S, MP, sm_scale, st);
+  if (kv == 2)
+    return launch<float, e4m3, D>(q, pool, tables, q_lens, kv_lens, out, B,
+                                  M, Hq, Hkv, P, S, MP, sm_scale, st);
+  if (kv != 0) return -1;
   return launch<float, float, D>(q, pool, tables, q_lens, kv_lens, out, B,
                                  M, Hq, Hkv, P, S, MP, sm_scale, st);
 }
@@ -269,19 +293,54 @@ namespace tc {
 constexpr int BQ = 64;          // query rows per block: one warpgroup
 constexpr int NTHREADS = 128;
 
-template <int D>
+template <int D, typename KVT>
 struct Smem {
   static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
+  static constexpr bool kE4M3 = sizeof(KVT) == 1;
   static constexpr int Q = 0;                  // [TILE]
-  static constexpr int K = TILE;               // [2][TILE]
-  static constexpr int V = 3 * TILE;           // [2][TILE]
+  // bf16 pool: K and V tiles double-buffered.  e4m3 pool: one K and one
+  // V tile, and the staging ring of raw stages behind them.
+  static constexpr int K = TILE;               // [2][TILE] / [TILE]
+  static constexpr int V = kE4M3 ? 2 * TILE : 3 * TILE;
+  static constexpr int STG = 3 * TILE;         // e4m3: [2][K, V][64][D] bytes
+  static constexpr int STG_BUF = 2 * 64 * D;   // one staged stage, K then V
   static constexpr size_t bytes = 5 * TILE + 1024;   // + alignment
+  static_assert(!kE4M3 || STG + 2 * STG_BUF <= 5 * TILE,
+                "the staging ring fits the second K/V buffer's room");
 };
 
+// One staged e4m3 stage (K rows, then V rows; D bytes a row) into the
+// swizzled bf16 K and V tiles: 16 e4m3 values -> two 16-byte bf16 chunks.
 template <int D>
+__device__ __forceinline__ void e4m3_stage_to_tiles(const unsigned char* stg,
+                                                    unsigned char* k_tile,
+                                                    unsigned char* v_tile) {
+  constexpr int BK = wg::AttnTile<D>::BK;
+  constexpr int CPR8 = D / 16;                  // 16-byte e4m3 chunks a row
+  for (int c = threadIdx.x; c < 2 * BK * CPR8; c += NTHREADS) {
+    const int kv = c / (BK * CPR8), rem = c % (BK * CPR8);
+    const int t = rem / CPR8, ch = rem % CPR8;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(stg + (kv * BK + t) * D + ch * 16);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    uint32_t o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 f = e4m3x2_to_float2(w[j / 2] >> (16 * (j % 2)));
+      o[j] = wg::pack_bf16(f.x, f.y);
+    }
+    unsigned char* tile = kv ? v_tile : k_tile;
+    *reinterpret_cast<uint4*>(tile + wg::swz(t, 2 * ch, BK)) =
+        make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(tile + wg::swz(t, 2 * ch + 1, BK)) =
+        make_uint4(o[4], o[5], o[6], o[7]);
+  }
+}
+
+template <int D, typename KVT>
 __global__ void __launch_bounds__(NTHREADS)
     ragged_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ pool,
+                             const KVT* __restrict__ pool,
                              const int* __restrict__ tables,
                              const int* __restrict__ q_lens,
                              const int* __restrict__ kv_lens,
@@ -291,9 +350,11 @@ __global__ void __launch_bounds__(NTHREADS)
                              int Hq, int Hkv, int P, int S, int MP,
                              int n_split, float scale_log2) {
   using Tile = wg::AttnTile<D>;
-  using L = Smem<D>;
+  using L = Smem<D, KVT>;
   constexpr int BK = Tile::BK;
-  constexpr int CPR = D / 8;                    // 16-byte chunks per row
+  constexpr int CPR = D / 8;                    // 16-byte chunks per Q row
+  constexpr int EPC = 16 / (int)sizeof(KVT);    // pool values a chunk
+  constexpr int KCPR = D / EPC;                 // chunks per K or V row
 
   const int tile = gridDim.x - 1 - blockIdx.x;  // latest rows first
   const int hk = blockIdx.y;
@@ -322,10 +383,13 @@ __global__ void __launch_bounds__(NTHREADS)
   // Copies: thread tid moves 16-byte chunk tid % CPR of rows tid / CPR +
   // RSTEP * i, so it works out one row's address (and one page index) per
   // K/V pair of chunks, and a stage's page lookups are independent loads.
-  constexpr int RSTEP = NTHREADS / CPR;          // rows a pass covers
-  constexpr int RPT = BQ / RSTEP;                // rows a thread copies
-  static_assert(BQ == BK, "Q tiles and K/V stages share the copy pattern");
+  // K/V rows follow the same pattern with their own chunk count.
+  constexpr int RSTEP = NTHREADS / CPR;          // Q rows a pass covers
+  constexpr int RPT = BQ / RSTEP;                // Q rows a thread copies
+  constexpr int KRSTEP = NTHREADS / KCPR;        // K/V rows a pass covers
+  constexpr int KRPT = BK / KRSTEP;              // K/V rows a thread copies
   const int ch = tid % CPR, r_base = tid / CPR;
+  const int kch = tid % KCPR, kr_base = tid / KCPR;
 
   // the Q tile; rows past M * G or past q_lens[b] are zeros
 #pragma unroll
@@ -341,23 +405,31 @@ __global__ void __launch_bounds__(NTHREADS)
   const size_t v_off = (size_t)S * Hkv * D;      // K -> V inside a page
   auto load_stage = [&](int stage, int buf) {
     const int t0 = stage * BK;
-    int page[RPT];
+    int page[KRPT];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int pos = t0 + r_base + RSTEP * i;
+    for (int i = 0; i < KRPT; ++i) {
+      const int pos = t0 + kr_base + KRSTEP * i;
       page[i] = pos < limit ? min(max(tab[pos / S], 0), P - 1) : -1;
     }
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int t = r_base + RSTEP * i, pos = t0 + t;
+    for (int i = 0; i < KRPT; ++i) {
+      const int t = kr_base + KRSTEP * i, pos = t0 + t;
       const bool valid = page[i] >= 0;
-      const __nv_bfloat16* src =
+      const KVT* src =
           valid ? pool + (((size_t)page[i] * 2 * S + pos % S) * Hkv + hk) * D +
-                      ch * 8
+                      kch * EPC
                 : pool;
-      const uint32_t dst = buf * L::TILE + wg::swz(t, ch, BK);
-      cp_async16(sm + L::K + dst, src, valid ? 16 : 0);
-      cp_async16(sm + L::V + dst, valid ? src + v_off : pool, valid ? 16 : 0);
+      unsigned char *kd, *vd;
+      if constexpr (L::kE4M3) {     // raw rows into the staging ring
+        kd = sm + L::STG + buf * L::STG_BUF + t * D + kch * 16;
+        vd = kd + BK * D;
+      } else {                      // straight into the swizzled tiles
+        const uint32_t dst = buf * L::TILE + wg::swz(t, kch, BK);
+        kd = sm + L::K + dst;
+        vd = sm + L::V + dst;
+      }
+      cp_async16(kd, src, valid ? 16 : 0);
+      cp_async16(vd, valid ? src + v_off : pool, valid ? 16 : 0);
     }
   };
 
@@ -379,12 +451,19 @@ __global__ void __launch_bounds__(NTHREADS)
     if (s + 1 < s_hi) load_stage(s + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait_1();
+    int tb = buf;                        // the K/V tile buffer the step reads
+    if constexpr (L::kE4M3) {
+      __syncthreads();                   // every thread's raw rows landed
+      e4m3_stage_to_tiles<D>(sm + L::STG + buf * L::STG_BUF, sm + L::K,
+                             sm + L::V);
+      tb = 0;
+    }
     wg::fence_proxy_async();
     __syncthreads();
     const int k0 = s * BK;
     const uint32_t qa = wg::smem_u32(sm + L::Q);
-    const uint32_t ka = wg::smem_u32(sm + L::K + buf * L::TILE);
-    const uint32_t va = wg::smem_u32(sm + L::V + buf * L::TILE);
+    const uint32_t ka = wg::smem_u32(sm + L::K + tb * L::TILE);
+    const uint32_t va = wg::smem_u32(sm + L::V + tb * L::TILE);
     auto visible = [&](int i, int key) { return k0 + key <= qpos[i]; };
     if (k0 + BK - 1 > first_pos)
       t.template step<true>(qa, ka, va, scale_log2, visible);
@@ -462,14 +541,14 @@ __global__ void __launch_bounds__(128)
   for (int x = 0; x < DPL; ++x) o[x] = __float2bfloat16(acc[x] * inv);
 }
 
-template <int D>
+template <int D, typename KVT>
 int launch(const void* q, const void* pool, const int* tables,
            const int* q_lens, const int* kv_lens, void* out, void* scratch,
            int B, int M, int Hq, int Hkv, int P, int S, int MP, int n_split,
            float sm_scale, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const size_t smem = Smem<D>::bytes;
-  auto kern = ragged_attn_wgmma_kernel<D>;
+  const size_t smem = Smem<D, KVT>::bytes;
+  auto kern = ragged_attn_wgmma_kernel<D, KVT>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int G = Hq / Hkv;
@@ -481,9 +560,9 @@ int launch(const void* q, const void* pool, const int* tables,
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((M * G + BQ - 1) / BQ, Hkv, B * n_split);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(pool), tables, q_lens,
-      kv_lens, static_cast<bf*>(out), part_o, part_ml, B, M, Hq, Hkv, P, S,
-      MP, n_split, sm_scale * 1.4426950408889634f);
+      static_cast<const bf*>(q), static_cast<const KVT*>(pool), tables,
+      q_lens, kv_lens, static_cast<bf*>(out), part_o, part_ml, B, M, Hq, Hkv,
+      P, S, MP, n_split, sm_scale * 1.4426950408889634f);
   if (n_split == 1) return (int)cudaGetLastError();
   if (cudaError_t e = cudaGetLastError()) return (int)e;
   ragged_attn_merge_kernel<D><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
@@ -491,45 +570,62 @@ int launch(const void* q, const void* pool, const int* tables,
   return (int)cudaGetLastError();
 }
 
+template <typename KVT>
+int launch_d(const void* q, const void* pool, const int* tables,
+             const int* q_lens, const int* kv_lens, void* out, void* scratch,
+             int B, int M, int Hq, int Hkv, int D, int P, int S, int MP,
+             int n_split, float sm_scale, cudaStream_t st) {
+  if (D == 64)
+    return launch<64, KVT>(q, pool, tables, q_lens, kv_lens, out, scratch, B,
+                           M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+  if (D == 128)
+    return launch<128, KVT>(q, pool, tables, q_lens, kv_lens, out, scratch,
+                            B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+  return -1;
+}
+
 }  // namespace tc
 
 }  // namespace
 
-// C interface (bound with ctypes).  body 1 is the tensor-core body (bf16
-// q and pool, D 64 or 128) with `n_split` splits over the context and, when
+// C interface (bound with ctypes).  kv is the pool's dtype code: 0 f32, 1
+// bf16, 2 e4m3.  body 1 is the tensor-core body (bf16 q over a bf16 or
+// e4m3 pool, D 64 or 128) with `n_split` splits over the context and, when
 // n_split > 1, f32 scratch of n_split * B * M * Hq * (D + 2) values; body
 // 0 the CUDA-core body (an f32 q or pool at D 64, 128 or 256, and bf16
-// over bf16 at D 256; n_split 1).
+// over bf16 or e4m3 at D 256; n_split 1).
 // Returns 0 or a cudaError_t code; -1 for a body, dtype and head dim the
 // kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
     const int* kv_lens, void* out, void* scratch, int B, int M, int Hq,
-    int Hkv, int D, int P, int S, int MP, int q_bf16, int kv_bf16, int body,
+    int Hkv, int D, int P, int S, int MP, int q_bf16, int kv, int body,
     int n_split, float sm_scale, void* stream) {
   if (B == 0 || M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == 1) {
-    if (!(q_bf16 && kv_bf16)) return -1;
-    if (D == 64)
-      return tc::launch<64>(q, pool, tables, q_lens, kv_lens, out, scratch,
-                            B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-    if (D == 128)
-      return tc::launch<128>(q, pool, tables, q_lens, kv_lens, out, scratch,
-                             B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+    if (!q_bf16) return -1;
+    if (kv == 1)
+      return tc::launch_d<__nv_bfloat16>(q, pool, tables, q_lens, kv_lens,
+                                         out, scratch, B, M, Hq, Hkv, D, P, S,
+                                         MP, n_split, sm_scale, st);
+    if (kv == 2)
+      return tc::launch_d<e4m3>(q, pool, tables, q_lens, kv_lens, out,
+                                scratch, B, M, Hq, Hkv, D, P, S, MP, n_split,
+                                sm_scale, st);
     return -1;
   }
   if (body != 0 || n_split != 1) return -1;
   switch (D) {
     case 64:
-      return launch_d<64>(q_bf16, kv_bf16, q, pool, tables, q_lens, kv_lens,
+      return launch_d<64>(q_bf16, kv, q, pool, tables, q_lens, kv_lens,
                           out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     case 128:
-      return launch_d<128>(q_bf16, kv_bf16, q, pool, tables, q_lens,
+      return launch_d<128>(q_bf16, kv, q, pool, tables, q_lens,
                            kv_lens, out, B, M, Hq, Hkv, P, S, MP, sm_scale,
                            st);
     case 256:
-      return launch_d<256>(q_bf16, kv_bf16, q, pool, tables, q_lens,
+      return launch_d<256>(q_bf16, kv, q, pool, tables, q_lens,
                            kv_lens, out, B, M, Hq, Hkv, P, S, MP, sm_scale,
                            st);
     default:

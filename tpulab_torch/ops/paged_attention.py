@@ -12,7 +12,9 @@ kernel's ``kv_lens``.  Tables are padded with the scratch page 0.
 (``csrc/paged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`paged_decode_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  One body serves every dtype mix and head dim: a
+launch failure raises.  q is float32 or bfloat16; the pool float32,
+bfloat16 or float8_e4m3fn, upcast to f32 as the kernel reads it.  One
+body serves every dtype mix and head dim: a
 producer warp fills a ring of 32-position stages with 16-byte async
 copies tracked by mbarriers, and the consumer warps (one a ring slot)
 run the online softmax on f32 FMAs.
@@ -34,7 +36,8 @@ import math
 
 import torch
 
-from tpulab_torch.ops.ragged_attention import _sm_count
+from tpulab_torch.ops.ragged_attention import (KV_CODE, _sm_count,
+                                               gather_pages)
 
 _FLOATS = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128, 256)
@@ -73,9 +76,10 @@ def paged_decode_attention_reference(q, kv_pool, tables, lengths):
     n_pages, _, s, hkv, _ = kv_pool.shape
     mp = tables.shape[1]
     g = hq // hkv
-    ctx = kv_pool[tables.long().clamp(0, n_pages - 1)]   # (B, MP, 2, S, Hkv, D)
-    k = ctx[:, :, 0].reshape(b, mp * s, hkv, d).float()
-    v = ctx[:, :, 1].reshape(b, mp * s, hkv, d).float()
+    # (B, MP, 2, S, Hkv, D) in f32
+    ctx = gather_pages(kv_pool, tables.long().clamp(0, n_pages - 1))
+    k = ctx[:, :, 0].reshape(b, mp * s, hkv, d)
+    v = ctx[:, :, 1].reshape(b, mp * s, hkv, d)
     live = (torch.arange(mp * s, device=q.device)[None, :]
             <= lengths.long().to(q.device)[:, None])       # (B, T)
     k = k.masked_fill(~live[:, :, None, None], 0.0)
@@ -104,9 +108,10 @@ def _check(q, kv_pool, tables, lengths):
                          f"{_MAX_GROUP} query heads per KV head)")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not built (want one of {_HEAD_DIMS})")
-    if q.dtype not in _FLOATS or kv_pool.dtype not in _FLOATS:
+    if q.dtype not in _FLOATS or kv_pool.dtype not in KV_CODE:
         raise TypeError(f"q {q.dtype} / pool {kv_pool.dtype}: the kernel "
-                        "takes float32 or bfloat16")
+                        "takes a float32 or bfloat16 q over a float32, "
+                        "bfloat16 or float8_e4m3fn pool")
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} for {b} lanes")
@@ -168,7 +173,7 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
             lengths.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), b, hq, hkv, d,
             n_pages, s, mp, n_split, int(q.dtype == torch.bfloat16),
-            int(kv_pool.dtype == torch.bfloat16), 1.0 / math.sqrt(d), stream)
+            KV_CODE[kv_pool.dtype], 1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
         raise RuntimeError(f"paged_decode_attention launch failed "

@@ -11,13 +11,15 @@ shape is ``q_lens == 1, kv_lens == position + 1``.
 (``csrc/ragged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`ragged_paged_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  The kernel has two bodies, chosen by
-:func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (bf16 q
-over a bf16 pool on the tensor cores, D 64 or 128) and ``"fma"`` (f32 FMAs
-on CUDA cores: every other mix, and D 256).  A ``"wgmma"`` launch whose
-tiles do not fill the card splits each lane's context into
-:func:`ragged_splits` parts (split-KV) and merges them in a second, small
-kernel.  ``ragged_paged_attention.launches`` counts calls that launched
+launch failure raises.  q is float32 or bfloat16; the pool float32,
+bfloat16 or float8_e4m3fn, whose pages the kernel upcasts as it reads
+them (every e4m3 value is a bf16 value).  The kernel has two bodies,
+chosen by :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"``
+(bf16 q over a bf16 or e4m3 pool on the bf16 tensor cores, D 64 or 128)
+and ``"fma"`` (f32 FMAs on CUDA cores: every other mix, and D 256).  A
+``"wgmma"`` launch whose tiles do not fill the card splits each lane's
+context into :func:`ragged_splits` parts (split-KV) and merges them in a
+second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
 (one per call, merge included) and
 ``ragged_paged_attention.launches_by_body`` splits them by body (the
 plain version counts in neither).
@@ -33,6 +35,8 @@ import math
 import torch
 
 _FLOATS = (torch.float32, torch.bfloat16)
+#: the pool dtypes and the C launcher's code for each
+KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 _HEAD_DIMS = (64, 128, 256)
 _WGMMA_HEAD_DIMS = (64, 128)
 _BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
@@ -43,9 +47,10 @@ MAX_SPLITS = 16
 
 def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 q over a
-    bf16 pool with D 64 or 128, else ``"fma"``.  A function of dtypes and
-    head dim only."""
-    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+    bf16 or e4m3 pool with D 64 or 128, else ``"fma"``.  A function of
+    dtypes and head dim only."""
+    if (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.float8_e4m3fn)
             and head_dim in _WGMMA_HEAD_DIMS):
         return "wgmma"
     return "fma"
@@ -76,6 +81,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def pool_bytes(kv: torch.Tensor) -> torch.Tensor:
+    """A page store as the tensor its gathers and scatters index: a
+    ``uint8`` view of an fp8 store (torch has no fp8 ``index_copy_`` or
+    ``masked_fill`` on the CPU), else the store itself."""
+    return kv.view(torch.uint8) if kv.element_size() == 1 else kv
+
+
+def gather_pages(kv_pool, idx):
+    """``kv_pool[idx]`` upcast to f32, gathered through
+    :func:`pool_bytes`."""
+    return pool_bytes(kv_pool)[idx].view(kv_pool.dtype).float()
+
+
 def ragged_paged_attention_reference(q, kv_pool, tables, q_lens, kv_lens):
     """Plain per-lane masked softmax in f32 over the gathered context.
 
@@ -88,9 +106,10 @@ def ragged_paged_attention_reference(q, kv_pool, tables, q_lens, kv_lens):
     mp = tables.shape[1]
     g = hq // hkv
     dev = q.device
-    ctx = kv_pool[tables.long().clamp(0, n_pages - 1)]   # (B, MP, 2, S, Hkv, D)
-    k = ctx[:, :, 0].reshape(b, mp * s, hkv, d).float()
-    v = ctx[:, :, 1].reshape(b, mp * s, hkv, d).float()
+    # (B, MP, 2, S, Hkv, D) in f32
+    ctx = gather_pages(kv_pool, tables.long().clamp(0, n_pages - 1))
+    k = ctx[:, :, 0].reshape(b, mp * s, hkv, d)
+    v = ctx[:, :, 1].reshape(b, mp * s, hkv, d)
     t = torch.arange(mp * s, device=dev)
     j = torch.arange(m, device=dev)
     q_lens = q_lens.long().to(dev)
@@ -123,9 +142,10 @@ def _check(q, kv_pool, tables, q_lens, kv_lens):
                          f"pool {tuple(kv_pool.shape)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head dim {d} not built (want one of {_HEAD_DIMS})")
-    if q.dtype not in _FLOATS or kv_pool.dtype not in _FLOATS:
+    if q.dtype not in _FLOATS or kv_pool.dtype not in KV_CODE:
         raise TypeError(f"q {q.dtype} / pool {kv_pool.dtype}: the kernel "
-                        "takes float32 or bfloat16")
+                        "takes a float32 or bfloat16 q over a float32, "
+                        "bfloat16 or float8_e4m3fn pool")
     if tables.dim() != 2 or tables.shape[0] != b:
         raise ValueError(f"tables {tuple(tables.shape)} for {b} lanes")
     if q_lens.shape != (b,) or kv_lens.shape != (b,):
@@ -192,8 +212,8 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
             q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             b, m, hq, hkv, d, n_pages, s, mp,
-            int(q.dtype == torch.bfloat16),
-            int(kv_pool.dtype == torch.bfloat16), _BODY_CODE[body], n_split,
+            int(q.dtype == torch.bfloat16), KV_CODE[kv_pool.dtype],
+            _BODY_CODE[body], n_split,
             1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
