@@ -105,6 +105,28 @@ raises and the script exits non-zero without printing a result:
    forward steps, all on ``wgmma``, every page home at the end, and
    speculation really ran; tok/s, tokens per decode dispatch, host syncs
    per token and acceptance side by side.
+6. infer   — the compiled-model Infer path at full width, none of the
+   three kernels on it (ResNet convolves through cuDNN, ViT attends
+   through plain ``dense_attention``): ``InferenceManager(
+   max_exec_concurrency=4)`` registers ``build_model("resnet50",
+   max_batch_size=128, input_dtype=np.uint8)`` (the README quickstart)
+   and ``vit_b16`` the same way, random weights from the registry's seed.
+   Checks, batch 2: each model's f32 forward on the card (TF32 off)
+   against the port's CPU forward on the same weights, then the bf16
+   serving forward against that f32 result (max abs error over max
+   |logit| <= 1e-3 and 5e-2, top-1 equal where the margin is clear);
+   ``infer_runner`` at batch 1, 3, 8 and 128 against the bucket's direct
+   forward; one batch-8 request twice, bit for bit (cuDNN benchmark
+   off); 64 requests from 8 threads against their sequential results,
+   then every buffers slot, token and context back in its pool; a
+   ``BatchedInferRunner`` over 64 batch-1 requests launching fewer
+   batches than requests, its rows against the unbatched ones.  Then
+   ``InferBench.run`` at batch 1, 8, 32 and 128 (images/s beside the
+   compute bound: ``CompiledModel.flops`` per image over 989 TFLOP/s
+   bf16), ``.latency`` at batch 1 (p50 / p90 / p99), and one
+   torch.profiler window at batch 128: the device's busy share (the
+   union of kernel intervals over the wall time) and kernel time by
+   class (conv, gemm, elementwise, other).
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -2289,6 +2311,335 @@ def phase_serve(torch, card, profile=False):
     return out
 
 
+# ---------------------------------------------------------------- phase 6
+# The README quickstart's model (ResNet-50, 224 x 224 x 3 uint8 input, 1000
+# classes, max_batch_size=128, bf16 compute) and ViT-B/16 at the same
+# serving settings (google/vit-base-patch16-224 geometry: d 768, 12 heads,
+# 12 layers, d_ff 3072); random weights from the registry's seed 0.
+INFER_MODELS = (("rn50", "resnet50"), ("vit_b16", "vit_b16"))
+INFER = dict(max_batch_size=128, concurrency=4, sizes=(1, 3, 8, 128),
+             bench=(1, 8, 32, 128), seconds=2.0, latency_iters=100,
+             profile_batches=16, requests=64, threads=8, window_s=0.005)
+# logits against a reference: max abs error <= tol x max |reference logit|,
+# and the same top-1 wherever the reference's top-1 margin exceeds that.
+# f32 card vs the port's CPU forward (cuDNN / cuBLAS TF32 off): both sum
+# in f32, in other orders and algorithms.  bf16 serving forward vs the
+# f32 one: tpulab's own bf16 logits sit 1-2 % (relative) from its f32 ones
+# at image 32 (tests/test_torch_vision.py's measure).
+INFER_F32_TOL = 1e-3
+INFER_BF16_TOL = 5e-2
+
+
+def logit_check(torch, label, got, want, tol, quiet=False):
+    """``got`` against ``want`` (B, classes) under the rule above; returns
+    the relative error or raises."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    bound = tol * scale
+    if not torch.isfinite(got).all() or err > bound:
+        raise AssertionError(f"{label}: max abs err {err:.3e} > {tol:g} x "
+                             f"max |logit| {scale:.3e}")
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > bound
+    same = got.argmax(-1) == want.argmax(-1)
+    if not same[clear].all():
+        raise AssertionError(f"{label}: top-1 differs where the margin "
+                             f"exceeds {bound:.3e}")
+    if not quiet:
+        log(f"infer: {label}: max abs err {err:.3e} = {err / scale:.2e} x "
+            f"max |logit| {scale:.3e} (tol {tol:g}); top-1 equal on "
+            f"{int(clear.sum())} clear rows of {len(same)}")
+    return err / scale
+
+
+def infer_images(np, n, seed):
+    return np.random.default_rng(seed).integers(
+        0, 256, (n, 224, 224, 3)).astype(np.uint8)
+
+
+def pools_home(mgr, name, timeout=30.0):
+    """Every buffers slot, execution token and context back in its pool
+    (the post stage returns them just after it settles the future)."""
+    pools = {"buffers": mgr.buffers_pool, "tokens": mgr.exec_tokens,
+             "contexts": mgr.context_pool(name)}
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if all(p.available == p.size for p in pools.values()):
+            return {k: p.size for k, p in pools.items()}
+        time.sleep(0.005)
+    raise AssertionError(f"{name}: pools not home: " + ", ".join(
+        f"{k} {p.available}/{p.size}" for k, p in pools.items()))
+
+
+def infer_cpu_checks(torch, np, mgr, name, model):
+    """f32 on the card (TF32 off) vs the port's CPU forward on the same
+    weights, then the bf16 serving forward (the placed weights) vs that
+    f32 result; batch 2."""
+    from tpulab_torch.engine.runtime import tree_to
+
+    def f32_forward(params, x):
+        fn = model.apply_fn         # a functools.partial of the model's apply
+        return fn.func(params, {"input": x}, **dict(
+            fn.keywords, compute_dtype=torch.float32))["logits"]
+
+    x = infer_images(np, 2, 11)
+    on_card = torch.from_numpy(x).cuda()
+    card = f32_forward(model.params, on_card)
+    cpu = f32_forward(tree_to(model.params, "cpu"), torch.from_numpy(x))
+    e32 = logit_check(torch, f"{name} f32 card vs CPU", card, cpu,
+                      INFER_F32_TOL)
+    bf16 = mgr.compiled(name)(2, {"input": on_card})["logits"]
+    e16 = logit_check(torch, f"{name} bf16 serving vs f32 card", bf16, card,
+                      INFER_BF16_TOL)
+    return e32, e16
+
+
+def infer_serving_checks(torch, np, mgr, name):
+    """infer_runner at every size of INFER["sizes"] against the bucket's
+    direct forward; one request twice, bit for bit; 64 requests from 8
+    threads, each against its own sequential result, then every slot and
+    token home; a BatchedInferRunner over 64 batch-1 requests."""
+    import threading
+
+    from tpulab_torch.engine.batched_runner import BatchedInferRunner
+
+    runner = mgr.infer_runner(name)
+    compiled = mgr.compiled(name)
+    model = mgr.model(name)
+    for n in INFER["sizes"]:
+        x = infer_images(np, n, 100 + n)
+        got = runner.infer(input=x).result(120)["logits"]
+        bucket = model.pick_bucket(n)
+        padded = np.zeros((bucket, 224, 224, 3), np.uint8)
+        padded[:n] = x
+        direct = compiled(bucket, {"input": torch.from_numpy(
+            padded).cuda()})["logits"][:n].cpu()
+        if got.shape != (n, 1000):
+            raise AssertionError(f"{name}: batch {n} gave {got.shape}")
+        check_close(torch, f"{name} runner batch {n} (bucket {bucket}) vs "
+                    f"its direct forward", torch.from_numpy(got), direct)
+    x = infer_images(np, 8, 7)
+    a = runner.infer(input=x).result(120)["logits"]
+    b = runner.infer(input=x).result(120)["logits"]
+    if not np.array_equal(a, b):
+        raise AssertionError(f"{name}: the same request twice differs")
+    log(f"infer: {name}: batch 8 twice bit-identical")
+
+    inputs = [infer_images(np, 1 + i % 8, 200 + i) for i in range(8)]
+    want = [runner.infer(input=v).result(120)["logits"] for v in inputs]
+    results, errors = [], []
+    per = INFER["requests"] // INFER["threads"]
+
+    def client(t):
+        try:
+            futs = [(k, runner.infer(input=inputs[k]))
+                    for k in ((t + j) % 8 for j in range(per))]
+            results.extend((k, f.result(300)["logits"]) for k, f in futs)
+        except Exception as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(INFER["threads"])]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors or len(results) != INFER["requests"]:
+        raise AssertionError(f"{name}: {len(results)} of "
+                             f"{INFER['requests']} resolved: {errors[:1]}")
+    same = sum(int(np.array_equal(got, want[k])) for k, got in results)
+    worst = max(logit_check(torch, f"{name} concurrent request {k}",
+                            torch.from_numpy(got), torch.from_numpy(want[k]),
+                            INFER_BF16_TOL, quiet=True)
+                for k, got in results)
+    home = pools_home(mgr, name)
+    log(f"infer: {name}: {len(results)} requests from {len(threads)} "
+        f"threads resolved ({same} bit-identical to their sequential "
+        f"result, worst {worst:.2e} x max |logit|); pools home {home}")
+
+    batched = BatchedInferRunner(mgr, name, window_s=INFER["window_s"])
+    singles = [infer_images(np, 1, 300 + i) for i in range(INFER["requests"])]
+    alone = [runner.infer(input=v).result(120)["logits"] for v in singles]
+    try:
+        futs = [batched.infer(input=v) for v in singles]
+        rows = [f.result(300)["logits"] for f in futs]
+    finally:
+        batched.shutdown()
+    launched = batched.batches_launched
+    if not 1 <= launched < len(singles):
+        raise AssertionError(f"{name}: batched runner launched {launched} "
+                             f"batches for {len(singles)} requests")
+    worst = max(logit_check(torch, f"{name} batched row {i}",
+                            torch.from_numpy(r), torch.from_numpy(w),
+                            INFER_BF16_TOL, quiet=True)
+                for i, (r, w) in enumerate(
+                                zip(rows, alone)))
+    pools_home(mgr, name)
+    log(f"infer: {name}: BatchedInferRunner {len(singles)} batch-1 requests "
+        f"-> {launched} batches; rows vs unbatched worst {worst:.2e} x "
+        f"max |logit|")
+    return dict(batches_launched=launched, requests=len(singles))
+
+
+def busy_ms(torch, prof):
+    """The union of the device kernels' time intervals (ms): kernels of the
+    four execution contexts' streams may overlap, so their sum can exceed
+    the wall time."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def infer_kernel_classes(torch, prof):
+    """Device time (ms, summed over kernels) by class: convolutions,
+    matrix products, elementwise, other (reductions, pooling, softmax,
+    layout and dtype copies)."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    classes = {"conv": 0.0, "gemm": 0.0, "elementwise": 0.0, "other": 0.0}
+    for e in kernels:
+        n = e.key.lower()
+        cls = ("conv" if any(w in n for w in (
+                   "conv", "fprop", "winograd", "cudnn", "implicit"))
+               else "gemm" if any(w in n for w in (
+                   "gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas"))
+               else "elementwise" if "elementwise" in n
+               else "other")
+        classes[cls] += dev_ms(e)
+    return kernels, classes
+
+
+def infer_profile(torch, np, mgr, name, card):
+    """One profiled window at batch 128 (INFER["profile_batches"] batches,
+    the buffers pool's depth in flight): the device's busy share of the
+    wall time and the device time by kernel class."""
+    from torch.profiler import ProfilerActivity
+
+    runner = mgr.infer_runner(name)
+    x = infer_images(np, INFER["max_batch_size"], 5)
+    runner.infer(input=x).result(300)
+    with torch.profiler.profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inflight = []
+        for _ in range(INFER["profile_batches"]):
+            if len(inflight) >= mgr.max_buffers:
+                inflight.pop(0).result(300)
+            inflight.append(runner.infer(input=x))
+        for f in inflight:
+            f.result(300)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, classes = infer_kernel_classes(torch, prof)
+    busy = busy_ms(torch, prof)
+    total = sum(classes.values())
+    if total == 0:
+        log(f"infer: {name} profile: device time not measured (the "
+            f"profiler saw no device activity); wall {wall_ms:.1f} ms "
+            f"[{card}]")
+        return dict(wall_ms=wall_ms, busy_ms=None, busy_share=None,
+                    classes=classes)
+    log(f"infer: {name} profile, {INFER['profile_batches']} batches of "
+        f"{INFER['max_batch_size']}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f} %), kernel time "
+        f"{total:.1f} ms [{card}]")
+    for cls, ms in classes.items():
+        log(f"infer:   {cls:<12} {ms:10.1f} ms "
+            f"({100 * ms / max(total, 1e-9):.1f} % of kernel time)")
+    for e in sorted(kernels, key=dev_ms, reverse=True)[:6]:
+        log(f"infer:   {dev_ms(e):10.1f} ms {e.count:6d}x {e.key[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy, busy_share=busy / wall_ms,
+                classes=classes)
+
+
+def infer_measure(torch, mgr, name, card):
+    """InferBench.run at every batch of INFER["bench"] and .latency at
+    batch 1, each images/s beside its compute bound: FLOPs per image
+    (``CompiledModel.flops``) over the card's dense bf16 peak."""
+    from tpulab_torch.engine.infer_bench import InferBench
+
+    flops = mgr.compiled(name).flops(1)
+    bound_ips = PEAK_OPS_S["bf16"] / flops
+    bench = InferBench(mgr)
+    runs = {}
+    for b in INFER["bench"]:
+        r = bench.run(name, batch_size=b, seconds=INFER["seconds"], warmup=4)
+        runs[b] = r
+        log(f"infer: {name} batch {b}: {r['inferences_per_second']:.1f} "
+            f"images/s ({r['batches_per_second']:.2f} batches/s, "
+            f"{r['execution_time_per_batch_ms']:.3f} ms/batch, "
+            f"{int(r['max_concurrency'])} in flight, "
+            f"{int(r['batches_computed'])} batches); compute bound "
+            f"{bound_ips:.0f} images/s ({flops / 1e9:.3f} GFLOP/image at "
+            f"{PEAK_OPS_S['bf16'] / 1e12:.0f} TFLOP/s bf16) [{card}]")
+    lat = bench.latency(name, batch_size=1,
+                        iterations=INFER["latency_iters"])
+    log(f"infer: {name} latency, batch 1, {lat['iterations']} closed-loop "
+        f"requests: p50 {lat['p50_ms']:.3f} ms, p90 {lat['p90_ms']:.3f} ms, "
+        f"p99 {lat['p99_ms']:.3f} ms, mean {lat['mean_ms']:.3f} ms; bound "
+        f"{flops / PEAK_OPS_S['bf16'] * 1e3:.4f} ms [{card}]")
+    return dict(gflop_per_image=flops / 1e9, bound_images_s=bound_ips,
+                images_s={b: r["inferences_per_second"]
+                          for b, r in runs.items()},
+                ms_per_batch={b: r["execution_time_per_batch_ms"]
+                              for b, r in runs.items()},
+                latency_ms={k: lat[k] for k in ("p50_ms", "p90_ms",
+                                                  "p99_ms")})
+
+
+def phase_infer(torch, card):
+    """The compiled-model Infer path: ``InferenceManager`` ->
+    ``InferRunner`` / ``BatchedInferRunner`` -> ``InferBench`` serving
+    ResNet-50 and ViT-B/16 at full width."""
+    import numpy as np
+
+    import tpulab_torch
+    from tpulab_torch.models import build_model
+
+    torch.backends.cudnn.benchmark = False     # the same kernels each call
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mgr = tpulab_torch.InferenceManager(
+        max_exec_concurrency=INFER["concurrency"])
+    models = {}
+    for name, entry in INFER_MODELS:
+        t1 = time.perf_counter()
+        models[name] = build_model(entry,
+                                   max_batch_size=INFER["max_batch_size"],
+                                   input_dtype=np.uint8)
+        mgr.register_model(name, models[name])
+        c = mgr.compiled(name)
+        log(f"infer: registered {name} ({entry}): "
+            f"{models[name].weights_size_in_bytes()} weight bytes (f32 "
+            f"tree), buckets {models[name].batch_buckets}, activations "
+            f"{c.activation_size_in_bytes()} bytes at bucket "
+            f"{INFER['max_batch_size']}, {time.perf_counter() - t1:.1f} s "
+            "(weights drawn, placed, every bucket run once)")
+    mgr.update_resources()
+    out = {}
+    try:
+        for name, _entry in INFER_MODELS:
+            st = out[name] = {}
+            st["f32_vs_cpu"], st["bf16_vs_f32"] = infer_cpu_checks(
+                torch, np, mgr, name, models[name])
+            st.update(infer_serving_checks(torch, np, mgr, name))
+        for name, _entry in INFER_MODELS:
+            out[name].update(infer_measure(torch, mgr, name, card))
+            out[name]["profile"] = infer_profile(torch, np, mgr, name, card)
+            pools_home(mgr, name)
+    finally:
+        mgr.shutdown()
+    log("infer: " + json.dumps(out))
+    log(f"infer: phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -2376,6 +2727,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     st = phase_serve(torch, card, args.profile)
     log(f"serve: phase {time.perf_counter() - t0:.1f} s")
+    phase_infer(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",

@@ -37,6 +37,11 @@ Injection points planted in the port:
                     (a preempted lane re-prefills, a prefix entry is
                     recomputed; the lane or entry is never corrupted, the
                     failure is counted in ``swap_failures``)
+    device.transfer Bindings.copy_to_device (tpulab_torch.engine.buffers),
+                    once per request before its inputs' copies: error
+                    fails that request's dispatch, which returns its
+                    buffers slot (no execution token is held yet) and
+                    hands the exception to its future
     disagg.ship     KVShipper export / import (tpulab_torch.disagg), once
                     per call on each side: error/drop lose that KV
                     shipment, and the decode replica degrades to a local

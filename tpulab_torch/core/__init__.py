@@ -1,1 +1,2 @@
-"""Host utilities of the port (own copies of tpulab.core pieces)."""
+"""Host utilities of the port (own copies of tpulab.core pieces: deadlines,
+pools, thread pools, the deferred task pool, packaged tasks)."""

@@ -1,1 +1,2 @@
-"""Device layer of the port: CUDA platform handles and the tracked allocator."""
+"""Device layer of the port: CUDA platform handles, tracked allocators,
+event sync and side-stream transfers."""

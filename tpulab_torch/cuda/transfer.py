@@ -1,27 +1,31 @@
 """Device<->host transfers on a side CUDA stream (the port of
 ``tpulab/tpu/transfer.py`` and ``tpulab/tpu/copy.py``).
 
-:class:`TransferEngine` runs the write-behind copies of the host KV
-tier.  ``fetch(tensor)`` is called on the thread that produced
-``tensor`` (the batcher's scheduler thread): it records an event on that
-thread's current stream, makes a side stream wait on it, and enqueues
-the device-to-host copy there into page-locked memory — so the copy
-starts only after the work that produced the tensor, and the producer's
-stream never waits for it.  A collector thread waits on each copy's
-completion event and settles its future with the host tensor.  The
-source tensor stays referenced until that event has completed, so the
-caching allocator cannot hand its memory to later work first.
-``put(tensor, device)`` is the same in the other direction.  A CPU
-tensor needs no stream: its future settles with a copy.
+:class:`TransferEngine` runs the write-behind copies of the host KV tier
+and the device-to-host copies of the infer pipeline.  ``fetch(tree)`` is
+called on the thread that produced the tree's tensors, with the stream
+that produced them current (the batcher's scheduler thread; an execution
+context's stream on the infer path): it records an event on that
+stream, makes a side stream wait on it, and enqueues the device-to-host
+copies there into page-locked memory (or into ``out``, host tensors the
+caller owns, such as a staging block) — so the copies start only after
+the work that produced the tensors, and the producer's stream never
+waits for them.  A collector thread waits on the copies' completion
+event and settles the future with the same tree of host tensors.  The
+source tensors stay referenced until that event has completed, so the
+caching allocator cannot hand their memory to later work first.
+``put(tree, device)`` is the same in the other direction.  CPU tensors
+need no stream: the collector copies them.  A tree is a tensor or a
+(nested) dict of tensors.
 
 Current streams are per thread, which is why the event is recorded by
 the caller and never by the collector: an event on the collector's own
 current stream would order nothing.
 
 tpulab's ``"stack"`` mode (stacking same-shape leaves on the device to
-fetch them in one PjRt round trip) answers a cost of TPU runtimes that
-CUDA copies do not have, and is not carried; neither are pytrees (each
-call moves one tensor).
+fetch them in one PjRt round trip) and its coalesced puts (one
+``device_put`` per collector cycle) answer costs of TPU runtimes that
+CUDA copies do not have, and are not carried (ROADMAP decisions).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import collections
 import logging
 import threading
 from concurrent.futures import Future
-from typing import Deque, Dict, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,11 +43,32 @@ from tpulab_torch.cuda.platform import resolve_device
 log = logging.getLogger("tpulab_torch.cuda")
 
 
+def _flatten(tree: Any) -> Tuple[List[torch.Tensor], Callable]:
+    """A tree's tensor leaves and the function that rebuilds the tree
+    from a list of new leaves."""
+    if isinstance(tree, torch.Tensor):
+        return [tree], lambda leaves: leaves[0]
+    if not isinstance(tree, dict):
+        raise TypeError(f"not a tensor tree: {type(tree).__name__}")
+    parts = {k: _flatten(v) for k, v in tree.items()}
+    leaves = [t for sub, _ in parts.values() for t in sub]
+
+    def rebuild(new: List[Any]) -> Dict[str, Any]:
+        out, i = {}, 0
+        for k, (sub, fn) in parts.items():
+            out[k] = fn(new[i:i + len(sub)])
+            i += len(sub)
+        return out
+
+    return leaves, rebuild
+
+
 class TransferEngine:
     """Asynchronous device<->host copies settled by a collector thread."""
 
     def __init__(self, name: str = "d2h"):
-        #: entries: (completion event or None, source, destination, future)
+        #: entries: (completion event or None, [(source, destination or
+        #: None, copied on a stream)], rebuild, future)
         self._queue: Deque[Tuple] = collections.deque()
         self._cv = threading.Condition()
         self._shutdown = False
@@ -53,38 +78,61 @@ class TransferEngine:
         self._thread.start()
 
     # -- public API ---------------------------------------------------------
-    def fetch(self, tensor: torch.Tensor) -> Future:
-        """Device -> host: the future settles with a host tensor (pinned
-        for a CUDA source) once the copy has completed."""
+    def fetch(self, tree: Any, out: Any = None) -> Future:
+        """Device -> host: the future settles with the same tree of host
+        tensors (pinned for CUDA sources, or ``out``'s tensors, a tree of
+        the same structure) once every copy has completed."""
         self._check_open()
-        if not tensor.is_cuda:
-            return self._enqueue(None, tensor, None)
-        side = self._side_stream(tensor.device)
-        side.wait_event(torch.cuda.current_stream(tensor.device)
-                        .record_event())
-        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
-        with torch.cuda.stream(side):
-            host.copy_(tensor, non_blocking=True)
-        return self._enqueue(side.record_event(), tensor, host)
+        leaves, rebuild = _flatten(tree)
+        outs = _flatten(out)[0] if out is not None else [None] * len(leaves)
+        pairs, done = [], None
+        cuda = [t for t in leaves if t.is_cuda]
+        if cuda:
+            side = self._side_stream(cuda[0].device)
+            side.wait_event(torch.cuda.current_stream(cuda[0].device)
+                            .record_event())
+        for src, dst in zip(leaves, outs):
+            if not src.is_cuda:
+                pairs.append((src, dst, False))  # the collector copies it
+                continue
+            if dst is None:
+                dst = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=True)
+            with torch.cuda.stream(side):
+                dst.copy_(src, non_blocking=True)
+            pairs.append((src, dst, True))
+        if cuda:
+            done = side.record_event()
+        return self._enqueue(done, pairs, rebuild)
 
-    def put(self, tensor: torch.Tensor, device=None) -> Future:
+    def fetch_sync(self, tree: Any, timeout: Optional[float] = None) -> Any:
+        """:meth:`fetch` and wait for its result."""
+        return self.fetch(tree).result(timeout)
+
+    def put(self, tree: Any, device=None) -> Future:
         """Host -> ``device`` (default: the CUDA card): the future settles
-        with the device tensor once the copy has completed.  The result
-        is allocated on the caller's current stream."""
+        with the device tree once every copy has completed.  The results
+        are allocated on the caller's current stream."""
         self._check_open()
         dev = resolve_device(device)
-        if dev.type != "cuda":
-            return self._enqueue(None, tensor, None, dev)
-        out = torch.empty(tensor.shape, dtype=tensor.dtype, device=dev)
+        leaves, rebuild = _flatten(tree)
+        if dev.type != "cuda":          # the CPU: the collector copies
+            return self._enqueue(None, [(t, None, False) for t in leaves],
+                                 rebuild)
+        outs = [torch.empty(t.shape, dtype=t.dtype, device=dev)
+                for t in leaves]
         side = self._side_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            out.copy_(tensor, non_blocking=True)
-        return self._enqueue(side.record_event(), tensor, out)
+            for src, dst in zip(leaves, outs):
+                dst.copy_(src, non_blocking=True)
+        return self._enqueue(side.record_event(),
+                             [(s, d, True) for s, d in zip(leaves, outs)],
+                             rebuild)
 
     @property
     def backlog(self) -> int:
-        """Copies enqueued and not yet settled."""
+        """Transfers enqueued and not yet settled."""
         with self._cv:
             return len(self._queue)
 
@@ -111,13 +159,20 @@ class TransferEngine:
                 self._streams[index] = stream
             return stream
 
-    def _enqueue(self, done, src, dst, cpu_target=None) -> Future:
+    def _enqueue(self, done, pairs, rebuild) -> Future:
         fut: Future = Future()
         with self._cv:
-            self._queue.append((done, src, dst if dst is not None
-                                else cpu_target, fut))
+            self._queue.append((done, pairs, rebuild, fut))
             self._cv.notify()
         return fut
+
+    @staticmethod
+    def _settle_pair(src, dst, copied):
+        if copied:                   # on the side stream, now complete
+            return dst
+        if dst is None:              # a CPU fetch or a put to the CPU
+            return src.detach().clone()
+        return dst.copy_(src)        # a CPU fetch into ``out``
 
     def _run(self) -> None:
         while True:
@@ -126,23 +181,18 @@ class TransferEngine:
                     self._cv.wait()
                 if not self._queue:
                     return
-                done, src, dst, fut = self._queue.popleft()
-            value = None
+                done, pairs, rebuild, fut = self._queue.popleft()
             try:
                 if done is not None:
                     done.synchronize()
-                    value = dst
-                elif dst is None:          # a CPU fetch
-                    value = src.detach().clone()
-                else:                      # a put to a CPU device
-                    value = src.detach().to(dst, copy=True)
+                value = rebuild([self._settle_pair(*p) for p in pairs])
             except Exception as e:  # noqa: BLE001 - the collector must live
                 log.exception("transfer failed")
                 fut.set_exception(e)
             else:
                 fut.set_result(value)
-            # the source may be reused only now: its copy has completed
-            src = dst = value = None
+            # the sources may be reused only now: their copies completed
+            pairs = value = None
 
 
 def copy_to_device(host: torch.Tensor, device=None,

@@ -1,13 +1,22 @@
-"""The weight bridge: tpulab parameter trees -> the port's module.
+"""The weight bridge: tpulab parameter trees -> the port's trees.
 
-tpulab's ``init_transformer_params`` (or a checkpoint import) yields a
-pytree of JAX arrays; ``np.asarray`` on each leaf gives the numpy tree
-this module takes, with the same keys (``embed``, ``final_norm``,
-``layer{i}.{ln1,ln2,wqkv,wo,w1,w2,w3}``, ``lm_head``; a weight-only
-quantized matrix is a ``{"w_int8", "scale"}`` sub-tree).  Nothing here
-imports JAX: the caller does the ``np.asarray`` on its side.  bf16 leaves
-arrive as numpy arrays of the ``bfloat16`` extension dtype; their bits
-are carried over unchanged, as are int8 leaves'.
+tpulab's ``init_*_params`` (or a checkpoint import) yields a pytree of JAX
+arrays; ``np.asarray`` on each leaf gives the numpy tree this module
+takes, with the same keys, shapes and layouts:
+
+- transformer: ``embed``, ``final_norm``,
+  ``layer{i}.{ln1,ln2,wqkv,wo,w1,w2,w3}``, ``lm_head`` (a weight-only
+  quantized matrix is a ``{"w_int8", "scale"}`` sub-tree) —
+  :func:`params_from_numpy` wraps it into a :class:`Transformer`;
+- ResNet (HWIO conv kernels, folded-BN ``scale`` / ``bias``), ViT (either
+  dialect, a LayerNorm's ``eps`` included) and MNIST — :func:`tree_from_numpy`
+  gives the tree their ``*_apply`` functions and ``make_*(params=...)``
+  take.
+
+Nothing here imports JAX: the caller does the ``np.asarray`` on its side.
+bf16 leaves arrive as numpy arrays of the ``bfloat16`` extension dtype;
+their bits are carried over unchanged, as are int8 leaves'.  Python
+scalars (a checkpoint's ``eps``) pass through as they are.
 """
 
 from __future__ import annotations
@@ -37,11 +46,16 @@ def tensor_from_numpy(arr, device, dtype: Optional[torch.dtype] = None
 
 def tree_from_numpy(tree: Dict[str, Any], device,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """Map :func:`tensor_from_numpy` over a (nested dict) param tree."""
+    """Map :func:`tensor_from_numpy` over a (nested dict) param tree;
+    python scalars pass through."""
     out: Dict[str, Any] = {}
     for k, v in tree.items():
-        out[k] = (tree_from_numpy(v, device, dtype) if isinstance(v, dict)
-                  else tensor_from_numpy(v, device, dtype))
+        if isinstance(v, dict):
+            out[k] = tree_from_numpy(v, device, dtype)
+        elif isinstance(v, (int, float)):
+            out[k] = v
+        else:
+            out[k] = tensor_from_numpy(v, device, dtype)
     return out
 
 

@@ -11,8 +11,7 @@ input.  Embeddings and norms stay float.  The forwards dequantize through
 :func:`tpulab_torch.models.transformer.qmat`.
 
 tpulab's ResNet half (W8 / W8A8 convolutions) and its ``Calibrator``
-belong to the compiled-model path, which is not ported yet (ROADMAP queue
-1, item 5).
+are not ported with the compiled-model path (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations

@@ -26,8 +26,10 @@ default).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -495,3 +497,29 @@ def make_generate_fn(params, n_heads: int, n_layers: int, max_len: int,
         return torch.stack(out, 1)
 
     return generate
+
+
+def make_transformer(vocab: int = 32000, d_model: int = 512,
+                     n_heads: int = 8, n_layers: int = 6, d_ff: int = 2048,
+                     seq_len: int = 1024, max_batch_size: int = 4,
+                     compute_dtype=torch.bfloat16, seed: int = 0,
+                     attention_fn: Callable = causal_attention,
+                     n_kv_heads: Optional[int] = None, device=None):
+    """A servable transformer :class:`~tpulab_torch.engine.model.Model`
+    (binding ``tokens`` (seq_len,) int32 -> ``logits`` (seq_len, vocab)
+    f32), weights drawn on ``device`` (``None`` = the CUDA card)."""
+    from tpulab_torch.engine.model import IOSpec, Model
+
+    params = init_transformer_params(vocab, d_model, n_heads, n_layers, d_ff,
+                                     seed, n_kv_heads=n_kv_heads,
+                                     device=device)
+    return Model(
+        name="transformer",
+        apply_fn=partial(transformer_apply, n_heads=n_heads,
+                         n_layers=n_layers, compute_dtype=compute_dtype,
+                         attention_fn=attention_fn, n_kv_heads=n_kv_heads),
+        params=params,
+        inputs=[IOSpec("tokens", (seq_len,), np.int32)],
+        outputs=[IOSpec("logits", (seq_len, vocab), np.float32)],
+        max_batch_size=max_batch_size,
+    )
