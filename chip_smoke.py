@@ -127,6 +127,34 @@ raises and the script exits non-zero without printing a result:
    torch.profiler window at batch 128: the device's busy share (the
    union of kernel intervals over the wall time) and kernel time by
    class (conv, gemm, elementwise, other).
+7. hbm     — the HBM economy and weight multiplexing at full width: the
+   ragged-plan batcher over a fresh Llama-3-8B-width bf16 tree as the
+   KV tenant of an ``HBMArbiter`` (``n_pages=129``: one request's pages
+   plus the scratch page, so the size ladder is 129 / 258 / 516 / 1032;
+   ``kv_offload`` of 2 GiB), ResNet-50 and ViT-B/16 (phase 6's models)
+   and the pinned LLM tree as the weights tenant of a
+   ``WeightMultiplexer``.  A warm-up runs one request per mixed-round
+   width and decode-block size, so every (program, shape key) claims its
+   scratch first; the capacity is the LLM's bytes + the top rung + half
+   a page + that scratch.  Trace: a ViT-B/16 Infer (batch 8); a greedy
+   burst of 12 requests (1500 ... 300 tokens, 32 steps) with a ViT and a
+   ResNet Infer from two threads once every lane has its first token;
+   both Infers again after.  After every step ``arb.verify()`` holds and
+   no byte is over-committed; the ledger is printed beside
+   ``memory_allocated`` / ``memory_reserved``.  Checks: grows, shrinks,
+   demotions and evictions each >= 1; one prompt fill per request and
+   every host-tier snapshot restored (demoted lanes never re-prefill);
+   kernel 1 launches == 32 x forward steps; no new scratch key in the
+   trace; every Infer bit-identical to the unmultiplexed serve; every
+   greedy stream equal to a no-arbiter, fixed 1032-page batcher's, or
+   first differing where the two candidates lie within twice the bf16
+   noise of that prefix (the most two bf16 computations move a pair of
+   logits apart).  Then the 16 GB tree swapped out to a pinned
+   ``HostParamStore`` and back, twice, through a ``BatcherAdapter``
+   under a budget that holds the LLM or ViT-B/16, not both:
+   ``memory_allocated`` falls by the tree's bytes as the swap-out lands,
+   per-leaf checksums and a greedy request's tokens are unchanged;
+   seconds and GB/s each way.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1263,10 +1291,11 @@ def wire_length(pool, length, blob):
             + pages * pool.kv[:, 0].numel() * pool.kv.element_size())
 
 
-def replay_logits(torch, params, kw, seq, kv_dtype):
-    """The last position's f32 logits of ``seq`` (1, T): the dense
-    forward, or with ``kv_dtype`` one ragged forward over a fresh pool of
-    that dtype (the K/V rounded as the serve rounds them)."""
+def replay_logits(torch, params, kw, seq, kv_dtype, tail=None):
+    """The last position's f32 logits of ``seq`` (1, T) (with ``tail``,
+    the last ``tail`` positions', (tail, vocab)): the dense forward, or
+    with ``kv_dtype`` one ragged forward over a fresh pool of that dtype
+    (the K/V rounded as the serve rounds them)."""
     from tpulab_torch.engine.paged import PagedKVPool, paged_ragged_forward
     from tpulab_torch.models.transformer import (transformer_apply,
                                                  weight_shape)
@@ -1274,8 +1303,9 @@ def replay_logits(torch, params, kw, seq, kv_dtype):
     tokens = torch.from_numpy(seq).long().cuda()
     with torch.inference_mode():
         if kv_dtype is None:
-            return transformer_apply(params, {"tokens": tokens},
-                                     **kw)["logits"][0, -1]
+            logits = transformer_apply(params, {"tokens": tokens},
+                                       **kw)["logits"][0]
+            return logits[-1] if tail is None else logits[-tail:]
         t, s = seq.shape[1], 16
         d_model = weight_shape(params["layer0"]["wqkv"])[0]
         pool = PagedKVPool(-(-t // s) + 1, s, kw["n_layers"],
@@ -1285,9 +1315,9 @@ def replay_logits(torch, params, kw, seq, kv_dtype):
                              device="cuda")[None]
         n = torch.tensor([t], device="cuda")
         out = paged_ragged_forward(params, pool.kv, table, tokens, n, n,
-                                   last_only=True, **kw)[0]
+                                   last_only=tail is None, **kw)[0]
         pool.close()
-        return out
+        return out if tail is None else out[-tail:]
 
 
 def same_or_near_tie(torch, params, kw, label, prompt, want, got, temp=0.0,
@@ -2640,6 +2670,636 @@ def phase_infer(torch, card):
     return out
 
 
+# ---------------------------------------------------------------- phase 7
+# The HBM economy: the Llama-3-8B-width batcher (ragged plan, lanes 8,
+# max_len 2048, page 16) as the arbiter's KV tenant over an elastic pool
+# whose base is tpulab's small share, one request's pages plus the
+# scratch page (2048 / 16 + 1 = 129 pages of 2,097,152 bytes), so the
+# size ladder is 129 / 258 / 516 / 1032; ResNet-50 and ViT-B/16 (phase 6's
+# models) and the LLM's tree (pinned) as the weights tenant of a
+# WeightMultiplexer; a host KV tier of 2 GiB.
+HBM_BASE_PAGES = 129
+HBM_RUNGS = 3
+HBM_SERVE = dict(SERVE, n_pages=HBM_BASE_PAGES)
+HBM_KV_OFFLOAD = 2 << 30
+# the burst: the first 8 (one a lane) hold more than half the top rung
+# (578 prompt pages), so a squeeze to 516 pages must demote live lanes
+HBM_BURST = (1500, 1400, 1300, 1200, 1100, 1000, 900, 800, 700, 500, 400,
+             300)
+HBM_STEPS = 32
+HBM_INFER_BATCH = 8
+# the scratch warm-up: one request a mixed-round width (a prompt of n
+# tokens rides a round of width pow2(n): 1 ... 256) and a decode-block
+# size (steps 2 / 3 / 5 / 9 end on a block of 1 / 2 / 4 / 8), run alone:
+# every (program, shape key) the burst can reach is measured before it
+HBM_WARM = tuple(zip((1, 2, 3, 5, 9, 17, 33, 65, 129),
+                     (2, 3, 5, 9, 2, 3, 5, 9, 9)))
+
+
+def hbm_programs(cb):
+    """The batcher's scratch-measured programs."""
+    return {n: getattr(cb, n) for n in (
+        "_mixed_step", "_decode_block", "_decode_step", "_prefill",
+        "_extend")}
+
+
+def leaf_sums(torch, tree, prefix=""):
+    """Per-leaf checksums of a weight tree: the sum of the leaf's 16-bit
+    words and their sum weighted by position (mod 65521), over int64."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_sums(torch, v, f"{prefix}{k}/"))
+            continue
+        w = v.reshape(-1).view(torch.int16)
+        s1 = s2 = 0
+        for i, chunk in enumerate(w.split(1 << 26)):
+            x = chunk.to(torch.int64)
+            pos = (torch.arange(x.numel(), device=x.device)
+                   + i * (1 << 26)) % 65521 + 1
+            s1 += int(x.sum())
+            s2 += int((x * pos).sum())
+        out[prefix + k] = (s1, s2)
+    return out
+
+
+def picks_within_bf16_noise(torch, params, kw, label, prompt, stream,
+                            start):
+    """Hold every pick of ``stream`` from step ``start`` on against a
+    teacher-forced replay of its own prefix: at each step the pick's dense
+    logit lies within twice that position's bf16 path noise of the dense
+    top logit.  The noise is the largest distance one logit moves between
+    two bf16 computations of the same prefix (the dense forward and one
+    ragged forward over a fresh pool), so twice it is the most two such
+    computations can move a pair of logits apart.  One forward each way
+    replays every step.  Returns the largest gap / noise ratio."""
+    import numpy as np
+
+    n = len(stream)
+    seq = np.concatenate([prompt, np.asarray(stream[:-1], np.int32)])[None]
+    dense = replay_logits(torch, params, kw, seq, None, tail=n).float()
+    paged = replay_logits(torch, params, kw, seq, torch.bfloat16,
+                          tail=n).float()
+    noise = (dense - paged).abs().amax(-1)
+    picks = torch.tensor(stream, device=dense.device)
+    gap = dense.amax(-1) - dense.gather(1, picks[:, None])[:, 0]
+    bad = [(j, float(gap[j]), float(noise[j])) for j in range(start, n)
+           if gap[j] > 2 * noise[j]]
+    if bad:
+        raise AssertionError(f"{label}: picks (step, gap, noise) {bad} lie "
+                             "over twice the bf16 path noise below the "
+                             "dense top logit")
+    return float((gap[start:] / noise[start:].clamp_min(1e-30)).max())
+
+
+def same_or_bf16_noise(torch, params, kw, label, prompt, want, got):
+    """``got`` equals ``want``; or, from the first step where they differ,
+    every pick of both streams passes :func:`picks_within_bf16_noise`.
+    Returns a note for the log."""
+    if got == want:
+        return None
+    n = min(len(want), len(got))
+    i = next((j for j in range(n) if want[j] != got[j]), n)
+    if i == n:
+        raise AssertionError(f"{label}: lengths {len(want)} != {len(got)}")
+    r = max(picks_within_bf16_noise(torch, params, kw, label, prompt, x, i)
+            for x in (want, got))
+    return (f"{label} differs from step {i}, every pick from there on "
+            f"within {r:.2f} x the bf16 path noise of the dense top")
+
+
+class PageBytesCheck:
+    """Holds the KV pages' bytes across the elastic pool's moves, byte
+    for byte, on host copies (page-by-page runs, each layer's run one
+    contiguous copy: no device temporaries): a lane's live pages as it is
+    demoted to the host tier against the same pages after its restore,
+    and every page in use across each grow and shrink.  Wraps the
+    batcher's host tier and pool in place; ``resized(op, k)`` is called
+    as each resize returns, with its result.  Mismatches are collected, not
+    raised (a raise on the scheduler thread would go to its recovery
+    path); ``seconds`` is the time the copies took on that thread."""
+
+    def __init__(self, torch, cb, resized=None):
+        self.torch = torch
+        self.snaps, self.bad = {}, []
+        self.restores = self.resizes = self.nbytes = 0
+        self.seconds = 0.0
+        kvt, pool = cb.kv_offload, cb.pool
+        swap_out, restore, discard = kvt.swap_out, kvt.restore, kvt.discard
+
+        def checked_swap_out(pages, length, kv, key=None):
+            t0 = time.perf_counter()
+            snap = self.copy(kv, pages)
+            self.seconds += time.perf_counter() - t0
+            handle = swap_out(pages, length, kv, key)
+            if handle is not None:
+                self.snaps[handle.key] = (list(pages), snap)
+            return handle
+
+        def checked_restore(handle, pages, kv):
+            out = restore(handle, pages, kv)
+            want = self.snaps.pop(handle.key, None)
+            if out is not None and want is not None:
+                t0 = time.perf_counter()
+                if not self.torch.equal(self.copy(out, pages), want[1]):
+                    self.bad.append(("restore", handle.key, want[0], pages))
+                self.seconds += time.perf_counter() - t0
+                self.restores += 1
+            return out
+
+        def checked_discard(handle):
+            self.snaps.pop(handle.key, None)
+            return discard(handle)
+
+        kvt.swap_out, kvt.restore = checked_swap_out, checked_restore
+        kvt.discard = checked_discard
+        for op in ("grow", "shrink"):
+            fn = getattr(pool, op)
+
+            def checked_resize(n, fn=fn, op=op):
+                t0 = time.perf_counter()
+                with pool._lock:
+                    used = sorted(set(range(1, pool.n_pages))
+                                  - set(pool._free))
+                before = self.copy(pool.kv, used)
+                self.seconds += time.perf_counter() - t0
+                k = fn(n)
+                if resized is not None:
+                    resized(op, k)
+                t0 = time.perf_counter()
+                if not self.torch.equal(self.copy(pool.kv, used), before):
+                    self.bad.append((op, n, k, len(used)))
+                self.seconds += time.perf_counter() - t0
+                self.resizes += bool(k)
+                return k
+            setattr(pool, op, checked_resize)
+
+    def copy(self, kv, pages):
+        """The bytes of ``pages`` (in that order), (L, len(pages), ...) on
+        the host."""
+        raw = kv.view(self.torch.uint8)
+        out = self.torch.empty((raw.shape[0], len(pages)) + raw.shape[2:],
+                               dtype=self.torch.uint8)
+        i = 0
+        while i < len(pages):
+            j = i + 1
+            while j < len(pages) and pages[j] == pages[j - 1] + 1:
+                j += 1
+            for layer in range(raw.shape[0]):
+                out[layer, i:j].copy_(raw[layer, pages[i]:pages[j - 1] + 1])
+            i = j
+        self.nbytes += out.numel()
+        return out
+
+
+class SwapMetrics:
+    """The multiplexer's swap observer: (direction, seconds, bytes, the
+    CUDA allocator's live bytes as the swap settles).  A swap-out settles
+    after the transfer engine has dropped the device tree, so its reading
+    shows the freed memory."""
+
+    def __init__(self, torch):
+        self.torch, self.swaps = torch, []
+
+    def observe_swap_in(self, s, nbytes):
+        self.swaps.append(("in", s, nbytes,
+                           self.torch.cuda.memory_allocated()))
+
+    def observe_swap_out(self, s, nbytes):
+        self.swaps.append(("out", s, nbytes,
+                           self.torch.cuda.memory_allocated()))
+
+
+def hbm_burst(torch, cb, prompts, steps, on_first=None):
+    """Submit the burst at once, each request streaming (its index-0 token
+    counted; ``on_first(n)`` called on the scheduler thread with the
+    count); returns the streams."""
+    first = []
+
+    def hook(tok, i):
+        if i == 0:
+            first.append(tok)
+            if on_first is not None:
+                on_first(len(first))
+
+    with cb._cv:
+        futs = [cb.submit(p, steps, on_token=hook) for p in prompts]
+    return [[int(t) for t in f.result(timeout=900)] for f in futs]
+
+
+def phase_hbm(torch, card):
+    """The HBM economy and multi-model weight multiplexing at full width:
+    ``ContinuousBatcher(hbm=HBMArbiter(...))`` as the KV tenant, a
+    ``WeightMultiplexer(hbm=...)`` over ResNet-50, ViT-B/16 and the
+    (pinned) LLM tree as the weights tenant; then the LLM tree swapped
+    through a ``BatcherAdapter`` to a pinned ``HostParamStore`` and back.
+    Returns kernel 1's launches over the burst."""
+    import threading
+
+    import numpy as np
+
+    import tpulab_torch
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.hbm import (KV_TENANT, SCRATCH_TENANT, WEIGHTS_TENANT,
+                                  HBMArbiter)
+    from tpulab_torch.models import build_model
+    from tpulab_torch.modelstore import (BatcherAdapter, CompiledModelAdapter,
+                                         HostParamStore, WeightMultiplexer,
+                                         tree_nbytes)
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False     # the same kernels each call
+    torch.cuda.empty_cache()    # the earlier phases' cached blocks, once,
+    #                             before anything here is measured
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    llm_bytes = tree_nbytes(params)
+
+    # the weights tenant's compiled models; their raw trees are drawn on
+    # the CPU and dropped (the adapters redraw them for a cold rebuild)
+    mgr = tpulab_torch.InferenceManager(
+        max_exec_concurrency=INFER["concurrency"])
+    redraw = {}
+    for name, entry in INFER_MODELS:
+        def draw(entry=entry):
+            return build_model(entry, max_batch_size=INFER["max_batch_size"],
+                               input_dtype=np.uint8, device="cpu")
+        redraw[name] = draw
+        mgr.register_model(name, draw())
+    mgr.update_resources()
+    vis = [name for name, _ in INFER_MODELS]
+    vis_bytes = {n: tree_nbytes(mgr.compiled(n).device_params) for n in vis}
+    xs = {n: infer_images(np, HBM_INFER_BATCH, 700 + i)
+          for i, n in enumerate(vis)}
+
+    def infer(name):
+        return mgr.infer_runner(name).infer(input=xs[name]).result(
+            120)["logits"]
+
+    ref_out = {n: infer(n) for n in vis}        # no multiplexer
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in HBM_BURST]
+    top = HBM_BASE_PAGES << HBM_RUNGS
+
+    # the reference: no arbiter, a fixed full-size pool (the top rung);
+    # run twice, the second time in reverse order on a fresh batcher
+    refs = []
+    for order in (1, -1):
+        t0 = time.perf_counter()
+        ref_cb = ContinuousBatcher(params, device="cuda",
+                                   **dict(HBM_SERVE, n_pages=top), **kw)
+        try:
+            refs.append(hbm_burst(torch, ref_cb, prompts[::order],
+                                  HBM_STEPS)[::order])
+        finally:
+            ref_cb.shutdown()
+        del ref_cb
+        log(f"hbm: reference burst (no arbiter, fixed {top}-page pool"
+            f"{', reverse order' if order < 0 else ''}): {len(prompts)} "
+            f"requests x {HBM_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s")
+    ref, ref_rev = refs
+
+    # the KV tenant; the capacity is set once the warm-up has measured
+    # the programs' scratch
+    arb = HBMArbiter(1 << 50)
+    cb = ContinuousBatcher(params, device="cuda", kv_offload=HBM_KV_OFFLOAD,
+                           hbm=arb, **HBM_SERVE, **kw)
+    del params                  # the batcher holds the only reference
+    mux = None
+    try:
+        pn = cb.pool.page_nbytes
+        t0 = time.perf_counter()
+        for n, steps in HBM_WARM:
+            cb.submit(rng.integers(0, c["vocab"], (n,)).astype(np.int32),
+                      steps).result(timeout=300)
+        progs = hbm_programs(cb)
+        keys = {k: len(p.keys) for k, p in progs.items()}
+        scratch = arb.ledger.tenant_bytes(SCRATCH_TENANT)
+        claims = [(tag, b) for t, tag, b in arb.ledger.claims()
+                  if t == SCRATCH_TENANT]
+        if (len(claims) != sum(keys.values())
+                or not all(b > 0 for _, b in claims)):
+            raise AssertionError(f"hbm: scratch claims {len(claims)} for "
+                                 f"{keys} keys, bytes "
+                                 f"{sorted(b for _, b in claims)}")
+        log(f"hbm: scratch warm-up {time.perf_counter() - t0:.1f} s: "
+            f"{len(claims)} claims, one per (program, shape key) {keys}, "
+            f"{scratch} bytes in all (min "
+            f"{min(b for _, b in claims)}, max "
+            f"{max(b for _, b in claims)} a key) [{card}]")
+        # tpulab's bench rule (LLM weights + the top rung + half a page),
+        # plus the scratch just claimed: without it the claims would leave
+        # no headroom at all; the vision weights and the top rung still
+        # never fit together
+        capacity = llm_bytes + top * pn + pn // 2 + scratch
+        arb.ledger.capacity_bytes = capacity
+        mux = WeightMultiplexer(llm_bytes + sum(vis_bytes.values()),
+                                hbm=arb,
+                                host_budget_bytes=2 * sum(vis_bytes.values()))
+        mux.register("llm", BatcherAdapter(cb), pinned=True)
+        for n in vis:
+            mux.register(n, CompiledModelAdapter(mgr.compiled(n),
+                                                 redraw[n]))
+        log(f"hbm: capacity {capacity} bytes = LLM {llm_bytes} + top rung "
+            f"{top} x {pn} + half a page + scratch {scratch}; vision "
+            + ", ".join(f"{n} {b}" for n, b in vis_bytes.items())
+            + f"; base pool {cb.pool.n_pages} pages ({cb.pool.hbm_bytes} "
+            f"bytes), ladder {[HBM_BASE_PAGES << r for r in range(4)]}")
+
+        steps_log = []
+
+        def snap(label):
+            torch.cuda.synchronize()
+            bad = arb.verify()
+            led = arb.ledger
+            row = dict(step=label, claimed=led.total_claimed,
+                       kv=led.tenant_bytes(KV_TENANT),
+                       weights=led.tenant_bytes(WEIGHTS_TENANT),
+                       scratch=led.tenant_bytes(SCRATCH_TENANT),
+                       free=arb.free_hbm_bytes,
+                       allocated=torch.cuda.memory_allocated(),
+                       reserved=torch.cuda.memory_reserved(),
+                       pool_pages=cb.pool.n_pages,
+                       hot=mux.resident_models())
+            steps_log.append(row)
+            log(f"hbm: {label}: ledger {row['claimed']} (kv {row['kv']}, "
+                f"weights {row['weights']}, scratch {row['scratch']}), free "
+                f"{row['free']}; memory_allocated {row['allocated']}, "
+                f"memory_reserved {row['reserved']}, allocated minus kv + "
+                f"weights {row['allocated'] - row['kv'] - row['weights']}; "
+                f"pool {row['pool_pages']} pages; hot {row['hot']}")
+            if bad or row["free"] < 0:
+                raise AssertionError(f"hbm: {label}: verify {bad}, free "
+                                     f"{row['free']}")
+
+        def check_out(name, got, when):
+            if not torch.equal(torch.as_tensor(got),
+                               torch.as_tensor(ref_out[name])):
+                raise AssertionError(f"hbm: {name} Infer {when} is not "
+                                     "bit-identical to the unmultiplexed "
+                                     "serve")
+
+        def leased_infer(name, timing):
+            t1 = time.perf_counter()
+            with mux.acquire(name, timeout=300):
+                timing[name] = time.perf_counter() - t1
+                return infer(name)
+
+        snap("registered")
+        acq = {}
+        check_out("vit_b16", leased_infer("vit_b16", acq), "(step 1)")
+        snap(f"1. ViT-B/16 Infer, batch {HBM_INFER_BATCH} (acquire "
+             f"{acq['vit_b16'] * 1e3:.1f} ms)")
+
+        # 2-3. the burst; both Infers once every lane has its first token
+        trigger = threading.Event()
+        events = []
+        t_burst = [0.0]
+
+        def lanes_now():
+            return [(x["state"], x["pages"]) for x in
+                    cb.debug_state()["lanes"] if x["state"] != "idle"]
+
+        pages_held = PageBytesCheck(
+            torch, cb, lambda op, k: events.append(
+                (time.perf_counter() - t_burst[0], op, k, cb.pool.n_pages)))
+        ragged_paged_attention.launches = 0
+        ragged_paged_attention.launches_by_body = dict.fromkeys(
+            ragged_paged_attention.launches_by_body, 0)
+        kvt = cb.kv_offload
+        before = dict(fs=cb.forward_steps, fills=cb.prompt_fills,
+                      grows=cb.hbm_grows, shrinks=cb.hbm_shrinks,
+                      demotions=cb.hbm_demotions, swap_ins=kvt.swap_ins,
+                      swap_outs=kvt.swap_outs, evictions=mux.evictions,
+                      denials=arb.denials)
+        mid, outs = {}, {}
+
+        def mid_burst():
+            trigger.wait(600)
+            events.append((time.perf_counter() - t_burst[0], "trigger",
+                           lanes_now(), cb.pool.n_pages))
+            threads = [threading.Thread(
+                target=lambda n=n: outs.__setitem__(n, leased_infer(n, mid)))
+                for n in vis]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            events.append((time.perf_counter() - t_burst[0], "leased",
+                           lanes_now(), cb.pool.n_pages))
+
+        def on_first(n):
+            # on the scheduler thread: once every lane has its first
+            # token, start the Infers and hold this tick until the
+            # arbiter has pressed the KV tenant, so the squeeze finds the
+            # lanes as they are now (the top half of the pool live)
+            if n != cb.lanes:
+                return
+            pressed = arb.demotions_forced
+            trigger.set()
+            end = time.monotonic() + 30
+            while (arb.demotions_forced == pressed
+                   and time.monotonic() < end):
+                time.sleep(0.001)
+
+        side = threading.Thread(target=mid_burst)
+        side.start()
+        t0 = t_burst[0] = time.perf_counter()
+        try:
+            got = hbm_burst(torch, cb, prompts, HBM_STEPS, on_first)
+        finally:
+            trigger.set()           # a failed burst must not strand it
+        wall = time.perf_counter() - t0
+        side.join(600)
+        launches = ragged_paged_attention.launches
+        by_body = dict(ragged_paged_attention.launches_by_body)
+        fs = cb.forward_steps - before["fs"]
+        for n in vis:
+            if n not in outs:
+                raise AssertionError(f"hbm: the mid-burst {n} Infer failed")
+            check_out(n, outs[n], "(mid-burst)")
+        log("hbm: burst timeline (s from submit): " + "; ".join(
+            f"{t:.3f} {what} {x} -> {n} pages" for t, what, x, n in events)
+            + f"; the page-byte checks' host copies took "
+            f"{pages_held.seconds:.3f} s of the scheduler thread")
+        snap(f"2-3. burst of {len(prompts)} x {HBM_STEPS} in {wall:.2f} s, "
+             "ViT-B/16 and ResNet-50 Infers mid-burst (acquire "
+             + ", ".join(f"{n} {s * 1e3:.1f} ms" for n, s in mid.items())
+             + ")")
+        after = {}
+        for n in vis:
+            check_out(n, leased_infer(n, after), "(after the burst)")
+        if not mux.drain(120) or not cb.kv_offload.drain(120):
+            raise AssertionError("hbm: write-behind swaps did not settle")
+        snap("4. both Infers after the burst (acquire " + ", ".join(
+            f"{n} {s * 1e3:.1f} ms" for n, s in after.items()) + ")")
+
+        # the checks
+        new_keys = {k: len(p.keys) - keys[k] for k, p in progs.items()}
+        d = dict(fills=cb.prompt_fills - before["fills"],
+                 grows=cb.hbm_grows - before["grows"],
+                 shrinks=cb.hbm_shrinks - before["shrinks"],
+                 demotions=cb.hbm_demotions - before["demotions"],
+                 snapshots=kvt.swap_outs - before["swap_outs"],
+                 resumes=kvt.swap_ins - before["swap_ins"],
+                 evictions=mux.evictions - before["evictions"],
+                 denials=arb.denials - before["denials"])
+        log(f"hbm: counters over the trace {d}; arbiter grants "
+            f"{arb.grants}, pressure rounds {arb.pressure_events}, forced "
+            f"demotions {arb.demotions_forced}, forced evictions "
+            f"{arb.evictions_forced}; multiplexer swap-ins {mux.swap_ins} "
+            f"({mux.swap_in_bytes} bytes), swap-outs {mux.swap_outs} "
+            f"({mux.swap_out_bytes} bytes), cold rebuilds "
+            f"{mux.cold_rebuilds}, failures {mux.swap_failures}; kv tier "
+            f"swap-outs {cb.kv_offload.swap_outs}, failures "
+            f"{cb.kv_offload.swap_failures}, drops {cb.kv_offload.swap_drops}"
+            f"; ragged launches {launches} = {c['n_layers']} x {fs} "
+            f"forward steps, by body {by_body} [{card}]")
+        if not (d["grows"] >= 1 and d["shrinks"] >= 1 and d["demotions"] >= 1
+                and mux.evictions >= 1):
+            raise AssertionError(f"hbm: the economy did not move: {d}, "
+                                 f"evictions {mux.evictions}")
+        # a demoted lane resumes from its host-tier snapshot (a lane
+        # demoted again before its restore keeps the one snapshot): every
+        # snapshot restored, none lost, and no prompt filled twice
+        if (d["fills"] != len(prompts) or d["resumes"] != d["snapshots"]
+                or d["snapshots"] < 1 or kvt.swap_failures or kvt.swap_drops):
+            raise AssertionError(f"hbm: {d['fills']} prompt fills for "
+                                 f"{len(prompts)} requests, {d['snapshots']} "
+                                 f"host-tier snapshots, {d['resumes']} "
+                                 f"restores, failures {kvt.swap_failures}, "
+                                 f"drops {kvt.swap_drops}")
+        if launches != c["n_layers"] * fs or by_body.get("wgmma") != launches:
+            raise AssertionError(f"hbm: ragged launches {launches} vs "
+                                 f"{c['n_layers']} x {fs}, by body "
+                                 f"{by_body}")
+        # the KV bytes across the elastic moves, exactly: every restored
+        # lane's pages equal its pages as it was demoted, and every page
+        # in use kept its bytes across every grow and shrink
+        if (pages_held.bad or pages_held.restores != d["resumes"]
+                or pages_held.resizes != d["grows"] + d["shrinks"]):
+            raise AssertionError(f"hbm: KV page bytes changed {pages_held.bad}"
+                                 f"; restores checked {pages_held.restores} "
+                                 f"of {d['resumes']}, resizes checked "
+                                 f"{pages_held.resizes} of "
+                                 f"{d['grows'] + d['shrinks']}")
+        log(f"hbm: KV page bytes held exactly: {pages_held.restores} host-tier"
+            f" restores equal their lanes' pages at demotion, every page in "
+            f"use equal across {pages_held.resizes} grows and shrinks "
+            f"({pages_held.nbytes} bytes copied to the host and compared) "
+            f"[{card}]")
+        if any(new_keys.values()) or mux.swap_failures or mux.cold_rebuilds:
+            raise AssertionError(f"hbm: scratch keys the warm-up missed "
+                                 f"{new_keys}, swap failures "
+                                 f"{mux.swap_failures}, cold rebuilds "
+                                 f"{mux.cold_rebuilds}")
+        # the streams: equal to the no-arbiter reference, or, from the
+        # first step they differ, every pick of both held to a
+        # teacher-forced replay; the reference's own second run (the same
+        # burst in reverse order) is held the same way, the witness that
+        # the schedule alone moves bf16 picks
+        notes = [same_or_bf16_noise(torch, cb.params, kw, f"request {i} "
+                                    f"({len(p)} tokens)", p, w, g)
+                 for i, (p, w, g) in enumerate(zip(prompts, ref, got))]
+        notes = [x for x in notes if x]
+        witness = [same_or_bf16_noise(torch, cb.params, kw, f"reference "
+                                      f"request {i} reversed", p, w, g)
+                   for i, (p, w, g) in enumerate(zip(prompts, ref, ref_rev))]
+        witness = [x for x in witness if x]
+        log(f"hbm: {len(prompts) - len(notes)}/{len(prompts)} greedy "
+            "streams token-identical to the reference (no arbiter, fixed "
+            "full-size pool)" + ("; " + "; ".join(notes) if notes else "")
+            + f". The reference burst again in reverse order: "
+            f"{len(prompts) - len(witness)}/{len(prompts)} streams "
+            "identical to its first run"
+            + ("; " + "; ".join(witness) if witness else "")
+            + f". {sum(g in (w, v) for g, w, v in zip(got, ref, ref_rev))}"
+            f"/{len(prompts)} arbiter streams identical to one of the two "
+            "reference runs"
+            + f". Every Infer bit-identical to the unmultiplexed serve; "
+            f"ledger == gauges and free >= 0 after every step [{card}]")
+
+        # the LLM swap: a weights budget that holds the LLM or ViT-B/16,
+        # not both, over a pinned host tier
+        mux.close()
+        mux = None
+        probe = rng.integers(0, c["vocab"], (64,)).astype(np.int32)
+        want = cb.submit(probe, 16).result(timeout=300)
+        sums = leaf_sums(torch, cb.params)
+        vit = vis_bytes["vit_b16"]
+        obs = SwapMetrics(torch)
+        mux = WeightMultiplexer(
+            max(llm_bytes, vit) + min(llm_bytes, vit) // 2,
+            store=HostParamStore(llm_bytes + 2 * vit),
+            metrics=obs)
+        mux.register("llm", BatcherAdapter(cb))
+        trips = []
+        for trip in range(2):
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            if trip == 0:   # ViT-B/16 enters hot: the trim evicts the LLM
+                mux.register("vit_b16",
+                             CompiledModelAdapter(mgr.compiled("vit_b16")))
+            else:           # ViT-B/16's acquire evicts it again
+                mux.acquire("vit_b16", timeout=300).release()
+            if not mux.drain(600):
+                raise AssertionError("hbm: the LLM swap-out did not land")
+            t_out = time.perf_counter() - t0
+            # the live bytes as the LLM's swap-out settled (trip 2's
+            # acquire places ViT-B/16 only after that)
+            out_s, landed = [(s_, a) for d_, s_, b, a in obs.swaps
+                             if d_ == "out" and b == llm_bytes][-1]
+            drop = a0 - landed
+            if (mux.state_of("llm") != "cold" or cb.params is not None
+                    or drop < llm_bytes):
+                raise AssertionError(f"hbm: LLM swap-out: state "
+                                     f"{mux.state_of('llm')}, "
+                                     f"memory_allocated fell {drop} bytes "
+                                     f"(tree {llm_bytes})")
+            t0 = time.perf_counter()
+            lease = mux.acquire("llm", timeout=600)
+            t_in = time.perf_counter() - t0
+            try:
+                again = cb.submit(probe, 16).result(timeout=300)
+                ok_sums = leaf_sums(torch, cb.params) == sums
+            finally:
+                lease.release()
+            if again != want or not ok_sums:
+                raise AssertionError(f"hbm: after the LLM swap, trip "
+                                     f"{trip}: tokens equal {again == want}"
+                                     f", leaf checksums equal {ok_sums}")
+            in_s = [s_ for d_, s_, b, _ in obs.swaps
+                    if d_ == "in" and b == llm_bytes][-1]
+            trips.append((t_out, out_s, t_in, in_s, drop))
+            log(f"hbm: LLM swap trip {trip + 1}: {llm_bytes} bytes out in "
+                f"{out_s:.3f} s landed ({gbps(llm_bytes, out_s):.2f} GB/s; "
+                f"{t_out:.3f} s to the drain), memory_allocated fell "
+                f"{drop} bytes as it landed; back in {in_s:.3f} s "
+                f"({gbps(llm_bytes, in_s):.2f} GB/s, pop + place + sync; "
+                f"acquire {t_in:.3f} s incl. ViT-B/16's write-behind "
+                f"swap-out); {len(sums)} leaf checksums equal, a greedy "
+                f"64-token x 16 request gives the same tokens [{card}]")
+    finally:
+        if mux is not None:
+            mux.close()
+        cb.shutdown()
+        mgr.shutdown()
+    log(f"hbm: " + json.dumps(dict(steps=steps_log, counters=d,
+                                   launches=launches, forward_steps=fs,
+                                   trips=trips, scratch_claims=len(claims),
+                                   scratch_bytes=scratch,
+                                   capacity=capacity)))
+    log(f"hbm: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -2728,6 +3388,7 @@ def main(argv=None) -> int:
     st = phase_serve(torch, card, args.profile)
     log(f"serve: phase {time.perf_counter() - t0:.1f} s")
     phase_infer(torch, card)
+    hbm_launches = phase_hbm(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -2738,13 +3399,14 @@ def main(argv=None) -> int:
                      + st["int8 split"]["launches"]["ragged"]
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
-                     + st["disagg"],
+                     + st["disagg"] + hbm_launches,
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
                      "and split-plan serve runs + speculative serve run + "
-                     "preempting serve (host tier side) + disagg serve",
+                     "preempting serve (host tier side) + disagg serve + "
+                     "the hbm phase's burst",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",

@@ -416,7 +416,7 @@ def test_split_plan_defaults(lm):
     (dict(kv_offload=True, kv_publish=True), "host tier"),
     (dict(kv_publish=True), "host tier"),
     (dict(mesh=object()), "parallelism"),
-    (dict(hbm=object()), "HBM economy"),
+    (dict(hbm=object(), mesh=object()), "HBM economy"),
     (dict(flight=object()), "queue 1"),
     (dict(trace=object()), "observability"),
     (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),

@@ -17,6 +17,12 @@ Layer map (mirrors tpulab's)::
                           the compiled-model path (Runtime, InferenceManager,
                           Buffers / Bindings, InferRunner, BatchedInferRunner,
                           InferBench)
+    tpulab_torch.kvcache  the host KV tier (HostKVStore, KVOffloadManager)
+    tpulab_torch.disagg   KV over the wire (KVShipper)
+    tpulab_torch.hbm      the device-memory economy (DeviceHBMLedger,
+                          HBMArbiter, MeasuredJit)
+    tpulab_torch.modelstore  weight multiplexing (HostParamStore,
+                          WeightMultiplexer and its adapters)
 
 Top-level serving API (tpulab's quickstart)::
 

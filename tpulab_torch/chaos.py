@@ -46,6 +46,20 @@ Injection points planted in the port:
                     per call on each side: error/drop lose that KV
                     shipment, and the decode replica degrades to a local
                     prefill — never a corrupt lane or a stuck request
+    modelstore.swap WeightMultiplexer swap-out / swap-in
+                    (tpulab_torch.modelstore): error/drop at swap-out
+                    lose that model's weight snapshot (its device memory
+                    still frees; the next acquire cold-rebuilds), at
+                    swap-in discard the host copy and serve a cold
+                    rebuild instead: degraded weights are always REBUILT
+                    weights, never a corrupt serve
+    hbm.pressure    HBMArbiter decision sites (tpulab_torch.hbm): one trip
+                    per pressed tenant per pressure round (demote-KV,
+                    evict-model) and one at the denial — error/drop
+                    suppress that decision, so the requester degrades to
+                    its static-budget behavior (the multiplexer waits on
+                    its own budget, the batcher queues on its current
+                    pool).  The ledger is never touched on a tripped path
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
 ``tpulab/memory``'s ``MallocAllocator`` behind ``make_allocator``, as the
 host KV tier uses it).
 
-The KV page store is a block owned by :class:`DeviceRawAllocator`:
+The KV page store is a block owned by :class:`DeviceRawAllocator`, and so
+is a compiled model's weight tree (``allocate_tree``, one block for the
+whole tree, as tpulab's weight capture):
 ``allocate_array`` hands out a zeroed tensor under a synthetic address,
 every live byte is counted (``bytes_in_use`` is the gauge), and
 ``replace`` swaps a block's tensor for its successor when the pool grows
@@ -31,8 +33,28 @@ _ADDR_BASE = 1 << 60
 _ADDR_STRIDE = 1 << 40
 
 
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
+def _nbytes(t) -> int:
+    """Bytes of a tensor, or of every tensor leaf of a (nested) dict,
+    list or tuple."""
+    if isinstance(t, dict):
+        return sum(_nbytes(v) for v in t.values())
+    if isinstance(t, (list, tuple)):
+        return sum(_nbytes(v) for v in t)
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+
+
+def place_tree(tree, device):
+    """``tree`` (nested dicts, lists and tuples) with every tensor on
+    ``device``: a leaf already there as it is, a host leaf copied on the
+    caller's current stream with its dense strides kept (asynchronously
+    from page-locked memory); other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: place_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place_tree(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, non_blocking=tree.is_pinned())
+    return tree
 
 
 class _TrackedAllocator:
@@ -47,16 +69,24 @@ class _TrackedAllocator:
     def _new(self, shape, dtype) -> torch.Tensor:
         raise NotImplementedError
 
+    def _register(self, value) -> int:
+        with self._lock:
+            addr = _ADDR_BASE + next(self._next) * _ADDR_STRIDE
+            self._buffers[addr] = value
+            self._sizes[addr] = _nbytes(value)
+        return addr
+
     def allocate_array(self, shape, dtype) -> Tuple[int, torch.Tensor]:
         """A tensor owned by this allocator, under a new address."""
         buf = self._new(tuple(shape), dtype)
-        with self._lock:
-            addr = _ADDR_BASE + next(self._next) * _ADDR_STRIDE
-            self._buffers[addr] = buf
-            self._sizes[addr] = _nbytes(buf)
-        return addr, buf
+        return self._register(buf), buf
 
-    def replace(self, addr: int, new_value: torch.Tensor) -> torch.Tensor:
+    def adopt(self, value) -> int:
+        """Register a tensor (or tree) the caller hands over as a block of
+        this allocator, without copying it; returns its address."""
+        return self._register(value)
+
+    def replace(self, addr: int, new_value):
         """Give block ``addr`` a new tensor (pool grow/shrink); its byte
         count follows the successor."""
         with self._lock:
@@ -66,12 +96,20 @@ class _TrackedAllocator:
             self._sizes[addr] = _nbytes(new_value)
         return new_value
 
+    def buffer(self, addr: int):
+        """The tensor (or tree) of a live block."""
+        with self._lock:
+            buf = self._buffers.get(addr)
+        if buf is None:
+            raise KeyError(f"0x{addr:x} is not a block of this allocator")
+        return buf
+
     def node_size(self, addr: int) -> int:
         """Tracked bytes of one live block (0 for unknown/freed)."""
         with self._lock:
             return self._sizes.get(addr, 0)
 
-    def deallocate_node(self, addr: int) -> torch.Tensor:
+    def deallocate_node(self, addr: int):
         """Free one block (its bytes leave the gauge).  Returns its tensor,
         which a caller may keep using: the memory itself goes back to
         PyTorch once the last reference dies."""
@@ -99,6 +137,17 @@ class DeviceRawAllocator(_TrackedAllocator):
     def _new(self, shape, dtype) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def allocate_tree(self, tree) -> Tuple[int, dict]:
+        """Weight capture (tpulab's ``allocate_tree``): a tree (nested
+        dicts, lists and tuples) of tensors placed on this device as ONE
+        tracked block, its bytes the sum of its tensor leaves.  Leaves
+        already on the device are taken as they are (no copy); host leaves
+        copy on the caller's current stream, keeping a dense layout's
+        strides (asynchronously from page-locked memory).  Returns the
+        block's address and the device tree."""
+        dev = place_tree(tree, self.device)
+        return self._register(dev), dev
+
 
 class HostRawAllocator(_TrackedAllocator):
     """Tracked raw allocator over host memory (blocks uninitialised);
@@ -111,3 +160,10 @@ class HostRawAllocator(_TrackedAllocator):
 
     def _new(self, shape, dtype) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, pin_memory=self.pinned)
+
+    def allocate_like(self, src: torch.Tensor) -> Tuple[int, torch.Tensor]:
+        """A block of ``src``'s shape and dtype (and strides, for a dense
+        layout), under a new address."""
+        from tpulab_torch.cuda.transfer import host_like
+        buf = host_like(src, self.pinned)
+        return self._register(buf), buf

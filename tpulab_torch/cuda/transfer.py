@@ -50,17 +50,38 @@ def _flatten(tree: Any) -> Tuple[List[torch.Tensor], Callable]:
         return [tree], lambda leaves: leaves[0]
     if not isinstance(tree, dict):
         raise TypeError(f"not a tensor tree: {type(tree).__name__}")
-    parts = {k: _flatten(v) for k, v in tree.items()}
-    leaves = [t for sub, _ in parts.values() for t in sub]
+    leaves: List[torch.Tensor] = []
+    parts = []          # (key, leaf count, rebuild): never the leaves
+    for k, v in tree.items():
+        sub, fn = _flatten(v)
+        leaves += sub
+        parts.append((k, len(sub), fn))
 
     def rebuild(new: List[Any]) -> Dict[str, Any]:
         out, i = {}, 0
-        for k, (sub, fn) in parts.items():
-            out[k] = fn(new[i:i + len(sub)])
-            i += len(sub)
+        for k, n, fn in parts:
+            out[k] = fn(new[i:i + n])
+            i += n
         return out
 
     return leaves, rebuild
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """A layout a copy can keep: contiguous, or channels-last (the
+    compiled models' convolution kernels)."""
+    return t.is_contiguous() or (
+        t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last))
+
+
+def host_like(src: torch.Tensor, pinned: bool) -> torch.Tensor:
+    """An uninitialised host tensor of ``src``'s shape and dtype, with
+    its strides when its layout is dense (a channels-last weight stays
+    channels-last through a round trip), page-locked when ``pinned``."""
+    if _dense(src):
+        return torch.empty_strided(src.shape, src.stride(), dtype=src.dtype,
+                                   pin_memory=pinned)
+    return torch.empty(src.shape, dtype=src.dtype, pin_memory=pinned)
 
 
 class TransferEngine:
@@ -96,8 +117,7 @@ class TransferEngine:
                 pairs.append((src, dst, False))  # the collector copies it
                 continue
             if dst is None:
-                dst = torch.empty(src.shape, dtype=src.dtype,
-                                  pin_memory=True)
+                dst = host_like(src, pinned=True)
             with torch.cuda.stream(side):
                 dst.copy_(src, non_blocking=True)
             pairs.append((src, dst, True))
@@ -188,11 +208,15 @@ class TransferEngine:
                 value = rebuild([self._settle_pair(*p) for p in pairs])
             except Exception as e:  # noqa: BLE001 - the collector must live
                 log.exception("transfer failed")
+                pairs = None
                 fut.set_exception(e)
             else:
+                # the sources may be reused only now (their copies
+                # completed): drop them before the future settles, so a
+                # callback that releases their accounting finds them freed
+                pairs = None
                 fut.set_result(value)
-            # the sources may be reused only now: their copies completed
-            pairs = value = None
+            value = rebuild = None
 
 
 def copy_to_device(host: torch.Tensor, device=None,

@@ -45,11 +45,17 @@ Pages may store a narrower dtype than the compute path
 narrow pages themselves.  Weight-only int8 trees serve unchanged: the
 forwards dequantize through ``qmat``.
 
+With ``hbm`` (an :class:`~tpulab_torch.hbm.HBMArbiter`) the batcher is
+the arbiter's KV tenant: its page store grows on a ladder when queued
+work wants pages (the arbiter may evict a cold model to supply them) and
+shrinks when another tenant presses it (idle lanes demote through the
+host tier first), and each program records its scratch per shape key.
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the
-fleet KV fabric's publish (``kv_publish``), meshes, the HBM arbiter,
-tracing and the flight recorder are not ported: their constructor
-arguments raise ``NotImplementedError`` naming the ROADMAP item.
+fleet KV fabric's publish (``kv_publish``), meshes, tracing and the
+flight recorder are not ported: their constructor arguments raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -103,6 +109,10 @@ class PagedKVPool:
         self._free: List[int] = list(range(1, n_pages))
         self._refs: Dict[int, int] = {}
         self._lock = threading.Lock()
+        #: allocate lowest page ids first (the HBM arbiter arms this):
+        #: live data packs toward page 0, so the TOP of the store stays
+        #: contiguously free and :meth:`shrink` can return real bytes
+        self.prefer_low_pages = False
 
     @property
     def kv(self) -> torch.Tensor:
@@ -151,7 +161,11 @@ class PagedKVPool:
         with self._lock:
             if not self._free:
                 return None
-            page = self._free.pop()
+            if self.prefer_low_pages:
+                page = min(self._free)
+                self._free.remove(page)
+            else:
+                page = self._free.pop()
             self._refs[page] = 1
             return page
 
@@ -179,6 +193,19 @@ class PagedKVPool:
         with self._lock:
             return self._refs.get(page, 0)
 
+    # -- elastic capacity (the HBM economy, tpulab_torch.hbm) ---------------
+    # Under an arbiter the batcher grows the store when a KV burst wins
+    # bytes from the other tenants and shrinks it when a model's residency
+    # squeezes KV back.  Both re-materialize the store through the tracked
+    # allocator's replace() slot, so the gauge (and the ledger claim
+    # mirroring it) follows the tracked byte count exactly.  Page ids are
+    # STABLE: grow appends ids, shrink only drops contiguously free ids off
+    # the top — no live block table is ever remapped.  Each briefly holds
+    # the old and the new store (a copy the ledger does not see), and the
+    # old store's memory stays reserved by PyTorch's caching allocator
+    # after it is freed.  Scheduler-thread only, with no block in flight
+    # (the old store is freed on the scheduler's stream, after every
+    # forward enqueued there has read it).
     def shrinkable_pages(self) -> int:
         """Free pages contiguously at the TOP of the store."""
         with self._lock:
@@ -194,9 +221,13 @@ class PagedKVPool:
         extra = int(extra_pages)
         if extra <= 0:
             return 0
-        pad = torch.zeros((self._shape[0], extra) + self._shape[2:],
+        n = self.n_pages
+        new = torch.empty((self._shape[0], n + extra) + self._shape[2:],
                           dtype=self._dtype, device=self.device)
-        self.kv = torch.cat([self._kv, pad], dim=1)
+        dst = pool_bytes(new)      # fp8 stores: through a byte view
+        dst[:, :n].copy_(pool_bytes(self._kv))
+        dst[:, n:].zero_()
+        self.kv = new
         with self._lock:
             self._free.extend(range(self.n_pages, self.n_pages + extra))
             self.n_pages += extra
@@ -915,10 +946,16 @@ class ContinuousBatcher:
         if kv_publish:
             raise _unported("kv_publish (the fleet publish of host tier KV)",
                             "item 5, the fleet KV fabric")
+        if mesh is not None and hbm is not None:
+            # tpulab itself refuses an elastic pool under a mesh (its
+            # per-shard grow/shrink accounting is untested)
+            raise NotImplementedError(
+                "an HBM-arbiter-armed batcher (the HBM economy's elastic "
+                "pool) under a mesh is not supported, as in tpulab; and "
+                "mesh= is not ported to tpulab_torch yet (ROADMAP queue 1: "
+                "parallelism)")
         if mesh is not None:
             raise _unported("mesh", "parallelism")
-        if hbm is not None:
-            raise _unported("hbm", "the HBM economy")
         if flight is not None or trace is not None:
             raise _unported("flight / trace",
                             "the rest of queue 1 (observability)")
@@ -975,6 +1012,28 @@ class ContinuousBatcher:
         self.pool = pool or PagedKVPool(
             n_pages or self.max_pages * lanes + 1, page_size, n_layers,
             n_kv, d_model // n_heads, kv_dtype, self.device)
+        # the HBM economy (tpulab_torch.hbm): with an arbiter the batcher
+        # is the KV TENANT — the page store becomes elastic (a KV burst
+        # wins bytes from cold models through the arbiter's pressure
+        # protocol; a hot model's acquire squeezes idle KV down to the
+        # host tier), and every program records its scratch with the
+        # ledger.  Set before the programs are built so scratch measuring
+        # can wrap them.
+        self.hbm = hbm
+        self._hbm_reclaim_bytes = 0  # outstanding arbiter reclaim target
+        self.hbm_grows = 0           # pool grow ops granted by the arbiter
+        self.hbm_shrinks = 0         # pool shrink ops under pressure
+        self.hbm_demotions = 0       # lanes demoted (preempted) by pressure
+        #: elastic pool sizes snap to a geometric ladder off the initial
+        #: size (n0, 2*n0, 4*n0, ...): tpulab bounds its compiled shapes so;
+        #: the port keeps the ladder, so both packages resize alike
+        self._hbm_pool_base = self.pool.n_pages
+        self._hbm_starved_passes = 0  # hold-and-wait breaker streak
+        if hbm is not None:
+            self.pool.prefer_low_pages = True
+        #: the weights; ``None`` while a
+        #: :class:`~tpulab_torch.modelstore.BatcherAdapter` has them
+        #: swapped out (the batcher must be idle then)
         self.params = _tree_to(tree, self.device)
         self.n_layers = n_layers
         self._step_kw = dict(n_heads=n_heads, n_layers=n_layers,
@@ -989,8 +1048,16 @@ class ContinuousBatcher:
         #: kernel; a failure there fails the requests (the scheduler's
         #: recovery path) and leaves this as set
         self.prefill_flash = bool(prefill_flash)
-        self._prefill = self._build_prefill(self.prefill_flash)
-        self._extend = functools.partial(paged_extend, **self._step_kw)
+        self._prefill = self._program(self._build_prefill(
+            self.prefill_flash))
+        self._extend = self._program(functools.partial(paged_extend,
+                                                       **self._step_kw))
+        self._mixed_step = self._program(functools.partial(
+            paged_mixed_step, **self._step_kw))
+        self._decode_block = self._program(functools.partial(
+            paged_decode_block, **self._step_kw))
+        self._decode_step = self._program(functools.partial(
+            paged_decode_step, **self._step_kw))
         # -- speculative decoding: a draft model riding the SAME pool
         #    through a second per-lane page table.  ``draft_params`` arms
         #    it: each dispatch drafts K tokens per lane, verifies them in
@@ -1022,14 +1089,14 @@ class ContinuousBatcher:
                                  rope_theta=rope_theta)
             # one program for every K (PyTorch runs eagerly: nothing to
             # compile per draft length)
-            self._spec_block = functools.partial(paged_speculative_block,
-                                                 **self._spec_kw)
+            self._spec_block = self._program(functools.partial(
+                paged_speculative_block, **self._spec_kw), skip=(0, 1, 2))
             # draft-table warm-up: one draft forward over whatever context
             # tail the second table is missing (never synced)
-            self._draft_extend = functools.partial(
+            self._draft_extend = self._program(functools.partial(
                 paged_extend, n_heads=dh, n_layers=dl,
                 compute_dtype=compute_dtype, n_kv_heads=dkv,
-                rope_theta=rope_theta)
+                rope_theta=rope_theta))
         self.decode_block = min(int(decode_block), self.BLOCK_K_MENU[-1])
         self._pending_block: Optional[Dict[str, Any]] = None
         self._step_ewma_s = 0.0
@@ -1089,6 +1156,15 @@ class ContinuousBatcher:
         self._active: List[Optional[_PagedRequest]] = [None] * lanes
         self._admit_counter = 0
         self.preemptions = 0
+        if self.hbm is not None:
+            # register as the KV tenant AFTER kv_offload is settled (the
+            # reclaimable estimate reads it) and claim the page store's
+            # tracked bytes — the ledger now mirrors the allocator gauge
+            from tpulab_torch.hbm import KV_TENANT
+            self.hbm.register(KV_TENANT, reclaim=self._hbm_reclaim,
+                              reclaimable=self._hbm_reclaimable,
+                              gauge=lambda: self.pool.hbm_bytes)
+            self.hbm.mirror_claim(KV_TENANT, "pool", self.pool.hbm_bytes)
         self.completed_requests = 0
         self.tokens_generated = 0
         self._cv = threading.Condition()
@@ -1244,6 +1320,9 @@ class ContinuousBatcher:
             self.kv_offload.close()  # settle write-behind, free the tier
         if self._owns_pool and not self._thread.is_alive():
             self.pool.close()
+            if self.hbm is not None:
+                from tpulab_torch.hbm import KV_TENANT
+                self.hbm.release(KV_TENANT, "pool")
 
     @property
     def active_lanes(self) -> int:
@@ -1259,6 +1338,82 @@ class ContinuousBatcher:
     def spec_acceptance(self) -> float:
         """Lifetime draft acceptance rate (accepted / drafted)."""
         return self.spec_tokens_accepted / max(1, self.spec_tokens_drafted)
+
+    def debug_state(self) -> Dict[str, Any]:
+        """Live scheduler introspection (one snapshot under the scheduler
+        lock): lanes, queue, the elastic pool and its ladder position,
+        dispatch counters, speculation and prefix-cache state (tpulab's
+        keys where the port has the field)."""
+        now = _time.perf_counter()
+        with self._cv:
+            lanes = []
+            for lane, req in enumerate(self._active):
+                if req is None:
+                    lanes.append({"lane": lane, "state": "idle"})
+                    continue
+                lanes.append({
+                    "lane": lane,
+                    "state": "prefill" if req.pending_prompt else "decode",
+                    "priority": req.priority,
+                    "age_s": round(now - req.t_submit, 6),
+                    "tokens": len(req.tokens_out), "steps": req.steps,
+                    "prompt_tokens": int(len(req.prompt)),
+                    "pages": len(req.pages),
+                    "draft_pages": len(req.draft_pages),
+                    "cancelled": req.cancelled})
+            queue_head = [{"priority": q.priority,
+                           "age_s": round(now - q.t_submit, 6),
+                           "prompt_tokens": int(len(q.prompt)),
+                           "steps": q.steps} for q in self._queue[:16]]
+            queued = len(self._queue)
+        pool = self.pool
+        rung, size = 0, self._hbm_pool_base
+        while size and size * 2 <= pool.n_pages:
+            size *= 2
+            rung += 1
+        out: Dict[str, Any] = {
+            "kind": "paged",
+            "lanes": lanes,
+            "queued_requests": queued,
+            "queue_head": queue_head,
+            "pool": {"n_pages": pool.n_pages,
+                     "free_pages": pool.free_pages,
+                     "page_size": pool.page_size,
+                     "page_nbytes": pool.page_nbytes,
+                     "hbm_bytes": pool.hbm_bytes,
+                     "elastic": self.hbm is not None,
+                     "ladder_base": self._hbm_pool_base,
+                     "ladder_rung": rung,
+                     "grows": self.hbm_grows,
+                     "shrinks": self.hbm_shrinks},
+            "dispatch": {"decode_block": self.decode_block,
+                         "decode_dispatches": self.decode_dispatches,
+                         "decode_host_syncs": self.decode_host_syncs,
+                         "prefill_dispatches": self.prefill_dispatches,
+                         "ragged": self.ragged,
+                         "kinds": dict(self.dispatch_kinds),
+                         "preemptions": self.preemptions,
+                         "completed_requests": self.completed_requests,
+                         "tokens_generated": self.tokens_generated},
+        }
+        if self.hbm is not None:
+            # tpulab's flight-event field (the flight recorder itself is
+            # not ported)
+            out["hbm_pressure_events"] = self.hbm.pressure_events
+        if self._spec is not None:
+            out["spec"] = {"dispatches": self.spec_dispatches,
+                           "fallbacks": self.spec_fallbacks,
+                           "tokens_drafted": self.spec_tokens_drafted,
+                           "tokens_accepted": self.spec_tokens_accepted,
+                           "acceptance": round(self.spec_acceptance, 4),
+                           "probes": self.spec_probes,
+                           "probe_recoveries": self.spec_probe_recoveries}
+        pc = self.prefix_cache
+        if pc is not None:
+            out["prefix_cache"] = {"entries": len(pc), "hits": pc.hits,
+                                   "misses": pc.misses,
+                                   "host_promotions": pc.host_promotions}
+        return out
 
     @property
     def admission_cost_factor(self) -> float:
@@ -1369,10 +1524,17 @@ class ContinuousBatcher:
         return True
 
     def _admit_locked(self) -> None:
-        for lane in range(self.lanes):
-            if self._active[lane] is None and self._queue:
-                if not self._admit_to_lane_locked(lane):
-                    break
+        # elastic-regime hold-and-wait breaker (tpulab_torch.hbm): while
+        # the scheduler is in a starvation streak WITH live page-holders,
+        # feed the pages freed by _hbm_break_hoard_locked to those holders
+        # instead of re-admitting; with no holders at all (right after a
+        # squeeze emptied every lane) admission must proceed
+        if not (self.hbm is not None and self._hbm_starved_passes >= 2
+                and any(r is not None for r in self._active)):
+            for lane in range(self.lanes):
+                if self._active[lane] is None and self._queue:
+                    if not self._admit_to_lane_locked(lane):
+                        break
         # preemption: while the queue head strictly outranks the weakest
         # active request whose release frees a page, evict it (most
         # recently admitted first within a rank) and admit the head
@@ -1425,6 +1587,182 @@ class ContinuousBatcher:
         self._enqueue_locked(req, front_of_class=True)
         self.preemptions += 1
 
+    # -- HBM economy (tpulab_torch.hbm): the KV tenant ---------------------
+    #: bound on how long a blocking grow request waits for a write-behind
+    #: model eviction to land (only paid when every lane is starved — the
+    #: scheduler had nothing else to do anyway); tpulab's value
+    HBM_GROW_TIMEOUT_S = 0.5
+
+    def _page_nbytes(self) -> int:
+        return max(1, self.pool.page_nbytes)
+
+    def _hbm_ladder_down(self, total: int) -> int:
+        """Largest ladder size (base * 2^k) <= ``total`` (base floor)."""
+        size = self._hbm_pool_base
+        while size * 2 <= total:
+            size *= 2
+        return size
+
+    def _hbm_reclaimable(self) -> int:
+        """Non-mutating estimate of the KV bytes pressure could free:
+        pages already contiguously free at the top of the store, plus idle
+        prefix-cache pages, plus live-but-idle lane KV the host tier could
+        absorb (demotion needs ``kv_offload``: without the tier a preempted
+        lane re-prefills, which frees pages but burns recompute, so it is
+        not advertised as cheap headroom)."""
+        pages = self.pool.shrinkable_pages()
+        if self.prefix_cache is not None:
+            pages += len(self.prefix_cache)
+        if self.kv_offload is not None:
+            with self._cv:
+                lane_pages = sum(len(r.pages) for r in self._active
+                                 if r is not None)
+            pages = pages + min(lane_pages,
+                                self.kv_offload.headroom_pages())
+        return pages * self._page_nbytes()
+
+    def _hbm_reclaim(self, nbytes: int) -> int:
+        """Arbiter pressure hook (foreign thread): record the target and
+        wake the scheduler — demotion, preemption and shrink run at the
+        next tick boundary, where no dispatched block is in flight.
+        Returns the bytes this tenant expects to free (its promise)."""
+        est = min(int(nbytes), self._hbm_reclaimable())
+        if est <= 0:
+            return 0
+        with self._cv:
+            self._hbm_reclaim_bytes = max(self._hbm_reclaim_bytes,
+                                          int(nbytes))
+            self._cv.notify()
+        return est
+
+    def _service_hbm_locked(self) -> None:
+        """Serve an outstanding arbiter reclaim at the tick boundary:
+        demote idle prefix-cache KV to the host tier, preempt live-but-idle
+        lanes (their KV swaps out through the preemption path, and the
+        resumed stream is exact), then shrink the page store's top and
+        release the bytes to the ledger.  Only runs with no
+        dispatched-ahead block in flight."""
+        need = self._hbm_reclaim_bytes
+        if not need or self.hbm is None or self._pending_block is not None:
+            return
+        from tpulab_torch.hbm import KV_TENANT
+        pn = self._page_nbytes()
+        target = (need + pn - 1) // pn
+        # snap the post-shrink total onto the size ladder: free at least
+        # the target, landing on the largest ladder size at or below what
+        # remains
+        target = max(target, self.pool.n_pages
+                     - self._hbm_ladder_down(
+                         max(1, self.pool.n_pages - target)))
+        # 1) idle KV first: cold prefix-cache entries demote for free
+        while (self.pool.shrinkable_pages() < target
+               and self.prefix_cache is not None
+               and self.prefix_cache.evict_for_alloc()):
+            pass
+        # 2) live-but-idle lanes: preempt coldest-priority, least-progress
+        # first — with kv_offload their KV demotes to the host tier and the
+        # resume is recompute-free; without it the resume re-prefills
+        while self.pool.shrinkable_pages() < target:
+            victims = [(req.priority, -req.admit_seq, lane)
+                       for lane, req in enumerate(self._active)
+                       if req is not None]
+            if not victims:
+                break
+            _, _, lane = min(victims)
+            self._preempt_locked(lane)
+            self.hbm_demotions += 1
+        dropped = self.pool.shrink(target)
+        self._hbm_reclaim_bytes = 0
+        if dropped:
+            self.hbm_shrinks += 1
+            self.hbm.mirror_claim(KV_TENANT, "pool", self.pool.hbm_bytes)
+
+    def _hbm_break_hoard_locked(self) -> None:
+        """Preempt the most recently admitted lane when every lane is
+        starved with nothing free — the hold-and-wait breaker of the
+        elastic regime.  The victim resumes exactly."""
+        if self.pool.free_pages > 0:
+            return
+        active = [(req.admit_seq, lane)
+                  for lane, req in enumerate(self._active)
+                  if req is not None and req.pages]
+        if len(active) < 2:
+            return  # one holder is not a hold-and-wait cycle
+        _, lane = max(active)
+        self._preempt_locked(lane)
+        self.hbm_demotions += 1
+        # the starvation streak stays up until a tick makes real progress:
+        # admission is suppressed meanwhile (_admit_locked), so the victim
+        # cannot re-admit and re-form the cycle first
+
+    def _hbm_maybe_grow(self, block: bool) -> bool:
+        """Per-tick grow probe (scheduler thread, no locks held): when
+        queued or starved requests want more pages than the pool holds,
+        ask the arbiter for the bytes — the pressure protocol may evict a
+        cold model to supply them.  ``block=True`` (every lane starved)
+        waits briefly for write-behind evictions to land; probes are free
+        and retried next tick otherwise."""
+        if self.hbm is None:
+            return False
+        with self._cv:
+            if self._hbm_reclaim_bytes or self._pending_block is not None:
+                return False  # being squeezed (or a block in flight)
+            ps = self.page_size
+            want = 0
+            for req in self._queue[:self.lanes]:
+                if req.kv_handle is not None:
+                    want += req.kv_handle.n_pages + 1
+                else:
+                    t = len(req.pending_prompt) or (len(req.prompt)
+                                                    + len(req.tokens_out))
+                    want += (t + req.steps - len(req.tokens_out)
+                             + ps - 1) // ps + 1
+            for req in self._active:
+                if req is None:
+                    continue
+                if req.pending_prompt:  # starved prefill / pending resume
+                    want += max(0, (len(req.pending_prompt) + ps - 1) // ps
+                                + 1 - len(req.pages))
+                else:  # decoding: pages its remaining appends will write
+                    need = (req.length + req.steps - len(req.tokens_out)
+                            + ps - 1) // ps
+                    want += max(0, need - len(req.pages))
+            deficit = want - self.pool.free_pages
+        if deficit <= 0:
+            return False
+        from tpulab_torch.hbm import KV_TENANT
+        pn = self._page_nbytes()
+        # ask only for what the economy could plausibly supply (free
+        # headroom + what pressure could evict), snapped onto the size
+        # ladder: the smallest rung covering the demand we can afford,
+        # else the largest affordable step toward it
+        avail = (max(0, self.hbm.free_hbm_bytes)
+                 + self.hbm.reclaimable_bytes(exclude=KV_TENANT))
+        n = self.pool.n_pages
+        affordable = n + avail // pn
+        target = self._hbm_pool_base
+        while target < n + deficit and target * 2 <= affordable:
+            target *= 2
+        pages = target - n
+        if pages <= 0:
+            return False  # static-budget degrade: queue on today's pool
+        granted = self.hbm.request(
+            KV_TENANT, ("pool", "grow"), pages * pn,
+            timeout=self.HBM_GROW_TIMEOUT_S if block else 0.0,
+            probe=not block)
+        if not granted:
+            return False
+        with self._cv:
+            if self._pending_block is None:
+                self.pool.grow(pages)
+                self.hbm_grows += 1
+            # consolidate: fold the grant into the pool claim (mirror
+            # first so the total never dips below the tracked bytes)
+            self.hbm.mirror_claim(KV_TENANT, "pool", self.pool.hbm_bytes)
+            self.hbm.release(KV_TENANT, ("pool", "grow"))
+            self._cv.notify()
+        return True
+
     def _run(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -1436,11 +1774,17 @@ class ContinuousBatcher:
         while True:
             with self._cv:
                 while (not self._shutdown and not self._queue
-                       and not any(self._active)):
+                       and not any(self._active)
+                       and not self._hbm_reclaim_bytes):
                     self._cv.wait()
                 if (self._shutdown and not self._queue
                         and not any(self._active)):
                     return
+                # HBM arbiter pressure: serve an outstanding reclaim at the
+                # tick boundary (dispatch-ahead is suppressed while one is
+                # pending, and the service waits out a block still in
+                # flight, so in-flight decode pages are never victims)
+                self._service_hbm_locked()
                 # cancellation + deadline sweep, before the next step
                 swept, expired = [], []
                 now = _time.monotonic()
@@ -1497,10 +1841,28 @@ class ContinuousBatcher:
                         snapshot = list(self._active)
                     self._resolve(done_reqs)
                 progressed = self._tick(snapshot) or prefilled
+                if self.hbm is not None:
+                    # KV-burst side of the economy: queued or starved demand
+                    # asks the arbiter for pool bytes (a cold model may be
+                    # evicted to supply them); a cheap probe a tick,
+                    # blocking only when every lane is starved anyway
+                    self._hbm_maybe_grow(block=not progressed)
                 if not progressed:
+                    if self.hbm is not None:
+                        # hold-and-wait breaker: lanes are sized for the
+                        # GROWN pool, so a denied grow can strand several
+                        # partial page-holders.  After two fully starved
+                        # passes with nothing free, preempt the newest lane
+                        # (exact resume) so the eldest can finish
+                        self._hbm_starved_passes += 1
+                        if self._hbm_starved_passes >= 2:
+                            with self._cv:
+                                self._hbm_break_hoard_locked()
                     # every lane starved (pool pressure): back off
                     with self._cv:
                         self._cv.wait(timeout=0.01)
+                else:
+                    self._hbm_starved_passes = 0
             except Exception as e:  # noqa: BLE001 - fail active requests
                 _log.exception("scheduler step failed; failing the active "
                                "requests and resetting the pool")
@@ -1518,6 +1880,18 @@ class ContinuousBatcher:
                 self.pool.reset()
 
     # -- split dispatch plan (per-prompt prefill forwards) --------------------
+    def _program(self, fn, skip=(0, 1)):
+        """``fn`` (a program over the batcher's static config), wrapped to
+        record its scratch once per shape key when an arbiter measures
+        scratch (tpulab's ``_jit`` wraps its jits in ``MeasuredJit`` the
+        same way); ``skip``: the weights and page-store arguments, left
+        out of the key.  Unarbitrated batchers get ``fn`` itself."""
+        if self.hbm is None or not self.hbm.measure_scratch:
+            return fn
+        from tpulab_torch.hbm import MeasuredJit
+        name = getattr(getattr(fn, "func", fn), "__name__", "program")
+        return MeasuredJit(fn, self.hbm, name, skip=skip)
+
     def _build_prefill(self, flash: bool):
         """The full-prompt prefill program; ``flash`` selects the flash
         attention kernel for the prompt's causal attention."""
@@ -1797,10 +2171,10 @@ class ContinuousBatcher:
                 else:
                     host_lanes.append(lane)
         t0 = _time.perf_counter()
-        nt_dev, lp_dev, last_dev = paged_mixed_step(
+        nt_dev, lp_dev, last_dev = self._mixed_step(
             self.params, self.pool.kv, self._to_dev(tables),
             self._to_dev(seq), self._to_dev(q_lens), self._to_dev(kv_lens),
-            self._to_dev(temps), self._to_dev(seeds), **self._step_kw)
+            self._to_dev(temps), self._to_dev(seeds))
         self.decode_dispatches += 1
         self.forward_steps += 1
         self._note_dispatch("mixed")
@@ -2191,9 +2565,9 @@ class ContinuousBatcher:
             temps, seeds, stops = host
             lengths, tokens, active, rem = carry
         t0 = _time.perf_counter()
-        toks, lps, ems, len_f, tok_f, live_f, rem_f = paged_decode_block(
+        toks, lps, ems, len_f, tok_f, live_f, rem_f = self._decode_block(
             self.params, self.pool.kv, self._to_dev(tables), lengths,
-            tokens, active, temps, seeds, rem, stops, k=k, **self._step_kw)
+            tokens, active, temps, seeds, rem, stops, k=k)
         self.decode_dispatches += 1
         self.forward_steps += k
         self._note_dispatch("decode")
@@ -2245,7 +2619,8 @@ class ContinuousBatcher:
         # dispatch-ahead: same lanes, same K -> enqueue block N+1 from the
         # device carry BEFORE running block N's callbacks
         if (clean and not completed and k > 1
-                and self._pending_block is None and not self._shutdown):
+                and self._pending_block is None and not self._shutdown
+                and not self._hbm_reclaim_bytes):
             lanes_now = list(stash["lane_reqs"].items())
             # a lane that just re-armed speculation (a probe countdown
             # expiring above) must go back through _plan_decode: a plain
@@ -2445,11 +2820,10 @@ class ContinuousBatcher:
                 self._to_dev(active))
         logprobs_arr = None
         if temps.any() or want_logp:
-            tok_dev, logp_dev, logits = paged_decode_step(
-                *args, temps=self._to_dev(temps), seeds=self._to_dev(seeds),
-                **self._step_kw)
+            tok_dev, logp_dev, logits = self._decode_step(
+                *args, temps=self._to_dev(temps), seeds=self._to_dev(seeds))
         else:
-            logits = paged_decode_step(*args, **self._step_kw)
+            logits = self._decode_step(*args)
             tok_dev, logp_dev = logits.argmax(-1), None
         self.decode_dispatches += 1
         self.forward_steps += 1

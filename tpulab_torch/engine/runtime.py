@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from tpulab_torch.cuda.allocators import DeviceRawAllocator
 from tpulab_torch.cuda.platform import resolve_device
 from tpulab_torch.engine.model import Model
 
@@ -54,21 +55,22 @@ def zero_inputs(model: Model, bucket: int, device) -> Dict[str, torch.Tensor]:
 
 
 class _BucketProgram:
-    """One bucket's callable: ``apply_fn`` over the placed weights."""
+    """One bucket's callable: ``apply_fn`` over the weights it is given
+    (tpulab's executables take the params as an argument, so a weight
+    swap never rebuilds a program)."""
 
-    def __init__(self, apply_fn: Callable, params: Any, bucket: int):
+    def __init__(self, apply_fn: Callable, bucket: int):
         self.apply_fn = apply_fn
-        self.params = params
         self.bucket = bucket
 
-    def __call__(self, inputs: Dict[str, torch.Tensor]
+    def __call__(self, params: Any, inputs: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         for name, t in inputs.items():
             if t.shape[0] != self.bucket:
                 raise ValueError(f"input {name} has batch {t.shape[0]}; "
                                  f"this program serves bucket {self.bucket}")
         with torch.inference_mode():
-            return self.apply_fn(self.params, inputs)
+            return self.apply_fn(params, inputs)
 
 
 class CompiledModel:
@@ -76,13 +78,30 @@ class CompiledModel:
 
     def __init__(self, model: Model, device: torch.device,
                  executables: Dict[int, _BucketProgram], device_params: Any,
-                 activation_bytes: int = 0):
+                 activation_bytes: int = 0, allocator=None,
+                 weights_addr: Optional[int] = None):
         self.model = model
         self.device = device
         self.executables = executables
+        #: the placed weights: the device form ``place_fn`` made (layout
+        #: changes and bf16 copies), what a weight swap moves as it is
         self.device_params = device_params
+        #: the tracked device allocator that placed the weights, and their
+        #: block's address (tpulab: the Model owns its weight pointers
+        #: through the allocator that placed them)
+        self.allocator = allocator
+        self.weights_addr = weights_addr
         self._activation_bytes = activation_bytes
         self._flops: Dict[int, float] = {}
+
+    def release_weights(self) -> None:
+        """Drop the weights' block from the owning allocator's gauge and
+        the model's reference to them; the memory returns to PyTorch's
+        caching allocator once no other reference holds it."""
+        if self.allocator is not None and self.weights_addr is not None:
+            self.allocator.deallocate_node(self.weights_addr)
+            self.weights_addr = None
+            self.device_params = None
 
     def memory_analysis(self, bucket: Optional[int] = None):
         raise NotImplementedError(f"memory_analysis: {_ARTIFACTS}")
@@ -111,7 +130,7 @@ class CompiledModel:
 
     def __call__(self, bucket: int, inputs: Dict[str, Any]
                  ) -> Dict[str, torch.Tensor]:
-        return self.executables[bucket](inputs)
+        return self.executables[bucket](self.device_params, inputs)
 
 
 class Runtime:
@@ -120,17 +139,23 @@ class Runtime:
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
+        #: the tracked device allocator every model's weights are placed
+        #: through (tpulab's installed allocator: its gauge counts them)
+        self.allocator = DeviceRawAllocator(self.device)
 
     def compile_model(self, model: Model,
                       buckets: Optional[Sequence[int]] = None
                       ) -> CompiledModel:
         """Place the weights once (``model.place_fn``, else a plain move)
-        and build one callable per bucket; on CUDA, run each bucket once."""
+        through the runtime's tracked allocator (``allocate_tree``: one
+        block) and build one callable per bucket; on CUDA, run each bucket
+        once."""
         buckets = sorted(buckets or model.batch_buckets)
         params = (model.place_fn(model.params, self.device)
                   if model.place_fn is not None
                   else tree_to(model.params, self.device))
-        executables = {b: _BucketProgram(model.apply_fn, params, b)
+        weights_addr, params = self.allocator.allocate_tree(params)
+        executables = {b: _BucketProgram(model.apply_fn, b)
                        for b in buckets}
         activation = 0
         if self.device.type == "cuda":
@@ -139,12 +164,14 @@ class Runtime:
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
-                    executables[b](zero_inputs(model, b, self.device))
+                    executables[b](params,
+                                   zero_inputs(model, b, self.device))
                     torch.cuda.synchronize()
                     activation = torch.cuda.max_memory_allocated() - base
                     log.info("warmed %s bucket=%d", model.name, b)
         return CompiledModel(model, self.device, executables, params,
-                             activation)
+                             activation, allocator=self.allocator,
+                             weights_addr=weights_addr)
 
     def save_engine(self, compiled: CompiledModel, path: str) -> None:
         raise NotImplementedError(f"save_engine: {_ARTIFACTS}")

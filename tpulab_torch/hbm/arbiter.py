@@ -1,0 +1,325 @@
+"""HBM arbiter: the pressure protocol between device-memory tenants (the
+port of ``tpulab/hbm/arbiter.py``; tpulab's bench row
+``benchmark_hbm_arbiter`` waits for the port's bench, ROADMAP queue 1,
+item 4).
+
+The :class:`~tpulab_torch.hbm.ledger.DeviceHBMLedger` says who holds
+what; the :class:`HBMArbiter` decides who gets the NEXT byte.  Tenants
+register with up to three hooks:
+
+- ``reclaim(nbytes) -> int`` — asked to free ``nbytes`` of device
+  memory.  The KV tenant demotes live-but-idle KV to the host tier and
+  shrinks its elastic page pool (the batcher services the request at its
+  next tick boundary); the weights tenant initiates write-behind
+  swap-outs of cold unleased models.  Returns the bytes the tenant
+  *expects* to free (0 = nothing reclaimable right now); actual ledger
+  releases land asynchronously and wake the arbiter.
+- ``reclaimable() -> int`` — non-mutating estimate of what ``reclaim``
+  could free, for an admission frontend's honest headroom number.
+- ``gauge() -> int`` — the tenant's live tracked device bytes, for
+  :meth:`verify` (the ledger-vs-allocator invariant the tests enforce).
+
+:meth:`request` is the only way bytes are GRANTED: it atomically claims
+from ledger headroom when available, otherwise runs pressure rounds —
+each round asks every *other* tenant to reclaim the deficit, then waits
+for write-behind releases to land.  Rounds where no tenant can help are
+counted; two barren rounds (or the timeout) end in a **denial** and the
+requester degrades to its static-budget behavior — the no-livelock
+guarantee when every tenant is at budget.
+
+Chaos (``hbm.pressure``): the trip point guards every decision site —
+pressing the KV tenant (demote-KV), pressing the weights tenant
+(evict-model), and the denial itself.  ``error``/``drop`` suppress that
+decision: the pressure simply does not happen and the requester falls
+back to static-budget behavior.  The ledger is never touched on a
+tripped path, so a chaos storm can never corrupt the accounting — only
+forgo optimization.
+"""
+
+from __future__ import annotations
+
+import threading
+import time as _time
+from typing import Any, Callable, Dict, Hashable, List, Optional
+
+from tpulab_torch import chaos
+from tpulab_torch.hbm.ledger import DeviceHBMLedger
+
+__all__ = ["HBMArbiter", "KV_TENANT", "WEIGHTS_TENANT", "SCRATCH_TENANT"]
+
+#: canonical tenant names (the ledger key's first half); the 2D-mesh
+#: work extends tags, not these
+KV_TENANT = "kv"
+WEIGHTS_TENANT = "weights"
+SCRATCH_TENANT = "scratch"
+
+
+class _Tenant:
+    __slots__ = ("name", "reclaim", "reclaimable", "gauge")
+
+    def __init__(self, name: str, reclaim=None, reclaimable=None,
+                 gauge=None):
+        self.name = name
+        self.reclaim = reclaim
+        self.reclaimable = reclaimable
+        self.gauge = gauge
+
+
+class HBMArbiter:
+    """One device's HBM economy (module docstring).
+
+    ``capacity_bytes`` is the budget every tenant together rents within.
+    ``measure_scratch`` arms per-program scratch claims
+    (:class:`~tpulab_torch.hbm.scratch.MeasuredJit`); tests that need a
+    tight deterministic budget turn it off.  ``metrics`` is a duck-typed
+    observer kept for tpulab's signature (tpulab's ``HBMMetrics`` is not
+    ported; nothing here calls it)."""
+
+    #: default bound on how long a blocking request runs pressure rounds
+    REQUEST_TIMEOUT_S = 10.0
+    #: per-round wait for write-behind reclaims to land
+    PRESSURE_POLL_S = 0.02
+    #: consecutive rounds with nothing reclaimable before an early denial
+    #: (the no-livelock guard: both-tenants-at-budget resolves in two
+    #: rounds, not at the timeout)
+    BARREN_ROUNDS = 2
+    #: how long a round's reclaim promise is trusted to be in flight —
+    #: no re-press while promised bytes may still be landing (prevents
+    #: over-reclaim: a squeezed pool must lose the deficit, not double it)
+    PROMISE_GRACE_S = 0.5
+
+    def __init__(self, capacity_bytes: int, metrics=None,
+                 measure_scratch: bool = True):
+        self.ledger = DeviceHBMLedger(capacity_bytes)
+        self.measure_scratch = bool(measure_scratch)
+        self.metrics = metrics
+        self._tenants: Dict[str, _Tenant] = {}
+        self._reg_lock = threading.Lock()
+        #: outstanding blocking requests (id -> (tenant, nbytes)): bytes
+        #: freed under pressure are RESERVED for the waiters — another
+        #: tenant's claim cannot steal them back mid-squeeze (without
+        #: this, the squeezed tenant's own refill request wins the race
+        #: for its just-reclaimed bytes and the presser starves)
+        self._waiting: Dict[int, tuple] = {}
+        self._wait_seq = 0
+        # -- counters (tpulab's names) --------------------------------------
+        self.grants = 0           # requests satisfied (with or without
+        #                           pressure)
+        self.pressure_events = 0  # pressure rounds run
+        self.demotions_forced = 0   # rounds where the KV tenant reclaimed
+        self.evictions_forced = 0   # rounds where the weights tenant did
+        self.denials = 0          # requests denied (timeout / barren)
+        self.reclaims_by_tenant: Dict[str, int] = {}
+
+    # -- registration --------------------------------------------------------
+    def register(self, name: str,
+                 reclaim: Optional[Callable[[int], int]] = None,
+                 reclaimable: Optional[Callable[[], int]] = None,
+                 gauge: Optional[Callable[[], int]] = None) -> None:
+        with self._reg_lock:
+            if name in self._tenants:
+                raise ValueError(f"HBM tenant {name!r} already registered")
+            self._tenants[name] = _Tenant(name, reclaim, reclaimable, gauge)
+
+    def _tenant_list(self) -> List[_Tenant]:
+        with self._reg_lock:
+            return list(self._tenants.values())
+
+    # -- ledger mirrors ------------------------------------------------------
+    # These record what a tenant's byte-accurate accounting already holds
+    # (registration of existing residency, elastic-pool resizes, static-
+    # fallback acquisitions).  They are bookkeeping, not grants — the
+    # ledger stays exact even when a tenant proceeds on its static path,
+    # which is why verify() holds on every degraded branch.
+    def claim(self, tenant: str, tag: Hashable, nbytes: int) -> None:
+        self.ledger.claim(tenant, tag, nbytes)
+
+    def mirror_claim(self, tenant: str, tag: Hashable, nbytes: int) -> None:
+        self.ledger.resize(tenant, tag, nbytes)
+
+    def release(self, tenant: str, tag: Hashable) -> int:
+        return self.ledger.release(tenant, tag)
+
+    def record_scratch(self, tag: Hashable, nbytes: int) -> None:
+        """Per-program scratch claim (tpulab_torch.hbm.scratch)."""
+        if self.measure_scratch:
+            self.ledger.resize(SCRATCH_TENANT, tag, nbytes)
+
+    # -- views ---------------------------------------------------------------
+    @property
+    def capacity_bytes(self) -> int:
+        return self.ledger.capacity_bytes
+
+    @property
+    def free_hbm_bytes(self) -> int:
+        """THE headroom number (Status RPC gauge, admission's honest
+        input): capacity minus every tenant's claims — weights, KV pages
+        and compiled scratch together, never two optimistic per-tenant
+        estimates."""
+        return self.ledger.headroom_bytes
+
+    def reclaimable_bytes(self, exclude: Optional[str] = None) -> int:
+        """Bytes the OTHER tenants estimate pressure could free right now
+        (admission counts this next to free headroom — demotable KV and
+        evictable cold models are capacity, just not free capacity)."""
+        total = 0
+        for t in self._tenant_list():
+            if t.name == exclude or t.reclaimable is None:
+                continue
+            try:
+                total += max(0, int(t.reclaimable()))
+            except Exception:  # a torn-down tenant must not wedge callers
+                pass
+        return total
+
+    def gauges(self) -> Dict[str, int]:
+        """Live tracked device bytes per tenant that registered a gauge."""
+        out: Dict[str, int] = {}
+        for t in self._tenant_list():
+            if t.gauge is not None:
+                try:
+                    out[t.name] = int(t.gauge())
+                except Exception:
+                    pass
+        return out
+
+    def reservations(self) -> List[Dict[str, Any]]:
+        """Live anti-steal reservations: bytes freed under pressure that
+        are being held for blocked requesters (the debugz view of
+        ``_waiting`` — empty in steady state)."""
+        with self.ledger._cv:
+            return [{"tenant": t, "bytes": int(n)}
+                    for t, n in self._waiting.values()]
+
+    def verify(self) -> Dict[str, Any]:
+        """Ledger-vs-gauges cross-check (empty dict = consistent)."""
+        return self.ledger.verify(self.gauges())
+
+    # -- the decision --------------------------------------------------------
+    def request(self, tenant: str, tag: Hashable, nbytes: int,
+                timeout: Optional[float] = None,
+                probe: bool = False) -> bool:
+        """Grant ``nbytes`` to ``(tenant, tag)`` — atomically claimed in
+        the ledger on success.  When headroom is short, pressure rounds
+        ask the other tenants to reclaim the deficit (demote-KV /
+        evict-model, each a chaos decision site) and wait for the
+        releases to land.  ``probe=True`` runs at most one pressure
+        round and returns immediately without counting a denial — the
+        batcher's per-tick grow probe, cheap enough to retry every tick.
+
+        False = denied: the requester must degrade to its pre-arbiter
+        static-budget behavior (the mux waits on its own budget, the
+        batcher queues on its current pool)."""
+        nbytes = int(nbytes)
+        if nbytes <= 0:
+            return True
+        end = _time.monotonic() + (self.REQUEST_TIMEOUT_S
+                                   if timeout is None else max(0.0, timeout))
+        barren = 0
+        expected_headroom = None  # promised bytes still landing
+        promise_end = 0.0
+        wid = None
+        try:
+            while True:
+                if self._try_claim(tenant, tag, nbytes, wid):
+                    self.grants += 1
+                    return True
+                if wid is None and not probe:
+                    # entering the pressure path: reserve the bytes this
+                    # request is squeezing for — no other tenant's claim
+                    # may take them while the reclaim lands
+                    led = self.ledger
+                    with led._cv:
+                        self._wait_seq += 1
+                        wid = self._wait_seq
+                        self._waiting[wid] = (tenant, nbytes)
+                headroom = self.ledger.headroom_bytes
+                now = _time.monotonic()
+                if (expected_headroom is not None
+                        and headroom < expected_headroom
+                        and now < promise_end):
+                    # a prior round's reclaim is still landing (write-
+                    # behind copies, the batcher's tick-boundary
+                    # service): wait it out instead of pressing again —
+                    # re-pressing would make tenants over-reclaim
+                    # (shrink twice for one deficit)
+                    self.ledger.wait_for_change(
+                        min(self.PRESSURE_POLL_S, max(0.001, end - now)))
+                    continue
+                deficit = nbytes - headroom
+                initiated = self._pressure_round(tenant, deficit)
+                if initiated:
+                    expected_headroom = headroom + initiated
+                    promise_end = now + self.PROMISE_GRACE_S
+                if probe:
+                    if initiated and self._try_claim(tenant, tag, nbytes,
+                                                     wid):
+                        self.grants += 1
+                        return True
+                    return False  # probes retry next tick; not a denial
+                barren = 0 if initiated else barren + 1
+                now = _time.monotonic()
+                if barren >= self.BARREN_ROUNDS or now >= end:
+                    return self._deny(tenant, nbytes)
+                self.ledger.wait_for_change(
+                    min(self.PRESSURE_POLL_S, max(0.001, end - now)))
+        finally:
+            if wid is not None:
+                led = self.ledger
+                with led._cv:
+                    self._waiting.pop(wid, None)
+                    led._cv.notify_all()
+
+    def _try_claim(self, tenant: str, tag: Hashable, nbytes: int,
+                   wid=None) -> bool:
+        led = self.ledger
+        with led._cv:
+            key = (tenant, tag)
+            have = led._claims.get(key, 0)
+            # bytes reserved for OTHER waiting requesters are off-limits
+            # (a waiter's own reservation never blocks its own claim)
+            reserved = sum(n for w, (t, n) in self._waiting.items()
+                           if t != tenant and w != wid)
+            if (led.capacity_bytes - sum(led._claims.values()) - reserved
+                    >= nbytes - have):
+                led._claims[key] = have + nbytes
+                led._cv.notify_all()
+                return True
+            return False
+
+    def _pressure_round(self, requester: str, deficit: int) -> int:
+        """One round of cross-tenant pressure.  Returns the bytes the
+        pressed tenants expect to free (0 = barren round).  Each press is
+        a chaos decision site: error/drop suppress that press — the
+        degrade is a skipped optimization, never a ledger mutation."""
+        self.pressure_events += 1
+        initiated = 0
+        for t in self._tenant_list():
+            if t.name == requester or t.reclaim is None:
+                continue
+            try:
+                if chaos.trip("hbm.pressure") == "drop":
+                    continue  # pressure black-holed: static degrade
+            except chaos.ChaosError:
+                continue      # injected fault: same degrade, never corrupt
+            try:
+                got = max(0, int(t.reclaim(int(deficit)) or 0))
+            except Exception:  # a broken tenant must not wedge requests
+                got = 0
+            if got > 0:
+                initiated += got
+                self.reclaims_by_tenant[t.name] = (
+                    self.reclaims_by_tenant.get(t.name, 0) + 1)
+                if t.name == KV_TENANT:
+                    self.demotions_forced += 1
+                elif t.name == WEIGHTS_TENANT:
+                    self.evictions_forced += 1
+        return initiated
+
+    def _deny(self, tenant: str, nbytes: int) -> bool:
+        try:
+            chaos.trip("hbm.pressure")  # the deny decision site
+        except chaos.ChaosError:
+            pass  # an injected fault at deny still denies, atomically
+        self.denials += 1
+        return False
