@@ -134,9 +134,12 @@ raises and the script exits non-zero without printing a result:
    ``kv_offload`` of 2 GiB), ResNet-50 and ViT-B/16 (phase 6's models)
    and the pinned LLM tree as the weights tenant of a
    ``WeightMultiplexer``.  A warm-up runs one request per mixed-round
-   width and decode-block size, so every (program, shape key) claims its
-   scratch first; the capacity is the LLM's bytes + the top rung + half
-   a page + that scratch.  Trace: a ViT-B/16 Infer (batch 8); a greedy
+   width and decode-block size, so every (program, shape key) measures
+   its scratch first; the batcher's programs, which run one at a time,
+   claim the largest key together (one claim, every key's measurement
+   kept); the capacity is the LLM's bytes + the top rung + half a page +
+   that claim, and the vision weights and the top rung must not fit
+   together.  Trace: a ViT-B/16 Infer (batch 8); a greedy
    burst of 12 requests (1500 ... 300 tokens, 32 steps) with a ViT and a
    ResNet Infer from two threads once every lane has its first token;
    both Infers again after.  After every step ``arb.verify()`` holds and
@@ -155,6 +158,35 @@ raises and the script exits non-zero without printing a result:
    ``memory_allocated`` falls by the tree's bytes as the swap-out lands,
    per-leaf checksums and a greedy request's tokens are unchanged;
    seconds and GB/s each way.
+8. service — the serving front door at full width, driven through the
+   server's own request behaviors (serialized requests in, serialized
+   responses out, a local servicer context carrying metadata; where grpc
+   is not installed ``InferenceManager.serve`` builds the service and
+   its start raises the ImportError naming grpc, where it is the
+   service also listens on a socket that this phase does not use):
+   ResNet-50 (phase
+   6's, uint8, max batch 128) and the Llama-3-8B-width ragged batcher
+   (phase 5's, bf16) as the KV tenant of an ``HBMArbiter``, under an
+   ``AdmissionController`` (max_inflight 8, queue 2, the batcher as its
+   load source), ``batching=True``.  References first (the same
+   requests through ``cb.submit`` and the direct runner), then every
+   kernel count set to 0 and: Status (rn50's bucket ladder and IO specs,
+   ``free_kv_pages`` == the batcher's, ``free_hbm_bytes`` == the
+   arbiter's); Health; Infer at batch 1 and 8 bit-identical to the
+   direct runner; StreamInfer, 16 pipelined requests of the max batch,
+   each bit-identical to its unary twin; Infer p50 / p99 at batch 1
+   through the service against the direct runner; a greedy and a
+   device-sampled Generate stream (prompt 1500 x 32 steps) bit-identical
+   to ``cb.submit`` with equal logprobs, TTFT and tok/s beside the
+   direct run's; a burst of 8 streams against the direct burst (equal,
+   or within the bf16 noise rule of phase 7 from the first difference);
+   a burst of 12 past ``max_inflight`` (2 RESOURCE_EXHAUSTED with
+   ``retry_after_ms`` > 0, every lane and page home); a client dropping
+   after 4 tokens (its lane free within the dispatch in flight and one
+   tick); an out-of-vocab prompt (INVALID_ARGUMENT) and an unknown model
+   (UNKNOWN_MODEL); ``drain`` with an open stream (readiness off, returns
+   after the stream).  Kernel 1's launches over the drive == 32 x its
+   forward steps, all ``wgmma``; the service's mean stage profile.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -2983,21 +3015,28 @@ def phase_hbm(torch, card):
         scratch = arb.ledger.tenant_bytes(SCRATCH_TENANT)
         claims = [(tag, b) for t, tag, b in arb.ledger.claims()
                   if t == SCRATCH_TENANT]
-        if (len(claims) != sum(keys.values())
-                or not all(b > 0 for _, b in claims)):
-            raise AssertionError(f"hbm: scratch claims {len(claims)} for "
+        table = cb.scratch.table
+        # the batcher's programs run one at a time: ONE claim, the
+        # largest (program, shape key)'s, every key still measured
+        if (claims != [(cb.scratch.tag, max(table.values()))]
+                or len(table) != sum(keys.values())
+                or not all(b > 0 for b in table.values())):
+            raise AssertionError(f"hbm: scratch claims {claims} for "
                                  f"{keys} keys, bytes "
-                                 f"{sorted(b for _, b in claims)}")
+                                 f"{sorted(table.values())}")
         log(f"hbm: scratch warm-up {time.perf_counter() - t0:.1f} s: "
-            f"{len(claims)} claims, one per (program, shape key) {keys}, "
-            f"{scratch} bytes in all (min "
-            f"{min(b for _, b in claims)}, max "
-            f"{max(b for _, b in claims)} a key) [{card}]")
+            f"{len(table)} (program, shape key) measurements {keys} (min "
+            f"{min(table.values())}, max {max(table.values())}, sum "
+            f"{sum(table.values())} bytes); the group claims the largest, "
+            f"{scratch} bytes [{card}]")
         # tpulab's bench rule (LLM weights + the top rung + half a page),
-        # plus the scratch just claimed: without it the claims would leave
+        # plus the scratch just claimed: without it the claim would leave
         # no headroom at all; the vision weights and the top rung still
         # never fit together
         capacity = llm_bytes + top * pn + pn // 2 + scratch
+        if capacity - llm_bytes - scratch >= top * pn + sum(vis_bytes.values()):
+            raise AssertionError("hbm: the vision weights and the top rung "
+                                 "fit together")
         arb.ledger.capacity_bytes = capacity
         mux = WeightMultiplexer(llm_bytes + sum(vis_bytes.values()),
                                 hbm=arb,
@@ -3294,9 +3333,488 @@ def phase_hbm(torch, card):
     log(f"hbm: " + json.dumps(dict(steps=steps_log, counters=d,
                                    launches=launches, forward_steps=fs,
                                    trips=trips, scratch_claims=len(claims),
+                                   scratch_keys=len(table),
+                                   scratch_key_sum=sum(table.values()),
                                    scratch_bytes=scratch,
                                    capacity=capacity)))
     log(f"hbm: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+# The serving front door: the inference service (build_infer_service,
+# through InferenceManager.serve) over phase 6's ResNet-50 and phase 5's
+# Llama-3-8B-width ragged batcher as the KV tenant of an HBMArbiter, with
+# admission control; driven through the server's own request behaviors
+# (serialized requests in, serialized responses out; no socket: the
+# script needs no grpc).
+SVC_MAX_INFLIGHT = 8
+SVC_QUEUE = 2
+SVC_PROMPT = 1500
+SVC_STEPS = 32
+SVC_BURST = (1500, 1400, 1300, 1200, 1100, 1000, 900, 800)
+SVC_SAMPLED = dict(temperature=0.75, seed=1234)   # 0.75 is exact in f32
+SVC_STREAM_INFER = 16       # requests of the max batch (no aggregation)
+SVC_LATENCY_ITERS = 100
+
+
+def svc_stream(pb, server, path, req, ctx=None, on_token=None):
+    """One Generate stream through the server's behavior: the tokens,
+    logprobs, final status code and retry hint, time to the first token
+    and wall time."""
+    from tpulab_torch.rpc.server import LocalServicerContext
+
+    ctx = ctx or LocalServicerContext([("tpulab-tenant", "chip-smoke")])
+    out = dict(tokens=[], logprobs=[], code=None, retry_after_ms=0,
+               ttft_s=None)
+    t0 = time.perf_counter()
+    for b in server.invoke_stream(path, [req.SerializeToString()], ctx):
+        m = pb.GenerateResponse.FromString(b)
+        if m.final:
+            out["code"] = m.status.code
+            out["retry_after_ms"] = m.status.retry_after_ms
+            out["message"] = m.status.message
+            continue
+        if out["ttft_s"] is None:
+            out["ttft_s"] = time.perf_counter() - t0
+        out["tokens"].append(m.token)
+        out["logprobs"].append(m.logprob)
+        if on_token is not None and on_token(len(out["tokens"])):
+            break
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def svc_threads(fns):
+    """Run ``fns`` on threads started together; their results in order."""
+    import threading
+
+    outs = [None] * len(fns)
+
+    def run(i):
+        outs[i] = fns[i]()
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(fns))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(900)
+    return outs
+
+
+def direct_stream(cb, prompt, steps, sampling=None, logprobs=False):
+    """The same request through ``cb.submit`` alone: tokens, logprobs,
+    time to the first token and wall time."""
+    first = []
+    t0 = time.perf_counter()
+
+    def hook(tok, i, lp=None):
+        if not first:
+            first.append(time.perf_counter() - t0)
+
+    r = cb.submit(prompt, steps, sampling=sampling, logprobs=logprobs,
+                  on_token=hook).result(timeout=900)
+    wall = time.perf_counter() - t0
+    toks, lps = r if logprobs else (r, None)
+    return dict(tokens=[int(t) for t in toks], logprobs=lps,
+                ttft_s=first[0], wall_s=wall)
+
+
+def lanes_home(cb, timeout=60.0):
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if (cb.active_lanes == 0 and cb.queued_requests == 0
+                and cb.pool.free_pages == cb.pool.n_pages - 1):
+            return True
+        time.sleep(0.005)
+    return False
+
+
+def phase_service(torch, card):
+    """The serving front door at full width (module docstring, phase 8).
+    Returns kernel 1's launches over the service drive."""
+    import numpy as np
+
+    import tpulab_torch
+    from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
+    from tpulab_torch.hbm import HBMArbiter
+    from tpulab_torch.models import build_model
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.rpc.infer_service import (SERVICE_NAME,
+                                                proto_to_tensor,
+                                                tensor_to_proto)
+    from tpulab_torch.rpc.protos import inference_pb2 as pb
+    from tpulab_torch.rpc.server import LocalServicerContext
+    from tpulab_torch.serving import AdmissionConfig, AdmissionController
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False     # the same kernels each call
+    torch.cuda.empty_cache()
+    path = f"/{SERVICE_NAME}/"
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    arb = HBMArbiter(torch.cuda.get_device_properties(0).total_memory)
+    cb = ContinuousBatcher(params, device="cuda", hbm=arb, **SERVE, **kw)
+    del params
+    mgr = tpulab_torch.InferenceManager(
+        max_exec_concurrency=INFER["concurrency"])
+    t0 = time.perf_counter()
+    mgr.register_model("rn50", build_model(
+        "resnet50", max_batch_size=INFER["max_batch_size"],
+        input_dtype=np.uint8))
+    adm = AdmissionController(AdmissionConfig(
+        max_inflight=SVC_MAX_INFLIGHT, max_queue_depth=SVC_QUEUE),
+        load=cb)
+    import importlib.util
+
+    def installed(m):
+        try:
+            return importlib.util.find_spec(m) is not None
+        except ImportError:         # a parent package is missing
+            return False
+    have = {m: installed(m) for m in ("grpc", "google.protobuf")}
+    try:
+        mgr.serve(port=0, batching=True, generation_engines={"llm": cb},
+                  admission=adm, hbm=arb)
+        log(f"service: serving over grpc on port {mgr.server.bound_port} "
+            f"as well ({have}); driven in process below")
+    except ImportError as e:
+        # no grpc here: the built server serves in process through its
+        # behaviors
+        log(f"service: in process, no socket ({have}: "
+            f"{str(e).split(';')[0]})")
+    server = mgr.server
+    res = server._infer_resources
+    if res.hbm is not arb or adm.hbm is not arb:
+        raise AssertionError("service: the arbiter is not wired in")
+    log(f"service: built in {time.perf_counter() - t0:.1f} s (ResNet-50 "
+        f"registered, every bucket run once); batcher {cb.pool.n_pages} "
+        f"pages, arbiter capacity {arb.capacity_bytes} bytes")
+
+    def unary(method, req, ctx=None, cls=None):
+        return cls.FromString(server.invoke(
+            path + method, req.SerializeToString(),
+            ctx or LocalServicerContext([("tpulab-tenant", "chip-smoke")])))
+
+    try:
+        # -- references: the same requests through the batcher alone ----
+        rng = np.random.default_rng(31)
+        prompt = rng.integers(0, c["vocab"], (SVC_PROMPT,)).astype(np.int32)
+        burst = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+                 for n in SVC_BURST]
+        ref_greedy = direct_stream(cb, prompt, SVC_STEPS, logprobs=True)
+        ref_device = direct_stream(cb, prompt, SVC_STEPS, SamplingParams(
+            device=True, **SVC_SAMPLED), logprobs=True)
+        t0 = time.perf_counter()
+        with cb._cv:
+            futs = [cb.submit(p, SVC_STEPS) for p in burst]
+        ref_burst = [[int(t) for t in f.result(timeout=900)] for f in futs]
+        ref_burst_s = time.perf_counter() - t0
+        x1, x8 = infer_images(np, 1, 501), infer_images(np, 8, 508)
+        runner = mgr.infer_runner("rn50")
+        ref_infer = {n: runner.infer(input=x).result(120)["logits"]
+                     for n, x in ((1, x1), (8, x8))}
+        big = [infer_images(np, INFER["max_batch_size"], 600 + i)
+               for i in range(4)]
+        if not lanes_home(cb):
+            raise AssertionError("service: lanes not home after the "
+                                 "references")
+
+        # -- the service drive: every count set to 0 here ----------------
+        ragged_paged_attention.launches = 0
+        ragged_paged_attention.launches_by_body = dict.fromkeys(
+            ragged_paged_attention.launches_by_body, 0)
+        fs0 = cb.forward_steps
+
+        # Status and Health
+        st = unary("Status", pb.StatusRequest(), cls=pb.StatusResponse)
+        free_hbm = arb.free_hbm_bytes
+        model = mgr.model("rn50")
+        ms = {m.name: m for m in st.models}
+        want_io = ([("input", "uint8", [224, 224, 3])],
+                   [("logits", "float32", [1000])])
+        got_io = ("rn50" in ms and (
+            [(s.name, s.dtype, list(s.dims)) for s in ms["rn50"].inputs],
+            [(s.name, s.dtype, list(s.dims)) for s in ms["rn50"].outputs]))
+        if (st.status.code != pb.SUCCESS or got_io != want_io
+                or list(ms["rn50"].batch_buckets) != model.batch_buckets
+                or model.batch_buckets != [
+                    1 << i for i in range(INFER["max_batch_size"]
+                                          .bit_length())]
+                or ms["rn50"].max_batch_size != INFER["max_batch_size"]
+                or st.free_kv_pages != cb.pool.free_pages
+                or st.free_hbm_bytes != free_hbm or free_hbm <= 0
+                or st.draining or st.inflight_requests):
+            raise AssertionError(f"service: Status {st}; free pages "
+                                 f"{cb.pool.free_pages}, free_hbm_bytes "
+                                 f"{free_hbm}")
+        h = unary("Health", pb.HealthRequest(), cls=pb.HealthResponse)
+        if not (h.live and h.ready):
+            raise AssertionError(f"service: Health {h}")
+        log(f"service: Status: rn50 buckets {list(ms['rn50'].batch_buckets)}"
+            f", IO {got_io}, {ms['rn50'].weights_bytes} weight bytes; "
+            f"free_kv_pages {st.free_kv_pages} == the batcher's; "
+            f"free_hbm_bytes {st.free_hbm_bytes} == the arbiter's (scratch "
+            f"claim {cb.scratch.claim_bytes} bytes, the largest of "
+            f"{len(cb.scratch.table)} keys); Health live and ready")
+
+        # Infer at batch 1 and 8, bit-identical to the direct runner
+        for n, x in ((1, x1), (8, x8)):
+            r = unary("Infer", pb.InferRequest(
+                model_name="rn50", batch_size=n,
+                inputs=[tensor_to_proto("input", x)]), cls=pb.InferResponse)
+            got = proto_to_tensor(r.outputs[0]) if r.outputs else None
+            if (r.status.code != pb.SUCCESS or got is None
+                    or got.tobytes() != ref_infer[n].tobytes()):
+                raise AssertionError(f"service: Infer batch {n} status "
+                                     f"{r.status}, not bit-identical to "
+                                     "the direct runner")
+        # StreamInfer: 16 pipelined requests of the max batch, each
+        # against its unary twin
+        twins = [unary("Infer", pb.InferRequest(
+            model_name="rn50", batch_size=len(x),
+            inputs=[tensor_to_proto("input", x)]), cls=pb.InferResponse)
+            for x in big]
+        reqs = [pb.InferRequest(model_name="rn50", batch_size=len(big[0]),
+                                correlation_id=i, inputs=[tensor_to_proto(
+                                    "input", big[i % len(big)])])
+                for i in range(SVC_STREAM_INFER)]
+        t0 = time.perf_counter()
+        resps = [pb.InferResponse.FromString(b) for b in server.invoke_stream(
+            path + "StreamInfer", (r.SerializeToString() for r in reqs))]
+        stream_s = time.perf_counter() - t0
+        by_id = {r.correlation_id: r for r in resps}
+        bad = [i for i in range(SVC_STREAM_INFER)
+               if i not in by_id or by_id[i].status.code != pb.SUCCESS
+               or by_id[i].outputs[0].raw_data
+               != twins[i % len(big)].outputs[0].raw_data]
+        if bad or len(resps) != SVC_STREAM_INFER:
+            raise AssertionError(f"service: StreamInfer responses {bad} "
+                                 "differ from their unary twins")
+        pools_home(mgr, "rn50")
+        log(f"service: Infer batch 1 and 8 bit-identical to the direct "
+            f"runner; StreamInfer {SVC_STREAM_INFER} x batch "
+            f"{len(big[0])} in {stream_s:.3f} s, each bit-identical to its "
+            "unary twin; every buffers slot, token and context home")
+        # Infer latency at batch 1: the service against the direct runner
+        req1 = pb.InferRequest(model_name="rn50", batch_size=1,
+                               inputs=[tensor_to_proto("input", x1)])
+        raw1 = req1.SerializeToString()
+        lat = {"service": [], "direct": []}
+        for _ in range(5):
+            server.invoke(path + "Infer", raw1)
+            runner.infer(input=x1).result(120)
+        for _ in range(SVC_LATENCY_ITERS):
+            t1 = time.perf_counter()
+            server.invoke(path + "Infer", raw1)
+            t2 = time.perf_counter()
+            runner.infer(input=x1).result(120)
+            lat["service"].append(t2 - t1)
+            lat["direct"].append(time.perf_counter() - t2)
+        lat_ms = {k: {q: float(np.percentile(v, q)) * 1e3 for q in (50, 99)}
+                  for k, v in lat.items()}
+        log(f"service: Infer latency, rn50 batch 1, {SVC_LATENCY_ITERS} "
+            f"closed-loop requests each way: service p50 "
+            f"{lat_ms['service'][50]:.3f} ms / p99 "
+            f"{lat_ms['service'][99]:.3f} ms, direct runner p50 "
+            f"{lat_ms['direct'][50]:.3f} ms / p99 "
+            f"{lat_ms['direct'][99]:.3f} ms (the service adds the "
+            f"message round trip and the {res._batch_window_s * 1e3:.0f} ms "
+            f"batching window) [{card}]")
+
+        # Generate: one stream at a time, greedy then device-sampled
+        gen_path = path + "Generate"
+        singles = {}
+        for label, extra, ref in (
+                ("greedy", {}, ref_greedy),
+                ("device-sampled", dict(device_sampling=True,
+                                        **SVC_SAMPLED), ref_device)):
+            got = svc_stream(pb, server, gen_path, pb.GenerateRequest(
+                model_name="llm", prompt=prompt, steps=SVC_STEPS,
+                return_logprobs=True, **extra))
+            want_lp = np.asarray(ref["logprobs"], np.float32)
+            if (got["code"] != pb.SUCCESS or got["tokens"] != ref["tokens"]
+                    or not np.array_equal(np.asarray(got["logprobs"],
+                                                     np.float32), want_lp)):
+                raise AssertionError(f"service: {label} stream differs from "
+                                     f"cb.submit: {got['tokens']} vs "
+                                     f"{ref['tokens']}, code {got['code']}")
+            singles[label] = dict(
+                service_ttft_ms=got["ttft_s"] * 1e3,
+                direct_ttft_ms=ref["ttft_s"] * 1e3,
+                service_tok_s=SVC_STEPS / got["wall_s"],
+                direct_tok_s=SVC_STEPS / ref["wall_s"])
+            log(f"service: Generate {label}, prompt {SVC_PROMPT} x "
+                f"{SVC_STEPS} steps: tokens bit-identical to cb.submit, "
+                f"logprobs equal; TTFT {got['ttft_s'] * 1e3:.1f} ms through "
+                f"the service vs {ref['ttft_s'] * 1e3:.1f} ms direct, "
+                f"{SVC_STEPS / got['wall_s']:.1f} vs "
+                f"{SVC_STEPS / ref['wall_s']:.1f} tok/s [{card}]")
+
+        # Generate: a burst of 8 streams
+        t0 = time.perf_counter()
+        outs = svc_threads([lambda p=p: svc_stream(pb, server, gen_path,
+                                                   pb.GenerateRequest(
+            model_name="llm", prompt=p, steps=SVC_STEPS)) for p in burst])
+        burst_s = time.perf_counter() - t0
+        for i, got in enumerate(outs):
+            if got["code"] != pb.SUCCESS or len(got["tokens"]) != SVC_STEPS:
+                raise AssertionError(f"service: burst stream {i} status "
+                                     f"{got['code']} {got.get('message')}")
+        # the streams are held to the direct burst after the launch count
+        # is read (the noise rule's replays run kernel 1 themselves)
+
+        # admission: a burst past max_inflight
+        n_adm = SVC_MAX_INFLIGHT + SVC_QUEUE + 2
+        adm_prompts = [rng.integers(0, c["vocab"], (64 + 16 * i,)).astype(
+            np.int32) for i in range(n_adm)]
+        rej0 = adm.rejected_total
+        adm_outs = svc_threads([lambda p=p: svc_stream(
+            pb, server, gen_path, pb.GenerateRequest(
+                model_name="llm", prompt=p, steps=16))
+            for p in adm_prompts])
+        codes = [o["code"] for o in adm_outs]
+        rejected = [o for o in adm_outs if o["code"] == pb.RESOURCE_EXHAUSTED]
+        if (len(rejected) != n_adm - SVC_MAX_INFLIGHT - SVC_QUEUE
+                or codes.count(pb.SUCCESS) != SVC_MAX_INFLIGHT + SVC_QUEUE
+                or not all(o["retry_after_ms"] > 0 and not o["tokens"]
+                           for o in rejected)):
+            raise AssertionError(f"service: admission burst codes {codes}")
+        if (not lanes_home(cb) or adm.inflight or adm.queue_depth
+                or adm.rejected_total - rej0 != len(rejected)):
+            raise AssertionError(f"service: after the admission burst: "
+                                 f"lanes {cb.active_lanes}, free pages "
+                                 f"{cb.pool.free_pages}/{cb.pool.n_pages}, "
+                                 f"admission inflight {adm.inflight}")
+        log(f"service: admission burst of {n_adm} (max_inflight "
+            f"{SVC_MAX_INFLIGHT}, queue {SVC_QUEUE}): "
+            f"{codes.count(pb.SUCCESS)} served, {len(rejected)} "
+            f"RESOURCE_EXHAUSTED with retry_after_ms "
+            f"{sorted(o['retry_after_ms'] for o in rejected)}; every lane "
+            f"and page home, admission inflight 0")
+
+        # cancel: the client drops mid-decode
+        ctx = LocalServicerContext([("tpulab-tenant", "chip-smoke")])
+        mark = {}
+
+        def drop_at(n):
+            if n == 4:
+                mark["dispatches"] = cb.decode_dispatches
+                mark["t"] = time.perf_counter()
+                ctx.cancel()
+                return True
+            return False
+
+        got = svc_stream(pb, server, gen_path, pb.GenerateRequest(
+            model_name="llm", prompt=prompt, steps=256), ctx=ctx,
+            on_token=drop_at)
+        if not lanes_home(cb, timeout=30):
+            raise AssertionError("service: the dropped stream's lane was "
+                                 "not freed")
+        ticks = cb.decode_dispatches - mark["dispatches"]
+        freed_ms = (time.perf_counter() - mark["t"]) * 1e3
+        if ticks > 2 or got["code"] is not None:
+            raise AssertionError(f"service: the dropped stream ran {ticks} "
+                                 "more dispatches (want the one in flight "
+                                 f"and one tick at most), final {got['code']}")
+        log(f"service: a client dropping after 4 tokens: its lane and pages "
+            f"free after {ticks} more dispatch(es) (the one in flight), "
+            f"{freed_ms:.1f} ms; no final written")
+
+        # bad input
+        oov = svc_stream(pb, server, gen_path, pb.GenerateRequest(
+            model_name="llm", prompt=[1, c["vocab"]], steps=4))
+        unknown = svc_stream(pb, server, gen_path, pb.GenerateRequest(
+            model_name="nope", prompt=[1, 2], steps=4))
+        unk_infer = unary("Infer", pb.InferRequest(
+            model_name="nope", batch_size=1,
+            inputs=[tensor_to_proto("input", x1)]), cls=pb.InferResponse)
+        if (oov["code"] != pb.INVALID_ARGUMENT
+                or unknown["code"] != pb.UNKNOWN_MODEL
+                or unk_infer.status.code != pb.UNKNOWN_MODEL):
+            raise AssertionError(f"service: bad input codes {oov['code']}, "
+                                 f"{unknown['code']}, "
+                                 f"{unk_infer.status.code}")
+        log("service: an out-of-vocab prompt gets INVALID_ARGUMENT, an "
+            "unknown model UNKNOWN_MODEL (Generate and Infer), as tpulab")
+
+        # drain with an open Generate stream
+        first = {}
+        holder = {}
+
+        def long_stream():
+            holder["out"] = svc_stream(
+                pb, server, gen_path, pb.GenerateRequest(
+                    model_name="llm", prompt=prompt, steps=96),
+                on_token=lambda n: first.setdefault("t", time.perf_counter())
+                and False)
+            holder["t_done"] = time.perf_counter()
+
+        import threading
+        t = threading.Thread(target=long_stream)
+        t.start()
+        while "t" not in first and t.is_alive():
+            time.sleep(0.001)
+        drained = mgr.drain(timeout=120, settle_s=0.05)
+        t_drained = time.perf_counter()
+        h = unary("Health", pb.HealthRequest(), cls=pb.HealthResponse)
+        t.join(120)
+        out = holder.get("out", {})
+        if (not drained or h.ready or not h.live
+                or out.get("code") != pb.SUCCESS
+                or len(out.get("tokens", ())) != 96
+                or t_drained < holder["t_done"] - 0.05):
+            raise AssertionError(f"service: drain {drained}, Health {h}, "
+                                 f"stream {out.get('code')}")
+        log("service: drain turned readiness off and returned after the "
+            "open 96-step stream finished (Health live, not ready)")
+
+        launches = ragged_paged_attention.launches
+        by_body = dict(ragged_paged_attention.launches_by_body)
+        fs = cb.forward_steps - fs0
+        if (launches != c["n_layers"] * fs or launches == 0
+                or by_body.get("wgmma") != launches):
+            raise AssertionError(f"service: ragged launches {launches} vs "
+                                 f"{c['n_layers']} x {fs} forward steps, "
+                                 f"by body {by_body}")
+        prof = res.stage_profile()
+        log(f"service: mean stage profile over {prof.get('n')} Infer "
+            f"requests (ms): {prof} [{card}]")
+        log(f"service: ragged launches through the service {launches} = "
+            f"{c['n_layers']} x {fs} forward steps, all on wgmma [{card}]")
+
+        notes = [same_or_bf16_noise(torch, cb.params, kw,
+                                    f"burst stream {i} ({len(p)} tokens)",
+                                    p, want, got["tokens"])
+                 for i, (p, want, got) in enumerate(zip(burst, ref_burst,
+                                                        outs))]
+        notes = [x for x in notes if x]
+        n_tok = SVC_STEPS * len(burst)
+        ttfts = sorted(o["ttft_s"] for o in outs)
+        log(f"service: Generate burst of {len(burst)} x {SVC_STEPS}: "
+            f"{len(burst) - len(notes)}/{len(burst)} streams bit-identical "
+            f"to the direct-submit burst" + ("; " + "; ".join(notes)
+                                             if notes else "")
+            + f"; {n_tok / burst_s:.1f} tok/s through the service vs "
+            f"{n_tok / ref_burst_s:.1f} direct, TTFT median "
+            f"{ttfts[len(ttfts) // 2] * 1e3:.1f} / max "
+            f"{ttfts[-1] * 1e3:.1f} ms [{card}]")
+        log("service: " + json.dumps(dict(
+            singles=singles, burst_tok_s=n_tok / burst_s,
+            direct_burst_tok_s=n_tok / ref_burst_s,
+            infer_latency_ms=lat_ms, stage_profile=prof,
+            stream_infer_s=stream_s, cancel_dispatches=ticks,
+            cancel_ms=freed_ms, launches=launches, forward_steps=fs,
+            free_hbm_bytes=free_hbm,
+            scratch_claim=cb.scratch.claim_bytes,
+            scratch_keys=len(cb.scratch.table))))
+    finally:
+        mgr.shutdown()
+        cb.shutdown()
+    log(f"service: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3389,6 +3907,7 @@ def main(argv=None) -> int:
     log(f"serve: phase {time.perf_counter() - t0:.1f} s")
     phase_infer(torch, card)
     hbm_launches = phase_hbm(torch, card)
+    svc_launches = phase_service(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -3399,14 +3918,14 @@ def main(argv=None) -> int:
                      + st["int8 split"]["launches"]["ragged"]
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
-                     + st["disagg"] + hbm_launches,
+                     + st["disagg"] + hbm_launches + svc_launches,
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
                      "and split-plan serve runs + speculative serve run + "
                      "preempting serve (host tier side) + disagg serve + "
-                     "the hbm phase's burst",
+                     "the hbm phase's burst + the service phase's drive",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",

@@ -53,7 +53,8 @@ except ImportError:
 from tpulab_torch import chaos
 from tpulab_torch.engine.paged import ContinuousBatcher, PagedKVPool
 from tpulab_torch.hbm import (KV_TENANT, SCRATCH_TENANT, WEIGHTS_TENANT,
-                              DeviceHBMLedger, HBMArbiter, MeasuredJit)
+                              DeviceHBMLedger, HBMArbiter, MeasuredJit,
+                              ScratchGroup)
 from tpulab_torch.models.convert import params_from_numpy
 from tpulab_torch.modelstore import WeightMultiplexer
 
@@ -734,6 +735,95 @@ def test_batcher_scratch_keys_and_registration(lm):
         assert not plain.debug_state()["pool"]["elastic"]
     finally:
         plain.shutdown()
+
+
+def _fake_allocator(monkeypatch, peaks):
+    """The CUDA allocator's statistics, faked on the CPU: every measured
+    call's peak over what stays allocated is the next value of ``peaks``
+    (a program measured on "cuda:0")."""
+    from tpulab_torch.hbm import scratch
+    base = 1 << 32
+    state = {"peak": base}
+    it = iter(peaks)
+    monkeypatch.setattr(scratch, "_device_of",
+                        lambda args: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: base)
+
+    def reset(*a, **k):
+        state["peak"] = base + next(it)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", reset)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a, **k: state["peak"])
+
+
+# 13 keys of about 2.1 GB: what the Llama-3-8B-width batcher measured
+# per (program, shape key), each carrying the f32 copy of the lm_head
+SCRATCH_KEYS = [2_100_000_000 + 3_800_000 * i for i in range(13)]
+
+
+def test_scratch_group_claims_the_largest_key_not_the_sum(monkeypatch):
+    """Thirteen keys of about 2.1 GB over five programs of one group
+    claim the largest key (one ledger claim), not the 27.6 GB sum that
+    per-key claims add up to; ``free_hbm_bytes`` moves by the difference,
+    and every per-key measurement stays readable."""
+    sizes = list(np.random.default_rng(0).permutation(SCRATCH_KEYS))
+    _fake_allocator(monkeypatch, sizes + sizes)
+    cap = 64 << 30
+    grouped, per_key = HBMArbiter(cap), HBMArbiter(cap)
+    group = ScratchGroup(grouped, ("batcher", 0))
+    names = ("_mixed_step", "_decode_block", "_decode_step", "_prefill",
+             "_extend")
+    progs = {arb: [MeasuredJit(lambda w, kv, x: x, arb, n, skip=(0, 1),
+                               group=group if arb is grouped else None)
+                   for n in names] for arb in (grouped, per_key)}
+    for arb in (grouped, per_key):
+        for i in range(13):
+            progs[arb][i % 5](None, None, torch.zeros(i + 1))
+            progs[arb][i % 5](None, None, torch.zeros(i + 1))  # no re-claim
+    total, top = sum(SCRATCH_KEYS), max(SCRATCH_KEYS)
+    assert 27.5e9 < total < 27.7e9
+    assert [t for t, *_ in grouped.ledger.claims()] == [SCRATCH_TENANT]
+    assert grouped.ledger.tenant_bytes(SCRATCH_TENANT) == top
+    assert group.claim_bytes == top
+    assert per_key.ledger.tenant_bytes(SCRATCH_TENANT) == total
+    assert len(per_key.ledger.claims()) == 13
+    assert grouped.free_hbm_bytes == cap - top
+    assert grouped.free_hbm_bytes - per_key.free_hbm_bytes == total - top
+    # every key readable, per program and in the group's table
+    assert sorted(group.table.values()) == sorted(SCRATCH_KEYS)
+    assert sum(len(p.keys) for p in progs[grouped]) == 13
+    assert {(p._name, k): b for p in progs[grouped]
+            for k, b in p.keys.items()} == group.table
+    group.release()
+    assert grouped.ledger.total_claimed == 0 and grouped.verify() == {}
+
+
+def test_batcher_programs_share_one_scratch_claim(lm, monkeypatch):
+    """A batcher's programs measure into its one ScratchGroup: one
+    scratch claim, the largest key's, released at shutdown."""
+    _, model = lm
+    _fake_allocator(monkeypatch, (1000 + 17 * i for i in range(10_000)))
+    arb = HBMArbiter(1 << 40)
+    cb = ContinuousBatcher(model, n_layers=LAYERS, lanes=1, max_len=24,
+                           page_size=8, n_pages=4, hbm=arb,
+                           compute_dtype=torch.float32, device="cpu",
+                           **HEADS)
+    try:
+        cb.submit(np.arange(8, dtype=np.int32), 8).result(timeout=120)
+        table = cb.scratch.table
+        assert len(table) >= 2
+        assert sum(len(p.keys) for p in (
+            cb._mixed_step, cb._decode_block, cb._decode_step, cb._prefill,
+            cb._extend)) == len(table)
+        scratch = [(tag, b) for t, tag, b in arb.ledger.claims()
+                   if t == SCRATCH_TENANT]
+        assert scratch == [(cb.scratch.tag, max(table.values()))]
+        assert arb.free_hbm_bytes == (1 << 40) - cb.pool.hbm_bytes - max(
+            table.values())
+    finally:
+        cb.shutdown()
+    assert arb.ledger.total_claimed == 0
 
 
 def test_arbiter_armed_batcher_rejects_mesh(lm):

@@ -391,19 +391,40 @@ def test_unported_registry_entries_raise(name, item):
 
 
 def test_top_level_api_without_grpc():
+    """The top-level API imports without grpc (the subprocess below), and
+    in a process where grpc cannot be imported ``serve`` builds the
+    service and raises the ImportError naming grpc only when it starts
+    it; ``drain`` without a server returns at once."""
     mgr = tpulab_torch.InferenceManager(max_exec_concurrency=3,
                                         device="cpu")
     assert mgr.max_executions == 3 and mgr.max_buffers == 6
-    for call in (mgr.serve, mgr.drain, tpulab_torch.RemoteInferenceManager,
-                 lambda: tpulab_torch.serve(mgr)):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            call()
+    assert mgr.drain() is True and mgr.server is None
+    blocked = ("import sys\nsys.modules['grpc'] = None\n"
+               "import tpulab_torch\n"
+               "from tpulab_torch.models import build_model\n"
+               "mgr = tpulab_torch.InferenceManager(device='cpu')\n"
+               "mgr.register_model('m', build_model('mnist', "
+               "device='cpu'))\n"
+               "for call in (lambda: mgr.serve(port=0),\n"
+               "             lambda: tpulab_torch.serve(mgr, port=0),\n"
+               "             lambda: tpulab_torch.RemoteInferenceManager()):\n"
+               "    try:\n"
+               "        call()\n"
+               "    except ImportError as e:\n"
+               "        assert 'grpc' in str(e), e\n"
+               "    else:\n"
+               "        raise SystemExit('no ImportError')\n"
+               "assert mgr.server is not None\n"
+               "mgr.shutdown()\n")
+    subprocess.run([sys.executable, "-c", blocked], cwd=ROOT, check=True,
+                   capture_output=True, text=True, timeout=300)
     code = ("import json, sys, tpulab_torch\n"
             "from tpulab_torch.models import build_model\n"
             "import tpulab_torch.engine.infer_runner, "
             "tpulab_torch.engine.batched_runner, "
             "tpulab_torch.engine.infer_bench, tpulab_torch.models.vit\n"
-            "tpulab_torch.InferenceManager\n"
+            "tpulab_torch.InferenceManager, tpulab_torch.serve\n"
+            "tpulab_torch.RemoteInferenceManager\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=300)

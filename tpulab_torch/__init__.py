@@ -23,6 +23,15 @@ Layer map (mirrors tpulab's)::
                           HBMArbiter, MeasuredJit)
     tpulab_torch.modelstore  weight multiplexing (HostParamStore,
                           WeightMultiplexer and its adapters)
+    tpulab_torch.engine.generation  the dense GenerationEngine (sessions)
+    tpulab_torch.rpc      the RPC framework (Server, contexts, executors,
+                          clients) and the inference service
+                          (Status / Infer / StreamInfer / Health /
+                          Generate), protobuf-free messages; grpc is the
+                          transport only, imported when a server starts
+    tpulab_torch.serving  admission control, the per-tenant fair queue
+    tpulab_torch.utils    request tracing (torch.profiler, NVTX, Chrome
+                          traces)
 
 Top-level serving API (tpulab's quickstart)::
 
@@ -31,6 +40,12 @@ Top-level serving API (tpulab's quickstart)::
         "resnet50", max_batch_size=128, input_dtype=np.uint8))
     manager.update_resources()
     logits = manager.infer_runner("rn50").infer(input=images).result()
+    manager.serve(port=50051, batching=True)          # needs grpc
+    remote = tpulab_torch.RemoteInferenceManager("localhost:50051")
+
+Without grpc, ``serve`` raises the ImportError that
+names it once the service is built; ``manager.server.invoke`` /
+``invoke_stream`` then serve serialized requests in process.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no GPU and no ``device="cpu"`` they raise.

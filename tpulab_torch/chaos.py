@@ -26,6 +26,27 @@ Rule grammar (``;``-separated)::
 
 Injection points planted in the port:
 
+    rpc.client.unary          ClientUnary.start, before the call: error
+                              fails the call's future; drop black-holes it
+                              (the future resolves only by its timeout)
+    rpc.client.stream_recv    ClientStreaming read loop, per response:
+                              error tears the stream down like a dead
+                              replica (the consumer sees the stream fail)
+    rpc.server.generate_token GenerateContext dense loop, per token: error
+                              ends the stream with a retryable INTERNAL
+    rpc.stream                GenerateContext token-EMIT site, per token
+                              (dense AND paged paths): error kills the
+                              stream mid-flight with a retryable INTERNAL
+                              (the batcher request is cancelled, its lane
+                              and pages freed); drop latches the stream
+                              STALLED: it stops emitting but stays open
+                              with no final
+    serving.admission         AdmissionController.admit: error/drop force
+                              a RESOURCE_EXHAUSTED rejection (reason
+                              ``chaos``), delay models a slow decision
+    engine.step               GenerationSession.step, per dense decode
+                              step: error ends that stream with INTERNAL
+                              and returns its cache slot
     engine.verify   ContinuousBatcher speculative verify dispatch, once per
                     speculative dispatch BEFORE it is issued: error/drop
                     degrade the dispatch's lanes to plain decode blocks for

@@ -907,6 +907,10 @@ class ContinuousBatcher:
     ``device="cpu"``.
     """
 
+    #: the marker the Generate RPC dispatches on (streaming via
+    #: ``on_token``, sampling, priority, logprobs, disaggregation)
+    continuous_batching = True
+
     #: fused-decode block sizes the adaptive K snaps onto (tpulab's menu;
     #: re-tuning on the card is a later PR)
     BLOCK_K_MENU = (1, 2, 4, 8, 16)
@@ -1020,6 +1024,9 @@ class ContinuousBatcher:
         # ledger.  Set before the programs are built so scratch measuring
         # can wrap them.
         self.hbm = hbm
+        #: the programs' one scratch claim (a ScratchGroup; None without
+        #: scratch measuring)
+        self.scratch = None
         self._hbm_reclaim_bytes = 0  # outstanding arbiter reclaim target
         self.hbm_grows = 0           # pool grow ops granted by the arbiter
         self.hbm_shrinks = 0         # pool shrink ops under pressure
@@ -1323,6 +1330,8 @@ class ContinuousBatcher:
             if self.hbm is not None:
                 from tpulab_torch.hbm import KV_TENANT
                 self.hbm.release(KV_TENANT, "pool")
+        if self.scratch is not None and not self._thread.is_alive():
+            self.scratch.release()
 
     @property
     def active_lanes(self) -> int:
@@ -1888,9 +1897,14 @@ class ContinuousBatcher:
         out of the key.  Unarbitrated batchers get ``fn`` itself."""
         if self.hbm is None or not self.hbm.measure_scratch:
             return fn
-        from tpulab_torch.hbm import MeasuredJit
+        from tpulab_torch.hbm import MeasuredJit, ScratchGroup
+        if self.scratch is None:
+            # the programs run one at a time on the scheduler thread: one
+            # claim, the largest key's (tpulab_torch.hbm.scratch)
+            self.scratch = ScratchGroup(self.hbm, ("batcher", id(self)))
         name = getattr(getattr(fn, "func", fn), "__name__", "program")
-        return MeasuredJit(fn, self.hbm, name, skip=skip)
+        return MeasuredJit(fn, self.hbm, name, skip=skip,
+                           group=self.scratch)
 
     def _build_prefill(self, flash: bool):
         """The full-prompt prefill program; ``flash`` selects the flash

@@ -15,8 +15,9 @@ their common ground:
   residency can force idle KV to demote to the host tier, a KV burst can
   evict a cold unleased model, and an admission frontend reads ONE
   headroom number.
-- :class:`MeasuredJit` — per-program scratch claims, measured on the
-  CUDA allocator at a shape key's first call.
+- :class:`MeasuredJit` — per-program scratch, measured on the CUDA
+  allocator at a shape key's first call; a :class:`ScratchGroup` (one
+  batcher's programs) claims the largest of its keys, not their sum.
 
 Wire-up: ``ContinuousBatcher(..., hbm=arb)`` (the KV tenant) and
 ``WeightMultiplexer(..., hbm=arb)`` (the weights tenant).  tpulab's
@@ -28,7 +29,7 @@ bench (ROADMAP queue 1, item 4), the second has no eager counterpart.
 from tpulab_torch.hbm.arbiter import (KV_TENANT, SCRATCH_TENANT,  # noqa: F401
                                       WEIGHTS_TENANT, HBMArbiter)
 from tpulab_torch.hbm.ledger import DeviceHBMLedger  # noqa: F401
-from tpulab_torch.hbm.scratch import MeasuredJit  # noqa: F401
+from tpulab_torch.hbm.scratch import MeasuredJit, ScratchGroup  # noqa: F401
 
-__all__ = ["DeviceHBMLedger", "HBMArbiter", "MeasuredJit",
+__all__ = ["DeviceHBMLedger", "HBMArbiter", "MeasuredJit", "ScratchGroup",
            "KV_TENANT", "WEIGHTS_TENANT", "SCRATCH_TENANT"]

@@ -32,6 +32,17 @@ the caller owns).  Its limits:
   0-byte claim leaves no ledger entry (the ledger's ``resize`` drops
   zero claims); the key is still recorded in :attr:`MeasuredJit.keys`.
 
+Programs that never run at the same time share one claim: a
+:class:`ScratchGroup` (a batcher's programs, which run one at a time on
+its scheduler thread) claims the LARGEST of its members' per-key
+measurements under ``("scratch", group tag)``, not their sum.  tpulab
+claims per (program, key) and sums XLA's compile-time temps; here each
+key's peak carries the eager f32 copy of the ``lm_head`` its forward
+makes (about 2.1 GB at Llama-3-8B width), so a sum over a batcher's
+thirteen keys would claim about 27.6 GB for programs of which at most one
+is live.  Every measurement stays readable, per key, in
+:attr:`MeasuredJit.keys` and :attr:`ScratchGroup.table`.
+
 Measuring is armed only when an :class:`~tpulab_torch.hbm.HBMArbiter`
 with ``measure_scratch=True`` is attached to the engine; unarbitrated
 engines call their programs directly and pay nothing.
@@ -40,13 +51,14 @@ engines call their programs directly and pay nothing.
 from __future__ import annotations
 
 import logging
-from typing import Any, Callable, Dict, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
 log = logging.getLogger("tpulab_torch.hbm")
 
-__all__ = ["MeasuredJit", "shape_key"]
+__all__ = ["MeasuredJit", "ScratchGroup", "shape_key"]
 
 
 def _leaf_key(x: Any) -> Any:
@@ -75,6 +87,37 @@ def _device_of(args: Sequence[Any]):
     return None
 
 
+class ScratchGroup:
+    """Programs that run one at a time, claiming together the largest
+    scratch any of their shape keys measured (module docstring).
+
+    ``tag`` names the group's one ledger claim under the scratch tenant;
+    :meth:`release` drops it (the batcher does at shutdown)."""
+
+    def __init__(self, arbiter, tag: Hashable):
+        self._arbiter = arbiter
+        self.tag = tag
+        self._lock = threading.Lock()
+        #: (program name, shape key) -> bytes measured, every key kept
+        self.table: Dict[Tuple[str, Tuple], int] = {}
+
+    @property
+    def claim_bytes(self) -> int:
+        """What the group claims: its largest measurement (0 if none)."""
+        with self._lock:
+            return max(self.table.values(), default=0)
+
+    def record(self, name: str, key: Tuple, nbytes: int) -> None:
+        with self._lock:
+            self.table[(name, key)] = int(nbytes)
+            peak = max(self.table.values())
+        self._arbiter.record_scratch(self.tag, peak)
+
+    def release(self) -> None:
+        from tpulab_torch.hbm.arbiter import SCRATCH_TENANT
+        self._arbiter.release(SCRATCH_TENANT, self.tag)
+
+
 class MeasuredJit:
     """A program that records its scratch with an
     :class:`~tpulab_torch.hbm.HBMArbiter` once per shape key (module
@@ -83,18 +126,22 @@ class MeasuredJit:
     ``skip`` lists positional arguments the key leaves out: the batcher
     passes its weights (fixed for its life) and its page store (written in
     place through page tables, so its page count sizes no temporary —
-    a pool grow or shrink adds no claim).  The call itself always runs
-    the plain program with the same arguments: measuring never changes
-    what it computes."""
+    a pool grow or shrink adds no claim).  With a ``group`` the
+    measurement goes to the group's one claim (its largest key), else
+    each key claims on its own as in tpulab.  The call itself always
+    runs the plain program with the same arguments: measuring never
+    changes what it computes."""
 
-    __slots__ = ("_fn", "_arbiter", "_name", "_skip", "keys")
+    __slots__ = ("_fn", "_arbiter", "_name", "_skip", "_group", "keys")
 
     def __init__(self, fn: Callable, arbiter, name: str,
-                 skip: Sequence[int] = ()):
+                 skip: Sequence[int] = (),
+                 group: Optional[ScratchGroup] = None):
         self._fn = fn
         self._arbiter = arbiter
         self._name = name
         self._skip = tuple(skip)
+        self._group = group
         #: shape key -> bytes recorded (one entry per key seen)
         self.keys: Dict[Tuple, int] = {}
 
@@ -116,5 +163,8 @@ class MeasuredJit:
                          - max(base, torch.cuda.memory_allocated(dev)))
         self.keys[key] = nbytes
         log.debug("scratch %s %r: %d bytes", self._name, key, nbytes)
-        self._arbiter.record_scratch((self._name, key), nbytes)
+        if self._group is not None:
+            self._group.record(self._name, key, nbytes)
+        else:
+            self._arbiter.record_scratch((self._name, key), nbytes)
         return out
