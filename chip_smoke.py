@@ -187,6 +187,37 @@ raises and the script exits non-zero without printing a result:
    (UNKNOWN_MODEL); ``drain`` with an open stream (readiness off, returns
    after the stream).  Kernel 1's launches over the drive == 32 x its
    forward steps, all ``wgmma``; the service's mean stage profile.
+9. obs     — the observability plane at full width, phase 5's model and
+   config.  (a) ``benchmark_obs_overhead`` on the ragged-plan bf16
+   batcher (8 lanes, page 16, K <= 8): a burst of 16 greedy requests of
+   512 tokens x 32 steps, bare / armed / bare / armed, armed meaning a
+   flight recorder, a ``ChromeTraceRecorder`` on ``trace=``,
+   ``GenerationMetrics`` polled, a debugz poller every 20 ms and a
+   running ``DeviceWatchdog``: tok/s and overhead per pair (printed, not
+   gated), record assembly p50 / p99, the snapshot's time and its hold of
+   the scheduler lock, records observed and retained; tokens
+   bit-identical wherever a pair dispatched alike (``dispatch_kinds``,
+   forward steps), else held by phase 7's bf16 noise rule.  (b) Through
+   the service in process (``serve(flight=, metrics=, watchdog=, hbm=)``
+   over the batcher under an ``HBMArbiter``, ``ChaosMetrics``
+   installed): 8 uniform streams, one hit by ``engine.step=delay:0+1``
+   (kept as ``chaos``), one over its 150 ms deadline under
+   ``engine.step=delay:0.02+999`` (kept as ``deadline``); Debug
+   mid-stream shows the live lane and the hbm and flight sections;
+   Debug with ``profile_ticks=4`` returns a directory whose
+   ``trace.json`` holds 32 x the captured forward steps of kernel 1
+   launches; after it, on the main thread, arming under another
+   profiler session raises and that session traces the card (kernel 1
+   of the request it covers); then a second ``profile_ticks=4`` capture
+   holds 32 x its forward steps again; a
+   ``start_metrics_server(port=0)`` scrape on
+   127.0.0.1 whose TTFT count equals the first tokens served and whose
+   ``tpulab_chaos_injections_total{point="engine.step"}`` equals the
+   schedules' trips; the watchdog healthy after 3+ canaries while
+   serving, then a canary spinning on its own stream past the deadline
+   turns Health not-ready within deadline + period and the restored
+   canary ready again.  (c) Kernel 1's launches over the phase == 32 x
+   every forward step of its batchers, all ``wgmma``.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1794,7 +1825,9 @@ def serve_plan(torch, model, prompts, plan, card, profile, kv_dtype=None,
             torch.cuda.synchronize()
             if profile and i == 1:
                 from torch.profiler import ProfilerActivity
-                with torch.profiler.profile(activities=[
+
+                from tpulab_torch.utils.tracing import profiler_session
+                with profiler_session(activities=[
                         ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                     out, st = serve_once(torch, cb, prompts, stop, counted)
                 st["busy"] = device_breakdown(torch, prof, st["wall_s"],
@@ -2163,7 +2196,9 @@ def serve_spec(torch, model, card, profile):
                 torch.cuda.synchronize()
                 if profile and mode == "spec" and i == 1:
                     from torch.profiler import ProfilerActivity
-                    with torch.profiler.profile(activities=[
+
+                    from tpulab_torch.utils.tracing import profiler_session
+                    with profiler_session(activities=[
                             ProfilerActivity.CPU,
                             ProfilerActivity.CUDA]) as prof:
                         runs.append(run_mix(torch, cb,
@@ -2244,6 +2279,8 @@ def forward_device_ms(torch, params, kv_dtype, card, label):
     forward's stream time (CUDA events, mean of 3)."""
     from torch.profiler import ProfilerActivity
 
+    from tpulab_torch.utils.tracing import profiler_session
+
     from tpulab_torch.engine.paged import PagedKVPool, paged_decode_step
 
     c = LLAMA3_8B
@@ -2274,7 +2311,7 @@ def forward_device_ms(torch, params, kv_dtype, card, label):
         e.record()
         e.synchronize()
         stream_ms = a.elapsed_time(e) / 3
-        with torch.profiler.profile(activities=[
+        with profiler_session(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
             for _ in range(3):
                 step()
@@ -2584,10 +2621,12 @@ def infer_profile(torch, np, mgr, name, card):
     wall time and the device time by kernel class."""
     from torch.profiler import ProfilerActivity
 
+    from tpulab_torch.utils.tracing import profiler_session
+
     runner = mgr.infer_runner(name)
     x = infer_images(np, INFER["max_batch_size"], 5)
     runner.infer(input=x).result(300)
-    with torch.profiler.profile(activities=[
+    with profiler_session(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         inflight = []
@@ -3818,6 +3857,433 @@ def phase_service(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+# the observability plane at full width: the overhead row over phase 5's
+# model and config (a burst of 16 greedy requests of 512 tokens x 32
+# steps, bare and armed alternating), then the plane through the service
+OBS_BENCH = dict(n_requests=16, steps=32, lanes=8, prompt_len=512,
+                 page_size=16, pairs=2)      # K <= 8: the batcher's default
+OBS_PROMPT = 128            # the service drive's prompts
+OBS_PROFILE_TICKS = 4
+OBS_WD = dict(period_s=0.1, deadline_s=1.0)
+
+
+#: counts kernel 1's launches in a Chrome trace (argv[1]) and prints it
+COUNT_RAGGED = """\
+import json, sys
+with open(sys.argv[1]) as f:
+    events = json.load(f)["traceEvents"]
+print(sum(1 for e in events if e.get("cat") == "kernel"
+          and "ragged_attn_" in e["name"] and "merge" not in e["name"]))
+"""
+
+
+def ragged_kernel_launches(path):
+    """Kernel 1's launches in a torch.profiler Chrome trace: device
+    kernels named ``ragged_attn_*`` but the split-KV merge.  A child
+    process parses the file: ``json.load`` of a 66 MB trace holds the
+    interpreter lock for seconds, which would stall the watchdog's
+    canary thread and the serving threads of this process."""
+    import subprocess
+
+    out = subprocess.run([sys.executable, "-c", COUNT_RAGGED, path],
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    return int(out.stdout)
+
+
+def refused_under_outer_capture(torch, cb, prompt):
+    """``cb.arm_profile`` while another profiler session runs on the main
+    thread: the RuntimeError's message, and that session's kernel 1
+    launches over the request it covers (it must trace the card)."""
+    from torch.profiler import ProfilerActivity
+
+    from tpulab_torch.utils.tracing import profiler_session
+
+    with profiler_session(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as outer:
+        try:
+            cb.arm_profile(2)
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("obs: a capture armed under another")
+        cb.submit(prompt, 4).result(timeout=300)
+        torch.cuda.synchronize()
+    events = outer.key_averages()
+    ragged = sum(e.count for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "ragged_attn_" in e.key and "merge" not in e.key)
+    if not ragged:
+        raise AssertionError(
+            "obs: the outer capture lost the card: "
+            f"{sum(e.count for e in events)} events, "
+            f"{[e.key[:40] for e in events][:8]}")
+    return refused, ragged
+
+
+def debug_capture(pb, unary, gen, streams, cb, n_layers, card, label):
+    """Debug with ``profile_ticks``, traffic until the capture ends; its
+    ``trace.json`` must hold n_layers x the forward steps counted over it
+    of kernel 1 launches.  Returns the capture's record."""
+    d = unary("Debug", pb.DebugRequest(
+        model_name="llm", profile_ticks=OBS_PROFILE_TICKS),
+        pb.DebugResponse)
+    if d.status.code != pb.SUCCESS or not d.profile_dir:
+        raise AssertionError(f"obs: {label} profile_ticks {d.status}")
+    t_cap = time.perf_counter()
+    before = cb.last_profile
+    while cb.last_profile is before and time.perf_counter() - t_cap < 120:
+        streams.append(gen(16, "profiled"))
+    prof = cb.last_profile
+    if prof is before or "error" in prof:
+        raise AssertionError(f"obs: {label} capture {prof}")
+    n_kernel = ragged_kernel_launches(prof["trace"])
+    size = os.path.getsize(prof["trace"])
+    if n_kernel != n_layers * prof["forward_steps"] or not n_kernel:
+        raise AssertionError(
+            f"obs: the {label} capture holds {n_kernel} ragged kernels, "
+            f"{n_layers} x {prof['forward_steps']} forward steps counted "
+            f"over it ({prof['device_events']} device events)")
+    log(f"obs: {label} Debug profile_ticks={OBS_PROFILE_TICKS}: "
+        f"{prof['trace']} ({size} bytes, {prof['device_events']} device "
+        f"events) holds {n_kernel} ragged kernel launches = {n_layers} x "
+        f"{prof['forward_steps']} forward steps captured [{card}]")
+    return prof
+
+
+def spin_cycles_per_s(torch):
+    """The card's spin rate for ``torch.cuda._sleep`` (cycles a second),
+    from one timed spin."""
+    a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+    a.record()
+    torch.cuda._sleep(int(2e8))
+    b.record()
+    b.synchronize()
+    return 2e8 / (a.elapsed_time(b) / 1e3)
+
+
+def obs_bench(torch, params, kw, card):
+    """(a) ``benchmark_obs_overhead`` at full width; token parity held per
+    pair by dispatch (the caller holds the rest by the noise rule once
+    the launch count is read)."""
+    from tpulab_torch.obs import benchmark_obs_overhead
+
+    c = LLAMA3_8B
+    row = benchmark_obs_overhead(
+        vocab=c["vocab"], n_heads=c["n_heads"], n_layers=c["n_layers"],
+        n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+        params=params, device="cuda", dtype=torch.bfloat16,
+        debug_poll_s=0.02, **OBS_BENCH)
+    for i, p in enumerate(row["pairs"]):
+        if p["same_dispatch"] and not p["parity"]:
+            raise AssertionError(f"obs: pair {i} dispatched alike "
+                                 f"{p['dispatch_on']} but its tokens differ")
+        log(f"obs: pair {i}: bare {p['tok_s_off']:.1f} tok/s, armed "
+            f"{p['tok_s_on']:.1f}, overhead {p['overhead_pct']:+.2f} %; "
+            f"tokens {'bit-identical' if p['parity'] else 'differ'}; "
+            f"dispatch {'alike' if p['same_dispatch'] else 'differs'} "
+            f"({p['dispatch_on']}) [{card}]")
+    if not row["watchdog_healthy"] or row["canaries"] < 1:
+        raise AssertionError(f"obs: the bench's watchdog {row['canaries']} "
+                             f"canaries, healthy {row['watchdog_healthy']}")
+    if row["records_observed"] != OBS_BENCH["n_requests"] + 1:
+        raise AssertionError(f"obs: {row['records_observed']} flight "
+                             "records in an armed run")
+    log(f"obs: overhead row at full width: mean bare "
+        f"{row['tok_s_off']:.1f} tok/s, armed {row['tok_s_on']:.1f} "
+        f"({row['overhead_pct']:+.2f} %, printed, not gated); flight "
+        f"records observed {row['records_observed']}, retained "
+        f"{row['records_retained']}; assembly p50 {row['assembly_ms_p50']} "
+        f"/ p99 {row['assembly_ms_p99']} ms; {row['debug_polls']} debugz "
+        f"polls, snapshot p50 {row['snapshot_ms_p50']} / p99 "
+        f"{row['snapshot_ms_p99']} ms, scheduler lock held p50 "
+        f"{row['lock_hold_ms_p50']} / p99 {row['lock_hold_ms_p99']} / max "
+        f"{row['lock_hold_ms_max']} ms; {row['trace_events']} trace "
+        f"events; {row['canaries']} canaries, last "
+        f"{row['last_canary_ms']} ms [{card}]")
+    return row
+
+
+def phase_obs(torch, card):
+    """The observability plane at full width (module docstring, phase 9).
+    Returns kernel 1's launches over the phase."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    import tpulab_torch
+    from tpulab_torch import chaos
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.hbm import HBMArbiter
+    from tpulab_torch.obs import FlightRecorder
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.rpc.infer_service import SERVICE_NAME
+    from tpulab_torch.rpc.protos import inference_pb2 as pb
+    from tpulab_torch.rpc.server import LocalServicerContext
+    from tpulab_torch.utils.metrics import (ChaosMetrics, GenerationMetrics,
+                                            InferenceMetrics,
+                                            start_metrics_server)
+    from tpulab_torch.utils.watchdog import DeviceWatchdog
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    # every count of the phase from here
+    ragged_paged_attention.launches = 0
+    ragged_paged_attention.launches_by_body = dict.fromkeys(
+        ragged_paged_attention.launches_by_body, 0)
+
+    # (a) the overhead row
+    t0 = time.perf_counter()
+    row = obs_bench(torch, params, kw, card)
+    fs_total = row["forward_steps_total"]
+    log(f"obs: (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b) the plane through the service
+    t0 = time.perf_counter()
+    arb = HBMArbiter(torch.cuda.get_device_properties(0).total_memory)
+    gm = GenerationMetrics(model="llm")
+    cb = ContinuousBatcher(params, device="cuda", hbm=arb, metrics=gm,
+                           **SERVE, **kw)
+    fr = FlightRecorder(p99_min_n=10_000)   # no slow exemplars here
+    im = InferenceMetrics()
+    cm = ChaosMetrics().install()
+    wd = DeviceWatchdog(**OBS_WD).start()
+    mgr = tpulab_torch.InferenceManager()
+    try:
+        mgr.serve(port=0, generation_engines={"llm": cb}, flight=fr,
+                  metrics=im, watchdog=wd, hbm=arb)
+    except ImportError:
+        pass                        # no grpc: the built server serves
+    server = mgr.server
+    path = f"/{SERVICE_NAME}/"
+    gen_path = path + "Generate"
+    http, http_thread = start_metrics_server([gm, cm, im], port=0,
+                                             addr="127.0.0.1")
+    rng = np.random.default_rng(41)
+    pool = [rng.integers(0, c["vocab"], (OBS_PROMPT,)).astype(np.int32)
+            for _ in range(64)]
+
+    def prompt():
+        return pool.pop()
+
+    def unary(method, req, cls):
+        return cls.FromString(server.invoke(
+            path + method, req.SerializeToString(),
+            LocalServicerContext([("tpulab-tenant", "chip-smoke")])))
+
+    def gen(steps, tenant, **kw2):
+        return svc_stream(pb, server, gen_path, pb.GenerateRequest(
+            model_name="llm", prompt=prompt(), steps=steps,
+            tenant_id=tenant, **kw2))
+
+    fired = 0
+    streams = []
+    try:
+        # uniform baseline, a chaos-hit request, one over its deadline
+        streams += svc_threads([lambda: gen(8, "uniform")] * 8)
+        with chaos.inject("engine.step=delay:0+1") as sched:
+            streams.append(gen(8, "chaos-t", trace_id="c" * 16))
+            fired += sched.fired("engine.step")
+        with chaos.inject("engine.step=delay:0.02+999") as sched:
+            late = gen(64, "late-t", deadline_ms=150)
+            fired += sched.fired("engine.step")
+        streams.append(late)
+        if late["code"] != pb.DEADLINE_EXCEEDED or any(
+                s["code"] != pb.SUCCESS for s in streams[:-1]):
+            raise AssertionError(f"obs: stream codes "
+                                 f"{[s['code'] for s in streams]}")
+
+        # Debug mid-stream
+        holder = {}
+        first = threading.Event()
+
+        def paced():
+            with chaos.inject("engine.step=delay:0.02") as sched:
+                holder["out"] = svc_stream(
+                    pb, server, gen_path, pb.GenerateRequest(
+                        model_name="llm", prompt=prompt(), steps=48,
+                        tenant_id="midstream", trace_id="f" * 16),
+                    on_token=lambda n: first.set() and False)
+                holder["fired"] = sched.fired("engine.step")
+
+        th = threading.Thread(target=paced)
+        th.start()
+        first.wait(120)
+        t_dbg = time.perf_counter()
+        d = unary("Debug", pb.DebugRequest(), pb.DebugResponse)
+        debug_ms = (time.perf_counter() - t_dbg) * 1e3
+        th.join(300)
+        fired += holder["fired"]
+        streams.append(holder["out"])
+        snap = json.loads(d.snapshot_json)
+        rows = [r for r in snap["engines"]["llm"]["lanes"]
+                if r.get("tenant") == "midstream" and r["tokens"] > 0]
+        if (d.status.code != pb.SUCCESS or not rows
+                or rows[0]["trace_id"] != "f" * 16 or "hbm" not in snap
+                or "flight" not in snap or snap["hbm"]["verify_mismatches"]
+                or not snap["watchdog"]["healthy"]):
+            raise AssertionError(f"obs: mid-stream Debug {d.status} lanes "
+                                 f"{snap.get('engines')}")
+        log(f"obs: Debug mid-stream ({debug_ms:.2f} ms through the "
+            f"service, {len(d.snapshot_json)} bytes): lane "
+            f"{rows[0]['lane']} {rows[0]['state']} {rows[0]['tokens']}/"
+            f"{rows[0]['steps']} tokens, {rows[0]['pages']} pages; hbm "
+            f"claims {len(snap['hbm']['claims'])}, verify clean; flight "
+            f"observed {snap['flight']['observed_total']}; watchdog "
+            f"healthy; scheduler lock held {cb.debug_lock_hold_s * 1e3:.4f}"
+            f" ms [{card}]")
+
+        # Debug with profile_ticks (on the scheduler thread), then a
+        # main-thread session that must refuse a capture and trace the
+        # card, then a second Debug capture that must trace it again
+        debug_capture(pb, unary, gen, streams, cb, c["n_layers"], card,
+                      "first")
+        refused, n_outer = refused_under_outer_capture(torch, cb, prompt())
+        direct_requests = 1                 # the request it covered
+        log(f"obs: after the Debug capture, arming under a main-thread "
+            f"session: RuntimeError ({refused!r}); the session traced the "
+            f"card ({n_outer} kernel 1 launches of the request it "
+            f"covered)")
+        debug_capture(pb, unary, gen, streams, cb, c["n_layers"], card,
+                      "second")
+
+        # the scrape
+        gm.poll(cb)
+        im.poll_device(0)
+        reserved = torch.cuda.memory_reserved(0)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{http.server_port}/metrics",
+                timeout=30) as r:
+            text = r.read().decode()
+        samples = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, _, value = line.rpartition(" ")
+                samples[name] = float(value)
+        firsts = sum(1 for s in streams if s["tokens"]) + direct_requests
+        ttft_n = samples["tpulab_llm_ttft_seconds_count"]
+        trips = sum(v for k, v in samples.items()
+                    if k.startswith("tpulab_chaos_injections_total{")
+                    and 'point="engine.step"' in k)
+        if (ttft_n != firsts or trips != fired or trips < 3
+                or samples["tpulab_llm_tokens_total"] != cb.tokens_generated
+                or samples["tpulab_llm_requests_completed_total"]
+                != cb.completed_requests
+                or samples["tpulab_hbm_bytes_in_use"] <= 0):
+            raise AssertionError(
+                f"obs: scrape ttft count {ttft_n} vs {firsts} first tokens, "
+                f"engine.step injections {trips} vs {fired}")
+        log(f"obs: /metrics scrape ({len(text)} bytes): TTFT count "
+            f"{ttft_n:.0f} == {firsts} first tokens; tokens "
+            f"{cb.tokens_generated}, completed {cb.completed_requests} == "
+            f"the batcher's; engine.step injections {trips:.0f} == the "
+            f"schedules' {fired}; hbm_bytes_in_use "
+            f"{samples['tpulab_hbm_bytes_in_use']:.0f} (memory_reserved "
+            f"{reserved} after the poll), framework_hbm_bytes "
+            f"{samples['tpulab_framework_hbm_bytes']:.0f}")
+
+        # the flight keeps
+        by = {}
+        for r in fr.records():
+            by.setdefault(r.get("tenant"), []).append(r)
+        chaos_rec, late_rec = by["chaos-t"][0], by["late-t"][0]
+        if (chaos_rec["keep"] != "chaos"
+                or chaos_rec.get("chaos_trips") != {"engine.step": 1}
+                or late_rec["keep"] != "deadline"
+                or late_rec["outcome"] != "DEADLINE_EXCEEDED"):
+            raise AssertionError(f"obs: flight keeps {chaos_rec} {late_rec}")
+        log(f"obs: flight: observed {fr.observed_total}, retained "
+            f"{len(fr)} {dict(fr.kept_by_reason)}; chaos-t kept as chaos "
+            f"({chaos_rec['chaos_trips']}), late-t kept as deadline "
+            f"({late_rec['tokens_delivered']}/64 tokens delivered)")
+
+        # the watchdog: healthy while serving, then a wedged canary
+        if not wd.healthy or wd.canaries < 3:
+            raise AssertionError(f"obs: watchdog {wd.canaries} canaries, "
+                                 f"healthy {wd.healthy} ({wd.reason})")
+        canary_ms = wd.last_canary_s * 1e3
+        rate = spin_cycles_per_s(torch)
+        spin_s = OBS_WD["deadline_s"] + OBS_WD["period_s"] + 2.0
+        canary = wd._canary
+
+        def wedged(x, _n=int(rate * spin_s)):
+            torch.cuda._sleep(_n)       # the canary stream spins
+            return x.sum()
+
+        def ready():
+            return unary("Health", pb.HealthRequest(),
+                         pb.HealthResponse).ready
+
+        t_w = time.perf_counter()
+        wd._canary = (wedged, canary[1])
+        while ready() and time.perf_counter() - t_w < 30:
+            time.sleep(0.005)
+        off_s = time.perf_counter() - t_w
+        limit = OBS_WD["deadline_s"] + OBS_WD["period_s"]
+        wd._canary = canary
+        while not ready() and time.perf_counter() - t_w < 60:
+            time.sleep(0.01)
+        on_s = time.perf_counter() - t_w
+        if off_s > limit + 0.25 or not ready():
+            raise AssertionError(f"obs: Health not-ready after {off_s:.3f}"
+                                 f" s (limit {limit} s), ready again "
+                                 f"{ready()}")
+        log(f"obs: watchdog: {wd.canaries} canaries while serving, last "
+            f"{canary_ms:.3f} ms; a canary spinning {spin_s:.1f} s on its "
+            f"stream turned Health not-ready after {off_s:.3f} s (deadline "
+            f"+ period {limit} s) and ready again {on_s:.3f} s after the "
+            f"swap [{card}]")
+        fs_total += cb.forward_steps
+    finally:
+        http.shutdown()
+        http.server_close()
+        cm.uninstall()
+        wd.stop()
+        mgr.shutdown()
+        cb.shutdown()
+    log(f"obs: (b) {time.perf_counter() - t0:.1f} s")
+
+    # (c) kernel 1 over the phase, read before the noise rule's replays
+    launches = ragged_paged_attention.launches
+    by_body = dict(ragged_paged_attention.launches_by_body)
+    if (launches != c["n_layers"] * fs_total or not launches
+            or by_body.get("wgmma") != launches):
+        raise AssertionError(f"obs: ragged launches {launches} vs "
+                             f"{c['n_layers']} x {fs_total} forward steps, "
+                             f"by body {by_body}")
+    log(f"obs: ragged launches over the phase {launches} = "
+        f"{c['n_layers']} x {fs_total} forward steps, all on wgmma")
+
+    # (a)'s pairs that dispatched differently: the bf16 noise rule
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, c["vocab"], (OBS_BENCH["prompt_len"],),
+                            np.int32)
+               for _ in range(OBS_BENCH["n_requests"])]
+    ruled = 0
+    for i, p in enumerate(row["pairs"]):
+        if p["parity"]:
+            continue
+        ruled += 1
+        for j, (want, got) in enumerate(zip(p["tokens_off"],
+                                            p["tokens_on"])):
+            same_or_bf16_noise(torch, params, kw, f"obs pair {i} request "
+                               f"{j}", prompts[j], list(want), list(got))
+    log(f"obs: {len(row['pairs']) - ruled} of {len(row['pairs'])} pairs "
+        f"bit-identical armed vs bare; {ruled} held by the bf16 noise rule")
+    log("obs: " + json.dumps({k: v for k, v in row.items()
+                              if k != "pairs"}))
+    del params
+    log(f"obs: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -3908,6 +4374,7 @@ def main(argv=None) -> int:
     phase_infer(torch, card)
     hbm_launches = phase_hbm(torch, card)
     svc_launches = phase_service(torch, card)
+    obs_launches = phase_obs(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -3918,14 +4385,16 @@ def main(argv=None) -> int:
                      + st["int8 split"]["launches"]["ragged"]
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
-                     + st["disagg"] + hbm_launches + svc_launches,
+                     + st["disagg"] + hbm_launches + svc_launches
+                     + obs_launches,
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
                      "and split-plan serve runs + speculative serve run + "
                      "preempting serve (host tier side) + disagg serve + "
-                     "the hbm phase's burst + the service phase's drive",
+                     "the hbm phase's burst + the service phase's drive + "
+                     "the obs phase",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",

@@ -417,8 +417,6 @@ def test_split_plan_defaults(lm):
     (dict(kv_publish=True), "host tier"),
     (dict(mesh=object()), "parallelism"),
     (dict(hbm=object(), mesh=object()), "HBM economy"),
-    (dict(flight=object()), "queue 1"),
-    (dict(trace=object()), "observability"),
     (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
     (dict(kv_publish=True), "fleet KV fabric"),
     (dict(kv_dtype=torch.float16), "float16 KV"),

@@ -17,7 +17,8 @@ port's server, the port's against tpulab's), on one MNIST weight set
 - the dense ``GenerationEngine`` against tpulab's, directly;
 - the Fiber (event-loop) executor serving StreamInfer and Generate, a
   dead stream failing its pending futures, the Infer lifecycle spans;
-- what is not ported answers or raises naming ROADMAP item 5.
+- what is not ported (FetchKV, ``fleet=``, ``kvfabric=``) answers or
+  raises naming ROADMAP item 5.
 """
 
 import threading
@@ -409,20 +410,16 @@ def test_dense_generation_engine_matches_tpulab():
 def test_not_ported_parts_name_their_item(pair):
     r = _remote(jsvc, pair["tm"])
     try:
-        dbg = r.debugz_raw()
-        assert dbg.status.code == jsvc.pb.INTERNAL
-        assert "item 5" in dbg.status.message
         with pytest.raises(RuntimeError, match="item 5"):
             r.fetch_kv("lm", b"\0" * 16)
     finally:
         r.close()
     mgr = pair["tm"]
-    for kw in (dict(flight=object()), dict(fleet=object()),
-               dict(kvfabric=object()), dict(watchdog=object())):
+    for kw in (dict(fleet=object()), dict(kvfabric=object())):
         with pytest.raises(NotImplementedError, match="item 5"):
             tsvc.build_infer_service(mgr, **kw)
     with pytest.raises(NotImplementedError, match="item 5"):
-        _remote(tsvc, mgr).debugz()
+        _remote(tsvc, mgr).fetch_kv("lm", b"\0" * 16)
 
 
 def test_fiber_executor_serves_stream_infer_and_generate(pair):

@@ -1,11 +1,12 @@
 """The port stands alone: tpulab_torch and chip_smoke.py import no JAX, no
-ml_dtypes and nothing of the tpulab package (the machine with the card
-has none of them), and no module imports google.protobuf; grpc is
-imported only where a server starts or a client is built.  In a process
-where grpc and google.protobuf cannot be imported, the port imports,
-builds the inference service and answers requests through its
-behaviors, and starting a server raises the ImportError that names
-grpc.
+ml_dtypes, no prometheus_client and nothing of the tpulab package (the
+machine with the card has none of them), and no module imports
+google.protobuf; grpc is imported only where a server starts or a client
+is built.  In a process where grpc, google.protobuf and prometheus_client
+cannot be imported, the port imports, builds the inference service with
+its observability plane (flight recorder, watchdog, metrics, the Debug
+RPC) and answers requests through its behaviors, and starting a server
+raises the ImportError that names grpc.
 
 Module names are matched exactly: ``tpulab_torch`` starts with the
 letters ``tpulab`` but is not ``tpulab`` or ``tpulab.*``.
@@ -29,7 +30,9 @@ def _forbidden(name: str) -> bool:
             or name.startswith("jaxlib.") or name == "tpulab"
             or name.startswith("tpulab.") or name == "ml_dtypes"
             or name.startswith("ml_dtypes.") or name == "google.protobuf"
-            or name.startswith("google.protobuf."))
+            or name.startswith("google.protobuf.")
+            or name == "prometheus_client"
+            or name.startswith("prometheus_client."))
 
 
 def _transport(name: str) -> bool:
@@ -50,6 +53,8 @@ def test_forbidden_matches_exact_names():
     assert _forbidden("google.protobuf.internal") and _forbidden(
         "tpulab.rpc.protos.inference_pb2")
     assert _transport("grpc.aio") and not _transport("grpcio_tools")
+    assert _forbidden("prometheus_client") and _forbidden(
+        "prometheus_client.parser") and not _forbidden("prometheus")
 
 
 def test_importing_every_module_loads_no_jax_or_tpulab():
@@ -62,7 +67,11 @@ def test_importing_every_module_loads_no_jax_or_tpulab():
             "tpulab_torch.rpc.infer_service",
             "tpulab_torch.rpc.protos.inference_pb2",
             "tpulab_torch.serving.admission",
-            "tpulab_torch.engine.generation"} <= set(mods)
+            "tpulab_torch.engine.generation", "tpulab_torch.obs",
+            "tpulab_torch.obs.flight", "tpulab_torch.obs.debugz",
+            "tpulab_torch.obs.slo", "tpulab_torch.obs.bench",
+            "tpulab_torch.utils.metrics",
+            "tpulab_torch.utils.watchdog"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -111,7 +120,7 @@ def test_grpc_imported_only_inside_functions():
 
 _BLOCKED = r"""
 import json, sys
-for name in ("grpc", "google.protobuf"):
+for name in ("grpc", "google.protobuf", "prometheus_client"):
     sys.modules[name] = None      # importing them now raises ImportError
 import numpy as np
 import torch
@@ -124,6 +133,9 @@ from tpulab_torch.rpc.infer_service import (SERVICE_NAME, build_infer_service,
                                             tensor_to_proto, proto_to_tensor)
 from tpulab_torch.rpc.protos import inference_pb2 as pb
 from tpulab_torch.serving import AdmissionConfig, AdmissionController
+from tpulab_torch.obs import FlightRecorder
+from tpulab_torch.utils.metrics import InferenceMetrics, generate_latest
+from tpulab_torch.utils.watchdog import DeviceWatchdog
 
 out = {}
 mgr = tpulab_torch.InferenceManager(device="cpu")
@@ -135,8 +147,12 @@ cb = ContinuousBatcher(params, n_heads=4, n_layers=1, lanes=2, max_len=32,
                        page_size=8, compute_dtype=torch.float32,
                        device="cpu")
 adm = AdmissionController(AdmissionConfig(max_inflight=4))
+fr = FlightRecorder(sample_every=1)
+im = InferenceMetrics()
+wd = DeviceWatchdog(device="cpu", period_s=0.05).start()
 server = build_infer_service(mgr, generation_engines={"lm": cb},
-                             batching=True, admission=adm)
+                             batching=True, admission=adm, flight=fr,
+                             metrics=im, watchdog=wd)
 path = "/" + SERVICE_NAME + "/"
 st = pb.StatusResponse.FromString(server.invoke(path + "Status", b""))
 out["status"] = [st.status.code, st.models[0].name, st.free_kv_pages]
@@ -152,6 +168,13 @@ resps = [pb.GenerateResponse.FromString(b) for b in server.invoke_stream(
 out["generate"] = [len(resps), resps[-1].final, resps[-1].status.code]
 h = pb.HealthResponse.FromString(server.invoke(path + "Health", b""))
 out["health"] = [h.live, h.ready]
+d = pb.DebugResponse.FromString(server.invoke(path + "Debug", b""))
+snap = json.loads(d.snapshot_json)
+out["debug"] = [d.status.code, sorted(snap["engines"]),
+                snap["flight"]["observed_total"]]
+out["metrics"] = "tpulab_request_total 1.0" in generate_latest(
+    im.registry).decode()
+wd.stop()
 for what, fn in (("start", server.async_start),
                  ("remote", lambda: tpulab_torch.RemoteInferenceManager(
                      "localhost:1")),
@@ -165,7 +188,8 @@ server.shutdown()
 cb.shutdown()
 mgr.shutdown()
 out["loaded"] = sorted(m for m in sys.modules
-                       if m.startswith(("grpc", "google.protobuf"))
+                       if m.startswith(("grpc", "google.protobuf",
+                                        "prometheus_client"))
                        and sys.modules[m] is not None)
 print(json.dumps(out))
 """
@@ -181,6 +205,7 @@ def test_service_without_grpc_or_protobuf():
     assert got["infer"] == [1, [1, 10]]
     assert got["generate"] == [5, True, 1]
     assert got["health"] == [True, True]
+    assert got["debug"] == [1, ["lm"], 2] and got["metrics"] is True
     for what in ("start", "remote", "serve"):
         assert "grpc" in got[what] and "invoke" in got[what], got[what]
     assert got["loaded"] == []

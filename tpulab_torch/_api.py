@@ -76,10 +76,17 @@ class InferenceManager(_EngineManager):
         the single ``free_hbm_bytes`` headroom and an attached admission
         controller adopts it.
 
-        ``flight``, ``fleet``, ``kvfabric`` and ``watchdog`` are not
-        ported yet (ROADMAP queue 1, item 5) and raise
-        ``NotImplementedError``.  Without grpc the start raises
-        ``ImportError`` (module docstring)."""
+        ``flight=FlightRecorder(...)`` (tpulab_torch.obs) records one
+        wide event per Infer and Generate request and backs the Debug
+        RPC's exemplar pointers; ``watchdog=DeviceWatchdog(...).start()``
+        (tpulab_torch.utils.watchdog) turns Health not-ready while the
+        device misses its canary deadline; ``metrics=InferenceMetrics()``
+        (tpulab_torch.utils.metrics) observes every Infer request — scrape
+        it with ``start_metrics_server``.
+
+        ``fleet`` and ``kvfabric`` are not ported yet (ROADMAP queue 1,
+        item 5) and raise ``NotImplementedError``.  Without grpc the
+        start raises ``ImportError`` (module docstring)."""
         builders = {}
         if models:
             from tpulab_torch.models.registry import build_model

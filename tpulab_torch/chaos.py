@@ -98,6 +98,12 @@ log = logging.getLogger("tpulab_torch.chaos")
 #: injection point pays
 _ARMED: Optional["FaultSchedule"] = None
 
+#: optional fire observer ``fn(point, action)`` (the metrics bridge,
+#: :class:`tpulab_torch.utils.metrics.ChaosMetrics`); called only when a
+#: rule fires, outside the schedule lock, before the action executes (so a
+#: ``kill`` is counted on its way out)
+_OBSERVER = None
+
 _ACTIONS = ("error", "delay", "drop", "kill")
 
 #: exit code of the ``kill`` action, distinguishable from a real crash
@@ -181,6 +187,18 @@ class FaultSchedule:
         with self._lock:
             return self._fired.get(point, 0)
 
+    def fired_snapshot(self) -> Dict[str, int]:
+        """Copy of every point's activation count, diffed around a request
+        window by the flight recorder to attribute a fired rule to the
+        requests in flight."""
+        with self._lock:
+            return dict(self._fired)
+
+    def seen_snapshot(self) -> Dict[str, int]:
+        """Copy of every point's occurrence count (the debugz view)."""
+        with self._lock:
+            return dict(self._seen)
+
     def fire(self, point: str) -> Optional[str]:
         """Apply the first matching eligible rule.  Returns ``"drop"`` when
         a drop rule fires, raises :class:`ChaosError` for ``error``, sleeps
@@ -205,6 +223,12 @@ class FaultSchedule:
                 break
         if action is None:
             return None
+        obs = _OBSERVER
+        if obs is not None:
+            try:
+                obs(point, action)
+            except Exception:  # an observer must not change the injection
+                pass
         log.debug("chaos: %s at %s (value=%s)", action, point, value)
         if action == "delay":
             if value > 0:
@@ -234,6 +258,19 @@ def arm(schedule: Optional[FaultSchedule]) -> None:
 
 def armed() -> Optional[FaultSchedule]:
     return _ARMED
+
+
+def fired_snapshot() -> Dict[str, int]:
+    """Per-point activation counts of the armed schedule ({} disarmed)."""
+    s = _ARMED
+    return {} if s is None else s.fired_snapshot()
+
+
+def set_observer(fn) -> None:
+    """Install (or with ``None`` remove) the process-wide fire observer
+    ``fn(point, action)``."""
+    global _OBSERVER
+    _OBSERVER = fn
 
 
 class inject:

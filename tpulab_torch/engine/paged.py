@@ -51,17 +51,27 @@ work wants pages (the arbiter may evict a cold model to supply them) and
 shrinks when another tenant presses it (idle lanes demote through the
 host tier first), and each program records its scratch per shape key.
 
+The observability plane rides along when attached: ``trace`` (a
+ChromeTraceRecorder: queue / prefill / decode / swap spans on the lane's
+row), ``metrics`` (latency distributions at the source), ``flight`` (one
+wide event per request) and ``arm_profile`` (a ``torch.profiler``
+capture over the next scheduler passes, the Debug RPC's
+``profile_ticks``).  The fault sites are tpulab's: ``engine.prefill`` at
+each prefill start, ``engine.step`` at each decode tick (k per K-block,
+once for a mixed round carrying decode lanes) and ``engine.verify``.
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the
-fleet KV fabric's publish (``kv_publish``), meshes, tracing and the
-flight recorder are not ported: their constructor arguments raise
-``NotImplementedError`` naming the ROADMAP item.
+fleet KV fabric's publish (``kv_publish``) and meshes are not ported:
+their constructor arguments raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import os
 import threading
 import time as _time
 from concurrent.futures import Future
@@ -796,12 +806,15 @@ class _PagedRequest:
                  "draft_pages", "draft_len", "spec_enabled", "spec_ewma",
                  "spec_drafted", "spec_accepted", "spec_probe_in",
                  "spec_probing", "kv_handle", "export_digest",
-                 "t_resume0", "resume_kind")
+                 "t_resume0", "resume_kind", "trace_id", "tenant", "lane",
+                 "fl", "pf_t0", "t_first", "chunk_t0", "chunk_start")
 
     def __init__(self, prompt: np.ndarray, steps: int, on_token=None,
                  sampling: Optional[SamplingParams] = None,
                  priority: int = 0, stop_tokens=None,
-                 logprobs: bool = False, deadline: Optional[float] = None):
+                 logprobs: bool = False, deadline: Optional[float] = None,
+                 trace_id: Optional[str] = None,
+                 tenant: Optional[str] = None):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.steps = steps
         self.future: Future = Future()
@@ -847,9 +860,20 @@ class _PagedRequest:
         # "re_prefill"), read at the next emitted token
         self.t_resume0: Optional[float] = None
         self.resume_kind: Optional[str] = None
+        # request-lifecycle telemetry (trace spans, flight recorder)
+        self.trace_id = trace_id
+        #: flight-recorder / debugz attribution only (never scheduled on)
+        self.tenant = tenant
+        self.lane = -1             # last lane held (-1: never admitted)
+        #: flight-recorder detail (None: recorder disarmed)
+        self.fl: Optional[dict] = None
+        self.pf_t0: Optional[float] = None    # this prefill's start
         self.t_submit = _time.perf_counter()
-        self.t_prefill0: Optional[float] = None
-        self.t_last: Optional[float] = None
+        self.t_prefill0: Optional[float] = None  # first prefill start
+        self.t_first: Optional[float] = None     # first emitted token
+        self.t_last: Optional[float] = None      # latest emitted token
+        self.chunk_t0: Optional[float] = None    # open decode-chunk start
+        self.chunk_start = 0                     # its first token index
 
     def finished(self) -> bool:
         """steps exhausted, or the last emitted token is a stop token."""
@@ -960,9 +984,6 @@ class ContinuousBatcher:
                 "parallelism)")
         if mesh is not None:
             raise _unported("mesh", "parallelism")
-        if flight is not None or trace is not None:
-            raise _unported("flight / trace",
-                            "the rest of queue 1 (observability)")
         # the page dtypes the kernels read (e5m2 and float16 pages are
         # ROADMAP queue 1, left for later)
         if kv_dtype is not None and kv_dtype not in KV_CODE:
@@ -1157,7 +1178,28 @@ class ContinuousBatcher:
                 raise ValueError("prefill_chunk must be >= page_size")
             prefill_chunk -= prefill_chunk % page_size
         self.prefill_chunk = prefill_chunk
+        #: optional :class:`~tpulab_torch.utils.tracing.ChromeTraceRecorder`:
+        #: queue / prefill / decode-chunk / swap spans per request on the
+        #: lane's row, and the ``decode_block`` counter per fused dispatch
+        self.trace = trace
+        #: optional metrics sink (:class:`~tpulab_torch.utils.metrics.
+        #: GenerationMetrics`): TTFT / inter-token / queue-wait / e2e
+        #: observed per request at the source
         self.metrics = metrics
+        #: optional :class:`~tpulab_torch.obs.FlightRecorder`: one wide
+        #: event per request; completion attaches the engine's summary to
+        #: the future as ``_tpulab_flight`` (requests whose event the RPC
+        #: layer assembles, ``flight_owner="rpc"``, are not recorded
+        #: twice).  The recorder observes and never steers.
+        self.flight = flight
+        #: the Debug RPC's on-demand ``torch.profiler`` capture
+        #: (:meth:`arm_profile`), driven by the scheduler thread only
+        self._profile: Optional[Dict[str, Any]] = None
+        #: the last finished capture: its directory, the forward steps
+        #: (and draft forward steps) it covered, or the error that ended it
+        self.last_profile: Optional[Dict[str, Any]] = None
+        #: seconds the last :meth:`debug_state` held the scheduler lock
+        self.debug_lock_hold_s = 0.0
         self._queue: List[_PagedRequest] = []
         self._requests: Dict[Future, _PagedRequest] = {}
         self._active: List[Optional[_PagedRequest]] = [None] * lanes
@@ -1185,7 +1227,10 @@ class ContinuousBatcher:
                sampling: Optional[SamplingParams] = None,
                priority: int = 0, stop_tokens=None,
                logprobs: bool = False, deadline=None,
-               export_digest: Optional[bytes] = None) -> Future:
+               export_digest: Optional[bytes] = None,
+               trace_id: Optional[str] = None,
+               tenant: Optional[str] = None,
+               flight_owner: Optional[str] = None) -> Future:
         """Queue one generation request (tpulab's contract).
 
         ``on_token(token, index)`` streams tokens (``(token, index,
@@ -1200,15 +1245,24 @@ class ContinuousBatcher:
         covers exactly the prompt.  The export
         :class:`~tpulab_torch.kvcache.SwapHandle` lands on the future as
         ``_tpulab_kv_export`` (tpulab's name; None when the swap
-        degraded) before it resolves."""
+        degraded) before it resolves.
+
+        ``trace_id`` tags the request's spans in the attached ``trace``
+        recorder; ``tenant`` tags it for flight-recorder and debugz
+        attribution; ``flight_owner="rpc"`` marks the wide event as
+        assembled by the RPC layer (the engine still attaches its summary
+        to the future as ``_tpulab_flight`` but records nothing)."""
         deadline = self._check_request(prompt, steps, deadline)
         if export_digest is not None and self.kv_offload is None:
             raise ValueError("export_digest requires kv_offload")
         req = _PagedRequest(prompt, steps, on_token=on_token,
                             sampling=sampling, priority=priority,
                             stop_tokens=stop_tokens, logprobs=logprobs,
-                            deadline=deadline)
+                            deadline=deadline, trace_id=trace_id,
+                            tenant=tenant)
         req.export_digest = export_digest
+        if self.flight is not None or flight_owner:
+            self._fl_arm(req, flight_owner)
         with self._cv:
             if self._shutdown:
                 raise RuntimeError("ContinuousBatcher is shut down")
@@ -1241,7 +1295,9 @@ class ContinuousBatcher:
                        on_token=None,
                        sampling: Optional[SamplingParams] = None,
                        priority: int = 0, stop_tokens=None,
-                       deadline=None) -> Future:
+                       deadline=None, trace_id: Optional[str] = None,
+                       tenant: Optional[str] = None,
+                       flight_owner: Optional[str] = None) -> Future:
         """Admit a request whose prompt KV arrived SHIPPED from a prefill
         replica — the decode-replica half of disaggregated serving
         (tpulab's contract).
@@ -1279,7 +1335,10 @@ class ContinuousBatcher:
                 f"{n_prompt}")
         req = _PagedRequest(prompt, steps, on_token=on_token, sampling=sp,
                             priority=priority, stop_tokens=stop_tokens,
-                            deadline=deadline)
+                            deadline=deadline, trace_id=trace_id,
+                            tenant=tenant)
+        if self.flight is not None or flight_owner:
+            self._fl_arm(req, flight_owner)
         # the first-token pick happened on the prefill replica: seed the
         # lane as a resume (a degraded restore then re-prefills and
         # DISCARDS its pick, exactly like a preemption resume)
@@ -1299,6 +1358,7 @@ class ContinuousBatcher:
             self._discard_handle(req)
             self.completed_requests += 1
         # steps == 1, or the first token is a stop token
+        self._flight_complete(req)
         req.future.set_result(self._result_of(req))
         return req.future
 
@@ -1355,6 +1415,7 @@ class ContinuousBatcher:
         keys where the port has the field)."""
         now = _time.perf_counter()
         with self._cv:
+            t_lock = _time.perf_counter()
             lanes = []
             for lane, req in enumerate(self._active):
                 if req is None:
@@ -1363,18 +1424,22 @@ class ContinuousBatcher:
                 lanes.append({
                     "lane": lane,
                     "state": "prefill" if req.pending_prompt else "decode",
-                    "priority": req.priority,
+                    "request_class": "online",
+                    "tenant": req.tenant, "priority": req.priority,
+                    "trace_id": req.trace_id,
                     "age_s": round(now - req.t_submit, 6),
                     "tokens": len(req.tokens_out), "steps": req.steps,
                     "prompt_tokens": int(len(req.prompt)),
                     "pages": len(req.pages),
                     "draft_pages": len(req.draft_pages),
                     "cancelled": req.cancelled})
-            queue_head = [{"priority": q.priority,
+            queue_head = [{"tenant": q.tenant, "priority": q.priority,
                            "age_s": round(now - q.t_submit, 6),
                            "prompt_tokens": int(len(q.prompt)),
                            "steps": q.steps} for q in self._queue[:16]]
             queued = len(self._queue)
+            profile_armed = self._profile is not None
+            self.debug_lock_hold_s = _time.perf_counter() - t_lock
         pool = self.pool
         rung, size = 0, self._hbm_pool_base
         while size and size * 2 <= pool.n_pages:
@@ -1400,14 +1465,14 @@ class ContinuousBatcher:
                          "decode_host_syncs": self.decode_host_syncs,
                          "prefill_dispatches": self.prefill_dispatches,
                          "ragged": self.ragged,
+                         "ragged_dispatches": self.ragged_dispatches,
                          "kinds": dict(self.dispatch_kinds),
                          "preemptions": self.preemptions,
                          "completed_requests": self.completed_requests,
                          "tokens_generated": self.tokens_generated},
+            "profile_armed": profile_armed,
         }
         if self.hbm is not None:
-            # tpulab's flight-event field (the flight recorder itself is
-            # not ported)
             out["hbm_pressure_events"] = self.hbm.pressure_events
         if self._spec is not None:
             out["spec"] = {"dispatches": self.spec_dispatches,
@@ -1431,10 +1496,235 @@ class ContinuousBatcher:
         burns draft and verify compute on rejected proposals."""
         return 2.0 if self._spec is not None else 1.0
 
-    # -- metrics hook (a no-op without a sink) -------------------------------
+    # -- telemetry (no-ops without a recorder or metrics sink) ---------------
+    #: decode tokens per trace span when tokens arrive one a dispatch (a
+    #: fused block closes its own span)
+    TRACE_DECODE_CHUNK = 8
+
+    def _span(self, name: str, lane: int, t0: float, dur: float,
+              req: _PagedRequest, **extra) -> None:
+        """One request-lifecycle span on the lane's trace row."""
+        tr = self.trace
+        if tr is None:
+            return
+        if req.trace_id:
+            extra["trace_id"] = req.trace_id
+        tr.add_span(name, t0, dur, tid=lane, lane=lane, **extra)
+
+    def _flush_decode_chunk(self, req: _PagedRequest, lane: int,
+                            now: float, **extra) -> None:
+        """Close the open decode-chunk span at ``now`` and start the next
+        (a K-block passes ``block=K``: block-sized decode spans)."""
+        n = len(req.tokens_out)
+        if req.chunk_t0 is not None and n > req.chunk_start:
+            self._span("decode", lane, req.chunk_t0, now - req.chunk_t0,
+                       req, first=req.chunk_start,
+                       tokens=n - req.chunk_start, **extra)
+        req.chunk_t0 = now
+        req.chunk_start = n
+
+    #: per-request detail lists stay bounded: a pathological request must
+    #: not turn its own wide event into a leak
+    FLIGHT_DETAIL_CAP = 1024
+
+    @staticmethod
+    def _fl_arm(req: _PagedRequest, owner: Optional[str]) -> None:
+        """Attach the per-request flight detail (armed path only)."""
+        req.fl = {"owner": owner, "blocks": [], "itl": [],
+                  "swap_outs": 0, "swap_ins": 0, "preempts": 0,
+                  "pages_peak": 0, "chaos0": chaos.fired_snapshot()}
+
+    def _fl_block(self, req: _PagedRequest, k: int, n: int,
+                  dt: Optional[float]) -> None:
+        """One decode dispatch's part of the wide event: block size K,
+        tokens emitted, the per-token latency spread over them."""
+        fl = req.fl
+        if fl is None:
+            return
+        if len(fl["blocks"]) < self.FLIGHT_DETAIL_CAP:
+            fl["blocks"].append((k, n))
+        if dt is not None and len(fl["itl"]) < self.FLIGHT_DETAIL_CAP:
+            fl["itl"].append((dt, n))
+        pages = len(req.pages) + len(req.draft_pages)
+        if pages > fl["pages_peak"]:
+            fl["pages_peak"] = pages
+
+    def _fl_pages(self, req: _PagedRequest) -> None:
+        fl = req.fl
+        if fl is not None:
+            pages = len(req.pages) + len(req.draft_pages)
+            if pages > fl["pages_peak"]:
+                fl["pages_peak"] = pages
+
+    def _flight_summary(self, req: _PagedRequest,
+                        outcome: str) -> Dict[str, Any]:
+        """The engine's half of the wide event (tpulab's fields; the RPC
+        layer adds admission, status and transport fields)."""
+        now = _time.perf_counter()
+        ev: Dict[str, Any] = {
+            "kind": "paged", "outcome": outcome, "tenant": req.tenant,
+            "request_class": "online",
+            "priority": req.priority, "trace_id": req.trace_id,
+            "prompt_tokens": int(len(req.prompt)), "steps": req.steps,
+            "tokens": len(req.tokens_out),
+            "t_submit": req.t_submit, "t_prefill0": req.t_prefill0,
+            "t_first": req.t_first, "t_last": req.t_last,
+            "e2e_s": now - req.t_submit, "lane": req.lane,
+            "pages": len(req.pages),
+        }
+        if req.t_prefill0 is not None:
+            ev["queue_wait_s"] = req.t_prefill0 - req.t_submit
+        if req.t_first is not None:
+            ev["ttft_s"] = req.t_first - req.t_submit
+        if req.spec_drafted:
+            ev["spec_drafted"] = req.spec_drafted
+            ev["spec_accepted"] = req.spec_accepted
+            ev["spec_acceptance"] = round(
+                req.spec_accepted / req.spec_drafted, 4)
+        fl = req.fl
+        if fl is not None:
+            ev["pages_peak"] = max(fl["pages_peak"], len(req.pages))
+            ev["block_ks"] = [k for k, _n in fl["blocks"]]
+            ev["preempts"] = fl["preempts"]
+            ev["swap_outs"] = fl["swap_outs"]
+            ev["swap_ins"] = fl["swap_ins"]
+            if fl["itl"]:
+                itl = np.repeat([d for d, _ in fl["itl"]],
+                                [n for _, n in fl["itl"]])
+                ev["itl_ms"] = {
+                    "p50": round(float(np.percentile(itl, 50)) * 1e3, 4),
+                    "p99": round(float(np.percentile(itl, 99)) * 1e3, 4),
+                    "max": round(float(itl.max()) * 1e3, 4),
+                    "n": int(itl.size)}
+            trips = {}
+            for point, n in chaos.fired_snapshot().items():
+                d = n - fl["chaos0"].get(point, 0)
+                if d > 0:
+                    trips[point] = d
+            if trips:
+                ev["chaos_trips"] = trips
+        if self.hbm is not None:
+            ev["hbm_pressure_events"] = self.hbm.pressure_events
+        return ev
+
+    def _flight_complete(self, req: _PagedRequest,
+                         outcome: str = "SUCCESS") -> None:
+        """Completion hook at every future-resolution site: attach the
+        engine summary to the future BEFORE it resolves and record it,
+        unless the RPC layer owns this request's wide event."""
+        fr = self.flight
+        if fr is None and req.fl is None:
+            return
+        ev = self._flight_summary(req, outcome)
+        req.future._tpulab_flight = ev
+        owner = req.fl.get("owner") if req.fl is not None else None
+        if fr is not None and owner != "rpc":
+            fr.observe(ev)
+
+    # -- debugz: the on-demand profiler capture -------------------------------
+    def arm_profile(self, ticks: int, log_dir: Optional[str] = None) -> str:
+        """Arm ``torch.profiler`` around the next ``ticks`` scheduler
+        passes (the Debug RPC's ``profile_ticks``).  The capture starts at
+        the next pass the scheduler thread runs and stops after ``ticks``
+        passes, CPU and (on a CUDA batcher) CUDA activity, and exports a
+        Chrome trace as ``trace.json`` into the returned directory.  The
+        forward steps it covered land in :attr:`last_profile`.
+
+        One capture runs per process (:func:`tpulab_torch.utils.tracing.
+        claim_profiler`): arming while this batcher or any other profiler
+        session, on any thread, holds it raises RuntimeError, and a CUDA
+        batcher whose torch cannot trace CUDA activity raises rather than
+        capture the CPU alone.  A CUDA capture that covered forward steps
+        but holds no device event sets ``last_profile["error"]``."""
+        from tpulab_torch.utils import tracing
+        if int(ticks) < 1:
+            raise ValueError("profile_ticks must be >= 1")
+        cuda = self.device.type == "cuda"
+        if cuda:
+            from torch.profiler import ProfilerActivity
+            tracing.cuda_activity_requested([ProfilerActivity.CUDA])
+        if log_dir is None:
+            import tempfile
+            log_dir = tempfile.mkdtemp(prefix="tpulab_torch-profile-")
+        owner = ("batcher", id(self))
+        with self._cv:
+            if self._profile is not None or not tracing.claim_profiler(
+                    owner):
+                raise RuntimeError("a profiler capture is already armed")
+            self._profile = {"remaining": int(ticks), "dir": log_dir,
+                             "active": None, "owner": owner, "cuda": cuda}
+            self._cv.notify()
+        return log_dir
+
+    def _profile_step(self, done: bool = False) -> None:
+        """Scheduler-thread capture bookkeeping: start the armed capture,
+        count one pass, stop at zero (or at shutdown with ``done``).  The
+        forward-step counters are read at the exact start and stop, on
+        the thread that dispatches every forward; the stop waits for the
+        device first, so a block dispatched inside the window is traced
+        whole."""
+        prof = self._profile
+        if prof is None:
+            return
+        from tpulab_torch.utils import tracing
+        if prof["active"] is None and not done:
+            from torch.profiler import ProfilerActivity, profile
+            if tracing.profiler_running():   # started after the claim
+                self._profile = None
+                tracing.release_profiler(prof["owner"])
+                self.last_profile = {
+                    "dir": prof["dir"], "forward_steps": 0,
+                    "draft_forward_steps": 0,
+                    "error": "another profiler session started first"}
+                _log.error("profiler capture not started: %s",
+                           self.last_profile["error"])
+                return
+            acts = [ProfilerActivity.CPU]
+            if prof["cuda"]:
+                acts.append(ProfilerActivity.CUDA)
+            p = profile(activities=acts)
+            p.start()
+            prof["active"] = p
+            prof["fs0"] = (self.forward_steps, self.draft_forward_steps)
+            return  # the NEXT passes are captured; the arming pass is free
+        prof["remaining"] -= 1
+        if prof["remaining"] > 0 and not done:
+            return
+        self._profile = None
+        p = prof["active"]
+        out = {"dir": prof["dir"], "forward_steps": 0,
+               "draft_forward_steps": 0}
+        try:
+            if p is not None:
+                if prof["cuda"]:
+                    torch.cuda.synchronize(self.device)
+                fs0, dfs0 = prof["fs0"]
+                out["forward_steps"] = self.forward_steps - fs0
+                out["draft_forward_steps"] = (self.draft_forward_steps
+                                              - dfs0)
+                p.stop()
+                path = os.path.join(prof["dir"], "trace.json")
+                p.export_chrome_trace(path)
+                out["trace"] = path
+                out["device_events"] = tracing.device_event_count(p)
+                if (prof["cuda"] and not out["device_events"]
+                        and out["forward_steps"]
+                        + out["draft_forward_steps"]):
+                    out["error"] = (
+                        f"the capture covered {out['forward_steps']} "
+                        "forward steps but traced no CUDA activity")
+                    _log.error("profiler capture: %s", out["error"])
+        except Exception as e:  # noqa: BLE001 - a capture must not kill
+            _log.exception("profiler capture failed")   # the scheduler
+            out["error"] = f"{type(e).__name__}: {e}"
+        finally:
+            tracing.release_profiler(prof["owner"])
+            self.last_profile = out
+
     def _resolve(self, completed: List[_PagedRequest]) -> None:
         for req in completed:
             if not req.future.done():
+                self._flight_complete(req)
                 req.future.set_result(self._result_of(req))
                 self.completed_requests += 1
                 if self.metrics is not None:
@@ -1481,7 +1771,8 @@ class ContinuousBatcher:
             return None
         return page
 
-    def _try_swap_in(self, req: _PagedRequest, t: int) -> Optional[bool]:
+    def _try_swap_in(self, req: _PagedRequest, t: int,
+                     lane: int) -> Optional[bool]:
         """Restore a resume's host-tier snapshot into freshly allocated
         pages instead of re-prefilling.  ``t`` is the resume length, by
         construction the snapshot's covered positions.  True = restored
@@ -1511,6 +1802,14 @@ class ContinuousBatcher:
         req.pf_started = False
         req.resumed = False     # the last pick happened before preemption
         req.t_resume0, req.resume_kind = t0, "swap_in"
+        now = _time.perf_counter()
+        if req.fl is not None:
+            req.fl["swap_ins"] += 1
+        self._fl_pages(req)
+        self._span("swap_in", lane, t0, now - t0, req,
+                   pages=handle.n_pages, tokens=t)
+        req.chunk_t0 = now        # decode chunks restart here
+        req.chunk_start = len(req.tokens_out)
         return True
 
     def _discard_handle(self, req: _PagedRequest) -> None:
@@ -1529,6 +1828,7 @@ class ContinuousBatcher:
         req.pages.append(page)
         req.admit_seq = self._admit_counter
         self._admit_counter += 1
+        req.lane = lane
         self._active[lane] = req
         return True
 
@@ -1571,11 +1871,21 @@ class ContinuousBatcher:
         degraded swap.  A mid-prompt lane is never snapshotted: its
         partial KV does not match the resume length."""
         req = self._active[lane]
+        self._fl_pages(req)
+        if req.fl is not None:
+            req.fl["preempts"] += 1
         if (self.kv_offload is not None and req.length > 0
                 and not req.pending_prompt):
+            t_sw0 = _time.perf_counter()
             needed = (req.length + self.page_size - 1) // self.page_size
             req.kv_handle = self.kv_offload.swap_out(
                 req.pages[:needed], req.length, self.pool.kv)
+            if req.kv_handle is not None:
+                if req.fl is not None:
+                    req.fl["swap_outs"] += 1
+                self._span("swap_out", lane, t_sw0,
+                           _time.perf_counter() - t_sw0, req,
+                           pages=needed, tokens=req.length)
         self.pool.release_pages(req.pages)
         req.pages = []
         # the draft table is regenerated at resume (one warm-up forward),
@@ -1788,6 +2098,7 @@ class ContinuousBatcher:
                     self._cv.wait()
                 if (self._shutdown and not self._queue
                         and not any(self._active)):
+                    self._profile_step(done=True)  # close an open capture
                     return
                 # HBM arbiter pressure: serve an outstanding reclaim at the
                 # tick boundary (dispatch-ahead is suppressed while one is
@@ -1818,13 +2129,16 @@ class ContinuousBatcher:
                     self._queue[:] = still
                 self._admit_locked()
                 snapshot = list(self._active)
+            self._profile_step()   # the Debug RPC's capture bookkeeping
             for req in swept:
+                self._flight_complete(req, "CANCELLED")
                 if not req.future.done():
                     req.future.cancel() or req.future.set_exception(
                         RuntimeError("generation cancelled"))
             for req in expired:
                 if self.metrics is not None:
                     self.metrics.note_deadline_expired()
+                self._flight_complete(req, "DEADLINE_EXCEEDED")
                 if not req.future.done():
                     req.future.set_exception(DeadlineExceeded(
                         "generation deadline exceeded "
@@ -1834,9 +2148,9 @@ class ContinuousBatcher:
                     prefilled = self._ragged_round(snapshot)
                 else:
                     prefilled = False
-                    for req in snapshot:
+                    for lane, req in enumerate(snapshot):
                         if req is not None and req.pending_prompt:
-                            prefilled |= self._do_prefill(req)
+                            prefilled |= self._do_prefill(req, lane)
                 if prefilled:
                     # a steps==1 request can complete at prefill
                     done_reqs = []
@@ -1880,6 +2194,7 @@ class ContinuousBatcher:
                     for lane, req in enumerate(self._active):
                         if req is not None:
                             if not req.future.done():
+                                self._flight_complete(req, "INTERNAL")
                                 req.future.set_exception(e)
                             self._requests.pop(req.future, None)
                             self._discard_handle(req)
@@ -1914,7 +2229,7 @@ class ContinuousBatcher:
         return functools.partial(paged_prefill, attention_fn=attn_fn,
                                  **self._step_kw)
 
-    def _do_prefill(self, req: _PagedRequest) -> bool:
+    def _do_prefill(self, req: _PagedRequest, lane: int = 0) -> bool:
         """Fill the whole prompt's KV pages and pick the first token.  One
         full-prompt forward per pow2 length bucket; with a prefix cache
         the shared full-page prefix is reused and only the tail runs
@@ -1927,7 +2242,7 @@ class ContinuousBatcher:
             return False
         t = len(req.pending_prompt)
         if req.kv_handle is not None:
-            swapped = self._try_swap_in(req, t)
+            swapped = self._try_swap_in(req, t, lane)
             if swapped is not None:
                 return swapped
         prompt = np.asarray(req.pending_prompt, np.int32)
@@ -1958,10 +2273,15 @@ class ContinuousBatcher:
         t_pf0 = _time.perf_counter()
         if req.t_prefill0 is None:
             req.t_prefill0 = t_pf0
+            self._span("queue_wait", lane, req.t_submit,
+                       t_pf0 - req.t_submit, req)
             if self.metrics is not None:
                 self.metrics.observe_queue_wait(t_pf0 - req.t_submit)
         if req.resumed:
             req.t_resume0, req.resume_kind = t_pf0, "re_prefill"
+        # chaos: the prefill fault site (tpulab's place): an error takes
+        # the scheduler's recovery path, a delay is a slow prefill
+        chaos.trip("engine.prefill")
         self.prefill_dispatches += 1
         self.prompt_fills += 1
         if start == 0 and (self.prefill_chunk is None
@@ -1986,6 +2306,7 @@ class ContinuousBatcher:
                 start += m
         req.length = t
         req.pending_prompt = []
+        self._fl_pages(req)
         was_resumed = req.resumed
         if was_resumed:
             # preemption resume: the fed tail ends at tokens_out[-2]; the
@@ -1999,10 +2320,17 @@ class ContinuousBatcher:
             if req.want_logprobs:
                 req.logprobs_out.append(lp)
             self._emit(req, tok, 0, lp)
-            now = _time.perf_counter()
-            req.t_last = now
+        # the prefill span closes after the first-token pick (its fetch
+        # is the fence that makes the device time real)
+        t_pf1 = _time.perf_counter()
+        self._span("prefill", lane, t_pf0, t_pf1 - t_pf0, req,
+                   prompt_tokens=t, cached_pages=len(shared))
+        req.chunk_t0 = t_pf1
+        req.chunk_start = len(req.tokens_out)
+        if not was_resumed:
+            req.t_first = req.t_last = t_pf1
             if self.metrics is not None:
-                self.metrics.observe_ttft(now - req.t_submit)
+                self.metrics.observe_ttft(t_pf1 - req.t_submit)
         if self.prefix_cache is not None and not was_resumed:
             # count each logical request once and publish first-prefill
             # pages only: full prompt pages are immutable from here on
@@ -2034,7 +2362,7 @@ class ContinuousBatcher:
         return tok, (float(host[1][tok]) if req.want_logprobs else None)
 
     # -- ragged dispatch plan (mixed prefill+decode rounds) ------------------
-    def _ragged_prefill_start(self, req: _PagedRequest) -> bool:
+    def _ragged_prefill_start(self, req: _PagedRequest, lane: int) -> bool:
         """Prefix-cache lookup + secure EVERY page the full prompt needs
         (all-or-nothing, so two starved prefills never hold-and-wait).
         False = page-starved (retry later)."""
@@ -2060,14 +2388,19 @@ class ContinuousBatcher:
         del req.pending_prompt[:req.length]
         req.pf_started = True
         self.prompt_fills += 1
-        now = _time.perf_counter()
+        now = req.pf_t0 = _time.perf_counter()
         if req.resumed:
             req.t_resume0, req.resume_kind = now, "re_prefill"
         if req.t_prefill0 is None:
             req.t_prefill0 = now
+            self._span("queue_wait", lane, req.t_submit,
+                       now - req.t_submit, req)
             if self.metrics is not None:
                 self.metrics.observe_queue_wait(req.t_prefill0
                                                 - req.t_submit)
+        # chaos: the prefill fault site, once per prefill start (as in
+        # _do_prefill: an error takes the scheduler's recovery path)
+        chaos.trip("engine.prefill")
         return True
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
@@ -2109,11 +2442,13 @@ class ContinuousBatcher:
             if req is None or not req.pending_prompt or req.cancelled:
                 continue
             if req.kv_handle is not None:
-                swapped = self._try_swap_in(req, len(req.pending_prompt))
+                swapped = self._try_swap_in(req, len(req.pending_prompt),
+                                            lane)
                 if swapped is not None:
                     restored |= swapped
                     continue     # restored, or page-starved: retry later
-            if not req.pf_started and not self._ragged_prefill_start(req):
+            if not req.pf_started and not self._ragged_prefill_start(
+                    req, lane):
                 continue
             segs.append((lane, req))
         if not segs:
@@ -2184,6 +2519,10 @@ class ContinuousBatcher:
                     seeds[lane] = self._seed_words(sp)
                 else:
                     host_lanes.append(lane)
+        if decode_parts:
+            # decode lanes advance one tick this round: the decode fault
+            # site (tpulab's place)
+            chaos.trip("engine.step")
         t0 = _time.perf_counter()
         nt_dev, lp_dev, last_dev = self._mixed_step(
             self.params, self.pool.kv, self._to_dev(tables),
@@ -2218,6 +2557,7 @@ class ContinuousBatcher:
                 c = chunks[lane]
                 req.length += c
                 del req.pending_prompt[:c]
+                self._fl_pages(req)
                 if req.pending_prompt:
                     continue         # mid-prompt: nothing emitted yet
                 was_resumed = req.resumed
@@ -2234,8 +2574,13 @@ class ContinuousBatcher:
                         lp = float(logprobs_arr[lane])
                         req.logprobs_out.append(lp)
                     emits.append((req, tok, len(req.tokens_out) - 1, lp))
+                self._span("prefill", lane, req.pf_t0, now - req.pf_t0,
+                           req, prompt_tokens=req.length,
+                           cached_pages=req.pf_shared)
+                req.chunk_t0 = now
+                req.chunk_start = len(req.tokens_out)
                 if not was_resumed:
-                    req.t_last = now
+                    req.t_first = req.t_last = now
                     if self.metrics is not None:
                         self.metrics.observe_ttft(now - req.t_submit)
                 if self.prefix_cache is not None and not was_resumed:
@@ -2252,15 +2597,21 @@ class ContinuousBatcher:
                 tok = int(next_tokens[lane])
                 req.tokens_out.append(tok)
                 self.tokens_generated += 1
-                if self.metrics is not None and req.t_last is not None:
-                    self.metrics.observe_itl(now - req.t_last)
+                dt = (now - req.t_last) if req.t_last is not None else None
+                if self.metrics is not None and dt is not None:
+                    self.metrics.observe_itl(dt)
+                self._fl_block(req, 1, 1, dt)
                 req.t_last = now
                 lp = None
                 if req.want_logprobs:
                     lp = float(logprobs_arr[lane])
                     req.logprobs_out.append(lp)
                 emits.append((req, tok, len(req.tokens_out) - 1, lp))
-                if req.finished():
+                done = req.finished()
+                if (done or len(req.tokens_out) - req.chunk_start
+                        >= self.TRACE_DECODE_CHUNK):
+                    self._flush_decode_chunk(req, lane, now)
+                if done:
                     self._release_lane_locked(lane, req)
                     completed.append(req)
             self._admit_locked()
@@ -2578,6 +2929,12 @@ class ContinuousBatcher:
         else:
             temps, seeds, stops = host
             lengths, tokens, active, rem = carry
+        # chaos: the decode fault site, tripped once per decode TICK (k
+        # times a block, as tpulab does): a schedule written against
+        # per-token serving keeps its meaning under fused blocks, and an
+        # error fails the in-flight requests and resets the pool
+        for _ in range(k):
+            chaos.trip("engine.step")
         t0 = _time.perf_counter()
         toks, lps, ems, len_f, tok_f, live_f, rem_f = self._decode_block(
             self.params, self.pool.kv, self._to_dev(tables), lengths,
@@ -2602,6 +2959,7 @@ class ContinuousBatcher:
         emits: List = []
         completed: List = []
         clean = True
+        emitted_total = 0
         with self._cv:
             for lane, req in stash["lane_reqs"].items():
                 if self._active[lane] is not req or req.cancelled:
@@ -2612,6 +2970,7 @@ class ContinuousBatcher:
                 n = int(ems[lane].sum())   # prefix mask: first n are valid
                 if n == 0:
                     continue
+                emitted_total += n
                 dt = (now - req.t_last) / n if req.t_last is not None \
                     else None
                 for j in range(n):
@@ -2626,10 +2985,15 @@ class ContinuousBatcher:
                         req.logprobs_out.append(lp)
                     emits.append((req, tok, len(req.tokens_out) - 1, lp))
                 req.t_last = now
+                self._fl_block(req, k, n, dt)
+                self._flush_decode_chunk(req, lane, now, block=k)
                 if req.finished():
                     self._release_lane_locked(lane, req)
                     completed.append(req)
             self._admit_locked()
+        if self.trace is not None and emitted_total:
+            self.trace.add_counter("decode_block", now,
+                                   tokens=emitted_total, k=k)
         # dispatch-ahead: same lanes, same K -> enqueue block N+1 from the
         # device carry BEFORE running block N's callbacks
         if (clean and not completed and k > 1
@@ -2752,6 +3116,8 @@ class ContinuousBatcher:
             if self._step_ewma_s else (now - stash["t0"]) / (k + 1))
         emits: List = []
         completed: List = []
+        emitted_total = 0
+        accepted_total = 0
         with self._cv:
             for lane, req in stash["lane_reqs"].items():
                 if self._active[lane] is not req or req.cancelled:
@@ -2761,6 +3127,7 @@ class ContinuousBatcher:
                 self.spec_tokens_accepted += a
                 req.spec_drafted += d
                 req.spec_accepted += a
+                accepted_total += a
                 rate = a / d if d else 0.0
                 req.spec_ewma = (self.SPEC_EWMA_DECAY * req.spec_ewma
                                  + (1.0 - self.SPEC_EWMA_DECAY) * rate)
@@ -2774,6 +3141,7 @@ class ContinuousBatcher:
                 n = int(ems[lane].sum())   # prefix mask: first n are valid
                 if n == 0:
                     continue
+                emitted_total += n
                 dt = (now - req.t_last) / n if req.t_last is not None \
                     else None
                 for j in range(n):
@@ -2792,10 +3160,17 @@ class ContinuousBatcher:
                     # the block's own draft writes cover every accepted
                     # position (k+1 draft steps: no holes)
                     req.draft_len = req.length
+                self._fl_block(req, k, n, dt)
+                self._flush_decode_chunk(req, lane, now, block=k,
+                                         accepted=a)
                 if req.finished():
                     self._release_lane_locked(lane, req)
                     completed.append(req)
             self._admit_locked()
+        if self.trace is not None and emitted_total:
+            self.trace.add_counter("decode_block", now,
+                                   tokens=emitted_total, k=k,
+                                   accepted=accepted_total)
         for req, tok, i, lp in emits:
             self._emit(req, tok, i, lp)
         self._resolve(completed)
@@ -2828,6 +3203,9 @@ class ContinuousBatcher:
                     seeds[lane] = self._seed_words(sp)
                 else:
                     host_lanes.append(lane)
+        # chaos: the decode-tick fault site (an error fails the in-flight
+        # requests and resets the pool; a delay slows every lane's step)
+        chaos.trip("engine.step")
         t0 = _time.perf_counter()
         args = (self.params, self.pool.kv, self._to_dev(tables),
                 self._to_dev(lengths), self._to_dev(tokens),
@@ -2870,8 +3248,10 @@ class ContinuousBatcher:
                 req.length += 1
                 req.tokens_out.append(int(next_tokens[lane]))
                 self.tokens_generated += 1
-                if self.metrics is not None and req.t_last is not None:
-                    self.metrics.observe_itl(now - req.t_last)
+                dt = (now - req.t_last) if req.t_last is not None else None
+                if self.metrics is not None and dt is not None:
+                    self.metrics.observe_itl(dt)
+                self._fl_block(req, 1, 1, dt)
                 req.t_last = now
                 lp = (float(logprobs_arr[lane])
                       if logprobs_arr is not None else None)
@@ -2879,7 +3259,11 @@ class ContinuousBatcher:
                     req.logprobs_out.append(lp)
                 emits.append((req, req.tokens_out[-1],
                               len(req.tokens_out) - 1, lp))
-                if req.finished():
+                done = req.finished()
+                if (done or len(req.tokens_out) - req.chunk_start
+                        >= self.TRACE_DECODE_CHUNK):
+                    self._flush_decode_chunk(req, lane, now)
+                if done:
                     self._release_lane_locked(lane, req)
                     completed.append(req)
             self._admit_locked()

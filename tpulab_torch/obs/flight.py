@@ -1,0 +1,249 @@
+"""Flight recorder: one tail-sampled *wide event* per request (the port
+of ``tpulab/obs/flight.py``; pure Python, the same retention policy).
+
+Aggregate telemetry (:mod:`tpulab_torch.utils.metrics`) answers "how is
+the service doing"; the flight recorder answers "why was THIS request
+slow": every request assembles ONE structured record at completion
+(tenant / model / priority, admission verdict and queue wait, lane, peak
+pages, dispatched block sizes, speculative acceptance, KV swap events,
+chaos trips, outcome, and the phase timings queue / prefill / TTFT / ITL
+/ e2e), and a **tail-based retention** policy decides which records
+survive the bounded rings:
+
+- errors (any non-SUCCESS outcome), DEADLINE_EXCEEDED and
+  RESOURCE_EXHAUSTED outcomes, stalled streams, and requests a chaos
+  rule fired during are ALWAYS kept (the ``tail`` ring);
+- the rolling slowest requests are kept as **p99 exemplars**: an e2e
+  strictly above the p99 of the recent-window reservoir qualifies;
+- everything else is uniformly sampled (1 in ``sample_every``, a
+  deterministic counter) into the ``uniform`` ring; the rest are
+  counted, not stored.
+
+The retained set dumps as JSONL and as a Chrome trace of the exemplars'
+phase spans through :class:`~tpulab_torch.utils.tracing.
+ChromeTraceRecorder`.  Disarmed, the serving path pays one ``is None``
+branch per request; :meth:`FlightRecorder.assembly_quantiles` reports
+the armed cost.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+__all__ = ["FlightRecorder", "KEEP_REASONS"]
+
+#: retention classes, in decision order (the ``keep`` field of every
+#: retained record; ``sampled`` marks the uniform survivors)
+KEEP_REASONS = ("error", "deadline", "overload", "stall", "chaos", "slow",
+                "sampled")
+
+#: outcomes that classify as always-keep (next to the generic non-SUCCESS
+#: "error" class) — the StatusCode names the RPC layer reports
+_DEADLINE_OUTCOMES = ("DEADLINE_EXCEEDED",)
+_OVERLOAD_OUTCOMES = ("RESOURCE_EXHAUSTED",)
+
+
+class FlightRecorder:
+    """Bounded, tail-retaining ring of per-request wide events.
+
+    ``tail_capacity`` bounds the always-keep ring (errors/stalls/chaos/
+    slow exemplars), ``uniform_capacity`` the sampled-baseline ring;
+    ``sample_every`` is the uniform keep rate (every Nth healthy,
+    unexceptional request — deterministic counter, no RNG: replaying a
+    trace retains the same records).  ``p99_window`` sizes the rolling
+    e2e reservoir behind the slowest-exemplar classifier and
+    ``p99_min_n`` is the observation floor below which nothing
+    classifies as slow (a cold reservoir must not call the first request
+    an exemplar).
+    """
+
+    def __init__(self, tail_capacity: int = 256,
+                 uniform_capacity: int = 256, sample_every: int = 16,
+                 p99_window: int = 512, p99_min_n: int = 16):
+        if tail_capacity < 1 or uniform_capacity < 1:
+            raise ValueError("ring capacities must be >= 1")
+        if sample_every < 1:
+            raise ValueError("sample_every must be >= 1")
+        self.sample_every = int(sample_every)
+        self.p99_min_n = int(p99_min_n)
+        self._tail: deque = deque(maxlen=int(tail_capacity))
+        self._uniform: deque = deque(maxlen=int(uniform_capacity))
+        self._e2e = deque(maxlen=int(p99_window))  # rolling e2e reservoir
+        self._lock = threading.Lock()
+        self._seq = 0            # record ids (monotonic)
+        self._uniform_seen = 0   # healthy records offered to the sampler
+        #: observability of the policy itself (test-assertable)
+        self.observed_total = 0
+        self.dropped_total = 0
+        self.kept_by_reason: Dict[str, int] = {}
+        #: record-assembly cost samples (seconds) — the obs_overhead
+        #: bench row's p99 source
+        self._assembly_s = deque(maxlen=2048)
+        #: downstream consumers of the UNSAMPLED event stream
+        #: (obs.slo rides here) — see add_tap
+        self._taps: List[Any] = []
+
+    def add_tap(self, fn) -> None:
+        """Subscribe ``fn(event)`` to every observed event BEFORE
+        retention sampling — aggregating consumers (the SLO tracker)
+        need the whole stream, not the tail-sampled survivors.  Taps
+        run on the request-completion path: keep them cheap; exceptions
+        are swallowed (a broken consumer must not fail requests)."""
+        self._taps.append(fn)
+
+    # -- ingestion -----------------------------------------------------------
+    def observe(self, event: Dict[str, Any]) -> Optional[int]:
+        """Classify + retain one completed request's wide event.
+
+        The event is any flat-ish dict; the recorder reads (all
+        optional): ``outcome`` (StatusCode name, default "SUCCESS"),
+        ``stalled`` (bool), ``chaos_trips`` (dict of point -> fires
+        during the request), ``e2e_s`` (float).  It stamps ``id``,
+        ``keep`` (the retention reason) and ``wall_time`` onto retained
+        events and returns the record id (None = uniformly dropped)."""
+        t0 = time.perf_counter()
+        for tap in tuple(self._taps):
+            try:
+                tap(event)
+            except Exception:  # noqa: BLE001 - consumers must not fail us
+                pass
+        outcome = str(event.get("outcome", "SUCCESS") or "SUCCESS")
+        e2e = event.get("e2e_s")
+        with self._lock:
+            self._seq += 1
+            rec_id = self._seq
+            self.observed_total += 1
+            reason = self._classify_locked(outcome, event, e2e)
+            if e2e is not None:
+                # the reservoir sees every completed request (kept or
+                # not) AFTER classification: a burst of slow requests
+                # raises the bar for the next one, never for itself
+                self._e2e.append(float(e2e))
+            if reason is None:
+                self.dropped_total += 1
+                self._assembly_s.append(time.perf_counter() - t0)
+                return None
+            event = dict(event)
+            event["id"] = rec_id
+            event["keep"] = reason
+            event.setdefault("wall_time", time.time())
+            self.kept_by_reason[reason] = (
+                self.kept_by_reason.get(reason, 0) + 1)
+            ring = self._uniform if reason == "sampled" else self._tail
+            if len(ring) == ring.maxlen:
+                self.dropped_total += 1  # the ring's oldest falls off
+            ring.append(event)
+            self._assembly_s.append(time.perf_counter() - t0)
+            return rec_id
+
+    def _classify_locked(self, outcome: str, event: Dict[str, Any],
+                         e2e) -> Optional[str]:
+        """Retention decision (module docstring order); None = drop."""
+        if outcome in _DEADLINE_OUTCOMES:
+            return "deadline"
+        if outcome in _OVERLOAD_OUTCOMES:
+            return "overload"
+        if outcome not in ("SUCCESS", "", None):
+            return "error"
+        if event.get("stalled"):
+            return "stall"
+        if event.get("chaos_trips"):
+            return "chaos"
+        if (e2e is not None and len(self._e2e) >= self.p99_min_n
+                and float(e2e) > self._p99_locked()):
+            # STRICTLY above the rolling p99: homogeneous traffic (every
+            # e2e equal to the quantile) must stay uniformly sampled,
+            # not all classify as exemplars
+            return "slow"
+        self._uniform_seen += 1
+        if (self._uniform_seen - 1) % self.sample_every == 0:
+            return "sampled"
+        return None
+
+    def _p99_locked(self) -> float:
+        vals = sorted(self._e2e)
+        return vals[min(len(vals) - 1, int(0.99 * len(vals)))]
+
+    # -- views ---------------------------------------------------------------
+    def records(self, keep: Optional[str] = None) -> List[Dict[str, Any]]:
+        """Retained wide events in id order (optionally one retention
+        class); copies — callers may mutate freely."""
+        with self._lock:
+            out = list(self._tail) + list(self._uniform)
+        out.sort(key=lambda r: r["id"])
+        if keep is not None:
+            out = [r for r in out if r["keep"] == keep]
+        return [dict(r) for r in out]
+
+    def exemplar_ids(self, limit: int = 32) -> List[int]:
+        """Most recent always-keep record ids (the debugz pointer: an
+        operator follows these into the JSONL dump)."""
+        with self._lock:
+            ids = [r["id"] for r in self._tail]
+        return ids[-limit:]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._tail) + len(self._uniform)
+
+    def assembly_quantiles(self) -> Dict[str, float]:
+        """p50/p99 of observed record-assembly cost in seconds."""
+        with self._lock:
+            vals = sorted(self._assembly_s)
+        if not vals:
+            return {"p50": 0.0, "p99": 0.0}
+        return {"p50": vals[len(vals) // 2],
+                "p99": vals[min(len(vals) - 1, int(0.99 * len(vals)))]}
+
+    # -- dumps ---------------------------------------------------------------
+    def dump_jsonl(self, path: str) -> int:
+        """Write the retained events as JSONL (atomic tmp+rename, the
+        recorder-save contract); returns the record count."""
+        import os
+        recs = self.records()
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            for r in recs:
+                f.write(json.dumps(r, default=str) + "\n")
+        os.replace(tmp, path)
+        return len(recs)
+
+    def save_chrome_trace(self, path: str,
+                          keep: Optional[str] = None) -> int:
+        """Render retained exemplars' phase timings as a Chrome trace via
+        the existing recorder (one row per record; spans queue_wait /
+        prefill / decode tagged with id/tenant/model/outcome) — load it
+        in ui.perfetto.dev next to a merged request-trace timeline.
+        Returns the number of records rendered."""
+        from tpulab_torch.utils.tracing import ChromeTraceRecorder
+        rec = ChromeTraceRecorder(process_name="flight-recorder")
+        n = 0
+        for r in self.records(keep=keep):
+            t0 = r.get("t_submit")
+            if t0 is None:
+                continue
+            n += 1
+            args = {k: r[k] for k in ("id", "keep", "tenant", "model",
+                                      "outcome", "trace_id")
+                    if r.get(k) is not None}
+            tid = r.get("id", 0)
+            pf0 = r.get("t_prefill0")
+            tf = r.get("t_first")
+            tl = r.get("t_last")
+            if pf0 is not None:
+                rec.add_span("queue_wait", t0, pf0 - t0, tid=tid, **args)
+            if pf0 is not None and tf is not None:
+                rec.add_span("prefill", pf0, max(0.0, tf - pf0), tid=tid,
+                             **args)
+            if tf is not None and tl is not None and tl > tf:
+                rec.add_span("decode", tf, tl - tf, tid=tid,
+                             tokens=r.get("tokens"), **args)
+            e2e = r.get("e2e_s")
+            if e2e is not None:
+                rec.add_span("request", t0, e2e, tid=tid, **args)
+        rec.save(path)
+        return n

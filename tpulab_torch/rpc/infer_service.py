@@ -18,10 +18,17 @@ the network.  The client half (:class:`RemoteInferenceManager`,
 :class:`GenerateStreamClient`, :class:`StreamInferClient`) imports grpc
 when it is constructed.
 
-Not ported yet (ROADMAP queue 1, item 5): the ``Debug`` and ``FetchKV``
-RPCs answer ``INTERNAL`` naming the item, ``flight=``, ``fleet=``,
-``kvfabric=`` and ``watchdog=`` raise, and a ``request_class='batch'``
-Generate request (the offline batch lane) is ``INVALID_ARGUMENT``.
+Observability: ``flight=`` (a :class:`~tpulab_torch.obs.FlightRecorder`)
+records one wide event per Infer and Generate request, ``watchdog=`` (a
+:class:`~tpulab_torch.utils.watchdog.DeviceWatchdog`) gates the Health
+RPC's readiness, and the ``Debug`` RPC answers the
+:func:`~tpulab_torch.obs.debug_snapshot` document, with an on-demand
+``torch.profiler`` capture (``profile_ticks``).
+
+Not ported yet (ROADMAP queue 1, item 5): the ``FetchKV`` RPC answers
+``INTERNAL`` naming the item, ``fleet=`` and ``kvfabric=`` raise, and a
+``request_class='batch'`` Generate request (the offline batch lane) is
+``INVALID_ARGUMENT``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import concurrent.futures as _f
 import logging
 import threading
 import time as _time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -56,7 +63,7 @@ TRACE_DECODE_CHUNK = 8
 
 #: the message every not-yet-ported option and RPC answers with
 _ITEM5 = ("is not ported to tpulab_torch yet (ROADMAP queue 1, item 5: "
-          "observability, the batch lane, the fleet and the KV fabric)")
+          "the batch lane, the fleet and the KV fabric)")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -93,13 +100,20 @@ class InferResources(Resources):
                  watchdog=None, trace=None, admission=None,
                  role: str = "unified", modelstore=None, hbm=None,
                  flight=None, fleet=None, kvfabric=None):
-        for name, value in (("flight", flight), ("fleet", fleet),
-                            ("kvfabric", kvfabric), ("watchdog", watchdog)):
+        for name, value in (("fleet", fleet), ("kvfabric", kvfabric)):
             if value is not None:
                 raise _unported(f"{name}=")
         self.manager = manager
-        #: duck-typed observer (``observe_request``), as in tpulab
+        #: optional :class:`~tpulab_torch.utils.metrics.InferenceMetrics`
+        #: (or any ``observe_request`` observer)
         self.metrics = metrics
+        #: optional :class:`~tpulab_torch.obs.FlightRecorder` — one
+        #: tail-sampled wide event per request, assembled here at
+        #: completion.  None = disarmed: one is-None branch per request.
+        self.flight = flight
+        #: optional :class:`~tpulab_torch.utils.watchdog.DeviceWatchdog`:
+        #: an unhealthy device turns Health's readiness off
+        self.watchdog = watchdog
         #: optional tpulab_torch.hbm.HBMArbiter — the unified device-memory
         #: economy.  Status reports its single headroom number
         #: (free_hbm_bytes) so routers and admission see ONE honest
@@ -299,9 +313,25 @@ class InferContext(Context):
         res0 = self.get_resources(InferResources)
         res0.request_started()
         try:
-            return self._execute(request)
+            resp = self._execute(request)
         finally:
             res0.request_finished()
+        if res0.flight is not None:
+            # unary wide event (lighter than generation's: no phases —
+            # the stage profile already covers the dense pipeline)
+            from tpulab_torch.serving.admission import tenant_of_request
+            tc = TraceContext.of_request(request, self.grpc_context)
+            try:
+                outcome = pb.StatusCode.Name(resp.status.code)
+            except ValueError:  # an unknown code
+                outcome = str(resp.status.code)
+            res0.flight.observe({
+                "kind": "infer", "model": request.model_name,
+                "tenant": tenant_of_request(request, self.grpc_context),
+                "trace_id": tc.trace_id if tc is not None else None,
+                "batch": max(1, int(request.batch_size)),
+                "outcome": outcome, "e2e_s": self.walltime()})
+        return resp
 
     def _execute(self, request: pb.InferRequest) -> pb.InferResponse:
         mgr = self.get_resources(InferResources).manager
@@ -447,16 +477,62 @@ class HealthContext(Context):
     def execute_rpc(self, request: pb.HealthRequest) -> pb.HealthResponse:
         res = self.get_resources(InferResources)
         ready = res.manager is not None and not res.draining
+        if res.watchdog is not None:
+            # wedged-device detection: balancers rotate the replica out
+            ready = ready and res.watchdog.healthy
         return pb.HealthResponse(live=True, ready=ready)
 
 
 class DebugContext(Context):
-    """The Debugz RPC: its snapshot (tpulab's ``obs/debugz.py``) is not
-    ported yet; every request answers ``INTERNAL`` naming the item."""
+    """The Debugz RPC: the live "what is the engine holding RIGHT NOW"
+    snapshot — lanes, the pool's size ladder, HBM ledger claims and
+    verify, modelstore leases, per-tenant admission queue depths, chaos
+    armament, flight-recorder exemplar pointers — as one JSON document
+    (``snapshot_json``; layout: :mod:`tpulab_torch.obs.debugz`).
+    ``profile_ticks=N`` also arms ``torch.profiler`` around the next N
+    scheduler passes of the selected engine and returns the trace
+    directory."""
 
     def execute_rpc(self, request: pb.DebugRequest) -> pb.DebugResponse:
-        return pb.DebugResponse(status=pb.RequestStatus(
-            code=pb.INTERNAL, message=f"the Debug RPC {_ITEM5}"))
+        import json as _json
+        res = self.get_resources(InferResources)
+        resp = pb.DebugResponse()
+        name = request.model_name
+        if name and name not in res.generation_engines:
+            resp.status.code = pb.UNKNOWN_MODEL
+            resp.status.message = f"no generation engine for {name!r}"
+            return resp
+        if request.profile_ticks:
+            from tpulab_torch.obs.debugz import arm_profile
+            try:
+                resp.profile_dir = arm_profile(
+                    res.generation_engines, name,
+                    int(request.profile_ticks),
+                    request.profile_dir or "")
+            except KeyError:
+                resp.status.code = pb.INVALID_ARGUMENT
+                resp.status.message = ("profile_ticks needs a profile-"
+                                       "capable (paged) generation engine")
+                return resp
+            except (RuntimeError, ValueError) as e:
+                # a capture already armed / bad tick count: report it,
+                # still return the snapshot (the operator asked to LOOK)
+                resp.status.message = f"profiler not armed: {e}"
+        from tpulab_torch.obs.debugz import debug_snapshot
+        try:
+            snap = debug_snapshot(res, model_name=name)
+            snap["server_version"] = SERVER_VERSION
+            snap["role"] = res.role
+            snap["draining"] = res.draining
+            snap["inflight_requests"] = res.inflight_requests
+            snap["stage_profile"] = res.stage_profile()
+            resp.snapshot_json = _json.dumps(snap, default=str)
+            resp.status.code = pb.SUCCESS
+        except Exception as e:  # noqa: BLE001 - debugz must not crash
+            log.exception("debug snapshot failed")
+            resp.status.code = pb.INTERNAL
+            resp.status.message = str(e)
+        return resp
 
 
 class FetchKVContext(Context):
@@ -589,15 +665,19 @@ def build_infer_service(manager, address: str = "0.0.0.0:0",
     host-tier models.  ``hbm`` is an optional
     :class:`tpulab_torch.hbm.HBMArbiter`: Status reports its single
     ``free_hbm_bytes`` headroom and an attached admission controller
-    adopts it for capacity decisions.  ``flight``, ``fleet``,
-    ``kvfabric`` and ``watchdog`` other than None raise
-    ``NotImplementedError`` (module docstring).
+    adopts it for capacity decisions.  ``flight`` is an optional
+    :class:`tpulab_torch.obs.FlightRecorder`: every Infer and Generate
+    request assembles one tail-sampled wide event at completion (a paged
+    engine without a recorder adopts it), and the ``Debug`` RPC points
+    at its exemplars.  ``watchdog`` is an optional
+    :class:`tpulab_torch.utils.watchdog.DeviceWatchdog`: Health reports
+    not-ready while it is unhealthy.  ``fleet`` and ``kvfabric`` other
+    than None raise ``NotImplementedError`` (module docstring).
 
     The returned server serves in process at once
     (``server.invoke`` / ``invoke_stream``); ``server.async_start()``
     serves over grpc where grpc is installed."""
-    for name, value in (("flight", flight), ("fleet", fleet),
-                        ("kvfabric", kvfabric), ("watchdog", watchdog)):
+    for name, value in (("fleet", fleet), ("kvfabric", kvfabric)):
         if value is not None:
             raise _unported(f"{name}=")
     if admission is not None and trace is not None \
@@ -619,8 +699,9 @@ def build_infer_service(manager, address: str = "0.0.0.0:0",
                                batch_window_s=batch_window_s, metrics=metrics,
                                trace=trace,
                                generation_engines=generation_engines,
-                               admission=admission,
-                               role=role, modelstore=modelstore, hbm=hbm)
+                               watchdog=watchdog, admission=admission,
+                               role=role, modelstore=modelstore, hbm=hbm,
+                               flight=flight)
     server = Server(address, executor or Executor(n_threads=4))
     server._infer_resources = resources  # for shutdown
     service = AsyncService(SERVICE_NAME, resources)
@@ -685,10 +766,115 @@ class GenerateContext(StreamingContext):
     def _run(self, request: pb.GenerateRequest) -> None:
         res = self.get_resources(InferResources)
         res.request_started()  # generation streams count toward drain
+        self._flight_begin(request, res)
         try:
             self._run_counted(request)
         finally:
             res.request_finished()
+            self._flight_finish(res)
+
+    # -- flight recorder: the wide-event assembly ---------------------------
+    def _flight_begin(self, request: pb.GenerateRequest,
+                      res: InferResources) -> None:
+        """Arm this stream's wide event: capture identity and the
+        start-of-window counters NOW, and intercept writes so the final
+        status (and delivered-token count) land in the record without
+        touching any engine path.  Disarmed cost: one is-None branch."""
+        if res.flight is None:
+            self._fl_ev = None
+            return
+        from tpulab_torch.serving.admission import tenant_of_request
+        tc = TraceContext.of_request(request, self.grpc_context)
+        ev: Dict[str, Any] = {
+            "kind": "generate", "model": request.model_name,
+            "tenant": tenant_of_request(request, self.grpc_context),
+            "priority": int(request.priority),
+            "trace_id": tc.trace_id if tc is not None else None,
+            "prompt_tokens": len(request.prompt),
+            "steps": int(request.steps),
+            "deadline_ms": int(request.deadline_ms) or None,
+            "t_submit": _time.perf_counter(),
+            "_chaos0": chaos.fired_snapshot(),
+            "_final": [], "_delivered": [0],
+        }
+        if request.resume_length:
+            ev["resume_length"] = int(request.resume_length)
+        if request.prefill_only:
+            ev["prefill_only"] = True
+        if request.request_class == "batch":
+            ev["request_class"] = "batch"
+        if res.hbm is not None:
+            ev["_hbm0"] = int(res.hbm.pressure_events)
+        final, delivered = ev["_final"], ev["_delivered"]
+        orig_write = self.write
+
+        def counting_write(resp, _orig=orig_write):
+            if getattr(resp, "final", False):
+                final.append(int(resp.status.code))
+            else:
+                delivered[0] += 1
+            _orig(resp)
+
+        # streaming contexts are per stream (never pooled), so the wrapper
+        # lives and dies with this request
+        self.write = counting_write
+        self._fl_ev = ev
+
+    def _fl_note(self, **kw) -> None:
+        """Annotate the pending wide event (no-op disarmed)."""
+        ev = getattr(self, "_fl_ev", None)
+        if ev is not None:
+            ev.update(kw)
+
+    def _flight_finish(self, res: InferResources) -> None:
+        """Assemble and record the wide event at stream completion: merge
+        the engine's summary (``_tpulab_flight``), resolve the outcome
+        from the intercepted final status, and diff the chaos / HBM
+        window counters."""
+        ev = getattr(self, "_fl_ev", None)
+        if ev is None or res.flight is None:
+            return
+        self._fl_ev = None
+        final = ev.pop("_final")
+        delivered = ev.pop("_delivered")[0]
+        chaos0 = ev.pop("_chaos0")
+        hbm0 = ev.pop("_hbm0", None)
+        eng = ev.pop("_engine_ev", None)
+        if eng:
+            # engine summary first (lane / pages / blocks / ITL / spec /
+            # swaps); the RPC layer's identity and window fields override
+            merged = dict(eng)
+            merged.update({k: v for k, v in ev.items() if v is not None})
+            ev = merged
+        ev["tokens_delivered"] = delivered
+        ev["e2e_s"] = _time.perf_counter() - ev["t_submit"]
+        if final:
+            try:
+                ev["outcome"] = pb.StatusCode.Name(final[-1])
+            except ValueError:  # an unknown code
+                ev["outcome"] = str(final[-1])
+        elif ev.get("stalled"):
+            ev["outcome"] = "STALLED"
+        elif eng and eng.get("outcome") not in (None, "SUCCESS"):
+            ev["outcome"] = eng["outcome"]  # e.g. engine-side CANCELLED
+        else:
+            # no final went out and nothing stalled: the client abandoned
+            # the stream mid-flight
+            ev["outcome"] = "CANCELLED"
+        trips = {}
+        for point, n in chaos.fired_snapshot().items():
+            d = n - chaos0.get(point, 0)
+            if d > 0:
+                trips[point] = d
+        if trips:
+            # rules that fired while this request was in flight (window
+            # diff: concurrent streams share attribution by design)
+            ev["chaos_trips"] = trips
+        if hbm0 is not None and res.hbm is not None:
+            d = int(res.hbm.pressure_events) - hbm0
+            if d:
+                ev["hbm_pressure_rounds"] = d
+        res.flight.observe(ev)
 
     def _client_gone(self) -> bool:
         g = self.grpc_context
@@ -867,8 +1053,17 @@ class GenerateContext(StreamingContext):
                 trace_id=tc.trace_id if tc is not None else None,
                 model=request.model_name,
                 request_class=request.request_class or "online")
+            # wide event: the admission verdict, queue wait and the
+            # tenant's DRR deficit at dispatch
+            self._fl_note(admission={
+                "verdict": "admit", "cost": ticket.cost,
+                "queue_wait_s": round(ticket.queue_wait_s, 6),
+                "drr_deficit": round(float(ticket.drr_deficit), 3)})
             return True, ticket
         except AdmissionRejected as e:
+            self._fl_note(admission={
+                "verdict": "reject", "reason": e.reason,
+                "retry_after_ms": e.retry_after_ms})
             self.write(_final(pb.RESOURCE_EXHAUSTED, str(e),
                               retry_after_ms=e.retry_after_ms))
             return False, None
@@ -982,6 +1177,7 @@ class GenerateContext(StreamingContext):
                 else:
                     flush_chunk(steps_eff)
             if stalled:
+                self._fl_note(stalled=True)  # wide event: a latched stall
                 self._hold_stalled_stream(
                     _time.monotonic() + self.SESSION_LEASE_TIMEOUT_S)
                 return  # no final: the stream died stalled, never resolved
@@ -1104,14 +1300,37 @@ class GenerateContext(StreamingContext):
 
         fut = None
         res = self.get_resources(InferResources)
+        if (res.trace is not None and getattr(engine, "trace", None) is None
+                and hasattr(engine, "trace")):
+            # adopt the service's recorder once: the batcher then records
+            # its own queue / prefill / decode-chunk spans at the source
+            # (the scheduler thread), where the RPC layer cannot see them
+            engine.trace = res.trace
+        flight_kw = {}
+        if res.flight is not None and hasattr(engine, "flight"):
+            from tpulab_torch.serving.admission import tenant_of_request
+            if getattr(engine, "flight", None) is None:
+                # adopt the recorder once: direct engine completions then
+                # record too, and the engine attaches its per-request
+                # summary to every future
+                engine.flight = res.flight
+            # this stream's wide event is assembled HERE — the engine
+            # summarizes (``_tpulab_flight``) but does not record it
+            flight_kw = {"flight_owner": "rpc",
+                         "tenant": tenant_of_request(request,
+                                                     self.grpc_context)}
+        tc = TraceContext.of_request(request, self.grpc_context)
         try:
             sampling = self._sampling_of(request)
-            kw = {}
+            kw = dict(flight_kw)
             if deadline is not None:
                 # the batcher's tick sweep enforces it (lane/pages free
                 # before the next step); only passed when present so
                 # wrapped/test engines without the kwarg keep working
                 kw["deadline"] = deadline
+            if tc is not None:
+                # same gating: only traced requests carry the kwarg
+                kw["trace_id"] = tc.trace_id
             if request.kv_shipment and not request.return_logprobs:
                 # shipped-KV admit: import into the local host tier and
                 # promote through the restore path — zero prefill
@@ -1172,6 +1391,7 @@ class GenerateContext(StreamingContext):
                 # open WITHOUT a final so the client sees a stalled — not
                 # dead — replica and its inter-token watchdog must act
                 finished[0] = True
+                self._fl_note(stalled=True)  # wide event: a latched stall
                 self._hold_stalled_stream(lease_deadline)
                 return
             if finished[0]:
@@ -1199,6 +1419,13 @@ class GenerateContext(StreamingContext):
                 return               # the cancel's own error: no one reads
             log.exception("paged generation failed")
             self.write(_final(pb.INTERNAL, str(e)))
+        finally:
+            if fut is not None:
+                # the engine's completion summary (lane, peak pages, block
+                # sizes, ITL, spec, swaps), attached to the future before
+                # it resolved, merged into the wide event
+                self._fl_note(
+                    _engine_ev=getattr(fut, "_tpulab_flight", None))
 
 
 class GenerationRejected(RuntimeError):
@@ -1455,6 +1682,9 @@ class RemoteInferenceManager:
         self._health = ClientUnary(
             self._executor, f"/{SERVICE_NAME}/Health",
             pb.HealthRequest.SerializeToString, pb.HealthResponse.FromString)
+        self._debug = ClientUnary(
+            self._executor, f"/{SERVICE_NAME}/Debug",
+            pb.DebugRequest.SerializeToString, pb.DebugResponse.FromString)
 
     def health(self, timeout: float = 10.0) -> pb.HealthResponse:
         """Liveness/readiness probe (reference TRTIS Health)."""
@@ -1463,8 +1693,39 @@ class RemoteInferenceManager:
     def health_async(self):
         return self._health.start(pb.HealthRequest())
 
-    def debugz(self, *args, **kwargs):
-        raise _unported("The Debug RPC (debugz)")
+    def debugz(self, model_name: str = "", profile_ticks: int = 0,
+               profile_dir: str = "",
+               timeout: Optional[float] = 30.0) -> dict:
+        """Live engine introspection: the parsed snapshot document (lanes,
+        the pool's size ladder, HBM claims and verify, modelstore leases,
+        admission depths, chaos armament, flight exemplar ids).
+        ``profile_ticks=N`` arms ``torch.profiler`` around the replica's
+        next N batcher passes; the returned dict then carries
+        ``profile_dir`` (the trace directory on the SERVER's
+        filesystem).  Raises RuntimeError on UNKNOWN_MODEL /
+        INVALID_ARGUMENT / INTERNAL."""
+        import json as _json
+        req = pb.DebugRequest(model_name=model_name,
+                              profile_ticks=int(profile_ticks),
+                              profile_dir=profile_dir)
+        resp = self._debug.start(req).result(timeout=timeout)
+        if resp.status.code not in (pb.SUCCESS, 0):
+            raise RuntimeError(
+                f"Debug failed ({pb.StatusCode.Name(resp.status.code)}): "
+                f"{resp.status.message}")
+        snap = _json.loads(resp.snapshot_json) if resp.snapshot_json else {}
+        if resp.profile_dir:
+            snap["profile_dir"] = resp.profile_dir
+        if resp.status.message:
+            snap["debug_message"] = resp.status.message
+        return snap
+
+    def debugz_raw(self, model_name: str = "", profile_ticks: int = 0,
+                   timeout: Optional[float] = 30.0) -> pb.DebugResponse:
+        """The raw DebugResponse (tests / tooling)."""
+        return self._debug.start(pb.DebugRequest(
+            model_name=model_name,
+            profile_ticks=int(profile_ticks))).result(timeout=timeout)
 
     def fetch_kv(self, *args, **kwargs):
         raise _unported("The FetchKV RPC (the fleet KV fabric)")

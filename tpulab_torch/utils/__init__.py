@@ -1,3 +1,3 @@
 """Auxiliary subsystems of the port (``tpulab/utils``): request tracing
-(``tracing``).  tpulab's ``watchdog`` and ``metrics`` are not ported yet
-(ROADMAP queue 1, item 5: observability)."""
+(``tracing``), Prometheus metrics without prometheus_client
+(``metrics``) and the device watchdog (``watchdog``)."""

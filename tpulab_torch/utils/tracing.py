@@ -4,6 +4,8 @@
   (CPU and, on a CUDA run, the device's kernels through CUPTI; a Chrome
   trace file lands in the directory) and named regions inside it, which
   are also NVTX ranges on a CUDA run (tpulab wraps ``jax.profiler``).
+  :func:`profiler_session` / :func:`claim_profiler` keep the process to
+  one capture at a time.
 - :class:`StageTimer` — the TimedBenchmarkWorkspace pattern as a reusable
   context: named stage durations, synchronizing the device of a CUDA
   tensor at stage boundaries.
@@ -90,6 +92,98 @@ def _cuda_on() -> bool:
     return torch.cuda.is_available()
 
 
+#: torch.profiler runs one session a process (a second one started while
+#: the first runs ends both at its stop), so the port's captures take
+#: turns through this claim
+_PROFILER_LOCK = threading.Lock()
+_profiler_owner = None
+
+
+def profiler_running() -> bool:
+    """True while any torch profiler session runs in the process, on any
+    thread: torch's process-wide flag (set by every ``torch.profiler`` and
+    autograd profiler start) or the calling thread's own state."""
+    import torch
+    from torch.autograd import profiler as autograd_profiler
+    return (bool(getattr(autograd_profiler, "_is_profiler_enabled", False))
+            or torch._C._autograd._profiler_enabled())
+
+
+def claim_profiler(owner) -> bool:
+    """Take the process's one profiler session for ``owner``; False when
+    a capture of the port holds it or any profiler session already runs,
+    whichever thread started it."""
+    global _profiler_owner
+    with _PROFILER_LOCK:
+        if _profiler_owner is not None or profiler_running():
+            return False
+        _profiler_owner = owner
+        return True
+
+
+def release_profiler(owner) -> None:
+    """Give the session back (a no-op unless ``owner`` holds it)."""
+    global _profiler_owner
+    with _PROFILER_LOCK:
+        if _profiler_owner == owner:
+            _profiler_owner = None
+
+
+def device_event_count(prof) -> int:
+    """The device-side events (kernels, copies, fills) that a stopped
+    ``torch.profiler.profile`` recorded."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda)
+
+
+def cuda_activity_requested(activities) -> bool:
+    """Whether a session of these activities (None: torch's default, every
+    supported one) traces the card; raises RuntimeError when it asks for
+    CUDA activity that this torch.profiler cannot take."""
+    from torch.profiler import ProfilerActivity, supported_activities
+    if activities is None:
+        return ProfilerActivity.CUDA in supported_activities() and _cuda_on()
+    if ProfilerActivity.CUDA not in activities:
+        return False
+    if ProfilerActivity.CUDA not in supported_activities():
+        raise RuntimeError("this torch.profiler cannot trace CUDA activity")
+    return True
+
+
+@contextlib.contextmanager
+def profiler_session(**kw):
+    """``torch.profiler.profile(**kw)`` under the process's claim: raises
+    RuntimeError while another capture (a batcher's armed Debug capture,
+    another session on any thread) holds it.
+
+    A session that traces the card launches one 1-element fill as its
+    probe and waits for the device before it stops; one that then holds
+    no device event lost the card's activity, and raises RuntimeError
+    rather than pass for a CPU-only trace."""
+    import torch
+    from torch.profiler import profile
+
+    cuda = cuda_activity_requested(kw.get("activities"))
+    owner = object()
+    if not claim_profiler(owner):
+        raise RuntimeError("a profiler capture is already armed")
+    try:
+        with profile(**kw) as prof:
+            if cuda:
+                torch.zeros(1, device="cuda")
+            yield prof
+            if cuda:
+                torch.cuda.synchronize()
+    finally:
+        release_profiler(owner)
+    if cuda and not device_event_count(prof):
+        raise RuntimeError("the profiler session traced no CUDA activity "
+                           "(not even its probe): the card's trace was "
+                           "lost")
+
+
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """Capture a ``torch.profiler`` trace around a block::
@@ -101,14 +195,14 @@ def trace(log_dir: Optional[str] = None):
     On a machine with a CUDA device the device activity is always traced
     (there is no CPU-only stand-in there); ``log_dir`` defaults to a
     directory under the temp dir."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     log_dir = log_dir or _default_trace_dir()
     os.makedirs(log_dir, exist_ok=True)
     acts = [ProfilerActivity.CPU]
     if _cuda_on():
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with profiler_session(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
