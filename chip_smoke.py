@@ -219,6 +219,63 @@ raises and the script exits non-zero without printing a result:
    canary ready again.  (c) Kernel 1's launches over the phase == 32 x
    every forward step of its batchers, all ``wgmma``.
 
+10. batch  — the offline batch lane at full width: phase 5's ragged bf16
+   batcher (8 lanes, ``max_len`` 2048, page 16, K <= 8, chunk 256, 1025
+   pages) with a 2 GiB host tier, behind an ``AdmissionController``
+   (the batcher as its load source).  Three ``BatchJob``s share one
+   ``JSONLResultSink`` in a temporary directory: 8 greedy items, 7
+   device-sampled (T 0.8, a seed) and 1 host-sampled, prompts of 256 ...
+   768 tokens x 48 steps, each job fed by its own ``BatchScheduler``
+   (4 + 3 + 1 in flight: the 8 lanes).  Every count set to 0, then each
+   item served alone (the references); an online burst (8 greedy
+   requests of 512 x 32) alone; run 1 soaks the lane, a burst arrives
+   and preempts it, and once every online request has its first token
+   ``batch.run=error`` kills the three runs mid-feed; a burst alone; run
+   2 resumes from the sink while bursts arrive; a burst alone.  Gates:
+   batch preemptions > 0 and no online request preempted; every partial
+   greedy and device-sampled item continues at its delivered count and
+   decodes only ``steps - delivered`` tokens (the run's generated tokens
+   == those + the online bursts'), the host-sampled item restarts behind
+   a ``reset`` record; every item's tokens equal the item served alone,
+   or from the first difference every pick of both within the bf16 noise
+   (phase 7's rule under the item's sampler: the Gumbel-perturbed scores
+   for device sampling, the draw's cumulative interval for host
+   sampling); every lane and page home; kernel 1's launches == 32 x the
+   forward steps, all ``wgmma``.  Printed: ``soak_utilization``, items/s,
+   online TTFT p50 / p99 soaking against alone, the resume's seconds to
+   its first token.
+11. fleet  — replica processes over gRPC sockets.  The parent frees its
+   card memory first; ``SubprocessReplicaProvider`` starts three
+   ``python -m tpulab_torch.fleet.replica_main`` processes at
+   Llama-3-8B width (32 layers, bf16, untied head, seed 0, 4 lanes,
+   ``max_len`` 2048, page 16, prefix cache on; each about 16 GB of
+   weights, 1.08 GB of pages and its scratch), one with
+   ``TPULAB_CHAOS=rpc.stream=kill@8``; nvidia-smi's used memory sampled
+   each second.  (a) one lone greedy 512 x 32 request straight to each
+   of the two plain replicas: the same tokens bit for bit.  (b) a
+   ``GenerationReplicaSet(prefix_affinity=True, affinity_tokens=256)``
+   over the two (``ReplicaSetMetrics``, a trace recorder), a
+   ``FleetSupervisor`` with an ``EventJournal``: 12 requests over 3
+   shared 256-token prefixes each land on the prefix's HRW home as the
+   parent ranks it, and each home's prefix-cache hits grow; TTFT direct
+   against through the set.  (c) the armed replica joins; a 512 x 32
+   prompt whose HRW home it is streams through the set; the replica
+   exits with code 86 mid-stream and the set resumes on a survivor:
+   exactly 32 tokens, one resume, none replayed, the tokens before the
+   kill equal the survivor's uninterrupted lone stream; after the fleet
+   is gone the rest is held by the bf16 noise rule on weights rebuilt
+   here from the seed.  (d) the supervisor calls the exit a death,
+   respawns the lineage under backoff; the new member answers Status
+   and serves (a)'s tokens; the journal replays without a sequence gap.
+   (e) a stream held on every member, a ``FleetAutoscaler`` drains the
+   newest: its stream finishes during the SIGUSR1 drain (the same tokens
+   as the others'), SIGTERM exits 0, no death is recorded.  Kernel 1:
+   each replica's Debug snapshot (its wrapper's launch count and its
+   forward steps) read before it retires, launches == 32 x forward
+   steps, all ``wgmma``; the killed replica's are lost and printed so.
+   Printed: spawn to first Status, the failover gap, TTFT through the
+   set against direct, the drain's seconds, peak memory.
+
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2794,8 +2851,60 @@ def leaf_sums(torch, tree, prefix=""):
     return out
 
 
+def sampled_scores(torch, dense, sampling, first_pos):
+    """Per step, the scores a pick compares and how far the bf16 noise
+    may move them: greedy — the logits; device sampling — logits / T + the
+    (seed, position) Gumbel draw (:func:`pick_margin`'s), the noise / T.
+    Step ``j`` is the pick after position ``first_pos + j``."""
+    from tpulab_torch.engine.prng import fold_in, gumbel, prng_key
+
+    if sampling is None or sampling.temperature <= 0:
+        return dense, 1.0
+    seed, rows = sampling.seed, []
+    for j in range(dense.shape[0]):
+        key = prng_key(0, dense.device, (1,))
+        for word in (seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF,
+                     first_pos + j):
+            key = fold_in(key, torch.tensor([word], device=dense.device))
+        rows.append(dense[j] / sampling.temperature
+                    + gumbel(key, dense.shape[-1])[0])
+    return torch.stack(rows), 1.0 / sampling.temperature
+
+
+def host_picks_within_bf16_noise(torch, dense, noise, stream, start,
+                                 sampling):
+    """Host sampling: the port's ``SamplingParams.pick`` draws one uniform
+    per pick from ``default_rng(seed)`` and takes the first token whose
+    cumulative softmax(logits / T) passes it.  Logits moved by at most
+    ``d`` move every cumulative probability by at most ``expm1(2 d / T)``,
+    so with ``d`` twice the bf16 path noise the pick must lie in the
+    replayed cumulative interval widened by that much.  Returns the
+    largest widening used over the interval's distance to the draw."""
+    import numpy as np
+
+    if sampling.top_k or 0.0 < sampling.top_p < 1.0:
+        raise ValueError("the host-sampling noise rule covers plain "
+                         "temperature sampling")
+    rng = np.random.default_rng(sampling.seed)
+    worst, bad = 0.0, []
+    for j, tok in enumerate(stream):
+        u = rng.random()
+        if j < start:
+            continue
+        z = dense[j].double().cpu().numpy() / sampling.temperature
+        p = np.exp(z - z.max())
+        cdf = np.cumsum(p / p.sum())
+        lo = cdf[tok - 1] if tok else 0.0
+        eps = math.expm1(2 * 2 * float(noise[j]) / sampling.temperature)
+        miss = max(lo - u, u - cdf[tok], 0.0)
+        if miss > eps:
+            bad.append((j, miss, eps))
+        worst = max(worst, miss / max(eps, 1e-30))
+    return bad, worst
+
+
 def picks_within_bf16_noise(torch, params, kw, label, prompt, stream,
-                            start):
+                            start, sampling=None):
     """Hold every pick of ``stream`` from step ``start`` on against a
     teacher-forced replay of its own prefix: at each step the pick's dense
     logit lies within twice that position's bf16 path noise of the dense
@@ -2803,7 +2912,10 @@ def picks_within_bf16_noise(torch, params, kw, label, prompt, stream,
     two bf16 computations of the same prefix (the dense forward and one
     ragged forward over a fresh pool), so twice it is the most two such
     computations can move a pair of logits apart.  One forward each way
-    replays every step.  Returns the largest gap / noise ratio."""
+    replays every step.  With ``sampling`` (a ``SamplingParams``) the
+    scores are the sampler's (:func:`sampled_scores`, and for host
+    sampling :func:`host_picks_within_bf16_noise`).  Returns the largest
+    gap / noise ratio."""
     import numpy as np
 
     n = len(stream)
@@ -2812,8 +2924,18 @@ def picks_within_bf16_noise(torch, params, kw, label, prompt, stream,
     paged = replay_logits(torch, params, kw, seq, torch.bfloat16,
                           tail=n).float()
     noise = (dense - paged).abs().amax(-1)
+    if sampling is not None and sampling.temperature > 0 \
+            and not sampling.device:
+        bad, worst = host_picks_within_bf16_noise(torch, dense, noise,
+                                                  stream, start, sampling)
+        if bad:
+            raise AssertionError(f"{label}: host picks (step, distance, "
+                                 f"allowed) {bad} outside the bf16 noise")
+        return worst
+    scores, scale = sampled_scores(torch, dense, sampling, len(prompt) - 1)
+    noise = noise * scale
     picks = torch.tensor(stream, device=dense.device)
-    gap = dense.amax(-1) - dense.gather(1, picks[:, None])[:, 0]
+    gap = scores.amax(-1) - scores.gather(1, picks[:, None])[:, 0]
     bad = [(j, float(gap[j]), float(noise[j])) for j in range(start, n)
            if gap[j] > 2 * noise[j]]
     if bad:
@@ -2823,17 +2945,19 @@ def picks_within_bf16_noise(torch, params, kw, label, prompt, stream,
     return float((gap[start:] / noise[start:].clamp_min(1e-30)).max())
 
 
-def same_or_bf16_noise(torch, params, kw, label, prompt, want, got):
+def same_or_bf16_noise(torch, params, kw, label, prompt, want, got,
+                       sampling=None):
     """``got`` equals ``want``; or, from the first step where they differ,
-    every pick of both streams passes :func:`picks_within_bf16_noise`.
-    Returns a note for the log."""
+    every pick of both streams passes :func:`picks_within_bf16_noise`
+    (under ``sampling``'s scores).  Returns a note for the log."""
     if got == want:
         return None
     n = min(len(want), len(got))
     i = next((j for j in range(n) if want[j] != got[j]), n)
     if i == n:
         raise AssertionError(f"{label}: lengths {len(want)} != {len(got)}")
-    r = max(picks_within_bf16_noise(torch, params, kw, label, prompt, x, i)
+    r = max(picks_within_bf16_noise(torch, params, kw, label, prompt, x, i,
+                                    sampling)
             for x in (want, got))
     return (f"{label} differs from step {i}, every pick from there on "
             f"within {r:.2f} x the bf16 path noise of the dense top")
@@ -4284,6 +4408,725 @@ def phase_obs(torch, card):
     return launches
 
 
+# --------------------------------------------------------------- phase 10
+# the offline batch lane at full width: phase 5's ragged batcher with a
+# 2 GiB host tier behind an AdmissionController; one checkpoint file for
+# three jobs (one sampling config a job): 8 greedy items, 7 device-sampled
+# and 1 host-sampled, prompts of 256 ... 768 tokens x 48 steps
+BATCH_STEPS = 48
+BATCH_LENS = (256, 768, 320, 704, 384, 640, 448, 576, 512, 288, 736, 352,
+              672, 416, 608, 480)
+BATCH_SPLIT = (("greedy", 8, {}),
+               ("device", 7, dict(temperature=0.8, seed=4242,
+                                  device_sampling=True)),
+               ("host", 1, dict(temperature=0.8, seed=77)))
+BATCH_INFLIGHT = {"greedy": 4, "device": 3, "host": 1}   # 8 lanes
+BATCH_KV_OFFLOAD = 2 << 30
+BATCH_ONLINE = (512, 32, 8)     # an online burst: 8 greedy 512 x 32
+
+
+def online_burst(cb, prompts, steps, ttft=None):
+    """Submit ``prompts`` at once (greedy, streaming); returns each
+    request's TTFT (filled into ``ttft`` as the first tokens arrive) and
+    tokens."""
+    t0 = time.perf_counter()
+    ttft = [None] * len(prompts) if ttft is None else ttft
+
+    def hook(k):
+        def on_token(tok, i, lp=None):
+            if ttft[k] is None:
+                ttft[k] = time.perf_counter() - t0
+        return on_token
+
+    with cb._cv:
+        futs = [cb.submit(p, steps, on_token=hook(k))
+                for k, p in enumerate(prompts)]
+    toks = [[int(t) for t in f.result(timeout=900)] for f in futs]
+    return ttft, toks
+
+
+def run_jobs(scheds, jobs):
+    """Run every job on its scheduler, each in its own thread; returns
+    the threads and the report dict they fill."""
+    import threading
+
+    reports = {}
+
+    def one(name):
+        reports[name] = scheds[name].run(jobs[name], timeout_s=900)
+
+    threads = [threading.Thread(target=one, args=(n,), daemon=True)
+               for n in jobs]
+    for t in threads:
+        t.start()
+    return threads, reports
+
+
+def wait_for(pred, label, timeout=300.0):
+    end = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"{label}: not reached in {timeout} s")
+        time.sleep(0.002)
+
+
+def phase_batch(torch, card):
+    """The offline batch lane at full width (module docstring, phase 10).
+    Returns kernel 1's launches over the phase."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from tpulab_torch import chaos
+    from tpulab_torch.batch import BatchJob, BatchScheduler, JSONLResultSink
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.serving import AdmissionConfig, AdmissionController
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    cb = ContinuousBatcher(params, device="cuda",
+                           kv_offload=BATCH_KV_OFFLOAD, **SERVE, **kw)
+    adm = AdmissionController(AdmissionConfig(max_inflight=64), load=cb)
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in BATCH_LENS]
+    jobs, items, k = {}, [], 0
+    for name, n, sampling in BATCH_SPLIT:
+        jobs[name] = BatchJob(name, prompts[k:k + n], steps=BATCH_STEPS,
+                              **sampling)
+        items += [(name, i) for i in range(n)]
+        k += n
+    plen, psteps, pn = BATCH_ONLINE
+    online = [rng.integers(0, c["vocab"], (plen,)).astype(np.int32)
+              for _ in range(pn)]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-batch-")
+    try:
+        # -- every count set to 0 here: the phase's drive starts ----------
+        ragged_paged_attention.launches = 0
+        ragged_paged_attention.launches_by_body = dict.fromkeys(
+            ragged_paged_attention.launches_by_body, 0)
+        fs0, p0, bp0 = cb.forward_steps, cb.preemptions, cb.batch_preemptions
+        # references: every item served alone on this batcher
+        t0 = time.perf_counter()
+        alone = {(name, i): [int(t) for t in cb.submit(
+            jobs[name].prompts[i], BATCH_STEPS,
+            sampling=jobs[name].sampling()).result(timeout=900)]
+            for name, i in items}
+        log(f"batch: {len(items)} items served alone "
+            f"({time.perf_counter() - t0:.1f} s)")
+        ttft = {"off": [], "on": []}
+
+        def burst(mode):
+            got, _ = online_burst(cb, online, psteps)
+            ttft[mode] += got
+
+        burst("off")
+        sink = JSONLResultSink(os.path.join(tmp, "results.jsonl"))
+        scheds = {n: BatchScheduler(cb, sink=sink, admission=adm,
+                                    max_inflight=BATCH_INFLIGHT[n])
+                  for n in jobs}
+        util = []
+
+        def soak_util():
+            util.append(sum(s.soak_utilization for s in scheds.values()))
+
+        # -- run 1: the lane soaks, an online burst preempts it, and a
+        # batch.run kill ends it mid-feed while the burst decodes -------
+        t_run1 = time.perf_counter()
+        threads, rep1 = run_jobs(scheds, jobs)
+        wait_for(lambda: (scheds["host"].tokens_delivered >= 4
+                          and scheds["greedy"].tokens_delivered >= 4
+                          and scheds["device"].tokens_delivered >= 4),
+                 "batch: the lane soaking")
+        soak_util()
+        live = [None] * pn
+        th = threading.Thread(target=online_burst,
+                              args=(cb, online, psteps, live), daemon=True)
+        th.start()
+        # the burst has preempted the lane once every online request has
+        # its first token: the kill lands mid-feed
+        wait_for(lambda: all(x is not None for x in live),
+                 "batch: the burst's first tokens")
+        with chaos.inject("batch.run=error") as sched_chaos:
+            for t in threads:
+                t.join(900)
+            fired = sched_chaos.fired("batch.run")
+        th.join(900)
+        ttft["on"] += live
+        run1_s = time.perf_counter() - t_run1
+        if fired < 1 or any(r["interrupted"] != "error"
+                            for r in rep1.values()):
+            raise AssertionError(f"batch: run 1 not killed ({fired} fires, "
+                                 f"{ {n: r['interrupted'] for n, r in rep1.items()} })")
+        progress = {n: sink.load_progress(n) for n in jobs}
+        delivered = {(n, i): len(progress[n].get(i).tokens)
+                     if progress[n].get(i) else 0 for n, i in items}
+        done1 = {(n, i) for n, i in items
+                 if progress[n].get(i) and progress[n][i].done}
+        partial = [key for key in items if key not in done1
+                   and 0 < delivered[key] < BATCH_STEPS]
+        if not any(n != "host" for n, _ in partial) \
+                or ("host", 0) not in partial:
+            raise AssertionError(f"batch: the kill left no resumable or no "
+                                 f"host-sampled partial item: {partial}")
+        burst("off")
+
+        # -- run 2: resume from the checkpoint, online bursts arriving ----
+        tg0 = cb.tokens_generated
+        with open(sink.path) as f:
+            n_rec0 = len(f.readlines())
+
+        def delivered_total():
+            return sum(s.tokens_delivered for s in scheds.values())
+
+        d0 = delivered_total()
+        t_run2 = time.perf_counter()
+        threads, rep2 = run_jobs(scheds, jobs)
+        # the resume's own latency first: bursts only once it has a token
+        wait_for(lambda: delivered_total() > d0
+                 or not any(t.is_alive() for t in threads),
+                 "batch: run 2's first token")
+        resume_s = time.perf_counter() - t_run2
+        soak_util()
+        on_bursts = 0
+        for _ in range(2):
+            if not any(t.is_alive() for t in threads):
+                break
+            burst("on")
+            on_bursts += 1
+            soak_util()
+        for t in threads:
+            t.join(900)
+        run2_s = time.perf_counter() - t_run2
+        run2_generated = cb.tokens_generated - tg0
+        burst("off")
+        if any(r["interrupted"] is not None
+               or r["items_done"] != len(jobs[n]) for n, r in rep2.items()):
+            raise AssertionError(f"batch: run 2 {rep2}")
+        launches = ragged_paged_attention.launches
+        by_body = dict(ragged_paged_attention.launches_by_body)
+        fs = cb.forward_steps - fs0
+        online_preempted = ((cb.preemptions - p0)
+                            - (cb.batch_preemptions - bp0))
+        # the records run 2 wrote: a resumable item continues at its
+        # delivered count, the host-sampled one restarts behind a reset
+        with open(sink.path) as f:
+            recs = [json.loads(x) for x in f.readlines()[n_rec0:]
+                    if x.strip()]
+        decoded = {}
+        for r in recs:
+            key = (r["job"], r["item"])
+            if "tokens" in r:
+                decoded.setdefault(key, []).append(
+                    (r["start"], len(r["tokens"])))
+        resets = {(r["job"], r["item"]) for r in recs if r.get("reset")}
+        for key in items:
+            if key in done1:
+                if key in decoded:
+                    raise AssertionError(f"batch: {key} was done and "
+                                         "decoded again")
+                continue
+            start = 0 if key[0] == "host" else delivered[key]
+            spans = sorted(decoded.get(key, []))
+            n_dec = sum(n for _, n in spans)
+            if (not spans or spans[0][0] != start
+                    or n_dec != BATCH_STEPS - start):
+                raise AssertionError(f"batch: {key} delivered "
+                                     f"{delivered[key]}, run 2 decoded "
+                                     f"{spans}")
+        if resets != {("host", 0)}:
+            raise AssertionError(f"batch: reset records {resets}")
+        skipped = sum(r["tokens_resume_skipped"] for r in rep2.values())
+        want_skipped = sum(delivered[k2] for k2 in partial
+                           if k2[0] != "host")
+        run2_batch = sum(BATCH_STEPS - (0 if k2[0] == "host"
+                                        else delivered[k2])
+                         for k2 in items if k2 not in done1)
+        run2_online = on_bursts * pn * psteps
+        if (skipped != want_skipped
+                or run2_generated != run2_batch + run2_online):
+            raise AssertionError(
+                f"batch: resume skipped {skipped} (want {want_skipped}); "
+                f"run 2 generated {run2_generated} tokens, want "
+                f"{run2_batch} batch + {run2_online} online")
+        if cb.batch_preemptions - bp0 < 1 or online_preempted:
+            raise AssertionError(f"batch: {cb.batch_preemptions - bp0} "
+                                 f"batch preemptions, {online_preempted} "
+                                 "online")
+        if (launches != c["n_layers"] * fs or launches == 0
+                or by_body.get("wgmma") != launches):
+            raise AssertionError(f"batch: ragged launches {launches} vs "
+                                 f"{c['n_layers']} x {fs} forward steps, "
+                                 f"by body {by_body}")
+        if not lanes_home(cb):
+            raise AssertionError("batch: lanes or pages not home")
+        results = {(n, i): rep2[n]["results"][i] for n, i in items}
+        notes = [same_or_bf16_noise(
+            torch, params, kw, f"batch item {n}/{i}", jobs[n].prompts[i],
+            alone[(n, i)], results[(n, i)], jobs[n].sampling())
+            for n, i in items]
+        notes = [x for x in notes if x]
+        on, off = sorted(ttft["on"]), sorted(ttft["off"])
+
+        def q(v, p):
+            return v[min(len(v) - 1, int(p * len(v)))] * 1e3
+        n_items = len(items)
+        log(f"batch: run 1 killed mid-feed by batch.run=error "
+            f"({fired} fires) with {len(partial)} items partial "
+            f"({sum(delivered[k2] for k2 in partial)} tokens delivered); "
+            f"run 2 resumed {want_skipped} delivered tokens with zero "
+            f"re-decode, the host-sampled item restarted behind a reset "
+            f"record; {cb.batch_preemptions - bp0} batch preemptions, 0 "
+            f"online [{card}]")
+        log(f"batch: {n_items - len(notes)}/{n_items} items bit-identical "
+            f"to the item served alone"
+            + ("; " + "; ".join(notes) if notes else ""))
+        log(f"batch: ragged launches {launches} = {c['n_layers']} x {fs} "
+            f"forward steps, all on wgmma; lanes and pages home [{card}]")
+        row = dict(
+            soak_utilization=sum(util) / max(1, len(util)),
+            items_per_s=n_items / (run1_s + run2_s),
+            online_ttft_ms={"soaking": {"p50": q(on, .5), "p99": q(on, .99),
+                                        "n": len(on)},
+                            "alone": {"p50": q(off, .5), "p99": q(off, .99),
+                                      "n": len(off)}},
+            resume_s=resume_s,
+            run1_s=run1_s, run2_s=run2_s,
+            batch_preemptions=cb.batch_preemptions - bp0,
+            launches=launches, forward_steps=fs)
+        log("batch: " + json.dumps(row) + f" [{card}]")
+    finally:
+        cb.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, cb
+    log(f"batch: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------- phase 11
+# the fleet: replica processes (python -m tpulab_torch.fleet.replica_main)
+# at Llama-3-8B width over gRPC on 127.0.0.1, 4 lanes each, prefix cache on
+FLEET_LANES = 4
+FLEET_PROMPT, FLEET_STEPS = 512, 32
+FLEET_PREFIX, FLEET_SUFFIX, FLEET_AFFINITY_STEPS = 256, 64, 16
+FLEET_KILL_AT = 8               # rpc.stream=kill@8 in the victim
+FLEET_HOLD_STEPS = 64           # the stream held through the drain
+
+
+def replica_args():
+    c = LLAMA3_8B
+    return ("--device", "cuda", "--dtype", "bf16", "--vocab", str(c["vocab"]),
+            "--d-model", str(c["d_model"]), "--n-heads", str(c["n_heads"]),
+            "--n-kv-heads", str(c["n_kv_heads"]),
+            "--n-layers", str(c["n_layers"]), "--d-ff", str(c["d_ff"]),
+            "--ffn", "swiglu", "--untied",
+            "--rope-theta", str(c["rope_theta"]),
+            "--lanes", str(FLEET_LANES), "--max-len", str(SERVE["max_len"]),
+            "--page-size", str(SERVE["page_size"]),
+            "--decode-block", str(SERVE["decode_block"]),
+            "--prefill-chunk", str(SERVE["prefill_chunk"]), "--seed", "0")
+
+
+class GpuMemory:
+    """Samples ``nvidia-smi``'s used memory every second; ``peak`` MiB."""
+
+    def __init__(self):
+        import subprocess
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+
+        def loop():
+            while not self._stop.wait(1.0):
+                try:
+                    out = subprocess.run(
+                        ["nvidia-smi", "--query-gpu=memory.used",
+                         "--format=csv,noheader,nounits", "--id=0"],
+                        capture_output=True, text=True, timeout=30)
+                    self.peak = max(self.peak, int(out.stdout.split()[0]))
+                except (OSError, ValueError, IndexError,
+                        subprocess.SubprocessError):
+                    pass
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(60)
+
+
+def stream_direct(mgr, prompt, steps):
+    """A lone greedy stream straight to one replica: tokens, TTFT and
+    arrival times."""
+    from tpulab_torch.rpc.infer_service import GenerateStreamClient
+
+    t0 = time.perf_counter()
+    toks, at = [], []
+    for t in GenerateStreamClient(mgr, "lm").generate(prompt, steps,
+                                                      timeout=300):
+        toks.append(int(t))
+        at.append(time.perf_counter() - t0)
+    return toks, at
+
+
+def phase_fleet(torch, card):
+    """Replica processes over gRPC (module docstring, phase 11).  Returns
+    kernel 1's launches the replicas reported."""
+    import gc
+    import importlib.util
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from tpulab_torch import chaos
+    from tpulab_torch.fleet import (FleetAutoscaler, FleetSupervisor,
+                                    PrefixAffinityRouter,
+                                    SubprocessReplicaProvider, prefix_digest)
+    from tpulab_torch.obs import EventJournal, replay_journal, sequence_gaps
+    from tpulab_torch.rpc.infer_service import (GenerateStreamClient,
+                                                RemoteInferenceManager)
+    from tpulab_torch.rpc.replica import GenerationReplicaSet
+    from tpulab_torch.utils.metrics import FleetMetrics, ReplicaSetMetrics
+    from tpulab_torch.utils.tracing import ChromeTraceRecorder
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    if importlib.util.find_spec("grpc") is None:
+        raise AssertionError("fleet: grpc is not installed: the replica "
+                             "processes serve over gRPC sockets")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(0)
+    # cuBLAS keeps a workspace for every (handle, stream) it ran on, the
+    # handles of finished threads (every batcher's scheduler) included,
+    # inside the caching allocator's count
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+    log(f"fleet: the parent holds {torch.cuda.memory_allocated(0)} bytes "
+        f"allocated ({held} before the cuBLAS workspaces were cleared), "
+        f"{torch.cuda.memory_reserved(0)} reserved")
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    snaps, spawn_s = {}, []
+
+    class Provider(SubprocessReplicaProvider):
+        """Reads each replica's Debug snapshot (its kernel-1 launches and
+        forward steps) before it is retired; a dead one answers nothing."""
+
+        def retire(self, address):
+            if address not in snaps:
+                try:
+                    mgr = RemoteInferenceManager(address)
+                    try:
+                        d = mgr.debugz("lm", timeout=30)
+                    finally:
+                        mgr.close()
+                    ra = d["kernels"]["ragged_paged_attention"]
+                    snaps[address] = dict(
+                        launches=ra["launches"], by_body=ra["by_body"],
+                        forward_steps=d["engines"]["lm"]["dispatch"][
+                            "forward_steps"])
+                except Exception as e:  # noqa: BLE001 - a dead replica
+                    snaps[address] = {"lost": f"{type(e).__name__}"}
+            super().retire(address)
+
+        def spawn(self, extra_env=None):
+            t0 = time.perf_counter()
+            addr = super().spawn(extra_env)
+            spawn_s.append(time.perf_counter() - t0)
+            return addr
+
+    gpu = GpuMemory()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    prov = Provider(replica_args=replica_args(), ready_timeout_s=180.0,
+                    term_grace_s=60.0)
+    journal = EventJournal(os.path.join(tmp, "journal.jsonl"),
+                           node="chip-smoke")
+    rs, direct = None, {}
+    rng = np.random.default_rng(53)
+    prompt = rng.integers(0, c["vocab"], (FLEET_PROMPT,)).astype(np.int32)
+    try:
+        # -- three replicas at once: a, b and the chaos-armed victim ------
+        t0 = time.perf_counter()
+        addrs = {}
+
+        def spawn(name, env=None):
+            addrs[name] = prov.spawn(extra_env=env)
+
+        threads = [threading.Thread(target=spawn, args=(n, e), daemon=True)
+                   for n, e in (("a", None), ("b", None),
+                                ("victim", {"TPULAB_CHAOS":
+                                            f"rpc.stream=kill@{FLEET_KILL_AT}"}))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        if len(addrs) != 3:
+            raise AssertionError(f"fleet: spawned {addrs}")
+        log(f"fleet: 3 replicas up in {time.perf_counter() - t0:.1f} s "
+            f"(spawn to first Status {', '.join(f'{x:.1f}' for x in spawn_s)}"
+            f" s; {FLEET_LANES} lanes, max_len {SERVE['max_len']}, page "
+            f"{SERVE['page_size']}, prefix cache on) [{card}]")
+        direct.update({n: RemoteInferenceManager(a)
+                       for n, a in addrs.items()})
+
+        # (a) identity: one lone greedy request to each member
+        ref, at_a = stream_direct(direct["a"], prompt, FLEET_STEPS)
+        got_b, at_b = stream_direct(direct["b"], prompt, FLEET_STEPS)
+        if got_b != ref or len(ref) != FLEET_STEPS:
+            raise AssertionError("fleet: two replicas gave different "
+                                 "tokens for the same lone request")
+        log(f"fleet: (a) a lone greedy {FLEET_PROMPT} x {FLEET_STEPS} "
+            f"request gives the same tokens on both replicas, bit for bit; "
+            f"TTFT of each replica's first request {at_a[0] * 1e3:.1f} / "
+            f"{at_b[0] * 1e3:.1f} ms [{card}]")
+
+        # (b) affinity over a and b: 12 requests over 3 shared prefixes
+        rsm = ReplicaSetMetrics()
+        rec = ChromeTraceRecorder(process_name="chip-smoke fleet")
+        rs = GenerationReplicaSet([addrs["a"], addrs["b"]], "lm",
+                                  prefix_affinity=True,
+                                  affinity_tokens=FLEET_PREFIX,
+                                  metrics=rsm, trace=rec)
+        sup_metrics = FleetMetrics()
+        sup = FleetSupervisor(rs, prov, respawn_backoff_s=0.5,
+                              probe_timeout_s=10.0, metrics=sup_metrics,
+                              journal=journal)
+        sup.probe()
+        router = PrefixAffinityRouter()
+        prefixes = [rng.integers(0, c["vocab"], (FLEET_PREFIX,)).astype(
+            np.int32) for _ in range(3)]
+        ttft_direct = []
+        for _ in range(3):          # cold prompts of (b)'s length, direct
+            _, at_d = stream_direct(direct["a"], rng.integers(
+                0, c["vocab"], (FLEET_PREFIX + FLEET_SUFFIX,)).astype(
+                    np.int32), FLEET_AFFINITY_STEPS)
+            ttft_direct.append(at_d[0])
+        hits0 = {a: v["prefix_hits"] for a, v in rs.poll_load().items()}
+        homes, ttft_set = {}, []
+        for r in range(4):
+            for k, pre in enumerate(prefixes):
+                p = np.concatenate([pre, rng.integers(
+                    0, c["vocab"], (FLEET_SUFFIX,)).astype(np.int32)])
+                home = router.ranked(prefix_digest(p, FLEET_PREFIX),
+                                     [addrs["a"], addrs["b"]])[0]
+                served0 = list(rs.served)
+                t0 = time.perf_counter()
+                n = 0
+                for _ in rs.generate(p, FLEET_AFFINITY_STEPS, timeout=300):
+                    if not n:
+                        ttft_set.append((r, time.perf_counter() - t0))
+                    n += 1
+                went = [rs.addresses[i] for i, (x, y) in
+                        enumerate(zip(served0, rs.served)) if y > x]
+                if went != [home] or n != FLEET_AFFINITY_STEPS:
+                    raise AssertionError(f"fleet: prefix {k} went to "
+                                         f"{went}, its HRW home is {home}")
+                homes[k] = home
+        hits = {a: v["prefix_hits"] - hits0[a]
+                for a, v in rs.poll_load().items()}
+        for k, home in homes.items():
+            if hits[home] <= 0:
+                raise AssertionError(f"fleet: prefix {k}'s home {home} "
+                                     f"shows no prefix-cache hits ({hits})")
+        def med(v):
+            v = sorted(v)
+            return v[len(v) // 2] * 1e3
+        ttft = dict(direct_cold_ms=med(ttft_direct),
+                    set_cold_ms=med([t for r, t in ttft_set if r == 0]),
+                    set_warm_ms=med([t for r, t in ttft_set if r > 0]))
+        log(f"fleet: (b) 12 requests over 3 shared {FLEET_PREFIX}-token "
+            f"prefixes each served on its HRW home (the parent's ranking); "
+            f"prefix-cache hits per replica {hits}; TTFT median of "
+            f"{FLEET_PREFIX + FLEET_SUFFIX}-token prompts: direct "
+            f"{ttft['direct_cold_ms']:.1f} ms, through the set "
+            f"{ttft['set_cold_ms']:.1f} ms on a prefix's first request, "
+            f"{ttft['set_warm_ms']:.1f} ms once its home caches it "
+            f"[{card}]")
+
+        # (c) failover: the victim joins; a prompt whose home it is
+        rs.add_replica(addrs["victim"])
+        sup.probe()
+        members = [addrs["a"], addrs["b"], addrs["victim"]]
+        while True:
+            p_c = rng.integers(0, c["vocab"], (FLEET_PROMPT,)).astype(
+                np.int32)
+            rank = router.ranked(prefix_digest(p_c, FLEET_PREFIX), members)
+            if rank[0] == addrs["victim"]:
+                break
+        survivor = next(n for n in ("a", "b") if addrs[n] == rank[1])
+        lone, _ = stream_direct(direct[survivor], p_c, FLEET_STEPS)
+        t0 = time.perf_counter()
+        got, at = [], []
+        for t in rs.generate(p_c, FLEET_STEPS, timeout=300):
+            got.append(int(t))
+            at.append(time.perf_counter() - t0)
+        with open(rec.save(os.path.join(tmp, "set_trace.json"))) as f:
+            spans = json.load(f)["traceEvents"]
+        resumed = [e["args"] for e in spans if e.get("name") == "attempt"
+                   and e.get("args", {}).get("mode") == "resume"]
+        wait_for(lambda: prov.is_alive(addrs["victim"]) is False,
+                 "fleet: the victim's exit", 120)
+        code = prov.exit_code(addrs["victim"])
+        if (len(got) != FLEET_STEPS or rs.resumes != 1 or len(resumed) != 1
+                or rs.tokens_replayed or code != chaos.KILL_EXIT_CODE):
+            raise AssertionError(
+                f"fleet: failover got {len(got)} tokens, resumes "
+                f"{rs.resumes}, attempts {resumed}, replayed "
+                f"{rs.tokens_replayed}, victim exit {code}")
+        d = resumed[0]["resumed_from"]
+        if not 0 < d <= FLEET_KILL_AT or got[:d] != lone[:d]:
+            raise AssertionError(f"fleet: {d} tokens before the kill; equal "
+                                 f"to the uninterrupted stream: "
+                                 f"{got[:d] == lone[:d]}")
+        gap = at[d] - at[d - 1]
+        log(f"fleet: (c) the victim died with exit code {code} after "
+            f"{d} tokens; the set resumed on {survivor} from token {d} "
+            f"(one resume, 0 tokens replayed), {len(got)} tokens exactly "
+            f"once, the {d} before the kill equal to the uninterrupted "
+            f"stream; failover gap {gap * 1e3:.1f} ms [{card}]")
+
+        # (d) supervision: the death by exit code, a respawn under backoff
+        acts = sup.probe()
+        if acts["deaths"] != [addrs["victim"]]:
+            raise AssertionError(f"fleet: supervisor {acts}")
+        t0 = time.perf_counter()
+        respawned = []
+        while not respawned:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("fleet: no respawn")
+            time.sleep(0.2)
+            respawned = sup.probe()["respawns"]
+        new = respawned[0]
+        st = RemoteInferenceManager(new)
+        try:
+            st.server_status(timeout=30)
+            again, _ = stream_direct(st, prompt, FLEET_STEPS)
+        finally:
+            st.close()
+        if again != ref or rs.breaker_states()[new] != "closed":
+            raise AssertionError("fleet: the respawned replica does not "
+                                 "serve the lone request's tokens")
+        evs = replay_journal(journal.path)
+        death = [e for e in evs if e["kind"] == "replica_death"]
+        if (sequence_gaps(evs) or len(death) != 1
+                or death[0].get("exit_code") != chaos.KILL_EXIT_CODE
+                or not any(e["kind"] == "replica_respawn" for e in evs)):
+            raise AssertionError(f"fleet: journal {evs}")
+        log(f"fleet: (d) the supervisor called the exit-{code} a death, "
+            f"respawned the lineage as {new} after "
+            f"{time.perf_counter() - t0:.1f} s (spawn to first Status "
+            f"{spawn_s[-1]:.1f} s), which serves the lone request's tokens; "
+            f"journal {len(evs)} events, no sequence gap [{card}]")
+
+        # (e) scale-down: a stream on every member, then a drain
+        holds = []
+        for addr in rs.active_addresses():
+            box = {"toks": [], "first": threading.Event()}
+
+            def run(addr=addr, box=box):
+                m = RemoteInferenceManager(addr)
+                try:
+                    for t in GenerateStreamClient(m, "lm").generate(
+                            prompt, FLEET_HOLD_STEPS, timeout=300):
+                        box["toks"].append(int(t))
+                        box["first"].set()
+                finally:
+                    m.close()
+            box["thread"] = threading.Thread(target=run, daemon=True)
+            box["thread"].start()
+            holds.append((addr, box))
+        for _, box in holds:
+            if not box["first"].wait(120):
+                raise AssertionError("fleet: a held stream never started")
+        asc = FleetAutoscaler(rs, prov, wait_signal=lambda: 0.0,
+                              min_replicas=2, max_replicas=3, hold=1,
+                              drain_timeout_s=120.0, journal=journal,
+                              metrics=sup_metrics)
+        t0 = time.perf_counter()
+        if asc.evaluate() != "drain_started":
+            raise AssertionError("fleet: no scale-down")
+        victim2 = next(a for a, s in rs.breaker_states().items()
+                       if s == "draining")
+        at_drain = {a: len(b["toks"]) for a, b in holds}
+        if not asc.wait_for_drain(240.0) or asc.scale_downs != 1:
+            raise AssertionError("fleet: the drain did not retire")
+        drain_s = time.perf_counter() - t0
+        for _, box in holds:
+            box["thread"].join(300)
+        toks = {a: b["toks"] for a, b in holds}
+        code2 = prov.exit_code(victim2)
+        if (at_drain[victim2] >= FLEET_HOLD_STEPS
+                or len(toks[victim2]) != FLEET_HOLD_STEPS or code2 != 0
+                or len({tuple(v) for v in toks.values()}) != 1
+                or sup.probe()["deaths"]):
+            raise AssertionError(
+                f"fleet: scale-down of {victim2}: {at_drain[victim2]} "
+                f"tokens at the drain, {len(toks[victim2])} in the end, "
+                f"exit {code2}")
+        log(f"fleet: (e) the autoscaler drained {victim2} with its stream "
+            f"at token {at_drain[victim2]}/{FLEET_HOLD_STEPS}; the stream "
+            f"finished (the same tokens as the other members'), SIGTERM "
+            f"exit 0; drain to retire {drain_s:.1f} s; the supervisor saw "
+            f"no death [{card}]")
+        evs = replay_journal(journal.path)
+        if sequence_gaps(evs) or not any(e["kind"] == "scale_down"
+                                         for e in evs):
+            raise AssertionError(f"fleet: journal {evs}")
+    finally:
+        if rs is not None:
+            rs.close()
+        for m in direct.values():
+            m.close()
+        prov.close()
+        journal.close()
+        gpu.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # kernel 1 per replica, from its Debug snapshot before it retired
+    launches = 0
+    for addr, s in snaps.items():
+        if "lost" in s:
+            log(f"fleet: {addr}: killed, its launches are lost")
+            continue
+        if (s["launches"] != c["n_layers"] * s["forward_steps"]
+                or s["launches"] == 0
+                or s["by_body"].get("wgmma") != s["launches"]):
+            raise AssertionError(f"fleet: {addr}: ragged launches {s}")
+        launches += s["launches"]
+    log(f"fleet: ragged launches reported by the replicas {launches} = "
+        f"{c['n_layers']} x their forward steps, all on wgmma: "
+        + json.dumps(snaps) + f" [{card}]")
+    log(f"fleet: peak nvidia-smi memory {gpu.peak} MiB [{card}]")
+    # (c) after the kill, under the bf16 noise rule: the weights rebuilt
+    # here from the replicas' seed, now that no replica holds a copy
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    note = same_or_bf16_noise(torch, params, kw, "failover stream", p_c,
+                              lone, got)
+    log("fleet: (c) the resumed tokens "
+        + (note or "equal the uninterrupted stream bit for bit"))
+    del params
+    torch.cuda.empty_cache()
+    log("fleet: " + json.dumps(dict(
+        spawn_to_ready_s=spawn_s, failover_gap_ms=gap * 1e3,
+        ttft=ttft, drain_s=drain_s,
+        peak_memory_mib=gpu.peak, launches=launches)) + f" [{card}]")
+    log(f"fleet: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -4375,6 +5218,8 @@ def main(argv=None) -> int:
     hbm_launches = phase_hbm(torch, card)
     svc_launches = phase_service(torch, card)
     obs_launches = phase_obs(torch, card)
+    batch_launches = phase_batch(torch, card)
+    fleet_launches = phase_fleet(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -4386,7 +5231,7 @@ def main(argv=None) -> int:
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
                      + st["disagg"] + hbm_launches + svc_launches
-                     + obs_launches,
+                     + obs_launches + batch_launches + fleet_launches,
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
@@ -4394,7 +5239,9 @@ def main(argv=None) -> int:
                      "and split-plan serve runs + speculative serve run + "
                      "preempting serve (host tier side) + disagg serve + "
                      "the hbm phase's burst + the service phase's drive + "
-                     "the obs phase",
+                     "the obs phase + the batch phase + the fleet "
+                     "replicas (read from each replica's Debug snapshot "
+                     "before it retired; the killed replica's are lost)",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",

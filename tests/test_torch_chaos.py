@@ -27,6 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+import tpulab.batch as jbatch
+import tpulab.fleet as jfleet
+import tpulab.rpc.replica as jrep
+import tpulab_torch.batch as tbatch
+import tpulab_torch.fleet as tfleet
+import tpulab_torch.rpc.replica as trep
 from tpulab import chaos as jchaos
 from tpulab.core.deadline import DeadlineExceeded as JaxDeadline
 from tpulab.engine.paged import ContinuousBatcher as JaxBatcher
@@ -144,6 +150,51 @@ def test_deadline_storm_frees_lanes_and_pages(lm, plan):
     assert got["port"] == got["tpulab"]
 
 
+#: the batch lane's and the fleet's sites, each firing once mid-sequence
+FLEET_SPEC = ("batch.run=error@5;fleet.route=drop@1+1;fleet.spawn=error+1;"
+              "fleet.probe=error@2+1")
+
+
+class _Members:
+    """The replica-set surface the supervisor probes: two live members."""
+
+    addresses = ["10.0.0.1:1", "10.0.0.2:1"]
+
+    def breaker_states(self):
+        return {a: "closed" for a in self.addresses}
+
+    def health(self, timeout=5.0):
+        return {a: {"live": True, "ready": True} for a in self.addresses}
+
+
+def _drive_fleet_sites(name, cb, prompt):
+    """One pass over the four sites: a batch job killed at its sixth
+    scheduler pass, four affinity picks, a spawn retried once, two
+    supervisor ticks over two members."""
+    batch, fleet, rep = ((jbatch, jfleet, jrep) if name == "tpulab"
+                         else (tbatch, tfleet, trep))
+    report = batch.BatchScheduler(cb, poll_s=0.001).run(
+        batch.BatchJob("c", [prompt] * 8, steps=4), timeout_s=120)
+    rs = rep.GenerationReplicaSet(
+        [f"127.0.0.1:{p}" for p in (40001, 40002, 40003)], "lm",
+        prefix_affinity=True, affinity_tokens=4)
+    try:
+        picks = [rs._pick_affine(list(prompt[:k + 4]), frozenset())
+                 for k in range(4)]
+    finally:
+        rs.close()
+    spawned = fleet.spawn_with_retry(lambda: "spawned", backoff_s=0.0)
+
+    class Alive(fleet.ReplicaProvider):
+        def is_alive(self, address):
+            return True
+
+    sup = fleet.FleetSupervisor(_Members(), Alive())
+    ticks = [sup.probe(), sup.probe()]
+    return (report["interrupted"], picks, spawned, ticks,
+            sup.probes_forgone)
+
+
 @pytest.mark.parametrize("plan", PLANS)
 def test_fault_sites_reached_as_in_tpulab(lm, plan):
     """One request sequence, a schedule whose only rule never fires: both
@@ -152,7 +203,11 @@ def test_fault_sites_reached_as_in_tpulab(lm, plan):
     (a 5-token prompt decodes while a 30-token prompt prefills in
     16-token chunks: a mixed round carrying a decode lane under the
     ragged plan), fused K-blocks, and a host-sampled request (K=1
-    ticks)."""
+    ticks).  Then the batch lane's and the fleet's sites, each with a
+    rule that fires once: ``batch.run`` (a job killed at its sixth pass),
+    ``fleet.route`` (the second of four affinity picks falls back to the
+    load pick), ``fleet.spawn`` (one retry), ``fleet.probe`` (one member
+    probe forgone); both packages reach and fire them equally often."""
     rng = np.random.default_rng(0)
     short, long_ = (rng.integers(0, 64, (n,), np.int32) for n in (5, 30))
     got = {}
@@ -167,11 +222,21 @@ def test_fault_sites_reached_as_in_tpulab(lm, plan):
                     temperature=0.9, top_k=5, seed=7)).result(timeout=120)))
                 got[name] = (lens, sched.seen_snapshot(),
                              cb.pool.free_pages)
+            with chaos.inject(FLEET_SPEC) as sched:
+                sites = ("batch.", "fleet.")
+                got[name] += (_drive_fleet_sites(name, cb, short),
+                              {k: v for k, v in sched.seen_snapshot().items()
+                               if k.startswith(sites)},
+                              sched.fired_snapshot())
         finally:
             cb.shutdown()
-    lens, seen, _free = got["port"]
+    lens, seen, _free, fleet, fleet_seen, fleet_fired = got["port"]
     assert lens == [12, 6, 6]
     assert seen["engine.prefill"] == 3 and seen["engine.step"] > 0
+    assert fleet[0] == "error" and fleet[2] == "spawned" and fleet[4] == 1
+    assert fleet_seen == {"batch.run": 6, "fleet.route": 4,
+                          "fleet.spawn": 2, "fleet.probe": 4}
+    assert fleet_fired == dict.fromkeys(fleet_seen, 1)
     assert got["port"] == got["tpulab"]
 
 

@@ -275,13 +275,20 @@ def test_rejection_codes_match_tpulab(sides, i):
 
 
 def test_batch_class_is_refused_until_the_batch_lane_is_ported(sides):
-    """tpulab serves ``request_class='batch'`` through its offline batch
-    lane; the port has no batch lane yet and answers INVALID_ARGUMENT
-    naming the ROADMAP item instead of serving it as online traffic."""
-    _, tside = sides
-    with pytest.raises(tsvc.GenerationRejected, match="item 5") as e:
-        _stream(tsvc, tside, "lm", request_class="batch")
-    assert e.value.code == tsvc.pb.INVALID_ARGUMENT
+    """The batch lane is ported: a ``request_class='batch'`` stream rides
+    the paged batcher's offline lane and streams what tpulab's server
+    streams, greedy and device-sampled, in every client/server pairing;
+    the lane is tagged batch in the engine's flight summary and every
+    lane and page is home after."""
+    jside, tside = sides
+    for kw in (dict(), MODES["device"]):
+        want = _stream(jsvc, jside, "lm", request_class="batch", **kw)
+        assert want == _stream(jsvc, jside, "lm", **kw)
+        for client, side in ((jsvc, tside), (tsvc, jside), (tsvc, tside)):
+            got = _stream(client, side, "lm", request_class="batch", **kw)
+            assert got == want, (client.__name__, side.name)
+    for side in sides:
+        assert _lanes_home(side.engines["lm"])
 
 
 def test_prefill_export_then_shipped_decode_between_port_servers(sides):

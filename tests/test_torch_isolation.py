@@ -71,7 +71,14 @@ def test_importing_every_module_loads_no_jax_or_tpulab():
             "tpulab_torch.obs.flight", "tpulab_torch.obs.debugz",
             "tpulab_torch.obs.slo", "tpulab_torch.obs.bench",
             "tpulab_torch.utils.metrics",
-            "tpulab_torch.utils.watchdog"} <= set(mods)
+            "tpulab_torch.utils.watchdog", "tpulab_torch.batch",
+            "tpulab_torch.batch.job", "tpulab_torch.batch.scheduler",
+            "tpulab_torch.batch.bench", "tpulab_torch.obs.journal",
+            "tpulab_torch.rpc.replica", "tpulab_torch.fleet",
+            "tpulab_torch.fleet.router", "tpulab_torch.fleet.autoscaler",
+            "tpulab_torch.fleet.supervisor", "tpulab_torch.fleet.process",
+            "tpulab_torch.fleet.replica_main",
+            "tpulab_torch.fleet.bench"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -209,3 +216,30 @@ def test_service_without_grpc_or_protobuf():
     for what in ("start", "remote", "serve"):
         assert "grpc" in got[what] and "invoke" in got[what], got[what]
     assert got["loaded"] == []
+
+
+def test_replica_main_help_runs_with_jax_blocked():
+    """``python -m tpulab_torch.fleet.replica_main --help`` in a process
+    where jax and tpulab cannot be imported: it prints the port's
+    options (the card by default, ``--device cpu`` for the CPU) and
+    loads neither."""
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'tpulab'):\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['tpulab_torch.fleet.replica_main', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tpulab_torch.fleet.replica_main',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'tpulab') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    for flag in ("--device", "--dtype", "--n-kv-heads", "--ffn", "--untied",
+                 "--rope-theta", "--decode-block", "--prefill-chunk",
+                 "--seed", "--model-name"):
+        assert flag in out.stdout, flag

@@ -33,10 +33,10 @@ import tpulab_torch.utils.metrics as T
 
 PORTED = ("InferenceMetrics", "GenerationMetrics", "KVTierMetrics",
           "ModelStoreMetrics", "HBMMetrics", "AdmissionMetrics",
-          "ChaosMetrics", "SLOMetrics")
+          "ChaosMetrics", "SLOMetrics", "ReplicaSetMetrics", "FleetMetrics",
+          "BatchMetrics")
 #: tpulab's sets that come with their subsystems' slices
-DEFERRED = ("ReplicaSetMetrics", "FleetMetrics", "BatchMetrics",
-            "KVFabricMetrics", "FederationMetrics")
+DEFERRED = ("KVFabricMetrics", "FederationMetrics")
 
 
 def _families(text):
@@ -127,6 +127,14 @@ def _arbiter(step):
                 denials=step // 4)
 
 
+def _scheduler(step):
+    return _Obj(jobs_running=step % 2, soak_utilization=step / 8,
+                jobs_done=step // 3, interrupted_runs=step // 4,
+                items_done=3 * step, tokens_delivered=40 * step,
+                tokens_resume_skipped=7 * step, spare_denials=step * step,
+                engine=_Obj(batch_preemptions=step // 2))
+
+
 def _feed(name, m):
     """The same observation sequence for either package's instance."""
     rng = np.random.default_rng(0)
@@ -180,6 +188,52 @@ def _feed(name, m):
         for i in range(10):
             m.observe(("engine.step", "rpc.stream")[i % 2],
                       ("error", "delay", "drop")[i % 3])
+    elif name == "ReplicaSetMetrics":
+        reps = ["127.0.0.1:1", "127.0.0.1:2", "127.0.0.1:3"]
+        for a in reps:
+            m.set_breaker_state(a, "closed")
+        for i, x in enumerate(xs):
+            a = reps[i % 3]
+            m.requests.labels(replica=a).inc()
+            m.inflight.labels(replica=a).set(i % 4)
+            m.note_attempt(("OK", "UNAVAILABLE", "STALLED")[i % 3])
+            m.observe_deadline(i % 5 != 0, x)
+            m.note_affinity(hit=i % 4 != 0)
+            m.note_hedge(won=i % 6 == 0)
+        m.failovers.inc(3)
+        m.live.labels(replica=reps[0]).set(1)
+        m.live.labels(replica=reps[1]).set(0)
+        for to in ("open", "probing", "open", "probing", "closed"):
+            m.note_breaker_transition(reps[1], to)
+        m.note_breaker_transition(reps[2], "open")
+        m.note_stall()
+        m.note_resume()
+        m.note_resume_fallback()
+        m.note_tokens_replayed(5)
+        m.note_tokens_replayed(0)
+        m.note_ring_moves(7)
+        m.prefix_hits.labels(replica=reps[0]).set(12)
+        m.prefix_lookups.labels(replica=reps[0]).set(20)
+        for fam in (m.requests, m.inflight):    # a retired replica
+            fam.remove(reps[2])
+        for st in ("closed", "open", "probing"):
+            m.breaker_state.remove(reps[2], st)
+            m.breaker_transitions.remove(reps[2], st)
+    elif name == "FleetMetrics":
+        for up in (True, True, False):
+            m.note_scale(up=up)
+        m.note_drain()
+        m.set_replicas(3)
+        m.set_queue_wait(0.125)
+        m.set_queue_wait(-1.0)
+        m.note_death()
+        m.note_respawn()
+        m.note_crash_loop()
+        for lead in (True, True, False, True):
+            m.set_leader(lead)
+    elif name == "BatchMetrics":
+        for step in (1, 3, 3, 8, 5, 9):
+            m.poll(_scheduler(step))
     elif name == "SLOMetrics":
         for i in range(30):
             m.note_request(f"t{i % 3}", "batch" if i % 4 == 0 else "online",
@@ -223,7 +277,8 @@ def test_inventory_equals_tpulab_and_is_disjoint():
             if a < b:
                 assert not owned[a] & owned[b], (a, b)
     for const in ("TTFT_BUCKETS", "ITL_BUCKETS", "E2E_BUCKETS",
-                  "SLACK_BUCKETS", "LOAD_RATIO_BUCKETS", "SWAP_BUCKETS"):
+                  "SLACK_BUCKETS", "LOAD_RATIO_BUCKETS", "SWAP_BUCKETS",
+                  "BREAKER_STATES"):
         assert getattr(T, const) == getattr(J, const), const
 
 

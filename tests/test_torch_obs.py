@@ -286,12 +286,15 @@ def test_slo_tracker_matches_tpulab():
 
 # -- debugz ---------------------------------------------------------------------
 #: fields tpulab's batcher reports that the port's has no counterpart for
-#: (no sharded pool, no XLA-gather escape hatch, no batch lane)
-PORT_LACKS = {"pool": {"n_shards"},
-              "dispatch": {"use_kernel", "batch_preemptions"}}
-#: and the one the port adds (the arbiter's pressure rounds, which
-#: tpulab reports in its flight events only)
-PORT_ADDS = {"engine": {"hbm_pressure_events"}}
+#: (no sharded pool, no XLA-gather escape hatch)
+PORT_LACKS = {"pool": {"n_shards"}, "dispatch": {"use_kernel"}}
+#: and the ones the port adds: the arbiter's pressure rounds (which
+#: tpulab reports in its flight events only), the forward-step counters
+#: and the CUDA kernels' launch counters, which a parent reads from a
+#: replica process to hold its kernel launches against its forwards
+PORT_ADDS = {"engine": {"hbm_pressure_events"},
+             "dispatch": {"forward_steps", "draft_forward_steps"},
+             "top": {"kernels"}}
 
 
 def _snapshot_keys(snap):

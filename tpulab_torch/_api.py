@@ -84,8 +84,9 @@ class InferenceManager(_EngineManager):
         (tpulab_torch.utils.metrics) observes every Infer request — scrape
         it with ``start_metrics_server``.
 
-        ``fleet`` and ``kvfabric`` are not ported yet (ROADMAP queue 1,
-        item 5) and raise ``NotImplementedError``.  Without grpc the
+        ``fleet`` (leader election and the fleet controller) and
+        ``kvfabric`` are not ported yet (ROADMAP queue 1, item 5) and
+        raise ``NotImplementedError``.  Without grpc the
         start raises ``ImportError`` (module docstring)."""
         builders = {}
         if models:

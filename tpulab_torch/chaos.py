@@ -10,6 +10,13 @@ armed.  Armed, a :class:`FaultSchedule` maps points to rules::
         ...
     assert sched.fired("engine.verify") == 1
 
+or through the environment, read once at import, so a replica process
+inherits its parent's schedule::
+
+    TPULAB_CHAOS="rpc.stream=kill@4" python -m tpulab_torch.fleet.replica_main
+
+(``TPULAB_CHAOS_SEED`` seeds it).
+
 Rule grammar (``;``-separated)::
 
     <point>=<action>[:<value>][@<after>][+<times>][%<prob>]
@@ -81,6 +88,23 @@ Injection points planted in the port:
                     its static-budget behavior (the multiplexer waits on
                     its own budget, the batcher queues on its current
                     pool).  The ledger is never touched on a tripped path
+    batch.run       BatchScheduler run loop (tpulab_torch.batch), once per
+                    scheduler pass: error/drop kill the batch runner
+                    mid-job — in-flight items are cancelled, delivered
+                    tokens stay in the JSONL checkpoint, and the next
+                    run() resumes from them with zero re-decode
+    fleet.route     GenerationReplicaSet._pick_affine, at the head of the
+                    prefix-affinity decision: error fails the decision,
+                    drop disables affinity for the request; both fall
+                    back to the load-based pick
+    fleet.spawn     spawn_with_retry (tpulab_torch.fleet.autoscaler), once
+                    per provider spawn attempt: error fails the attempt,
+                    drop models a spawn that never came up; both retry
+                    with backoff
+    fleet.probe     FleetSupervisor.probe, once per member classification:
+                    error/drop forgo that member's probe this tick (no
+                    evidence, retried next tick), so probe chaos delays
+                    healing and never declares a healthy replica dead
 """
 
 from __future__ import annotations
@@ -291,3 +315,17 @@ class inject:
 
     def __exit__(self, *exc) -> None:
         arm(self._prev)
+
+
+def _arm_from_env() -> None:
+    """``TPULAB_CHAOS`` arms at import, so a replica process inherits the
+    schedule through its environment (``TPULAB_CHAOS_SEED`` seeds it)."""
+    spec = os.environ.get("TPULAB_CHAOS", "").strip()
+    if not spec:
+        return
+    seed = int(os.environ.get("TPULAB_CHAOS_SEED", "0"))
+    arm(FaultSchedule.parse(spec, seed=seed))
+    log.warning("chaos armed from TPULAB_CHAOS=%r (seed=%d)", spec, seed)
+
+
+_arm_from_env()

@@ -807,14 +807,15 @@ class _PagedRequest:
                  "spec_drafted", "spec_accepted", "spec_probe_in",
                  "spec_probing", "kv_handle", "export_digest",
                  "t_resume0", "resume_kind", "trace_id", "tenant", "lane",
-                 "fl", "pf_t0", "t_first", "chunk_t0", "chunk_start")
+                 "fl", "pf_t0", "t_first", "chunk_t0", "chunk_start",
+                 "batch")
 
     def __init__(self, prompt: np.ndarray, steps: int, on_token=None,
                  sampling: Optional[SamplingParams] = None,
                  priority: int = 0, stop_tokens=None,
                  logprobs: bool = False, deadline: Optional[float] = None,
                  trace_id: Optional[str] = None,
-                 tenant: Optional[str] = None):
+                 tenant: Optional[str] = None, batch: bool = False):
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.steps = steps
         self.future: Future = Future()
@@ -826,6 +827,9 @@ class _PagedRequest:
         self.cancelled = False
         self.sampling = sampling or SamplingParams()
         self.priority = priority
+        #: offline batch lane: ranks below every online request at any
+        #: priority and is the first preemption victim
+        self.batch = bool(batch)
         self.resumed = False       # preempted mid-decode: resume skips the
         #                            prefill pick (already emitted)
         self.admit_seq = -1
@@ -1205,6 +1209,8 @@ class ContinuousBatcher:
         self._active: List[Optional[_PagedRequest]] = [None] * lanes
         self._admit_counter = 0
         self.preemptions = 0
+        #: preemptions whose victim was a batch-class lane
+        self.batch_preemptions = 0
         if self.hbm is not None:
             # register as the KV tenant AFTER kv_offload is settled (the
             # reclaimable estimate reads it) and claim the page store's
@@ -1230,7 +1236,8 @@ class ContinuousBatcher:
                export_digest: Optional[bytes] = None,
                trace_id: Optional[str] = None,
                tenant: Optional[str] = None,
-               flight_owner: Optional[str] = None) -> Future:
+               flight_owner: Optional[str] = None,
+               request_class: str = "online") -> Future:
         """Queue one generation request (tpulab's contract).
 
         ``on_token(token, index)`` streams tokens (``(token, index,
@@ -1251,7 +1258,17 @@ class ContinuousBatcher:
         recorder; ``tenant`` tags it for flight-recorder and debugz
         attribution; ``flight_owner="rpc"`` marks the wide event as
         assembled by the RPC layer (the engine still attaches its summary
-        to the future as ``_tpulab_flight`` but records nothing)."""
+        to the future as ``_tpulab_flight`` but records nothing).
+
+        ``request_class`` is ``"online"`` (the default) or ``"batch"``, the
+        offline batch lane: a batch request queues behind every online
+        request whatever its priority, is the first preemption victim when
+        an online arrival needs its lane or pages, and its ``on_token``
+        hook (a checkpoint sink, not an interactive consumer) never
+        shrinks the fused-decode block."""
+        if request_class not in ("online", "", "batch"):
+            raise ValueError(f"unknown request_class {request_class!r} "
+                             "(want 'online' or 'batch')")
         deadline = self._check_request(prompt, steps, deadline)
         if export_digest is not None and self.kv_offload is None:
             raise ValueError("export_digest requires kv_offload")
@@ -1259,7 +1276,7 @@ class ContinuousBatcher:
                             sampling=sampling, priority=priority,
                             stop_tokens=stop_tokens, logprobs=logprobs,
                             deadline=deadline, trace_id=trace_id,
-                            tenant=tenant)
+                            tenant=tenant, batch=request_class == "batch")
         req.export_digest = export_digest
         if self.flight is not None or flight_owner:
             self._fl_arm(req, flight_owner)
@@ -1424,7 +1441,7 @@ class ContinuousBatcher:
                 lanes.append({
                     "lane": lane,
                     "state": "prefill" if req.pending_prompt else "decode",
-                    "request_class": "online",
+                    "request_class": "batch" if req.batch else "online",
                     "tenant": req.tenant, "priority": req.priority,
                     "trace_id": req.trace_id,
                     "age_s": round(now - req.t_submit, 6),
@@ -1468,6 +1485,9 @@ class ContinuousBatcher:
                          "ragged_dispatches": self.ragged_dispatches,
                          "kinds": dict(self.dispatch_kinds),
                          "preemptions": self.preemptions,
+                         "batch_preemptions": self.batch_preemptions,
+                         "forward_steps": self.forward_steps,
+                         "draft_forward_steps": self.draft_forward_steps,
                          "completed_requests": self.completed_requests,
                          "tokens_generated": self.tokens_generated},
             "profile_armed": profile_armed,
@@ -1563,7 +1583,7 @@ class ContinuousBatcher:
         now = _time.perf_counter()
         ev: Dict[str, Any] = {
             "kind": "paged", "outcome": outcome, "tenant": req.tenant,
-            "request_class": "online",
+            "request_class": "batch" if req.batch else "online",
             "priority": req.priority, "trace_id": req.trace_id,
             "prompt_tokens": int(len(req.prompt)), "steps": req.steps,
             "tokens": len(req.tokens_out),
@@ -1732,13 +1752,21 @@ class ContinuousBatcher:
                                              - req.t_submit)
 
     # -- scheduler ----------------------------------------------------------
+    @staticmethod
+    def _rank(req: _PagedRequest):
+        """Scheduling rank ``(class, priority)``: every online request
+        outranks every batch request; within a class, priority."""
+        return (0 if req.batch else 1, req.priority)
+
     def _enqueue_locked(self, req: _PagedRequest,
                         front_of_class: bool) -> None:
-        """Queue by priority; ``front_of_class`` puts a preempted request
-        ahead of its equals."""
+        """Queue by rank (online before batch, higher priority first, FIFO
+        within a class); ``front_of_class`` puts a preempted request ahead
+        of its equals."""
+        rank = self._rank(req)
         for i, q in enumerate(self._queue):
-            if (q.priority < req.priority
-                    or (front_of_class and q.priority == req.priority)):
+            if (self._rank(q) < rank
+                    or (front_of_class and self._rank(q) == rank)):
                 self._queue.insert(i, req)
                 return
         self._queue.append(req)
@@ -1845,13 +1873,14 @@ class ContinuousBatcher:
                     if not self._admit_to_lane_locked(lane):
                         break
         # preemption: while the queue head strictly outranks the weakest
-        # active request whose release frees a page, evict it (most
-        # recently admitted first within a rank) and admit the head
+        # active request whose release frees a page, evict it (batch lanes
+        # first, then most recently admitted first within a rank) and
+        # admit the head
         while self._queue:
-            head = self._queue[0].priority
-            victims = [(req.priority, -req.admit_seq, lane)
+            head = self._rank(self._queue[0])
+            victims = [(self._rank(req) + (-req.admit_seq, lane))
                        for lane, req in enumerate(self._active)
-                       if req is not None and req.priority < head
+                       if req is not None and self._rank(req) < head
                        and any(self.pool.refcount(p) == 1
                                for p in req.pages)]
             if not victims:
@@ -1905,6 +1934,8 @@ class ContinuousBatcher:
         self._active[lane] = None
         self._enqueue_locked(req, front_of_class=True)
         self.preemptions += 1
+        if req.batch:
+            self.batch_preemptions += 1
 
     # -- HBM economy (tpulab_torch.hbm): the KV tenant ---------------------
     #: bound on how long a blocking grow request waits for a write-behind
@@ -2669,7 +2700,9 @@ class ContinuousBatcher:
             if (req.deadline is not None
                     and req.deadline - now < self._tight_slack_s()):
                 want = min(want, 2)
-            if req.on_token is not None:
+            if req.on_token is not None and not req.batch:
+                # a batch lane's on_token is a checkpoint sink, not an
+                # interactive consumer: it never drags the block to K<=2
                 streaming = True
             max_rem = max(max_rem, req.steps - len(req.tokens_out))
         if streaming and not self._queue:

@@ -14,15 +14,17 @@ introspection (the port of ``tpulab/obs``).
   budgets over fast and slow burn-rate windows, fed from the flight-event
   stream (``flight.add_tap``).
 - :func:`benchmark_obs_overhead` (bench.py): what arming all of it costs.
-
-tpulab's ``EventJournal`` (the fleet control plane's decision log) comes
-with the fleet (ROADMAP queue 1, item 5).
+- :class:`EventJournal` (journal.py): the fleet control plane's durable
+  decision log, with :func:`replay_journal` and :func:`sequence_gaps`.
 """
 
 from tpulab_torch.obs.bench import benchmark_obs_overhead  # noqa: F401
 from tpulab_torch.obs.debugz import arm_profile, debug_snapshot  # noqa: F401
 from tpulab_torch.obs.flight import KEEP_REASONS, FlightRecorder  # noqa: F401
+from tpulab_torch.obs.journal import (EventJournal,  # noqa: F401
+                                      replay_journal, sequence_gaps)
 from tpulab_torch.obs.slo import SLOTracker  # noqa: F401
 
 __all__ = ["FlightRecorder", "KEEP_REASONS", "debug_snapshot",
-           "arm_profile", "benchmark_obs_overhead", "SLOTracker"]
+           "arm_profile", "benchmark_obs_overhead", "SLOTracker",
+           "EventJournal", "replay_journal", "sequence_gaps"]

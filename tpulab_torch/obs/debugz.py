@@ -15,6 +15,7 @@ as ONE JSON document (``DebugResponse.snapshot_json``).  Layout (every
 section optional — a replica reports the subsystems it runs):
 
     {"wall_time": ..., "server_version": ...,
+     "kernels": {name: {"launches", "by_body"}},
      "engines": {name: {"lanes": [...], "queue_head": [...],
                         "pool": {...}, "dispatch": {...}, "spec": {...},
                         "prefix_cache": {...}}},
@@ -28,8 +29,11 @@ section optional — a replica reports the subsystems it runs):
      "flight": {"retained", "dropped", "kept_by_reason",
                 "exemplar_ids", "assembly_ms_p99"}}
 
+``kernels`` is the port's own section (tpulab's Pallas kernels count
+nothing): the launch counters of the three CUDA kernels' wrappers.
 tpulab's ``fleet`` section (the control plane's election, supervision
-and autoscaling) comes with the fleet (ROADMAP queue 1, item 5).
+and autoscaling) comes with leader election and the fleet controller
+(ROADMAP queue 1, item 5).
 
 On-demand profiling: ``profile_ticks=N`` on the Debug RPC arms
 ``torch.profiler`` around the next N scheduler passes of the selected
@@ -62,6 +66,22 @@ def _engine_section(engine) -> Dict[str, Any]:
     return out
 
 
+def _kernel_section() -> Dict[str, Any]:
+    """This process's launch counts of the hand-written kernels, as each
+    wrapper counts them where it launches its kernel (on the CPU the
+    wrappers run their plain versions and count nothing) — how a parent
+    reads a replica process's kernel launches."""
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.paged_attention import paged_decode_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    return {fn.__name__: {"launches": int(fn.launches),
+                          "by_body": dict(getattr(fn, "launches_by_body",
+                                                  {}))}
+            for fn in (ragged_paged_attention, flash_attention,
+                       paged_decode_attention)}
+
+
 def debug_snapshot(resources=None, *, generation_engines=None,
                    admission=None, hbm=None, modelstore=None,
                    flight=None, watchdog=None,
@@ -82,7 +102,8 @@ def debug_snapshot(resources=None, *, generation_engines=None,
         modelstore = modelstore or getattr(resources, "modelstore", None)
         flight = flight or getattr(resources, "flight", None)
         watchdog = watchdog or getattr(resources, "watchdog", None)
-    snap: Dict[str, Any] = {"wall_time": time.time()}
+    snap: Dict[str, Any] = {"wall_time": time.time(),
+                            "kernels": _kernel_section()}
 
     engines = {}
     for name, eng in (generation_engines or {}).items():

@@ -18,9 +18,12 @@ The surface is tpulab's:
 - :mod:`~tpulab_torch.rpc.infer_service` — the inference service
   (Status / Infer / StreamInfer / Health / Generate) and its clients
 
+- :mod:`~tpulab_torch.rpc.replica` — client-side replica sets
+  (:class:`ReplicaSet` unary, :class:`GenerationReplicaSet` token
+  streams): least-loaded routing, circuit breaker, deadlines,
+  resume-from-delivered failover, prefix affinity, hedging
+
 The names load lazily, so ``import tpulab_torch.rpc`` needs no grpc.
-tpulab's ``replica`` (client-side replica sets) is not ported yet
-(ROADMAP queue 1, item 5: the fleet).
 """
 
 _EXPORTS = {
@@ -34,6 +37,8 @@ _EXPORTS = {
     "ClientExecutor": "tpulab_torch.rpc.client",
     "ClientUnary": "tpulab_torch.rpc.client",
     "ClientStreaming": "tpulab_torch.rpc.client",
+    "ReplicaSet": "tpulab_torch.rpc.replica",
+    "GenerationReplicaSet": "tpulab_torch.rpc.replica",
 }
 
 __all__ = list(_EXPORTS)

@@ -26,9 +26,9 @@ RPC's readiness, and the ``Debug`` RPC answers the
 ``torch.profiler`` capture (``profile_ticks``).
 
 Not ported yet (ROADMAP queue 1, item 5): the ``FetchKV`` RPC answers
-``INTERNAL`` naming the item, ``fleet=`` and ``kvfabric=`` raise, and a
-``request_class='batch'`` Generate request (the offline batch lane) is
-``INVALID_ARGUMENT``.
+``INTERNAL`` naming the item, and ``fleet=`` (leader election and the
+fleet controller) and ``kvfabric=`` raise.  A ``request_class='batch'``
+Generate request rides the paged batcher's offline batch lane.
 """
 
 from __future__ import annotations
@@ -63,7 +63,8 @@ TRACE_DECODE_CHUNK = 8
 
 #: the message every not-yet-ported option and RPC answers with
 _ITEM5 = ("is not ported to tpulab_torch yet (ROADMAP queue 1, item 5: "
-          "the batch lane, the fleet and the KV fabric)")
+          "leader election, the fleet controller and observer, and the KV "
+          "fabric)")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -938,11 +939,6 @@ class GenerateContext(StreamingContext):
                               "request_class='batch' cannot combine with "
                               "prefill_only/kv_shipment"))
             return
-        if request.request_class == "batch":
-            self.write(_final(
-                pb.INVALID_ARGUMENT,
-                f"request_class='batch' (the offline batch lane) {_ITEM5}"))
-            return
         msg = self._validate_resume(request)
         if msg is not None:
             self.write(_final(pb.INVALID_ARGUMENT, msg))
@@ -1331,6 +1327,11 @@ class GenerateContext(StreamingContext):
             if tc is not None:
                 # same gating: only traced requests carry the kwarg
                 kw["trace_id"] = tc.trace_id
+            if request.request_class == "batch":
+                # offline batch lane: the engine ranks this lane below
+                # every online request and preempts it first.  Gated so
+                # engines without the kwarg keep working.
+                kw["request_class"] = "batch"
             if request.kv_shipment and not request.return_logprobs:
                 # shipped-KV admit: import into the local host tier and
                 # promote through the restore path — zero prefill

@@ -15,8 +15,10 @@ service), :class:`GenerationMetrics` (a ``ContinuousBatcher``),
 (``WeightMultiplexer``), :class:`HBMMetrics` (``HBMArbiter``),
 :class:`AdmissionMetrics` (``AdmissionController``),
 :class:`ChaosMetrics` (the chaos fire observer) and :class:`SLOMetrics`
-(``obs.SLOTracker``).  tpulab's replica-set, fleet, batch, KV-fabric and
-federation sets come with their subsystems (ROADMAP queue 1, item 5).
+(``obs.SLOTracker``), :class:`ReplicaSetMetrics` (the replica sets and
+the prefix-affinity router), :class:`FleetMetrics` (the autoscaler and
+supervisor) and :class:`BatchMetrics` (``batch.BatchScheduler``).
+tpulab's KV-fabric and federation sets come with their subsystems.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ SLACK_BUCKETS = (.001, .005, .01, .025, .05, .1, .25, .5, 1., 2.5, 5.,
 #: swap latency buckets (seconds): device <-> host page / weight copies
 SWAP_BUCKETS = (.0005, .001, .0025, .005, .01, .025, .05, .1, .25, .5,
                 1., 2.5)
+
+#: circuit-breaker states exported per replica (rpc/replica.py)
+BREAKER_STATES = ("closed", "open", "probing")
 
 #: the exposition's HTTP content type
 CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
@@ -205,6 +210,16 @@ class _Metric:
             if child is None:
                 child = self._children[values] = self._child(self)
             return child
+
+    def remove(self, *values) -> None:
+        """Drop the child of one label-value tuple (absent: no-op)."""
+        if not self._labelnames:
+            raise ValueError(f"No label names were set when constructing "
+                             f"{self._name}")
+        if len(values) != len(self._labelnames):
+            raise ValueError("Incorrect label count")
+        with self._lock:
+            self._children.pop(tuple(str(v) for v in values), None)
 
     def collect(self):
         if self._self is not None:
@@ -467,6 +482,346 @@ class InferenceMetrics:
             self.framework_hbm_bytes.set(torch.cuda.memory_allocated(
                 device_index))
         self.refresh_quantiles()
+
+
+class ReplicaSetMetrics:
+    """Observability for client-side replica routing
+    (:mod:`tpulab_torch.rpc.replica`): per-replica traffic/inflight/liveness,
+    the failover counter, circuit-breaker state/transitions, per-attempt
+    status-code counters and end-to-end deadline outcomes — the
+    client-side view envoy's upstream stats give in deployment, plus the
+    resilience telemetry the adaptive-orchestration line in PAPERS.md
+    argues breakers/deadlines need in order to be tunable."""
+
+    def __init__(self, namespace: str = "tpulab",
+                 registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        ns = namespace
+        self.requests = Counter(
+            f"{ns}_replica_requests_total",
+            "Requests completed per replica", ["replica"],
+            registry=self.registry)
+        self.failovers = Counter(
+            f"{ns}_replica_failovers_total",
+            "Requests re-routed off a failed replica",
+            registry=self.registry)
+        self.inflight = Gauge(
+            f"{ns}_replica_inflight", "In-flight requests per replica",
+            ["replica"], registry=self.registry)
+        self.live = Gauge(
+            f"{ns}_replica_live",
+            "Last health-probe liveness per replica (1/0)", ["replica"],
+            registry=self.registry)
+        # -- circuit breaker (one-hot state + transition counters) ----------
+        self.breaker_state = Gauge(
+            f"{ns}_replica_breaker_state",
+            "Circuit-breaker state per replica (one-hot over "
+            "closed/open/probing)", ["replica", "state"],
+            registry=self.registry)
+        self.breaker_transitions = Counter(
+            f"{ns}_replica_breaker_transitions_total",
+            "Breaker transitions per replica, keyed by target state",
+            ["replica", "to"], registry=self.registry)
+        # -- per-attempt outcomes (retry/failover tuning input) -------------
+        self.attempts = Counter(
+            f"{ns}_replica_attempts_total",
+            "Request attempts by terminal status code (OK, UNAVAILABLE, "
+            "DEADLINE_EXCEEDED, INVALID_ARGUMENT, ...)", ["code"],
+            registry=self.registry)
+        # -- end-to-end deadline outcomes -----------------------------------
+        self.deadline_outcomes = Counter(
+            f"{ns}_deadline_outcomes_total",
+            "Deadline-bounded requests by outcome (met/exceeded)",
+            ["outcome"], registry=self.registry)
+        self.deadline_slack = Histogram(
+            f"{ns}_deadline_slack_seconds",
+            "Remaining budget at completion of deadline-bounded requests",
+            buckets=SLACK_BUCKETS, registry=self.registry)
+        # -- durable streams (docs/ROBUSTNESS.md "Stream failover
+        # semantics"): how much failover work was wasted vs resumed ------
+        self.stalls = Counter(
+            f"{ns}_replica_stream_stalls_total",
+            "Streams failed over by the stall watchdog (no first token "
+            "within the TTFT bound / no progress within the inter-token "
+            "bound) — distinct from transport faults", registry=self.registry)
+        self.resumes = Counter(
+            f"{ns}_replica_stream_resumes_total",
+            "Failover attempts resubmitted as resume-from-delivered "
+            "(prompt+delivered re-prefilled, zero tokens replayed)",
+            registry=self.registry)
+        self.resume_fallbacks = Counter(
+            f"{ns}_replica_stream_resume_fallbacks_total",
+            "Resume attempts the server rejected, degraded to full replay",
+            registry=self.registry)
+        self.tokens_replayed = Counter(
+            f"{ns}_replica_tokens_replayed_total",
+            "Already-delivered tokens re-received and discarded on "
+            "full-replay failovers (the waste resume removes)",
+            registry=self.registry)
+        self.hedges = Counter(
+            f"{ns}_replica_hedges_total",
+            "Duplicate first-token attempts launched after the hedge delay",
+            registry=self.registry)
+        self.hedge_wins = Counter(
+            f"{ns}_replica_hedge_wins_total",
+            "Hedged requests whose duplicate attempt delivered the first "
+            "token (the primary lost the race)", registry=self.registry)
+        # -- per-replica prefix-cache effectiveness (poll_load refreshes
+        # from StatusResponse.prefix_hits/prefix_lookups) — the fleet view
+        # prefix-affinity routing (ROADMAP item 1) needs: a returning
+        # user landing on a random replica shows up here as hit rates
+        # collapsing as the fleet widens ------------------------------------
+        self.prefix_hits = Gauge(
+            f"{ns}_replica_prefix_hits",
+            "Server-reported prefix-cache pages served from cache, "
+            "per replica (lifetime counter sampled as a gauge)",
+            ["replica"], registry=self.registry)
+        self.prefix_lookups = Gauge(
+            f"{ns}_replica_prefix_lookups",
+            "Server-reported prefix-cache pages looked up (hits + "
+            "misses), per replica", ["replica"], registry=self.registry)
+        # -- prefix-affinity routing (tpulab_torch.fleet.router): did requests
+        # land on their rendezvous home, and how much cache warmth do
+        # membership changes cost ----------------------------------------
+        self.affinity_hits = Counter(
+            f"{ns}_replica_affinity_hits_total",
+            "Requests routed to their prefix-affinity winner (rank 0 of "
+            "the rendezvous ring)", registry=self.registry)
+        self.affinity_spills = Counter(
+            f"{ns}_replica_affinity_spills_total",
+            "Requests whose affinity winner was skipped for load (queue "
+            "depth / inflight / free-HBM spill thresholds) — the "
+            "hot-prefix-never-a-hot-spot contract, counted",
+            registry=self.registry)
+        self.ring_moves = Counter(
+            f"{ns}_replica_ring_moves_total",
+            "Sampled prefix digests re-homed by ring membership changes "
+            "(breaker ejections, drains, scale up/down) — rendezvous "
+            "hashing keeps this near sampled/N per change",
+            registry=self.registry)
+
+    # -- hooks (called by the replica sets; cold paths) ---------------------
+    def set_breaker_state(self, replica: str, state: str) -> None:
+        """One-hot the per-replica state gauge (PromQL reads
+        ``..._breaker_state{state="open"} == 1``)."""
+        for s in BREAKER_STATES:
+            self.breaker_state.labels(replica=replica, state=s).set(
+                1 if s == state else 0)
+
+    def note_breaker_transition(self, replica: str, to_state: str) -> None:
+        self.breaker_transitions.labels(replica=replica, to=to_state).inc()
+        self.set_breaker_state(replica, to_state)
+
+    def note_attempt(self, code: str) -> None:
+        self.attempts.labels(code=code).inc()
+
+    def observe_deadline(self, met: bool,
+                         slack_s: Optional[float] = None) -> None:
+        self.deadline_outcomes.labels(
+            outcome="met" if met else "exceeded").inc()
+        if met and slack_s is not None:
+            self.deadline_slack.observe(max(0.0, slack_s))
+
+    # -- durable-stream hooks -------------------------------------------
+    def note_stall(self) -> None:
+        self.stalls.inc()
+
+    def note_resume(self) -> None:
+        self.resumes.inc()
+
+    def note_resume_fallback(self) -> None:
+        self.resume_fallbacks.inc()
+
+    def note_tokens_replayed(self, n: int = 1) -> None:
+        if n > 0:
+            self.tokens_replayed.inc(n)
+
+    def note_hedge(self, won: bool = False) -> None:
+        if won:
+            self.hedge_wins.inc()
+        else:
+            self.hedges.inc()
+
+    # -- prefix-affinity hooks (tpulab_torch.fleet.router) --------------------
+    def note_affinity(self, hit: bool) -> None:
+        if hit:
+            self.affinity_hits.inc()
+        else:
+            self.affinity_spills.inc()
+
+    def note_ring_moves(self, n: int = 1) -> None:
+        if n > 0:
+            self.ring_moves.inc(n)
+
+
+class FleetMetrics:
+    """Observability for the fleet control plane
+    (:mod:`tpulab_torch.fleet`): autoscaler membership actions and the
+    queue-wait signal it scales on, plus the self-healing telemetry
+    (:mod:`tpulab_torch.fleet.supervisor`) — replica deaths and
+    respawns, the crash-loop breaker alert — and the leader gauges
+    leader election feeds.  The
+    elasticity telemetry the adaptive-orchestration line in PAPERS.md
+    argues a scale controller needs in order to be tunable (is it
+    flapping? is the wait threshold doing work? is a slot burning spawn
+    budget?)."""
+
+    def __init__(self, namespace: str = "tpulab",
+                 registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        ns = namespace
+        self.scale_ups = Counter(
+            f"{ns}_fleet_scale_ups_total",
+            "Replicas added by the autoscaler", registry=self.registry)
+        self.scale_downs = Counter(
+            f"{ns}_fleet_scale_downs_total",
+            "Replicas retired by the autoscaler (drain completed)",
+            registry=self.registry)
+        self.drains = Counter(
+            f"{ns}_fleet_drains_total",
+            "Scale-down drains started (victim flagged draining; retired "
+            "only once in-flight work completes)", registry=self.registry)
+        self.replicas = Gauge(
+            f"{ns}_fleet_replicas",
+            "Active (routable, non-draining) replicas in the set",
+            registry=self.registry)
+        self.queue_wait = Gauge(
+            f"{ns}_fleet_queue_wait_ewma_seconds",
+            "The admission queue-wait EWMA the controller last evaluated "
+            "(AdmissionController.queue_wait_ewma_s)",
+            registry=self.registry)
+        self.replica_deaths = Counter(
+            f"{ns}_fleet_replica_deaths_total",
+            "Replicas the supervisor declared dead (process exited or "
+            "unreachable past the probe streak) — drains never count",
+            registry=self.registry)
+        self.respawns = Counter(
+            f"{ns}_fleet_respawns_total",
+            "Crashed replicas respawned by the supervisor (after "
+            "exponential backoff)", registry=self.registry)
+        self.crash_loops = Counter(
+            f"{ns}_fleet_crash_loops_total",
+            "Crash-loop breaker openings: a lineage died N times in the "
+            "window and is quarantined (spawn budget stops burning; "
+            "THIS is the alert to page on)", registry=self.registry)
+        self.leader_transitions = Counter(
+            f"{ns}_fleet_leader_transitions_total",
+            "Times THIS node gained control-plane leadership (lease "
+            "acquisitions; fleet-wide churn = sum over nodes)",
+            registry=self.registry)
+        self.is_leader = Gauge(
+            f"{ns}_fleet_is_leader",
+            "1 while this node holds the control-plane lease (runs the "
+            "supervisor + autoscaler), else 0", registry=self.registry)
+        self._was_leader = False
+
+    # -- hooks (called by the control plane; cold paths) ----------------
+    def note_scale(self, up: bool) -> None:
+        (self.scale_ups if up else self.scale_downs).inc()
+
+    def note_drain(self) -> None:
+        self.drains.inc()
+
+    def set_replicas(self, n: int) -> None:
+        self.replicas.set(n)
+
+    def set_queue_wait(self, seconds: float) -> None:
+        self.queue_wait.set(max(0.0, float(seconds)))
+
+    def note_death(self) -> None:
+        self.replica_deaths.inc()
+
+    def note_respawn(self) -> None:
+        self.respawns.inc()
+
+    def note_crash_loop(self) -> None:
+        self.crash_loops.inc()
+
+    def set_leader(self, leading: bool) -> None:
+        """Gauge + edge-triggered transition counter (gains only)."""
+        leading = bool(leading)
+        self.is_leader.set(1 if leading else 0)
+        if leading and not self._was_leader:
+            self.leader_transitions.inc()
+        self._was_leader = leading
+
+
+class BatchMetrics(_Polled):
+    """Offline-batch-lane telemetry (`_batch_*`; tpulab_torch.batch,
+    docs/SERVING.md "Offline batch lane"): job/item progress, how often
+    online traffic evicted the lane, tokens delivered vs re-decode the
+    checkpoint resume avoided, and the utilization-soak gauge — is the
+    lane actually converting idle capacity into tokens.  Sampled by
+    ``poll(scheduler)`` (cheap attribute reads; counters advance by the
+    delta since the last poll, so rate() works in PromQL)."""
+
+    def __init__(self, namespace: str = "tpulab",
+                 registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        ns = namespace
+        self.jobs_running = Gauge(
+            f"{ns}_batch_jobs_running",
+            "Batch jobs a scheduler is currently running",
+            registry=self.registry)
+        self.jobs_done = Counter(
+            f"{ns}_batch_jobs_done_total",
+            "Batch jobs run to completion (every item done)",
+            registry=self.registry)
+        self.jobs_interrupted = Counter(
+            f"{ns}_batch_jobs_interrupted_total",
+            "Batch runs killed mid-job (chaos/timeout); the next run "
+            "resumes from the JSONL checkpoint", registry=self.registry)
+        self.items_done = Counter(
+            f"{ns}_batch_items_done_total",
+            "Job items (prompts) completed", registry=self.registry)
+        self.preemptions = Counter(
+            f"{ns}_batch_preemptions_total",
+            "Batch-class lanes evicted by online arrivals (the lane is "
+            "the FIRST preemption victim by design — a high count with "
+            "healthy online latencies is the lane working)",
+            registry=self.registry)
+        self.tokens_delivered = Counter(
+            f"{ns}_batch_tokens_delivered_total",
+            "Tokens delivered to batch result sinks",
+            registry=self.registry)
+        self.tokens_replay_avoided = Counter(
+            f"{ns}_batch_tokens_replay_avoided_total",
+            "Delivered tokens a checkpoint resume did NOT re-decode "
+            "(the prompt+delivered prefix rode one chunked prefill)",
+            registry=self.registry)
+        self.spare_denials = Counter(
+            f"{ns}_batch_spare_denials_total",
+            "Feed attempts deferred by the spare-capacity gate (idle "
+            "lanes / unified headroom / arbiter floor)",
+            registry=self.registry)
+        self.soak_utilization = Gauge(
+            f"{ns}_batch_soak_utilization",
+            "Fraction of engine lanes the batch lane occupies right now "
+            "(near 1 on an idle fleet, near 0 under online load — both "
+            "are the lane working as designed)", registry=self.registry)
+        self._last: Dict[str, int] = {}
+
+    def poll(self, scheduler) -> None:
+        """Sample a tpulab_torch.batch.BatchScheduler (control-loop hook)."""
+        self.jobs_running.set(getattr(scheduler, "jobs_running", 0))
+        self.soak_utilization.set(
+            getattr(scheduler, "soak_utilization", 0.0))
+        self._advance(self.jobs_done, "jobs_done",
+                      getattr(scheduler, "jobs_done", 0))
+        self._advance(self.jobs_interrupted, "interrupted",
+                      getattr(scheduler, "interrupted_runs", 0))
+        self._advance(self.items_done, "items_done",
+                      getattr(scheduler, "items_done", 0))
+        self._advance(self.tokens_delivered, "tokens",
+                      getattr(scheduler, "tokens_delivered", 0))
+        self._advance(self.tokens_replay_avoided, "replay_avoided",
+                      getattr(scheduler, "tokens_resume_skipped", 0))
+        self._advance(self.spare_denials, "spare_denials",
+                      getattr(scheduler, "spare_denials", 0))
+        eng = getattr(scheduler, "engine", None)
+        if eng is not None:
+            self._advance(self.preemptions, "preemptions",
+                          getattr(eng, "batch_preemptions", 0))
 
 
 class GenerationMetrics(_Polled):
