@@ -275,6 +275,39 @@ raises and the script exits non-zero without printing a result:
    steps, all ``wgmma``; the killed replica's are lost and printed so.
    Printed: spawn to first Status, the failover gap, TTFT through the
    set against direct, the drain's seconds, peak memory.
+12. fabric — the fleet KV fabric and the multi-router control plane at
+   Llama-3-8B width: one bf16 tree (seed 0) under two split-plan
+   batchers (``ragged=False``: flash prefill; 4 lanes, ``max_len`` 2048,
+   page 16, K <= 8, a 2 GiB host tier, ``kv_publish=True``), A and B,
+   each served on a loopback socket with ``serve(kvfabric=KVFabric(...),
+   fleet=...)`` (HRW homes over 256-token prefixes, the cost gate off so
+   that every eligible pull is taken and timed).  (a) a 1024-token prompt
+   homed on A, served there greedy and device-sampled (T 0.8), then on
+   B: B pulls it through A's FetchKV behavior in process (134 MB, past
+   gRPC's default 4 MiB receive limit) — no prefill and no kernel 2 on
+   B, pulls 2, degrades 0, 1024 tokens saved each; four concurrent B
+   requests for a new A-homed prompt make one fetch.  (b) over the
+   socket (``RemoteInferenceManager.fetch_kv``): a 16-token prompt (one
+   page) pulls; a 512-token one degrades to B's local prefill on kernel 2
+   and the client's status is printed.  (c) three ``FleetController``s
+   (TTL 1 s, a tick every 0.1 s) over one ``FileLeaseBackend``, each
+   with its own prefix-affinity replica set, supervisor, autoscaler
+   (an ``InProcessReplicaProvider`` over the same tree: one scale-up
+   adds a third batcher C) and journal; traffic through all three sets;
+   exactly one leader at every 10 ms sample, every autoscaler decision
+   by the lease's holder; the leader stopped without resigning, a
+   follower leads within TTL + 2 ticks with a larger token, the old
+   token's publish raises ``StaleLeaderError``, A's and B's Debug
+   ``fleet`` sections agree on the new token, the journals replay with
+   no sequence gap.  (d) ``FleetObserver.fleetz`` over A, B and C (lanes,
+   free KV pages, free HBM bytes, kernels; the controller; the SLO
+   document; the ``FederationMetrics`` exposition), then A shut down:
+   fleetz reports it as data and a B request homed on A degrades to a
+   local prefill.  Kernel 1 == 32 x the forward steps of A, B and C,
+   kernel 2 == 32 x their prefill forwards; every stream equals its
+   reference or passes phase 7's bf16 noise rule.  Printed: pull ms and
+   GB/s, TTFT pulled against a cold local prefill, the socket pull, the
+   takeover seconds, the fleetz scrape, peak memory.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -5127,6 +5160,618 @@ def phase_fleet(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+FAB_LANES = 4
+FAB_PROMPT, FAB_STEPS = 1024, 32
+FAB_AFFINITY = 256
+FAB_SOCKET_OK, FAB_SOCKET_BIG = 16, 512   # one page; 32 pages (64 MiB)
+FAB_KV_OFFLOAD = 2 << 30
+FAB_SAMPLED = dict(temperature=0.8, seed=4321)
+FAB_TTL_S, FAB_TICK_S = 1.0, 0.1
+FAB_ROUTERS = 3
+FAB_ELECT_PROMPT, FAB_ELECT_STEPS = 64, 8
+
+
+class FetchRoute:
+    """A fabric member as the fetcher's client.  With ``mode["socket"]``
+    False the FetchKV request goes through the owner's server behavior in
+    process (``Server.invoke``): a 1024-token pull is 134 MB, past the
+    4 MiB a gRPC client receives by default.  With it True the request
+    rides ``RemoteInferenceManager.fetch_kv`` over the socket.  Counts
+    the fetches and keeps the errors the client saw; ``gate`` (if set)
+    runs before an in-process fetch."""
+
+    def __init__(self, address, servers, mode):
+        self.address, self._servers, self._mode = address, servers, mode
+        self.fetches, self.errors, self.gate = 0, [], None
+        self._remote = None
+
+    def fetch_kv(self, model_name, digest):
+        from tpulab_torch.rpc.infer_service import (SERVICE_NAME,
+                                                    RemoteInferenceManager)
+        from tpulab_torch.rpc.protos import inference_pb2 as pb
+
+        self.fetches += 1
+        if self._mode["socket"]:
+            if self._remote is None:
+                self._remote = RemoteInferenceManager(self.address)
+            try:
+                return self._remote.fetch_kv(model_name, digest)
+            except Exception as e:  # noqa: BLE001 - the status seen
+                code = getattr(e, "code", None)
+                self.errors.append(
+                    f"{code().name}: {e.details()}" if callable(code)
+                    else f"{type(e).__name__}: {str(e)[:300]}")
+                raise
+        if self.gate is not None:
+            self.gate()
+        resp = pb.FetchKVResponse.FromString(
+            self._servers[self.address].invoke(
+                f"/{SERVICE_NAME}/FetchKV", pb.FetchKVRequest(
+                    model_name=model_name,
+                    digest=bytes(digest)).SerializeToString()))
+        if resp.status.code == pb.NOT_FOUND:
+            return None
+        if resp.status.code != pb.SUCCESS:
+            raise RuntimeError(f"FetchKV {resp.status.code}: "
+                               f"{resp.status.message}")
+        return bytes(resp.kv_shipment)
+
+    def close(self):
+        if self._remote is not None:
+            self._remote.close()
+
+
+def exposition(registry):
+    """The port's Prometheus text of ``registry`` as {sample: value}."""
+    from tpulab_torch.utils.metrics import generate_latest
+
+    out = {}
+    for line in generate_latest(registry).decode().splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def fab_stream(addr, prompt, steps, sampling=None):
+    """One Generate stream over the socket: tokens and TTFT (s)."""
+    from tpulab_torch.rpc.infer_service import (GenerateStreamClient,
+                                                RemoteInferenceManager)
+
+    kw = {}
+    if sampling:
+        kw = dict(temperature=sampling["temperature"], device_sampling=True,
+                  seed=sampling["seed"])
+    mgr = RemoteInferenceManager(addr)
+    try:
+        t0 = time.perf_counter()
+        toks, ttft = [], None
+        for t in GenerateStreamClient(mgr, "lm").generate(
+                prompt, steps, timeout=300, **kw):
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+            toks.append(int(t))
+        return toks, ttft
+    finally:
+        mgr.close()
+
+
+def homed(rng, router, n, members, home, vocab):
+    """A random ``n``-token prompt whose HRW home among ``members`` is
+    ``home``."""
+    import numpy as np
+
+    from tpulab_torch.fleet import prefix_digest
+
+    while True:
+        p = rng.integers(0, vocab, (n,)).astype(np.int32)
+        if router.ranked(prefix_digest(p, FAB_AFFINITY), members)[0] == home:
+            return p
+
+
+def phase_fabric(torch, card):
+    """The fleet KV fabric and the multi-router control plane at full
+    width (module docstring, phase 12).  Returns the phase's kernel 1 and
+    kernel 2 launches."""
+    import gc
+    import importlib.util
+    import re
+    import shutil
+    import tempfile
+    import threading
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    import tpulab_torch
+    from tpulab_torch.disagg import prompt_digest
+    from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
+    from tpulab_torch.fleet import (FileLeaseBackend, FleetAutoscaler,
+                                    FleetController, FleetObserver,
+                                    FleetSupervisor, InProcessReplicaProvider,
+                                    LeaderElector, PrefixAffinityRouter,
+                                    StaleLeaderError, membership_snapshot)
+    from tpulab_torch.kvfabric import KVFabric
+    from tpulab_torch.obs import (EventJournal, SLOTracker, replay_journal,
+                                  sequence_gaps)
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.rpc.infer_service import RemoteInferenceManager
+    from tpulab_torch.rpc.replica import GenerationReplicaSet
+    from tpulab_torch.utils.metrics import (FederationMetrics, FleetMetrics,
+                                            KVFabricMetrics)
+
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    if importlib.util.find_spec("grpc") is None:
+        raise AssertionError("fabric: grpc is not installed: the replicas "
+                             "serve on loopback sockets")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpu = GpuMemory()
+    t0 = time.perf_counter()
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    cb_kw = dict(kw, lanes=FAB_LANES, max_len=SERVE["max_len"],
+                 page_size=SERVE["page_size"],
+                 decode_block=SERVE["decode_block"], prefill_flash=True,
+                 **SPLIT)
+    log(f"fabric: one Llama-3-8B-width bf16 tree (seed 0) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated(0)} bytes allocated [{card}]")
+
+    class TimedFabric(KVFabric):
+        """The fabric with each adopted pull's seconds and bytes kept."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.pulled = []
+
+        def pull(self, *a, **k):
+            t = time.perf_counter()
+            got = super().pull(*a, **k)
+            if got is not None:
+                self.pulled.append((time.perf_counter() - t, got.nbytes,
+                                    got.coalesced))
+            return got
+
+    members, servers, mode = [], {}, {"socket": False}
+    routes = {}
+
+    def connect(addr):
+        routes[addr] = FetchRoute(addr, servers, mode)
+        return routes[addr]
+
+    class LateFleet:
+        """The Debug ``fleet`` handle, bound to a controller once the
+        replicas' addresses exist."""
+        ctl = None
+
+        def snapshot(self):
+            return self.ctl.snapshot()
+
+    batchers = {}                 # name -> batcher, every one of the phase
+    fab_metrics = KVFabricMetrics()
+
+    def replica(name, publish=True, fabric=True):
+        cb = ContinuousBatcher(params, kv_offload=FAB_KV_OFFLOAD,
+                               kv_publish=publish, **cb_kw)
+        batchers[name] = cb
+        fab = handle = None
+        if fabric:
+            fab = TimedFabric("pending", lambda: list(members), connect,
+                              PrefixAffinityRouter(
+                                  affinity_tokens=FAB_AFFINITY),
+                              cost_gate=False, metrics=fab_metrics)
+            handle = LateFleet()
+        mgr = tpulab_torch.InferenceManager(max_exec_concurrency=1)
+        mgr.serve(port=0, generation_engines={"lm": cb}, kvfabric=fab,
+                  fleet=handle)
+        addr = f"127.0.0.1:{mgr.server.bound_port}"
+        servers[addr] = mgr.server
+        if fab is not None:
+            fab.self_key = addr
+        return SimpleNamespace(name=name, cb=cb, mgr=mgr, fab=fab,
+                               fleet=handle, addr=addr)
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fabric-")
+    a = b = spare = None
+    closed = set()               # replicas already shut down
+    made = []                    # the autoscaler's replica, until spawned
+    ctls, journals, rss, provs = [], [], [], []
+    checks = []                  # (label, prompt, want, got, sampling)
+    try:
+        a, b = replica("A"), replica("B")
+        members.extend([a.addr, b.addr])
+        router = PrefixAffinityRouter(affinity_tokens=FAB_AFFINITY)
+        rng = np.random.default_rng(67)
+        for fn in (ragged_paged_attention, flash_attention):
+            fn.launches = 0
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+        steps0 = {n: (cb.forward_steps, cb.prefill_forwards)
+                  for n, cb in batchers.items()}
+
+        def published(cb, prompt):
+            wait_for(lambda: ("fab", prompt_digest(prompt))
+                     in cb.kv_offload.store, "fabric: the publish", 120)
+
+        def snap():
+            return b.fab.snapshot()
+
+        # (a) a full-width pull, in process
+        p = homed(rng, router, FAB_PROMPT, members, a.addr, c["vocab"])
+        ref_g, ttft_a = fab_stream(a.addr, p, FAB_STEPS)
+        ref_s, _ = fab_stream(a.addr, p, FAB_STEPS, FAB_SAMPLED)
+        published(a.cb, p)
+        if a.cb.kv_publishes != 1 or a.cb.prefill_forwards != 2:
+            raise AssertionError(f"fabric: A published {a.cb.kv_publishes}"
+                                 f", prefilled {a.cb.prefill_forwards}")
+        fl0 = flash_attention.launches
+        got_g, ttft_pull = fab_stream(b.addr, p, FAB_STEPS)
+        got_s, _ = fab_stream(b.addr, p, FAB_STEPS, FAB_SAMPLED)
+        s = snap()
+        if (b.cb.prompt_fills or b.cb.prefill_dispatches
+                or flash_attention.launches != fl0 or s["pulls"] != 2
+                or s["degrades"] or s["recompute_tokens_saved"]
+                != 2 * FAB_PROMPT or routes[a.addr].fetches != 2):
+            raise AssertionError(f"fabric: (a) B prefilled "
+                                 f"{b.cb.prompt_fills}, flash "
+                                 f"{flash_attention.launches - fl0}, {s}")
+        checks += [("pulled greedy stream", p, ref_g, got_g, None),
+                   ("pulled device-sampled stream", p, ref_s, got_s,
+                    SamplingParams(device=True, **FAB_SAMPLED))]
+        pull_s = [x[0] for x in b.fab.pulled]
+        pull_gbps = [x[1] / x[0] / 1e9 for x in b.fab.pulled]
+        fetch = exposition(fab_metrics.registry)
+        log(f"fabric: (a) B pulled the {FAB_PROMPT}-token prompt homed on "
+            f"A twice (greedy, device-sampled) through FetchKV in process: "
+            f"0 prefills on B, kernel 2 unmoved, pulls 2, degrades 0, "
+            f"{s['recompute_tokens_saved']} tokens saved; "
+            f"{b.fab.pulled[0][1]} wire bytes a pull; pull "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in pull_s)} ms "
+            f"({', '.join(f'{x:.3f}' for x in pull_gbps)} GB/s), the fetch "
+            f"part {fetch['tpulab_kvfabric_pull_seconds_sum'] / 2 * 1e3:.1f}"
+            f" ms mean; TTFT "
+            f"pulled {ttft_pull * 1e3:.1f} ms (A's first request, its "
+            f"first forwards in the process: {ttft_a * 1e3:.1f} ms) "
+            f"[{card}]")
+
+        # single-flight: four B requests for one new A-homed prompt
+        p_sf = homed(rng, router, FAB_PROMPT, members, a.addr, c["vocab"])
+        ref_sf, _ = fab_stream(a.addr, p_sf, FAB_STEPS)
+        published(a.cb, p_sf)
+        co0, f0 = s["coalesced"], routes[a.addr].fetches
+
+        def hold():
+            wait_for(lambda: snap()["coalesced"] >= co0 + 3,
+                     "fabric: four concurrent pulls", 120)
+        routes[a.addr].gate = hold
+        outs = svc_threads([lambda: fab_stream(b.addr, p_sf, FAB_STEPS)
+                            for _ in range(4)])
+        routes[a.addr].gate = None
+        s = snap()
+        if (routes[a.addr].fetches - f0 != 1 or s["coalesced"] - co0 != 3
+                or s["pulls"] != 6 or s["degrades"] or b.cb.prompt_fills):
+            raise AssertionError(f"fabric: single-flight {s}, fetches "
+                                 f"{routes[a.addr].fetches - f0}")
+        checks += [(f"single-flight stream {i}", p_sf, ref_sf, o[0], None)
+                   for i, o in enumerate(outs)]
+        log(f"fabric: (a) four concurrent B requests for one new A-homed "
+            f"{FAB_PROMPT}-token prompt made 1 fetch (3 coalesced), four "
+            f"adoptions, 0 prefills on B [{card}]")
+
+        # (b) over the socket
+        mode["socket"] = True
+        p16 = homed(rng, router, FAB_SOCKET_OK, members, a.addr, c["vocab"])
+        ref16, _ = fab_stream(a.addr, p16, FAB_STEPS)
+        published(a.cb, p16)
+        fl0, n0 = flash_attention.launches, len(b.fab.pulled)
+        got16, _ = fab_stream(b.addr, p16, FAB_STEPS)
+        s = snap()
+        if (b.cb.prompt_fills or flash_attention.launches != fl0
+                or s["pulls"] != 7 or s["degrades"]
+                or len(b.fab.pulled) != n0 + 1):
+            raise AssertionError(f"fabric: (b) socket pull {s}, "
+                                 f"{routes[a.addr].errors}")
+        checks.append(("socket-pulled stream", p16, ref16, got16, None))
+        sock_s, sock_bytes, _ = b.fab.pulled[-1]
+        p512 = homed(rng, router, FAB_SOCKET_BIG, members, a.addr,
+                     c["vocab"])
+        ref512, _ = fab_stream(a.addr, p512, FAB_STEPS)
+        published(a.cb, p512)
+        fl0, pf0 = flash_attention.launches, b.cb.prefill_forwards
+        got512, _ = fab_stream(b.addr, p512, FAB_STEPS)
+        s = snap()
+        if (s["degrades"] != 1 or s["pulls"] != 7
+                or b.cb.prefill_forwards != pf0 + 1
+                or flash_attention.launches != fl0 + c["n_layers"]
+                or not routes[a.addr].errors):
+            raise AssertionError(f"fabric: (b) the {FAB_SOCKET_BIG}-token "
+                                 f"socket pull {s}")
+        checks.append(("degraded stream", p512, ref512, got512, None))
+        log(f"fabric: (b) over the socket: the {FAB_SOCKET_OK}-token "
+            f"prompt ({sock_bytes} wire bytes) pulled in "
+            f"{sock_s * 1e3:.1f} ms, 0 prefills on B; the "
+            f"{FAB_SOCKET_BIG}-token prompt degraded to B's local prefill "
+            f"(degrades 1, kernel 2 launched {c['n_layers']} times on B); "
+            f"the client saw: {routes[a.addr].errors[-1]} [{card}]")
+        # B's own cold prefill of a B-homed prompt, for the comparison
+        pb_ = homed(rng, router, FAB_PROMPT, members, b.addr, c["vocab"])
+        _, ttft_cold = fab_stream(b.addr, pb_, FAB_STEPS)
+        gate_fab = KVFabric(b.addr, members, connect, router)
+        gate_fab.fetch_bytes_per_s = b.fab.fetch_bytes_per_s
+        skip = gate_fab._gate_skips(FAB_PROMPT, b.cb)
+        log(f"fabric: B's cold prefill of a B-homed {FAB_PROMPT}-token "
+            f"prompt: TTFT {ttft_cold * 1e3:.1f} ms against "
+            f"{ttft_pull * 1e3:.1f} ms pulled; B's prefill EWMA "
+            f"{b.cb.prefill_ewma_tok_s:.0f} tok/s, fetch EWMA "
+            f"{b.fab.fetch_bytes_per_s / 1e9:.3f} GB/s: the cost gate, "
+            f"armed, would {'skip' if skip else 'take'} this pull (this "
+            f"phase runs with the gate off to measure the pull) [{card}]")
+
+        # (c) election: three routers over one lease
+        lease = os.path.join(tmp, "lease")
+        spare = replica("C", publish=False, fabric=False)
+        made.append(spare)
+        scaled = []
+
+        def factory():
+            r = made.pop()            # built before the controllers start
+            return r.mgr, r.cb
+
+        evals = []
+
+        class Autoscaler(FleetAutoscaler):
+            """Records, at each decision, who held the lease."""
+
+            def evaluate(self):
+                evals.append((self.node, self.backend.holder(),
+                              self.elector.fencing_token))
+                out = super().evaluate()
+                if out == "scale_up":
+                    scaled.append(self.node)
+                return out
+
+        def wait_signal():
+            return 0.2 if scaled else 10.0   # idle between the thresholds
+
+        for i in range(FAB_ROUTERS):
+            node = f"router-{i}"
+            j = EventJournal(os.path.join(tmp, f"{node}.jsonl"), node=node)
+            rs = GenerationReplicaSet([a.addr, b.addr], "lm",
+                                      prefix_affinity=True,
+                                      affinity_tokens=FAB_AFFINITY)
+            prov = InProcessReplicaProvider(factory)
+            fm = FleetMetrics()
+            el = LeaderElector(FileLeaseBackend(lease), node_id=node,
+                               ttl_s=FAB_TTL_S, journal=j, metrics=fm)
+            asc = Autoscaler(rs, prov, wait_signal=wait_signal, hold=1,
+                             min_replicas=2, max_replicas=3, journal=j)
+            asc.node, asc.backend, asc.elector = node, el.backend, el
+            ctls.append(FleetController(
+                rs, el, supervisor=FleetSupervisor(rs, prov, journal=j),
+                autoscaler=asc, metrics=fm, journal=j))
+            journals.append(j)
+            rss.append(rs)
+            provs.append(prov)
+        a.fleet.ctl, b.fleet.ctl = ctls[1], ctls[2]
+        if not ctls[0].tick()["leader"]:
+            raise AssertionError("fabric: router-0 did not lead")
+        samples, stopped = [], set()
+        watching = threading.Event()
+
+        def watch():
+            while not watching.wait(0.01):
+                samples.append(sum(1 for i, ctl in enumerate(ctls)
+                                   if i not in stopped
+                                   and ctl.elector.is_leader))
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        for ctl in ctls:
+            ctl.start(interval_s=FAB_TICK_S)
+        wait_for(lambda: len(scaled) == 1 and all(
+            spare.addr in rs.addresses for rs in rss),
+            "fabric: the scale-up reaching every router", 60)
+        three = [a.addr, b.addr, spare.addr]
+        prompts = [homed(rng, router, FAB_ELECT_PROMPT, three, home,
+                         c["vocab"]) for home in (spare.addr, b.addr)]
+        served = svc_threads([
+            (lambda rs=rs, q=q: [int(t) for t in rs.generate(
+                q, FAB_ELECT_STEPS, timeout=300)])
+            for rs in rss for q in prompts])
+        if any(len(x) != FAB_ELECT_STEPS for x in served):
+            raise AssertionError("fabric: (c) routed traffic")
+        before = list(samples)
+        old_token = ctls[0].elector.fencing_token
+        t_stop = time.perf_counter()
+        stopped.add(0)
+        ctls[0].stop(resign=False)
+        wait_for(lambda: any(ctls[i].elector.is_leader for i in (1, 2)),
+                 "fabric: the takeover", 10)
+        takeover = time.perf_counter() - t_stop
+        new = next(i for i in (1, 2) if ctls[i].elector.is_leader)
+        new_token = ctls[new].elector.fencing_token
+        try:
+            ctls[0].elector.backend.publish_membership(
+                membership_snapshot(rss[0]), old_token)
+            fenced = False
+        except StaleLeaderError:
+            fenced = True
+        lost = ctls[0].tick()
+
+        def fleet_docs():
+            docs = []
+            for addr in (a.addr, b.addr):
+                m = RemoteInferenceManager(addr)
+                try:
+                    docs.append(m.debugz("lm", timeout=30)["fleet"])
+                finally:
+                    m.close()
+            return docs
+        wait_for(lambda: all((d.get("membership") or {}).get("token")
+                             == new_token for d in fleet_docs()),
+                 "fabric: the Debug fleet sections", 10)
+        docs = fleet_docs()
+        after = samples[len(before):]
+        for ctl in ctls[1:]:
+            ctl.stop()
+        watching.set()
+        watcher.join(10)
+        leaders = [d["election"]["node_id"] for d in docs
+                   if d["election"]["is_leader"]]
+        wrong = [e for e in evals if e[1] != (e[0], e[2])]
+        evs = [replay_journal(j.path) for j in journals]
+        acq = sorted((e for es in evs for e in es
+                      if e["kind"] == "elect_acquire"),
+                     key=lambda e: e["wall_time"])
+        tokens = [e["token"] for e in acq]
+        if (before.count(1) != len(before) or max(after + [0]) > 1
+                or after[-1:] != [1] or wrong or not evals
+                or takeover > FAB_TTL_S + 2 * FAB_TICK_S
+                or new_token <= old_token or not fenced
+                or lost["leader"] or len(scaled) != 1
+                or leaders != [f"router-{new}"]
+                or len({(d["membership"]["token"],
+                         tuple(d["membership"]["members"]))
+                        for d in docs}) != 1
+                or any(sequence_gaps(e) for e in evs)
+                or sequence_gaps([e for es in evs for e in es])
+                or tokens != sorted(set(tokens))):
+            raise AssertionError(
+                f"fabric: (c) leaders sampled {sorted(set(before))} / "
+                f"{sorted(set(after))}, wrong deciders {wrong[:3]}, "
+                f"takeover {takeover:.3f} s, tokens {old_token} -> "
+                f"{new_token} ({tokens}), fenced {fenced}, docs {docs}")
+        log(f"fabric: (c) three routers over one lease (TTL {FAB_TTL_S} s, "
+            f"tick {FAB_TICK_S} s): exactly one leader in "
+            f"{len(before)} samples; {len(evals)} autoscaler decisions, "
+            f"each by the lease's holder; one scale-up by {scaled[0]} "
+            f"(the third replica reached all three routers); "
+            f"{sum(len(x) for x in served)} tokens routed through the "
+            f"three sets; router-0 stopped without resigning: router-{new}"
+            f" led {takeover:.3f} s later with token {new_token} > "
+            f"{old_token}, router-0's publish raised StaleLeaderError; "
+            f"both replicas' Debug fleet sections name router-{new} and "
+            f"membership token {new_token} (seq "
+            f"{[d['membership']['seq'] for d in docs]}); journals "
+            f"{[len(e) for e in evs]} events, no sequence gap [{card}]")
+
+        # (d) federation
+        fed = FederationMetrics()
+        obs = FleetObserver(rss[new], controller=ctls[new], slo=SLOTracker(),
+                            metrics=fed)
+        try:
+            scrapes = [obs.fleetz() for _ in range(5)]
+            z = scrapes[-1]
+            rep = z["replicas"]
+            if (set(rep) != {a.addr, b.addr, spare.addr}
+                    or not all(d["up"] and "lanes" in d and "kernels" in d
+                               for d in rep.values())
+                    or "election" not in z["control"] or "slo" not in z):
+                raise AssertionError(f"fabric: (d) fleetz {z}")
+            fams = exposition(fed.registry)
+            if (fams["tpulab_fed_replicas"] != 3
+                    or fams[f'tpulab_fed_replica_up{{replica="{a.addr}"}}']
+                    != 1):
+                raise AssertionError(f"fabric: (d) exposition {fams}")
+            scrape_ms = sorted(s_["scrape_s"] for s_ in scrapes)[2] * 1e3
+            log("fabric: (d) fleetz over three replicas: " + json.dumps({
+                n: {k: rep[addr][k] for k in ("lanes", "free_kv_pages",
+                                              "free_hbm_bytes")}
+                for n, addr in (("A", a.addr), ("B", b.addr),
+                                ("C", spare.addr))})
+                + f"; each with its kernels section; the controller's "
+                f"state (router-{new} leading) and the SLO document; "
+                f"scrape median {scrape_ms:.1f} ms of 5; the federation "
+                f"exposition parses ({len(fams)} samples) [{card}]")
+            p_d = homed(rng, router, FAB_SOCKET_BIG, members, a.addr,
+                        c["vocab"])
+            ref_d, _ = fab_stream(a.addr, p_d, FAB_STEPS)
+            published(a.cb, p_d)
+            closed.add("A")
+            a.mgr.shutdown()
+            a.cb.shutdown()
+            z = obs.fleetz()
+            if z["replicas"][a.addr].get("up") is not False:
+                raise AssertionError(f"fabric: (d) dead A: {z}")
+            s0, pf0 = snap(), b.cb.prefill_forwards
+            got_d, _ = fab_stream(b.addr, p_d, FAB_STEPS)
+            s = snap()
+            if (s["degrades"] != s0["degrades"] + 1
+                    or s["pulls"] != s0["pulls"]
+                    or b.cb.prefill_forwards != pf0 + 1):
+                raise AssertionError(f"fabric: (d) after A's death {s}")
+            checks.append(("stream after the owner's death", p_d, ref_d,
+                           got_d, None))
+            err = z["replicas"][a.addr]["error"]
+            code = re.search(r"StatusCode\.(\w+)", err)
+            log(f"fabric: (d) A shut down: fleetz reports it as data (up "
+                f"false, {code.group(1) if code else err[:120]}); a B request "
+                f"homed on A degraded to B's local prefill (degrades "
+                f"{s['degrades']}) [{card}]")
+        finally:
+            obs.close()
+        # the phase's kernel counts, before the noise rule replays
+        fwd = {n: cb.forward_steps - steps0.get(n, (0, 0))[0]
+               for n, cb in batchers.items()}
+        pre = {n: cb.prefill_forwards - steps0.get(n, (0, 0))[1]
+               for n, cb in batchers.items()}
+        ragged = ragged_paged_attention.launches
+        flash = flash_attention.launches
+        if (ragged != c["n_layers"] * sum(fwd.values()) or not ragged
+                or flash != c["n_layers"] * sum(pre.values())
+                or pre["A"] == 0 or fwd["C"] == 0
+                or ragged_paged_attention.launches_by_body.get("wgmma")
+                != ragged):
+            raise AssertionError(f"fabric: kernel 1 {ragged} for forward "
+                                 f"steps {fwd}, kernel 2 {flash} for "
+                                 f"prefill forwards {pre}")
+        log(f"fabric: kernel 1 launches {ragged} = {c['n_layers']} x the "
+            f"forward steps of A, B and C {fwd}, all on wgmma; kernel 2 "
+            f"{flash} = {c['n_layers']} x the prefill forwards {pre} (B's "
+            f"only the degraded and B-homed prompts) [{card}]")
+    finally:
+        for ctl in ctls:
+            ctl.stop(resign=False)
+        for rs in rss:
+            rs.close()
+        for prov in provs:
+            prov.close()
+        for r in routes.values():
+            r.close()
+        for j in journals:
+            j.close()
+        if not made:
+            closed.add("C")      # spawned: its provider retired it
+        for r in (a, b, spare):
+            if r is not None:
+                if r.fab is not None:
+                    r.fab.close()
+                if r.name not in closed:
+                    r.mgr.shutdown()
+                    r.cb.shutdown()
+        gpu.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    notes = []
+    for label, prompt, want, got, sp in checks:
+        note = same_or_bf16_noise(torch, params, kw, label, prompt, want,
+                                  got, sp)
+        if note:
+            notes.append(note)
+    log("fabric: every stream equals its reference bit for bit"
+        + (f", but: {'; '.join(notes)}" if notes else "") + f" [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fabric: peak nvidia-smi memory {gpu.peak} MiB [{card}]")
+    log(f"fabric: phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(ragged=ragged, flash=flash)
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -5220,6 +5865,7 @@ def main(argv=None) -> int:
     obs_launches = phase_obs(torch, card)
     batch_launches = phase_batch(torch, card)
     fleet_launches = phase_fleet(torch, card)
+    fab = phase_fabric(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -5231,7 +5877,8 @@ def main(argv=None) -> int:
                      + st["spec"]["spec"]["launches"]["ragged"]
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
                      + st["disagg"] + hbm_launches + svc_launches
-                     + obs_launches + batch_launches + fleet_launches,
+                     + obs_launches + batch_launches + fleet_launches
+                     + fab["ragged"],
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
@@ -5241,16 +5888,18 @@ def main(argv=None) -> int:
                      "the hbm phase's burst + the service phase's drive + "
                      "the obs phase + the batch phase + the fleet "
                      "replicas (read from each replica's Debug snapshot "
-                     "before it retired; the killed replica's are lost)",
+                     "before it retired; the killed replica's are lost) "
+                     "+ the fabric phase",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
-                     + st["int8 split"]["launches"]["flash"], rows["flash"],
-                     (f"T={FA_TS[-1]} causal", "bfloat16"),
+                     + st["int8 split"]["launches"]["flash"] + fab["flash"],
+                     rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
-                     "split-plan serve runs, bf16 and int8/e4m3"),
+                     "split-plan serve runs, bf16 and int8/e4m3, + the "
+                     "fabric phase's owner and fallback prefills"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,

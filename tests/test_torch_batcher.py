@@ -413,19 +413,32 @@ def test_split_plan_defaults(lm):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(kv_offload=True, kv_publish=True), "host tier"),
-    (dict(kv_publish=True), "host tier"),
     (dict(mesh=object()), "parallelism"),
     (dict(hbm=object(), mesh=object()), "HBM economy"),
     (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
-    (dict(kv_publish=True), "fleet KV fabric"),
     (dict(kv_dtype=torch.float16), "float16 KV"),
-])
+], ids=["kw0-split dispatch", "kw3-parallelism", "kw4-HBM economy",
+        "kw5-fp8 KV", "kw7-float16 KV"])
 def test_unported_arguments_raise(lm, kw, item):
     _, model = lm
     with pytest.raises(NotImplementedError, match=item):
         ContinuousBatcher(model, n_heads=N_HEADS, n_layers=N_LAYERS,
                           compute_dtype=torch.float32, device="cpu", **kw)
+
+
+def test_kv_publish_needs_the_host_tier(lm):
+    """``kv_publish`` (the fleet KV fabric's owner side) builds over a
+    host tier and raises tpulab's ValueError without one."""
+    _, model = lm
+    kw = dict(n_heads=N_HEADS, n_layers=N_LAYERS,
+              compute_dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="kv_publish requires kv_offload"):
+        ContinuousBatcher(model, kv_publish=True, **kw)
+    cb = ContinuousBatcher(model, kv_offload=True, kv_publish=True, **kw)
+    try:
+        assert cb.kv_publish and cb.kv_publishes == 0
+    finally:
+        cb.shutdown()
 
 
 def test_int8_weights_raise(lm):

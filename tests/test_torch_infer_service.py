@@ -17,8 +17,9 @@ port's server, the port's against tpulab's), on one MNIST weight set
 - the dense ``GenerationEngine`` against tpulab's, directly;
 - the Fiber (event-loop) executor serving StreamInfer and Generate, a
   dead stream failing its pending futures, the Infer lifecycle spans;
-- what is not ported (FetchKV, ``fleet=``, ``kvfabric=``) answers or
-  raises naming ROADMAP item 5.
+- FetchKV's NOT_FOUND and UNKNOWN_MODEL answers both ways, and
+  ``fleet=`` / ``kvfabric=`` on the service (the Debug ``fleet``
+  section).
 """
 
 import threading
@@ -408,18 +409,31 @@ def test_dense_generation_engine_matches_tpulab():
 
 
 def test_not_ported_parts_name_their_item(pair):
-    r = _remote(jsvc, pair["tm"])
-    try:
-        with pytest.raises(RuntimeError, match="item 5"):
-            r.fetch_kv("lm", b"\0" * 16)
-    finally:
-        r.close()
-    mgr = pair["tm"]
-    for kw in (dict(fleet=object()), dict(kvfabric=object())):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            tsvc.build_infer_service(mgr, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _remote(tsvc, mgr).fetch_kv("lm", b"\0" * 16)
+    """The parts that were once stubs answer as tpulab's: FetchKV on an
+    engine without ``kv_publish`` is an honest NOT_FOUND (None) and an
+    unknown model raises naming UNKNOWN_MODEL, from either server to
+    either client; the service takes ``fleet=`` and ``kvfabric=``, and
+    the Debug snapshot carries the fleet handle's document."""
+    import json
+    from types import SimpleNamespace
+
+    for client in (jsvc, tsvc):
+        for side in ("jm", "tm"):
+            r = _remote(client, pair[side])
+            try:
+                assert r.fetch_kv("lm", b"\0" * 16) is None
+                with pytest.raises(RuntimeError, match="UNKNOWN_MODEL"):
+                    r.fetch_kv("nope", b"\0" * 16)
+            finally:
+                r.close()
+    fleet = SimpleNamespace(snapshot=lambda: {"leader_ticks": 3})
+    server = tsvc.build_infer_service(
+        pair["tm"], generation_engines={"lm": pair["tcb"]}, fleet=fleet,
+        kvfabric=SimpleNamespace())
+    resp = tsvc.pb.DebugResponse.FromString(server.invoke(
+        f"/{tsvc.SERVICE_NAME}/Debug",
+        tsvc.pb.DebugRequest().SerializeToString()))
+    assert json.loads(resp.snapshot_json)["fleet"] == {"leader_ticks": 3}
 
 
 def test_fiber_executor_serves_stream_infer_and_generate(pair):

@@ -78,7 +78,10 @@ def test_importing_every_module_loads_no_jax_or_tpulab():
             "tpulab_torch.fleet.router", "tpulab_torch.fleet.autoscaler",
             "tpulab_torch.fleet.supervisor", "tpulab_torch.fleet.process",
             "tpulab_torch.fleet.replica_main",
-            "tpulab_torch.fleet.bench"} <= set(mods)
+            "tpulab_torch.fleet.bench", "tpulab_torch.fleet.election",
+            "tpulab_torch.fleet.control", "tpulab_torch.fleet.observer",
+            "tpulab_torch.kvfabric", "tpulab_torch.kvfabric.fabric",
+            "tpulab_torch.kvfabric.bench"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -525,7 +525,7 @@ def test_chaos_swap_degrades_to_reprefill(lm, plan, spec):
 
 def test_kv_offload_options(lm):
     """True = the default budget; an int = budget bytes; a manager = bring
-    your own (not closed by the batcher); kv_publish still raises."""
+    your own (not closed by the batcher); kv_publish needs the tier."""
     _, model, heads = lm
     kw = dict(compute_dtype=torch.float32, device="cpu", **heads, **CFG)
     from tpulab_torch.kvcache import DEFAULT_HOST_BUDGET
@@ -546,5 +546,5 @@ def test_kv_offload_options(lm):
     cb.shutdown()
     assert mgr.store.budget_bytes == BUDGET and mgr._transfer._thread.is_alive()
     mgr.close()
-    with pytest.raises(NotImplementedError, match="fabric"):
+    with pytest.raises(ValueError, match="kv_publish requires kv_offload"):
         ContinuousBatcher(model, kv_publish=True, **kw)

@@ -34,9 +34,7 @@ import tpulab_torch.utils.metrics as T
 PORTED = ("InferenceMetrics", "GenerationMetrics", "KVTierMetrics",
           "ModelStoreMetrics", "HBMMetrics", "AdmissionMetrics",
           "ChaosMetrics", "SLOMetrics", "ReplicaSetMetrics", "FleetMetrics",
-          "BatchMetrics")
-#: tpulab's sets that come with their subsystems' slices
-DEFERRED = ("KVFabricMetrics", "FederationMetrics")
+          "BatchMetrics", "KVFabricMetrics", "FederationMetrics")
 
 
 def _families(text):
@@ -234,6 +232,25 @@ def _feed(name, m):
     elif name == "BatchMetrics":
         for step in (1, 3, 3, 8, 5, 9):
             m.poll(_scheduler(step))
+    elif name == "KVFabricMetrics":
+        for x in xs:
+            m.observe_pull(x, 4096)
+        for step in (1, 2, 2, 6):
+            m.poll(_Obj(pulls=3 * step, pull_bytes=4096 * step,
+                        coalesced=step // 2, cost_gate_skips=step % 3,
+                        degrades=step - 1, recompute_tokens_saved=64 * step))
+    elif name == "FederationMetrics":
+        reps = ["127.0.0.1:1", "127.0.0.1:2", "127.0.0.1:3"]
+        for i, x in enumerate(xs[:6]):
+            keep = reps[:1 + i % 3]
+            for j, a in enumerate(keep):
+                m.set_replica(a, up=(i + j) % 4 != 0, inflight=i + j,
+                              queued=i % 3, free_hbm_bytes=(j + 1) << 30,
+                              free_kv_pages=100 - i, draining=j == 2,
+                              prefix_hits=2 * i, prefix_lookups=3 * i,
+                              resident_models=j)
+            m.prune(keep)
+            m.observe_scrape(x, len(keep))
     elif name == "SLOMetrics":
         for i in range(30):
             m.note_request(f"t{i % 3}", "batch" if i % 4 == 0 else "online",
@@ -256,10 +273,10 @@ def test_exposition_matches_prometheus_client(name):
 
 def test_inventory_equals_tpulab_and_is_disjoint():
     """The ported classes export tpulab's family names (with a counter's
-    exported ``_total``), pairwise disjoint; tpulab's other sets are the
-    deferred ones."""
+    exported ``_total``), pairwise disjoint; every tpulab set is
+    ported."""
     names = {n for n in dir(J) if n.endswith("Metrics")}
-    assert names == set(PORTED) | set(DEFERRED)
+    assert names == set(PORTED)
     owned = {}
     for name in PORTED:
         j, t = _pair(name)

@@ -84,10 +84,14 @@ class InferenceManager(_EngineManager):
         (tpulab_torch.utils.metrics) observes every Infer request — scrape
         it with ``start_metrics_server``.
 
-        ``fleet`` (leader election and the fleet controller) and
-        ``kvfabric`` are not ported yet (ROADMAP queue 1, item 5) and
-        raise ``NotImplementedError``.  Without grpc the
-        start raises ``ImportError`` (module docstring)."""
+        ``fleet=FleetController(...)`` (tpulab_torch.fleet) adds the
+        control plane's election / supervision / autoscaling document to
+        the Debug snapshot; ``kvfabric=KVFabric(...)``
+        (tpulab_torch.kvfabric) pulls a routed-astray prompt's finished
+        prefill from its home replica instead of recomputing it, and the
+        ``FetchKV`` RPC serves this replica's published prefills (engines
+        built with ``kv_publish=True``).  Without grpc the start raises
+        ``ImportError`` (module docstring)."""
         builders = {}
         if models:
             from tpulab_torch.models.registry import build_model

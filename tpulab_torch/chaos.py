@@ -74,6 +74,12 @@ Injection points planted in the port:
                     per call on each side: error/drop lose that KV
                     shipment, and the decode replica degrades to a local
                     prefill — never a corrupt lane or a stuck request
+    fabric.pull     the fleet KV fabric (tpulab_torch.kvfabric), tripped
+                    on BOTH sides of a cross-replica prefix fetch: the
+                    owner's export (error/drop answer an honest
+                    NOT_FOUND) and the fetcher's pull (error/drop abandon
+                    the fetch); either way the request degrades to a
+                    local prefill, never a corrupt or partial adoption
     modelstore.swap WeightMultiplexer swap-out / swap-in
                     (tpulab_torch.modelstore): error/drop at swap-out
                     lose that model's weight snapshot (its device memory

@@ -60,11 +60,18 @@ capture over the next scheduler passes, the Debug RPC's
 each prefill start, ``engine.step`` at each decode tick (k per K-block,
 once for a mixed round carrying decode lanes) and ``engine.verify``.
 
+With ``kv_publish`` (requires ``kv_offload``) the batcher is an owner of
+the fleet KV fabric (:mod:`tpulab_torch.kvfabric`): each finished first
+prefill of the split plan snapshots its prompt pages to the host tier
+under ``("fab", digest)`` beside the prefill's f32 logits row under
+``("fablog", digest)``, which the ``FetchKV`` RPC serves to routed-astray
+fetchers.  As in tpulab, the ragged plan publishes nothing (its mixed
+rounds never fetch a host-visible logits row).
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
-counterpart.  The XLA-gather escape hatch (``use_kernel=False``), the
-fleet KV fabric's publish (``kv_publish``) and meshes are not ported:
-their constructor arguments raise ``NotImplementedError`` naming the
-ROADMAP item.
+counterpart.  The XLA-gather escape hatch (``use_kernel=False``) and
+meshes are not ported: their constructor arguments raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ import logging
 import os
 import threading
 import time as _time
+from collections import OrderedDict
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional
 
@@ -655,7 +663,6 @@ class PrefixCache:
     returned page's one pool reference belongs to the cache)."""
 
     def __init__(self, pool: PagedKVPool):
-        from collections import OrderedDict
         self._pool = pool
         self._entries: "OrderedDict[bytes, int]" = OrderedDict()
         self.hits = 0
@@ -695,6 +702,27 @@ class PrefixCache:
             self._pool.add_ref(page)
             shared.append(page)
         return shared, digests
+
+    def coverage(self, prompt, page_size: int) -> int:
+        """Cached-page count of ``prompt``'s full-page prefix WITHOUT the
+        lookup's side effects (no LRU touch, no ref bump, no host-tier
+        promotion) — the fleet KV fabric's local-hit probe: deciding
+        whether a remote pull is worth it must not perturb the cache it
+        measures.  Advisory: the RPC thread calls it while the scheduler
+        mutates entries, so the answer can be one tick stale, which
+        costs work (a skipped or a redundant pull), never correctness."""
+        t = len(prompt)
+        cacheable = max(0, (t - 1) // page_size)
+        if cacheable == 0:
+            return 0
+        digests = self._digests(np.asarray(prompt, np.int32), page_size,
+                                cacheable)
+        n = 0
+        for d in digests:
+            if d not in self._entries:
+                break
+            n += 1
+        return n
 
     def count_lookup(self, n_shared: int, n_full_pages: int) -> None:
         self.hits += n_shared
@@ -975,9 +1003,6 @@ class ContinuousBatcher:
                 "card it would route decode attention to plain math "
                 "(ROADMAP, decisions: use_kernel=False); ragged=False "
                 "selects the split plan on the kernels")
-        if kv_publish:
-            raise _unported("kv_publish (the fleet publish of host tier KV)",
-                            "item 5, the fleet KV fabric")
         if mesh is not None and hbm is not None:
             # tpulab itself refuses an elastic pool under a mesh (its
             # per-shard grow/shrink accounting is untested)
@@ -1177,6 +1202,26 @@ class ContinuousBatcher:
         if self.kv_offload is not None and self.prefix_cache is not None:
             self.prefix_cache.on_evict = self._demote_prefix
             self.prefix_cache.promote_fn = self._promote_prefix
+        # fleet KV fabric publish (tpulab_torch.kvfabric): finished FIRST
+        # prefills export their prompt-only KV to the host tier under
+        # ("fab", content_digest) — the same write-behind swap_out
+        # preemption uses — plus the prefill's last-position logits row
+        # under ("fablog", digest), so a FetchKV RPC can serve both to
+        # the digest's routed-astray fetchers without evicting this
+        # replica's own copy.  Requires kv_offload (the host tier IS the
+        # export buffer).  Publishes ride the split plan's prefill only:
+        # the ragged plan's mixed rounds never fetch a host-visible
+        # logits row (tpulab's documented limitation).
+        if kv_publish and self.kv_offload is None:
+            raise ValueError("kv_publish requires kv_offload")
+        self.kv_publish = bool(kv_publish)
+        self._fab_handles: "OrderedDict[bytes, Any]" = OrderedDict()
+        self._fab_lock = threading.Lock()
+        self.kv_publishes = 0  # prompt snapshots exported to the fabric
+        #: rolling prefill throughput (tokens/s, EWMA) — the fabric's
+        #: cost gate weighs a remote fetch's wire time against simply
+        #: recomputing the prompt here (0.0 until the first prefill)
+        self.prefill_ewma_tok_s = 0.0
         if prefill_chunk is not None:
             if prefill_chunk < page_size:
                 raise ValueError("prefill_chunk must be >= page_size")
@@ -2367,7 +2412,74 @@ class ContinuousBatcher:
             # pages only: full prompt pages are immutable from here on
             self.prefix_cache.count_lookup(len(shared), len(digests))
             self.prefix_cache.insert(digests, req.pages[:len(digests)])
+        dt = t_pf1 - t_pf0
+        if dt > 0:
+            # rolling prefill throughput — the fabric cost gate's
+            # recompute-time estimate (see kv_publish in __init__)
+            inst = t / dt
+            self.prefill_ewma_tok_s = (
+                inst if self.prefill_ewma_tok_s == 0.0
+                else 0.7 * self.prefill_ewma_tok_s + 0.3 * inst)
+        if self.kv_publish and not was_resumed and req.export_digest is None:
+            self._fab_publish(req, prompt, t, last)
         return True
+
+    #: published fabric snapshots kept addressable (digest -> handle);
+    #: beyond this the oldest export is forgotten — its store entries
+    #: removed — so the fabric can never squat the whole host tier
+    FAB_PUBLISH_CAP = 32
+
+    def _fab_publish(self, req: _PagedRequest, prompt: np.ndarray, t: int,
+                     last_logits: torch.Tensor) -> None:
+        """Export a finished first prefill to the fleet KV fabric
+        (:mod:`tpulab_torch.kvfabric`): the prompt's pages snapshot to the
+        host tier under ``("fab", digest)`` through the same write-behind
+        swap_out the preemption path uses (the gather is enqueued HERE,
+        before any decode write into the tail page, so stream order makes
+        the snapshot prompt-only), and the last-position logits row
+        (f32) lands beside it under ``("fablog", digest)`` so a fetcher
+        picks the first token under its OWN sampling seed.  Best-effort
+        end to end: a degraded swap, a budget-refused put or a
+        mid-flight eviction all surface as an honest FetchKV NOT_FOUND —
+        never a wrong answer."""
+        from tpulab_torch.disagg.wire import prompt_digest
+        digest = prompt_digest(prompt)
+        with self._fab_lock:
+            if digest in self._fab_handles:
+                self._fab_handles.move_to_end(digest)
+                return
+        n_pages = (t + self.page_size - 1) // self.page_size
+        handle = self.kv_offload.swap_out(
+            req.pages[:n_pages], t, self.pool.kv, key=("fab", digest))
+        if handle is None:
+            return
+        if not self.kv_offload.store.put(
+                ("fablog", digest),
+                last_logits.float().reshape(-1).cpu()):
+            self.kv_offload.discard(handle)
+            return
+        self.kv_publishes += 1
+        with self._fab_lock:
+            self._fab_handles[digest] = handle
+            self._fab_handles.move_to_end(digest)
+            while len(self._fab_handles) > self.FAB_PUBLISH_CAP:
+                old_dig, old_h = self._fab_handles.popitem(last=False)
+                self.kv_offload.discard(old_h)
+                self.kv_offload.store.remove(("fablog", old_dig))
+
+    def fab_handle(self, digest: bytes):
+        """The published fabric snapshot for ``digest`` (a resident or
+        still-in-flight :class:`~tpulab_torch.kvcache.offload.SwapHandle`),
+        or None — the FetchKV server's lookup.  Thread-safe: the RPC
+        thread reads while the scheduler publishes / evicts.  A hit bumps
+        the publish-registry LRU (fabric-popular digests stay addressable)
+        WITHOUT touching the host store's own recency — the store read
+        goes through ``peek``."""
+        with self._fab_lock:
+            h = self._fab_handles.get(digest)
+            if h is not None:
+                self._fab_handles.move_to_end(digest)
+            return h
 
     def _first_token(self, req: _PagedRequest, last, t: int):
         """The prompt's first token from its last logits row (one host

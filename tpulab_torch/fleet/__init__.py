@@ -16,22 +16,38 @@ replica sets (the port of ``tpulab/fleet``).
   retire as SIGTERM→grace→SIGKILL.
 - :mod:`tpulab_torch.fleet.supervisor` — self-healing membership:
   drain-vs-death classification, exponential-backoff respawn,
-  crash-loop quarantine.  Decisions journal through
-  :class:`tpulab_torch.obs.EventJournal` (``journal=``).
+  crash-loop quarantine.
+- :mod:`tpulab_torch.fleet.election` + :mod:`tpulab_torch.fleet.control`
+  — lease-based leader election with fencing tokens so N concurrent
+  routers share one membership view and exactly ONE runs the
+  supervisor/autoscaler; followers converge on the leader's published
+  snapshot and take over within one lease TTL.
+- :mod:`tpulab_torch.fleet.observer` — telemetry federation: the
+  :class:`FleetObserver` assembles ONE fleet snapshot (``fleetz``) over
+  the Status/Debug RPCs, refreshes the replica-labeled ``_fed_*``
+  gauges, and merges per-replica Chrome traces / flight dumps onto one
+  wall-clock timeline.  Control-plane decisions journal through
+  :class:`tpulab_torch.obs.EventJournal` (pass ``journal=`` to the
+  supervisor/elector/autoscaler/controller).
 
 Consumed by :class:`tpulab_torch.rpc.replica.GenerationReplicaSet`
 (``prefix_affinity=True`` routes through the HRW router; the set's
 ``add_replica`` / ``set_draining`` / ``retire_replica`` membership
-surface is what the autoscaler and supervisor drive).  tpulab's leader
-election (``election``), ``FleetController`` and ``FleetObserver`` are
-not ported yet (ROADMAP queue 1, item 5).  docs/SERVING.md "Fleet
-routing & autoscaling" + "Running a real fleet".
+surface is what the autoscaler, supervisor and followers drive).
+docs/SERVING.md "Fleet routing & autoscaling" + "Running a real fleet".
 """
 
 from tpulab_torch.fleet.autoscaler import (FleetAutoscaler,  # noqa: F401
                                            InProcessReplicaProvider,
                                            ReplicaProvider, spawn_with_retry)
-from tpulab_torch.fleet.bench import benchmark_prefix_affinity  # noqa: F401
+from tpulab_torch.fleet.bench import (benchmark_fleet_obs,  # noqa: F401
+                                      benchmark_prefix_affinity)
+from tpulab_torch.fleet.control import FleetController  # noqa: F401
+from tpulab_torch.fleet.election import (FileLeaseBackend,  # noqa: F401
+                                         LeaderElector, LeaseBackend,
+                                         StaleLeaderError, apply_membership,
+                                         membership_snapshot)
+from tpulab_torch.fleet.observer import FleetObserver  # noqa: F401
 from tpulab_torch.fleet.process import SubprocessReplicaProvider  # noqa: F401
 from tpulab_torch.fleet.router import (PrefixAffinityRouter,  # noqa: F401
                                        prefix_digest)
@@ -40,4 +56,7 @@ from tpulab_torch.fleet.supervisor import FleetSupervisor  # noqa: F401
 __all__ = ["PrefixAffinityRouter", "prefix_digest", "FleetAutoscaler",
            "ReplicaProvider", "InProcessReplicaProvider",
            "SubprocessReplicaProvider", "FleetSupervisor",
-           "spawn_with_retry", "benchmark_prefix_affinity"]
+           "LeaseBackend", "FileLeaseBackend", "LeaderElector",
+           "StaleLeaderError", "FleetController", "FleetObserver",
+           "membership_snapshot", "apply_membership", "spawn_with_retry",
+           "benchmark_prefix_affinity", "benchmark_fleet_obs"]

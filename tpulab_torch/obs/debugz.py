@@ -26,14 +26,17 @@ section optional — a replica reports the subsystems it runs):
      "modelstore": {"resident", "host", "leases": {...}},
      "chaos": {"armed", "rules", "fired", "seen"},
      "watchdog": {...},
+     "fleet": {"election": {...}, "supervisor": {...},
+               "autoscaler": {...}, "membership": {...}, ...},
      "flight": {"retained", "dropped", "kept_by_reason",
                 "exemplar_ids", "assembly_ms_p99"}}
 
 ``kernels`` is the port's own section (tpulab's Pallas kernels count
 nothing): the launch counters of the three CUDA kernels' wrappers.
-tpulab's ``fleet`` section (the control plane's election, supervision
-and autoscaling) comes with leader election and the fleet controller
-(ROADMAP queue 1, item 5).
+``fleet`` is the control plane's document (a
+:class:`~tpulab_torch.fleet.FleetController`'s ``snapshot()``: election,
+supervision, autoscaling and the last published or applied membership);
+a handle whose snapshot raises reports the error as data.
 
 On-demand profiling: ``profile_ticks=N`` on the Debug RPC arms
 ``torch.profiler`` around the next N scheduler passes of the selected
@@ -84,7 +87,7 @@ def _kernel_section() -> Dict[str, Any]:
 
 def debug_snapshot(resources=None, *, generation_engines=None,
                    admission=None, hbm=None, modelstore=None,
-                   flight=None, watchdog=None,
+                   flight=None, watchdog=None, fleet=None,
                    model_name: str = "") -> Dict[str, Any]:
     """Assemble the live snapshot (module docstring layout).
 
@@ -102,6 +105,7 @@ def debug_snapshot(resources=None, *, generation_engines=None,
         modelstore = modelstore or getattr(resources, "modelstore", None)
         flight = flight or getattr(resources, "flight", None)
         watchdog = watchdog or getattr(resources, "watchdog", None)
+        fleet = fleet or getattr(resources, "fleet", None)
     snap: Dict[str, Any] = {"wall_time": time.time(),
                             "kernels": _kernel_section()}
 
@@ -189,6 +193,16 @@ def debug_snapshot(resources=None, *, generation_engines=None,
             snap["watchdog"] = {"healthy": bool(watchdog.healthy)}
         except Exception:
             pass
+
+    if fleet is not None:
+        # control-plane state (tpulab_torch.fleet.FleetController — or
+        # anything with .snapshot()): election + supervision +
+        # autoscaling, the "who leads / what died / what's draining"
+        # answers an operator pulls during fleet churn
+        try:
+            snap["fleet"] = fleet.snapshot()
+        except Exception as e:
+            snap["fleet"] = {"error": f"{type(e).__name__}: {e}"}
 
     if flight is not None:
         aq = flight.assembly_quantiles()

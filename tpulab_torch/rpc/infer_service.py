@@ -25,10 +25,14 @@ RPC's readiness, and the ``Debug`` RPC answers the
 :func:`~tpulab_torch.obs.debug_snapshot` document, with an on-demand
 ``torch.profiler`` capture (``profile_ticks``).
 
-Not ported yet (ROADMAP queue 1, item 5): the ``FetchKV`` RPC answers
-``INTERNAL`` naming the item, and ``fleet=`` (leader election and the
-fleet controller) and ``kvfabric=`` raise.  A ``request_class='batch'``
-Generate request rides the paged batcher's offline batch lane.
+The fleet: ``fleet=`` (a :class:`~tpulab_torch.fleet.FleetController`)
+adds the control plane's ``fleet`` section to the Debug snapshot;
+``kvfabric=`` (a :class:`~tpulab_torch.kvfabric.KVFabric`) lets a
+Generate request whose prompt homes on another replica pull that
+replica's finished prefill instead of recomputing it, and the
+``FetchKV`` RPC serves this replica's published prefills to the fleet.
+A ``request_class='batch'`` Generate request rides the paged batcher's
+offline batch lane.
 """
 
 from __future__ import annotations
@@ -61,16 +65,6 @@ SERVER_VERSION = "tpulab-0.1"
 #: the request timeline
 TRACE_DECODE_CHUNK = 8
 
-#: the message every not-yet-ported option and RPC answers with
-_ITEM5 = ("is not ported to tpulab_torch yet (ROADMAP queue 1, item 5: "
-          "leader election, the fleet controller and observer, and the KV "
-          "fabric)")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_ITEM5}")
-
-
 # -- tensor <-> proto ---------------------------------------------------------
 def tensor_to_proto(name: str, array: np.ndarray) -> pb.TensorProto:
     array = np.ascontiguousarray(array)
@@ -101,10 +95,20 @@ class InferResources(Resources):
                  watchdog=None, trace=None, admission=None,
                  role: str = "unified", modelstore=None, hbm=None,
                  flight=None, fleet=None, kvfabric=None):
-        for name, value in (("fleet", fleet), ("kvfabric", kvfabric)):
-            if value is not None:
-                raise _unported(f"{name}=")
         self.manager = manager
+        #: optional :class:`~tpulab_torch.kvfabric.KVFabric` — fleet-wide
+        #: prefix-KV pulls (docs/SERVING.md "Fleet KV fabric"): a local
+        #: prefix miss whose digest homes elsewhere fetches the finished
+        #: prefill from its home replica instead of recomputing it.
+        #: None = fabric off (one is-None branch per paged request).
+        self.kvfabric = kvfabric
+        #: optional fleet control plane handle (anything with
+        #: ``snapshot()``, normally a
+        #: :class:`~tpulab_torch.fleet.FleetController`): a
+        #: router-colocated replica reports election + supervision +
+        #: autoscaling state in its Debug snapshot.  None = not a
+        #: control-plane node.
+        self.fleet = fleet
         #: optional :class:`~tpulab_torch.utils.metrics.InferenceMetrics`
         #: (or any ``observe_request`` observer)
         self.metrics = metrics
@@ -537,12 +541,43 @@ class DebugContext(Context):
 
 
 class FetchKVContext(Context):
-    """The fleet KV fabric's owner side (tpulab's ``kvfabric``): not
-    ported yet; every request answers ``INTERNAL`` naming the item."""
+    """Fleet KV fabric owner side (:mod:`tpulab_torch.kvfabric`,
+    docs/SERVING.md "Fleet KV fabric"): serve one published prefill's
+    wire-form KV snapshot by content digest — WITHOUT consuming the local
+    copy (the export reads through the host tier's non-evicting
+    ``peek``; this replica's own prefix warmth is untouched by the
+    fleet's fetch traffic).  Misses — never published, publish still in
+    write-behind flight, evicted since — answer NOT_FOUND honestly
+    rather than wait out the owner's internal fences: bounded staleness
+    is the contract, and the fetcher's degrade path (a local prefill) is
+    always correct."""
 
     def execute_rpc(self, request: pb.FetchKVRequest) -> pb.FetchKVResponse:
-        return pb.FetchKVResponse(status=pb.RequestStatus(
-            code=pb.INTERNAL, message=f"the FetchKV RPC {_ITEM5}"))
+        res = self.get_resources(InferResources)
+        resp = pb.FetchKVResponse()
+        engines = res.generation_engines
+        name = request.model_name
+        if name:
+            engine = engines.get(name)
+            if engine is None:
+                resp.status.code = pb.UNKNOWN_MODEL
+                resp.status.message = f"no generation engine for {name!r}"
+                return resp
+        else:
+            engine = next(iter(engines.values()), None)
+        if engine is None or not getattr(engine, "kv_publish", False):
+            resp.status.code = pb.NOT_FOUND
+            resp.status.message = "fabric publish not armed"
+            return resp
+        from tpulab_torch.kvfabric import fabric_export
+        blob = fabric_export(engine, bytes(request.digest))
+        if blob is None:
+            resp.status.code = pb.NOT_FOUND
+            resp.status.message = "digest not resident"
+        else:
+            resp.status.code = pb.SUCCESS
+            resp.kv_shipment = blob
+        return resp
 
 
 class StreamInferContext(StreamingContext):
@@ -672,15 +707,19 @@ def build_infer_service(manager, address: str = "0.0.0.0:0",
     engine without a recorder adopts it), and the ``Debug`` RPC points
     at its exemplars.  ``watchdog`` is an optional
     :class:`tpulab_torch.utils.watchdog.DeviceWatchdog`: Health reports
-    not-ready while it is unhealthy.  ``fleet`` and ``kvfabric`` other
-    than None raise ``NotImplementedError`` (module docstring).
+    not-ready while it is unhealthy.  ``fleet`` is an optional
+    control-plane handle (a :class:`tpulab_torch.fleet.FleetController`
+    or anything with ``snapshot()``): the Debug snapshot then carries a
+    ``fleet`` section.  ``kvfabric`` is an optional
+    :class:`tpulab_torch.kvfabric.KVFabric`: fleet-wide prefix-KV pulls —
+    a Generate request whose prompt homes on another replica fetches
+    that replica's finished prefill over the ``FetchKV`` RPC instead of
+    recomputing it, and engines built with ``kv_publish`` answer the
+    fleet's fetches here.
 
     The returned server serves in process at once
     (``server.invoke`` / ``invoke_stream``); ``server.async_start()``
     serves over grpc where grpc is installed."""
-    for name, value in (("fleet", fleet), ("kvfabric", kvfabric)):
-        if value is not None:
-            raise _unported(f"{name}=")
     if admission is not None and trace is not None \
             and getattr(admission, "trace", None) is None:
         # adopt the service's recorder: admission-decision spans land on
@@ -702,7 +741,8 @@ def build_infer_service(manager, address: str = "0.0.0.0:0",
                                generation_engines=generation_engines,
                                watchdog=watchdog, admission=admission,
                                role=role, modelstore=modelstore, hbm=hbm,
-                               flight=flight)
+                               flight=flight, fleet=fleet,
+                               kvfabric=kvfabric)
     server = Server(address, executor or Executor(n_threads=4))
     server._infer_resources = resources  # for shutdown
     service = AsyncService(SERVICE_NAME, resources)
@@ -1039,6 +1079,20 @@ class GenerateContext(StreamingContext):
             # only the REMAINING tokens decode sequentially
             cost = (len(request.prompt)
                     + max(1, request.steps - request.resume_length))
+        elif (res.kvfabric is not None
+              and not request.return_logprobs
+              and res.kvfabric.would_pull(
+                  np.asarray(request.prompt, np.int32),
+                  self._sampling_of(request),
+                  res.generation_engines.get(request.model_name),
+                  logprobs=request.return_logprobs) is not None):
+            # fabric-pullable arrival (tpulab_torch.kvfabric): the
+            # prompt's KV will be fetched, not recomputed — charge the
+            # shipped-KV PROMOTE cost.  Undercharges when the pull later
+            # degrades to a local prefill, exactly like a shipped arrival
+            # whose import fails: admission costs are estimates, and the
+            # degrade path pays with latency, not with a second ticket.
+            cost = request.steps + max(1, len(request.prompt) // 16)
         else:
             cost = len(request.prompt) + request.steps
         try:
@@ -1241,6 +1295,44 @@ class GenerateContext(StreamingContext):
             log.exception("prefill export failed")
             self.write(_final(pb.INTERNAL, str(e)))
 
+    def _pull_and_submit(self, engine, request: pb.GenerateRequest,
+                         res: InferResources, on_token, sampling, kw):
+        """Fleet KV fabric (:mod:`tpulab_torch.kvfabric`, docs/SERVING.md
+        "Fleet KV fabric"): a routed-astray request whose digest homes on
+        another replica PULLS the finished prefill from there and admits
+        it through the shipped-KV path — zero local prefill dispatches,
+        the local prefill's tokens.  Returns the batcher future, or None
+        (not eligible, cost-gated, single-flight timeout, chaos,
+        NOT_FOUND, corrupt wire, budget refusal, admission rejected):
+        the caller's plain submit then prefills locally — the fabric only
+        ever SAVES work."""
+        shipper = res.shipper_for(engine)
+        if shipper is None:
+            return None
+        prompt = np.asarray(request.prompt, np.int32)
+        t_pull0 = _time.perf_counter()
+        pulled = res.kvfabric.pull(prompt, sampling, engine, shipper,
+                                   model_name=request.model_name)
+        if pulled is None:
+            return None
+        try:
+            fut = engine.submit_shipped(
+                prompt, request.steps, pulled.first_token, pulled.handle,
+                on_token=on_token, sampling=sampling,
+                priority=request.priority,
+                stop_tokens=list(request.stop_tokens), **kw)
+        except ValueError as e:
+            shipper.manager.discard(pulled.handle)
+            res.kvfabric.note_degrade(pulled)
+            log.warning("fabric-pull admit rejected, degrading to local "
+                        "prefill: %s", e)
+            return None
+        self._fl_note(kv_pull={
+            "bytes": pulled.nbytes, "tokens_saved": pulled.length,
+            "coalesced": pulled.coalesced,
+            "wait_s": round(_time.perf_counter() - t_pull0, 6)})
+        return fut
+
     def _run_paged(self, engine, request: pb.GenerateRequest,
                    deadline=None) -> None:
         """Continuous-batching path: tokens stream from the batcher's
@@ -1354,6 +1446,15 @@ class GenerateContext(StreamingContext):
                         shipper.discard(ship)
                         log.warning("shipped-KV admit rejected, degrading "
                                     "to local prefill: %s", e)
+            if (fut is None and res.kvfabric is not None
+                    and not request.kv_shipment
+                    and not request.return_logprobs and not resume_ofs
+                    and request.request_class != "batch"):
+                # the offline batch lane never pulls: submit_shipped
+                # admits online requests only (tpulab passes the batch
+                # class on and fails the request with a TypeError)
+                fut = self._pull_and_submit(engine, request, res, on_token,
+                                            sampling, kw)
             if fut is None:
                 fut = engine.submit(np.asarray(request.prompt, np.int32),
                                     steps_eff, on_token=on_token,
@@ -1686,6 +1787,10 @@ class RemoteInferenceManager:
         self._debug = ClientUnary(
             self._executor, f"/{SERVICE_NAME}/Debug",
             pb.DebugRequest.SerializeToString, pb.DebugResponse.FromString)
+        self._fetch_kv = ClientUnary(
+            self._executor, f"/{SERVICE_NAME}/FetchKV",
+            pb.FetchKVRequest.SerializeToString,
+            pb.FetchKVResponse.FromString)
 
     def health(self, timeout: float = 10.0) -> pb.HealthResponse:
         """Liveness/readiness probe (reference TRTIS Health)."""
@@ -1728,8 +1833,26 @@ class RemoteInferenceManager:
             model_name=model_name,
             profile_ticks=int(profile_ticks))).result(timeout=timeout)
 
-    def fetch_kv(self, *args, **kwargs):
-        raise _unported("The FetchKV RPC (the fleet KV fabric)")
+    def fetch_kv(self, model_name: str, digest: bytes,
+                 timeout: Optional[float] = 30.0) -> Optional[bytes]:
+        """Fleet KV fabric fetch (:mod:`tpulab_torch.kvfabric`,
+        docs/SERVING.md "Fleet KV fabric"): the wire-form snapshot
+        published for ``digest`` on this replica, or None on an honest
+        NOT_FOUND — exactly the ``connect``-client surface
+        :class:`~tpulab_torch.kvfabric.KVFabric` pulls through.
+        UNKNOWN_MODEL and INTERNAL raise (a misconfigured fleet should be
+        loud); transport errors propagate for the fabric's degrade path
+        to absorb."""
+        resp = self._fetch_kv.start(pb.FetchKVRequest(
+            model_name=model_name,
+            digest=bytes(digest))).result(timeout=timeout)
+        if resp.status.code == pb.NOT_FOUND:
+            return None
+        if resp.status.code not in (pb.SUCCESS, 0):
+            raise RuntimeError(
+                f"FetchKV failed ({pb.StatusCode.Name(resp.status.code)}): "
+                f"{resp.status.message}")
+        return bytes(resp.kv_shipment) if resp.kv_shipment else None
 
     def get_models(self,
                    timeout: Optional[float] = None) -> Dict[str, pb.ModelStatus]:

@@ -47,9 +47,9 @@ The port adds one knob: ``AdmissionController(clock=...)``, the time
 source of every decision (token-bucket refills, queue waits, the
 service-time EWMA, the waiting bound; tpulab reads ``time.monotonic`` and
 ``time.perf_counter``, one clock on Linux), ``time.monotonic`` by
-default, so scripted sequences replay deterministically.  ``metrics=`` stays a
-duck-typed observer (tpulab's ``AdmissionMetrics`` is not ported yet,
-ROADMAP queue 1, item 5).
+default, so scripted sequences replay deterministically.  ``metrics=`` is
+an observer such as :class:`tpulab_torch.utils.metrics.AdmissionMetrics`
+(the port of tpulab's, with tpulab's metric names).
 """
 
 from __future__ import annotations

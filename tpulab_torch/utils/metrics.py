@@ -14,11 +14,12 @@ service), :class:`GenerationMetrics` (a ``ContinuousBatcher``),
 :class:`KVTierMetrics` (``KVOffloadManager``), :class:`ModelStoreMetrics`
 (``WeightMultiplexer``), :class:`HBMMetrics` (``HBMArbiter``),
 :class:`AdmissionMetrics` (``AdmissionController``),
-:class:`ChaosMetrics` (the chaos fire observer) and :class:`SLOMetrics`
+:class:`ChaosMetrics` (the chaos fire observer), :class:`SLOMetrics`
 (``obs.SLOTracker``), :class:`ReplicaSetMetrics` (the replica sets and
 the prefix-affinity router), :class:`FleetMetrics` (the autoscaler and
-supervisor) and :class:`BatchMetrics` (``batch.BatchScheduler``).
-tpulab's KV-fabric and federation sets come with their subsystems.
+supervisor), :class:`BatchMetrics` (``batch.BatchScheduler``),
+:class:`KVFabricMetrics` (``kvfabric.KVFabric``) and
+:class:`FederationMetrics` (``fleet.FleetObserver``).
 """
 
 from __future__ import annotations
@@ -1153,6 +1154,65 @@ class KVTierMetrics(_Polled):
         self.host_entries.set(len(store))
 
 
+class KVFabricMetrics(_Polled):
+    """Fleet KV fabric telemetry (``_kvfabric_*``;
+    ``tpulab_torch.kvfabric``): pull counts / bytes and the fetch-latency
+    distribution, single-flight coalesces, cost-gate skips, degrades and
+    recompute tokens saved — whether routed-astray requests adopt the
+    fleet's warmth (pulls + tokens saved) or still recompute it
+    (degrades).  Latency is event-driven (the fabric's ``metrics=``);
+    counters advance through :meth:`poll`."""
+
+    def __init__(self, namespace: str = "tpulab",
+                 registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        ns = namespace
+        self.pulls = Counter(
+            f"{ns}_kvfabric_pulls",
+            "Prefix-KV pulls fetched from a home replica and adopted "
+            "locally (each replaced a whole local prefill)",
+            registry=self.registry)
+        self.pull_bytes = Counter(
+            f"{ns}_kvfabric_pull_bytes",
+            "Wire bytes fetched over FetchKV", registry=self.registry)
+        self.pull_seconds = Histogram(
+            f"{ns}_kvfabric_pull_seconds",
+            "FetchKV fetch latency (RPC start -> snapshot decoded and "
+            "geometry-validated)", buckets=SWAP_BUCKETS,
+            registry=self.registry)
+        self.coalesced = Counter(
+            f"{ns}_kvfabric_coalesced",
+            "Concurrent same-digest misses served by another thread's "
+            "in-flight fetch (single-flight)", registry=self.registry)
+        self.cost_gate_skips = Counter(
+            f"{ns}_kvfabric_cost_gate_skips",
+            "Pulls skipped because the fetch-time estimate exceeded the "
+            "local recompute estimate", registry=self.registry)
+        self.degrades = Counter(
+            f"{ns}_kvfabric_degrades",
+            "Pull attempts degraded to a local prefill (NOT_FOUND, "
+            "chaos, transport, corrupt wire, budget refusal, admission "
+            "rejection)", registry=self.registry)
+        self.recompute_tokens_saved = Counter(
+            f"{ns}_kvfabric_recompute_tokens_saved",
+            "Prefill tokens pulls did NOT recompute (the fabric's work "
+            "saved, in tokens)", registry=self.registry)
+        self._last: Dict[str, int] = {}
+
+    def observe_pull(self, seconds: float, nbytes: int) -> None:
+        self.pull_seconds.observe(max(0.0, seconds))
+
+    def poll(self, fabric) -> None:
+        """Sample a KVFabric (control-loop / poller hook)."""
+        self._advance(self.pulls, "p", fabric.pulls)
+        self._advance(self.pull_bytes, "pb", fabric.pull_bytes)
+        self._advance(self.coalesced, "co", fabric.coalesced)
+        self._advance(self.cost_gate_skips, "cg", fabric.cost_gate_skips)
+        self._advance(self.degrades, "dg", fabric.degrades)
+        self._advance(self.recompute_tokens_saved, "sv",
+                      fabric.recompute_tokens_saved)
+
+
 class ModelStoreMetrics(_Polled):
     """Weight-tier telemetry (``_modelstore_*``;
     ``tpulab_torch.modelstore``): resident and host-tier model gauges,
@@ -1451,6 +1511,108 @@ class SLOMetrics:
         self.latency_burn.labels(
             tenant=tenant, request_class=request_class,
             window=window).set(float(latency))
+
+
+class FederationMetrics:
+    """Federated fleet view (``_fed_*``; :class:`tpulab_torch.fleet.
+    FleetObserver`): each fleetz scrape refreshes these replica-labelled
+    gauges from the replicas' Status RPCs, so ONE /metrics endpoint on
+    the observer node shows every replica's load / headroom / drain
+    state side by side.  Children of replicas that leave the snapshot
+    are pruned on the next scrape (a retired replica stops exporting)."""
+
+    def __init__(self, namespace: str = "tpulab",
+                 registry: Optional[CollectorRegistry] = None):
+        self.registry = registry or CollectorRegistry()
+        ns = namespace
+        self.scrapes = Counter(
+            f"{ns}_fed_scrapes_total",
+            "Federated fleet snapshots assembled by the observer",
+            registry=self.registry)
+        self.scrape_seconds = Gauge(
+            f"{ns}_fed_scrape_seconds",
+            "Wall-clock cost of the last federated snapshot (all "
+            "replica Status RPCs + assembly)", registry=self.registry)
+        self.replicas = Gauge(
+            f"{ns}_fed_replicas",
+            "Replicas in the last federated snapshot",
+            registry=self.registry)
+        self.up = Gauge(
+            f"{ns}_fed_replica_up",
+            "1 when the replica answered its Status RPC in the last "
+            "snapshot, else 0", ["replica"], registry=self.registry)
+        self.inflight = Gauge(
+            f"{ns}_fed_replica_inflight",
+            "Server-reported in-flight requests per replica",
+            ["replica"], registry=self.registry)
+        self.queued = Gauge(
+            f"{ns}_fed_replica_queued",
+            "Server-reported queued requests per replica",
+            ["replica"], registry=self.registry)
+        self.free_hbm_bytes = Gauge(
+            f"{ns}_fed_replica_free_hbm_bytes",
+            "Server-reported free HBM headroom per replica",
+            ["replica"], registry=self.registry)
+        self.free_kv_pages = Gauge(
+            f"{ns}_fed_replica_free_kv_pages",
+            "Server-reported free KV-cache pages per replica",
+            ["replica"], registry=self.registry)
+        self.draining = Gauge(
+            f"{ns}_fed_replica_draining",
+            "1 while the replica reports itself draining, else 0",
+            ["replica"], registry=self.registry)
+        self.prefix_hits = Gauge(
+            f"{ns}_fed_replica_prefix_hits",
+            "Server-reported lifetime prefix-cache hits per replica",
+            ["replica"], registry=self.registry)
+        self.prefix_lookups = Gauge(
+            f"{ns}_fed_replica_prefix_lookups",
+            "Server-reported lifetime prefix-cache lookups per replica",
+            ["replica"], registry=self.registry)
+        self.resident_models = Gauge(
+            f"{ns}_fed_replica_resident_models",
+            "Models resident in device memory per replica",
+            ["replica"], registry=self.registry)
+        self._seen: set = set()
+        self._per_replica = (self.up, self.inflight, self.queued,
+                             self.free_hbm_bytes, self.free_kv_pages,
+                             self.draining, self.prefix_hits,
+                             self.prefix_lookups, self.resident_models)
+
+    # -- hooks (tpulab_torch.fleet.observer.FleetObserver) ---------------
+    def observe_scrape(self, seconds: float, replicas: int) -> None:
+        self.scrapes.inc()
+        self.scrape_seconds.set(float(seconds))
+        self.replicas.set(int(replicas))
+
+    def set_replica(self, replica: str, up: bool, inflight: int = 0,
+                    queued: int = 0, free_hbm_bytes: int = 0,
+                    free_kv_pages: int = 0, draining: bool = False,
+                    prefix_hits: int = 0, prefix_lookups: int = 0,
+                    resident_models: int = 0) -> None:
+        self._seen.add(replica)
+        self.up.labels(replica=replica).set(1 if up else 0)
+        self.inflight.labels(replica=replica).set(int(inflight))
+        self.queued.labels(replica=replica).set(int(queued))
+        self.free_hbm_bytes.labels(replica=replica).set(
+            int(free_hbm_bytes))
+        self.free_kv_pages.labels(replica=replica).set(
+            int(free_kv_pages))
+        self.draining.labels(replica=replica).set(1 if draining else 0)
+        self.prefix_hits.labels(replica=replica).set(int(prefix_hits))
+        self.prefix_lookups.labels(replica=replica).set(
+            int(prefix_lookups))
+        self.resident_models.labels(replica=replica).set(
+            int(resident_models))
+
+    def prune(self, keep) -> None:
+        """Drop label children for replicas no longer in the snapshot —
+        a retired replica must stop exporting, not freeze at its last
+        value."""
+        for replica in self._seen - set(keep):
+            for g in self._per_replica:
+                g.remove(replica)
+        self._seen &= set(keep)
 
 
 class MultiRegistryCollector:
