@@ -308,6 +308,46 @@ raises and the script exits non-zero without printing a result:
    reference or passes phase 7's bf16 noise rule.  Printed: pull ms and
    GB/s, TTFT pulled against a cold local prefill, the socket pull, the
    takeover seconds, the fleetz scrape, peak memory.
+13. parallel — ``tpulab_torch.parallel`` on an NCCL process group of
+   world size 1 (one card: NCCL takes one rank a card), opened by
+   ``multihost.initialize`` over a ``FileStore`` in a temporary
+   directory, under a ``{"data": 1, "model": 1}`` CUDA mesh; every
+   collective of the package runs through it.  (a) f32 at Llama-3-8B
+   width, 2 layers, B 2 x T 256: the loss and every parameter's gradient
+   through the flash kernel (its f32 ``fma`` body, the blockwise
+   backward) against dense ``causal_attention``'s autograd (loss rel
+   <= 1e-5, per leaf max |diff| / max |g| <= 1e-4), the sharded step's
+   first loss both ways, then 4 flash steps at lr 5e-2 on one batch:
+   the loss falls.  (b) bf16 at full width and depth (32 layers, B 1 x
+   T 2048): 3 steps of
+   ``make_sharded_train_step`` with ``make_flash_attention_fn``, ms per
+   step (synchronized), tokens/s, ``max_memory_allocated``; kernel 2
+   launches == 32 x 3 exactly (forward only: the backward is plain
+   PyTorch, as tpulab's) and no other kernel; finite losses.  On the
+   step's weights before step 1, each bf16 forward's mean per-token
+   |NLL - NLL of the f32 dense forward|: the flash forward's within
+   twice the dense bf16 forward's, a planted fault (flash without the
+   causal mask) beyond it; step 1's loss equals the flash forward's mean
+   NLL within 1e-5.  (c) checkpoint at full width, 2
+   layers, bf16: ``TrainCheckpointer.save`` after step 1
+   (asynchronous: step 2 runs while it writes), restored into a fresh
+   tree through ``abstract_like``: step 2 again equals the uninterrupted
+   step 2 bit for bit (loss and every parameter); save and restore
+   seconds and bytes, then the directory deleted.  (d) at world size 1,
+   bit for bit against their single-device forms: ring attention (its
+   one-block form; and plain attention within the bf16 tolerance) and
+   Ulysses (``dense_attention``) at B 1, T 2048, H 32, D 128, bf16; the
+   expert-parallel FFN against ``moe_ffn`` at Mixtral-8x7B's widths (N
+   512, bf16); the pipeline against its stage (4 microbatches).  (e)
+   ``make_moe_transformer`` at Mixtral-8x7B's widths on tpulab's GELU
+   expert block (d 4096, f 14336, 8 experts, top-2, vocab 32000, 2
+   layers, seq 512, bf16 compute, f32 weights) served through the
+   port's ``InferenceManager`` and through a ``MultiDeviceDispatcher``
+   of two managers on ``cuda:0``: logits finite and bit-equal to the
+   direct ``apply_fn``; ms per batch.  (f) ``python -m
+   tpulab_torch.parallel.dryrun --nproc 1`` as a subprocess exits 0
+   (tpulab's dry-run sequence on one NCCL rank); ``--nproc 2`` exits
+   non-zero with "need 2 devices, have 1".
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -5772,6 +5812,468 @@ def phase_fabric(torch, card):
     return dict(ragged=ragged, flash=flash)
 
 
+# ---------------------------------------------------------------- phase 13
+# Mixtral-8x7B's widths (mistralai/Mixtral-8x7B-v0.1 config.json: d 4096,
+# 32 heads, SwiGLU experts of 14336, 8 experts, top-2, vocab 32000) on
+# tpulab's MoE block (GELU experts, a fused (d, 3d) wqkv); depth cut to 2
+PAR_MOE = dict(vocab=32000, d_model=4096, n_heads=32, n_layers=2,
+               d_ff=14336, n_experts=8, top_k=2, seq_len=512)
+PAR_F32 = dict(n_layers=2, batch=2, seq=256, steps=4, lr=5e-2)
+PAR_BF16 = dict(n_layers=32, batch=1, seq=2048, steps=3, lr=1e-3)
+PAR_CKPT = dict(n_layers=2, batch=2, seq=256, lr=1e-3)
+# f32 gradients through the flash kernel's f32 body and its blockwise
+# backward against dense attention's autograd: both sum in f32 in other
+# orders (~1e-6 relative a sum); per leaf, max |g_flash - g_dense| over
+# max |g_dense|
+PAR_GRAD_TOL = 1e-4
+PAR_LOSS_RTOL = 1e-5
+
+
+def par_batch(torch, vocab, batch, seq, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return {k: torch.randint(0, vocab, (batch, seq), generator=gen)
+            for k in ("tokens", "targets")}
+
+
+def par_leaves(tree, prefix=""):
+    """(path, leaf) pairs of a tree, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from par_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def par_ms(torch, fn, n=3):
+    """Mean synchronized wall ms of ``fn()`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_parallel(torch, card):
+    """``tpulab_torch.parallel`` on an NCCL process group of world size 1
+    (module docstring, phase 13).  Returns kernel 2's launches: the
+    full-depth train step's, then (a)'s and (c)'s."""
+    import gc
+    import shutil
+    import subprocess
+    import tempfile
+    from functools import partial
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpulab_torch.engine.inference_manager import InferenceManager
+    from tpulab_torch.models.transformer import (causal_attention,
+                                                 dense_attention,
+                                                 make_moe_transformer,
+                                                 transformer_apply)
+    from tpulab_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_reference,
+                                                  make_flash_attention_fn)
+    from tpulab_torch.ops.paged_attention import paged_decode_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.parallel import (MultiDeviceDispatcher,
+                                       TrainCheckpointer, abstract_like,
+                                       make_expert_parallel_ffn, make_mesh,
+                                       make_pipeline,
+                                       make_sharded_train_step, multihost,
+                                       ring_attention, ulysses_attention)
+    from tpulab_torch.parallel.mesh import mesh_shape
+    from tpulab_torch.parallel.moe import init_moe_params, moe_ffn
+    from tpulab_torch.parallel.pipeline import stack_stage_params
+    from tpulab_torch.parallel.ring_attention import _ring_attn_local
+    from tpulab_torch.parallel.sharding import full_tensor, map_tree
+    from tpulab_torch.parallel.training import _nll, cross_entropy_loss
+
+    c = LLAMA3_8B
+    bf16, f32 = torch.bfloat16, torch.float32
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="parallel-")
+    flash_total = 0
+    try:
+        t0 = time.perf_counter()
+        multihost.initialize(f"file://{tmp}/store", 1, 0)
+        mesh = make_mesh({"data": 1, "model": 1})
+        log(f"parallel: process group {dist.get_backend()} world size "
+            f"{dist.get_world_size()} over a FileStore, mesh "
+            f"{mesh_shape(mesh)} ({mesh.device_type}) in "
+            f"{time.perf_counter() - t0:.3f} s [{card}]")
+        if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+            raise AssertionError("parallel: the card's group is not NCCL")
+
+        def kw(n_layers, dtype, attention_fn):
+            return dict(n_heads=c["n_heads"], n_layers=n_layers,
+                        n_kv_heads=c["n_kv_heads"],
+                        rope_theta=c["rope_theta"], compute_dtype=dtype,
+                        attention_fn=attention_fn)
+
+        def on_card(batch):
+            return {k: v.cuda() for k, v in batch.items()}
+
+        # (a) f32, full width, 2 layers: flash (the f32 "fma" body and the
+        # blockwise backward) against dense attention, then 4 steps
+        a = PAR_F32
+        flash_fn = make_flash_attention_fn()
+        apply_flash = partial(transformer_apply,
+                              **kw(a["n_layers"], f32, flash_fn))
+        apply_dense = partial(transformer_apply,
+                              **kw(a["n_layers"], f32, causal_attention))
+        params = full_width_params(torch, a["n_layers"], f32, seed=0)
+        batch = par_batch(torch, c["vocab"], a["batch"], a["seq"], 13)
+        f0 = flash_attention.launches
+        losses, grads = {}, {}
+        for name, fn in (("flash", apply_flash), ("dense", apply_dense)):
+            leaves = map_tree(lambda t: t.detach().requires_grad_(True),
+                              params)
+            loss = cross_entropy_loss(fn, leaves, on_card(batch))
+            loss.backward()
+            losses[name] = float(loss.detach())
+            grads[name] = {k: v.grad for k, v in par_leaves(leaves)}
+            del leaves, loss
+        rel = abs(losses["flash"] - losses["dense"]) / abs(losses["dense"])
+        worst = max(((grads["flash"][k] - g).abs().max()
+                     / g.abs().max().clamp_min(1e-30)).item()
+                    for k, g in grads["dense"].items())
+        log(f"parallel: (a) f32 d {c['d_model']} x {a['n_layers']} layers, "
+            f"B {a['batch']} T {a['seq']}: loss flash {losses['flash']:.7f} "
+            f"dense {losses['dense']:.7f} (rel {rel:.2e}, tol "
+            f"{PAR_LOSS_RTOL:g}); gradients: worst leaf max |diff| / max "
+            f"|g| = {worst:.2e} (tol {PAR_GRAD_TOL:g}) over "
+            f"{len(grads['dense'])} leaves")
+        if not (rel <= PAR_LOSS_RTOL and worst <= PAR_GRAD_TOL):
+            raise AssertionError("parallel (a): flash and dense disagree")
+        del grads
+        steps = {}
+        for name, fn in (("flash", apply_flash), ("dense", apply_dense)):
+            step, sp = make_sharded_train_step(fn, params, mesh,
+                                               learning_rate=a["lr"])
+            steps[name] = [float(step(sp, batch)[1])]
+            if name == "flash":
+                for _ in range(a["steps"] - 1):
+                    steps[name].append(float(step(sp, batch)[1]))
+            del step, sp
+        first = abs(steps["flash"][0] - steps["dense"][0]) \
+            / abs(steps["dense"][0])
+        if not (first <= PAR_LOSS_RTOL
+                and abs(steps["flash"][0] - losses["flash"])
+                <= PAR_LOSS_RTOL * abs(losses["flash"])):
+            raise AssertionError(f"parallel (a): step losses {steps} "
+                                 f"against {losses}")
+        if not steps["flash"][-1] < steps["flash"][0]:
+            raise AssertionError(f"parallel (a): the loss did not fall: "
+                                 f"{steps['flash']}")
+        a_launches = flash_attention.launches - f0
+        log(f"parallel: (a) the step, flash vs dense, step 1 loss rel "
+            f"{first:.2e}; {a['steps']} flash steps at lr {a['lr']:g}: "
+            f"{['%.6f' % x for x in steps['flash']]} (falls); kernel 2 "
+            f"launches {a_launches}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) bf16, full width and depth: the main path of this slice
+        b = PAR_BF16
+        params = full_width_params(torch, b["n_layers"], bf16, seed=0)
+        step, sp = make_sharded_train_step(
+            partial(transformer_apply, **kw(b["n_layers"], bf16, flash_fn)),
+            params, mesh, learning_rate=b["lr"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = on_card(par_batch(torch, c["vocab"], b["batch"], b["seq"],
+                                  14))
+        n_tok = batch["tokens"].numel()
+        # per-token NLL on the step's weights before step 1 moves them:
+        # each bf16 forward's mean |NLL - NLL of the f32 dense forward|
+        # over the tokens; the flash forward (the step's) must stay within
+        # twice the dense bf16 forward's, and a planted fault (flash
+        # without the causal mask) must not
+        with torch.no_grad():
+            local = map_tree(lambda t: t.to_local(), sp)
+
+            def per_token(dtype, fn):
+                return _nll(partial(transformer_apply, **kw(
+                    b["n_layers"], dtype, fn)), local, batch["tokens"],
+                    batch["targets"])
+            ref = per_token(f32, causal_attention)
+            flash_nll = per_token(bf16, flash_fn)
+            dev = {name: float((nl - ref).abs().mean()) for name, nl in (
+                ("dense", per_token(bf16, causal_attention)),
+                ("flash", flash_nll),
+                ("planted", per_token(bf16, make_flash_attention_fn(
+                    causal=False))))}
+            flash_loss = float(flash_nll.mean())
+            del local, ref, flash_nll
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts0 = (ragged_paged_attention.launches,
+                   paged_decode_attention.launches)
+        flash_attention.launches = 0
+        step_ms, step_losses = [], []
+        for _ in range(b["steps"]):
+            t0 = time.perf_counter()
+            _, loss = step(sp, batch)
+            step_losses.append(float(loss))     # synchronizes
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        b_launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        want = b["n_layers"] * b["steps"]
+        if b_launches != want or counts0 != (
+                ragged_paged_attention.launches,
+                paged_decode_attention.launches):
+            raise AssertionError(f"parallel (b): kernel 2 launches "
+                                 f"{b_launches}, want {want} (forward "
+                                 "only), and no other kernel")
+        if not all(math.isfinite(x) for x in step_losses):
+            raise AssertionError(f"parallel (b): losses {step_losses}")
+        gap = abs(step_losses[0] - flash_loss)
+        if not (dev["flash"] <= 2 * dev["dense"] < dev["planted"]
+                and gap <= PAR_LOSS_RTOL * abs(flash_loss)):
+            raise AssertionError(
+                f"parallel (b): mean per-token |NLL - NLL f32 dense| "
+                f"{dev} (flash within 2 x dense, planted beyond); step 1 "
+                f"loss {step_losses[0]} against the flash forward's "
+                f"{flash_loss}")
+        mean_ms = sum(step_ms) / len(step_ms)
+        # the step's least time: bf16 matmuls (forward + backward: 6
+        # FLOPs a weight a token) and the flash forward (4 B H D a causal
+        # pair) at the bf16 peak; the f32 vocab head and the plain f32
+        # attention backward (10 B H D a causal pair) at the f32 peak
+        d, hd = c["d_model"], c["d_model"] // c["n_heads"]
+        w_layer = d * (c["n_heads"] + 2 * c["n_kv_heads"]) * hd + d * d \
+            + 3 * d * c["d_ff"]
+        pairs = b["batch"] * b["seq"] * (b["seq"] + 1) // 2
+        attn = c["n_heads"] * hd * pairs * b["n_layers"]
+        ops_bf16 = 6 * n_tok * w_layer * b["n_layers"] + 4 * attn
+        ops_f32 = 6 * n_tok * d * c["vocab"] + 10 * attn
+        bound_ms = (ops_bf16 / PEAK_OPS_S["bf16"]
+                    + ops_f32 / PEAK_OPS_S["f32"]) * 1e3
+        log(f"parallel: (b) bf16 Llama-3-8B width x {b['n_layers']} layers, "
+            f"B {b['batch']} T {b['seq']}, flash: step ms "
+            f"{['%.1f' % x for x in step_ms]} (mean {mean_ms:.1f}), "
+            f"{n_tok / (mean_ms / 1e3):.1f} tokens/s, max_memory_allocated "
+            f"{peak} B ({peak / 1e9:.2f} GB); losses "
+            f"{['%.6f' % x for x in step_losses]}; kernel 2 launches "
+            f"{b_launches} == {b['n_layers']} x {b['steps']} (the backward "
+            f"launches none); the step's operation bound {bound_ms:.4f} ms "
+            f"({ops_bf16:.3e} bf16 at 989 TFLOP/s + {ops_f32:.3e} f32 at "
+            f"67) [{card}]")
+        log(f"parallel: (b) mean per-token |NLL - NLL of the f32 dense "
+            f"forward| on the step's weights: dense bf16 {dev['dense']:.4e},"
+            f" flash bf16 {dev['flash']:.4e} (<= 2 x dense), planted "
+            f"non-causal flash {dev['planted']:.4e} (> 2 x dense: "
+            f"rejected); step 1 loss {step_losses[0]:.6f} against the flash "
+            f"forward's {flash_loss:.6f}: |diff| {gap:.3e} (rel tol "
+            f"{PAR_LOSS_RTOL:g})")
+        del step, sp, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) checkpoint at full width, 2 layers, bf16: save after step 1
+        # (asynchronously; step 2 runs while it writes), restore into a
+        # fresh tree, step 2 again
+        k = PAR_CKPT
+        apply = partial(transformer_apply, **kw(k["n_layers"], bf16,
+                                                flash_fn))
+        batch = par_batch(torch, c["vocab"], k["batch"], k["seq"], 15)
+        f0 = flash_attention.launches
+        step, sp = make_sharded_train_step(
+            apply, full_width_params(torch, k["n_layers"], bf16, seed=1),
+            mesh, learning_rate=k["lr"])
+        step(sp, batch)
+        ck_dir = os.path.join(tmp, "ckpt")
+        ck = TrainCheckpointer(ck_dir)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, {"step": 1, "params": sp})
+        staged_s = time.perf_counter() - t0
+        _, loss2 = step(sp, batch)
+        loss2 = float(loss2)
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(os.path.join(ck_dir, "1"))
+                     for f in fs)
+        step2, fresh = make_sharded_train_step(
+            apply, full_width_params(torch, k["n_layers"], bf16, seed=2),
+            mesh, learning_rate=k["lr"])
+        target = {"step": 0, "params": abstract_like(fresh)}
+        del fresh
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = ck.restore(target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ck.close()
+        _, loss2r = step2(state["params"], batch)
+        same = all(torch.equal(full_tensor(x), full_tensor(y))
+                   for (_, x), (_, y) in zip(par_leaves(state["params"]),
+                                             par_leaves(sp)))
+        if state["step"] != 1 or float(loss2r) != loss2 or not same:
+            raise AssertionError(f"parallel (c): resumed step 2 loss "
+                                 f"{float(loss2r)} vs {loss2}, params equal "
+                                 f"{same}, step {state['step']}")
+        c_launches = flash_attention.launches - f0
+        log(f"parallel: (c) checkpoint, bf16 full width x {k['n_layers']} "
+            f"layers: save {save_s:.3f} s ({staged_s:.3f} s to stage; step "
+            f"2 ran while it wrote), {nbytes} bytes; restore "
+            f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.2f} GB/s); "
+            f"resumed step 2 == uninterrupted bit for bit (loss {loss2!r}, "
+            f"every parameter) [{card}]")
+        shutil.rmtree(ck_dir)
+        del step, sp, step2, state, target
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the collectives at world size 1 against their single-device
+        # forms, bit for bit
+        g = np.random.default_rng(16)
+        q, kk, v = (torch.from_numpy(g.standard_normal(
+            (1, 2048, 32, 128)).astype(np.float32)).cuda().to(bf16)
+            for _ in range(3))
+        ring = ring_attention(mesh, "model")
+        got = ring(q, kk, v)
+        if not torch.equal(got, _ring_attn_local(q, kk, v, True)):
+            raise AssertionError("parallel (d): ring != its one-block form")
+        err = check_close(torch, "ring vs plain attention", got,
+                          flash_attention_reference(q, kk, v, True))
+        uly = ulysses_attention(mesh, "model")
+        if not torch.equal(uly(q, kk, v), dense_attention(q, kk, v)):
+            raise AssertionError("parallel (d): Ulysses != dense attention")
+        ring_ms = par_ms(torch, lambda: ring(q, kk, v))
+        uly_ms = par_ms(torch, lambda: uly(q, kk, v))
+        dense_ms = par_ms(torch, lambda: dense_attention(q, kk, v))
+        m = PAR_MOE
+        moe = init_moe_params(m["d_model"], m["d_ff"], m["n_experts"],
+                              seed=3, device="cuda")
+        x = torch.from_numpy(g.standard_normal(
+            (m["seq_len"], m["d_model"])).astype(np.float32)).cuda()
+        ffn, shard = make_expert_parallel_ffn(mesh, "model",
+                                              top_k=m["top_k"],
+                                              compute_dtype=bf16)
+        sharded = shard(moe)
+        if not torch.equal(ffn(sharded, x),
+                           moe_ffn(moe, x, m["top_k"], bf16)):
+            raise AssertionError("parallel (d): expert-parallel != moe_ffn")
+        ep_ms = par_ms(torch, lambda: ffn(sharded, x))
+        moe_ms = par_ms(torch, lambda: moe_ffn(moe, x, m["top_k"], bf16))
+        del moe, sharded
+        stage = {"w": torch.from_numpy((g.standard_normal(
+            (4096, 4096)) * 0.02).astype(np.float32)).cuda().to(bf16),
+            "b": torch.zeros(4096, dtype=bf16, device="cuda")}
+        stage_fn = lambda p, y: torch.nn.functional.gelu(
+            y @ p["w"] + p["b"], approximate="tanh")
+        pipeline, shard_pp = make_pipeline(mesh, stage_fn, "model")
+        xs = torch.from_numpy(g.standard_normal(
+            (4, 256, 4096)).astype(np.float32)).cuda().to(bf16)
+        got = pipeline(shard_pp(stack_stage_params([stage])), xs)
+        if not torch.equal(got, torch.stack([stage_fn(stage, y)
+                                             for y in xs])):
+            raise AssertionError("parallel (d): pipeline != the stage")
+        log(f"parallel: (d) NCCL world size 1, bit for bit against the "
+            f"single-device forms: ring (B 1, T 2048, H 32, D 128, bf16; "
+            f"{ring_ms:.3f} ms; vs plain attention max err {err:.2e}), "
+            f"Ulysses == dense_attention ({uly_ms:.3f} ms; dense "
+            f"{dense_ms:.3f} ms), expert-parallel FFN == moe_ffn "
+            f"(N {m['seq_len']}, d {m['d_model']}, f {m['d_ff']}, "
+            f"{m['n_experts']} experts, top-{m['top_k']}, bf16: "
+            f"{ep_ms:.3f} ms, dense {moe_ms:.3f} ms), pipeline == its stage "
+            f"(4 microbatches of 256 x 4096) [{card}]")
+        del q, kk, v, x, xs, stage
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (e) the MoE transformer at Mixtral's widths through the port's
+        # InferenceManager and a MultiDeviceDispatcher of two managers on
+        # the one card
+        model = make_moe_transformer(**m, max_batch_size=1,
+                                     compute_dtype=bf16, device="cuda")
+        toks = g.integers(0, m["vocab"], (1, m["seq_len"])).astype(np.int32)
+        with torch.inference_mode():
+            direct = model.apply_fn(model.params, {"tokens": torch.from_numpy(
+                toks).cuda()})["logits"].cpu().numpy()
+        if not np.isfinite(direct).all():
+            raise AssertionError("parallel (e): non-finite MoE logits")
+        mgr = InferenceManager(max_executions=1)
+        mgr.register_model("moe", model)
+        mgr.update_resources()
+        try:
+            runner = mgr.infer_runner("moe")
+            out = runner.infer(tokens=toks).result(timeout=300)["logits"]
+            if not np.array_equal(out, direct):
+                raise AssertionError("parallel (e): served != direct")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                runner.infer(tokens=toks).result(timeout=300)
+            mgr_ms = (time.perf_counter() - t0) / 5 * 1e3
+        finally:
+            mgr.shutdown()
+        del mgr, runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        disp = MultiDeviceDispatcher.create(lambda: model, "moe",
+                                            devices=["cuda:0", "cuda:0"],
+                                            max_executions=1)
+        try:
+            t0 = time.perf_counter()
+            futs = [disp.infer("moe", tokens=toks) for _ in range(4)]
+            outs = [f.result(timeout=300)["logits"] for f in futs]
+            disp_ms = (time.perf_counter() - t0) / 4 * 1e3
+            if not all(np.array_equal(o, direct) for o in outs):
+                raise AssertionError("parallel (e): dispatched != direct")
+        finally:
+            disp.shutdown()
+        log(f"parallel: (e) MoE transformer (d {m['d_model']}, f "
+            f"{m['d_ff']}, {m['n_experts']} experts top-{m['top_k']}, vocab "
+            f"{m['vocab']}, {m['n_layers']} layers, seq {m['seq_len']}, bf16 "
+            f"compute, f32 weights): logits finite and bit-equal to the "
+            f"direct apply_fn through the InferenceManager ({mgr_ms:.1f} ms "
+            f"a batch of 1) and through a MultiDeviceDispatcher of two "
+            f"managers on cuda:0 (4 requests, {disp_ms:.1f} ms a batch) "
+            f"[{card}]")
+        del disp, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (f) the dry run as a subprocess: one rank on the card; two refused
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [q for q in [os.environ.get("PYTHONPATH")] if q]))
+    cmd = [sys.executable, "-m", "tpulab_torch.parallel.dryrun"]
+    t0 = time.perf_counter()
+    one = subprocess.run(cmd + ["--nproc", "1"], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=300)
+    one_s = time.perf_counter() - t0
+    if one.returncode != 0 or "dryrun pipeline (pp=1) ok" not in one.stdout:
+        raise AssertionError(f"parallel (f): dryrun --nproc 1 rc "
+                             f"{one.returncode}: {one.stdout[-2000:]}"
+                             f"{one.stderr[-3000:]}")
+    two = subprocess.run(cmd + ["--nproc", "2"], cwd=HERE, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if two.returncode == 0 or "need 2 devices, have 1" not in two.stderr:
+        raise AssertionError(f"parallel (f): dryrun --nproc 2 rc "
+                             f"{two.returncode}: {two.stderr[-2000:]}")
+    for line in one.stdout.splitlines():
+        log(f"parallel: (f) {line}")
+    log(f"parallel: (f) dryrun --nproc 1 exit 0 in {one_s:.1f} s; "
+        f"--nproc 2 exit {two.returncode}: need 2 devices, have 1")
+    log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s; kernel 2 "
+        f"launches: {b_launches} the full-depth step, {a_launches} (a), "
+        f"{c_launches} (c) [{card}]")
+    return b_launches + a_launches + c_launches
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -5866,6 +6368,7 @@ def main(argv=None) -> int:
     batch_launches = phase_batch(torch, card)
     fleet_launches = phase_fleet(torch, card)
     fab = phase_fabric(torch, card)
+    par_launches = phase_parallel(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -5895,11 +6398,15 @@ def main(argv=None) -> int:
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
-                     + st["int8 split"]["launches"]["flash"] + fab["flash"],
+                     + st["int8 split"]["launches"]["flash"] + fab["flash"]
+                     + par_launches,
                      rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
-                     "fabric phase's owner and fallback prefills"),
+                     "fabric phase's owner and fallback prefills + the "
+                     "parallel phase's train steps (the full-depth bf16 "
+                     "step's forwards, 32 x 3, and the 2-layer f32 and "
+                     "checkpoint steps)"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,

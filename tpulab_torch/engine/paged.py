@@ -70,7 +70,8 @@ rounds never fetch a host-visible logits row).
 
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``) and
-meshes are not ported: their constructor arguments raise
+meshes (the batcher under a mesh: the next item of ROADMAP queue 1,
+item 5) are not ported: their constructor arguments raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -109,7 +110,9 @@ class PagedKVPool:
 
     def __init__(self, n_pages: int, page_size: int, n_layers: int,
                  n_heads: int, head_dim: int, dtype=torch.bfloat16,
-                 device=None, allocator=None):
+                 device=None, allocator=None, mesh=None):
+        if mesh is not None:
+            raise _unported("a pool under a mesh", _MESH_ITEM)
         self.device = resolve_device(device)
         self.n_pages = n_pages
         self.page_size = page_size
@@ -914,6 +917,10 @@ class _PagedRequest:
             or self.tokens_out[-1] in self.stop_tokens)
 
 
+#: the ROADMAP item a mesh on the batcher or its pool cites
+_MESH_ITEM = "parallelism, item 5: the batcher under a mesh"
+
+
 def _unported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to tpulab_torch yet (ROADMAP queue 1: "
@@ -1010,9 +1017,9 @@ class ContinuousBatcher:
                 "an HBM-arbiter-armed batcher (the HBM economy's elastic "
                 "pool) under a mesh is not supported, as in tpulab; and "
                 "mesh= is not ported to tpulab_torch yet (ROADMAP queue 1: "
-                "parallelism)")
+                f"{_MESH_ITEM})")
         if mesh is not None:
-            raise _unported("mesh", "parallelism")
+            raise _unported("mesh", _MESH_ITEM)
         # the page dtypes the kernels read (e5m2 and float16 pages are
         # ROADMAP queue 1, left for later)
         if kv_dtype is not None and kv_dtype not in KV_CODE:

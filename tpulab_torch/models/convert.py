@@ -11,7 +11,14 @@ takes, with the same keys, shapes and layouts:
 - ResNet (HWIO conv kernels, folded-BN ``scale`` / ``bias``), ViT (either
   dialect, a LayerNorm's ``eps`` included) and MNIST — :func:`tree_from_numpy`
   gives the tree their ``*_apply`` functions and ``make_*(params=...)``
-  take.
+  take;
+- MoE trees (``router`` (d, E), ``w1`` (E, d, f), ``w2`` (E, f, d), under
+  ``layer{i}.moe`` in ``make_moe_transformer``'s) and stage trees stacked
+  on dim 0 — :func:`tree_from_numpy` as they are.
+
+Under a mesh, :func:`shard_from_numpy` gives each rank its shards of a
+full tree under a placement tree, and :func:`gather_to_numpy` brings a
+sharded tree back whole, so tests compare parameters after steps.
 
 Nothing here imports JAX: the caller does the ``np.asarray`` on its side.
 bf16 leaves arrive as numpy arrays of the ``bfloat16`` extension dtype;
@@ -69,3 +76,28 @@ def params_from_numpy(tree: Dict[str, Any], device, dtype=None, *,
     dev = resolve_device(device)
     return Transformer(tree_from_numpy(tree, dev, dtype), n_heads=n_heads,
                        n_kv_heads=n_kv_heads, rope_theta=rope_theta)
+
+
+def shard_from_numpy(tree: Dict[str, Any], mesh, placements,
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A full numpy tree -> this rank's DTensor shards under a matching
+    tree of placements (from :mod:`tpulab_torch.parallel.sharding`), on
+    the mesh's device; every rank passes the same full tree."""
+    from tpulab_torch.parallel.sharding import shard_tree
+
+    full = tree_from_numpy(tree, torch.device(mesh.device_type), dtype)
+    return shard_tree(full, mesh, placements)
+
+
+def gather_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """A tree of DTensors (or tensors) -> whole numpy arrays, on every
+    rank (every rank calls it: sharded leaves are all-gathered).  bf16
+    leaves come back as float32, which holds every bf16 value exactly."""
+    from tpulab_torch.parallel.sharding import full_tensor, map_tree
+
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        t = full_tensor(x).detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return map_tree(leaf, tree)

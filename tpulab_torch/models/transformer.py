@@ -287,37 +287,68 @@ def _embed(params, tokens, compute_dtype):
 def _forward(params, tokens, n_heads, n_layers, compute_dtype, attention_fn,
              collect_kv: bool = False, ffn_fn=_dense_ffn,
              n_kv_heads: Optional[int] = None,
-             rope_theta: Optional[float] = None, last_index=None):
+             rope_theta: Optional[float] = None, last_index=None,
+             tensor_parallel=None):
     """Shared trunk: (B, T) tokens -> (logits, kvs or None); ``collect_kv``
     returns the compact (B, T, Hkv, D) K/V per layer.  ``last_index``
     (int or 0-d tensor) runs the final norm and vocab head on that one
-    position only: logits (B, vocab) instead of (B, T, vocab)."""
+    position only: logits (B, vocab) instead of (B, T, vocab).
+
+    Rope rotates at positions ``offset + [0, T)``, where ``offset`` is
+    ``attention_fn.sequence_offset(T)`` for a sequence-parallel
+    ``attention_fn`` (``tokens`` is then this rank's shard of the
+    sequence) and 0 otherwise.  ``tensor_parallel`` (a
+    :class:`~tpulab_torch.parallel.tensor_parallel.TensorParallel`) runs
+    the trunk on this rank's Megatron shards of ``params``; the logits
+    are then this rank's vocab columns."""
+    tp = tensor_parallel
+    if tp is not None and ffn_fn is not _dense_ffn:
+        raise NotImplementedError("tensor parallelism splits the dense FFN "
+                                  "only; shard experts with "
+                                  "make_expert_parallel_ffn")
     n_kv = n_kv_heads or n_heads
-    x = _embed(params, tokens, compute_dtype)
+    x = (_embed(params, tokens, compute_dtype) if tp is None
+         else tp.embed(params["embed"], tokens, compute_dtype))
     b, t, d_model = x.shape
     head_dim = d_model // n_heads
     kvs = [] if collect_kv else None
-    positions = (torch.arange(t, device=x.device) if rope_theta else None)
+    offset = getattr(attention_fn, "sequence_offset", None)
+    positions = (torch.arange(t, device=x.device) + (offset(t) if offset
+                                                      else 0)
+                 if rope_theta else None)
     for i in range(n_layers):
         p = params[f"layer{i}"]
         h = _rmsnorm(x, p["ln1"]["scale"])
+        if tp is not None:
+            h = tp.enter(h)
         qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
+        if tp is not None:
+            qkv = tp.gather_last(qkv)
         q, k, v = split_qkv(qkv, b, t, n_heads, n_kv, head_dim)
         if rope_theta:
             q = apply_rope(q, positions, rope_theta)
             k = apply_rope(k, positions, rope_theta)
         if collect_kv:
             kvs.append((k, v))
-        attn = attention_fn(q, repeat_kv(k, n_heads),
-                            repeat_kv(v, n_heads)).reshape(b, t, d_model)
-        x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
+        k, v = repeat_kv(k, n_heads), repeat_kv(v, n_heads)
+        if tp is None:
+            attn = attention_fn(q, k, v).reshape(b, t, d_model)
+            x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
+        else:
+            attn = tp.attention_rows(attention_fn, q, k, v,
+                                     p["wo"].shape[0])
+            x = _add(x, tp.reduce(_mm(attn, qmat(p["wo"], compute_dtype))))
         h = _rmsnorm(x, p["ln2"]["scale"])
-        x = x + ffn_fn(p, h, compute_dtype).to(x.dtype)
+        if tp is None:
+            x = x + ffn_fn(p, h, compute_dtype).to(x.dtype)
+        else:
+            x = x + tp.reduce(ffn_fn(p, tp.enter(h), compute_dtype)
+                              ).to(x.dtype)
     if last_index is not None:
         idx = torch.as_tensor(last_index, device=x.device).reshape(1)
         x = x.index_select(1, idx.long())[:, 0]
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    return _lm_head(params, x), kvs
+    return _lm_head(params, x if tp is None else tp.enter(x)), kvs
 
 
 def transformer_apply(params: Tree, inputs: Dict[str, torch.Tensor],
@@ -325,12 +356,14 @@ def transformer_apply(params: Tree, inputs: Dict[str, torch.Tensor],
                       compute_dtype=torch.bfloat16,
                       attention_fn: Callable = causal_attention,
                       n_kv_heads: Optional[int] = None,
-                      rope_theta: Optional[float] = None
-                      ) -> Dict[str, torch.Tensor]:
-    """tokens (B, T) int -> logits (B, T, vocab) f32."""
+                      rope_theta: Optional[float] = None,
+                      tensor_parallel=None) -> Dict[str, torch.Tensor]:
+    """tokens (B, T) int -> logits (B, T, vocab) f32 (this rank's vocab
+    columns under ``tensor_parallel``: see :func:`_forward`)."""
     logits, _ = _forward(params, inputs["tokens"], n_heads, n_layers,
                          compute_dtype, attention_fn,
-                         n_kv_heads=n_kv_heads, rope_theta=rope_theta)
+                         n_kv_heads=n_kv_heads, rope_theta=rope_theta,
+                         tensor_parallel=tensor_parallel)
     return {"logits": logits}
 
 
@@ -518,6 +551,69 @@ def make_transformer(vocab: int = 32000, d_model: int = 512,
         apply_fn=partial(transformer_apply, n_heads=n_heads,
                          n_layers=n_layers, compute_dtype=compute_dtype,
                          attention_fn=attention_fn, n_kv_heads=n_kv_heads),
+        params=params,
+        inputs=[IOSpec("tokens", (seq_len,), np.int32)],
+        outputs=[IOSpec("logits", (seq_len, vocab), np.float32)],
+        max_batch_size=max_batch_size,
+    )
+
+
+def make_moe_transformer(vocab: int = 32000, d_model: int = 512,
+                         n_heads: int = 8, n_layers: int = 6,
+                         d_ff: int = 2048, n_experts: int = 8,
+                         top_k: int = 2, seq_len: int = 1024,
+                         max_batch_size: int = 4,
+                         compute_dtype=torch.bfloat16, seed: int = 0,
+                         attention_fn: Callable = causal_attention,
+                         device=None, params: Optional[Tree] = None):
+    """Transformer with MoE FFN blocks (tpulab's ``make_moe_transformer``):
+    per layer ``ln1`` / ``ln2``, ``wqkv`` (d, 3d), ``wo`` and an expert
+    bank ``moe`` (``router`` (d, E), ``w1`` (E, d, f), ``w2`` (E, f, d)),
+    computed densely by :func:`tpulab_torch.parallel.moe.moe_ffn` in
+    place of the dense FFN; the same params run expert-parallel through
+    :func:`~tpulab_torch.parallel.moe.make_expert_parallel_ffn`.
+
+    f32 weights drawn on ``device`` (``None`` = the CUDA card) from seeded
+    ``torch.Generator`` s, or ``params`` as given (a tpulab tree through
+    the weight bridge).  Not in the registry, as in tpulab."""
+    from tpulab_torch.cuda.platform import resolve_device
+    from tpulab_torch.engine.model import IOSpec, Model
+    from tpulab_torch.parallel.moe import init_moe_params, moe_ffn
+
+    if params is None:
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+
+        def normal(*shape):
+            return torch.empty(shape, device=dev).normal_(0.0, 0.02,
+                                                          generator=gen)
+
+        params = {"embed": normal(vocab, d_model),
+                  "final_norm": {"scale": torch.ones(d_model, device=dev)}}
+        for i in range(n_layers):
+            params[f"layer{i}"] = {
+                "ln1": {"scale": torch.ones(d_model, device=dev)},
+                "ln2": {"scale": torch.ones(d_model, device=dev)},
+                "wqkv": normal(d_model, 3 * d_model),
+                "wo": normal(d_model, d_model),
+                "moe": init_moe_params(d_model, d_ff, n_experts,
+                                       seed=seed + i + 1, device=dev),
+            }
+
+    def moe_block(lp, h, cdtype):
+        b, t, dm = h.shape
+        return moe_ffn(lp["moe"], h.reshape(b * t, dm), top_k=top_k,
+                       compute_dtype=cdtype).reshape(b, t, dm)
+
+    def apply_fn(p, inputs):
+        logits, _ = _forward(p, inputs["tokens"], n_heads, n_layers,
+                             compute_dtype, attention_fn, ffn_fn=moe_block)
+        return {"logits": logits}
+
+    return Model(
+        name="moe_transformer",
+        apply_fn=apply_fn,
         params=params,
         inputs=[IOSpec("tokens", (seq_len,), np.int32)],
         outputs=[IOSpec("logits", (seq_len, vocab), np.float32)],
