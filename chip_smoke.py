@@ -349,6 +349,22 @@ raises and the script exits non-zero without printing a result:
    (tpulab's dry-run sequence on one NCCL rank); ``--nproc 2`` exits
    non-zero with "need 2 devices, have 1".
 
+14. sharded — the paged serving path under a tensor-parallel mesh at
+   Llama-3-8B width (32 layers, random bf16 weights from phase 5's seed;
+   8 lanes, ``max_len`` 2048, page 16, K <= 8, the ragged plan): 8
+   requests (prompts of 1000 ... 16 tokens x 32 steps, even ones greedy,
+   odd ones device-sampled at T 0.8), after a 2-token warm-up request,
+   through ``ContinuousBatcher`` at (a) ``mesh=None`` and (b) ``mesh=make_mesh({"model": 1})`` on an NCCL
+   group of one rank: streams bit-identical, kernel 1 launches == 32 x
+   forward steps, all on ``wgmma``.  (c) two spawned ranks share the
+   card over gloo's CUDA collectives (``multihost.initialize(...,
+   backend="gloo")``; NCCL takes one rank a card), each cutting its
+   shards of the same weights leaf by leaf on the card (Hq 16, Hkv 4 a
+   rank) and serving the mix on ``{"model": 2}``: each rank's kernel 1
+   launches == 32 x the coordinator's forward steps, and every stream
+   equals mesh=None's or passes phase 7's bf16 noise rule; tok/s and
+   peak memory per rank.
+
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -2711,21 +2727,6 @@ def infer_serving_checks(torch, np, mgr, name):
     return dict(batches_launched=launched, requests=len(singles))
 
 
-def busy_ms(torch, prof):
-    """The union of the device kernels' time intervals (ms): kernels of the
-    four execution contexts' streams may overlap, so their sum can exceed
-    the wall time."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total / 1e3
-
-
 def infer_kernel_classes(torch, prof):
     """Device time (ms, summed over kernels) by class: convolutions,
     matrix products, elementwise, other (reductions, pooling, softmax,
@@ -2751,7 +2752,7 @@ def infer_profile(torch, np, mgr, name, card):
     wall time and the device time by kernel class."""
     from torch.profiler import ProfilerActivity
 
-    from tpulab_torch.utils.tracing import profiler_session
+    from tpulab_torch.utils.tracing import device_busy_ms, profiler_session
 
     runner = mgr.infer_runner(name)
     x = infer_images(np, INFER["max_batch_size"], 5)
@@ -2768,7 +2769,7 @@ def infer_profile(torch, np, mgr, name, card):
             f.result(300)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels, classes = infer_kernel_classes(torch, prof)
-    busy = busy_ms(torch, prof)
+    busy = device_busy_ms(prof)
     total = sum(classes.values())
     if total == 0:
         log(f"infer: {name} profile: device time not measured (the "
@@ -6255,7 +6256,8 @@ def phase_parallel(torch, card):
     one = subprocess.run(cmd + ["--nproc", "1"], cwd=HERE, env=env,
                          capture_output=True, text=True, timeout=300)
     one_s = time.perf_counter() - t0
-    if one.returncode != 0 or "dryrun pipeline (pp=1) ok" not in one.stdout:
+    if (one.returncode != 0 or "dryrun pipeline (pp=1) ok" not in one.stdout
+            or "dryrun paged sharded decode ok" not in one.stdout):
         raise AssertionError(f"parallel (f): dryrun --nproc 1 rc "
                              f"{one.returncode}: {one.stdout[-2000:]}"
                              f"{one.stderr[-3000:]}")
@@ -6272,6 +6274,231 @@ def phase_parallel(torch, card):
         f"launches: {b_launches} the full-depth step, {a_launches} (a), "
         f"{c_launches} (c) [{card}]")
     return b_launches + a_launches + c_launches
+
+
+# ---------------------------------------------------------------- phase 14
+# the sharded serve: phase 5's Llama-3-8B geometry, 8 requests (even
+# ones greedy, odd ones device-sampled) x SHARD_STEPS
+SHARD_SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
+                   prefill_chunk=256)
+SHARD_PROMPTS = (1000, 700, 500, 300, 200, 128, 64, 16)
+SHARD_STEPS = 32
+SHARD_TEMP = 0.8
+SHARD_SEED = 4242
+SHARD_RANKS = 2                 # the ranks that share the one card
+
+
+def shard_specs(np):
+    """(name, prompt, device-sampling seed or None) of the phase's mix."""
+    rng = np.random.default_rng(14)
+    return [(f"r{i}", rng.integers(0, LLAMA3_8B["vocab"], (n,), np.int32),
+             SHARD_SEED + i if i % 2 else None)
+            for i, n in enumerate(SHARD_PROMPTS)]
+
+
+def shard_warm(cb):
+    """One short request before the timed serve: the first collectives
+    (NCCL makes its communicator at the first one) and the first
+    allocations stay out of the timing."""
+    cb.submit([1, 2, 3], 2).result(timeout=900)
+
+
+def shard_serve(cb, specs):
+    """Submit the mix at once (atomically: repeated runs schedule the same
+    rounds) and wait for it."""
+    from tpulab_torch.engine.paged import SamplingParams
+
+    futs = {}
+    with cb._cv:
+        for name, prompt, seed in specs:
+            sp = (SamplingParams(temperature=SHARD_TEMP, seed=seed,
+                                 device=True) if seed is not None else None)
+            futs[name] = cb.submit(prompt, SHARD_STEPS, sampling=sp)
+    return {name: list(f.result(timeout=900)) for name, f in futs.items()}
+
+
+def shard_kw(torch):
+    c = LLAMA3_8B
+    return dict(n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
+                n_layers=c["n_layers"], rope_theta=c["rope_theta"],
+                compute_dtype=torch.bfloat16, **SHARD_SERVE)
+
+
+def sharded_rank(rank, world, store, out_dir):
+    """One of phase 14's ranks sharing the card: a gloo group (its CUDA
+    collectives, asked for by name: NCCL takes one rank a card), this
+    rank's shards of the phase's weights cut leaf by leaf on the card,
+    the batcher on {"model": world}; writes what it saw to
+    ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.engine.sharded import init_transformer_shards
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.parallel import make_mesh, multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo")
+    mesh = make_mesh({"model": world})
+    c = LLAMA3_8B
+    params = init_transformer_shards(
+        mesh, c["vocab"], c["d_model"], c["n_heads"], c["n_layers"],
+        c["d_ff"], seed=0, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, dtype=torch.bfloat16)
+    cb = ContinuousBatcher(params, mesh=mesh, **shard_kw(torch))
+    res = {"rank": rank, "kv": list(cb.pool.kv.shape),
+           "wqkv": list(cb.params["layer0"]["wqkv"].shape),
+           "backend": torch.distributed.get_backend()}
+    try:
+        if cb.is_coordinator:
+            shard_warm(cb)
+            steps0, toks0 = cb.forward_steps, cb.tokens_generated
+            t0 = time.perf_counter()
+            res["outs"] = shard_serve(cb, shard_specs(np))
+            res["wall_s"] = time.perf_counter() - t0
+            res["forward_steps"] = cb.forward_steps - steps0
+            res["tokens"] = cb.tokens_generated - toks0
+            res["steps_total"] = cb.forward_steps
+    finally:
+        cb.shutdown()
+    res["launches"] = ragged_paged_attention.launches
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_sharded(torch, card):
+    """The paged serving path under a tensor-parallel mesh at Llama-3-8B
+    width (module docstring, phase 14).  Returns kernel 1's launches in
+    the {"model": 1} serve."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+    from tpulab_torch.parallel import make_mesh, multihost
+
+    ra = ragged_paged_attention
+    c = LLAMA3_8B
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    specs = shard_specs(np)
+    kw = shard_kw(torch)
+    tmp = tempfile.mkdtemp(prefix="sharded-")
+    try:
+        # (a) mesh=None, the reference streams
+        cb = ContinuousBatcher(params, **kw)
+        try:
+            shard_warm(cb)
+            t0 = time.perf_counter()
+            ref = shard_serve(cb, specs)
+            ref_s = time.perf_counter() - t0
+        finally:
+            cb.shutdown()
+        # (b) {"model": 1} on an NCCL group of one rank: bit for bit
+        multihost.initialize(f"file://{tmp}/store", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError("sharded: the card's group is not NCCL")
+        mesh = make_mesh({"model": 1})
+        cb = ContinuousBatcher(params, mesh=mesh, **kw)
+        try:
+            shard_warm(cb)
+            ra.launches = 0
+            ra.launches_by_body = dict.fromkeys(ra.launches_by_body, 0)
+            steps0, toks0 = cb.forward_steps, cb.tokens_generated
+            t0 = time.perf_counter()
+            got = shard_serve(cb, specs)
+            m1_s = time.perf_counter() - t0
+            steps = cb.forward_steps - steps0
+            toks = cb.tokens_generated - toks0
+        finally:
+            cb.shutdown()
+        launches = ra.launches
+        dist.destroy_process_group()
+        if got != ref:
+            bad = [n for n in ref if got[n] != ref[n]]
+            raise AssertionError(f"sharded: the M 1 streams {bad} differ "
+                                 "from mesh=None")
+        if launches != c["n_layers"] * steps or ra.launches_by_body != {
+                "fma": 0, "wgmma": launches}:
+            raise AssertionError(f"sharded: kernel 1 launches {launches} "
+                                 f"({ra.launches_by_body}) != "
+                                 f"{c['n_layers']} x {steps}")
+        log(f"sharded: (a) mesh=None and (b) {{\"model\": 1}} over NCCL, "
+            f"{len(specs)} requests (prompts {list(SHARD_PROMPTS)}, "
+            f"{SHARD_STEPS} steps; even greedy, odd device-sampled T "
+            f"{SHARD_TEMP}): streams bit-identical; {toks} tokens in "
+            f"{m1_s:.2f} s ({toks / m1_s:.1f} tok/s) against {ref_s:.2f} s "
+            f"at mesh=None; kernel 1 launches {launches} == "
+            f"{c['n_layers']} x {steps} forward steps, all wgmma [{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) two ranks on the one card over gloo's CUDA collectives
+        t0 = time.perf_counter()
+        multihost.launch(sharded_rank, SHARD_RANKS,
+                         (SHARD_RANKS, f"{tmp}/store2", tmp), timeout=600)
+        two_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        coord = ranks[0]
+        hkv = c["n_kv_heads"] // SHARD_RANKS
+        for r in ranks:
+            if r["kv"][4] != hkv or r["backend"] != "gloo":
+                raise AssertionError(f"sharded (c): rank {r['rank']} holds "
+                                     f"{r['kv']} over {r['backend']}")
+            if r["launches"] != c["n_layers"] * coord["steps_total"]:
+                raise AssertionError(
+                    f"sharded (c): rank {r['rank']} kernel 1 launches "
+                    f"{r['launches']} != {c['n_layers']} x "
+                    f"{coord['steps_total']}")
+        kw_dense = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+                        n_kv_heads=c["n_kv_heads"],
+                        rope_theta=c["rope_theta"],
+                        compute_dtype=torch.bfloat16)
+        from tpulab_torch.engine.paged import SamplingParams
+        notes = []
+        for name, prompt, seed in specs:
+            sp = (SamplingParams(temperature=SHARD_TEMP, seed=seed,
+                                 device=True) if seed is not None else None)
+            note = same_or_bf16_noise(torch, params, kw_dense,
+                                      f"{name}", prompt,
+                                      ref[name], coord["outs"][name], sp)
+            if note:
+                notes.append(note)
+        same = sum(coord["outs"][n] == ref[n] for n in ref)
+        log(f"sharded: (c) {SHARD_RANKS} ranks on one card over gloo's "
+            f"CUDA collectives, {{\"model\": {SHARD_RANKS}}}: each rank "
+            f"{coord['kv']} pages (Hkv {hkv}), wqkv {coord['wqkv']}; "
+            f"{coord['tokens']} tokens in {coord['wall_s']:.2f} s "
+            f"({coord['tokens'] / coord['wall_s']:.1f} tok/s); kernel 1 "
+            f"launches per rank {[r['launches'] for r in ranks]} == "
+            f"{c['n_layers']} x {coord['steps_total']} forward steps (the "
+            f"warm-up's included); peak GB per rank "
+            f"{[round(r['peak_gb'], 2) for r in ranks]}; {same} of "
+            f"{len(ref)} streams bit-identical to mesh=None, the rest "
+            f"within the bf16 noise rule; launch {two_s:.1f} s [{card}]")
+        for note in notes:
+            log(f"sharded: (c) {note}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"sharded: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
 
 
 # ---------------------------------------------------------------- main
@@ -6369,6 +6596,7 @@ def main(argv=None) -> int:
     fleet_launches = phase_fleet(torch, card)
     fab = phase_fabric(torch, card)
     par_launches = phase_parallel(torch, card)
+    shard_launches = phase_sharded(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -6381,7 +6609,7 @@ def main(argv=None) -> int:
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
                      + st["disagg"] + hbm_launches + svc_launches
                      + obs_launches + batch_launches + fleet_launches
-                     + fab["ragged"],
+                     + fab["ragged"] + shard_launches,
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
@@ -6392,7 +6620,8 @@ def main(argv=None) -> int:
                      "the obs phase + the batch phase + the fleet "
                      "replicas (read from each replica's Debug snapshot "
                      "before it retired; the killed replica's are lost) "
-                     "+ the fabric phase",
+                     "+ the fabric phase + the sharded phase's "
+                     "{\"model\": 1} serve",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",

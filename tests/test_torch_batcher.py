@@ -413,7 +413,7 @@ def test_split_plan_defaults(lm):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(mesh=object()), "parallelism"),
+    (dict(mesh=object(), kv_publish=True), "parallelism"),
     (dict(hbm=object(), mesh=object()), "HBM economy"),
     (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
     (dict(kv_dtype=torch.float16), "float16 KV"),

@@ -91,7 +91,8 @@ def test_dryrun_four_cpu_ranks():
                  "dryrun ring-attention (sp=4) ok",
                  "dryrun expert-parallel MoE (ep=4) ok",
                  "dryrun pipeline (pp=4) ok",
-                 "not ported: ROADMAP item 5, the batcher under a mesh"):
+                 "dryrun paged sharded decode ok (mesh model=2): "
+                 "parity=True"):
         assert want in out.stdout, (want, out.stdout)
 
 

@@ -257,6 +257,14 @@ def _rank_cases(rank, world, store, out_dir):
                                      for k, v in inp.items()
                                      if k.startswith(f"p{n}/")}, res)
 
+    # a pool under the mesh: this rank's KV heads (of 2) on the model axis
+    from tpulab_torch.engine.paged import PagedKVPool
+    pool = PagedKVPool(4, 8, 1, 2, 8, torch.float32, device="cpu",
+                       mesh=mesh)
+    res["pool"] = json.dumps([list(pool.kv.shape), pool.n_shards,
+                              pool.hbm_bytes, pool.hbm_bytes_per_shard])
+    del pool
+
     res["slice"] = np.array(multihost.local_data_slice(5, mesh))
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
 
@@ -290,15 +298,23 @@ def test_public_names_are_tpulabs():
     assert all(getattr(tp, name) is not None for name in tp.__all__)
 
 
-def test_a_pool_under_a_mesh_cites_the_next_item():
-    """The batcher under a mesh is the next slice: a pool given a mesh
-    raises, naming it (the batcher's refusal is held in
-    tests/test_torch_batcher.py)."""
-    from tpulab_torch.engine.paged import PagedKVPool
+def test_a_pool_under_a_mesh_cites_the_next_item(ranks):
+    """A pool under a mesh holds its rank's KV heads: over the model axis
+    of the 2 x 2 mesh each rank's store is (L, P, 2, S, Hkv/2, D), with
+    tpulab's placements and logical bytes.  What stays to port under a
+    mesh (the BatcherAdapter, kv_publish) raises, naming the ROADMAP
+    item (tests/test_torch_sharded_decode.py holds the serving path)."""
+    from types import SimpleNamespace
 
+    from tpulab_torch.modelstore import BatcherAdapter
+
+    for r in ranks:
+        shape, shards, logical, per_shard = json.loads(_s(r["pool"]))
+        assert shape == [1, 4, 2, 8, 1, 8] and shards == 2
+        assert logical == 2 * per_shard == 4 * 2 * 8 * 2 * 8 * 4
     with pytest.raises(NotImplementedError,
-                       match="item 5: the batcher under a mesh"):
-        PagedKVPool(4, 8, 1, 2, 8, device="cpu", mesh=object())
+                       match="item 5: BatcherAdapter and kv_publish"):
+        BatcherAdapter(SimpleNamespace(mesh=object()))
 
 
 def test_meshes_and_their_errors(ranks):

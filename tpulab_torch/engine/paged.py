@@ -68,11 +68,17 @@ under ``("fab", digest)`` beside the prefill's f32 logits row under
 fetchers.  As in tpulab, the ragged plan publishes nothing (its mixed
 rounds never fetch a host-visible logits row).
 
+With ``mesh`` (a ``{"model": M}`` mesh over M ranks, one process per
+card) the batcher serves tensor-parallel (:mod:`tpulab_torch.engine.
+sharded`): every rank constructs the same batcher; each holds its
+Megatron shards of the weights and its KV heads of the pool, and the
+programs take ``tensor_parallel=``.  Rank 0 of the axis schedules and
+takes requests; the others replay its device operations.
+
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
-counterpart.  The XLA-gather escape hatch (``use_kernel=False``) and
-meshes (the batcher under a mesh: the next item of ROADMAP queue 1,
-item 5) are not ported: their constructor arguments raise
-``NotImplementedError`` naming the ROADMAP item.
+counterpart.  The XLA-gather escape hatch (``use_kernel=False``) is not
+ported, nor are ``kv_publish`` and the ``BatcherAdapter`` under a mesh:
+their arguments raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -88,6 +94,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpulab_torch import chaos
 from tpulab_torch.core.deadline import Deadline, DeadlineExceeded
@@ -106,21 +113,61 @@ _log = logging.getLogger("tpulab_torch.engine")
 
 
 class PagedKVPool:
-    """Global paged K/V storage + free-page accounting (host side)."""
+    """Global paged K/V storage + free-page accounting (host side).
+
+    Under a ``mesh`` (a ``model`` axis of M ranks) the page payloads shard
+    on the KV-heads dim (:func:`~tpulab_torch.parallel.sharding.
+    kv_pool_sharding`): ``kv`` is this rank's plain local store ``(L, P,
+    2, S, Hkv/M, D)``, rank r holding heads ``[r*Hkv/M, (r+1)*Hkv/M)``,
+    while page ids, refcounts and the free list stay logical, kept by the
+    coordinator (rank 0 of the axis).  Its page gathers and scatters
+    (:meth:`gather_pages`, :meth:`scatter_pages`) and :meth:`reset` are
+    collective: the coordinator publishes each on the pool's
+    :class:`~tpulab_torch.engine.sharded.MeshChannel` and the followers
+    replay it in :meth:`follow`."""
 
     def __init__(self, n_pages: int, page_size: int, n_layers: int,
                  n_heads: int, head_dim: int, dtype=torch.bfloat16,
                  device=None, allocator=None, mesh=None):
+        #: the mesh the page payloads shard over (None: one device)
+        self.mesh = mesh
+        #: the payloads' placements under the mesh (tpulab's kv_sharding)
+        self.kv_sharding = None
+        self._tp = None
+        #: the coordinator's descriptors to the followers (None: no mesh)
+        self.channel = None
+        shards = 1
         if mesh is not None:
-            raise _unported("a pool under a mesh", _MESH_ITEM)
-        self.device = resolve_device(device)
+            from tpulab_torch.engine.sharded import MeshChannel, mesh_device
+            from tpulab_torch.parallel.mesh import axis_size
+            from tpulab_torch.parallel.sharding import kv_pool_sharding
+            from tpulab_torch.parallel.tensor_parallel import TensorParallel
+            if "model" not in (mesh.mesh_dim_names or ()):
+                raise ValueError("pool mesh needs a 'model' axis")
+            shards = axis_size(mesh, "model")
+            if n_heads % shards:
+                raise ValueError(
+                    f"pool KV heads ({n_heads}) not divisible by the mesh "
+                    f"model axis ({shards}) — page payloads shard on the "
+                    "KV-heads dim")
+            self.device = mesh_device(mesh)
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{self.device}")
+            self.kv_sharding = kv_pool_sharding(mesh)
+            self._tp = TensorParallel(mesh)
+            self.channel = MeshChannel(self._tp)
+        else:
+            self.device = resolve_device(device)
         self.n_pages = n_pages
         self.page_size = page_size
         self.n_layers = n_layers
+        self.n_shards = shards
         # FUSED page layout: a page's K rows ([.., 0, ..]) and V rows
         # ([.., 1, ..]) are adjacent, so one layer's pool is one
         # contiguous (P, 2, S, Hkv, D) tensor for the kernel
-        self._shape = (n_layers, n_pages, 2, page_size, n_heads, head_dim)
+        self._shape = (n_layers, n_pages, 2, page_size, n_heads // shards,
+                       head_dim)
         self._dtype = dtype
         self._alloc = allocator or DeviceRawAllocator(self.device)
         self._kv_addr, self._kv = self._alloc.allocate_array(self._shape,
@@ -136,6 +183,18 @@ class PagedKVPool:
         self.prefer_low_pages = False
 
     @property
+    def coordinator(self) -> bool:
+        """Does this rank keep the pool's logical state (always, without a
+        mesh)?"""
+        return self.channel is None or self.channel.coordinator
+
+    @property
+    def logical_shape(self):
+        """The whole store's shape, every rank's KV heads together."""
+        s = self._shape
+        return s[:4] + (s[4] * self.n_shards,) + s[5:]
+
+    @property
     def kv(self) -> torch.Tensor:
         return self._kv
 
@@ -149,7 +208,14 @@ class PagedKVPool:
 
     @property
     def hbm_bytes(self) -> int:
-        """Tracked device bytes of this pool's page store."""
+        """Tracked device bytes of this pool's page store: the LOGICAL
+        figure under a mesh (every shard's), as tpulab counts it; each
+        rank holds :attr:`hbm_bytes_per_shard`."""
+        return self.hbm_bytes_per_shard * self.n_shards
+
+    @property
+    def hbm_bytes_per_shard(self) -> int:
+        """This rank's device bytes of the page store."""
         return (self._alloc.node_size(self._kv_addr)
                 if self._kv_addr is not None else 0)
 
@@ -165,8 +231,12 @@ class PagedKVPool:
 
     def reset(self) -> None:
         """Zero the store and forget every page (recovery after a failed
-        step; the store is rewritten in place, so zeroing suffices)."""
-        self._kv.zero_()
+        step; the store is rewritten in place, so zeroing suffices).
+        Under a mesh the coordinator's reset zeroes every rank's shard."""
+        if self.channel is not None:
+            self.channel.run("reset", self._reset_local)
+        else:
+            self._reset_local()
         with self._lock:
             self._free = list(range(1, self.n_pages))
             self._refs.clear()
@@ -177,6 +247,92 @@ class PagedKVPool:
             self._alloc.deallocate_node(self._kv_addr)
             self._kv_addr = None
             self._kv = None
+
+    # -- the payloads of pages (the host KV tier's gathers and scatters) -----
+    def _index(self, pages: List[int]) -> torch.Tensor:
+        return torch.as_tensor(pages, dtype=torch.long).to(self.device)
+
+    def gather_pages(self, pages: List[int]) -> Optional[torch.Tensor]:
+        """``kv[:, pages]`` of the whole store ``(L, n, 2, S, Hkv, D)``, on
+        the caller's stream.  Under a mesh every rank's KV heads are
+        gathered to the coordinator in rank order (collective: the
+        coordinator publishes it); followers get None."""
+        if self.channel is not None:
+            return self.channel.run("gather", self._gather, list(pages))
+        return self._gather(pages)
+
+    def _gather(self, pages: List[int]) -> Optional[torch.Tensor]:
+        local = pool_bytes(self._kv).index_select(1, self._index(pages))
+        if self._tp is None or self._tp.size == 1:
+            return local.view(self._dtype)
+        tp = self._tp
+        parts = ([torch.empty_like(local) for _ in range(tp.size)]
+                 if tp.rank == 0 else None)
+        dist.gather(local, parts, dst=dist.get_global_rank(tp.group, 0),
+                    group=tp.group)
+        if tp.rank != 0:
+            return None
+        return torch.cat(parts, dim=4).view(self._dtype)
+
+    def scatter_pages(self, pages: List[int],
+                      data: Optional[torch.Tensor]) -> None:
+        """``kv[:, pages] = data`` in place, on the caller's stream;
+        ``data`` holds the whole store's heads ``(L, n, 2, S, Hkv, D)``,
+        on the host (a page-locked source copies asynchronously) or the
+        device.  Under a mesh the coordinator scatters each rank its KV
+        heads (collective: the coordinator publishes it; followers pass
+        None).  An fp8 pool is written through its bytes."""
+        if self.channel is not None:
+            self.channel.run("scatter", lambda p: self._scatter(p, data),
+                             list(pages))
+        else:
+            self._scatter(pages, data)
+
+    def _scatter(self, pages: List[int],
+                 data: Optional[torch.Tensor]) -> None:
+        idx = self._index(pages)
+        raw = pool_bytes(self._kv)
+        if self._tp is None or self._tp.size == 1:
+            raw.index_copy_(1, idx, pool_bytes(
+                data.to(self.device, non_blocking=True)))
+            return
+        tp = self._tp
+        local = torch.empty((raw.shape[0], len(pages)) + raw.shape[2:],
+                            dtype=raw.dtype, device=self.device)
+        parts = None
+        if tp.rank == 0:
+            full = pool_bytes(data.to(self.device, non_blocking=True))
+            parts = [c.contiguous() for c in full.chunk(tp.size, dim=4)]
+        dist.scatter(local, parts, src=dist.get_global_rank(tp.group, 0),
+                     group=tp.group)
+        raw.index_copy_(1, idx, local)
+
+    def follow(self, ops: Optional[Dict[str, Any]] = None) -> None:
+        """Follower: replay the coordinator's operations on this rank's
+        shard until it publishes ``"stop"`` (:meth:`stop_followers`).
+        ``ops`` adds operations by name (the batcher's programs).  An
+        operation that raises is fatal to the mesh: the replay ends with
+        :class:`~tpulab_torch.engine.sharded.MeshFailure`, and the
+        coordinator's next collective and fetch fail."""
+        if self.channel is None or self.coordinator:
+            raise RuntimeError("follow() runs on the followers of a mesh "
+                               "pool")
+        table = {"reset": self._reset_local, "gather": self._gather,
+                 "scatter": lambda pages: self._scatter(pages, None)}
+        table.update(ops or {})
+        while True:
+            op, args, kw = self.channel.next()
+            if op == "stop":
+                return
+            self.channel.run(op, table[op], *args, **kw)
+
+    def stop_followers(self) -> None:
+        """Coordinator: end the followers' :meth:`follow`."""
+        if self.channel is not None:
+            self.channel.stop()
+
+    def _reset_local(self) -> None:
+        self._kv.zero_()
 
     def allocate_page(self) -> Optional[int]:
         with self._lock:
@@ -336,6 +492,52 @@ def _attend(q, kv_pool, layer, tables, q_lens, kv_lens, compute_dtype):
     return out.to(compute_dtype).reshape(b, m, h * d)
 
 
+def _embed_in(params, tokens, compute_dtype, tp):
+    """The token rows: this rank's vocab rows summed over the axis under
+    ``tp`` (a :class:`~tpulab_torch.parallel.tensor_parallel.
+    TensorParallel`)."""
+    if tp is None:
+        return _embed(params, tokens, compute_dtype)
+    return tp.embed(params["embed"], tokens, compute_dtype)
+
+
+def _qkv(p, h, b, m, n_heads, n_kv, head_dim, compute_dtype, tp):
+    """The layer's q (B, M, Hq, D) and new K/V (B, M, Hkv, D).  Under
+    ``tp`` the column-sharded projection is all-gathered (the fused
+    ``wqkv`` columns are not head groups) and this rank keeps its query
+    heads ``[r*Hq/M, ...)`` and KV heads ``[r*Hkv/M, ...)``: the heads of
+    its pool shard, under its rows of ``wo``."""
+    qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
+    if tp is None:
+        return split_qkv(qkv, b, m, n_heads, n_kv, head_dim)
+    q, k, v = split_qkv(tp.gather_last(qkv), b, m, n_heads, n_kv, head_dim)
+    hq, hk = n_heads // tp.size, n_kv // tp.size
+    return (q[:, :, tp.rank * hq:(tp.rank + 1) * hq],
+            k[:, :, tp.rank * hk:(tp.rank + 1) * hk],
+            v[:, :, tp.rank * hk:(tp.rank + 1) * hk])
+
+
+def _residual(x, y, tp):
+    """``x + y`` of a row-parallel partial product ``y``: summed over the
+    axis under ``tp`` first."""
+    return _add(x, y if tp is None else tp.reduce(y))
+
+
+def _ffn_block(p, x, compute_dtype, tp):
+    """The post-attention half of a layer: norm, FFN, residual (the FFN's
+    ``w2`` partial sums reduced under ``tp``)."""
+    h2 = _rmsnorm(x, p["ln2"]["scale"])
+    y = _dense_ffn(p, h2, compute_dtype)
+    return x + (y if tp is None else tp.reduce(y)).to(x.dtype)
+
+
+def _vocab(params, x, tp):
+    """f32 logits over the whole vocab: this rank's columns all-gathered
+    under ``tp`` (every rank then picks the same token)."""
+    logits = _lm_head(params, x)
+    return logits if tp is None else tp.gather_last(logits)
+
+
 def _pick(logits, temps, seeds, positions):
     """On-device pick + its log-probability (no host sync)."""
     next_tokens = device_sample_tokens(logits, temps, seeds, positions)
@@ -348,19 +550,26 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
                       n_heads: int, n_layers: int, compute_dtype,
                       n_kv_heads: Optional[int] = None,
                       rope_theta: Optional[float] = None,
-                      temps=None, seeds=None):
+                      temps=None, seeds=None, tensor_parallel=None):
     """One batched decode tick over the paged pool (written in place).
 
     kv_pool (L, P, 2, S, Hkv, D); tables (B, MP) int32 page ids (padded
     rows repeat page 0); lengths (B,) current position per lane;
     tokens (B,); active (B,) bool.  Returns logits (B, vocab) f32, or
     with ``temps (B,)`` + ``seeds (B, 2)`` the device-sampled
-    ``(next_tokens (B,) int64, logprobs (B,) f32, logits)``."""
+    ``(next_tokens (B,) int64, logprobs (B,) f32, logits)``.
+
+    ``tensor_parallel`` (a :class:`~tpulab_torch.parallel.
+    tensor_parallel.TensorParallel`) runs the tick on this rank's
+    Megatron shards of ``params`` and its KV-heads shard of the pool;
+    every program of this module takes it the same way.  The logits are
+    the whole vocab on every rank."""
+    tp = tensor_parallel
     n_kv = n_kv_heads or n_heads
     b = tokens.shape[0]
     page_size = kv_pool.shape[3]
     mp = tables.shape[1]
-    x = _embed(params, tokens, compute_dtype)[:, None, :]
+    x = _embed_in(params, tokens, compute_dtype, tp)[:, None, :]
     d_model = x.shape[-1]
     head_dim = d_model // n_heads
     lengths = lengths.long()
@@ -375,8 +584,8 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
     for layer in range(n_layers):
         p = params[f"layer{layer}"]
         h = _rmsnorm(x, p["ln1"]["scale"])
-        qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
-        q, knew, vnew = split_qkv(qkv, b, 1, n_heads, n_kv, head_dim)
+        q, knew, vnew = _qkv(p, h, b, 1, n_heads, n_kv, head_dim,
+                             compute_dtype, tp)
         if rope_theta:
             q = apply_rope(q, lengths[:, None], rope_theta)
             knew = apply_rope(knew, lengths[:, None], rope_theta)
@@ -384,11 +593,10 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
                   vnew[:, 0])
         attn = _attend(q, kv_pool, layer, tables, q_lens, kv_lens,
                        compute_dtype)
-        x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
-        h2 = _rmsnorm(x, p["ln2"]["scale"])
-        x = x + _dense_ffn(p, h2, compute_dtype).to(x.dtype)
+        x = _residual(x, _mm(attn, qmat(p["wo"], compute_dtype)), tp)
+        x = _ffn_block(p, x, compute_dtype, tp)
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    logits = _lm_head(params, x[:, 0])
+    logits = _vocab(params, x[:, 0], tp)
     # inactive lanes emit neutral logits (argmax 0) — callers mask on active
     logits = torch.where(active[:, None], logits, 0.0)
     if temps is None:
@@ -402,7 +610,8 @@ def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
                        n_heads: int, n_layers: int, compute_dtype,
                        k: int = 8,
                        n_kv_heads: Optional[int] = None,
-                       rope_theta: Optional[float] = None):
+                       rope_theta: Optional[float] = None,
+                       tensor_parallel=None):
     """K chained decode ticks with on-device sampling and a per-lane stop
     mask, enqueued without a host sync (tpulab scans the same body).
 
@@ -421,7 +630,7 @@ def paged_decode_block(params, kv_pool, tables, lengths, tokens, active,
             params, kv_pool, tables, lens, toks, live, n_heads=n_heads,
             n_layers=n_layers, compute_dtype=compute_dtype,
             n_kv_heads=n_kv_heads, rope_theta=rope_theta, temps=temps,
-            seeds=seeds)
+            seeds=seeds, tensor_parallel=tensor_parallel)
         emitted = live
         nt = torch.where(live, nt, toks)          # dead lanes hold position
         lens = lens + emitted.long()
@@ -444,7 +653,8 @@ def paged_speculative_block(params, draft_params, kv_pool, tables,
                             compute_dtype, k: int = 4,
                             n_kv_heads: Optional[int] = None,
                             draft_n_kv_heads: Optional[int] = None,
-                            rope_theta: Optional[float] = None):
+                            rope_theta: Optional[float] = None,
+                            tensor_parallel=None):
     """Speculative decode: draft-propose, target-verify and per-lane
     accept, enqueued without a host sync (the pool is written in place).
 
@@ -475,7 +685,7 @@ def paged_speculative_block(params, draft_params, kv_pool, tables,
             active & (i < rem), n_heads=draft_n_heads,
             n_layers=draft_n_layers, compute_dtype=compute_dtype,
             n_kv_heads=draft_n_kv_heads, rope_theta=rope_theta,
-            temps=temps, seeds=seeds)
+            temps=temps, seeds=seeds, tensor_parallel=tensor_parallel)
         props.append(tok)
     drafts = torch.stack(props[:k], 1)                        # (B, k)
     # position j's write is real only while the lane can still emit
@@ -485,7 +695,8 @@ def paged_speculative_block(params, draft_params, kv_pool, tables,
     logits = paged_ragged_forward(
         params, kv_pool, tables, seq, q_lens, lens + q_lens,
         n_heads=n_heads, n_layers=n_layers, compute_dtype=compute_dtype,
-        n_kv_heads=n_kv_heads, rope_theta=rope_theta)         # (B, k+1, V)
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta,
+        tensor_parallel=tensor_parallel)                      # (B, k+1, V)
     b, w, vocab = logits.shape
     pos = lens[:, None] + torch.arange(w, device=lens.device)[None, :]
     flat = logits.reshape(b * w, vocab)
@@ -518,7 +729,7 @@ def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
                          n_heads: int, n_layers: int, compute_dtype,
                          n_kv_heads: Optional[int] = None,
                          rope_theta: Optional[float] = None,
-                         last_only: bool = False):
+                         last_only: bool = False, tensor_parallel=None):
     """One fused multi-token forward over ragged per-lane segments.
 
     seq (B, M) left-packed: lane b's valid tokens are ``seq[b,
@@ -528,11 +739,12 @@ def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
     lane's block table under global causality.  ``last_only`` runs the
     vocab head on each lane's last valid position only: logits (B,
     vocab); otherwise (B, M, vocab) with invalid rows garbage."""
+    tp = tensor_parallel
     n_kv = n_kv_heads or n_heads
     b, m = seq.shape
     page_size = kv_pool.shape[3]
     mp = tables.shape[1]
-    x = _embed(params, seq, compute_dtype)                # (B, M, D)
+    x = _embed_in(params, seq, compute_dtype, tp)         # (B, M, D)
     d_model = x.shape[-1]
     head_dim = d_model // n_heads
     ar = torch.arange(m, device=seq.device)
@@ -546,30 +758,31 @@ def paged_ragged_forward(params, kv_pool, tables, seq, q_lens, kv_lens,
     for layer in range(n_layers):
         p = params[f"layer{layer}"]
         h = _rmsnorm(x, p["ln1"]["scale"])
-        qkv = _mm(h, qmat(p["wqkv"], compute_dtype))
-        q, knew, vnew = split_qkv(qkv, b, m, n_heads, n_kv, head_dim)
+        q, knew, vnew = _qkv(p, h, b, m, n_heads, n_kv, head_dim,
+                             compute_dtype, tp)
         if rope_theta:
             q = apply_rope(q, pos, rope_theta)
             knew = apply_rope(knew, pos, rope_theta)
         _write_kv(kv_pool, layer, page_idx, slot_idx, knew, vnew)
         attn = _attend(q, kv_pool, layer, tables, q_lens32, kv_lens32,
                        compute_dtype)
-        x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
-        h2 = _rmsnorm(x, p["ln2"]["scale"])
-        x = x + _dense_ffn(p, h2, compute_dtype).to(x.dtype)
+        x = _residual(x, _mm(attn, qmat(p["wo"], compute_dtype)), tp)
+        x = _ffn_block(p, x, compute_dtype, tp)
     if last_only:
         last = (q_lens_l - 1).clamp_min(0)
         xl = x.gather(1, last[:, None, None].expand(b, 1, d_model))[:, 0]
-        return _lm_head(params, _rmsnorm(xl, params["final_norm"]["scale"]))
+        return _vocab(params, _rmsnorm(xl, params["final_norm"]["scale"]),
+                      tp)
     x = _rmsnorm(x, params["final_norm"]["scale"])
-    return _lm_head(params, x)
+    return _vocab(params, x, tp)
 
 
 def paged_mixed_step(params, kv_pool, tables, seq, q_lens, kv_lens,
                      temps, seeds, n_heads: int, n_layers: int,
                      compute_dtype,
                      n_kv_heads: Optional[int] = None,
-                     rope_theta: Optional[float] = None):
+                     rope_theta: Optional[float] = None,
+                     tensor_parallel=None):
     """One mixed prefill+decode round: a ragged forward plus each lane's
     pick on its last valid position (position ``kv_lens - 1``), so one
     request is one (seed, position)-keyed stream whichever dispatch kind
@@ -578,7 +791,8 @@ def paged_mixed_step(params, kv_pool, tables, seq, q_lens, kv_lens,
     last = paged_ragged_forward(
         params, kv_pool, tables, seq, q_lens, kv_lens, n_heads=n_heads,
         n_layers=n_layers, compute_dtype=compute_dtype,
-        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True)
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True,
+        tensor_parallel=tensor_parallel)
     pos_last = (kv_lens.long() - 1).clamp_min(0)
     next_tokens, logprobs = _pick(last, temps, seeds, pos_last)
     return next_tokens, logprobs, last
@@ -588,7 +802,7 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
                   n_heads: int, n_layers: int, compute_dtype,
                   n_kv_heads: Optional[int] = None,
                   rope_theta: Optional[float] = None,
-                  attention_fn=None):
+                  attention_fn=None, tensor_parallel=None):
     """Fused prefill: ONE causal forward over the (padded) prompt, with each
     layer's K/V scattered into the lane's pages (in place).
 
@@ -599,7 +813,9 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
     (:func:`make_flash_attention_fn`) on CUDA tensors and dense causal
     attention, tpulab's default, on the CPU.  The final norm and vocab
     head run on the last valid position only; returns its logits
-    (vocab,) f32."""
+    (vocab,) f32 (the whole vocab under ``tensor_parallel``, where each
+    rank writes its KV heads)."""
+    tp = tensor_parallel
     page_size = kv_pool.shape[3]
     t_pad = tokens.shape[1]
     if attention_fn is None:
@@ -609,7 +825,12 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
         params, tokens, n_heads=n_heads, n_layers=n_layers,
         compute_dtype=compute_dtype, n_kv_heads=n_kv_heads,
         rope_theta=rope_theta, attention_fn=attention_fn,
-        last_index=valid_len - 1)
+        last_index=valid_len - 1, tensor_parallel=tp)
+    if tp is not None:
+        logits = tp.gather_last(logits)
+        hk = kv_pool.shape[4]
+        kvs = [(k[:, :, tp.rank * hk:(tp.rank + 1) * hk],
+                v[:, :, tp.rank * hk:(tp.rank + 1) * hk]) for k, v in kvs]
     pos = torch.arange(t_pad, device=tokens.device)
     valid = pos < valid_len
     # JAX clamps an out-of-range gather; PyTorch would fault — clamp
@@ -624,7 +845,7 @@ def paged_prefill(params, kv_pool, tables, tokens, valid_len,
 def paged_extend(params, kv_pool, tables, tokens, start, valid_total,
                  n_heads: int, n_layers: int, compute_dtype,
                  n_kv_heads: Optional[int] = None,
-                 rope_theta: Optional[float] = None):
+                 rope_theta: Optional[float] = None, tensor_parallel=None):
     """Chunked/tail prefill against EXISTING paged context.
 
     One forward over the tail tokens at positions ``start ..
@@ -647,7 +868,8 @@ def paged_extend(params, kv_pool, tables, tokens, start, valid_total,
     return paged_ragged_forward(
         params, kv_pool, tables[None], tokens, q_lens, kv_lens,
         n_heads=n_heads, n_layers=n_layers, compute_dtype=compute_dtype,
-        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True)[0]
+        n_kv_heads=n_kv_heads, rope_theta=rope_theta, last_only=True,
+        tensor_parallel=tensor_parallel)[0]
 
 
 class PrefixCache:
@@ -917,8 +1139,9 @@ class _PagedRequest:
             or self.tokens_out[-1] in self.stop_tokens)
 
 
-#: the ROADMAP item a mesh on the batcher or its pool cites
-_MESH_ITEM = "parallelism, item 5: the batcher under a mesh"
+#: the ROADMAP item the parts of sharded serving still to port cite
+_MESH_ITEM = ("parallelism, item 5: BatcherAdapter and kv_publish under a "
+              "mesh")
 
 
 def _unported(what: str, item: str):
@@ -968,6 +1191,18 @@ class ContinuousBatcher:
     :func:`to_kv_dtype` and upcast by the kernels as they read.
     ``device=None`` means the CUDA card (raises without one); tests pass
     ``device="cpu"``.
+
+    ``mesh`` (a ``{"model": M}`` mesh, :func:`~tpulab_torch.parallel.
+    make_mesh`; every rank of the axis constructs the batcher with the
+    same arguments) serves tensor-parallel: ``params`` is the whole tree
+    (cut leaf by leaf before it moves) or a tree of DTensors
+    (:func:`~tpulab_torch.engine.sharded.init_transformer_shards`,
+    :func:`~tpulab_torch.models.convert.shard_from_numpy`), and the pool
+    shards on KV heads.  Rank 0 (``is_coordinator``) takes requests; the
+    other ranks replay its operations until its :meth:`shutdown`, and
+    their own :meth:`shutdown` waits for that.  On the card only the
+    ragged plan runs under a mesh; ``hbm=``, ``prefill_flash=True`` and
+    ``kv_publish`` are refused there, as tpulab refuses the first two.
     """
 
     #: the marker the Generate RPC dispatches on (streaming via
@@ -1010,16 +1245,35 @@ class ContinuousBatcher:
                 "card it would route decode attention to plain math "
                 "(ROADMAP, decisions: use_kernel=False); ragged=False "
                 "selects the split plan on the kernels")
+        if mesh is None and pool is not None:
+            mesh = getattr(pool, "mesh", None)   # tpulab: the pool's mesh
         if mesh is not None and hbm is not None:
             # tpulab itself refuses an elastic pool under a mesh (its
             # per-shard grow/shrink accounting is untested)
             raise NotImplementedError(
                 "an HBM-arbiter-armed batcher (the HBM economy's elastic "
-                "pool) under a mesh is not supported, as in tpulab; and "
-                "mesh= is not ported to tpulab_torch yet (ROADMAP queue 1: "
-                f"{_MESH_ITEM})")
-        if mesh is not None:
-            raise _unported("mesh", _MESH_ITEM)
+                "pool) under a mesh is not supported, as in tpulab: serve "
+                "the arbiter single-device, or the mesh without an arbiter "
+                "(hbm=None)")
+        if (mesh is not None and ragged is False
+                and getattr(mesh, "device_type", None) == "cuda"):
+            raise NotImplementedError(
+                "the split plan (ragged=False) under a mesh on the card is "
+                "not carried to tpulab_torch: tpulab's flash prefill is "
+                "single-device and the port runs no dense prefill on the "
+                "card (ROADMAP, decisions: the ragged plan only under a "
+                "mesh on CUDA)")
+        if mesh is not None and kv_publish:
+            raise _unported("kv_publish (the fleet KV fabric) under a mesh",
+                            _MESH_ITEM)
+        if mesh is not None and prefill_flash:
+            raise ValueError(
+                "the flash prefill kernel is single-device; mesh serving "
+                "prefills through the dense or ragged paths (prefill_flash "
+                "must be False or None)")
+        if mesh is not None and pool is not None and pool.mesh is not mesh:
+            raise ValueError("provided pool was built on a different mesh "
+                             "than the batcher's")
         # the page dtypes the kernels read (e5m2 and float16 pages are
         # ROADMAP queue 1, left for later)
         if kv_dtype is not None and kv_dtype not in KV_CODE:
@@ -1041,9 +1295,25 @@ class ContinuousBatcher:
         if decode_block < 1:
             raise ValueError("decode_block must be >= 1")
         n_kv = n_kv_heads or n_heads
+        #: the ``{"model": M}`` mesh this batcher serves over (None: one
+        #: device); ``tp`` its axis and Megatron operators
+        self.mesh = mesh
+        self.tp = None
+        if mesh is not None:
+            from tpulab_torch.engine.sharded import (check_head_split,
+                                                     mesh_device)
+            from tpulab_torch.parallel.tensor_parallel import TensorParallel
+            self.tp = TensorParallel(mesh)
+            check_head_split(n_heads, n_kv, self.tp.size)
+            if device is not None and resolve_device(device) != \
+                    mesh_device(mesh):
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh_device(mesh)}")
+            device = mesh_device(mesh)
         self.device = (pool.device if pool is not None
                        else resolve_device(device))
-        if prefill_flash is False and self.device.type == "cuda":
+        if (prefill_flash is False and self.device.type == "cuda"
+                and mesh is None):
             raise NotImplementedError(
                 "prefill_flash=False (dense prompt attention) is not "
                 "carried to tpulab_torch on the card: it would route the "
@@ -1069,10 +1339,16 @@ class ContinuousBatcher:
             if dl > n_layers:
                 raise ValueError("draft_n_layers must be <= n_layers (the "
                                  "draft shares the pool's layer axis)")
+            if self.tp is not None:
+                check_head_split(dh, dkv, self.tp.size)
         self._owns_pool = pool is None
         self.pool = pool or PagedKVPool(
             n_pages or self.max_pages * lanes + 1, page_size, n_layers,
-            n_kv, d_model // n_heads, kv_dtype, self.device)
+            n_kv, d_model // n_heads, kv_dtype, self.device, mesh=mesh)
+        #: rank 0 of the mesh's ``model`` axis (or no mesh): this rank
+        #: schedules and takes ``submit``; a follower replays its device
+        #: operations (engine/sharded.py)
+        self.is_coordinator = self.pool.coordinator
         # the HBM economy (tpulab_torch.hbm): with an arbiter the batcher
         # is the KV TENANT — the page store becomes elastic (a KV burst
         # wins bytes from cold models through the arbiter's pressure
@@ -1098,16 +1374,19 @@ class ContinuousBatcher:
         #: the weights; ``None`` while a
         #: :class:`~tpulab_torch.modelstore.BatcherAdapter` has them
         #: swapped out (the batcher must be idle then)
-        self.params = _tree_to(tree, self.device)
+        #: under a mesh: this rank's Megatron shards only
+        self.params = self._place(tree)
         self.n_layers = n_layers
         self._step_kw = dict(n_heads=n_heads, n_layers=n_layers,
                              compute_dtype=compute_dtype,
-                             n_kv_heads=n_kv, rope_theta=rope_theta)
+                             n_kv_heads=n_kv, rope_theta=rope_theta,
+                             tensor_parallel=self.tp)
         #: dispatch plan: fused mixed rounds (ragged) or per-prompt prefill
         #: forwards then decode (split)
         self.ragged = True if ragged is None else bool(ragged)
         if prefill_flash is None:
-            prefill_flash = self.device.type == "cuda"
+            # under a mesh the split plan (CPU only) prefills densely
+            prefill_flash = self.device.type == "cuda" and mesh is None
         #: the split plan's full-prompt forward attends through the flash
         #: kernel; a failure there fails the requests (the scheduler's
         #: recovery path) and leaves this as set
@@ -1145,12 +1424,13 @@ class ContinuousBatcher:
         #: the ragged kernel runs ``draft_n_layers`` times in each
         self.draft_forward_steps = 0
         if draft_params is not None:
-            self._spec = {"params": _tree_to(dtree, self.device)}
+            self._spec = {"params": self._place(dtree)}
             self._spec_kw = dict(n_heads=n_heads, n_layers=n_layers,
                                  draft_n_heads=dh, draft_n_layers=dl,
                                  compute_dtype=compute_dtype,
                                  n_kv_heads=n_kv, draft_n_kv_heads=dkv,
-                                 rope_theta=rope_theta)
+                                 rope_theta=rope_theta,
+                                 tensor_parallel=self.tp)
             # one program for every K (PyTorch runs eagerly: nothing to
             # compile per draft length)
             self._spec_block = self._program(functools.partial(
@@ -1160,9 +1440,12 @@ class ContinuousBatcher:
             self._draft_extend = self._program(functools.partial(
                 paged_extend, n_heads=dh, n_layers=dl,
                 compute_dtype=compute_dtype, n_kv_heads=dkv,
-                rope_theta=rope_theta))
+                rope_theta=rope_theta, tensor_parallel=self.tp))
         self.decode_block = min(int(decode_block), self.BLOCK_K_MENU[-1])
         self._pending_block: Optional[Dict[str, Any]] = None
+        #: the last decode block's device carry and sampling state, which
+        #: a dispatched-ahead block chains from (kept on every rank)
+        self._chain = None
         self._step_ewma_s = 0.0
         # -- dispatch/sync accounting ------------------------------------
         self.decode_dispatches = 0   # device dispatches (mixed + decode)
@@ -1194,7 +1477,10 @@ class ContinuousBatcher:
         # swaps it back (no re-prefill), and prefix-cache eviction demotes
         # to / promotes from the host tier.
         self._owns_offload = False
-        if kv_offload is None or kv_offload is False:
+        if (kv_offload is None or kv_offload is False
+                or not self.is_coordinator):
+            # followers replay the tier's gathers and scatters through
+            # the pool; the host tier itself is the coordinator's
             self.kv_offload = None
         else:
             from tpulab_torch.kvcache import (DEFAULT_HOST_BUDGET,
@@ -1276,8 +1562,10 @@ class ContinuousBatcher:
         self.tokens_generated = 0
         self._cv = threading.Condition()
         self._shutdown = False
-        self._thread = threading.Thread(target=self._run, name="cbatch",
-                                        daemon=True)
+        self._thread = threading.Thread(
+            target=self._run if self.is_coordinator else self._follow,
+            name="cbatch" if self.is_coordinator else "cbatch-follower",
+            daemon=True)
         self._thread.start()
 
     # -- public -------------------------------------------------------------
@@ -1321,6 +1609,7 @@ class ContinuousBatcher:
         if request_class not in ("online", "", "batch"):
             raise ValueError(f"unknown request_class {request_class!r} "
                              "(want 'online' or 'batch')")
+        self._check_coordinator("submit")
         deadline = self._check_request(prompt, steps, deadline)
         if export_digest is not None and self.kv_offload is None:
             raise ValueError("export_digest requires kv_offload")
@@ -1339,6 +1628,14 @@ class ContinuousBatcher:
             self._requests[req.future] = req
             self._cv.notify()
         return req.future
+
+    def _check_coordinator(self, what: str) -> None:
+        if not self.is_coordinator:
+            raise RuntimeError(
+                f"{what} on a follower rank: rank 0 of the mesh's 'model' "
+                "axis schedules and takes requests")
+        if self.pool.channel is not None:
+            self.pool.channel.check()
 
     def _check_request(self, prompt, steps: int, deadline):
         """Reject a malformed request at the host boundary; returns the
@@ -1386,6 +1683,7 @@ class ContinuousBatcher:
         sampling) are rejected: their PRNG stream is keyed by draw order,
         which does not survive the replica hop; greedy and device-sampled
         streams are keyed by (seed, position) and do."""
+        self._check_coordinator("submit_shipped")
         deadline = self._check_request(prompt, steps, deadline)
         n_prompt = np.asarray(prompt).size
         if not 0 <= int(first_token) < self.vocab:
@@ -1445,10 +1743,15 @@ class ContinuousBatcher:
             future.cancel()
 
     def shutdown(self) -> None:
+        """Finish the queued and active requests, then stop.  Under a mesh
+        the coordinator's shutdown then ends every follower's replay; a
+        follower's returns when that has happened."""
         with self._cv:
             self._shutdown = True
             self._cv.notify()
-        self._thread.join(timeout=30)
+        self._thread.join(timeout=30 if self.is_coordinator else None)
+        if self.is_coordinator and not self._thread.is_alive():
+            self.pool.stop_followers()
         if not self._thread.is_alive() and self.prefix_cache is not None:
             self.prefix_cache.on_evict = None  # shutdown clear != pressure
             self.prefix_cache.clear()
@@ -2172,6 +2475,99 @@ class ContinuousBatcher:
         with torch.inference_mode():
             self._loop()
 
+    # -- the device operations (replayed by a mesh's followers) -------------
+    def _place(self, tree):
+        """A served tree on this batcher's device: under a mesh, this
+        rank's Megatron shards only (:func:`~tpulab_torch.engine.sharded.
+        local_params`)."""
+        if self.mesh is None:
+            return _tree_to(tree, self.device)
+        from tpulab_torch.engine.sharded import local_params
+        return local_params(tree, self.mesh, self.device)
+
+    def _follow(self) -> None:
+        """A follower's thread: replay the coordinator's operations on
+        this rank's shards until its shutdown, or until the mesh fails
+        (then ``mesh_failure`` says why)."""
+        from tpulab_torch.engine.sharded import MeshFailure
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        try:
+            with torch.inference_mode():
+                self.pool.follow({"prefill": self._op_prefill,
+                                  "extend": self._op_extend,
+                                  "mixed": self._op_mixed,
+                                  "block": self._op_block,
+                                  "step": self._op_step,
+                                  "spec": self._op_spec})
+        except MeshFailure:
+            _log.exception("follower rank %d: the mesh failed; replay ends",
+                           self.tp.rank)
+
+    @property
+    def mesh_failure(self) -> Optional[str]:
+        """Why this batcher's mesh failed (None while it serves, and
+        without a mesh): a failed mesh runs nothing more."""
+        ch = self.pool.channel
+        return None if ch is None else ch.failure
+
+    def _launch(self, op: str, *args, **kw):
+        """Run device operation ``op`` on host arguments; under a mesh the
+        coordinator first publishes it to the followers (host values
+        only), which replay it on their shards in this order
+        (:meth:`~tpulab_torch.engine.sharded.MeshChannel.run`)."""
+        fn = getattr(self, f"_op_{op}")
+        if self.pool.channel is not None:
+            return self.pool.channel.run(op, fn, *args, **kw)
+        return fn(*args, **kw)
+
+    def _op_prefill(self, tables, tokens, t):
+        return self._prefill(self.params, self.pool.kv, self._to_dev(tables),
+                             self._to_dev(tokens), t)
+
+    def _op_extend(self, tables, tokens, start, end, draft=False):
+        fn, params = ((self._draft_extend, self._spec["params"]) if draft
+                      else (self._extend, self.params))
+        return fn(params, self.pool.kv, self._to_dev(tables),
+                  self._to_dev(tokens), start, end)
+
+    def _op_mixed(self, *host):
+        return self._mixed_step(self.params, self.pool.kv,
+                                *(self._to_dev(a) for a in host))
+
+    def _op_block(self, tables, k, state=None):
+        """A K-step decode block from host ``state`` (lengths, tokens,
+        active, temps, seeds, steps left, stop ids) or, with None, chained
+        from the last block's device carry (dispatch-ahead).  Returns the
+        block's (tokens, logprobs, emitted)."""
+        if state is None:
+            (lengths, tokens, active, rem), host = self._chain
+        else:
+            lengths, tokens, active, temps, seeds, rem, stops = (
+                self._to_dev(a) for a in state)
+            host = (temps, seeds, stops)
+        temps, seeds, stops = host
+        toks, lps, ems, *carry = self._decode_block(
+            self.params, self.pool.kv, self._to_dev(tables), lengths,
+            tokens, active, temps, seeds, rem, stops, k=k)
+        self._chain = (tuple(carry), host)
+        return toks, lps, ems
+
+    def _op_step(self, tables, lengths, tokens, active, temps=None,
+                 seeds=None):
+        args = (self.params, self.pool.kv, self._to_dev(tables),
+                self._to_dev(lengths), self._to_dev(tokens),
+                self._to_dev(active))
+        if temps is None:
+            return self._decode_step(*args)
+        return self._decode_step(*args, temps=self._to_dev(temps),
+                                 seeds=self._to_dev(seeds))
+
+    def _op_spec(self, k, *host):
+        return self._spec_block(self.params, self._spec["params"],
+                                self.pool.kv,
+                                *(self._to_dev(a) for a in host), k=k)
+
     def _loop(self) -> None:
         while True:
             with self._cv:
@@ -2273,18 +2669,42 @@ class ContinuousBatcher:
                 _log.exception("scheduler step failed; failing the active "
                                "requests and resetting the pool")
                 self._pending_block = None
-                with self._cv:
-                    for lane, req in enumerate(self._active):
-                        if req is not None:
-                            if not req.future.done():
-                                self._flight_complete(req, "INTERNAL")
-                                req.future.set_exception(e)
-                            self._requests.pop(req.future, None)
-                            self._discard_handle(req)
-                            self._active[lane] = None
+                self._fail_requests(e, queued=False)
                 if self.prefix_cache is not None:
                     self.prefix_cache.drop_all()
-                self.pool.reset()
+                if self.mesh_failure is None:
+                    try:
+                        self.pool.reset()
+                        continue
+                    except Exception as e2:  # noqa: BLE001 - see below
+                        if self.mesh_failure is None:
+                            raise
+                        e = e2
+                # a failed mesh runs nothing more: every request fails and
+                # the scheduler ends (submit raises from now on)
+                self._fail_requests(e, queued=True)
+                return
+
+    def _fail_requests(self, e: BaseException, queued: bool) -> None:
+        """Fail every active request with ``e`` (and, with ``queued``,
+        every queued one), returning their lanes."""
+        with self._cv:
+            for lane, req in enumerate(self._active):
+                if req is not None:
+                    if not req.future.done():
+                        self._flight_complete(req, "INTERNAL")
+                        req.future.set_exception(e)
+                    self._requests.pop(req.future, None)
+                    self._discard_handle(req)
+                    self._active[lane] = None
+            if queued:
+                for req in self._queue:
+                    if not req.future.done():
+                        self._flight_complete(req, "INTERNAL")
+                        req.future.set_exception(e)
+                    self._requests.pop(req.future, None)
+                    self._discard_handle(req)
+                self._queue[:] = []
 
     # -- split dispatch plan (per-prompt prefill forwards) --------------------
     def _program(self, fn, skip=(0, 1)):
@@ -2350,7 +2770,6 @@ class ContinuousBatcher:
         start = len(shared) * self.page_size
         tables = np.zeros((self.max_pages,), np.int32)
         tables[:len(req.pages)] = req.pages
-        tables_d = self._to_dev(tables)
         # pages secured: the queue wait ends here (first prefill only — a
         # preemption resume re-prefills but left the queue once already)
         t_pf0 = _time.perf_counter()
@@ -2372,8 +2791,7 @@ class ContinuousBatcher:
             t_pad = 1 << (t - 1).bit_length()   # pow2 length bucket
             tokens = np.zeros((1, t_pad), np.int64)
             tokens[0, :t] = prompt
-            last = self._prefill(self.params, self.pool.kv, tables_d,
-                                 self._to_dev(tokens), t)
+            last = self._launch("prefill", tables, tokens, t)
             self.prefill_forwards += 1
         else:
             # tail (and/or chunked) prefill against resident context
@@ -2383,8 +2801,8 @@ class ContinuousBatcher:
                 m_pad = 1 << (m - 1).bit_length()
                 tokens = np.zeros((1, m_pad), np.int64)
                 tokens[0, :m] = prompt[start:start + m]
-                last = self._extend(self.params, self.pool.kv, tables_d,
-                                    self._to_dev(tokens), start, start + m)
+                last = self._launch("extend", tables, tokens, start,
+                                    start + m)
                 self.forward_steps += 1
                 start += m
         req.length = t
@@ -2561,13 +2979,16 @@ class ContinuousBatcher:
         self.decode_host_syncs += 1
         return self._to_host(*tensors)
 
-    @staticmethod
-    def _to_host(*tensors) -> List[np.ndarray]:
+    def _to_host(self, *tensors) -> List[np.ndarray]:
         """ONE blocking device->host copy of several device tensors, each
         returned as a numpy array of its own dtype and shape (packed as
-        float64, which holds token ids, f32 values and masks exactly)."""
+        float64, which holds token ids, f32 values and masks exactly).
+        Under a mesh that failed meanwhile it raises instead: an aborted
+        collective leaves no result to trust."""
         host = torch.cat([t.reshape(-1).to(torch.float64)
                           for t in tensors]).cpu()
+        if self.pool.channel is not None:
+            self.pool.channel.check()
         out, i = [], 0
         for t in tensors:
             n = t.numel()
@@ -2674,10 +3095,8 @@ class ContinuousBatcher:
             # site (tpulab's place)
             chaos.trip("engine.step")
         t0 = _time.perf_counter()
-        nt_dev, lp_dev, last_dev = self._mixed_step(
-            self.params, self.pool.kv, self._to_dev(tables),
-            self._to_dev(seq), self._to_dev(q_lens), self._to_dev(kv_lens),
-            self._to_dev(temps), self._to_dev(seeds))
+        nt_dev, lp_dev, last_dev = self._launch(
+            "mixed", tables, seq, q_lens, kv_lens, temps, seeds)
         self.decode_dispatches += 1
         self.forward_steps += 1
         self._note_dispatch("mixed")
@@ -3040,17 +3459,18 @@ class ContinuousBatcher:
         return self._consume_block(
             self._dispatch_block(plan["parts"], plan["k"]))
 
-    def _dispatch_block(self, parts, k: int, carry=None, host=None):
-        """Enqueue one K-step decode block (no host sync).  ``carry`` /
-        ``host`` chain a follow-up block from the previous block's
-        device-resident state (dispatch-ahead)."""
+    def _dispatch_block(self, parts, k: int, chain: bool = False):
+        """Enqueue one K-step decode block (no host sync).  ``chain``
+        continues from the previous block's device-resident state
+        (dispatch-ahead)."""
         b = self.lanes
         tables = np.zeros((b, self.max_pages), np.int32)
         lane_reqs = {}
         for lane, req, _new in parts:
             lane_reqs[lane] = req
             tables[lane, :len(req.pages)] = req.pages
-        if host is None:
+        state = None
+        if not chain:
             lengths = np.zeros((b,), np.int64)
             tokens = np.zeros((b,), np.int64)
             active = np.zeros((b,), bool)
@@ -3073,14 +3493,7 @@ class ContinuousBatcher:
                 if req.stop_tokens:
                     st = sorted(req.stop_tokens)
                     stops[lane, :len(st)] = st
-            temps, seeds, stops = (self._to_dev(temps), self._to_dev(seeds),
-                                   self._to_dev(stops))
-            lengths, tokens, active, rem = (
-                self._to_dev(lengths), self._to_dev(tokens),
-                self._to_dev(active), self._to_dev(rem))
-        else:
-            temps, seeds, stops = host
-            lengths, tokens, active, rem = carry
+            state = (lengths, tokens, active, temps, seeds, rem, stops)
         # chaos: the decode fault site, tripped once per decode TICK (k
         # times a block, as tpulab does): a schedule written against
         # per-token serving keeps its meaning under fused blocks, and an
@@ -3088,15 +3501,11 @@ class ContinuousBatcher:
         for _ in range(k):
             chaos.trip("engine.step")
         t0 = _time.perf_counter()
-        toks, lps, ems, len_f, tok_f, live_f, rem_f = self._decode_block(
-            self.params, self.pool.kv, self._to_dev(tables), lengths,
-            tokens, active, temps, seeds, rem, stops, k=k)
+        dev = self._launch("block", tables, k, state)
         self.decode_dispatches += 1
         self.forward_steps += k
         self._note_dispatch("decode")
-        return {"k": k, "lane_reqs": lane_reqs, "dev": (toks, lps, ems),
-                "carry": (len_f, tok_f, live_f, rem_f),
-                "host": (temps, seeds, stops), "t0": t0}
+        return {"k": k, "lane_reqs": lane_reqs, "dev": dev, "t0": t0}
 
     def _consume_block(self, stash) -> bool:
         """Fetch a dispatched block (ONE host sync for up to K tokens per
@@ -3162,7 +3571,7 @@ class ContinuousBatcher:
                 k2, parts2 = self._reserve_block_pages(lanes_now, k)
                 if k2 == k and len(parts2) == len(lanes_now):
                     self._pending_block = self._dispatch_block(
-                        parts2, k, carry=stash["carry"], host=stash["host"])
+                        parts2, k, chain=True)
         for req, tok, i, lp in emits:
             self._emit(req, tok, i, lp)
         self._resolve(completed)
@@ -3186,9 +3595,7 @@ class ContinuousBatcher:
         tokens[0, :m] = ctx[start:t]
         tables = np.zeros((self.max_pages,), np.int32)
         tables[:len(req.draft_pages)] = req.draft_pages
-        self._draft_extend(self._spec["params"], self.pool.kv,
-                           self._to_dev(tables), self._to_dev(tokens),
-                           start, t)
+        self._launch("extend", tables, tokens, start, t, draft=True)
         req.draft_len = t
         self.spec_draft_prefills += 1
         self.draft_forward_steps += 1
@@ -3239,13 +3646,8 @@ class ContinuousBatcher:
                 stops[lane, :len(st)] = st
         t0 = _time.perf_counter()
         toks, lps, ems, _len, _tok, _live, _rem, drafted, accepted = \
-            self._spec_block(
-                self.params, self._spec["params"], self.pool.kv,
-                self._to_dev(tables), self._to_dev(dtables),
-                self._to_dev(lengths), self._to_dev(tokens),
-                self._to_dev(active), self._to_dev(temps),
-                self._to_dev(seeds), self._to_dev(rem), self._to_dev(stops),
-                k=k)
+            self._launch("spec", k, tables, dtables, lengths, tokens,
+                         active, temps, seeds, rem, stops)
         self.decode_dispatches += 1
         self.spec_dispatches += 1
         self.forward_steps += 1
@@ -3359,15 +3761,14 @@ class ContinuousBatcher:
         # requests and resets the pool; a delay slows every lane's step)
         chaos.trip("engine.step")
         t0 = _time.perf_counter()
-        args = (self.params, self.pool.kv, self._to_dev(tables),
-                self._to_dev(lengths), self._to_dev(tokens),
-                self._to_dev(active))
+        args = (tables, lengths, tokens, active)
         logprobs_arr = None
         if temps.any() or want_logp:
-            tok_dev, logp_dev, logits = self._decode_step(
-                *args, temps=self._to_dev(temps), seeds=self._to_dev(seeds))
+            tok_dev, logp_dev, logits = self._launch("step", *args,
+                                                     temps=temps,
+                                                     seeds=seeds)
         else:
-            logits = self._decode_step(*args)
+            logits = self._launch("step", *args)
             tok_dev, logp_dev = logits.argmax(-1), None
         self.decode_dispatches += 1
         self.forward_steps += 1

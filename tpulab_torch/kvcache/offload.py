@@ -39,6 +39,13 @@ forward reads the restored pages.  The pool is written IN PLACE:
 return a new, donated buffer), or None on a degraded path, which leaves
 the pool untouched.
 
+Under a mesh (``PagedKVPool(mesh=)``) the gather and the scatter are the
+pool's collectives (:meth:`~tpulab_torch.engine.paged.PagedKVPool.
+gather_pages`, ``scatter_pages``): every rank's KV heads are gathered to
+the coordinator and scattered back, so the host tier and the wire hold
+UNSHARDED pages, and a snapshot taken at one axis size restores at
+another or on one device.
+
 tpulab pads the page index to a power of two (onto scratch page 0) to
 bound its jit cache; eager PyTorch has no such cache, so the port gathers
 and scatters exactly the pages named and never writes any other page.
@@ -51,6 +58,7 @@ import threading
 import time as _time
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from tpulab_torch import chaos
@@ -116,10 +124,14 @@ class KVOffloadManager:
         self._owns_transfer = transfer is None
         self._transfer = transfer or TransferEngine(name="kvswap")
         self.metrics = metrics
-        # one page carries every layer's K+V rows for its S slots
-        shape = tuple(pool.kv.shape)      # (L, P, 2, S, Hkv, D)
-        self.page_nbytes = (pool.kv.numel() // shape[1]
+        # one page carries every layer's K+V rows for its S slots, every
+        # rank's KV heads under a mesh (the tier holds unsharded pages)
+        shape = tuple(getattr(pool, "logical_shape", pool.kv.shape))
+        self.page_nbytes = (int(np.prod(shape)) // shape[1]
                             * pool.kv.element_size())
+        #: a pool under a mesh gathers and scatters every rank's heads
+        #: itself (collectives the coordinator publishes to the followers)
+        self._sharded = getattr(pool, "mesh", None) is not None
         self._lock = threading.Lock()
         self._ops_cv = threading.Condition(self._lock)
         self._seq = 0
@@ -139,10 +151,13 @@ class KVOffloadManager:
         return torch.as_tensor(pages, dtype=torch.long).to(kv.device)
 
     def _gather(self, pages: List[int], kv: torch.Tensor) -> torch.Tensor:
-        """``kv[:, pages]`` on the caller's stream.  Running out of device
+        """``kv[:, pages]`` on the caller's stream (every rank's KV heads,
+        gathered to the coordinator, under a mesh).  Running out of device
         memory raises ChaosError (the degrade path); any other failure
         propagates."""
         try:
+            if self._sharded:
+                return self.pool.gather_pages(pages)
             got = pool_bytes(kv).index_select(1, self._index(pages, kv))
             return got.view(kv.dtype)
         except torch.OutOfMemoryError as e:
@@ -240,7 +255,11 @@ class KVOffloadManager:
                  kv: torch.Tensor) -> torch.Tensor:
         """``kv[:, pages] = data`` in place, on the caller's stream (a
         page-locked source copies asynchronously).  An fp8 pool is
-        written through its bytes: ``index_copy_`` has no fp8 kernel."""
+        written through its bytes: ``index_copy_`` has no fp8 kernel.
+        Under a mesh the pool scatters each rank its KV heads."""
+        if self._sharded:
+            self.pool.scatter_pages(pages, data)
+            return kv
         pool_bytes(kv).index_copy_(
             1, self._index(pages, kv),
             pool_bytes(data.to(kv.device, non_blocking=True)))

@@ -373,12 +373,15 @@ def transformer_forward_collect_kv(params: Tree, tokens: torch.Tensor,
                                    attention_fn: Callable = causal_attention,
                                    n_kv_heads: Optional[int] = None,
                                    rope_theta: Optional[float] = None,
-                                   last_index=None):
+                                   last_index=None, tensor_parallel=None):
     """Causal forward that also returns each layer's K/V (B, T, Hkv, Dh).
-    ``last_index`` keeps the logits of that one position: (B, vocab)."""
+    ``last_index`` keeps the logits of that one position: (B, vocab).
+    Under ``tensor_parallel`` the K/V hold every head and the logits this
+    rank's vocab columns (see :func:`_forward`)."""
     return _forward(params, tokens, n_heads, n_layers, compute_dtype,
                     attention_fn, collect_kv=True, n_kv_heads=n_kv_heads,
-                    rope_theta=rope_theta, last_index=last_index)
+                    rope_theta=rope_theta, last_index=last_index,
+                    tensor_parallel=tensor_parallel)
 
 
 def _tree(params) -> Tree:

@@ -194,9 +194,19 @@ class BatcherAdapter:
 
     Eviction safety: a batcher with active lanes or queued work refuses
     to detach (``busy()``), independently of the lease refcount — the
-    hard floor under "a decode-in-flight model is never evicted"."""
+    hard floor under "a decode-in-flight model is never evicted".
+
+    A batcher under a mesh (tpulab swaps its Megatron shards onto their
+    placements) is refused: every rank would have to move its shards
+    together, which the sharded batcher's followers do not replay yet.
+    """
 
     def __init__(self, batcher, builder: Optional[Callable] = None):
+        if getattr(batcher, "mesh", None) is not None:
+            raise NotImplementedError(
+                "a BatcherAdapter over a batcher under a mesh is not ported "
+                "to tpulab_torch yet (ROADMAP queue 1: parallelism, item 5: "
+                "BatcherAdapter and kv_publish under a mesh)")
         self.batcher = batcher
         self._rebuild_fn = builder
         self._placement = batcher.pool.device

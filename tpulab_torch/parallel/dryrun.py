@@ -23,9 +23,11 @@ import sys
 import tempfile
 from functools import partial
 
+import numpy as np
 import torch
 
 VOCAB, D_MODEL, N_HEADS, N_LAYERS, D_FF, SEQ = 128, 64, 4, 2, 128, 16
+SERVE_D_MODEL, SERVE_HEADS = 128, 2     # the paged tail's model
 ROPE = 10000.0
 LR = 1e-2
 
@@ -150,8 +152,42 @@ def _rank(rank: int, nproc: int, store: str, device) -> None:
     err = _check("pipeline", got, want)
     say(f"dryrun pipeline (pp={nproc}) ok: {tuple(got.shape)}, max err "
         f"{err:.1e} against the sequential stages", flush=True)
-    say("dryrun paged sharded decode: not ported: ROADMAP item 5, the "
-        "batcher under a mesh", flush=True)
+
+    # paged sharded decode: the serving path (ContinuousBatcher over a
+    # pool sharded on KV heads, the ragged kernel on each rank's heads)
+    # on {"model": 2} (a replica per pair of ranks) must emit the same
+    # tokens as mesh=None, greedy and device-sampled (tpulab's tail)
+    from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
+    n_tp = 2 if nproc % 2 == 0 else 1
+    serve_mesh = make_mesh({"data": nproc // n_tp, "model": n_tp})
+    # head dim 64: the ragged kernel's smallest on the card
+    lm = init_transformer_params(VOCAB, SERVE_D_MODEL, SERVE_HEADS, N_LAYERS,
+                                 D_FF, device=dev)
+    prompt = np.random.default_rng(0).integers(0, VOCAB, (6,), np.int32)
+    paged = {}
+    for name, m in (("single", None), ("sharded", serve_mesh)):
+        if m is None and axis_index(serve_mesh, "model"):
+            continue
+        cb = ContinuousBatcher(lm, n_heads=SERVE_HEADS, n_layers=N_LAYERS,
+                               lanes=2, max_len=48, page_size=8,
+                               compute_dtype=f32, rope_theta=ROPE,
+                               device=dev, mesh=m)
+        try:
+            if cb.is_coordinator:
+                paged[name] = [
+                    list(cb.submit(prompt, 12).result(timeout=600)),
+                    list(cb.submit(prompt, 12, sampling=SamplingParams(
+                        temperature=0.8, seed=7,
+                        device=True)).result(timeout=600))]
+        finally:
+            cb.shutdown()
+    if paged:
+        if paged["sharded"] != paged["single"]:
+            raise AssertionError(f"dryrun paged sharded decode diverged: "
+                                 f"{paged}")
+        say(f"dryrun paged sharded decode ok (mesh model={n_tp}): "
+            f"parity=True, greedy and device-sampled, 12 tokens each",
+            flush=True)
 
 
 def main(argv=None) -> int:

@@ -24,9 +24,15 @@ from torch.distributed.device_mesh import DeviceMesh
 
 
 def mesh_device_type() -> str:
-    """``"cuda"`` under NCCL, ``"cpu"`` under gloo: where the default
-    group's collectives run."""
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """Where the default group's collectives run: the device type
+    :func:`~tpulab_torch.parallel.multihost.initialize` chose (``"cuda"``
+    under NCCL or gloo's CUDA collectives, ``"cpu"`` under gloo on the
+    CPU); for a group opened elsewhere, ``"cuda"`` under NCCL, else
+    ``"cpu"``."""
+    from tpulab_torch.parallel import multihost
+
+    return multihost.device_type() or (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
 
 
 def make_mesh(axes: Dict[str, int], devices: Optional[Sequence[int]] = None

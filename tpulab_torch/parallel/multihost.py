@@ -10,7 +10,9 @@ one rank per device, so a "process" here is a rank.
   rank 0, or ``"file://<path>"`` -> a ``FileStore``), else from
   ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, else a
   group of one over an in-memory store.  NCCL on the card (the
-  default); gloo only when the caller passes ``device="cpu"``.
+  default); gloo only when the caller passes ``device="cpu"``, or asks
+  for it by name (``backend="gloo"``: its CUDA collectives).  Every
+  collective times out (``TIMEOUT_S``).
 - :func:`global_mesh` — every rank, data outermost, model inner.
 - :func:`barrier` — tpulab's psum barrier: ones all-reduced over the mesh.
 - :func:`local_data_slice` — the rows of a global batch this rank feeds.
@@ -20,6 +22,7 @@ one rank per device, so a "process" here is a rank.
 
 from __future__ import annotations
 
+import datetime
 import os
 import traceback
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -49,19 +52,44 @@ def _store(coordinator_address: str, world: int, rank: int):
     return dist.TCPStore(host, int(port), world, is_master=rank == 0)
 
 
+#: seconds a collective may wait for its partners before it raises (a
+#: lost rank ends in an error, not a hang)
+TIMEOUT_S = 600.0
+_device_type: Optional[str] = None
+
+
+def device_type() -> Optional[str]:
+    """Where the default group's ranks keep their tensors (``"cuda"`` or
+    ``"cpu"``), as :func:`initialize` chose it; None when another caller
+    opened the group."""
+    return _device_type
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device=None) -> None:
+               process_id: Optional[int] = None, device=None,
+               backend: Optional[str] = None) -> None:
     """Open the default process group; a no-op once it is open.
 
     ``device=None`` means the CUDA card (NCCL; raises without one) and
     sets this rank's current CUDA device to ``process_id`` modulo the
-    cards visible; ``device="cpu"`` takes gloo.  With no arguments and no
-    ``RANK`` / ``WORLD_SIZE`` in the environment the group holds this
-    process alone."""
+    cards visible; ``device="cpu"`` takes gloo.  ``backend="gloo"`` on
+    the card asks for gloo's CUDA collectives by name (ranks sharing one
+    card, which NCCL refuses).  Every collective raises after
+    :data:`TIMEOUT_S`.
+    With no arguments and no ``RANK`` / ``WORLD_SIZE`` in the environment
+    the group holds this process alone."""
+    global _device_type
     if dist.is_initialized():
         return
-    backend = _backend(device)
+    from tpulab_torch.cuda.platform import resolve_device
+
+    dev_type = resolve_device(device).type
+    if backend is None:
+        backend = _backend(device)
+    elif backend not in ("nccl", "gloo") or (backend == "nccl"
+                                             and dev_type != "cuda"):
+        raise ValueError(f"backend {backend!r} on {dev_type}")
     explicit = coordinator_address is not None or num_processes is not None
     if explicit:
         if None in (coordinator_address, num_processes, process_id):
@@ -75,11 +103,13 @@ def initialize(coordinator_address: Optional[str] = None,
                        f"{os.environ['MASTER_PORT']}", world, rank)
     else:
         world, rank, store = 1, 0, dist.HashStore()
-    if backend == "nccl":
+    if dev_type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank))
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world)
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    _device_type = dev_type
 
 
 def global_mesh(n_model: int = 1, extra_axes: Optional[Dict[str, int]] = None):

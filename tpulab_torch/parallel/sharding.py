@@ -69,9 +69,10 @@ def shard_batch(mesh, axis: str = "data") -> Placements:
 def kv_pool_sharding(mesh, model_axis: str = "model") -> Placements:
     """The paged pool's fused ``(n_layers, n_pages, 2, page_size,
     n_kv_heads, head_dim)`` payloads shard on the KV-heads dim (4),
-    matching the column-parallel ``wqkv`` that writes them.  The rule
-    only: no pool takes it yet (ROADMAP queue 1, item 5: the batcher
-    under a mesh)."""
+    matching the column-parallel ``wqkv`` that writes them:
+    ``PagedKVPool(mesh=)`` keeps rank r's heads ``[r*Hkv/M, (r+1)*Hkv/M)``
+    as a plain local tensor and reports these placements as its
+    ``kv_sharding``."""
     return named_sharding(mesh, None, None, None, None, model_axis, None)
 
 

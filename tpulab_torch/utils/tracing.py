@@ -138,6 +138,22 @@ def device_event_count(prof) -> int:
                if e.device_type() == cuda)
 
 
+def device_busy_ms(prof) -> float:
+    """The union of a stopped ``torch.profiler.profile``'s device kernel
+    intervals (ms): kernels of several streams may overlap, so their sum
+    can exceed the wall time."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def cuda_activity_requested(activities) -> bool:
     """Whether a session of these activities (None: torch's default, every
     supported one) traces the card; raises RuntimeError when it asks for
