@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``tpulab_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
+    python3 chip_smoke.py --profile  # also trace serve run 3 of phase 5
 
 Phases, each reported on its own lines with its seconds; any failure
 raises and the script exits non-zero without printing a result:
@@ -79,9 +80,9 @@ raises and the script exits non-zero without printing a result:
    the split plan (``ragged=False``: flash prefill, then K-blocks); then
    the same two serves with the int8 tree quantized on the card from the
    same weights over e4m3 pages (pool and weight bytes, tok/s and TTFT
-   beside the bf16 serves', run 3 of each ragged serve profiled for the
-   device's busy share), and one decode forward's device time with each
-   weight and page kind.  Per
+   beside the bf16 serves'; with ``--profile`` run 3 of each serve
+   traced for the device's busy share), and one decode forward's device
+   time with each weight and page kind.  Per
    plan: lengths, ranges, stop token, logprobs, dispatch kinds, kernel
    launches == n_layers x the forwards that run each kernel, every one
    of them on the ``wgmma`` body (bf16), and a second identical run
@@ -364,6 +365,36 @@ raises and the script exits non-zero without printing a result:
    launches == 32 x the coordinator's forward steps, and every stream
    equals mesh=None's or passes phase 7's bf16 noise rule; tok/s and
    peak memory per rank.
+15. rows   — tpulab's eleven bench rows through the port's functions,
+   each once, its JSON on a line of its own.  At Llama-3-8B width on one
+   bf16 tree (seed 0): ``benchmark_decode_dispatch`` (K 1 / 4 / 8 / 16,
+   4 lanes x 48 steps, prompt 8), ``benchmark_speculative_decode`` (k 8,
+   2 lanes x 48 steps, the 4-layer early-exit draft, tail scale 0.05),
+   ``benchmark_ragged_attention`` (3 lanes x 24 steps, prompt 12: the
+   split plan with flash prefill against the ragged plan) and
+   ``benchmark_llm_decode`` (8 lanes at context 1024, page 16, 64 steps
+   a pass; the int8 tree quantized from the same one).  At tpulab's own
+   geometry: ``benchmark_decode_kernel_sweep`` (d 1024, 4 layers, page
+   32; (8, 2048), (32, 2048), (8, 8192), (8, 16384)) and the dense
+   ``benchmark_speculative``.  At the arguments of tpulab's bench.py,
+   f32, at d_model 256 over 4 heads where bench.py's d_model 64 would
+   give head dim 16 (no kernel is built for it): ``benchmark_kv_offload``
+   (4 + 4 requests, 20 steps), ``benchmark_disagg`` (8 x 48 tokens x 8
+   steps), ``benchmark_hbm_arbiter`` (12 requests) and
+   ``benchmark_multi_model`` (6 switches x 8 steps).  The batchers each
+   row builds are recorded; the phase fails on any ``error`` key, a
+   tok/s <= 0, kernel 1 launches other than n_layers x forward steps (+
+   draft layers x draft forwards + the speculative row's block-size
+   warm-up) or kernel 2 launches other than n_layers x the split plan's
+   prefill forwards (the sweep and llm_decode: n_layers x 3 x iters a
+   timed pass set, the gather side none), syncs per token not falling
+   as K grows, int8 megabytes not below bf16's, no hbm demotion or
+   eviction, or a disagg run whose shipments are not one a request with
+   no failure and no decode-side prefill.  Parity flags: ``parity_vs_k1`` and the multi-model flags
+   bit for bit; the speculative and ragged rows' (bf16) by phase 7's
+   bf16 noise rule over the recorded stream pairs; the dense
+   ``exact_match``, disagg's and hbm's tokens (f32) by phase 4's margin
+   rule (hbm's model outputs bit for bit).  Seconds per row printed.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -2502,8 +2533,7 @@ def phase_serve(torch, card, profile=False):
     out = {}
     for plan in ("ragged", "split"):
         t1 = time.perf_counter()
-        out[plan] = serve_plan(torch, model, prompts, plan, card,
-                               profile or plan == "ragged")
+        out[plan] = serve_plan(torch, model, prompts, plan, card, profile)
         log(f"serve: {plan} plan {time.perf_counter() - t1:.1f} s")
     # W8A16 with e4m3 pages: the int8 tree quantized on the card from the
     # same bf16 weights (before the spec serve scales them)
@@ -2522,8 +2552,8 @@ def phase_serve(torch, card, profile=False):
     for plan in ("ragged", "split"):
         t1 = time.perf_counter()
         out[f"int8 {plan}"] = serve_plan(
-            torch, qmodel, prompts, plan, card, profile or plan == "ragged",
-            kv_dtype=e4m3, weights="int8")
+            torch, qmodel, prompts, plan, card, profile, kv_dtype=e4m3,
+            weights="int8")
         log(f"serve: int8/e4m3 {plan} plan {time.perf_counter() - t1:.1f} s")
     out["forward"] = {
         "bf16": forward_device_ms(torch, model.params, torch.bfloat16,
@@ -6501,6 +6531,402 @@ def phase_sharded(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+# tpulab's bench rows on the card.  The serving rows at Llama-3-8B width
+# over one bf16 tree (phase 5's seed); the kernel sweep at tpulab's own
+# geometry; the host-tier rows at the arguments of tpulab's bench.py.
+ROWS_DECODE_DISPATCH = dict(ks=(1, 4, 8, 16), lanes=4, steps=48,
+                            prompt_len=8)
+ROWS_SPEC_DECODE = dict(k=8, lanes=2, steps=48,
+                        draft_layers=SPEC_DRAFT_LAYERS,
+                        tail_scale=SPEC_TAIL_SCALE)
+ROWS_RAGGED = dict(lanes=3, steps=24, prompt_len=12, kernel=True)
+ROWS_LLM_DECODE = dict(lanes=8, ctx=1024, page_size=16, iters=64)
+# tpulab's sweep at its defaults
+ROWS_SWEEP = dict(n_heads=8, n_layers=4, d_model=1024, page_size=32,
+                  combos=((8, 2048), (32, 2048), (8, 8192), (8, 16384)))
+# tpulab's bench.py runs kv_offload, disagg and multi_model at their
+# default d_model 64 over 4 heads: head dim 16, which no kernel is built
+# for (64, 128, 256).  They run at hbm_arbiter's own width, d_model 256
+# over 4 heads (head dim 64); everything else is bench.py's.
+ROWS_HOST_WIDTH = dict(d_model=256, n_heads=4)
+ROWS_KV_OFFLOAD = dict(n_low=4, n_hi=4, steps=20)
+ROWS_DISAGG = dict(n_requests=8, prompt_len=48, steps=8)
+ROWS_HBM = dict(n_llm=12)
+ROWS_MULTI_MODEL = dict(switches=6, steps=8)
+
+
+class BatcherLog:
+    """While a row runs, the port's ``ContinuousBatcher`` is a recording
+    subclass: every batcher the row builds, in order, and each request's
+    prompt, steps and future (``submit`` and ``submit_shipped``).  The
+    forward counters survive ``shutdown``."""
+
+    def __init__(self):
+        self.made = []
+
+    def __enter__(self):
+        import numpy as np
+
+        from tpulab_torch.engine import paged
+
+        made = self.made
+        self._paged, self._base = paged, paged.ContinuousBatcher
+
+        class Recorded(self._base):
+            def __init__(self, *a, **kw):
+                self.requests = []
+                super().__init__(*a, **kw)
+                made.append(self)
+
+            def submit(self, prompt, steps, *a, **kw):
+                fut = super().submit(prompt, steps, *a, **kw)
+                self.requests.append((np.asarray(prompt), steps, fut))
+                return fut
+
+            def submit_shipped(self, prompt, steps, *a, **kw):
+                fut = super().submit_shipped(prompt, steps, *a, **kw)
+                self.requests.append((np.asarray(prompt), steps, fut))
+                return fut
+
+        paged.ContinuousBatcher = Recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._paged.ContinuousBatcher = self._base
+        return False
+
+    def total(self, name):
+        return sum(getattr(cb, name) for cb in self.made)
+
+
+def stream_pairs(a, b):
+    """(prompt, a's tokens, b's tokens) for every request of batcher ``a``
+    matched with ``b``'s request of the same prompt and steps, in order of
+    submission within each (prompt, steps)."""
+    theirs = {}
+    for prompt, steps, fut in b.requests:
+        theirs.setdefault((prompt.tobytes(), steps), []).append(fut)
+    pairs = []
+    for prompt, steps, fut in a.requests:
+        other = theirs.get((prompt.tobytes(), steps))
+        if other:
+            pairs.append((prompt, list(fut.result()),
+                          list(other.pop(0).result())))
+    return pairs
+
+
+def row_errors(row, path=""):
+    """Every ``error`` / ``*_error`` key of a row, at any depth."""
+    out = []
+    items = row.items() if isinstance(row, dict) else enumerate(row)
+    for k, v in items:
+        here = f"{path}/{k}"
+        if isinstance(k, str) and (k == "error" or k.endswith("_error")):
+            out.append(f"{here}: {v}")
+        elif isinstance(v, (dict, list)):
+            out += row_errors(v, here)
+    return out
+
+
+def row_rates(row, path=""):
+    """Every ``*tok_s`` value of a row, at any depth."""
+    out = {}
+    items = row.items() if isinstance(row, dict) else enumerate(row)
+    for k, v in items:
+        here = f"{path}/{k}"
+        if isinstance(k, str) and k.endswith("tok_s"):
+            out[here] = v
+        elif isinstance(v, (dict, list)):
+            out.update(row_rates(v, here))
+    return out
+
+
+def hold_flag(torch, label, flag, rule, pairs, params, kw):
+    """A parity flag of a row: True, or (``rule`` "margin": f32, the
+    margin rule of phase 4; "bf16": phase 7's bf16 noise rule) every
+    differing stream pair passes the rule.  ``rule`` "exact" (bit for bit)
+    takes the flag as it is.  Returns a note for the log."""
+    if flag is True:
+        return "equal"
+    if rule == "exact" or not pairs:
+        raise AssertionError(f"rows: {label} is {flag} (held bit for bit)")
+    notes = []
+    for prompt, want, got in pairs:
+        if want == got:
+            continue
+        if rule == "margin":
+            note = same_or_near_tie(torch, params, kw, label, prompt, want,
+                                    got)
+        else:
+            note = same_or_bf16_noise(torch, params, kw, label, prompt,
+                                      want, got)
+        if note not in notes:
+            notes.append(note)
+    if not notes:
+        raise AssertionError(f"rows: {label} is {flag} but every recorded "
+                             "stream pair is equal")
+    return "; ".join(notes)
+
+
+def run_row(torch, name, fn, kw, expect, bf16=False):
+    """``fn(**kw)`` once with kernels 1 and 2 counted from 0 and the
+    batchers recorded; prints the row's JSON on its own line.  ``expect``
+    (BatcherLog, row) -> (kernel 1 launches, kernel 2 launches) the row
+    must have made.  Fails on an error key, a tok/s <= 0, or launches
+    other than expected (with ``bf16`` every kernel 1 launch on
+    ``wgmma``)."""
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    for k in (ragged_paged_attention, flash_attention):
+        k.launches = 0
+        k.launches_by_body = dict.fromkeys(k.launches_by_body, 0)
+    t0 = time.perf_counter()
+    with BatcherLog() as rec:
+        row = fn(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"rows: {json.dumps({name: row})}")
+    errors = row_errors(row)
+    if errors:
+        raise AssertionError(f"rows: {name}: {errors}")
+    rates = row_rates(row)
+    bad = {k: v for k, v in rates.items() if not v > 0}
+    if bad:
+        raise AssertionError(f"rows: {name}: tok/s <= 0 at {bad}")
+    ra, fl = ragged_paged_attention.launches, flash_attention.launches
+    want_ra, want_fl = expect(rec, row)
+    by_body = dict(ragged_paged_attention.launches_by_body)
+    if (ra, fl) != (want_ra, want_fl) or (bf16 and by_body["wgmma"] != ra):
+        raise AssertionError(f"rows: {name}: kernel 1 launches {ra} (by "
+                             f"body {by_body}), kernel 2 {fl}; want "
+                             f"{want_ra}, {want_fl}")
+    log(f"rows: {name}: {secs:.1f} s; {len(rec.made)} batchers; kernel 1 "
+        f"launches {ra} {by_body}, kernel 2 {fl}, as counted from the "
+        "batchers' forwards")
+    return row, rec, secs, (ra, fl)
+
+
+def batcher_launches(n_layers, draft_layers=0, warm=0):
+    """Expected launches of a batcher row: kernel 1 ``n_layers`` x forward
+    steps (+ draft layers x draft forwards + ``warm``), kernel 2
+    ``n_layers`` x the split plan's flash prefill forwards."""
+    def expect(rec, row):
+        return (n_layers * rec.total("forward_steps")
+                + draft_layers * rec.total("draft_forward_steps") + warm,
+                n_layers * rec.total("prefill_forwards"))
+    return expect
+
+
+def spec_warm_launches(k, n_layers, draft_layers, menu):
+    """Kernel 1 launches of ``_warm_block_sizes`` in the plain and the
+    speculating batcher: a plain block of m steps runs m forwards (K=1
+    excepted), a speculative one m + 1 draft forwards and one verify."""
+    plain = sum(m for m in menu if 1 < m <= k) * n_layers
+    spec = sum((m + 1) * draft_layers + n_layers for m in menu if m <= k)
+    return plain + spec
+
+
+def phase_rows(torch, card):
+    """Phase 15: tpulab's eleven bench rows through the port's functions,
+    each once, on the card."""
+    import numpy as np
+
+    from tpulab_torch.disagg import benchmark_disagg
+    from tpulab_torch.engine import paged
+    from tpulab_torch.engine.speculative import (SpeculativeGenerator,
+                                                 benchmark_speculative)
+    from tpulab_torch.hbm import benchmark_hbm_arbiter
+    from tpulab_torch.kvcache import benchmark_kv_offload
+    from tpulab_torch.models.transformer import (init_transformer_params,
+                                                 make_generate_fn)
+    from tpulab_torch.modelstore import benchmark_multi_model
+
+    t_phase = time.perf_counter()
+    c = LLAMA3_8B
+    L = c["n_layers"]
+    # the rows' own widths; the tree (``params=``) carries the rest
+    width = dict(vocab=c["vocab"], d_model=c["d_model"],
+                 n_heads=c["n_heads"], n_layers=L, n_kv_heads=c["n_kv_heads"],
+                 rope_theta=c["rope_theta"])
+    t0 = time.perf_counter()
+    params = full_width_params(torch, L, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    log(f"rows: Llama-3-8B-width bf16 tree {time.perf_counter() - t0:.1f} "
+        "s")
+    kw8 = dict(n_heads=c["n_heads"], n_layers=L, n_kv_heads=c["n_kv_heads"],
+               rope_theta=c["rope_theta"], compute_dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    rows, secs, notes = {}, {}, {}
+    launches = [0, 0]
+
+    def row(name, fn, kw, expect, bf16=False):
+        rows[name], rec, secs[name], n = run_row(torch, name, fn, kw,
+                                                 expect, bf16)
+        launches[0] += n[0]
+        launches[1] += n[1]
+        return rows[name], rec
+
+    # decode dispatch: K-blocks against K=1, bit for bit
+    r, _ = row("decode_dispatch", paged.benchmark_decode_dispatch,
+               dict(ROWS_DECODE_DISPATCH, **width, dtype=bf, params=params,
+                    device="cuda"), batcher_launches(L), bf16=True)
+    ks = ROWS_DECODE_DISPATCH["ks"]
+    for k in ks[1:]:
+        notes[f"decode_dispatch K={k}"] = hold_flag(
+            torch, f"decode_dispatch parity_vs_k1 at K={k}",
+            r["k"][str(k)]["parity_vs_k1"], "exact", [], params, kw8)
+    spt = [r["k"][str(k)]["syncs_per_token"] for k in ks]
+    if any(b >= a for a, b in zip(spt, spt[1:])):
+        raise AssertionError(f"rows: decode_dispatch syncs per token "
+                             f"{spt} do not fall as K grows {ks}")
+
+    # speculative decode: the split plan's spec blocks against plain ones
+    sd = ROWS_SPEC_DECODE
+    r, rec = row("speculative_decode", paged.benchmark_speculative_decode,
+                 dict(sd, **width, dtype=bf, params=params, device="cuda"),
+                 batcher_launches(L, sd["draft_layers"], spec_warm_launches(
+                     sd["k"], L, sd["draft_layers"],
+                     paged.ContinuousBatcher.BLOCK_K_MENU)), bf16=True)
+    if r["parity"] is not True:
+        scaled = paged._scaled_tail(params, sd["draft_layers"], L,
+                                    sd["tail_scale"])
+        notes["speculative_decode"] = hold_flag(
+            torch, "speculative_decode spec vs plain", r["parity"], "bf16",
+            stream_pairs(*rec.made), scaled, kw8)
+        del scaled
+    else:
+        notes["speculative_decode"] = "equal"
+
+    # ragged attention: the split plan (flash prefill) against the ragged
+    # plan, both on kernel 1
+    r, rec = row("ragged_attention", paged.benchmark_ragged_attention,
+                 dict(ROWS_RAGGED, **width, dtype=bf, params=params,
+                      device="cuda"), batcher_launches(L), bf16=True)
+    notes["ragged_attention"] = hold_flag(
+        torch, "ragged_attention ragged_kernel vs legacy",
+        r["ragged_kernel"]["parity"], "bf16", stream_pairs(*rec.made),
+        params, kw8)
+
+    # llm decode: bf16 against the int8 tree quantized from the same one
+    ld = ROWS_LLM_DECODE
+    r, _ = row("llm_decode", paged.benchmark_llm_decode,
+               dict(ld, **width, dtype=bf, params=params, device="cuda"),
+               lambda rec, row: (2 * L * 3 * ld["iters"], 0), bf16=True)
+    if not r["int8_param_mb"] < r["bf16_param_mb"]:
+        raise AssertionError(f"rows: llm_decode int8 {r['int8_param_mb']} "
+                             f"MB not below bf16 {r['bf16_param_mb']} MB")
+    del params
+    torch.cuda.empty_cache()
+
+    # kernel 1 against the gather math at tpulab's (lanes, context) combos
+    sw = ROWS_SWEEP
+    iters = [max(16, int(256 * (8 * 2048) / (b * ctx)))
+             for b, ctx in sw["combos"]]
+    row("decode_kernel_sweep", paged.benchmark_decode_kernel_sweep,
+        dict(sw, device="cuda"),
+        lambda rec, row: (sum(sw["n_layers"] * 3 * i for i in iters), 0))
+
+    # the dense speculative generator against plain greedy, f32
+    recorded = []
+    generate = SpeculativeGenerator.generate
+
+    def recording(self, prompt, steps):
+        out = generate(self, prompt, steps)
+        recorded.append((np.asarray(prompt), out))
+        return out
+    SpeculativeGenerator.generate = recording
+    try:
+        r, _ = row("speculative", benchmark_speculative,
+                   dict(device="cuda"), lambda rec, row: (0, 0))
+    finally:
+        SpeculativeGenerator.generate = generate
+    if r["exact_match"] is not True:
+        sp = dict(n_heads=8, n_layers=8, compute_dtype=torch.float32)
+        target = paged._scaled_tail(
+            init_transformer_params(2048, 512, 8, 8, 2048, seed=0,
+                                    device="cuda"), 2, 8, 0.05)
+        prompt, got = recorded[-1]
+        want = make_generate_fn(target, max_len=512, **sp)(
+            prompt[None], len(got))[0].tolist()
+        notes["speculative"] = hold_flag(
+            torch, "speculative exact_match", False, "margin",
+            [(prompt, want, got)], target, sp)
+    else:
+        notes["speculative"] = "equal"
+
+    # the host-tier rows, f32 at head dim 64, on trees drawn here (seed 0)
+    def small_tree(vocab, d_model, n_heads, n_layers):
+        return init_transformer_params(vocab, d_model, n_heads, n_layers,
+                                       4 * d_model, device="cuda")
+
+    def f32_kw(n_heads, n_layers):
+        return dict(n_heads=n_heads, n_layers=n_layers, n_kv_heads=n_heads,
+                    compute_dtype=torch.float32)
+
+    hw = ROWS_HOST_WIDTH
+    r, _ = row("kv_offload", benchmark_kv_offload,
+               dict(ROWS_KV_OFFLOAD, **hw, device="cuda",
+                    params=small_tree(256, hw["d_model"], hw["n_heads"], 2)),
+               batcher_launches(2))
+    tree = small_tree(256, hw["d_model"], hw["n_heads"], 2)
+    r, rec = row("disagg", benchmark_disagg,
+                 dict(ROWS_DISAGG, **hw, params=tree, device="cuda"),
+                 batcher_launches(2))
+    # a lost shipment falls back to a local prefill and still gives equal
+    # tokens: the mechanism is held to its counts as the CPU test holds it
+    d, n_req = r["disagg"], ROWS_DISAGG["n_requests"]
+    if (d["ship_failures"], d["decode_prefill_dispatches"],
+            d["shipments"]) != (0, 0, n_req):
+        raise AssertionError(
+            f"rows: disagg ship_failures {d['ship_failures']}, decode "
+            f"prefills {d['decode_prefill_dispatches']}, shipments "
+            f"{d['shipments']} (want 0, 0, {n_req})")
+    notes["disagg"] = hold_flag(
+        torch, "disagg token_parity", r["token_parity"], "margin",
+        stream_pairs(rec.made[0], rec.made[2]), tree, f32_kw(4, 2))
+    tree = small_tree(256, 256, 4, 4)
+    r, rec = row("hbm_arbiter", benchmark_hbm_arbiter,
+                 dict(ROWS_HBM, params=tree, device="cuda"),
+                 batcher_launches(4))
+    for k in ("demotions", "evictions"):
+        if not r["arbiter_on"][k] > 0:
+            raise AssertionError(f"rows: hbm_arbiter {k} "
+                                 f"{r['arbiter_on'][k]}")
+    notes["hbm_arbiter"] = hold_flag(
+        torch, "hbm_arbiter parity (tokens)", r["parity"], "margin",
+        stream_pairs(*rec.made), tree, f32_kw(4, 4))
+    if r["parity"] is not True and "model_outs" in r["arbiter_on"]:
+        raise AssertionError("rows: hbm_arbiter model outputs differ (held "
+                             "bit for bit)")
+    # its own draw: the baseline's cold rebuild re-draws the weights
+    r, _ = row("multi_model", benchmark_multi_model,
+               dict(ROWS_MULTI_MODEL, **hw, device="cuda"),
+               batcher_launches(2))
+    for k in ("parity", "llm_parity", "vit_parity"):
+        notes[f"multi_model {k}"] = hold_flag(
+            torch, f"multi_model {k}", r[k], "exact", [], None, None)
+    torch.cuda.empty_cache()
+    log(f"rows: parity flags: {json.dumps(notes)}")
+    dd, sd_r = rows["decode_dispatch"], rows["speculative_decode"]
+    log("rows: decode_dispatch tok/s by K "
+        + ", ".join(f"{k}: {dd['k'][str(k)]['tok_s']:.1f} "
+                    f"({dd['k'][str(k)]['syncs_per_token']:.4f} syncs a "
+                    "token)" for k in ks)
+        + f"; speculative_decode acceptance "
+        f"{sd_r['spec']['acceptance']:.3f}, uplift {sd_r['uplift']:.3f}; "
+        f"llm_decode bf16 {rows['llm_decode']['bf16_tok_s']:.1f} / int8 "
+        f"{rows['llm_decode']['int8_tok_s']:.1f} tok/s; kv_offload "
+        "re-prefills off / on "
+        f"{rows['kv_offload']['tier_off']['re_prefill_dispatches']} / "
+        f"{rows['kv_offload']['tier_on']['re_prefill_dispatches']} [{card}]")
+    log("rows: seconds by row " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
+    log(f"rows: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
@@ -6530,10 +6956,10 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace serve run 3 of the split plans and "
-                         "of the speculating batcher with torch.profiler "
-                         "(run 3 of each ragged-plan serve is always "
-                         "traced) and print device time by kernel class")
+                    help="trace serve run 3 of each plan's bf16 and int8 "
+                         "serves and of the speculating batcher with "
+                         "torch.profiler and print the device's busy "
+                         "share and time by kernel class")
     args = ap.parse_args(argv)
 
     import torch
@@ -6597,6 +7023,7 @@ def main(argv=None) -> int:
     fab = phase_fabric(torch, card)
     par_launches = phase_parallel(torch, card)
     shard_launches = phase_sharded(torch, card)
+    rows_launches = phase_rows(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -6609,7 +7036,7 @@ def main(argv=None) -> int:
                      + st["kvtier"]["tier"][1]["launches"]["ragged"]
                      + st["disagg"] + hbm_launches + svc_launches
                      + obs_launches + batch_launches + fleet_launches
-                     + fab["ragged"] + shard_launches,
+                     + fab["ragged"] + shard_launches + rows_launches[0],
                      rows["ragged"] + e4m3_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
@@ -6621,21 +7048,22 @@ def main(argv=None) -> int:
                      "replicas (read from each replica's Debug snapshot "
                      "before it retired; the killed replica's are lost) "
                      "+ the fabric phase + the sharded phase's "
-                     "{\"model\": 1} serve",
+                     "{\"model\": 1} serve + the rows phase",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
-                     + par_launches,
+                     + par_launches + rows_launches[1],
                      rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
                      "fabric phase's owner and fallback prefills + the "
                      "parallel phase's train steps (the full-depth bf16 "
                      "step's forwards, 32 x 3, and the 2-layer f32 and "
-                     "checkpoint steps)"),
+                     "checkpoint steps) + the rows phase's split-plan "
+                     "prefills"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,

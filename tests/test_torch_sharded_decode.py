@@ -21,9 +21,11 @@ them).  Each case is held against both:
 - a swap payload taken out of the pool at any M is the unsharded pages,
   and restores bit for bit at every M and at ``mesh=None``;
 - a follower's failure inside a replicated operation fails the mesh:
-  the coordinator's requests raise, none resolves with tokens.
+  the coordinator's requests raise, none resolves with tokens; a rank's
+  failure reaches every other rank through the channel's store.
 """
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -375,6 +377,73 @@ def test_follower_failure_fails_the_mesh(runs, w, when):
     assert any(f"follower rank {w - 1}: block failed: RuntimeError: "
                f"planted fault {when} the block" in r["fault"]["failure"]
                for r in ranks)
+
+
+def test_a_rank_failure_reaches_every_rank_through_the_store(runs):
+    """The last of four ranks fails a mesh channel while nothing is in
+    flight: the coordinator's watcher reads its reason from the store,
+    the coordinator publishes nothing more, and each follower asking for
+    its next operation gets MeshFailure with that reason."""
+    why = "planted failure of rank 3"
+    ranks = [r["watch"] for r in runs["port"][4]]
+    assert [r["failure"] for r in ranks] == [why] * 4
+    assert ranks[0]["publish"] == f"MeshFailure: {why}"
+    for r in ranks[1:3]:
+        assert r["next"] == f"MeshFailure: {why}", r
+
+
+@pytest.mark.parametrize("role", ["follower", "coordinator"])
+def test_a_watcher_aborts_its_rank_on_another_ranks_failure(monkeypatch,
+                                                             role):
+    """Over NCCL a follower blocked in a collective learns nothing from
+    the wire when another rank fails; its watcher reads the failure from
+    the coordinator's store and aborts its own group, once.  The
+    coordinator's watcher also publishes the abort every follower's
+    replay reads next.  In process: a store, no process group."""
+    import pickle
+    import threading
+    import types
+
+    import torch.distributed as dist
+
+    from tpulab_torch.engine import sharded
+
+    aborted = []
+    monkeypatch.setattr(sharded, "abort_group", aborted.append)
+    server = dist.TCPStore("127.0.0.1", 0, None, True,
+                           wait_for_workers=False)
+
+    def client():
+        return dist.TCPStore("127.0.0.1", server.port, None, False,
+                             wait_for_workers=False)
+
+    ch = sharded.MeshChannel.__new__(sharded.MeshChannel)
+    coordinator = role == "coordinator"
+    ch.__dict__.update(
+        tp=types.SimpleNamespace(rank=0 if coordinator else 1, size=3,
+                                 group="group"),
+        coordinator=coordinator, n_followers=2, failure=None, _seq=0,
+        _lock=threading.Lock(), _aborted=False, _closing=False,
+        _store=server if coordinator else client())
+    watcher = threading.Thread(target=ch._watch, args=(client(),))
+    watcher.start()
+    try:
+        time.sleep(0.2)
+        assert ch.failure is None and not aborted   # nothing failed yet
+        why = "follower rank 2: block failed: RuntimeError: planted"
+        client().set("failed", why)
+        watcher.join(timeout=10)
+        assert not watcher.is_alive()
+        assert ch.failure == why and aborted == ["group"]
+        ch.fail("a later reason")           # keeps the first, aborts once
+        assert ch.failure == why and aborted == ["group"]
+        if coordinator:
+            for r in (1, 2):
+                assert pickle.loads(server.get(f"{r}/1")) == (
+                    "abort", (why,), {})
+    finally:
+        ch._closing = True
+        watcher.join(timeout=5)
 
 
 @pytest.mark.parametrize("w,plan", FULL, ids=full_ids)

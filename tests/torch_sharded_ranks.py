@@ -252,6 +252,40 @@ def _fault_case(rank, world, mesh, params, pr, when):
     return out
 
 
+def _watch_case(rank, world):
+    """The last rank fails a channel of its own group while no collective
+    is in flight and nothing is published: the coordinator learns why
+    from the channel's store (its watcher), refuses to publish, and each
+    follower asking for its next operation gets the coordinator's abort.
+    Aborts only that group."""
+    import datetime
+    import time
+    import types
+
+    import torch.distributed as dist
+
+    from tpulab_torch.engine.sharded import MeshChannel
+
+    group = dist.new_group(list(range(world)))
+    ch = MeshChannel(types.SimpleNamespace(rank=rank, size=world,
+                                           group=group))
+    out = {"rank": rank}
+    if rank == world - 1:
+        ch.fail(f"planted failure of rank {rank}")
+    elif rank == 0:
+        t0 = time.monotonic()
+        while ch.failure is None and time.monotonic() - t0 < 30:
+            time.sleep(0.005)
+        out["publish"] = _error(lambda: ch.publish("noop"))
+    else:
+        # the abort comes at once; never wait for it long
+        ch._store.set_timeout(datetime.timedelta(seconds=30))
+        out["next"] = _error(ch.next)
+    out["failure"] = ch.failure
+    dist.barrier()   # the coordinator's store outlives every read
+    return out
+
+
 def rank_cases(rank, world, store, out_dir, np_tree):
     torch.set_num_threads(1)
     multihost.initialize(f"file://{store}", world, rank, device="cpu")
@@ -329,6 +363,8 @@ def rank_cases(rank, world, store, out_dir, np_tree):
                                        n_layers=2, vocab=64, mesh=mesh)
         if rank == 0:
             res["bench"] = row
+    if world == 4:
+        res["watch"] = _watch_case(rank, world)
     if world > 1:
         res["fault"] = _fault_case(rank, world, mesh, params, pr,
                                    "after" if world == 2 else "before")

@@ -20,14 +20,17 @@ side, the same tokens.
 Batcher wire-up: ``submit(prompt, 1, export_digest=...)`` on the prefill
 replica (the export handle lands on the future as
 ``_tpulab_kv_export``), ``submit_shipped(...)`` on the decode replica.
-tpulab's ``benchmark_disagg`` waits for the port's bench (ROADMAP queue
-1, item 4); replica roles and routing wait for the serving layer.
+- :func:`~tpulab_torch.disagg.bench.benchmark_disagg` — the bench row
+  (``tpulab_torch/disagg/bench.py``): ITL p50 / p99 and goodput of a
+  prefill-heavy trace, disaggregated against one unified pool.
 """
 
+from tpulab_torch.disagg.bench import benchmark_disagg  # noqa: F401
 from tpulab_torch.disagg.shipper import KVShipper, ShippedKV  # noqa: F401
 from tpulab_torch.disagg.wire import (WireFormatError,  # noqa: F401
                                       deserialize_snapshot, prompt_digest,
                                       serialize_snapshot)
 
 __all__ = ["KVShipper", "ShippedKV", "WireFormatError",
-           "serialize_snapshot", "deserialize_snapshot", "prompt_digest"]
+           "serialize_snapshot", "deserialize_snapshot", "prompt_digest",
+           "benchmark_disagg"]

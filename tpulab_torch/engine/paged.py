@@ -79,6 +79,14 @@ PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``) is not
 ported, nor are ``kv_publish`` and the ``BatcherAdapter`` under a mesh:
 their arguments raise ``NotImplementedError`` naming the ROADMAP item.
+
+tpulab's bench rows of this module close it:
+:func:`benchmark_decode_dispatch`, :func:`benchmark_speculative_decode`,
+:func:`benchmark_ragged_attention`, :func:`benchmark_llm_decode`,
+:func:`benchmark_decode_kernel_vs_gather` and
+:func:`benchmark_decode_kernel_sweep` (``benchmark_sharded_decode`` is in
+:mod:`tpulab_torch.engine.sharded`).  Their gather comparator
+(:func:`_gather_decode_step`) is theirs alone.
 """
 
 from __future__ import annotations
@@ -564,6 +572,36 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
     Megatron shards of ``params`` and its KV-heads shard of the pool;
     every program of this module takes it the same way.  The logits are
     the whole vocab on every rank."""
+    return _decode_step(params, kv_pool, tables, lengths, tokens, active,
+                        n_heads, n_layers, compute_dtype, n_kv_heads,
+                        rope_theta, temps, seeds, tensor_parallel, _attend)
+
+
+def _gather_layer(q, kv_pool, layer, tables, q_lens, kv_lens,
+                  compute_dtype):
+    """:func:`_attend`'s signature over :func:`_gather_attend` (tpulab's
+    XLA fallback math; float pages only)."""
+    qpos = ((kv_lens - q_lens).long()[:, None]
+            + torch.arange(q.shape[1], device=q.device)[None, :])
+    return _gather_attend(q, kv_pool[layer, :, 0], kv_pool[layer, :, 1],
+                          tables, qpos, compute_dtype)
+
+
+def _gather_decode_step(params, kv_pool, tables, lengths, tokens, active,
+                        n_heads: int, n_layers: int, compute_dtype,
+                        n_kv_heads: Optional[int] = None,
+                        rope_theta: Optional[float] = None):
+    """:func:`paged_decode_step` with attention through the dense gather:
+    the comparator of :func:`benchmark_decode_kernel_vs_gather` only.  No
+    batcher or program reaches it (decisions: use_kernel=False)."""
+    return _decode_step(params, kv_pool, tables, lengths, tokens, active,
+                        n_heads, n_layers, compute_dtype, n_kv_heads,
+                        rope_theta, None, None, None, _gather_layer)
+
+
+def _decode_step(params, kv_pool, tables, lengths, tokens, active, n_heads,
+                 n_layers, compute_dtype, n_kv_heads, rope_theta, temps,
+                 seeds, tensor_parallel, attend):
     tp = tensor_parallel
     n_kv = n_kv_heads or n_heads
     b = tokens.shape[0]
@@ -591,8 +629,8 @@ def paged_decode_step(params, kv_pool, tables, lengths, tokens, active,
             knew = apply_rope(knew, lengths[:, None], rope_theta)
         _write_kv(kv_pool, layer, safe_page, safe_slot, knew[:, 0],
                   vnew[:, 0])
-        attn = _attend(q, kv_pool, layer, tables, q_lens, kv_lens,
-                       compute_dtype)
+        attn = attend(q, kv_pool, layer, tables, q_lens, kv_lens,
+                      compute_dtype)
         x = _residual(x, _mm(attn, qmat(p["wo"], compute_dtype)), tp)
         x = _ffn_block(p, x, compute_dtype, tp)
     x = _rmsnorm(x, params["final_norm"]["scale"])
@@ -3857,3 +3895,500 @@ def _tree_to(tree, device):
     already there)."""
     return {k: (_tree_to(v, device) if isinstance(v, dict) else
                 v.to(device)) for k, v in tree.items()}
+
+
+# -- the bench rows (tpulab's ``benchmark_*`` of this module) ---------------
+def _bench_tree(params, device, vocab, d_model, n_heads, n_layers, d_ff,
+                n_kv_heads=None, tie_embeddings=True, seed=0):
+    """A row's weights: ``params`` (a tree or a :class:`~tpulab_torch.
+    models.transformer.Transformer`) as given, else tpulab's draw for the
+    row on ``device`` (f32, gelu: tpulab's shapes and scale, the port's
+    generator's values)."""
+    if params is not None:
+        return _tree(params)
+    from tpulab_torch.models.transformer import init_transformer_params
+    return init_transformer_params(
+        vocab, d_model, n_heads, n_layers, d_ff, seed=seed,
+        n_kv_heads=n_kv_heads, tie_embeddings=tie_embeddings, device=device)
+
+
+def _error(e: BaseException) -> str:
+    return f"{type(e).__name__}: {str(e)[:160]}"
+
+
+def _timed_decode_tok_s(step, params_dev, kv0, tables, lengths, tokens,
+                        active, lanes: int, iters: int) -> float:
+    """Best-of-2 tokens/s of ``iters`` chained decode steps.  tpulab chains
+    them in one ``lax.scan`` dispatch over a donated pool; the port runs
+    them back to back, eagerly, on the pool's device, each writing the
+    pool in place, and fences each pass with ONE host fetch of the logits
+    trace (``logits[0, 0]`` of every step).  One warm pass first."""
+    def run_n():
+        trace = [step(params_dev, kv0, tables, lengths, tokens, active)[0, 0]
+                 for _ in range(iters)]
+        torch.stack(trace).cpu()
+
+    with torch.inference_mode():
+        run_n()
+        best = float("inf")
+        for _ in range(2):
+            t0 = _time.perf_counter()
+            run_n()
+            best = min(best, _time.perf_counter() - t0)
+    return lanes * iters / best
+
+
+def _decode_inputs(lanes, mp, ctx, dev):
+    """The timed rows' fixed decode state: lane b owns pages ``b*mp+1 ..
+    (b+1)*mp``, every lane at position ``ctx - 2``, token 0, active."""
+    tables = torch.arange(1, lanes * mp + 1, dtype=torch.int32,
+                          device=dev).reshape(lanes, mp)
+    lengths = torch.full((lanes,), ctx - 2, dtype=torch.int32, device=dev)
+    tokens = torch.zeros((lanes,), dtype=torch.long, device=dev)
+    active = torch.ones((lanes,), dtype=torch.bool, device=dev)
+    return tables, lengths, tokens, active
+
+
+def benchmark_decode_kernel_vs_gather(n_heads: int = 8, n_layers: int = 4,
+                                      d_model: int = 1024,
+                                      page_size: int = 32, lanes: int = 8,
+                                      ctx: int = 2048, iters: int = 256,
+                                      dtype=None, autotune: bool = False,
+                                      params=None, device=None
+                                      ) -> Dict[str, Any]:
+    """tokens/s of :func:`paged_decode_step` through the ragged kernel
+    (kernel 1, via :func:`_attend`) against the same step with attention
+    through tpulab's XLA-gather math in plain PyTorch
+    (:func:`_gather_attend`), at one (lanes, context) geometry (tpulab's
+    bench row; :func:`_timed_decode_tok_s` times both).
+
+    The gather step is private to this row: no batcher or program takes
+    it (decisions: use_kernel=False).  ``kernel_geom`` is the geometry
+    the kernel side's launches ran, ``"<body> x<splits>"`` as the
+    wrapper records it (``launches_by_geom``; the most launched one), or
+    ``"plain"`` on the CPU, where the wrapper runs its plain version.
+    tpulab's ``autotune`` over the TPU kernel's ``g_pages`` x ``nbuf`` is
+    VMEM geometry and is not carried: ``autotune=True`` raises."""
+    if autotune:
+        raise NotImplementedError(
+            "autotune (tpulab's g_pages x nbuf sweep of the TPU kernel's "
+            "VMEM geometry) is not carried to tpulab_torch (ROADMAP, "
+            "decisions: g_pages / nbuf); the CUDA kernel picks its own "
+            "split-KV count")
+    dtype = dtype or torch.bfloat16
+    dev = resolve_device(device)
+    mp = ctx // page_size
+    params = _tree_to(_bench_tree(params, dev, 256, d_model, n_heads,
+                                  n_layers, 4 * d_model), dev)
+    inputs = _decode_inputs(lanes, mp, ctx, dev)
+    row: Dict[str, Any] = {"b": lanes, "ctx": ctx}
+
+    def timed(step_fn):
+        pool = PagedKVPool(lanes * mp + 1, page_size, n_layers, n_heads,
+                           d_model // n_heads, dtype, dev)
+        try:
+            step = functools.partial(step_fn, n_heads=n_heads,
+                                     n_layers=n_layers, compute_dtype=dtype)
+            return _timed_decode_tok_s(step, params, pool.kv, *inputs,
+                                       lanes, iters), None
+        except Exception as e:
+            return 0.0, _error(e)
+        finally:
+            pool.close()
+
+    before = dict(ragged_paged_attention.launches_by_geom)
+    row["kernel_tok_s"], err = timed(paged_decode_step)
+    if err:
+        row["kernel_error"] = err
+    ran = {g: n - before.get(g, 0)
+           for g, n in ragged_paged_attention.launches_by_geom.items()
+           if n > before.get(g, 0)}
+    row["gather_tok_s"], err = timed(_gather_decode_step)
+    if err:
+        row["gather_error"] = err
+    if dev.type == "cuda":
+        # what the kernel side's launches ran (the queries' dtype picks the
+        # body: f32 params lift them to f32 whatever ``dtype``)
+        row["kernel_geom"] = max(ran, key=ran.get, default="none")
+    else:
+        row["kernel_geom"] = "plain"
+    return row
+
+
+def benchmark_decode_kernel_sweep(
+        combos=((8, 2048), (32, 2048), (8, 8192), (8, 16384)),
+        n_heads: int = 8, n_layers: int = 4, d_model: int = 1024,
+        page_size: int = 32, dtype=None, params=None,
+        device=None) -> List[Dict[str, Any]]:
+    """:func:`benchmark_decode_kernel_vs_gather` across (lanes, context),
+    where the gather's O(B x ctx) materialization grows and the kernel's
+    page walk should pull ahead (tpulab's row).  Iteration counts scale
+    inversely with per-step work, as tpulab's; no autotune (decisions)."""
+    return [benchmark_decode_kernel_vs_gather(
+        n_heads=n_heads, n_layers=n_layers, d_model=d_model,
+        page_size=page_size, lanes=lanes, ctx=ctx,
+        iters=max(16, int(256 * (8 * 2048) / (lanes * ctx))), dtype=dtype,
+        params=params, device=device) for lanes, ctx in combos]
+
+
+def _bench_prompts(n, prompt_len, vocab):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, (prompt_len,), np.int32)
+            for _ in range(n)]
+
+
+def benchmark_decode_dispatch(ks=(1, 4, 8, 16), lanes: int = 4,
+                              steps: int = 48, prompt_len: int = 8,
+                              d_model: int = 64, n_heads: int = 4,
+                              n_layers: int = 2, vocab: int = 256,
+                              dtype=None, n_kv_heads: Optional[int] = None,
+                              rope_theta: Optional[float] = None,
+                              params=None, device=None) -> Dict[str, Any]:
+    """Served tokens/s and host-sync accounting of the ContinuousBatcher
+    across fused-decode block sizes K (tpulab's bench ``decode_dispatch``
+    row).
+
+    The same submit -> result workload runs at each K after one warm run;
+    per K the row records tok/s, decode dispatches, blocking host syncs
+    and syncs per token, plus greedy token parity against the K=1 run.
+    The batchers take the split plan (``ragged=False``): tpulab's row
+    runs its batcher's default, which below ``KERNEL_AUTO_MIN_CTX`` is
+    the split plan on every backend; the port's decodes through kernel 1
+    and, on the card, prefills through kernel 2."""
+    dtype = dtype or torch.float32
+    dev = resolve_device(device)
+    params = _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                         4 * d_model, n_kv_heads)
+    prompts = _bench_prompts(lanes, prompt_len, vocab)
+    max_len = prompt_len + steps + 8
+    row: Dict[str, Any] = {"lanes": lanes, "steps": steps, "k": {}}
+    base_tokens = None
+    for k in ks:
+        cb = ContinuousBatcher(params, n_heads=n_heads, n_layers=n_layers,
+                               lanes=lanes, max_len=max_len, page_size=8,
+                               compute_dtype=dtype, decode_block=k,
+                               n_kv_heads=n_kv_heads, rope_theta=rope_theta,
+                               ragged=False, device=dev)
+        try:
+            for f in [cb.submit(p, steps) for p in prompts]:
+                f.result(timeout=600)
+            d0, s0 = cb.decode_dispatches, cb.decode_host_syncs
+            tg0 = cb.tokens_generated
+            t0 = _time.perf_counter()
+            futs = [cb.submit(p, steps) for p in prompts]
+            outs = [list(f.result(timeout=600)) for f in futs]
+            dt = _time.perf_counter() - t0
+            toks = cb.tokens_generated - tg0
+            entry = {
+                "tok_s": toks / max(dt, 1e-9),
+                "dispatches": cb.decode_dispatches - d0,
+                "host_syncs": cb.decode_host_syncs - s0,
+                "syncs_per_token": (cb.decode_host_syncs - s0)
+                / max(toks, 1),
+            }
+            if base_tokens is None:
+                base_tokens = outs
+            else:
+                entry["parity_vs_k1"] = outs == base_tokens
+            row["k"][str(k)] = entry
+        except Exception as e:  # one K's failure must not sink the row
+            row["k"][str(k)] = {"error": _error(e)}
+        finally:
+            cb.shutdown()
+    k1 = row["k"].get("1", {})
+    best = max((e for e in row["k"].values() if "tok_s" in e),
+               key=lambda e: e["tok_s"], default=None)
+    if best is not None and k1.get("tok_s"):
+        row["best_tok_s"] = best["tok_s"]
+        row["uplift_vs_k1"] = best["tok_s"] / k1["tok_s"]
+    return row
+
+
+def _scaled_tail(tree, first: int, n_layers: int, tail_scale: float):
+    """``tree`` with layers ``first ..``'s ``wo`` / ``w2`` times
+    ``tail_scale`` as NEW tensors (the caller's tree is not touched)."""
+    out = dict(tree)
+    for i in range(first, n_layers):
+        layer = dict(tree[f"layer{i}"])
+        for w in ("wo", "w2"):
+            layer[w] = layer[w] * tail_scale
+        out[f"layer{i}"] = layer
+    return out
+
+
+def _warm_block_sizes(cb, k: int, spec: bool) -> None:
+    """Run every ``BLOCK_K_MENU`` size <= k of the mode's block once on a
+    zero throwaway pool, all lanes inactive (tpulab pre-compiles them so;
+    the port has no compile, but the sizes' first launches stay out of the
+    timed window).  K=1 plain decode runs the single step, already warm."""
+    lanes = cb.lanes
+    dev = cb.device
+    i32 = functools.partial(torch.zeros, (lanes,), dtype=torch.int32,
+                            device=dev)
+    tables = torch.zeros((lanes, cb.max_pages), dtype=torch.int32,
+                         device=dev)
+    state = (tables, i32(), i32(), torch.zeros((lanes,), dtype=torch.bool,
+                                               device=dev))
+    extra = (torch.zeros((lanes,), dtype=torch.float32, device=dev),
+             torch.zeros((lanes, 2), dtype=torch.int64, device=dev), i32(),
+             torch.full((lanes, 1), -1, dtype=torch.int32, device=dev))
+    with torch.inference_mode():
+        for m in cb.BLOCK_K_MENU:
+            if m > k or (m == 1 and not spec):
+                continue
+            zkv = torch.zeros_like(cb.pool.kv)
+            if spec:
+                out = paged_speculative_block(
+                    cb.params, cb._spec["params"], zkv, tables, *state,
+                    *extra, k=m, **cb._spec_kw)
+            else:
+                out = paged_decode_block(cb.params, zkv, *state, *extra,
+                                         k=m, **cb._step_kw)
+            out[0].cpu()
+            del zkv
+
+
+def benchmark_speculative_decode(k: int = 8, lanes: int = 2,
+                                 steps: int = 48, prompt_len: int = 8,
+                                 d_model: int = 64, n_heads: int = 4,
+                                 n_layers: int = 4, draft_layers: int = 1,
+                                 vocab: int = 256,
+                                 tail_scale: float = 0.05,
+                                 dtype=None,
+                                 n_kv_heads: Optional[int] = None,
+                                 rope_theta: Optional[float] = None,
+                                 params=None, device=None
+                                 ) -> Dict[str, Any]:
+    """tok/s, tokens per dispatch, host syncs and acceptance of speculative
+    decode blocks against plain K-blocks through the SAME ContinuousBatcher
+    workload (tpulab's bench ``speculative_decode`` row; the split plan,
+    as :func:`benchmark_decode_dispatch`).
+
+    The draft is the target's first ``draft_layers`` layers (early exit)
+    with the later layers' ``wo`` / ``w2`` scaled by ``tail_scale``: the
+    trained-model emulation (raw random tail layers pin acceptance to 0).
+    The scaled matrices are new tensors; ``params`` is left as it was.
+    Before each timed window every ``BLOCK_K_MENU`` size <= k of the mode
+    runs once (:func:`_warm_block_sizes`).  Greedy parity of the two modes
+    is recorded."""
+    dtype = dtype or torch.float32
+    dev = resolve_device(device)
+    params = _scaled_tail(
+        _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                    4 * d_model, n_kv_heads),
+        draft_layers, n_layers, tail_scale)
+    from tpulab_torch.models.transformer import early_exit_draft
+    draft = early_exit_draft(params, draft_layers)
+    prompts = _bench_prompts(lanes, prompt_len, vocab)
+    max_len = prompt_len + steps + 8
+    row: Dict[str, Any] = {"lanes": lanes, "steps": steps, "k": k,
+                           "draft_layers": draft_layers}
+    outs: Dict[str, Any] = {}
+    for mode in ("plain", "spec"):
+        cb = ContinuousBatcher(
+            params, n_heads=n_heads, n_layers=n_layers, lanes=lanes,
+            max_len=max_len, page_size=8, compute_dtype=dtype,
+            decode_block=k, n_pages=2 * lanes * ((max_len + 7) // 8) + 1,
+            draft_params=draft if mode == "spec" else None,
+            draft_n_layers=draft_layers, n_kv_heads=n_kv_heads,
+            rope_theta=rope_theta, ragged=False, device=dev)
+        try:
+            for f in [cb.submit(p, steps) for p in prompts]:
+                f.result(timeout=600)
+            _warm_block_sizes(cb, k, mode == "spec")
+            d0, s0 = cb.decode_dispatches, cb.decode_host_syncs
+            tg0 = cb.tokens_generated
+            dr0, ac0 = cb.spec_tokens_drafted, cb.spec_tokens_accepted
+            t0 = _time.perf_counter()
+            futs = [cb.submit(p, steps) for p in prompts]
+            outs[mode] = [list(f.result(timeout=600)) for f in futs]
+            dt = _time.perf_counter() - t0
+            toks = cb.tokens_generated - tg0
+            entry = {
+                "tok_s": toks / max(dt, 1e-9),
+                "dispatches": cb.decode_dispatches - d0,
+                "host_syncs": cb.decode_host_syncs - s0,
+                # emitted tokens only: rejected proposals never count
+                "tokens_per_dispatch": toks / max(1, cb.decode_dispatches
+                                                  - d0),
+                "syncs_per_token": (cb.decode_host_syncs - s0)
+                / max(toks, 1),
+            }
+            if mode == "spec":
+                drafted = cb.spec_tokens_drafted - dr0
+                accepted = cb.spec_tokens_accepted - ac0
+                entry["drafted"] = drafted
+                entry["accepted"] = accepted
+                entry["acceptance"] = accepted / max(1, drafted)
+                entry["fallbacks"] = cb.spec_fallbacks
+            row[mode] = entry
+        except Exception as e:  # one mode's failure must not sink the row
+            row[mode] = {"error": _error(e)}
+        finally:
+            cb.shutdown()
+    if "tok_s" in row.get("plain", {}) and "tok_s" in row.get("spec", {}):
+        row["parity"] = outs["spec"] == outs["plain"]
+        row["uplift"] = row["spec"]["tok_s"] / max(row["plain"]["tok_s"],
+                                                   1e-9)
+    return row
+
+
+def benchmark_ragged_attention(lanes: int = 3, steps: int = 24,
+                               prompt_len: int = 12, d_model: int = 64,
+                               n_heads: int = 4, n_layers: int = 2,
+                               vocab: int = 256, kernel: bool = True,
+                               dtype=None, n_kv_heads: Optional[int] = None,
+                               rope_theta: Optional[float] = None,
+                               params=None, device=None) -> Dict[str, Any]:
+    """Dispatch / host-sync accounting and served tok/s of the ragged
+    dispatch plan across batch-raggedness shapes (tpulab's bench
+    ``ragged_attention`` row).
+
+    Three windows through the same submit -> result harness:
+    ``all_prefill`` (``lanes`` simultaneous steps=1 prompts: the ragged
+    plan folds their prefills into one dispatch), ``all_decode`` (the
+    K-block regime) and ``mixed`` (prompts arriving mid-decode).  Modes:
+    ``legacy``, the split plan (``ragged=False``: flash prefill, kernel 2,
+    and kernel 1 decode on the card), and with ``kernel`` the ragged plan
+    on kernel 1 (``ragged_kernel``), whose token parity against legacy is
+    recorded.  tpulab's ``ragged`` mode (the ragged plan over XLA-gather
+    attention) is not carried (ROADMAP, decisions: use_kernel=False), so
+    ``prefill_fold`` reads ``ragged_kernel``'s ``all_prefill``."""
+    import threading as _threading
+
+    dtype = dtype or torch.float32
+    dev = resolve_device(device)
+    params = _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                         4 * d_model, n_kv_heads)
+    prompts = _bench_prompts(lanes, prompt_len, vocab)
+    max_len = prompt_len + steps + 8
+    modes = [("legacy", dict(ragged=False))]
+    if kernel:
+        modes.append(("ragged_kernel", dict(ragged=True)))
+    row: Dict[str, Any] = {"lanes": lanes, "steps": steps,
+                           "prompt_len": prompt_len}
+    outs: Dict[str, Dict[str, Any]] = {}
+    for mode, kw in modes:
+        cb = ContinuousBatcher(params, n_heads=n_heads, n_layers=n_layers,
+                               lanes=lanes, max_len=max_len, page_size=8,
+                               compute_dtype=dtype, decode_block=8,
+                               n_kv_heads=n_kv_heads, rope_theta=rope_theta,
+                               device=dev, **kw)
+        entry: Dict[str, Any] = {}
+        got: Dict[str, Any] = {}
+        try:
+            for f in [cb.submit(p, steps) for p in prompts]:
+                f.result(timeout=600)
+            cb.submit(prompts[0], 1).result(timeout=600)
+
+            def window(name, fn):
+                d0 = (cb.decode_dispatches + cb.prefill_dispatches,
+                      cb.decode_host_syncs, cb.tokens_generated)
+                t0 = _time.perf_counter()
+                got[name] = fn()
+                dt = _time.perf_counter() - t0
+                toks = cb.tokens_generated - d0[2]
+                entry[name] = {
+                    "tok_s": toks / max(dt, 1e-9),
+                    "dispatches": (cb.decode_dispatches
+                                   + cb.prefill_dispatches - d0[0]),
+                    "host_syncs": cb.decode_host_syncs - d0[1],
+                    "syncs_per_token": (cb.decode_host_syncs - d0[1])
+                    / max(toks, 1),
+                }
+
+            def all_prefill():
+                futs = [cb.submit(p, 1) for p in prompts]
+                return [list(f.result(timeout=600)) for f in futs]
+
+            def all_decode():
+                futs = [cb.submit(p, steps) for p in prompts]
+                return [list(f.result(timeout=600)) for f in futs]
+
+            def mixed():
+                evt = _threading.Event()
+                f0 = cb.submit(prompts[0], steps, on_token=lambda t, i: (
+                    evt.set() if i == 2 else None))
+                evt.wait(60)
+                rest = [cb.submit(p, steps // 2) for p in prompts[1:]]
+                return ([list(f0.result(timeout=600))]
+                        + [list(f.result(timeout=600)) for f in rest])
+
+            window("all_prefill", all_prefill)
+            window("all_decode", all_decode)
+            window("mixed", mixed)
+            entry["ragged_dispatches"] = cb.ragged_dispatches
+            entry["dispatch_kinds"] = dict(cb.dispatch_kinds)
+            outs[mode] = got
+            row[mode] = entry
+        except Exception as e:  # one mode's failure must not sink the row
+            row[mode] = {"error": _error(e)}
+        finally:
+            cb.shutdown()
+    base = outs.get("legacy")
+    if base and "ragged_kernel" in outs:
+        # every window's token values are deterministic across plans
+        row["ragged_kernel"]["parity"] = outs["ragged_kernel"] == base
+        row["prefill_fold"] = {
+            "legacy_dispatches": row["legacy"]["all_prefill"]["dispatches"],
+            "ragged_dispatches":
+                row["ragged_kernel"]["all_prefill"]["dispatches"]}
+    return row
+
+
+def benchmark_llm_decode(n_heads: int = 16, n_kv_heads: int = 4,
+                         n_layers: int = 8, d_model: int = 1024,
+                         d_ff: int = 4096, vocab: int = 8192,
+                         page_size: int = 16, lanes: int = 8,
+                         ctx: int = 1024, iters: int = 64,
+                         dtype=None, rope_theta: Optional[float] = None,
+                         params=None, device=None) -> Dict[str, Any]:
+    """Paged decode tokens/s with bf16 against weight-only int8 (W8A16)
+    weights at a Llama-ish GQA geometry (tpulab's bench ``llm_decode``
+    row): small-batch decode reads every weight per step, so int8 is the
+    latency lever it measures.  Timed as
+    :func:`benchmark_decode_kernel_vs_gather` times (``_timed_decode_tok_s``).
+    tpulab's row decodes through its XLA gather (``use_kernel=False``);
+    :func:`paged_decode_step` has no gather path, so the port's runs
+    kernel 1.  The int8 tree is quantized from the bf16 one
+    (:func:`~tpulab_torch.models.quantization.quantize_transformer_params`);
+    every float leaf of both is bf16, the head untied as tpulab's."""
+    from tpulab_torch.models.quantization import (quantize_transformer_params,
+                                                  transformer_param_bytes)
+
+    dtype = dtype or torch.bfloat16
+    dev = resolve_device(device)
+
+    def to_bf16(tree):
+        # every float leaf; int8 payloads pass through untouched
+        return {k: (to_bf16(v) if isinstance(v, dict) else
+                    v.to(torch.bfloat16) if v.is_floating_point() else v)
+                for k, v in tree.items()}
+
+    mp = ctx // page_size
+    params = _tree_to(_bench_tree(params, dev, vocab, d_model, n_heads,
+                                  n_layers, d_ff, n_kv_heads,
+                                  tie_embeddings=False), dev)
+    inputs = _decode_inputs(lanes, mp, ctx, dev)
+    row: Dict[str, Any] = {"b": lanes, "ctx": ctx,
+                           "layers": n_layers, "d_model": d_model}
+    step = functools.partial(paged_decode_step, n_heads=n_heads,
+                             n_layers=n_layers, compute_dtype=dtype,
+                             n_kv_heads=n_kv_heads, rope_theta=rope_theta)
+    for label in ("bf16", "int8"):
+        pool = PagedKVPool(lanes * mp + 1, page_size, n_layers, n_kv_heads,
+                           d_model // n_heads, dtype, dev)
+        p = None
+        try:
+            p = to_bf16(params if label == "bf16" else
+                        quantize_transformer_params(params))
+            row[f"{label}_tok_s"] = _timed_decode_tok_s(
+                step, p, pool.kv, *inputs, lanes, iters)
+            row[f"{label}_param_mb"] = transformer_param_bytes(p) / 2**20
+        except Exception as e:
+            row[f"{label}_tok_s"] = 0.0
+            row[f"{label}_error"] = _error(e)
+        finally:
+            pool.close()
+            del p
+    return row

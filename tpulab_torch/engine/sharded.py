@@ -22,14 +22,17 @@ rank keeps its own copy; the picks are made over the all-gathered vocab,
 so every rank holds the same carry).
 
 A failure inside a replicated operation, on any rank, is fatal to the
-mesh (:meth:`MeshChannel.run`): a follower that raises records it in the
-store, aborts its process group and ends its replay; the coordinator's
-next collective then raises (its watcher thread also aborts the
-coordinator's group, so a collective waiting on the lost rank ends), its
-fetches refuse to return results, and every later operation raises
-:class:`MeshFailure`.  The batcher then fails every request it holds and
-takes no more.  A follower whose coordinator died sees the store's
-connection close and raises.
+mesh (:meth:`MeshChannel.run`): the rank that raises records why in the
+store and aborts its process group.  A watcher thread on that record
+aborts the group of the coordinator and, over NCCL, of every follower
+in turn, so a collective or a device sync waiting on the lost rank ends
+on every rank (a gloo partner's collective fails as the lost rank's
+connections close; an NCCL partner would wait for the group's timeout).
+The coordinator's watcher also tells idle followers to end their
+replay.  The coordinator's fetches then refuse to return results, and
+every later operation raises :class:`MeshFailure`.  The batcher fails
+every request it holds and takes no more.  A follower whose coordinator
+died sees the store's connection close and raises.
 
 The ranks of one ``model`` axis share a host (tensor parallelism spans
 one NVLink domain): the channel listens on 127.0.0.1.
@@ -42,6 +45,7 @@ leaf on this rank's card, for widths no rank could hold whole) and
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import datetime
 import logging
@@ -61,6 +65,26 @@ _log = logging.getLogger("tpulab_torch.engine")
 FOLLOWER_WAIT = datetime.timedelta(days=365)
 #: the coordinator's store refuses a client that takes longer to connect
 STORE_TIMEOUT = datetime.timedelta(seconds=300)
+#: seconds between a watcher's looks at the store (it never blocks inside
+#: a store call, so it can end before the interpreter finalizes)
+WATCH_POLL_S = 0.05
+
+#: channels whose watcher thread runs
+_WATCHED: set = set()
+_WATCHED_LOCK = threading.Lock()
+
+
+@atexit.register
+def _end_watchers() -> None:
+    """End every watcher before the interpreter finalizes: a daemon thread
+    inside a store call then (its coordinator's store closing as that
+    process exits) aborts the process."""
+    with _WATCHED_LOCK:
+        channels = list(_WATCHED)
+    for ch in channels:
+        ch._closing = True
+    for ch in channels:
+        ch._watcher.join(timeout=1.0)
 
 
 class MeshFailure(RuntimeError):
@@ -112,6 +136,8 @@ class MeshChannel:
         self.failure: Optional[str] = None
         self._seq = 0
         self._lock = threading.Lock()
+        self._aborted = False
+        self._closing = False
         self._store = None
         if not self.n_followers:
             return
@@ -127,17 +153,25 @@ class MeshChannel:
             # every follower is connected before the channel is used (or
             # dropped: the store lives in this process)
             self._wait_count("joined", self.n_followers)
-            watch = dist.TCPStore("127.0.0.1", port[0], None, False,
-                                  wait_for_workers=False,
-                                  timeout=FOLLOWER_WAIT)
-            threading.Thread(target=self._watch, args=(watch,),
-                             name="mesh-watch", daemon=True).start()
         else:
             self._store = dist.TCPStore("127.0.0.1", port[0], None, False,
                                         wait_for_workers=False,
                                         timeout=STORE_TIMEOUT)
             self._store.add("joined", 1)
             self._store.set_timeout(FOLLOWER_WAIT)
+        if not self.coordinator and dist.get_backend(tp.group) == "gloo":
+            # a gloo follower's collective fails as soon as the failed
+            # rank's connections close: it needs no watcher
+            return
+        # the watcher's own connection: a follower's main thread blocks in
+        # its reads
+        watch = dist.TCPStore("127.0.0.1", port[0], None, False,
+                              wait_for_workers=False, timeout=FOLLOWER_WAIT)
+        self._watcher = threading.Thread(target=self._watch, args=(watch,),
+                                         name="mesh-watch", daemon=True)
+        with _WATCHED_LOCK:
+            _WATCHED.add(self)
+        self._watcher.start()
 
     def _wait_count(self, key: str, n: int) -> None:
         deadline = time.monotonic() + STORE_TIMEOUT.total_seconds()
@@ -149,19 +183,39 @@ class MeshChannel:
         self._store.set(key, "0")
 
     def _watch(self, store) -> None:
-        """Coordinator: wait for a follower's failure (:meth:`fail`); then
-        mark the mesh failed and abort this rank's group, so a collective
-        waiting on the lost rank ends.  A clean :meth:`stop` wakes it with
-        an empty reason."""
+        """The coordinator, and a follower over NCCL: wait for another
+        rank's failure (:meth:`fail`); then mark the mesh failed and abort
+        this rank's group, so a collective or a sync waiting on the lost
+        rank ends.  The coordinator also publishes ``"abort"``, which ends
+        the replay of a follower waiting for its next operation.  A clean
+        :meth:`stop` wakes it with an empty reason."""
         try:
-            store.wait(["failed"])
+            while not store.check(["failed"]):
+                if self._closing:
+                    return
+                time.sleep(WATCH_POLL_S)
             why = store.get("failed").decode()
         except Exception:  # noqa: BLE001 - the store closed: process exit
             return
+        finally:
+            with _WATCHED_LOCK:
+                _WATCHED.discard(self)
         if why and self.failure is None:
             self.failure = why
             _log.error("mesh failed: %s", why)
-            abort_group(self.tp.group)
+            try:
+                if self.coordinator:
+                    self._publish("abort", why)
+            finally:
+                self._abort()
+
+    def _abort(self) -> None:
+        """Abort this rank's group, once."""
+        with self._lock:
+            if self._aborted:
+                return
+            self._aborted = True
+        abort_group(self.tp.group)
 
     def check(self) -> None:
         """Raise :class:`MeshFailure` once the mesh has failed."""
@@ -186,20 +240,19 @@ class MeshChannel:
             raise MeshFailure(self.failure) from e
 
     def fail(self, why: str) -> None:
-        """Mark the mesh failed and abort this rank's group.  A follower
-        records ``why`` for the coordinator (its watcher wakes); the
-        coordinator tells every follower to end its replay."""
-        if self.failure is not None:
-            return
-        self.failure = why
-        _log.error("mesh failed: %s", why)
+        """Mark the mesh failed and abort this rank's group.  ``why`` goes
+        to the store, where every other rank's watcher reads it; the
+        coordinator also tells every follower to end its replay.  A
+        failure already recorded keeps its reason."""
         try:
-            if self.coordinator:
-                self._publish("abort", why)
-            else:
+            if self.failure is None:
+                self.failure = why
+                _log.error("mesh failed: %s", why)
                 self._store.set("failed", why)
+                if self.coordinator:
+                    self._publish("abort", why)
         finally:
-            abort_group(self.tp.group)
+            self._abort()   # once, whoever recorded the failure first
 
     def publish(self, op: str, *args, **kw) -> None:
         """Coordinator: queue ``op(*args, **kw)`` for every follower (host
@@ -233,8 +286,8 @@ class MeshChannel:
         if msg[0] == "stop":
             self._store.add("stopped", 1)
         elif msg[0] == "abort":
-            self.failure = msg[1][0]
-            abort_group(self.tp.group)
+            self.failure = self.failure or msg[1][0]
+            self._abort()
             raise MeshFailure(self.failure)
         return msg
 
@@ -247,7 +300,7 @@ class MeshChannel:
             return
         self.publish("stop")
         self._wait_count("stopped", self.n_followers)
-        # wake the watcher with no reason (a follower's, set first, stays)
+        # wake every watcher with no reason (a failure, set first, stays)
         self._store.compare_set("failed", "", "")
 
 

@@ -15,7 +15,8 @@ positions only advance.
    paged blocks instead: ``ContinuousBatcher(draft_params=...,
    draft_n_layers=...)`` (:mod:`tpulab_torch.engine.paged`).  This path
    stays for the dense session adapter and as the acceptance-rule
-   reference.
+   reference.  tpulab's acceptance microbenchmark of it is
+   :func:`benchmark_speculative`.
 """
 
 from __future__ import annotations
@@ -280,3 +281,87 @@ class SpeculativeSessionEngine:
             raise TimeoutError("no speculative session available")
         return _SpeculativeSession(self._spec, self._sem,
                                    on_close=self._count_completion)
+
+
+def benchmark_speculative(n_heads: int = 8, n_layers: int = 8,
+                          d_model: int = 512, d_ff: int = 2048,
+                          vocab: int = 2048, draft_layers: int = 2,
+                          k: int = 4, steps: int = 128,
+                          prompt_len: int = 16, max_len: int = 512,
+                          compute_dtype=None, seed: int = 0,
+                          tail_scale: float = 0.05, params=None,
+                          device=None):
+    """Acceptance and tok/s of dense speculative against plain greedy
+    decode (tpulab's ``speculative`` row, the acceptance-mechanics
+    microbenchmark beside the serving-path
+    :func:`~tpulab_torch.engine.paged.benchmark_speculative_decode`).
+
+    The target's layers past the draft exit have ``wo`` / ``w2`` scaled by
+    ``tail_scale`` (new tensors): the trained-model emulation, without
+    which random late layers flip every near-uniform argmax.  Plain decode
+    is a host loop over one decode step after the same pow2-padded
+    chunked prefill, as a generation engine streams; ``exact_match`` says
+    speculation gave exactly the plain greedy tokens."""
+    import time
+
+    from tpulab_torch.engine.paged import _bench_tree, _scaled_tail
+
+    dev = resolve_device(device)
+    cdt = compute_dtype or torch.float32
+    target = _scaled_tail(
+        _bench_tree(params, dev, vocab, d_model, n_heads, n_layers, d_ff,
+                    seed=seed),
+        draft_layers, n_layers, tail_scale)
+    draft = early_exit_draft(target, draft_layers)
+    spec = SpeculativeGenerator(
+        target, draft, n_heads=n_heads, n_layers=n_layers,
+        draft_n_heads=n_heads, draft_n_layers=draft_layers, k=k,
+        max_len=max_len, compute_dtype=cdt, device=dev)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, vocab, (prompt_len,)).astype(np.int32)
+
+    spec.generate(prompt, 8)                   # warm both programs
+    t0 = time.perf_counter()
+    spec_toks = spec.generate(prompt, steps)
+    spec_s = time.perf_counter() - t0
+    acceptance = spec.accepted / max(spec.rounds * k, 1)
+
+    target_dev = spec.target_params
+    kw = dict(n_heads=n_heads, n_layers=n_layers, compute_dtype=cdt)
+    head_dim = d_model // n_heads
+
+    def plain(n: int) -> List[int]:
+        with torch.inference_mode():
+            cache = init_kv_cache(1, max_len, n_layers, n_heads, head_dim,
+                                  cdt, dev)
+            padded = np.zeros((1, 1 << (prompt_len - 1).bit_length()),
+                              np.int64)
+            padded[0, :prompt_len] = prompt
+            logits, cache = transformer_chunk_step(
+                target_dev, cache, torch.as_tensor(padded, device=dev), 0,
+                **kw)
+            cur = int(logits[0, prompt_len - 1].argmax())
+            out = [cur]
+            pos = prompt_len
+            while len(out) < n:
+                lg, cache = transformer_decode_step(
+                    target_dev, cache, torch.tensor([cur], device=dev), pos,
+                    **kw)
+                cur = int(lg[0].argmax())
+                out.append(cur)
+                pos += 1
+        return out
+
+    plain(8)                                   # warm
+    t0 = time.perf_counter()
+    plain_toks = plain(steps)
+    plain_s = time.perf_counter() - t0
+
+    return {"k": k, "draft_layers": draft_layers, "n_layers": n_layers,
+            "steps": steps, "acceptance": acceptance,
+            "rounds": spec.rounds,
+            "spec_tok_s": steps / spec_s,
+            "plain_tok_s": steps / plain_s,
+            "speedup": plain_s / spec_s,
+            "exact_match": bool(spec_toks == plain_toks)}
+

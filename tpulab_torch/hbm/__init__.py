@@ -20,16 +20,18 @@ their common ground:
   batcher's programs) claims the largest of its keys, not their sum.
 
 Wire-up: ``ContinuousBatcher(..., hbm=arb)`` (the KV tenant) and
-``WeightMultiplexer(..., hbm=arb)`` (the weights tenant).  tpulab's
-``benchmark_hbm_arbiter`` and ``scratch_bytes_of`` (an XLA executable's
-compile-time temp bytes) are not ported: the first waits for the port's
-bench (ROADMAP queue 1, item 4), the second has no eager counterpart.
+``WeightMultiplexer(..., hbm=arb)`` (the weights tenant).  The bench
+row: :func:`benchmark_hbm_arbiter` (``tpulab_torch/hbm/arbiter.py``),
+arbiter on against a static split.  tpulab's ``scratch_bytes_of`` (an
+XLA executable's compile-time temp bytes) has no eager counterpart.
 """
 
 from tpulab_torch.hbm.arbiter import (KV_TENANT, SCRATCH_TENANT,  # noqa: F401
-                                      WEIGHTS_TENANT, HBMArbiter)
+                                      WEIGHTS_TENANT, HBMArbiter,
+                                      benchmark_hbm_arbiter)
 from tpulab_torch.hbm.ledger import DeviceHBMLedger  # noqa: F401
 from tpulab_torch.hbm.scratch import MeasuredJit, ScratchGroup  # noqa: F401
 
 __all__ = ["DeviceHBMLedger", "HBMArbiter", "MeasuredJit", "ScratchGroup",
-           "KV_TENANT", "WEIGHTS_TENANT", "SCRATCH_TENANT"]
+           "KV_TENANT", "WEIGHTS_TENANT", "SCRATCH_TENANT",
+           "benchmark_hbm_arbiter"]

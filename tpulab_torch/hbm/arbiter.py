@@ -1,7 +1,6 @@
 """HBM arbiter: the pressure protocol between device-memory tenants (the
-port of ``tpulab/hbm/arbiter.py``; tpulab's bench row
-``benchmark_hbm_arbiter`` waits for the port's bench, ROADMAP queue 1,
-item 4).
+port of ``tpulab/hbm/arbiter.py``, with tpulab's bench row
+:func:`benchmark_hbm_arbiter`).
 
 The :class:`~tpulab_torch.hbm.ledger.DeviceHBMLedger` says who holds
 what; the :class:`HBMArbiter` decides who gets the NEXT byte.  Tenants
@@ -323,3 +322,168 @@ class HBMArbiter:
             pass  # an injected fault at deny still denies, atomically
         self.denials += 1
         return False
+
+
+# -- the bench row ------------------------------------------------------------
+def benchmark_hbm_arbiter(lanes: int = 4, steps: int = 24,
+                          prompt_len: int = 8, page_size: int = 8,
+                          d_model: int = 256, n_heads: int = 4,
+                          n_layers: int = 4, vocab: int = 256,
+                          n_llm: int = 12, dtype=None, params=None,
+                          device=None) -> Dict[str, Any]:
+    """tpulab's bench ``hbm_arbiter`` row: a model-swap + KV-burst trace
+    under device-memory oversubscription, arbiter ON against a static
+    split.
+
+    One capacity holds EITHER the burst's grown page pool OR a second
+    dense model's weights (model B, a flat f32 vector of exactly the
+    pool's elastic range), never both.  Static split: the pool stays at
+    its small share (lanes cut to what it carries) and B stays resident.
+    Arbiter on: the burst grows the pool by evicting B (write-behind
+    swap-out), and B's next acquire presses the KV tenant back down
+    (demote + shrink).  Both modes must give the same greedy tokens and
+    model outputs (``parity``); the batchers take the split plan
+    (``ragged=False``), tpulab's default at this max_len."""
+    import numpy as np
+    import torch
+
+    from tpulab_torch.cuda.platform import resolve_device
+    from tpulab_torch.engine.paged import (ContinuousBatcher, _bench_prompts,
+                                           _bench_tree)
+    from tpulab_torch.modelstore import WeightMultiplexer, tree_nbytes
+
+    dtype = dtype or torch.float32
+    dev = resolve_device(device)
+    prompts = _bench_prompts(n_llm, prompt_len, vocab)
+    max_len = prompt_len + steps + 2
+    pages_per_req = (max_len + page_size - 1) // page_size
+    full_pages = lanes * pages_per_req + 1      # the burst's working set
+    small_pages = pages_per_req + 1             # the static KV share
+    # the elastic pool snaps to its size ladder (small * 2^k): the burst's
+    # reachable top is the first rung >= full
+    top_pages = small_pages
+    while top_pages < full_pages:
+        top_pages *= 2
+    page_nbytes = (n_layers * 2 * page_size * d_model
+                   * torch.empty((), dtype=dtype).element_size())
+    # B at exactly the pool's elastic range: B hot and the full burst are
+    # mutually exclusive under ``capacity`` (top rung + half a page)
+    b_words = (top_pages - small_pages) * page_nbytes // 4
+    capacity = top_pages * page_nbytes + page_nbytes // 2
+    params = _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                         4 * d_model)
+
+    def build_model_b():
+        r = np.random.default_rng(7)
+        return {"w": torch.from_numpy(
+            r.standard_normal((b_words,)).astype(np.float32))}
+
+    class _Servable:
+        def __init__(self):
+            self.device_params = self._place(build_model_b())
+
+        @staticmethod
+        def _place(tree):
+            return {k: v.to(dev) for k, v in tree.items()}
+
+        def resident(self):
+            return self.device_params is not None
+
+        def param_bytes(self):
+            return tree_nbytes(self.device_params or build_model_b())
+
+        def busy(self):
+            return False
+
+        def detach(self):
+            out, self.device_params = self.device_params, None
+            return out
+
+        def on_detached(self):
+            pass
+
+        def attach(self, host_tree):
+            self.device_params = self._place(host_tree)
+
+        def rebuild(self):
+            return build_model_b()
+
+    def run(arbiter_on: bool) -> Dict[str, Any]:
+        b = _Servable()
+        b_bytes = b.param_bytes()
+        arb = (HBMArbiter(capacity, measure_scratch=False)
+               if arbiter_on else None)
+        # the static split runs only the lanes its fixed pool carries; the
+        # arbiter mode runs them all (the pool grows to meet the burst)
+        run_lanes = lanes if arbiter_on else max(
+            1, (small_pages - 1) // pages_per_req)
+        cb = ContinuousBatcher(
+            params, n_heads=n_heads, n_layers=n_layers, lanes=run_lanes,
+            max_len=max_len, page_size=page_size, n_pages=small_pages,
+            compute_dtype=dtype, ragged=False, device=dev,
+            kv_offload=True, hbm=arb)
+        mux = WeightMultiplexer(max(b_bytes, 1), hbm=arb)
+        mux.register("b", b)
+
+        tokens: List[List[int]] = []
+        outs: List[float] = []
+
+        def b_op():
+            lease = mux.acquire("b")
+            try:
+                outs.append(round(float(torch.tanh(
+                    b.device_params["w"][:256]).sum()), 4))
+            finally:
+                lease.release()
+
+        # warm-up, as tpulab's: two waves (the first grows the pool
+        # mid-burst under the arbiter, the second runs at the grown size)
+        # and one model op through the squeeze path
+        for _ in range(2):
+            for f in [cb.submit(p, steps) for p in prompts[:lanes]]:
+                f.result(timeout=300)
+        b_op()
+        outs.clear()
+        d0 = dict(denials=arb.denials, demotions=arb.demotions_forced,
+                  evictions=arb.evictions_forced) if arb else {}
+        pre0, grow0, shrink0 = cb.preemptions, cb.hbm_grows, cb.hbm_shrinks
+        t0 = _time.perf_counter()
+        b_op()  # model op before the burst: B hot, pool squeezed
+        futs = [cb.submit(p, steps) for p in prompts]
+        # a model op lands mid-burst: the arbiter must squeeze KV back
+        futs[0].result(timeout=300)
+        b_op()
+        for f in futs:
+            tokens.append([int(t) for t in f.result(timeout=300)])
+        b_op()  # and one after: swap back in (bit-exact either way)
+        wall = max(1e-6, _time.perf_counter() - t0)
+        out = {
+            "wall_s": wall,
+            "goodput_ops_s": (len(futs) + 3) / wall,
+            "tokens": tokens, "model_outs": outs,
+            "pool_pages_final": cb.pool.n_pages,
+            "preemptions": cb.preemptions - pre0,
+        }
+        if arb is not None:
+            out.update(
+                demotions=arb.demotions_forced - d0["demotions"],
+                evictions=arb.evictions_forced - d0["evictions"],
+                denials=arb.denials - d0["denials"],
+                grows=cb.hbm_grows - grow0,
+                shrinks=cb.hbm_shrinks - shrink0,
+                free_hbm_mb=arb.free_hbm_bytes / 2**20)
+        cb.shutdown()
+        mux.close()
+        return out
+
+    on, off = run(True), run(False)
+    parity = (on.pop("tokens") == off.pop("tokens")
+              and on.pop("model_outs") == off.pop("model_outs"))
+    return {
+        "lanes": lanes, "steps": steps, "n_llm": n_llm,
+        "small_pages": small_pages, "full_pages": full_pages,
+        "arbiter_on": on, "static_split": off,
+        "parity": parity,
+        "goodput_ratio": on["goodput_ops_s"] / max(1e-9,
+                                                   off["goodput_ops_s"]),
+    }

@@ -14,13 +14,15 @@ preemption and a spill-backed prefix cache.
   swap-out on a side stream).
 
 Wire-up: ``ContinuousBatcher(..., kv_offload=...)`` (True / budget bytes
-/ a manager instance).  tpulab's ``benchmark_kv_offload`` waits for the
-port's bench (ROADMAP queue 1, item 4).
+/ a manager instance).  The bench row: :func:`benchmark_kv_offload`
+(``tpulab_torch/kvcache/offload.py``), host tier on against off under
+~2x KV oversubscription.
 """
 
 from tpulab_torch.kvcache.host_store import HostKVStore  # noqa: F401
 from tpulab_torch.kvcache.offload import (DEFAULT_HOST_BUDGET,  # noqa: F401
-                                          KVOffloadManager, SwapHandle)
+                                          KVOffloadManager, SwapHandle,
+                                          benchmark_kv_offload)
 
 __all__ = ["HostKVStore", "KVOffloadManager", "SwapHandle",
-           "DEFAULT_HOST_BUDGET"]
+           "DEFAULT_HOST_BUDGET", "benchmark_kv_offload"]

@@ -56,7 +56,7 @@ from __future__ import annotations
 import logging
 import threading
 import time as _time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -417,3 +417,91 @@ class KVOffloadManager:
         if self._owns_transfer:
             self._transfer.shutdown()
         self.store.clear()
+
+
+def benchmark_kv_offload(lanes: int = 2, steps: int = 20,
+                         prompt_len: int = 12, page_size: int = 8,
+                         d_model: int = 64, n_heads: int = 4,
+                         n_layers: int = 2, vocab: int = 256,
+                         n_low: int = 4, n_hi: int = 4,
+                         dtype=None, params=None,
+                         device=None) -> Dict[str, Any]:
+    """tpulab's bench ``kv_offload`` row: goodput and re-prefill
+    dispatches under ~2x KV oversubscription, host tier on against off.
+
+    ``n_low + n_hi`` requests stay outstanding against a pool sized for
+    ``lanes`` residents: the low-priority half decodes long sequences, and
+    each high-priority preemptor is injected once a low lane is seen
+    decoding, so every preemption either re-prefills (tier off) or swaps
+    (tier on).  ``re_prefill_dispatches`` counts prefills beyond the one
+    each request pays.  The batchers take the split plan
+    (``ragged=False``), whose prefill dispatches count re-prefills, as
+    tpulab's row does at its max_len on every backend."""
+    import threading as _th
+
+    from tpulab_torch.cuda.platform import resolve_device
+    from tpulab_torch.engine.paged import (ContinuousBatcher, _bench_prompts,
+                                           _bench_tree)
+
+    dtype = dtype or torch.float32
+    dev = resolve_device(device)
+    low_steps = 2 * steps               # long victims: a real resume window
+    max_len = prompt_len + low_steps + 4
+    pages_per_req = (max_len + page_size - 1) // page_size
+    n_pages = lanes * pages_per_req + 1
+    outstanding = n_low + n_hi
+    params = _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                         4 * d_model)
+    prompts = _bench_prompts(n_low + n_hi, prompt_len, vocab)
+    low_prompts, hi_prompts = prompts[:n_low], prompts[n_low:]
+
+    def mode(offload_on: bool) -> Dict[str, Any]:
+        cb = ContinuousBatcher(
+            params, n_heads=n_heads, n_layers=n_layers, lanes=lanes,
+            max_len=max_len, page_size=page_size, n_pages=n_pages,
+            compute_dtype=dtype, ragged=False, device=dev,
+            kv_offload=DEFAULT_HOST_BUDGET if offload_on else None)
+        try:
+            for f in [cb.submit(p, low_steps) for p in low_prompts[:lanes]]:
+                f.result(timeout=300)
+            for f in [cb.submit(p, steps) for p in hi_prompts[:lanes]]:
+                f.result(timeout=300)
+            pf0 = cb.prefill_dispatches
+            decoding = _th.Semaphore(0)  # one permit per low decode token
+            t0 = _time.perf_counter()
+            futs = [cb.submit(p, low_steps,
+                              on_token=lambda _t, _i: decoding.release())
+                    for p in low_prompts]
+            for p in hi_prompts:
+                # inject each preemptor once a low lane is decoding, so
+                # preemption (not plain admission) is what it exercises
+                decoding.acquire(timeout=30)
+                futs.append(cb.submit(p, steps, priority=10))
+            for f in futs:
+                f.result(timeout=300)
+            wall = max(1e-6, _time.perf_counter() - t0)
+            entry = {
+                "goodput_rps": len(futs) / wall,
+                "wall_s": wall,
+                "preemptions": cb.preemptions,
+                "re_prefill_dispatches":
+                    cb.prefill_dispatches - pf0 - len(futs),
+            }
+            mgr = cb.kv_offload
+            if mgr is not None:
+                entry.update(
+                    swap_outs=mgr.swap_outs, swap_ins=mgr.swap_ins,
+                    swap_out_mb=mgr.swap_out_bytes / 2**20,
+                    recompute_tokens_saved=mgr.recompute_tokens_saved,
+                    swap_failures=mgr.swap_failures)
+            return entry
+        finally:
+            cb.shutdown()
+
+    return {
+        "lanes": lanes, "steps": steps, "n_requests": n_low + n_hi,
+        "pool_pages": n_pages,
+        "oversubscription": outstanding * pages_per_req / n_pages,
+        "tier_off": mode(False),
+        "tier_on": mode(True),
+    }

@@ -1,7 +1,6 @@
 """Weight multiplexer: N models time-share one card's memory (the port of
-``tpulab/modelstore/multiplexer.py``; tpulab's bench row
-``benchmark_multi_model`` waits for the port's bench, ROADMAP queue 1,
-item 4).
+``tpulab/modelstore/multiplexer.py``, with tpulab's bench row
+:func:`benchmark_multi_model`).
 
 Every registered model's parameters live in exactly ONE tier at a time —
 **hot** (on the card, byte-accurately accounted against
@@ -694,3 +693,176 @@ class WeightMultiplexer:
         if self._owns_transfer:
             self._transfer.shutdown()
         self.store.clear()
+
+
+# -- the bench row ------------------------------------------------------------
+def benchmark_multi_model(switches: int = 6, steps: int = 8,
+                          prompt_len: int = 8, vocab: int = 128,
+                          d_model: int = 64, n_layers: int = 2,
+                          n_heads: int = 4, params=None,
+                          device=None) -> Dict[str, Any]:
+    """tpulab's bench ``multi_model`` row: an interleaved two-model trace
+    (a transformer LLM through the paged batcher and a ViT-S classifier at
+    32 x 32) under weight pressure: the budget holds ONE model's weights,
+    so every switch swaps.
+
+    Multiplexer **on**: switches ride host-tier swap-ins.  **Off**: every
+    switch is a serial cold rebuild (re-init + re-place).  Both modes must
+    give identical outputs (``parity`` / ``llm_parity``); the headline is
+    mean swap-in against cold-build latency and the evictions.  The LLM
+    batcher takes the split plan (``ragged=False``), tpulab's default at
+    this max_len, in f32."""
+    import numpy as np
+
+    from tpulab_torch.cuda.platform import resolve_device
+    from tpulab_torch.engine.paged import ContinuousBatcher, _bench_tree
+    from tpulab_torch.models.vit import init_vit_params, vit_apply
+
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, vocab, (prompt_len,), np.int32)
+    image = torch.from_numpy(
+        rng.standard_normal((1, 32, 32, 3)).astype(np.float32)).to(dev)
+
+    def build_llm_params():
+        return _bench_tree(params, dev, vocab, d_model, n_heads, n_layers,
+                           4 * d_model)
+
+    def build_vit_params():
+        return init_vit_params(variant="s", image_size=32, patch_size=16,
+                               num_classes=10, seed=0, device=dev)
+
+    def vit_fn(p, x):
+        with torch.inference_mode():
+            return vit_apply(p, {"input": x}, n_heads=6, n_layers=12,
+                             patch_size=16,
+                             compute_dtype=torch.float32)["logits"]
+
+    class _VitServable:
+        """A dense model with the multiplexer's adapter protocol (the real
+        path uses CompiledModelAdapter; the swap mechanics are shared)."""
+
+        def __init__(self):
+            self.device_params = build_vit_params()
+
+        def resident(self):
+            return self.device_params is not None
+
+        def param_bytes(self):
+            return tree_nbytes(self.device_params or build_vit_params())
+
+        def busy(self):
+            return False
+
+        def detach(self):
+            out, self.device_params = self.device_params, None
+            return out
+
+        def on_detached(self):
+            pass
+
+        def attach(self, host_tree):
+            self.device_params = place_tree(host_tree, dev)
+            _settled(dev)
+
+        def rebuild(self):
+            return build_vit_params()
+
+    def run(mux_on: bool) -> Dict[str, Any]:
+        cb = ContinuousBatcher(build_llm_params(), n_heads=n_heads,
+                               n_layers=n_layers, lanes=2,
+                               max_len=prompt_len + steps + 4,
+                               compute_dtype=torch.float32,
+                               ragged=False, device=dev)
+        vit = _VitServable()
+        llm_bytes = tree_nbytes(cb.params)
+        vit_bytes = vit.param_bytes()
+        # the bigger model plus half the smaller, never both: every switch
+        # in the trace must swap
+        budget = (max(llm_bytes, vit_bytes)
+                  + min(llm_bytes, vit_bytes) // 2)
+        mux = None
+        if mux_on:
+            mux = WeightMultiplexer(budget)
+            mux.register("llm", BatcherAdapter(cb, build_llm_params))
+            mux.register("vit", vit)
+        tokens: List[List[int]] = []
+        logits: List[np.ndarray] = []
+        swap_in_s: List[float] = []
+        cold_s: List[float] = []
+        t_all = _time.perf_counter()
+        try:
+            for i in range(switches):
+                want_llm = i % 2 == 0
+                name = "llm" if want_llm else "vit"
+                t0 = _time.perf_counter()
+                if mux is not None:
+                    was_cold = mux.state_of(name) != _HOT
+                    rebuilds0 = mux.cold_rebuilds
+                    lease = mux.acquire(name)
+                    mux.drain()
+                    if was_cold:
+                        (cold_s if mux.cold_rebuilds > rebuilds0
+                         else swap_in_s).append(_time.perf_counter() - t0)
+                else:
+                    # serial-rebuild baseline: the other model's weights
+                    # are dropped and this one is rebuilt from scratch
+                    if want_llm and cb.params is None:
+                        cb.params = place_tree(build_llm_params(), dev)
+                        _settled(dev)
+                        cold_s.append(_time.perf_counter() - t0)
+                    elif not want_llm and vit.device_params is None:
+                        vit.attach(build_vit_params())
+                        cold_s.append(_time.perf_counter() - t0)
+                    lease = None
+                try:
+                    if want_llm:
+                        fut = cb.submit(prompt, steps)
+                        tokens.append([int(t) for t in
+                                       fut.result(timeout=300)])
+                    else:
+                        logits.append(vit_fn(vit.device_params,
+                                             image).cpu().numpy())
+                finally:
+                    if lease is not None:
+                        lease.release()
+                if mux is None:  # the baseline drops the model it used
+                    if want_llm:
+                        cb.params = None
+                    else:
+                        vit.device_params = None
+            wall = _time.perf_counter() - t_all
+            out = {
+                "wall_s": wall,
+                "llm_tokens": tokens,
+                "vit_logits_digest": [round(float(np.abs(x).sum()), 4)
+                                      for x in logits],
+                "cold_build_ms_mean": (1e3 * float(np.mean(cold_s))
+                                       if cold_s else None),
+                "swap_in_ms_mean": (1e3 * float(np.mean(swap_in_s))
+                                    if swap_in_s else None),
+            }
+            if mux is not None:
+                out.update(evictions=mux.evictions, swap_ins=mux.swap_ins,
+                           swap_outs=mux.swap_outs,
+                           cold_rebuilds=mux.cold_rebuilds,
+                           hbm_budget_mb=budget / 2**20)
+            return out
+        finally:
+            cb.shutdown()
+            if mux is not None:
+                mux.close()
+
+    on, off = run(True), run(False)
+    llm_parity = on.pop("llm_tokens") == off.pop("llm_tokens")
+    vit_parity = (on.pop("vit_logits_digest")
+                  == off.pop("vit_logits_digest"))
+    son, soff = on.get("swap_in_ms_mean"), off.get("cold_build_ms_mean")
+    return {
+        "switches": switches, "steps": steps,
+        "mux_on": on, "mux_off": off,
+        "llm_parity": llm_parity, "vit_parity": vit_parity,
+        "parity": llm_parity and vit_parity,
+        "swap_in_faster_than_cold_build": (
+            son is not None and soff is not None and son < soff),
+    }

@@ -21,8 +21,9 @@ and ``"fma"`` (f32 FMAs on CUDA cores: every other mix, and D 256).  A
 context into :func:`ragged_splits` parts (split-KV) and merges them in a
 second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
 (one per call, merge included) and
-``ragged_paged_attention.launches_by_body`` splits them by body (the
-plain version counts in neither).
+``ragged_paged_attention.launches_by_body`` splits them by body,
+``ragged_paged_attention.launches_by_geom`` by ``"<body> x<splits>"``
+(the plain version counts in none).
 """
 
 from __future__ import annotations
@@ -221,8 +222,12 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
                            f"body, {n_split} splits): {msg}")
     ragged_paged_attention.launches += 1
     ragged_paged_attention.launches_by_body[body] += 1
+    geom = f"{body} x{n_split}"
+    by_geom = ragged_paged_attention.launches_by_geom
+    by_geom[geom] = by_geom.get(geom, 0) + 1
     return out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
+ragged_paged_attention.launches_by_geom = {}
