@@ -252,3 +252,243 @@ def test_int8_dense_speculative_generator(lm, dense):
                                compute_dtype=torch.float32, device="cpu",
                                **KW)
     assert [gen.generate(p, 6) for p in _prompts()] == dense
+
+
+# -- ResNet: W8 / W8A8, calibration and the registry ---------------------------
+# Tolerances: int8 values, scales and W8A8 int32 accumulators bit for bit;
+# ResNet-50 logits at f32 within RN_TOL (tpulab's own ResNet-50 depth
+# tolerance: the two backends sum in different orders, 53 convs deep);
+# calibrated ranges within 1e-4 relative (f32 absmax of the same forward).
+RN_TOL = 2e-3
+RN_IMG = 32
+
+
+@pytest.fixture(scope="module")
+def rn():
+    """tpulab's f32 ResNet-50, its ranges over two seeded batches and its
+    jitted f32 forward; the same tree on the port."""
+    from functools import partial
+    from types import SimpleNamespace
+
+    from tpulab.models import resnet as jr
+
+    pj = jr.init_resnet_params(50, seed=0)
+    rng = np.random.default_rng(0)
+    batches = [rng.standard_normal((1, RN_IMG, RN_IMG, 3)).astype(
+        np.float32) for _ in range(2)]
+    return SimpleNamespace(
+        pj=pj, pt=tree_from_numpy(_np(pj), "cpu"), batches=batches,
+        ranges=jq.calibrate_resnet(pj, batches),
+        x=rng.standard_normal((2, RN_IMG, RN_IMG, 3)).astype(np.float32),
+        apply=jax.jit(partial(jr.resnet_apply, compute_dtype=jnp.float32)))
+
+
+def _rn_logits(params, x):
+    from tpulab_torch.models.resnet import resnet_apply
+    with torch.inference_mode():
+        return resnet_apply(params, {"input": torch.from_numpy(x)},
+                            compute_dtype=torch.float32)["logits"].numpy()
+
+
+def _units(tree, prefix=""):
+    """(name, unit) of every conv unit, tpulab's names."""
+    if "kernel" in tree and "scale" in tree:
+        yield prefix.lstrip("/"), tree
+        return
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _units(v, f"{prefix}/{k}")
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+def test_resnet_quantize_is_bit_equal_to_tpulab(rn, mode):
+    from tpulab_torch.models.quantization import (quantize_resnet_params,
+                                                  quantize_resnet_params_w8a8,
+                                                  quantized_bytes)
+    if mode == "w8":
+        want, got = (jq.quantize_resnet_params(rn.pj),
+                     quantize_resnet_params(rn.pt))
+    else:
+        want = jq.quantize_resnet_params_w8a8(rn.pj, rn.ranges)
+        got = quantize_resnet_params_w8a8(rn.pt, rn.ranges)
+    units = dict(_units(got))
+    assert len(units) == 53 and set(units) == {n for n, _ in _units(want)}
+    for name, u in _units(want):
+        assert units[name]["kernel"].dtype == torch.int8
+        assert ("act_scale" in units[name]) == (mode == "w8a8")
+    _same_tree(_np(want), got)
+    assert quantized_bytes(got) == jq.quantized_bytes(want)
+    assert quantized_bytes(got) < 0.35 * quantized_bytes(rn.pt)
+
+
+def test_resnet_quantize_edge_channels():
+    """An all-zero output channel takes scale 1, exact ties round half to
+    even: bit-equal to tpulab on a planted kernel."""
+    from tpulab_torch.models.quantization import _quantize_kernel
+    k = np.random.default_rng(2).standard_normal((3, 3, 16, 8)).astype(
+        np.float32)
+    k[..., 3] = 0.0
+    k[..., 4] = (np.arange(144).reshape(3, 3, 16) - 72).astype(np.float32)
+    k[0, 0, 0, 4] = 127.0                  # absmax 127: scale exactly 1
+    want = jq._quantize_kernel(k)
+    got = _quantize_kernel(torch.from_numpy(k))
+    assert np.array_equal(got["kernel"].numpy(), np.asarray(want["kernel"]))
+    assert np.array_equal(_bits(got["kernel_scale"]),
+                          _bits(want["kernel_scale"]))
+    assert float(got["kernel_scale"][3]) == 1.0
+
+
+def test_resnet_w8_logits_match_tpulab(rn):
+    """Weight-only int8 (dequantized in each forward, tpulab's rounding)
+    on the raw and on the placed tree (the int8 kernel stays resident):
+    tpulab's logits within RN_TOL, and tpulab's accuracy bounds against
+    the f32 model."""
+    from tpulab_torch.models.quantization import quantize_resnet_params
+    from tpulab_torch.models.resnet import place_resnet_params
+
+    qt = quantize_resnet_params(rn.pt)
+    got = _rn_logits(qt, rn.x)
+    want = np.asarray(rn.apply(jq.quantize_resnet_params(rn.pj),
+                               {"input": rn.x})["logits"])
+    np.testing.assert_allclose(got, want, rtol=RN_TOL, atol=RN_TOL)
+    placed = place_resnet_params(qt, "cpu", torch.float32)
+    assert placed["stem"]["kernel"].dtype == torch.int8
+    assert "w" not in placed["stem"]
+    assert np.array_equal(_rn_logits(placed, rn.x), got)
+    full = _rn_logits(rn.pt, rn.x)
+    assert np.abs(full - got).max() / np.abs(full).max() < 0.1
+    assert np.corrcoef(full.ravel(), got.ravel())[0, 1] > 0.99
+
+
+def test_resnet_w8a8_logits_match_tpulab(rn):
+    """W8A8 on tpulab's ranges: act_scale bit for bit, logits within
+    RN_TOL of tpulab's, the placed tree (int8 kernels resident) bit-equal
+    to the raw one, and tpulab's accuracy bound against f32."""
+    from tpulab_torch.models.quantization import quantize_resnet_params_w8a8
+    from tpulab_torch.models.resnet import place_resnet_params
+
+    qt = quantize_resnet_params_w8a8(rn.pt, rn.ranges)
+    got = _rn_logits(qt, rn.x)
+    want = np.asarray(rn.apply(jq.quantize_resnet_params_w8a8(
+        rn.pj, rn.ranges), {"input": rn.x})["logits"])
+    np.testing.assert_allclose(got, want, rtol=RN_TOL, atol=RN_TOL)
+    placed = place_resnet_params(qt, "cpu", torch.float32)
+    assert placed["s1b0"]["conv2"]["kernel"].shape == (3, 3, 128, 128)
+    assert placed["s1b0"]["conv2"]["act_scale"].dtype == torch.float32
+    assert np.array_equal(_rn_logits(placed, rn.x), got)
+    full = _rn_logits(rn.pt, rn.x)
+    assert np.corrcoef(full.ravel(), got.ravel())[0, 1] > 0.95
+
+
+def test_calibrate_resnet_matches_tpulab(rn):
+    from tpulab_torch.models.quantization import calibrate_resnet
+    got = calibrate_resnet(rn.pt, rn.batches)
+    assert set(got) == set(rn.ranges) and len(got) == 53
+    assert "stem" in got and "s0b0/conv1" in got
+    for k, v in rn.ranges.items():
+        assert got[k] > 0
+        assert abs(got[k] - v) <= 1e-4 * v, k
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,size", [
+    (3, 64, 7, 2, 19),          # the stem: K = 147, padded to 152 on CUDA
+    (16, 24, 3, 2, 9),
+    (16, 8, 3, 1, 8),
+    (32, 16, 1, 2, 7),
+    (24, 16, 1, 1, 5),
+], ids=["stem7x7s2", "3x3s2", "3x3s1", "1x1s2", "1x1s1"])
+def test_int8_conv_accumulators_are_bit_equal(cin, cout, k, stride, size):
+    """One W8A8 conv's int32 accumulators (quantized activation, SAME
+    padding, exact integer products) against JAX's int8 convolution with
+    ``preferred_element_type=int32``, bit for bit."""
+    from tpulab_torch.models.resnet import int8_conv, quantize_activation
+
+    rng = np.random.default_rng(cin * 100 + k)
+    x = rng.standard_normal((2, size, size, cin)).astype(np.float32) * 3
+    act_scale = np.float32(0.021)
+    xq_j = jnp.clip(jnp.round(x / act_scale), -127, 127).astype(jnp.int8)
+    xq_t = quantize_activation(torch.from_numpy(x).permute(0, 3, 1, 2),
+                               torch.tensor(act_scale))
+    assert np.array_equal(xq_t.permute(0, 2, 3, 1).numpy(),
+                          np.asarray(xq_j))
+    kernel = rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)
+    want = jax.lax.conv_general_dilated(
+        xq_j, kernel, window_strides=(stride, stride), padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
+    got = int8_conv(xq_t, torch.from_numpy(kernel).permute(3, 0, 1, 2),
+                    stride)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.permute(0, 2, 3, 1).numpy(), np.asarray(want))
+
+
+def test_w8a8_out_of_range_input_clips_not_explodes(rn):
+    from tpulab_torch.models.quantization import (calibrate_resnet,
+                                                  quantize_resnet_params_w8a8)
+    small = [np.full((1, RN_IMG, RN_IMG, 3), 0.1, np.float32)]
+    q = quantize_resnet_params_w8a8(rn.pt, calibrate_resnet(rn.pt, small))
+    out = _rn_logits(q, np.full((1, RN_IMG, RN_IMG, 3), 50.0, np.float32))
+    assert np.isfinite(out).all()
+
+
+def test_calibrator_ranges_and_cache(tmp_path, rn):
+    """The port's Calibrator over the f32 ResNet: input absmax exact, the
+    output range tpulab's within 1e-4; the cache file is byte for byte
+    what tpulab's save writes for the same ranges, and each package loads
+    the other's."""
+    from functools import partial
+
+    from tpulab.models import resnet as jr
+    from tpulab_torch.models.quantization import Calibrator
+    from tpulab_torch.models.resnet import resnet_apply
+
+    batches = [{"input": np.full((1, RN_IMG, RN_IMG, 3), v, np.float32)}
+               for v in (0.5, -2.0, 1.0)]
+    cal = Calibrator(partial(resnet_apply, compute_dtype=torch.float32),
+                     rn.pt)
+    ranges = cal.run(batches)
+    jcal = jq.Calibrator(partial(jr.resnet_apply,
+                                 compute_dtype=jnp.float32), rn.pj)
+    want = jcal.run(batches)
+    assert set(ranges) == set(want) == {"input:input", "output:logits"}
+    assert ranges["input:input"] == want["input:input"] == 2.0
+    assert abs(ranges["output:logits"] - want["output:logits"]) <= \
+        1e-4 * want["output:logits"]
+    ours, theirs = tmp_path / "ours.json", tmp_path / "theirs.json"
+    cal.save(str(ours))
+    jcal.ranges = dict(ranges)
+    jcal.save(str(theirs))
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert Calibrator.load(str(ours)) == ranges == jq.Calibrator.load(
+        str(ours))
+
+
+def test_resnet50_int8_registry_entry(rn):
+    """``build_model("resnet50_int8")``: tpulab's names, int8 kernels
+    resident (the weights' bytes count int8), the f32 head; its forward
+    on tpulab's quantized tree is tpulab's within RN_TOL, served through
+    the port's Runtime (placed tree) bit-equal to the direct forward."""
+    from tpulab.models import build_model as jax_build
+    from tpulab_torch.engine.runtime import Runtime
+    from tpulab_torch.models import build_model
+    from tpulab_torch.models.quantization import quantized_bytes
+
+    kw = dict(image_size=RN_IMG, max_batch_size=2)
+    jm = jax_build("resnet50_int8", compute_dtype=jnp.float32, **kw)
+    pm = build_model("resnet50_int8", compute_dtype=torch.float32,
+                     device="cpu", **kw)
+    assert pm.name == jm.name == "resnet50_int8"
+    assert pm.batch_buckets == jm.batch_buckets
+    assert pm.params["stem"]["kernel"].dtype == torch.int8
+    assert pm.params["stem"]["kernel_scale"].shape == (64,)
+    assert pm.params["fc"]["kernel"].dtype == torch.float32
+    assert pm.weights_size_in_bytes() == quantized_bytes(pm.params)
+    assert pm.weights_size_in_bytes() == jq.quantized_bytes(jm.params)
+    tree = tree_from_numpy(_np(jm.params), "cpu")
+    got = _rn_logits(tree, rn.x)
+    want = np.asarray(rn.apply(jm.params, {"input": rn.x})["logits"])
+    np.testing.assert_allclose(got, want, rtol=RN_TOL, atol=RN_TOL)
+    pm.params = tree
+    compiled = Runtime("cpu").compile_model(pm)
+    out = compiled(2, {"input": torch.from_numpy(rn.x)})["logits"]
+    assert np.array_equal(out.numpy(), got)

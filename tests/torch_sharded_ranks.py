@@ -41,18 +41,24 @@ def _prompts():
 
 def _main_workload(cb, sampling_cls, pr):
     """Greedy with page crossings, device-sampled, logprobs, host-sampled
-    and the dry run's pair, submitted together (tokens and logprobs per
-    request do not depend on the batch they ride)."""
-    futs = {f"greedy{i}": cb.submit(p, s)
-            for i, (p, s) in enumerate(pr["greedy"])}
-    futs["sampled"] = cb.submit(pr["sampled"], 20, sampling=sampling_cls(
-        temperature=0.9, seed=1234, device=True))
-    futs["logprobs"] = cb.submit(pr["logprobs"], 12, logprobs=True)
-    futs["host"] = cb.submit(pr["host"], 10, sampling=sampling_cls(
-        temperature=0.8, top_k=8, seed=55))
-    futs["dry_greedy"] = cb.submit(pr["dryrun"], 12)
-    futs["dry_sampled"] = cb.submit(pr["dryrun"], 12, sampling=sampling_cls(
-        temperature=0.8, seed=7, device=True))
+    and the dry run's pair, queued whole before the scheduler takes its
+    next pass: the batcher's condition (a re-entrant lock, in both
+    packages) is held across the submits, so which requests share a
+    round never depends on thread timing.  Tokens do not depend on the
+    batch a request rides, but a logprob's last bits can (the CPU's
+    matrix products round differently at another row count)."""
+    with cb._cv:
+        futs = {f"greedy{i}": cb.submit(p, s)
+                for i, (p, s) in enumerate(pr["greedy"])}
+        futs["sampled"] = cb.submit(pr["sampled"], 20, sampling=sampling_cls(
+            temperature=0.9, seed=1234, device=True))
+        futs["logprobs"] = cb.submit(pr["logprobs"], 12, logprobs=True)
+        futs["host"] = cb.submit(pr["host"], 10, sampling=sampling_cls(
+            temperature=0.8, top_k=8, seed=55))
+        futs["dry_greedy"] = cb.submit(pr["dryrun"], 12)
+        futs["dry_sampled"] = cb.submit(
+            pr["dryrun"], 12, sampling=sampling_cls(
+                temperature=0.8, seed=7, device=True))
     out = {}
     for k, f in futs.items():
         r = f.result(timeout=STEPS_TIMEOUT)

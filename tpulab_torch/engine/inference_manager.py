@@ -95,9 +95,19 @@ class InferenceManager:
 
     def register_engine(self, name: str, path: str, apply_fn=None,
                         max_concurrency: Optional[int] = None) -> None:
-        raise NotImplementedError(
-            "register_engine: engine artifacts are XLA formats and are not "
-            "ported (ROADMAP queue 1, item 6: engine artifacts)")
+        """Load an engine artifact (:meth:`Runtime.save_engine`'s) and
+        register it; ``apply_fn`` is optional: the artifact's exported
+        programs serve without source."""
+        if self._allocated:
+            raise RuntimeError("register engines before update_resources()")
+        compiled = self._runtime.load_engine(path, apply_fn=apply_fn,
+                                             model_name=name)
+        slots = max_concurrency or self.max_executions
+        with self._lock:
+            self._models[name] = compiled.model
+            self._compiled[name] = compiled
+            self._ctx_pools[name] = make_serving_pool(
+                ExecutionContext(compiled, slot_id=i) for i in range(slots))
 
     # -- resource allocation ----------------------------------------------------
     def update_resources(self, allow_empty: bool = False) -> None:

@@ -8,30 +8,61 @@ the bucket's batch; the bucket contract (``pick_bucket``, zero padding of
 dead rows, outputs cut to the batch) is kept by the staging
 :class:`~tpulab_torch.engine.buffers.Bindings`.  On a CUDA device every
 bucket runs once at compile time (cuDNN and cuBLAS pick their kernels
-then, not on a request), and the largest bucket's run measures the
-activation memory.
+then, not on a request); the caching allocator's statistics around each
+run give :meth:`CompiledModel.memory_analysis`, and the largest bucket's
+the activation memory.
 
-tpulab's engine artifacts (``save_engine`` / ``load_engine`` and the
-``memory_analysis`` of an executable) are XLA formats and are not carried
-(ROADMAP queue 1, item 6: engine artifacts).
+The engine artifact (the plan-file analog) is a directory:
+
+    <path>/spec.json       IO contract, buckets, model name (tpulab's keys)
+                           and ``"format": "tpulab_torch"``
+    <path>/params.npz      weight leaves ``leaf_{i}`` (tpulab's keys; a
+                           bf16 leaf as its 16-bit pattern)
+    <path>/tree.json       the tree's structure: nested dicts whose leaves
+                           are ``["leaf", i, dtype]`` (``leaf_{i}``) or
+                           ``["scalar", value]``
+    <path>/bucket_<N>.pt2  the bucket's forward as a ``torch.export``
+                           ExportedProgram over (params, inputs): loads
+                           WITHOUT the Python ``apply_fn``
+
+There is no counterpart of tpulab's ``bucket_<N>.xla`` executables (eager
+PyTorch compiles nothing), and the two packages' artifacts do not load
+in each other's runtime.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import logging
-from typing import Any, Callable, Dict, Optional, Sequence
+import os
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from tpulab_torch.cuda.allocators import DeviceRawAllocator
+from tpulab_torch.cuda.allocators import DeviceRawAllocator, _nbytes
 from tpulab_torch.cuda.platform import resolve_device
-from tpulab_torch.engine.model import Model
+from tpulab_torch.engine.model import IOSpec, Model
 
 log = logging.getLogger("tpulab_torch.engine")
 
-_ARTIFACTS = ("engine artifacts are XLA formats and are not ported "
-              "(ROADMAP queue 1, item 6: engine artifacts)")
+#: ``spec.json``'s mark of the port's artifact format
+ARTIFACT_FORMAT = "tpulab_torch"
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryAnalysis:
+    """One bucket's device memory, under the names of XLA's
+    ``CompiledMemoryStats`` (tpulab's ``memory_analysis``): the bytes of
+    the arguments (the placed weights and the bucket's inputs) and of the
+    outputs, and ``temp_size_in_bytes``, the caching allocator's peak
+    during the compile-time forward beyond what it held after it (None
+    on the CPU, which keeps no statistics)."""
+
+    argument_size_in_bytes: int
+    output_size_in_bytes: int
+    temp_size_in_bytes: Optional[int]
 
 
 def tree_to(tree: Any, device) -> Any:
@@ -79,7 +110,8 @@ class CompiledModel:
     def __init__(self, model: Model, device: torch.device,
                  executables: Dict[int, _BucketProgram], device_params: Any,
                  activation_bytes: int = 0, allocator=None,
-                 weights_addr: Optional[int] = None):
+                 weights_addr: Optional[int] = None,
+                 temp_bytes: Optional[Dict[int, int]] = None):
         self.model = model
         self.device = device
         self.executables = executables
@@ -92,6 +124,7 @@ class CompiledModel:
         self.allocator = allocator
         self.weights_addr = weights_addr
         self._activation_bytes = activation_bytes
+        self._temp_bytes = temp_bytes or {}
         self._flops: Dict[int, float] = {}
 
     def release_weights(self) -> None:
@@ -103,8 +136,20 @@ class CompiledModel:
             self.weights_addr = None
             self.device_params = None
 
-    def memory_analysis(self, bucket: Optional[int] = None):
-        raise NotImplementedError(f"memory_analysis: {_ARTIFACTS}")
+    def memory_analysis(self, bucket: Optional[int] = None
+                        ) -> MemoryAnalysis:
+        """Device memory of one bucket's forward (default the largest):
+        argument and output bytes from the tensors' sizes, temp bytes as
+        the allocator measured them at compile time."""
+        b = bucket or self.model.batch_buckets[-1]
+        if b not in self.executables:
+            raise KeyError(f"bucket {b} is not compiled "
+                           f"(have {sorted(self.executables)})")
+        params = _nbytes(self.device_params)
+        inputs = sum(s.bytes_per_sample() * b for s in self.model.inputs)
+        outputs = sum(s.bytes_per_sample() * b for s in self.model.outputs)
+        return MemoryAnalysis(params + inputs, outputs,
+                              self._temp_bytes.get(b))
 
     def activation_size_in_bytes(self) -> int:
         """Peak bytes the CUDA caching allocator gave one forward of the
@@ -157,25 +202,177 @@ class Runtime:
         weights_addr, params = self.allocator.allocate_tree(params)
         executables = {b: _BucketProgram(model.apply_fn, b)
                        for b in buckets}
-        activation = 0
+        activation, temp = 0, {}
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
                 for b in buckets:
+                    inputs = zero_inputs(model, b, self.device)
                     torch.cuda.synchronize()
                     base = torch.cuda.memory_allocated()
                     torch.cuda.reset_peak_memory_stats()
-                    executables[b](params,
-                                   zero_inputs(model, b, self.device))
+                    out = executables[b](params, inputs)
                     torch.cuda.synchronize()
-                    activation = torch.cuda.max_memory_allocated() - base
+                    peak = torch.cuda.max_memory_allocated()
+                    activation = peak - base
+                    temp[b] = peak - torch.cuda.memory_allocated()
+                    del out
                     log.info("warmed %s bucket=%d", model.name, b)
         return CompiledModel(model, self.device, executables, params,
                              activation, allocator=self.allocator,
-                             weights_addr=weights_addr)
+                             weights_addr=weights_addr, temp_bytes=temp)
 
+    # -- engine artifacts ----------------------------------------------------
     def save_engine(self, compiled: CompiledModel, path: str) -> None:
-        raise NotImplementedError(f"save_engine: {_ARTIFACTS}")
+        """Write an engine artifact: the spec, the weights of
+        ``model.params`` and one ``torch.export`` program per bucket (over
+        the weights as ``params.npz`` holds them, on this device).  An
+        export that fails is logged and its program left out: such an
+        artifact needs ``apply_fn`` to load (tpulab's rule)."""
+        os.makedirs(path, exist_ok=True)
+        model = compiled.model
+        spec = {
+            "name": model.name,
+            "max_batch_size": model.max_batch_size,
+            "batch_buckets": model.batch_buckets,
+            "inputs": [[s.name, list(s.shape), np.dtype(s.dtype).name]
+                       for s in model.inputs],
+            "outputs": [[s.name, list(s.shape), np.dtype(s.dtype).name]
+                        for s in model.outputs],
+            "format": ARTIFACT_FORMAT,
+        }
+        with open(os.path.join(path, "spec.json"), "w") as f:
+            json.dump(spec, f, indent=2)
+        leaves: List[torch.Tensor] = []
+        structure = _tree_structure(model.params, leaves)
+        np.savez(os.path.join(path, "params.npz"),
+                 **{f"leaf_{i}": _leaf_array(t)
+                    for i, t in enumerate(leaves)})
+        with open(os.path.join(path, "tree.json"), "w") as f:
+            json.dump(structure, f)
+        try:
+            self._save_exported(compiled, path)
+        except Exception as e:  # noqa: BLE001 - tpulab's rule, logged
+            log.warning("portable torch.export program unavailable (%s); "
+                        "artifact will need apply_fn to load", e)
+
+    @staticmethod
+    def _save_exported(compiled: CompiledModel, path: str) -> None:
+        model = compiled.model
+        params = tree_to(model.params, compiled.device)
+        program = _Forward(model.apply_fn)
+        for b in model.batch_buckets:
+            exported = torch.export.export(
+                program, (params, zero_inputs(model, b, compiled.device)))
+            # the traced example (the weights among it) is not part of the
+            # program: params.npz holds the weights once
+            exported.example_inputs = None
+            torch.export.save(exported, os.path.join(path,
+                                                     f"bucket_{b}.pt2"))
 
     def load_engine(self, path: str, apply_fn=None,
                     model_name: Optional[str] = None) -> CompiledModel:
-        raise NotImplementedError(f"load_engine: {_ARTIFACTS}")
+        """Load an artifact of :meth:`save_engine` onto this runtime's
+        device: with ``apply_fn`` the buckets run it over the saved
+        weights; without, each bucket runs its saved program (raising
+        tpulab's error where one is missing)."""
+        spec_path = os.path.join(path, "spec.json")
+        with open(spec_path) as f:
+            spec = json.load(f)
+        if spec.get("format") != ARTIFACT_FORMAT:
+            raise ValueError(
+                f"{path} is not a tpulab_torch engine artifact (tpulab's "
+                "artifacts hold XLA programs and a pickled JAX treedef; "
+                "the two packages' artifacts do not load across)")
+        data = np.load(os.path.join(path, "params.npz"))
+        with open(os.path.join(path, "tree.json")) as f:
+            params = _tree_unflatten(json.load(f), data)
+        inputs = [IOSpec(n, tuple(s), np.dtype(d))
+                  for n, s, d in spec["inputs"]]
+        outputs = [IOSpec(n, tuple(s), np.dtype(d))
+                   for n, s, d in spec["outputs"]]
+        if apply_fn is None:
+            apply_fn = self._portable_apply_fn(path, spec)
+        model = Model(model_name or spec["name"], apply_fn, params, inputs,
+                      outputs, spec["max_batch_size"], spec["batch_buckets"])
+        return self.compile_model(model)
+
+    @staticmethod
+    def _portable_apply_fn(path: str, spec: dict):
+        """apply_fn over the artifact's exported programs: dispatches on
+        the batch dimension to the matching bucket's program (each is
+        shape-exact), loading it on first use."""
+        programs: dict = {}
+
+        def _program(b: int):
+            if b not in programs:
+                pt2 = os.path.join(path, f"bucket_{b}.pt2")
+                if not os.path.exists(pt2):
+                    raise ValueError(
+                        f"this artifact was loaded without apply_fn and "
+                        f"needs its portable program to run bucket {b}, "
+                        f"but {pt2} is missing (export was unavailable "
+                        f"when it was saved) — pass apply_fn to run from "
+                        f"source")
+                programs[b] = torch.export.load(pt2).module()
+            return programs[b]
+
+        def apply_fn(params, inputs):
+            batch = next(iter(inputs.values())).shape[0]
+            if batch not in spec["batch_buckets"]:
+                raise ValueError(f"no portable program for bucket {batch} "
+                                 f"(have {sorted(spec['batch_buckets'])})")
+            return _program(batch)(params, inputs)
+
+        return apply_fn
+
+
+class _Forward(torch.nn.Module):
+    """``apply_fn`` as the module ``torch.export`` traces."""
+
+    def __init__(self, apply_fn: Callable):
+        super().__init__()
+        self.apply_fn = apply_fn
+
+    def forward(self, params, inputs):
+        return self.apply_fn(params, inputs)
+
+
+#: leaves numpy cannot hold, saved as the integer view of their bits
+_BIT_VIEWS = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8,
+              torch.float8_e5m2: torch.uint8}
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _leaf_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    return (t.view(_BIT_VIEWS[t.dtype]) if t.dtype in _BIT_VIEWS
+            else t).numpy()
+
+
+def _tree_structure(tree: Any, leaves: List[torch.Tensor]) -> Any:
+    """The tree with each tensor leaf replaced by ``["leaf", i, dtype]``
+    (``leaves[i]`` is the tensor) and each python scalar by ``["scalar",
+    value]``: JSON objects are always sub-trees."""
+    if isinstance(tree, dict):
+        return {k: _tree_structure(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ["leaf", len(leaves) - 1, _dtype_name(tree.dtype)]
+    if isinstance(tree, (bool, int, float)):
+        return ["scalar", tree]
+    raise TypeError(f"cannot save a {type(tree).__name__} leaf in an "
+                    "engine artifact")
+
+
+def _tree_unflatten(structure: Any, data) -> Any:
+    if isinstance(structure, dict):
+        return {k: _tree_unflatten(v, data) for k, v in structure.items()}
+    if structure[0] == "scalar":
+        return structure[1]
+    _, i, dtype = structure
+    dtype = getattr(torch, dtype)
+    t = torch.from_numpy(np.array(data[f"leaf_{i}"]))
+    return t.view(dtype) if dtype in _BIT_VIEWS else t

@@ -294,14 +294,20 @@ class MeshChannel:
     def stop(self) -> None:
         """Coordinator: publish ``"stop"`` and return once every follower
         has read it (the store lives in this process: it must outlast
-        their last read); then end the watcher.  Nothing to stop once the
-        mesh has failed (the followers ended their replay)."""
+        their last read); then end the watcher and the store.  Nothing to
+        stop once the mesh has failed (the followers ended their
+        replay)."""
         if not self.n_followers or self.failure is not None:
             return
         self.publish("stop")
         self._wait_count("stopped", self.n_followers)
         # wake every watcher with no reason (a failure, set first, stays)
         self._store.compare_set("failed", "", "")
+        # the store's server ends now, while the interpreter runs: a server
+        # still alive when the process finalizes aborts it (seen on the
+        # card, the coordinator rank exiting -6 after its work was done)
+        self._watcher.join(timeout=1.0)
+        self._store = None
 
 
 def local_params(tree: Dict[str, Any], mesh, device) -> Dict[str, Any]:

@@ -42,23 +42,41 @@ def _transformer_int8(**kw):
     return m.renamed("transformer_int8")
 
 
-def _unported(name: str, what: str):
+def _resnet_int8(depth: int):
+    """The seeded ResNet with every conv kernel stored weight-only int8
+    (``kernel`` + ``kernel_scale``), dequantized in each forward."""
     def build(**kw):
-        raise NotImplementedError(f"registry entry {name!r} is not ported "
-                                  f"(ROADMAP queue 1, item 6: {what})")
+        from tpulab_torch.engine.model import Model
+        from tpulab_torch.models.quantization import quantize_resnet_params
+        from tpulab_torch.models.resnet import make_resnet
+        m = make_resnet(depth=depth, **kw)
+        return Model(f"resnet{depth}_int8", m.apply_fn,
+                     quantize_resnet_params(m.params), m.inputs, m.outputs,
+                     m.max_batch_size, m.batch_buckets, m.place_fn)
     return build
+
+
+def _onnx(path: str = "", **kw):
+    """ONNX import: ``build_model("onnx", path="model.onnx", name=...,
+    weight_quant="int8", device=...)`` — the registry face of
+    :func:`tpulab_torch.models.onnx_import.load_onnx_model`."""
+    if not path:
+        raise ValueError(
+            "registry entry 'onnx' requires path=<model.onnx> "
+            "(e.g. build_model('onnx', path='resnet50.onnx'))")
+    from tpulab_torch.models.onnx_import import load_onnx_model
+    return load_onnx_model(path, **kw)
 
 
 _REGISTRY: Dict[str, Callable] = {
     "resnet50": _resnet(50),
     "resnet101": _resnet(101),
     "resnet152": _resnet(152),
-    "resnet50_int8": _unported("resnet50_int8", "the ResNet half of "
-                               "models/quantization.py"),
+    "resnet50_int8": _resnet_int8(50),
     "mnist": _mnist,
     "transformer": _transformer,
     "transformer_int8": _transformer_int8,
-    "onnx": _unported("onnx", "models/onnx_import.py"),
+    "onnx": _onnx,
     "vit_s16": _vit("s", 16),
     "vit_b16": _vit("b", 16),
     "vit_l16": _vit("l", 16),
