@@ -28,7 +28,8 @@ raises and the script exits non-zero without printing a result:
    - flash_attention at B 1, H 32, D 128, T in {8, 64, 128, 512, 1024,
      2048} (the split serve's buckets among them), causal and not;
      planted: the diagonal K tile of every causal row past the first
-     tile dropped, at T 2048;
+     tile dropped, at T 2048; and at B 1, H 16, D 128, T 1024, causal,
+     bf16 (a rank's prefill at {"model": 2}), the same planted error;
    - paged_decode_attention at the serving geometry: 8 lanes at positions
      1023 and 2047, and one lane at 2047; planted: one page skipped at
      2048 context; kernel 1's time at the same shape beside it;
@@ -364,7 +365,26 @@ raises and the script exits non-zero without printing a result:
    rank) and serving the mix on ``{"model": 2}``: each rank's kernel 1
    launches == 32 x the coordinator's forward steps, and every stream
    equals mesh=None's or passes phase 7's bf16 noise rule; tok/s and
-   peak memory per rank.
+   peak memory per rank.  The same two ranks then run (e) the split plan
+   (``ragged=False``, no chunking) as a KV-fabric owner
+   (``kv_publish``): four greedy prompts (1000, 500, 200, 64 tokens) x 8
+   steps, kernel 2 on each rank's 16 query heads: kernel 2 launches per
+   rank == 32 x the prefills and kernel 1 == 32 x the forward steps, all
+   ``wgmma``, one publish a prompt, the streams against (a)'s under the
+   noise rule; the 1000-token prompt's blob is pulled into a mesh=None
+   batcher (no prefill there) whose continuation matches the owner's
+   under the same rule.  (f) a ``WeightMultiplexer`` on the coordinator
+   over the batcher's ``BatcherAdapter`` (the whole tree's bytes) and a
+   2 GiB second servable: registering the servable pushes the weights
+   out (each rank's device memory falls by its shard; swap-out seconds,
+   the follower's replayed copy timed), an acquire brings them back, and
+   one greedy request's 8 tokens are bit-identical before and after.
+   (d) the int8 tree, each projection quantized whole on each rank's
+   card and cut by its parent's rule (half the int8 bytes a rank), on
+   the mix's last four requests x 16 steps, against the same tree
+   quantized on the card at mesh=None: kernel 1 launches per rank == 32
+   x the forward steps, all ``wgmma``; streams equal or within the noise
+   rule over an int8 replay.
 15. rows   — tpulab's eleven bench rows through the port's functions,
    each once, its JSON on a line of its own.  At Llama-3-8B width on one
    bf16 tree (seed 0): ``benchmark_decode_dispatch`` (K 1 / 4 / 8 / 16,
@@ -748,7 +768,34 @@ def masked_plain(torch, q, k, v, mask):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
+#: the split plan's prefill under {"model": 2} at Llama-3-8B width: each
+#: rank attends over its 16 query heads (phase 14 (e)); prompts of 513 to
+#: 1024 tokens pad to this bucket
+FA_RANK = dict(b=1, h=16, d=128, t=1024)
+
+
 def phase_flash(torch, timer):
+    import numpy as np
+
+    g = FA_GEOM
+    rng = np.random.default_rng(1)
+    rows = []
+    for dname in ("bfloat16", "float32"):
+        for t in FA_TS:
+            for causal in (True, False):
+                rows.append(flash_case(torch, timer, rng, g["b"], g["h"],
+                                       g["d"], t, dname, causal,
+                                       causal and t == FA_TS[-1]))
+    g = FA_RANK
+    rows.append(flash_case(torch, timer, rng, g["b"], g["h"], g["d"], g["t"],
+                           "bfloat16", True, True))
+    return rows
+
+
+def flash_case(torch, timer, rng, b, h, d, t, dname, causal, planted):
+    """One flash case against its plain version (and, with ``planted``, a
+    kernel that skipped the diagonal tile of every row past the first
+    tile, which the check must reject); times beside the bound and SDPA."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -756,53 +803,41 @@ def phase_flash(torch, timer):
                                                   flash_attention_reference,
                                                   flash_body)
 
-    g = FA_GEOM
-    rng = np.random.default_rng(1)
-    rows = []
-    for dname in ("bfloat16", "float32"):
-        dt = getattr(torch, dname)
-        kind = "bf16" if dt == torch.bfloat16 else "f32"
-        for t in FA_TS:
-            q, k, v = (torch.from_numpy(rng.standard_normal(
-                (g["b"], t, g["h"], g["d"])).astype(np.float32)).cuda().to(dt)
-                for _ in range(3))
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            for causal in (True, False):
-                label = f"T={t} {'causal' if causal else 'full'}"
-                body = flash_body(dt, g["d"])
-                got = launch_twice(
-                    torch, f"flash {label} {dname}", flash_attention,
-                    lambda: flash_attention(q, k, v, causal=causal), body)
-                err = check_close(torch, f"flash {label} {dname}", got,
-                                  flash_attention_reference(q, k, v, causal))
-                if causal and t == FA_TS[-1]:
-                    # a kernel that skipped the diagonal tile of every row
-                    # past the first tile
-                    i = torch.arange(t, device="cuda")
-                    qi, ki = i[:, None] // FA_TILE, i[None, :] // FA_TILE
-                    mask = (i[None, :] <= i[:, None]) & ~((ki == qi) & (qi > 0))
-                    check_rejects(torch, f"flash diagonal tile dropped, T={t}, "
-                                  f"{dname}", got,
-                                  masked_plain(torch, q, k, v, mask))
-                ms = timer(lambda: flash_attention(q, k, v, causal=causal),
-                           iters=10)
-                plain_ms = timer(lambda: flash_attention_reference(
-                    q, k, v, causal), iters=3, warmup=1)
-                lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal), iters=10)
-                pairs = g["b"] * (t * (t + 1) // 2 if causal else t * t)
-                bound_ms, bound_by = bound(
-                    4 * g["b"] * t * g["h"] * g["d"] * q.element_size(),
-                    4 * g["d"] * g["h"] * pairs, kind)
-                rows.append(dict(case=label, dtypes=dname, max_abs_err=err,
-                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=lib_ms,
-                                 body=body))
-                log(f"kernels: flash {label:<12} {dname:<8} {body:<5} "
-                    f"err={err:.2e} kernel={ms:.4f} plain={plain_ms:.4f} "
-                    f"bound={bound_ms:.4f} ({bound_by}) ms | yardstick, "
-                    f"unused by the port: sdpa={lib_ms:.4f} ms")
-    return rows
+    dt = getattr(torch, dname)
+    kind = "bf16" if dt == torch.bfloat16 else "f32"
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b, t, h, d)).astype(np.float32)).cuda().to(dt) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    label = f"T={t} {'causal' if causal else 'full'}"
+    if h != FA_GEOM["h"]:
+        label += f" H={h}"
+    body = flash_body(dt, d)
+    got = launch_twice(
+        torch, f"flash {label} {dname}", flash_attention,
+        lambda: flash_attention(q, k, v, causal=causal), body)
+    err = check_close(torch, f"flash {label} {dname}", got,
+                      flash_attention_reference(q, k, v, causal))
+    if planted:
+        i = torch.arange(t, device="cuda")
+        qi, ki = i[:, None] // FA_TILE, i[None, :] // FA_TILE
+        mask = (i[None, :] <= i[:, None]) & ~((ki == qi) & (qi > 0))
+        check_rejects(torch, f"flash diagonal tile dropped, {label}, "
+                      f"{dname}", got, masked_plain(torch, q, k, v, mask))
+    ms = timer(lambda: flash_attention(q, k, v, causal=causal), iters=10)
+    plain_ms = timer(lambda: flash_attention_reference(q, k, v, causal),
+                     iters=3, warmup=1)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), iters=10)
+    pairs = b * (t * (t + 1) // 2 if causal else t * t)
+    bound_ms, bound_by = bound(4 * b * t * h * d * q.element_size(),
+                               4 * d * h * pairs, kind)
+    log(f"kernels: flash {label:<12} {dname:<8} {body:<5} "
+        f"err={err:.2e} kernel={ms:.4f} plain={plain_ms:.4f} "
+        f"bound={bound_ms:.4f} ({bound_by}) ms | yardstick, "
+        f"unused by the port: sdpa={lib_ms:.4f} ms")
+    return dict(case=label, dtypes=dname, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, body=body)
 
 
 def host_us(torch, call, n=200):
@@ -6913,6 +6948,21 @@ SHARD_STEPS = 32
 SHARD_TEMP = 0.8
 SHARD_SEED = 4242
 SHARD_RANKS = 2                 # the ranks that share the one card
+# (d): the int8 tree on the mix's last four requests (200, 128, 64 and 16
+# tokens, two greedy, two device-sampled), cut to 16 steps: its eager
+# dequantization made the first four's long prefills take 28 s at M 2 on
+# one H100
+SHARD_INT8 = (4, 5, 6, 7)
+SHARD_INT8_STEPS = 16
+# (e): the split plan's owner publishes the mix's four greedy prompts
+# (1000, 500, 200 and 64 tokens: flash buckets 1024 ... 64) over 8 steps;
+# the 1000-token prompt's blob is pulled into a mesh=None batcher
+SHARD_PUB = (0, 2, 4, 6)
+SHARD_PUB_STEPS = 8
+SHARD_KV_OFFLOAD = 1 << 30
+# (f): one greedy request before and after the swap; the second servable
+SHARD_SWAP_STEPS = 8
+SHARD_BLOB_BYTES = 2 << 30
 
 
 def shard_specs(np):
@@ -6930,18 +6980,147 @@ def shard_warm(cb):
     cb.submit([1, 2, 3], 2).result(timeout=900)
 
 
-def shard_serve(cb, specs):
-    """Submit the mix at once (atomically: repeated runs schedule the same
-    rounds) and wait for it."""
+def shard_sampling(seed):
     from tpulab_torch.engine.paged import SamplingParams
 
+    return (SamplingParams(temperature=SHARD_TEMP, seed=seed, device=True)
+            if seed is not None else None)
+
+
+def shard_serve(cb, specs, steps=SHARD_STEPS):
+    """Submit the mix at once (atomically: repeated runs schedule the same
+    rounds) and wait for it."""
     futs = {}
     with cb._cv:
         for name, prompt, seed in specs:
-            sp = (SamplingParams(temperature=SHARD_TEMP, seed=seed,
-                                 device=True) if seed is not None else None)
-            futs[name] = cb.submit(prompt, SHARD_STEPS, sampling=sp)
+            futs[name] = cb.submit(prompt, steps,
+                                   sampling=shard_sampling(seed))
     return {name: list(f.result(timeout=900)) for name, f in futs.items()}
+
+
+class DeviceBlob:
+    """The second servable of (f): one device tensor of ``nbytes`` behind
+    the weight multiplexer's adapter protocol."""
+
+    def __init__(self, torch, nbytes):
+        self.torch, self.nbytes = torch, nbytes
+        self.tree = self.rebuild()
+
+    def resident(self):
+        return self.tree is not None
+
+    def param_bytes(self):
+        return self.nbytes
+
+    def busy(self):
+        return False
+
+    def detach(self):
+        tree, self.tree = self.tree, None
+        return tree
+
+    def on_detached(self):
+        pass
+
+    def attach(self, host_tree):
+        from tpulab_torch.cuda.allocators import place_tree
+        self.tree = place_tree(host_tree, "cuda")
+        self.torch.cuda.synchronize()
+
+    def rebuild(self):
+        return {"w": self.torch.zeros(self.nbytes, dtype=self.torch.uint8,
+                                      device="cuda")}
+
+
+class LaunchCounts:
+    """Kernels 1 and 2's launch counters of this process, zeroed by
+    :meth:`zero` and read by :meth:`read`."""
+
+    def __init__(self):
+        from tpulab_torch.ops.flash_attention import flash_attention
+        from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+        self.fns = {"ragged": ragged_paged_attention,
+                    "flash": flash_attention}
+
+    def zero(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+
+    def read(self):
+        out = {}
+        for name, fn in self.fns.items():
+            out[name] = fn.launches
+            out[f"{name}_bodies"] = dict(fn.launches_by_body)
+        return out
+
+
+def gb(torch):
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def shard_publish(torch, cb, specs, out_dir):
+    """(e) on the coordinator: serve the greedy prompts on the publishing
+    owner, wait for every snapshot to land, write the first prompt's
+    fabric blob for the parent to pull."""
+    from tpulab_torch.disagg.wire import prompt_digest
+    from tpulab_torch.kvfabric import fabric_export
+
+    t0 = time.perf_counter()
+    outs = shard_serve(cb, specs, SHARD_PUB_STEPS)
+    wall = time.perf_counter() - t0
+    end = time.monotonic() + 300
+    for _, prompt, _ in specs:
+        while ("fab", prompt_digest(prompt)) not in cb.kv_offload.store:
+            if time.monotonic() > end:
+                raise AssertionError("sharded (e): a publish never landed")
+            time.sleep(0.01)
+    blob = fabric_export(cb, prompt_digest(specs[0][1]))
+    if blob is None:
+        raise AssertionError("sharded (e): the owner exports nothing")
+    with open(os.path.join(out_dir, "blob.bin"), "wb") as f:
+        f.write(blob)
+    return {"outs": outs, "wall_s": wall, "kv_publishes": cb.kv_publishes,
+            "prefill_forwards": cb.prefill_forwards,
+            "forward_steps": cb.forward_steps, "blob_bytes": len(blob)}
+
+
+def shard_swap(torch, cb, prompt):
+    """(f) on the coordinator: a WeightMultiplexer over the batcher's
+    adapter; a second servable's registration pushes the weights out, an
+    acquire brings them back; one greedy request before and after."""
+    from tpulab_torch.modelstore import BatcherAdapter, WeightMultiplexer
+
+    def serve():
+        return list(cb.submit(prompt, SHARD_SWAP_STEPS).result(timeout=900))
+
+    out = {"before": serve(), "hot_gb": gb(torch),
+           "shard_gb": tree_gb(cb.params)}
+    blob = DeviceBlob(torch, SHARD_BLOB_BYTES)
+    metrics = SwapMetrics(torch)
+    mux = WeightMultiplexer(cb.tree_bytes + SHARD_BLOB_BYTES // 2,
+                            host_budget_bytes=16 << 30, metrics=metrics)
+    try:
+        mux.register("llm", BatcherAdapter(cb))
+        t0 = time.perf_counter()
+        mux.register("other", blob)
+        if not mux.drain(timeout=300):
+            raise AssertionError("sharded (f): the swap-out never landed")
+        out["out_s"] = time.perf_counter() - t0
+        out["cold"] = [mux.state_of("llm"), cb.params is None]
+        out["cold_gb"] = gb(torch)
+        t0 = time.perf_counter()
+        with mux.acquire("llm", timeout=300):
+            out["in_s"] = time.perf_counter() - t0
+            out["hot"] = mux.state_of("llm")
+            out["after"] = serve()
+        mux.drain(timeout=300)
+        out["swaps"] = [list(x) for x in metrics.swaps]
+        out["param_bytes"] = cb.tree_bytes
+    finally:
+        mux.close()
+    return out
 
 
 def shard_kw(torch):
@@ -6955,8 +7134,8 @@ def sharded_rank(rank, world, store, out_dir):
     """One of phase 14's ranks sharing the card: a gloo group (its CUDA
     collectives, asked for by name: NCCL takes one rank a card), this
     rank's shards of the phase's weights cut leaf by leaf on the card,
-    the batcher on {"model": world}; writes what it saw to
-    ``rank<r>.json``."""
+    the batcher on {"model": world}: (c), then (e), (f) and (d); writes
+    what it saw to ``rank<r>.json``."""
     import faulthandler
 
     import numpy as np
@@ -6985,6 +7164,7 @@ def sharded_rank(rank, world, store, out_dir):
         tie_embeddings=False, dtype=torch.bfloat16)
     cb = ContinuousBatcher(params, mesh=mesh, **shard_kw(torch))
     stage("batcher up")
+    import gc
     res = {"rank": rank, "kv": list(cb.pool.kv.shape),
            "wqkv": list(cb.params["layer0"]["wqkv"].shape),
            "backend": torch.distributed.get_backend()}
@@ -7003,15 +7183,116 @@ def sharded_rank(rank, world, store, out_dir):
     stage("batcher shut down")
     res["launches"] = ragged_paged_attention.launches
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(res, f)
+    counts = LaunchCounts()
+    specs = shard_specs(np)
+
+    # (e) the split plan (kernel 2 on this rank's 16 query heads) as a
+    # fabric owner
+    counts.zero()
+    t0 = time.perf_counter()
+    cb = ContinuousBatcher(params, mesh=mesh, **dict(
+        shard_kw(torch), ragged=False, prefill_chunk=None,
+        kv_offload=SHARD_KV_OFFLOAD, kv_publish=True))
+    try:
+        e = (shard_publish(torch, cb, [specs[i] for i in SHARD_PUB],
+                           out_dir) if cb.is_coordinator else {})
+    finally:
+        cb.shutdown()
+    del cb
+    gc.collect()      # the shut-down batchers' references to the shards
+    e.update(counts.read(), stage_s=time.perf_counter() - t0)
+    res["e"] = e
+    stage("(e) split plan + kv_publish done")
+
+    # (f) the weights swapped out and back by a multiplexer on the
+    # coordinator; a follower times its replay and reads its memory cold
+    counts.zero()
+    t0 = time.perf_counter()
+    f = {"hot_gb": None}
+    out_op = ContinuousBatcher._op_weights_out
+    in_op = ContinuousBatcher._op_weights_in
+
+    def weights_out(self):
+        f["hot_gb"] = gb(torch)
+        f["shard_gb"] = tree_gb(self.params)
+        t = time.perf_counter()
+        out_op(self)
+        f.update(out_s=time.perf_counter() - t, cold_gb=gb(torch))
+
+    def weights_in(self, builder=None):
+        t = time.perf_counter()
+        in_op(self, builder)
+        f["in_s"] = time.perf_counter() - t
+
+    if rank:
+        ContinuousBatcher._op_weights_out = weights_out
+        ContinuousBatcher._op_weights_in = weights_in
+    cb = ContinuousBatcher(params, mesh=mesh, **shard_kw(torch))
+    del params        # the batcher's shards are the only reference left
+    try:
+        if cb.is_coordinator:
+            f = shard_swap(torch, cb, specs[7][1])
+    finally:
+        cb.shutdown()
+    ContinuousBatcher._op_weights_out = out_op
+    ContinuousBatcher._op_weights_in = in_op
+    del cb
+    f.update(counts.read(), stage_s=time.perf_counter() - t0)
+    res["f"] = f
+    stage("(f) weight swap done")
+
+    # (d) the int8 tree: each projection quantized whole on the card,
+    # then cut by its parent's rule
+    counts.zero()
+    t0 = time.perf_counter()
+    qparams = init_transformer_shards(
+        mesh, c["vocab"], c["d_model"], c["n_heads"], c["n_layers"],
+        c["d_ff"], seed=0, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, dtype=torch.bfloat16, quantize=True)
+    whole = sum(x.numel() for x in int8_leaves(qparams))
+    cb = ContinuousBatcher(qparams, mesh=mesh, **shard_kw(torch))
+    del qparams
+    d = {"int8_bytes": sum(x.numel() for x in int8_leaves(cb.params)),
+         "int8_whole": whole, "draw_s": time.perf_counter() - t0}
+    try:
+        if cb.is_coordinator:
+            t1 = time.perf_counter()
+            d["outs"] = shard_serve(cb, [specs[i] for i in SHARD_INT8],
+                                    SHARD_INT8_STEPS)
+            d["wall_s"] = time.perf_counter() - t1
+            d["forward_steps"] = cb.forward_steps
+            d["tokens"] = cb.tokens_generated
+    finally:
+        cb.shutdown()
+    d.update(counts.read(), stage_s=time.perf_counter() - t0)
+    res["d"] = d
+    stage("(d) int8 serve done")
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
     stage("results written")
+
+
+def tree_gb(tree):
+    """The GB of a tree's tensor leaves."""
+    return sum(tree_gb(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() / 1e9
+               for v in tree.values())
+
+
+def int8_leaves(tree):
+    """The ``w_int8`` leaves of a tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from int8_leaves(v)
+        elif k == "w_int8":
+            yield v
 
 
 def phase_sharded(torch, card):
     """The paged serving path under a tensor-parallel mesh at Llama-3-8B
     width (module docstring, phase 14).  Returns kernel 1's launches in
-    the {"model": 1} serve."""
+    the {"model": 1} serve and in every rank of the {"model": 2} launch,
+    and kernel 2's in (e)'s ranks."""
     import gc
     import shutil
     import tempfile
@@ -7080,11 +7361,22 @@ def phase_sharded(torch, card):
             f"{c['n_layers']} x {steps} forward steps, all wgmma [{card}]")
         gc.collect()
         torch.cuda.empty_cache()
+        # (d)'s reference: the tree quantized on the card, matrix by
+        # matrix, served at mesh=None
+        from tpulab_torch.models.quantization import (
+            quantize_transformer_params)
+        qparams = quantize_transformer_params(params)
+        cb = ContinuousBatcher(qparams, **kw)
+        try:
+            ref_int8 = shard_serve(cb, [specs[i] for i in SHARD_INT8],
+                                   SHARD_INT8_STEPS)
+        finally:
+            cb.shutdown()
 
-        # (c) two ranks on the one card over gloo's CUDA collectives
+        # (c)-(f) two ranks on the one card over gloo's CUDA collectives
         t0 = time.perf_counter()
         multihost.launch(sharded_rank, SHARD_RANKS,
-                         (SHARD_RANKS, f"{tmp}/store2", tmp), timeout=600)
+                         (SHARD_RANKS, f"{tmp}/store2", tmp), timeout=900)
         two_s = time.perf_counter() - t0
         ranks = []
         for r in range(SHARD_RANKS):
@@ -7129,6 +7421,15 @@ def phase_sharded(torch, card):
             f"within the bf16 noise rule; launch {two_s:.1f} s [{card}]")
         for note in notes:
             log(f"sharded: (c) {note}")
+        sharded_int8(torch, ranks, specs, qparams, ref_int8, kw_dense, card)
+        del qparams
+        sharded_publish(torch, ranks, specs, params, ref, kw, kw_dense, tmp,
+                        card)
+        sharded_swap(ranks, card)
+        k1 = launches + sum(r["launches"] + r["d"]["ragged"]
+                            + r["e"]["ragged"] + r["f"]["ragged"]
+                            for r in ranks)
+        k2 = sum(r["e"]["flash"] for r in ranks)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -7137,7 +7438,160 @@ def phase_sharded(torch, card):
         gc.collect()
         torch.cuda.empty_cache()
     log(f"sharded: phase {time.perf_counter() - t_phase:.1f} s [{card}]")
-    return launches
+    return k1, k2
+
+
+def launches_per_rank(ranks, key, kernel, want, body="wgmma"):
+    """Each rank's ``kernel`` launches in stage ``key`` equal ``want``,
+    every one on ``body``."""
+    for r in ranks:
+        got = r[key][kernel]
+        if got != want or r[key][f"{kernel}_bodies"].get(body) != got:
+            raise AssertionError(
+                f"sharded ({key}): rank {r['rank']} {kernel} launches {got} "
+                f"({r[key][f'{kernel}_bodies']}) != {want}, all {body}")
+    return [r[key][kernel] for r in ranks]
+
+
+def sharded_int8(torch, ranks, specs, qparams, ref, kw_dense, card):
+    """(d): each rank holds half the int8 bytes; kernel 1 launches per
+    rank == n_layers x the forward steps; the streams of the mesh=None
+    int8 serve, or the bf16 noise rule over an int8 replay."""
+    n_layers = LLAMA3_8B["n_layers"]
+    d = ranks[0]["d"]
+    for r in ranks:
+        if SHARD_RANKS * r["d"]["int8_bytes"] != r["d"]["int8_whole"]:
+            raise AssertionError(f"sharded (d): rank {r['rank']} holds "
+                                 f"{r['d']['int8_bytes']} of "
+                                 f"{r['d']['int8_whole']} int8 bytes")
+    per_rank = launches_per_rank(ranks, "d", "ragged",
+                                 n_layers * d["forward_steps"])
+    notes = [same_or_bf16_noise(torch, qparams, kw_dense, f"(d) {name}",
+                                prompt, ref[name], d["outs"][name],
+                                shard_sampling(seed))
+             for name, prompt, seed in (specs[i] for i in SHARD_INT8)]
+    same = sum(d["outs"][n] == ref[n] for n in ref)
+    log(f"sharded: (d) the int8 tree (quantized whole on each rank's card, "
+        f"cut by the parent's rule; drawn in "
+        f"{[round(r['d']['draw_s'], 1) for r in ranks]} s) at "
+        f"{{\"model\": {SHARD_RANKS}}}: int8 bytes per rank "
+        f"{[r['d']['int8_bytes'] for r in ranks]} of "
+        f"{d['int8_whole']}; {d['tokens']} tokens (prompts "
+        f"{[len(specs[i][1]) for i in SHARD_INT8]} x {SHARD_INT8_STEPS} "
+        f"steps) in {d['wall_s']:.2f} s; kernel 1 "
+        f"launches per rank {per_rank} == {n_layers} x "
+        f"{d['forward_steps']} forward steps, all wgmma; {same} of "
+        f"{len(ref)} streams bit-identical to the mesh=None int8 serve, "
+        f"the rest within the bf16 noise rule; stage "
+        f"{[round(r['d']['stage_s'], 1) for r in ranks]} s [{card}]")
+    for note in notes:
+        if note:
+            log(f"sharded: {note}")
+
+
+def sharded_publish(torch, ranks, specs, params, ref, kw, kw_dense, tmp,
+                    card):
+    """(e): kernel 2 launches per rank == n_layers x the prefills, all
+    wgmma; one publish per distinct prompt; the owner's streams against
+    (a)'s; the first prompt's blob pulled into a mesh=None batcher
+    continues the owner's stream (no prefill of its own)."""
+    from tpulab_torch.disagg import KVShipper
+    from tpulab_torch.engine.paged import ContinuousBatcher
+
+    n_layers = LLAMA3_8B["n_layers"]
+    e = ranks[0]["e"]
+    pub = [specs[i] for i in SHARD_PUB]
+    if e["kv_publishes"] != len(pub) or e["prefill_forwards"] != len(pub):
+        raise AssertionError(f"sharded (e): {e['kv_publishes']} publishes, "
+                             f"{e['prefill_forwards']} prefills of "
+                             f"{len(pub)} prompts")
+    flash = launches_per_rank(ranks, "e", "flash",
+                              n_layers * e["prefill_forwards"])
+    ragged = launches_per_rank(ranks, "e", "ragged",
+                               n_layers * e["forward_steps"])
+    notes = [same_or_bf16_noise(torch, params, kw_dense, f"(e) {name}",
+                                prompt, ref[name][:SHARD_PUB_STEPS],
+                                e["outs"][name])
+             for name, prompt, _ in pub]
+    name, prompt, _ = pub[0]
+    with open(os.path.join(tmp, "blob.bin"), "rb") as f:
+        blob = f.read()
+    cb = ContinuousBatcher(params, **dict(kw, kv_offload=SHARD_KV_OFFLOAD))
+    try:
+        ship = KVShipper(cb.kv_offload).import_shipment(blob)
+        if ship is None:
+            raise AssertionError("sharded (e): the mesh owner's blob was "
+                                 "refused by the mesh=None puller")
+        t0 = time.perf_counter()
+        pulled = list(cb.submit_shipped(prompt, SHARD_PUB_STEPS,
+                                        ship.first_token, ship.handle)
+                      .result(timeout=900))
+        pull_s = time.perf_counter() - t0
+        if cb.prompt_fills:
+            raise AssertionError(f"sharded (e): the puller prefilled "
+                                 f"{cb.prompt_fills} prompts")
+    finally:
+        cb.shutdown()
+    notes.append(same_or_bf16_noise(torch, params, kw_dense,
+                                    f"(e) pulled {name}", prompt,
+                                    e["outs"][name], pulled))
+    same = sum(e["outs"][n] == ref[n][:SHARD_PUB_STEPS] for n, _, _ in pub)
+    log(f"sharded: (e) the split plan at {{\"model\": {SHARD_RANKS}}} as "
+        f"a fabric owner (kernel 2 on each rank's "
+        f"{LLAMA3_8B['n_heads'] // SHARD_RANKS} query heads), prompts "
+        f"{[len(p) for _, p, _ in pub]} x {SHARD_PUB_STEPS} steps in "
+        f"{e['wall_s']:.2f} s: kernel 2 launches per rank {flash} == "
+        f"{n_layers} x {e['prefill_forwards']} prefills, kernel 1 {ragged} "
+        f"== {n_layers} x {e['forward_steps']} forward steps, all wgmma; "
+        f"{e['kv_publishes']} publishes; {same} of {len(pub)} streams "
+        f"bit-identical to (a)'s first {SHARD_PUB_STEPS} tokens; the "
+        f"{len(prompt)}-token prompt's blob ({e['blob_bytes']} bytes) "
+        f"pulled into a mesh=None batcher, no prefill, continued in "
+        f"{pull_s:.2f} s: {'bit-identical to' if pulled == e['outs'][name] else 'within the bf16 noise rule of'} "
+        f"the owner's stream; stage "
+        f"{[round(r['e']['stage_s'], 1) for r in ranks]} s [{card}]")
+    for note in notes:
+        if note:
+            log(f"sharded: {note}")
+
+
+def sharded_swap(ranks, card):
+    """(f): the coordinator's weights swapped out by a second servable's
+    registration and back by an acquire; every rank's memory falls by its
+    shard while cold; the stream after the swap is the one before it, bit
+    for bit."""
+    f, g = ranks[0]["f"], ranks[1]["f"]
+    if f["cold"] != ["cold", True] or f["hot"] != "hot":
+        raise AssertionError(f"sharded (f): states {f['cold']} / "
+                             f"{f['hot']}")
+    if f["after"] != f["before"]:
+        raise AssertionError(f"sharded (f): the stream after the swap "
+                             f"{f['after']} != before {f['before']}")
+    blob_gb = SHARD_BLOB_BYTES / 1e9
+    for r, freed in ((f, f["shard_gb"] - blob_gb), (g, g["shard_gb"])):
+        if r["hot_gb"] - r["cold_gb"] < freed - 0.1:
+            raise AssertionError(
+                f"sharded (f): device memory {r['hot_gb']:.3f} -> "
+                f"{r['cold_gb']:.3f} GB while cold, want {freed:.3f} GB "
+                "freed")
+    outs = [x for x in f["swaps"] if x[0] == "out"]
+    ins = [x for x in f["swaps"] if x[0] == "in"]
+    log(f"sharded: (f) a WeightMultiplexer on the coordinator over the "
+        f"{{\"model\": {SHARD_RANKS}}} batcher's BatcherAdapter "
+        f"(param_bytes {f['param_bytes']}, the whole tree's) and a "
+        f"{blob_gb:.3f} GB second servable: cold {f['cold']}, then "
+        f"{f['hot']}; device GB hot -> cold, coordinator "
+        f"{f['hot_gb']:.3f} -> {f['cold_gb']:.3f} (its "
+        f"{f['shard_gb']:.3f} GB shard out, the servable in), follower "
+        f"{g['hot_gb']:.3f} -> {g['cold_gb']:.3f} (its {g['shard_gb']:.3f} "
+        f"GB shard out); swap-out {f['out_s']:.3f} s (the multiplexer's "
+        f"fetches: the LLM's {outs[0][1]:.3f} s, later the servable's "
+        f"{outs[1][1]:.3f} s), the follower's copy {g['out_s']:.3f} s; "
+        f"swap-in {f['in_s']:.3f} s (the multiplexer's "
+        f"{ins[0][1]:.3f} s), the follower's {g['in_s']:.3f} s; "
+        f"{SHARD_SWAP_STEPS} tokens before and after bit-identical; kernel "
+        f"1 launches per rank {[r['f']['ragged'] for r in ranks]}; stage "
+        f"{[round(r['f']['stage_s'], 1) for r in ranks]} s [{card}]")
 
 
 # ---------------------------------------------------------------- phase 15
@@ -7668,7 +8122,7 @@ def main(argv=None) -> int:
     fleet_launches = phase_fleet(torch, card)
     fab = phase_fabric(torch, card)
     par_launches = phase_parallel(torch, card)
-    shard_launches = phase_sharded(torch, card)
+    shard_launches, shard_flash = phase_sharded(torch, card)
     rows_launches = phase_rows(torch, card)
 
     kernels = [
@@ -7695,7 +8149,9 @@ def main(argv=None) -> int:
                      "replicas (read from each replica's Debug snapshot "
                      "before it retired; the killed replica's are lost) "
                      "+ the fabric phase + the sharded phase's "
-                     "{\"model\": 1} serve + the rows phase + the "
+                     "{\"model\": 1} serve and every rank of its "
+                     "{\"model\": 2} launch ((c) bf16, (d) int8, (e) "
+                     "split plan, (f) weight swap) + the rows phase + the "
                      "import phase's HF Llama serve (4 layers)",
                      ("all_decode", "bf16/e4m3")),
         kernel_entry("flash_attention",
@@ -7703,15 +8159,16 @@ def main(argv=None) -> int:
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
-                     + par_launches + rows_launches[1],
+                     + par_launches + shard_flash + rows_launches[1],
                      rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
                      "fabric phase's owner and fallback prefills + the "
                      "parallel phase's train steps (the full-depth bf16 "
                      "step's forwards, 32 x 3, and the 2-layer f32 and "
-                     "checkpoint steps) + the rows phase's split-plan "
-                     "prefills"),
+                     "checkpoint steps) + the sharded phase's split-plan "
+                     "owner, both ranks (H 16 a rank) + the rows phase's "
+                     "split-plan prefills"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,

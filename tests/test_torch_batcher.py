@@ -413,12 +413,11 @@ def test_split_plan_defaults(lm):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
-    (dict(mesh=object(), kv_publish=True), "parallelism"),
     (dict(hbm=object(), mesh=object()), "HBM economy"),
     (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
     (dict(kv_dtype=torch.float16), "float16 KV"),
-], ids=["kw0-split dispatch", "kw3-parallelism", "kw4-HBM economy",
-        "kw5-fp8 KV", "kw7-float16 KV"])
+], ids=["kw0-split dispatch", "kw4-HBM economy", "kw5-fp8 KV",
+        "kw7-float16 KV"])
 def test_unported_arguments_raise(lm, kw, item):
     _, model = lm
     with pytest.raises(NotImplementedError, match=item):

@@ -301,9 +301,12 @@ def test_public_names_are_tpulabs():
 def test_a_pool_under_a_mesh_cites_the_next_item(ranks):
     """A pool under a mesh holds its rank's KV heads: over the model axis
     of the 2 x 2 mesh each rank's store is (L, P, 2, S, Hkv/2, D), with
-    tpulab's placements and logical bytes.  What stays to port under a
-    mesh (the BatcherAdapter, kv_publish) raises, naming the ROADMAP
-    item (tests/test_torch_sharded_decode.py holds the serving path)."""
+    tpulab's placements and logical bytes.  The batcher's adapter under
+    a mesh runs (tests/test_torch_sharded_decode.py and
+    tests/test_torch_sharded_extras.py hold the serving path): the
+    BatcherAdapter of a mesh batcher reports the whole tree's bytes, as
+    tpulab counts them, and takes only a builder every rank can run
+    (one that pickles)."""
     from types import SimpleNamespace
 
     from tpulab_torch.modelstore import BatcherAdapter
@@ -312,9 +315,11 @@ def test_a_pool_under_a_mesh_cites_the_next_item(ranks):
         shape, shards, logical, per_shard = json.loads(_s(r["pool"]))
         assert shape == [1, 4, 2, 8, 1, 8] and shards == 2
         assert logical == 2 * per_shard == 4 * 2 * 8 * 2 * 8 * 4
-    with pytest.raises(NotImplementedError,
-                       match="item 5: BatcherAdapter and kv_publish"):
-        BatcherAdapter(SimpleNamespace(mesh=object()))
+    batcher = SimpleNamespace(mesh=object(), tree_bytes=logical, params={},
+                              pool=SimpleNamespace(device="cpu"))
+    assert BatcherAdapter(batcher).param_bytes() == logical
+    with pytest.raises(TypeError, match="must pickle"):
+        BatcherAdapter(batcher, lambda: {})
 
 
 def test_meshes_and_their_errors(ranks):

@@ -206,8 +206,8 @@ def test_pool_rejects_bad_mesh_geometry(runs):
 def test_batcher_refusals_under_a_mesh(runs):
     """tpulab's refusals (the single-device flash prefill, an elastic
     HBM pool, a pool built on another mesh, heads the axis does not
-    divide: the kernel's message) and the later items (kv_publish),
-    each raised on every rank before any collective."""
+    divide: the kernel's message), each raised on every rank before any
+    collective."""
     from tpulab.ops.ragged_attention import ragged_paged_attention as jrpa
 
     r = _coord(runs, 2)
@@ -217,8 +217,6 @@ def test_batcher_refusals_under_a_mesh(runs):
             and "HBM economy" in r["err_hbm"])
     assert ("ValueError" in r["err_foreign"]
             and "different mesh" in r["err_foreign"])
-    assert ("NotImplementedError" in r["err_kv_publish"]
-            and "parallelism, item 5" in r["err_kv_publish"])
     q = jnp.zeros((1, 1, 3, 16), jnp.float32)
     pool = jnp.zeros((2, 2, 8, 3, 16), jnp.float32)
     ints = jnp.zeros((1,), jnp.int32)
@@ -227,30 +225,30 @@ def test_batcher_refusals_under_a_mesh(runs):
     assert r["err_heads"] == want
 
 
-def test_cuda_split_plan_under_a_mesh_is_refused():
-    """On the card only the ragged plan runs under a mesh (the port runs
-    no dense prefill there, and tpulab's flash prefill is
-    single-device); checked before the mesh is touched."""
+def test_cuda_split_plan_under_a_mesh_prefills_on_kernel_2():
+    """On the card the split plan runs under a mesh, its prompt attention
+    on the flash kernel over each rank's own query heads:
+    ``prefill_flash=None`` selects it there (dense attention stays the
+    CPU's default), ``False`` (plain math on the card) raises as it does
+    at mesh=None, and ``True`` keeps tpulab's refusal; all decided before
+    the mesh is touched."""
     from types import SimpleNamespace
 
-    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.engine.paged import (ContinuousBatcher,
+                                           _prefill_attention)
     from tpulab_torch.models.convert import tree_from_numpy
 
     stub = SimpleNamespace(device_type="cuda", mesh_dim_names=("model",))
     params = tree_from_numpy(_lm_np(), "cpu")
-    with pytest.raises(NotImplementedError, match="ragged plan only"):
+    with pytest.raises(NotImplementedError, match="prefill_flash=False"):
         ContinuousBatcher(params, compute_dtype=torch.float32, mesh=stub,
-                          ragged=False, **GEO)
-
-
-def test_batcher_adapter_over_a_mesh_batcher_is_a_later_item():
-    from types import SimpleNamespace
-
-    from tpulab_torch.modelstore import BatcherAdapter
-
-    with pytest.raises(NotImplementedError,
-                       match="item 5: BatcherAdapter and kv_publish"):
-        BatcherAdapter(SimpleNamespace(mesh=object()))
+                          ragged=False, prefill_flash=False, **GEO)
+    with pytest.raises(ValueError, match="single-device"):
+        ContinuousBatcher(params, compute_dtype=torch.float32, mesh=stub,
+                          ragged=False, prefill_flash=True, **GEO)
+    assert _prefill_attention(None, "cuda", stub) is True
+    assert _prefill_attention(None, "cpu", SimpleNamespace(
+        device_type="cpu")) is False
 
 
 @pytest.mark.parametrize("w,plan", MAIN, ids=ids)

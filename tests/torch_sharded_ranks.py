@@ -95,7 +95,7 @@ def _tree(np_tree):
 def _error(fn):
     try:
         fn()
-    except (ValueError, NotImplementedError, RuntimeError) as e:
+    except (ValueError, NotImplementedError, RuntimeError, TypeError) as e:
         return f"{type(e).__name__}: {e}"
     return "no error"
 
@@ -342,9 +342,6 @@ def rank_cases(rank, world, store, out_dir, np_tree):
         res["err_hbm"] = _error(lambda: ContinuousBatcher(
             params, compute_dtype=torch.float32, mesh=mesh,
             hbm=HBMArbiter(1 << 30), **GEO))
-        res["err_kv_publish"] = _error(lambda: ContinuousBatcher(
-            params, compute_dtype=torch.float32, mesh=mesh, kv_offload=True,
-            kv_publish=True, **GEO))
         res["err_heads"] = _error(lambda: ContinuousBatcher(
             params, compute_dtype=torch.float32, mesh=mesh, n_heads=3,
             n_layers=2))
@@ -374,4 +371,266 @@ def rank_cases(rank, world, store, out_dir, np_tree):
     if world > 1:
         res["fault"] = _fault_case(rank, world, mesh, params, pr,
                                    "after" if world == 2 else "before")
+    np.save(os.path.join(out_dir, f"res{rank}.npy"), res, allow_pickle=True)
+
+
+# ------------------------------------------------- tests/test_torch_sharded_extras.py
+PUB_STEPS = 8
+SWAP_STEPS = 12
+
+
+def extra_prompts():
+    rng = np.random.default_rng(31)
+    return {"pub": [rng.integers(0, 64, (n,), np.int32) for n in (13, 19)],
+            "swap": rng.integers(0, 64, (9,), np.int32)}
+
+
+def publish_workload(cb, prompts, digest_fn, timeout=STEPS_TIMEOUT):
+    """Two distinct prompts and the first again on a publishing owner
+    (greedy); returns the streams once every snapshot has landed."""
+    import time
+
+    toks = [[int(t) for t in cb.submit(p, PUB_STEPS).result(timeout=timeout)]
+            for p in (prompts[0], prompts[1], prompts[0])]
+    end = time.monotonic() + timeout
+    for p in prompts:
+        while ("fab", digest_fn(p)) not in cb.kv_offload.store:
+            assert time.monotonic() < end, "a publish never landed"
+            time.sleep(0.01)
+    return toks
+
+
+def swap_workload(mux, llm, other, serve, cold=None):
+    """tpulab's multiplexer sequence over a batcher's adapter ``llm`` and a
+    second servable of its size: the second's registration pushes the
+    LLM out, an acquire brings it back (pushing the second out), and
+    after the host tier loses the LLM's tree an acquire cold-rebuilds
+    it.  Returns the states after each step, the LLM's streams before,
+    after the swap and after the rebuild, and the counters."""
+    out = {"tokens": [serve()], "states": []}
+
+    def note():
+        mux.drain()
+        out["states"].append([mux.state_of(n) if n in mux else None
+                              for n in ("llm", "other")])
+
+    mux.register("llm", llm)
+    out["param_bytes"] = llm.param_bytes()
+    note()
+    mux.register("other", other)
+    note()
+    out["resident_cold"] = llm.resident()
+    if cold is not None:
+        out["cold"] = cold()
+    with mux.acquire("llm"):
+        note()
+        out["tokens"].append(serve())
+    with mux.acquire("other"):
+        note()
+    mux.store.remove("llm")          # the host tier loses the tree
+    with mux.acquire("llm"):
+        note()
+        out["tokens"].append(serve())
+    out["counts"] = [mux.swap_outs, mux.swap_ins, mux.cold_rebuilds,
+                     mux.evictions]
+    return out
+
+
+def _int8_shapes(params):
+    return {k: {leaf: list(params["layer0"][k][leaf].shape)
+                for leaf in ("w_int8", "scale")}
+            for k in ("wqkv", "wo", "w1", "w2")}
+
+
+def _int8_cases(res, world, mesh, params, qparams, pr, np_int8):
+    """The int8 tree at ``{"model": world}`` under both plans, its shards'
+    shapes, an int8 tree of replicated DTensors (tpulab's layout), and
+    init_transformer_shards(quantize=True) against the whole tree
+    quantized, then cut."""
+    from tpulab_torch.engine.paged import SamplingParams
+    from tpulab_torch.engine.sharded import (init_transformer_shards,
+                                             local_params)
+    from tpulab_torch.models.convert import shard_from_numpy
+    from tpulab_torch.models.quantization import quantize_transformer_params
+    from tpulab_torch.models.transformer import init_transformer_params
+    from tpulab_torch.parallel import transformer_param_shardings
+
+    make = _Maker(qparams, mesh)
+    for plan in ("ragged", "split") if world < 4 else ("ragged",):
+        cb = make(ragged=plan == "ragged", lanes=2, max_len=64)
+        try:
+            res["int8_shapes"] = _int8_shapes(cb.params)
+            if cb.is_coordinator:
+                res[f"int8/{plan}"] = _main_workload(cb, SamplingParams, pr)
+                res[f"int8/{plan}/free"] = [cb.pool.free_pages,
+                                            cb.pool.n_pages - 1]
+        finally:
+            cb.shutdown()
+    if world == 4:
+        return
+    dt = shard_from_numpy(np_int8, mesh,
+                          transformer_param_shardings(np_int8, mesh))
+    cb = _Maker(dt, mesh)(lanes=2, max_len=64)
+    try:
+        same = all(torch.equal(cb.params["layer0"][k][leaf], want)
+                   for k, sub in _int8_local(qparams, mesh).items()
+                   for leaf, want in sub.items())
+        res["int8_replicated_dtensor"] = [same, _int8_shapes(cb.params)]
+        if cb.is_coordinator:
+            res["int8_replicated_tokens"] = [int(t) for t in cb.submit(
+                pr["greedy"][2][0], 20).result(timeout=STEPS_TIMEOUT)]
+    finally:
+        cb.shutdown()
+    geo = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
+               seed=3, n_kv_heads=2, ffn="swiglu", tie_embeddings=False,
+               dtype=torch.float32)
+    drawn = init_transformer_shards(mesh, **geo, quantize=True)
+    whole = quantize_transformer_params(init_transformer_params(
+        **{k: v for k, v in geo.items() if k != "dtype"}, device="cpu",
+        dtype=torch.float32))
+    want = local_params(whole, mesh, "cpu")
+    got = local_params(drawn, mesh, "cpu")
+    flat = []
+    _pairs(got, want, flat)
+    res["int8_drawn_equal"] = [len(flat), all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in flat)]
+
+
+def _int8_local(qparams, mesh):
+    from tpulab_torch.engine.sharded import local_params
+    layer = local_params(qparams, mesh, "cpu")["layer0"]
+    return {k: layer[k] for k in ("wqkv", "wo", "w1", "w2")}
+
+
+def _pairs(a, b, out):
+    if isinstance(a, dict):
+        assert set(a) == set(b)
+        for k in a:
+            _pairs(a[k], b[k], out)
+    else:
+        out.append((a, b))
+
+
+def _publish_cases(res, world, mesh, params, pr_pub):
+    """A ``{"model": world}`` split-plan owner publishes; its blobs pull
+    into a mesh=None batcher on the coordinator; a mesh=None owner's
+    blobs pull into a ``{"model": world}`` batcher."""
+    from tpulab_torch.disagg import KVShipper
+    from tpulab_torch.disagg.wire import deserialize_snapshot, prompt_digest
+    from tpulab_torch.kvfabric import fabric_export
+
+    def owner(m):
+        return _Maker(params, m)(ragged=False, lanes=1, max_len=64,
+                                 kv_offload=32 << 20, kv_publish=True)
+
+    def pull(cb, blobs):
+        streams = []
+        for p, blob in zip(pr_pub, blobs):
+            ship = KVShipper(cb.kv_offload).import_shipment(blob)
+            assert ship is not None, "the shipment was refused"
+            streams.append([int(t) for t in cb.submit_shipped(
+                p, PUB_STEPS, ship.first_token, ship.handle).result(
+                    timeout=STEPS_TIMEOUT)])
+        return streams, cb.prefill_dispatches
+
+    cb = owner(mesh)
+    try:
+        if cb.is_coordinator:
+            res["pub/owner"] = publish_workload(cb, pr_pub, prompt_digest)
+            res["pub/kv_publishes"] = cb.kv_publishes
+            blobs = [fabric_export(cb, prompt_digest(p)) for p in pr_pub]
+            snaps = [deserialize_snapshot(b) for b in blobs]
+            res["pub/snap"] = [(arr.numpy(), header) for arr, header in snaps]
+            res["pub/blob_len"] = [len(b) for b in blobs]
+    finally:
+        cb.shutdown()
+    single_blobs = None
+    if cb.is_coordinator:
+        puller = _Maker(params, None)(lanes=1, max_len=64,
+                                      kv_offload=32 << 20)
+        try:
+            res["pub/pull_single"] = pull(puller, blobs)
+        finally:
+            puller.shutdown()
+        single = owner(None)
+        try:
+            publish_workload(single, pr_pub, prompt_digest)
+            single_blobs = [fabric_export(single, prompt_digest(p))
+                            for p in pr_pub]
+        finally:
+            single.shutdown()
+    puller = _Maker(params, mesh)(lanes=1, max_len=64, kv_offload=32 << 20)
+    try:
+        if puller.is_coordinator:
+            res["pub/pull_mesh"] = pull(puller, single_blobs)
+    finally:
+        puller.shutdown()
+
+
+def _weight_swap_cases(res, world, mesh, params, np_tree, prompt):
+    """swap_workload over a ``{"model": world}`` batcher and a mesh=None
+    batcher of the same tree on the coordinator; every follower records
+    its weights and host copy as it replays each swap."""
+    import functools
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.modelstore import BatcherAdapter, WeightMultiplexer
+
+    seen = []
+    orig_out = ContinuousBatcher._op_weights_out
+    orig_in = ContinuousBatcher._op_weights_in
+
+    def weights_out(self):
+        orig_out(self)
+        seen.append(["out", self.params is None,
+                     self._host_params is not None])
+
+    def weights_in(self, builder=None):
+        orig_in(self, builder)
+        seen.append(["in", self.params is not None,
+                     self._host_params is None, builder is not None])
+
+    ContinuousBatcher._op_weights_out = weights_out
+    ContinuousBatcher._op_weights_in = weights_in
+    builder = functools.partial(_tree, np_tree)
+    cb = _Maker(params, mesh)(lanes=1, max_len=64)
+    try:
+        if cb.is_coordinator:
+            other = _Maker(_tree(np_tree), None)(lanes=1, max_len=64)
+            mux = WeightMultiplexer(cb.tree_bytes * 3 // 2)
+            try:
+                res["swap"] = swap_workload(
+                    mux, BatcherAdapter(cb, builder),
+                    BatcherAdapter(other, builder),
+                    lambda: [int(t) for t in cb.submit(
+                        prompt, SWAP_STEPS).result(timeout=STEPS_TIMEOUT)],
+                    cold=lambda: cb.params is None)
+                res["swap/lambda"] = _error(lambda: BatcherAdapter(
+                    cb, lambda: np_tree))
+            finally:
+                mux.close()
+                other.shutdown()
+    finally:
+        cb.shutdown()
+        ContinuousBatcher._op_weights_out = orig_out
+        ContinuousBatcher._op_weights_in = orig_in
+    res["swap/follower"] = seen
+
+
+def extras_cases(rank, world, store, out_dir, np_tree, np_int8):
+    """One rank of ``tests/test_torch_sharded_extras.py``'s launch of
+    ``world`` ranks: int8 trees, the fabric owner and pullers, and the
+    weight swaps under ``{"model": world}``."""
+    torch.set_num_threads(1)
+    multihost.initialize(f"file://{store}", world, rank, device="cpu")
+    from tpulab_torch.parallel import make_mesh
+
+    mesh = make_mesh({"model": world})
+    params, qparams = _tree(np_tree), _tree(np_int8)
+    ex = extra_prompts()
+    res = {}
+    _int8_cases(res, world, mesh, params, qparams, _prompts(), np_int8)
+    if world < 4:
+        _publish_cases(res, world, mesh, params, ex["pub"])
+        _weight_swap_cases(res, world, mesh, params, np_tree, ex["swap"])
     np.save(os.path.join(out_dir, f"res{rank}.npy"), res, allow_pickle=True)

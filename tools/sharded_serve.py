@@ -3,6 +3,7 @@
 with ``tpulab_torch`` (one process per card, NCCL).
 
     python tools/sharded_serve.py --nproc 4 --model llama3-70b
+    python tools/sharded_serve.py --nproc 2 --model llama3-70b --int8
     python tools/sharded_serve.py --nproc 2 --model tiny --device cpu
 
 Spawns ``--nproc`` ranks on this host (``multihost.launch``; NCCL with one
@@ -16,8 +17,11 @@ warm-up, then one device-sampled request.  Printed: the row (tok/s, the
 coordinator's busy share of the second timed run, under a profiler,
 host syncs per dispatch, the second run's token parity), and per rank its kernel 1 launches
 against ``n_layers`` x the coordinator's forward steps, its peak device
-memory and its card's name and power limit.  Exits non-zero when a
-check fails.  ``--out`` also writes the result as JSON.
+memory and its card's name and power limit.  ``--int8`` serves the
+weight-only int8 tree instead (each projection quantized whole on its
+rank's card, then cut by its parent's rule: Llama-3-70B's about 70 GB
+over two cards).  Exits non-zero when a check fails.  ``--out`` also
+writes the result as JSON.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ def _rank(rank, nproc, store, out_dir, args):
         n_layers=m["n_layers"], vocab=m["vocab"], d_ff=m["d_ff"],
         ffn="swiglu", tie_embeddings=False, rope_theta=m["rope_theta"],
         decode_block=8, page_size=16, max_len=args["max_len"],
-        dtype=dtype, single=False, mesh=mesh)
+        dtype=dtype, single=False, mesh=mesh, quantize=args["int8"])
     res = {"rank": rank, "launches": ragged_paged_attention.launches,
            "row": row}
     if torch.cuda.is_available() and device is None:
@@ -86,6 +90,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the weight-only int8 tree")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     sys.path.insert(0, REPO)
@@ -97,7 +103,8 @@ def main(argv=None) -> int:
         if a.nproc > have:
             raise RuntimeError(f"need {a.nproc} devices, have {have}")
     args = dict(model=a.model, lanes=a.lanes, prompt=a.prompt,
-                steps=a.steps, max_len=a.max_len, device=a.device)
+                steps=a.steps, max_len=a.max_len, device=a.device,
+                int8=a.int8)
     with tempfile.TemporaryDirectory() as d:
         launch(_rank, a.nproc, (a.nproc, os.path.join(d, "store"), d, args),
                timeout=TIMEOUT_S)

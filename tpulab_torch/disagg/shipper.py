@@ -140,10 +140,11 @@ class KVShipper:
         self._check_geometry(snap, header)
 
     def _check_geometry(self, snap: torch.Tensor, header: dict) -> None:
-        """The shipment's layout must match the local pool axis for axis
-        (page count excepted)."""
+        """The shipment's layout must match the pool's axis for axis
+        (page count excepted): the whole store's, every rank's KV heads
+        together under a mesh, as the host tier holds it."""
         pool = self.manager.pool
-        local = tuple(pool.kv.shape)       # (L, P, 2, S, Hkv, D)
+        local = tuple(getattr(pool, "logical_shape", pool.kv.shape))
         if snap.dim() != len(local):
             raise WireFormatError(
                 f"shipment rank {snap.dim()} != pool rank {len(local)}")

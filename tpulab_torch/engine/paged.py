@@ -73,12 +73,15 @@ card) the batcher serves tensor-parallel (:mod:`tpulab_torch.engine.
 sharded`): every rank constructs the same batcher; each holds its
 Megatron shards of the weights and its KV heads of the pool, and the
 programs take ``tensor_parallel=``.  Rank 0 of the axis schedules and
-takes requests; the others replay its device operations.
+takes requests; the others replay its device operations, a
+:class:`~tpulab_torch.modelstore.BatcherAdapter`'s weight swaps
+included.  Both plans, int8 trees and ``kv_publish`` run under a mesh;
+on the card the split plan's prompt attention is the flash kernel on
+each rank's own query heads.
 
 PyTorch runs eagerly, so tpulab's ``_jit`` / ``_JIT_MEMO`` have no
 counterpart.  The XLA-gather escape hatch (``use_kernel=False``) is not
-ported, nor are ``kv_publish`` and the ``BatcherAdapter`` under a mesh:
-their arguments raise ``NotImplementedError`` naming the ROADMAP item.
+ported: it raises ``NotImplementedError``.
 
 tpulab's bench rows of this module close it:
 :func:`benchmark_decode_dispatch`, :func:`benchmark_speculative_decode`,
@@ -1177,15 +1180,29 @@ class _PagedRequest:
             or self.tokens_out[-1] in self.stop_tokens)
 
 
-#: the ROADMAP item the parts of sharded serving still to port cite
-_MESH_ITEM = ("parallelism, item 5: BatcherAdapter and kv_publish under a "
-              "mesh")
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpulab_torch yet (ROADMAP queue 1: "
-        f"{item})")
+def _prefill_attention(prefill_flash: Optional[bool], device_type: str,
+                       mesh) -> bool:
+    """Whether the split plan's full-prompt forward attends through the
+    flash kernel: always on the card (``prefill_flash=False``, plain
+    attention there, is refused; under a mesh each rank runs the kernel
+    on its own query heads, the function tpulab's dense prefill computes
+    under the mesh), dense causal attention by default on the CPU.  An
+    explicit ``prefill_flash=True`` under a mesh keeps tpulab's
+    refusal."""
+    if mesh is not None and prefill_flash:
+        raise ValueError(
+            "the flash prefill kernel is single-device; mesh serving "
+            "prefills through the dense or ragged paths (prefill_flash "
+            "must be False or None)")
+    if prefill_flash is False and device_type == "cuda":
+        raise NotImplementedError(
+            "prefill_flash=False (dense prompt attention) is not "
+            "carried to tpulab_torch on the card: it would route the "
+            "split plan's prompt attention to plain math (ROADMAP, "
+            "decisions: prefill_flash=False)")
+    if prefill_flash is None:
+        return device_type == "cuda"
+    return bool(prefill_flash)
 
 
 def _dtype_name(dtype) -> str:
@@ -1238,9 +1255,8 @@ class ContinuousBatcher:
     :func:`~tpulab_torch.models.convert.shard_from_numpy`), and the pool
     shards on KV heads.  Rank 0 (``is_coordinator``) takes requests; the
     other ranks replay its operations until its :meth:`shutdown`, and
-    their own :meth:`shutdown` waits for that.  On the card only the
-    ragged plan runs under a mesh; ``hbm=``, ``prefill_flash=True`` and
-    ``kv_publish`` are refused there, as tpulab refuses the first two.
+    their own :meth:`shutdown` waits for that.  Under a mesh ``hbm=`` and
+    ``prefill_flash=True`` are refused, as tpulab refuses them.
     """
 
     #: the marker the Generate RPC dispatches on (streaming via
@@ -1293,22 +1309,12 @@ class ContinuousBatcher:
                 "pool) under a mesh is not supported, as in tpulab: serve "
                 "the arbiter single-device, or the mesh without an arbiter "
                 "(hbm=None)")
-        if (mesh is not None and ragged is False
-                and getattr(mesh, "device_type", None) == "cuda"):
-            raise NotImplementedError(
-                "the split plan (ragged=False) under a mesh on the card is "
-                "not carried to tpulab_torch: tpulab's flash prefill is "
-                "single-device and the port runs no dense prefill on the "
-                "card (ROADMAP, decisions: the ragged plan only under a "
-                "mesh on CUDA)")
-        if mesh is not None and kv_publish:
-            raise _unported("kv_publish (the fleet KV fabric) under a mesh",
-                            _MESH_ITEM)
-        if mesh is not None and prefill_flash:
-            raise ValueError(
-                "the flash prefill kernel is single-device; mesh serving "
-                "prefills through the dense or ragged paths (prefill_flash "
-                "must be False or None)")
+        # decided before a mesh is touched (device=None means the card)
+        prefill_flash = _prefill_attention(
+            prefill_flash,
+            (mesh.device_type if mesh is not None
+             else pool.device.type if pool is not None
+             else torch.device(device or "cuda").type), mesh)
         if mesh is not None and pool is not None and pool.mesh is not mesh:
             raise ValueError("provided pool was built on a different mesh "
                              "than the batcher's")
@@ -1350,13 +1356,6 @@ class ContinuousBatcher:
             device = mesh_device(mesh)
         self.device = (pool.device if pool is not None
                        else resolve_device(device))
-        if (prefill_flash is False and self.device.type == "cuda"
-                and mesh is None):
-            raise NotImplementedError(
-                "prefill_flash=False (dense prompt attention) is not "
-                "carried to tpulab_torch on the card: it would route the "
-                "split plan's prompt attention to plain math (ROADMAP, "
-                "decisions: prefill_flash=False)")
         self.lanes = lanes
         self.max_len = max_len
         self.page_size = page_size
@@ -1409,11 +1408,18 @@ class ContinuousBatcher:
         self._hbm_starved_passes = 0  # hold-and-wait breaker streak
         if hbm is not None:
             self.pool.prefer_low_pages = True
+        from tpulab_torch.modelstore.host_store import tree_nbytes
+        #: the served tree's bytes, every rank's shards together (tpulab's
+        #: ``tree_nbytes`` of its global arrays)
+        self.tree_bytes = tree_nbytes(tree)
         #: the weights; ``None`` while a
         #: :class:`~tpulab_torch.modelstore.BatcherAdapter` has them
         #: swapped out (the batcher must be idle then)
         #: under a mesh: this rank's Megatron shards only
         self.params = self._place(tree)
+        #: a follower's host copy of its shards while its coordinator's
+        #: adapter has the weights swapped out (:meth:`_op_weights_out`)
+        self._host_params = None
         self.n_layers = n_layers
         self._step_kw = dict(n_heads=n_heads, n_layers=n_layers,
                              compute_dtype=compute_dtype,
@@ -1422,13 +1428,10 @@ class ContinuousBatcher:
         #: dispatch plan: fused mixed rounds (ragged) or per-prompt prefill
         #: forwards then decode (split)
         self.ragged = True if ragged is None else bool(ragged)
-        if prefill_flash is None:
-            # under a mesh the split plan (CPU only) prefills densely
-            prefill_flash = self.device.type == "cuda" and mesh is None
         #: the split plan's full-prompt forward attends through the flash
         #: kernel; a failure there fails the requests (the scheduler's
         #: recovery path) and leaves this as set
-        self.prefill_flash = bool(prefill_flash)
+        self.prefill_flash = prefill_flash
         self._prefill = self._program(self._build_prefill(
             self.prefill_flash))
         self._extend = self._program(functools.partial(paged_extend,
@@ -1543,7 +1546,7 @@ class ContinuousBatcher:
         # export buffer).  Publishes ride the split plan's prefill only:
         # the ragged plan's mixed rounds never fetch a host-visible
         # logits row (tpulab's documented limitation).
-        if kv_publish and self.kv_offload is None:
+        if kv_publish and (kv_offload is None or kv_offload is False):
             raise ValueError("kv_publish requires kv_offload")
         self.kv_publish = bool(kv_publish)
         self._fab_handles: "OrderedDict[bytes, Any]" = OrderedDict()
@@ -2537,7 +2540,9 @@ class ContinuousBatcher:
                                   "mixed": self._op_mixed,
                                   "block": self._op_block,
                                   "step": self._op_step,
-                                  "spec": self._op_spec})
+                                  "spec": self._op_spec,
+                                  "weights_out": self._op_weights_out,
+                                  "weights_in": self._op_weights_in})
         except MeshFailure:
             _log.exception("follower rank %d: the mesh failed; replay ends",
                            self.tp.rank)
@@ -2605,6 +2610,43 @@ class ContinuousBatcher:
         return self._spec_block(self.params, self._spec["params"],
                                 self.pool.kv,
                                 *(self._to_dev(a) for a in host), k=k)
+
+    def _op_weights_out(self) -> None:
+        """A follower's replay of its coordinator's weight swap-out (a
+        :class:`~tpulab_torch.modelstore.BatcherAdapter` detach): this
+        rank's shards copied to its own host memory, page-locked on the
+        card, and its device tensors dropped.  Nothing crosses ranks."""
+        if self.params is None:
+            raise RuntimeError("weights swapped out twice")
+        from tpulab_torch.cuda.transfer import host_like
+        from tpulab_torch.parallel.sharding import map_tree
+
+        pinned = self.device.type == "cuda"
+        self._host_params = map_tree(
+            lambda t: host_like(t, pinned).copy_(t)
+            if isinstance(t, torch.Tensor) else t, self.params)
+        self.params = None
+
+    def _op_weights_in(self, builder=None) -> None:
+        """A follower's replay of its coordinator's weight swap-in: its
+        host copy restored onto its device or, with ``builder`` (a cold
+        rebuild: the coordinator's host tier lost the tree), the built
+        tree cut to this rank's shards.  The host copy is dropped either
+        way; with neither, the swap-in raises (fatal to the mesh)."""
+        if builder is not None:
+            self._host_params = None
+            built = builder()
+            params = self._place(_tree(getattr(built, "params", built)))
+        elif self._host_params is None:
+            raise RuntimeError("no host copy of this rank's weights to "
+                               "swap in")
+        else:
+            from tpulab_torch.cuda.allocators import place_tree
+            params = place_tree(self._host_params, self.device)
+            self._host_params = None
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.params = params
 
     def _loop(self) -> None:
         while True:

@@ -38,9 +38,10 @@ The ranks of one ``model`` axis share a host (tensor parallelism spans
 one NVLink domain): the channel listens on 127.0.0.1.
 
 Also here: :func:`local_params` (this rank's Megatron shards of a served
-tree), :func:`init_transformer_shards` (tpulab's random weights cut leaf by
-leaf on this rank's card, for widths no rank could hold whole) and
-:func:`benchmark_sharded_decode` (tpulab's bench row).
+tree, float or weight-only int8: :func:`served_spec`),
+:func:`init_transformer_shards` (tpulab's random weights, or their int8
+tree, cut leaf by leaf on this rank's card, for widths no rank could hold
+whole) and :func:`benchmark_sharded_decode` (tpulab's bench row).
 """
 
 from __future__ import annotations
@@ -310,60 +311,97 @@ class MeshChannel:
         self._store = None
 
 
+def served_spec(path: str, model_axis: str = "model"):
+    """The cut of one leaf of a served tree, as a spec tuple: tpulab's
+    Megatron rule (:func:`~tpulab_torch.parallel.sharding._param_spec`),
+    and for a weight-only int8 entry's leaves their parent matrix's rule.
+    A column-parallel matrix's ``w_int8`` (I, O) and per-column ``scale``
+    (O,) are cut on O; a row-parallel one's ``w_int8`` on I, its
+    ``scale`` whole.  Each rank then holds 1/M of the int8 bytes and runs
+    a float tree's Megatron products on them (tpulab's suffix rules
+    replicate the int8 leaves: the same values, M times the bytes)."""
+    from tpulab_torch.parallel.sharding import _param_spec
+
+    parent, _, name = path.rpartition("/")
+    matrix = _param_spec(parent, model_axis)
+    if matrix and name == "w_int8":
+        return matrix
+    if matrix and name == "scale":
+        return (model_axis,) if matrix[0] is None else ()
+    return _param_spec(path, model_axis)
+
+
+def _served_shardings(tree: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """The placement tree of :func:`served_spec` over ``tree``."""
+    from tpulab_torch.parallel.sharding import named_sharding
+
+    def build(node, prefix=""):
+        if isinstance(node, dict):
+            return {k: build(v, f"{prefix}/{k}") for k, v in node.items()}
+        return named_sharding(mesh, *served_spec(prefix))
+    return build(tree)
+
+
 def local_params(tree: Dict[str, Any], mesh, device) -> Dict[str, Any]:
     """This rank's Megatron shards of a served tree, on ``device``: a tree
     of DTensors gives its local shards; a tree of whole tensors (on the
     host or the card) is cut leaf by leaf BEFORE it moves, so only the
-    shard reaches the device.  Placements are tpulab's rules
-    (:func:`~tpulab_torch.parallel.sharding.transformer_param_shardings`).
-    Weight-only int8 trees are refused under a mesh."""
+    shard reaches the device, and a shard never keeps the whole tensor
+    alive.  Float leaves are cut by tpulab's rules
+    (:func:`~tpulab_torch.parallel.sharding.transformer_param_shardings`);
+    a weight-only int8 entry by its parent matrix's rule
+    (:func:`served_spec`).  An int8 DTensor leaf may be laid out by that
+    rule or, as tpulab lays it out, replicated (then cut here)."""
     from torch.distributed.tensor import DTensor
 
-    from tpulab_torch.parallel.sharding import (local_slice,
+    from tpulab_torch.parallel.sharding import (local_slice, map_tree,
                                                 transformer_param_shardings)
 
-    def walk(node):
-        if isinstance(node, dict):
-            if "w_int8" in node:
-                raise NotImplementedError(
-                    "weight-only int8 trees under a mesh are not ported to "
-                    "tpulab_torch (ROADMAP queue 1, parallelism, item 5: "
-                    "the sharded batcher's later items)")
-            for v in node.values():
-                walk(v)
-    walk(tree)
-    rules = transformer_param_shardings(tree, mesh)
-
-    def leaf(x, placements):
+    def leaf(x, tpulab_placements, cut):
         if not isinstance(x, torch.Tensor):
             return x
         if isinstance(x, DTensor):
-            if tuple(x.placements) != tuple(placements):
+            placements = tuple(x.placements)
+            if placements == tuple(cut):
+                return x.to_local().to(device)
+            if placements != tuple(tpulab_placements):
                 raise ValueError(f"a DTensor leaf laid out {x.placements}, "
-                                 f"want tpulab's {placements}")
-            return x.to_local().to(device)
-        return local_slice(x, mesh, placements).to(device).contiguous()
+                                 f"want {cut} or tpulab's "
+                                 f"{tpulab_placements}")
+            x = x.to_local()
+        part = local_slice(x, mesh, cut).to(device)
+        if (part.numel() < x.numel() and part.untyped_storage().data_ptr()
+                == x.untyped_storage().data_ptr()):
+            return part.clone(memory_format=torch.contiguous_format)
+        return part.contiguous()
 
-    from tpulab_torch.parallel.sharding import map_tree
-    return map_tree(leaf, tree, rules)
+    return map_tree(leaf, tree, transformer_param_shardings(tree, mesh),
+                    _served_shardings(tree, mesh))
 
 
 def init_transformer_shards(mesh, vocab: int, d_model: int, n_heads: int,
                             n_layers: int, d_ff: int, seed: int = 0,
                             n_kv_heads: Optional[int] = None,
                             ffn: str = "gelu", tie_embeddings: bool = True,
-                            dtype=torch.bfloat16) -> Dict[str, Any]:
+                            dtype=torch.bfloat16,
+                            quantize: bool = False) -> Dict[str, Any]:
     """:func:`~tpulab_torch.models.transformer.init_transformer_params`'s
     weights (the same draws from the same seeded generator, on this rank's
     device), cut to this rank's Megatron shards leaf by leaf: each whole
     leaf lives only while its shard is copied out, so no rank ever holds
-    the whole tree.  Returns a tree of DTensors (their local shards are
-    what :class:`~tpulab_torch.engine.paged.ContinuousBatcher` serves)."""
+    the whole tree.  ``quantize`` gives :func:`~tpulab_torch.models.
+    quantization.quantize_transformer_params`'s weight-only int8 tree:
+    each projection is quantized whole, then cut by its parent's rule
+    (:func:`served_spec`; a row-parallel matrix's per-column scale spans
+    every rank's rows, so a row shard quantized alone would get other
+    scales).  Returns a tree of DTensors (their local shards are what
+    :class:`~tpulab_torch.engine.paged.ContinuousBatcher` serves)."""
     from torch.distributed.tensor import DTensor
 
+    from tpulab_torch.models.quantization import (TRANSFORMER_QUANT_KEYS,
+                                                  quantize_matrix)
     from tpulab_torch.parallel.sharding import (_contiguous_strides,
-                                                _param_spec, local_slice,
-                                                named_sharding)
+                                                local_slice, named_sharding)
 
     dev = mesh_device(mesh)
     n_kv = n_kv_heads or n_heads
@@ -375,7 +413,7 @@ def init_transformer_shards(mesh, vocab: int, d_model: int, n_heads: int,
     gen.manual_seed(seed)
 
     def cut(path, full):
-        placements = named_sharding(mesh, *_param_spec(path, "model"))
+        placements = named_sharding(mesh, *served_spec(path, "model"))
         local = local_slice(full, mesh, placements).clone(
             memory_format=torch.contiguous_format)
         return DTensor.from_local(local, mesh, placements, run_check=False,
@@ -384,7 +422,12 @@ def init_transformer_shards(mesh, vocab: int, d_model: int, n_heads: int,
 
     def normal(path, *shape):
         w = torch.empty(shape, dtype=dtype, device=dev)
-        return cut(path, w.normal_(0.0, 0.02, generator=gen))
+        w.normal_(0.0, 0.02, generator=gen)
+        if quantize and path.rpartition("/")[2] in (
+                TRANSFORMER_QUANT_KEYS + ("lm_head",)):
+            return {k: cut(f"{path}/{k}", v)
+                    for k, v in quantize_matrix(w).items()}
+        return cut(path, w)
 
     def ones(path, n):
         return cut(path, torch.ones((n,), dtype=dtype, device=dev))
@@ -422,8 +465,9 @@ def benchmark_sharded_decode(model_shards: int = 2, lanes: int = 4,
                              rope_theta: Optional[float] = None,
                              page_size: int = 8,
                              max_len: Optional[int] = None,
-                             single: bool = True,
-                             mesh=None) -> Optional[Dict[str, Any]]:
+                             single: bool = True, mesh=None,
+                             quantize: bool = False
+                             ) -> Optional[Dict[str, Any]]:
     """Served tok/s and host-sync accounting of ONE ContinuousBatcher
     workload on a ``{"model": M}`` mesh against ``mesh=None`` (tpulab's
     bench ``sharded_decode`` row).
@@ -439,7 +483,9 @@ def benchmark_sharded_decode(model_shards: int = 2, lanes: int = 4,
     warms once, then times the same ``lanes`` requests.  The second mode's
     timed drive runs under a CUDA ``torch.profiler`` session: its
     ``busy`` is the share of that wall the coordinator's card spent in
-    kernels (None for the first mode, and on the CPU: not measured)."""
+    kernels (None for the first mode, and on the CPU: not measured).
+    ``quantize`` serves the weight-only int8 tree of the same draws
+    (quantized whole, then cut: :func:`init_transformer_shards`)."""
     from tpulab_torch.engine.paged import ContinuousBatcher, SamplingParams
     from tpulab_torch.models.transformer import init_transformer_params
     from tpulab_torch.parallel.mesh import axis_index, make_mesh
@@ -461,16 +507,22 @@ def benchmark_sharded_decode(model_shards: int = 2, lanes: int = 4,
     row: Dict[str, Any] = {"lanes": lanes, "steps": steps,
                            "mesh": {"model": model_shards},
                            "decode_block": decode_block}
+    if quantize:
+        row["int8"] = True
     if single:
         params = init_transformer_params(
             vocab, d_model, n_heads, n_layers, d_ff, n_kv_heads=n_kv_heads,
             ffn=ffn, tie_embeddings=tie_embeddings, device=dev, dtype=dtype)
+        if quantize:
+            from tpulab_torch.models.quantization import (
+                quantize_transformer_params)
+            params = quantize_transformer_params(params)
         modes = (("single", None), ("sharded", mesh))
     else:
         params = init_transformer_shards(
             mesh, vocab, d_model, n_heads, n_layers, d_ff,
             n_kv_heads=n_kv_heads, ffn=ffn, tie_embeddings=tie_embeddings,
-            dtype=dtype)
+            dtype=dtype, quantize=quantize)
         modes = (("sharded", mesh), ("again", mesh))
     outs: Dict[str, Any] = {}
     sampled: Dict[str, Any] = {}

@@ -336,7 +336,7 @@ def _forward(params, tokens, n_heads, n_layers, compute_dtype, attention_fn,
             x = _add(x, _mm(attn, qmat(p["wo"], compute_dtype)))
         else:
             attn = tp.attention_rows(attention_fn, q, k, v,
-                                     p["wo"].shape[0])
+                                     weight_shape(p["wo"])[0])
             x = _add(x, tp.reduce(_mm(attn, qmat(p["wo"], compute_dtype))))
         h = _rmsnorm(x, p["ln2"]["scale"])
         if tp is None:

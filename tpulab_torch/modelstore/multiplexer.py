@@ -181,6 +181,16 @@ class CompiledModelAdapter:
         return tree_to(params, self.compiled.device)
 
 
+class _Built:
+    """A cold rebuild's whole tree, on its way to
+    :meth:`BatcherAdapter.attach` (under a mesh each rank cuts it)."""
+
+    __slots__ = ("tree",)
+
+    def __init__(self, tree):
+        self.tree = tree
+
+
 class BatcherAdapter:
     """Multiplexes a :class:`~tpulab_torch.engine.paged.ContinuousBatcher`'s
     target weights (the Generate path).  The batcher's programs take the
@@ -195,25 +205,44 @@ class BatcherAdapter:
     to detach (``busy()``), independently of the lease refcount — the
     hard floor under "a decode-in-flight model is never evicted".
 
-    A batcher under a mesh (tpulab swaps its Megatron shards onto their
-    placements) is refused: every rank would have to move its shards
-    together, which the sharded batcher's followers do not replay yet.
+    A batcher under a mesh is adapted on its coordinator only: the swaps
+    are the batcher's operations, published on its mesh channel and
+    replayed by the followers in order.  On a swap-out each rank copies
+    its own shards to its own host memory and drops its device tensors
+    (the coordinator's copy is the host tier's; nothing crosses ranks);
+    on a swap-in each restores its own.  A cold rebuild runs ``builder``
+    on every rank (it travels to the followers pickled: a module-level
+    function or a partial of one) and each cuts its shards.
+    :meth:`param_bytes` is the whole tree's, as tpulab counts it.
     """
 
     def __init__(self, batcher, builder: Optional[Callable] = None):
-        if getattr(batcher, "mesh", None) is not None:
-            raise NotImplementedError(
-                "a BatcherAdapter over a batcher under a mesh is not ported "
-                "to tpulab_torch yet (ROADMAP queue 1: parallelism, item 5: "
-                "BatcherAdapter and kv_publish under a mesh)")
         self.batcher = batcher
         self._rebuild_fn = builder
         self._placement = batcher.pool.device
+        self._mesh = getattr(batcher, "mesh", None) is not None
+        if self._mesh and builder is not None:
+            import pickle
+            try:
+                pickle.dumps(builder)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                raise TypeError(
+                    "under a mesh every rank runs the builder of a cold "
+                    "rebuild, so it must pickle (a module-level function "
+                    f"or a partial of one): {e}") from e
+
+    def _publish(self, op: str, *args) -> None:
+        """Queue ``op`` for the batcher's followers (none without a
+        mesh)."""
+        if self._mesh:
+            self.batcher.pool.channel.publish(op, *args)
 
     def resident(self) -> bool:
         return self.batcher.params is not None
 
     def param_bytes(self) -> int:
+        if self._mesh:
+            return self.batcher.tree_bytes
         return tree_nbytes(self.batcher.params)
 
     def busy(self) -> bool:
@@ -225,6 +254,7 @@ class BatcherAdapter:
         if self.busy():
             raise RuntimeError("batcher has in-flight work; refusing to "
                                "detach its weights")
+        self._publish("weights_out")
         dev = self.batcher.params
         self.batcher.params = None
         return dev
@@ -233,7 +263,12 @@ class BatcherAdapter:
         pass  # device memory frees when the fetch drops its reference
 
     def attach(self, host_tree) -> None:
-        tree = place_tree(host_tree, self._placement)
+        if isinstance(host_tree, _Built):
+            self._publish("weights_in", self._rebuild_fn)
+            tree = self.batcher._place(host_tree.tree)
+        else:
+            self._publish("weights_in")
+            tree = place_tree(host_tree, self._placement)
         _settled(self._placement)
         self.batcher.params = tree
 
@@ -244,7 +279,8 @@ class BatcherAdapter:
                 "function registered for a cold rebuild")
         built = self._rebuild_fn()
         # accept either a raw param tree or a Model-like with .params
-        return getattr(built, "params", built)
+        tree = getattr(built, "params", built)
+        return _Built(tree) if self._mesh else tree
 
 
 class WeightMultiplexer:

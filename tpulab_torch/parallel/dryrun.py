@@ -11,8 +11,8 @@ checked in every rank against its single-device form (the train step:
 its loss and every parameter against an unsharded autograd step).  tpulab routes to virtual CPU
 devices when real ones are short; the port raises instead ("need N
 devices"), so a missing card is never hidden.  tpulab's tail, paged
-sharded decode, is not ported (ROADMAP item 5, the batcher under a
-mesh).
+sharded decode (the batcher on ``{"model": 2}`` against ``mesh=None``,
+greedy and device-sampled), closes the run.
 """
 
 from __future__ import annotations
