@@ -388,8 +388,9 @@ raises and the script exits non-zero without printing a result:
 15. rows   — tpulab's eleven bench rows through the port's functions,
    each once, its JSON on a line of its own.  At Llama-3-8B width on one
    bf16 tree (seed 0): ``benchmark_decode_dispatch`` (K 1 / 4 / 8 / 16,
-   4 lanes x 48 steps, prompt 8), ``benchmark_speculative_decode`` (k 8,
-   2 lanes x 48 steps, the 4-layer early-exit draft, tail scale 0.05),
+   4 lanes x 32 steps, prompt 8; tpulab's 48 steps cut for time),
+   ``benchmark_speculative_decode`` (k 8, 2 lanes x 32 steps, cut the
+   same way, the 4-layer early-exit draft, tail scale 0.05),
    ``benchmark_ragged_attention`` (3 lanes x 24 steps, prompt 12: the
    split plan with flash prefill against the ragged plan) and
    ``benchmark_llm_decode`` (8 lanes at context 1024, page 16, 64 steps
@@ -452,6 +453,38 @@ raises and the script exits non-zero without printing a result:
    mix bit-identical to the batcher over that tree, kernel 1 launches ==
    4 x forward steps.  InferBench images/s at batch 32 for bf16, ONNX
    f32, ONNX int8, W8, W8A8 and the loaded artifact.
+
+17. memory — tpulab's memory library and the device layer's memory side,
+   run last.  (a) ``make_cuda_allocator()``'s device blocks under the
+   framework: a cached ``BlockArena`` of 64 MiB blocks (a freed block
+   comes back at its address, nothing new allocated; none live after
+   ``shrink_to_fit``), ``test_memory.py``'s transactional sequences
+   (bump, rotate, whole-stack release, an oversize refusal) and its
+   best-fit sequence (the 2000-byte hole reused, spans coalesced), a
+   device descriptor carrying its tensor; ``memory_allocated`` moves by
+   exactly the live blocks' bytes at every step.  (b)
+   ``make_staging_allocator()``: a 256 MiB node, page-aligned,
+   first-touched and ``is_pinned()`` (``cudaHostRegister``); H2D and D2H
+   GB/s against the same copies from ``MallocAllocator``'s pageable
+   memory (CUDA events, median of 5); behind a device spin the pinned
+   H2D returns with the copy still pending.  (c) ``Buffers(1024,
+   block_size=1024)``: two 800-byte page-locked views from two blocks,
+   both back on ``reset()``.  (d) a 16,384-token int32 stream (seed 17)
+   appended 512 tokens at a time through a ``CudaCyclicWindowedStack``
+   over a pinned descriptor (4 windows of 2,048 tokens, overlap 512, one
+   executor thread), each window's continuation NLL scored by the
+   Llama-3-8B-width bf16 forward (32 layers, seed 0) on kernel 2: 10
+   windows, each computed on the bytes appended, kernel 2 launches == 32
+   x windows, each NLL within 5e-2 nats of the plain attention's forward
+   of the same window, the host staging never past the descriptor;
+   tokens/s.  (e) ``python -m tpulab_torch.tools.build_engine --model
+   resnet50 --max-batch 2`` as a subprocess (the card by default): its
+   artifact, loaded with no ``apply_fn``, gives the in-memory model's
+   logits bit for bit at bucket 2; ``python -m
+   tpulab_torch.tools.onnx_summary`` on phase 16's ResNet-50 ONNX
+   (written again) exits 0, importable.  (f) ``DeviceInfo``: the name
+   is nvidia-smi's, ``bytes_limit`` is ``mem_get_info``'s total,
+   ``peak_flops("bf16")`` 989.4e12, ``cpu_affinity`` CPUs of this host.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -7598,9 +7631,9 @@ def sharded_swap(ranks, card):
 # tpulab's bench rows on the card.  The serving rows at Llama-3-8B width
 # over one bf16 tree (phase 5's seed); the kernel sweep at tpulab's own
 # geometry; the host-tier rows at the arguments of tpulab's bench.py.
-ROWS_DECODE_DISPATCH = dict(ks=(1, 4, 8, 16), lanes=4, steps=48,
+ROWS_DECODE_DISPATCH = dict(ks=(1, 4, 8, 16), lanes=4, steps=32,
                             prompt_len=8)
-ROWS_SPEC_DECODE = dict(k=8, lanes=2, steps=48,
+ROWS_SPEC_DECODE = dict(k=8, lanes=2, steps=32,
                         draft_layers=SPEC_DRAFT_LAYERS,
                         tail_scale=SPEC_TAIL_SCALE)
 ROWS_RAGGED = dict(lanes=3, steps=24, prompt_len=12, kernel=True)
@@ -8027,6 +8060,462 @@ def phase_rows(torch, card):
 
 
 # ---------------------------------------------------------------- main
+MEM_BLOCK = 64 << 20            # (a): the device arena's block
+MEM_STAGING = 256 << 20         # (b): one pinned staging node
+MEM_COPY_ITERS = 5
+MEM_SPIN_CYCLES = 200_000_000   # (b): about 0.1 s of device spin
+# (d): the card version of examples/04_long_context_stream.py
+MEM_STREAM = dict(tokens=16384, window_count=4, window=2048, overlap=512,
+                  chunk=512, seed=17)
+MEM_NLL_TOL = 5e-2   # nats, |window NLL flash - plain|, both bf16 (a mean
+#                      over 1536 tokens; per-token bf16 noise is 6-9e-2)
+MEM_ENGINE_MAX_BATCH = 2        # (e): two buckets, 1 and 2
+
+
+def mem_arenas(torch, card):
+    """(a) tpulab's arena, transactional and best-fit sequences over
+    ``make_cuda_allocator()``'s device blocks; the caching allocator's
+    count moves by exactly the live blocks' bytes."""
+    import tpulab_torch.memory as tm
+    from tpulab_torch.cuda import CudaMemory, make_cuda_allocator
+
+    raw = make_cuda_allocator()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+
+    def held(label):
+        got = torch.cuda.memory_allocated() - base
+        want = raw.live_allocations * MEM_BLOCK
+        if got != want or raw.bytes_in_use != want:
+            raise RuntimeError(f"memory (a) {label}: memory_allocated moved "
+                               f"{got}, tracked {raw.bytes_in_use}, live "
+                               f"blocks x {MEM_BLOCK} = {want}")
+        return raw.live_allocations
+
+    assert raw.memory_type is CudaMemory and raw.max_alignment() == 256
+    arena = tm.BlockArena(tm.FixedSizeBlockAllocator(raw, MEM_BLOCK),
+                          cached=True)
+    b = arena.allocate_block()
+    buf = raw.buffer(b.addr)
+    if not (buf.is_cuda and buf.dtype == torch.uint8
+            and buf.numel() == MEM_BLOCK and int(buf.max()) == 0):
+        raise RuntimeError("memory (a): a device block is not a zeroed "
+                           f"uint8 tensor of {MEM_BLOCK} bytes on the card")
+    del buf                     # the block's bytes now live in the arena only
+    held("one block")
+    arena.deallocate_block(b)
+    b2 = arena.allocate_block()
+    if b2.addr != b.addr or held("recycled") != 1:
+        raise RuntimeError("memory (a): a freed block came back at another "
+                           "address or allocated a new one")
+    arena.deallocate_block(b2)
+    arena.shrink_to_fit()
+    if held("shrunk") != 0:
+        raise RuntimeError("memory (a): live blocks after shrink_to_fit")
+    # test_memory.py's transactional sequences, at device-block scale
+    t = tm.make_transactional_allocator(arena)
+    q = MEM_BLOCK // 4
+    a1, a2 = t.allocate_node(q), t.allocate_node(q)
+    if a2 != a1 + q:
+        raise RuntimeError("memory (a): transactional bump not O(1)")
+    a3 = t.allocate_node(3 * q)                 # forces a rotation
+    if t.live_stacks != 2 or held("rotated") != 2:
+        raise RuntimeError("memory (a): rotation did not take a new block")
+    t.deallocate_node(a1)
+    t.deallocate_node(a2)
+    if t.live_stacks != 1:
+        raise RuntimeError("memory (a): the drained stack was kept")
+    t.deallocate_node(a3)
+    addrs = [t.allocate_node(MEM_BLOCK // 8) for _ in range(8)]
+    for a in addrs[:-1]:
+        t.deallocate_node(a)
+    last = t.allocate_node(MEM_BLOCK)           # retires the old stack
+    t.deallocate_node(addrs[-1])
+    if t.live_stacks != 1:
+        raise RuntimeError("memory (a): whole-stack release failed")
+    t.deallocate_node(last)
+    try:
+        t.allocate_node(2 * MEM_BLOCK)
+        raise RuntimeError("memory (a): an oversize node was accepted")
+    except tm.BadAllocationSize:
+        pass
+    n_trans = held("transactional")
+    arena.shrink_to_fit()
+    # test_memory.py's best-fit sequence over device blocks
+    bf = tm.BFitAllocator(tm.FixedSizeBlockAllocator(raw, MEM_BLOCK))
+    a, b_, c = (bf.allocate_node(n) for n in (1000, 2000, 500))
+    bf.deallocate_node(b_)
+    d = bf.allocate_node(1500)
+    if d != b_:
+        raise RuntimeError("memory (a): best fit missed the 2000-byte hole")
+    e = bf.allocate_node(100, alignment=4096)
+    for x in (a, c, d, e):
+        bf.deallocate_node(x)
+    if e % 4096 or bf.free_bytes != MEM_BLOCK or len(bf._free_by_addr) != 1:
+        raise RuntimeError("memory (a): best-fit spans did not coalesce")
+    held("bfit")
+    desc = tm.make_allocator(raw).allocate_descriptor(4096)
+    if not (desc.device_buffer.is_cuda and desc.memory_type is CudaMemory):
+        raise RuntimeError("memory (a): a device descriptor carries no "
+                           "tensor on the card")
+    desc.release()
+    for blk in list(bf._blocks):
+        bf._arena.deallocate_block(blk)
+    if held("closed") != 1 or t.live_stacks != 1:
+        raise RuntimeError("memory (a): blocks other than the transactional "
+                           "allocator's current stack outlived their users")
+    log(f"memory: (a) device arenas on make_cuda_allocator(): a {MEM_BLOCK} "
+        "B block recycled at its address with nothing new allocated, none "
+        "live after shrink_to_fit; transactional bump / rotate / "
+        f"whole-stack release ({n_trans} blocks live at its end: its cached "
+        "block and its current stack, which tpulab's allocator also keeps); "
+        "best fit reused the 2000 B hole and coalesced back to one span; "
+        "memory_allocated moved by exactly the live blocks' bytes at every "
+        f"step [{card}]")
+
+
+def mem_staging(torch, card):
+    """(b) a pinned 256 MiB staging node against pageable memory."""
+    import tpulab_torch.memory as tm
+    from tpulab_torch.cuda import make_staging_allocator
+    from tpulab_torch.memory.descriptor import host_view
+
+    st = make_staging_allocator()
+    pg = tm.MallocAllocator()
+    pin_addr = st.allocate_node(MEM_STAGING)
+    pg_addr = pg.allocate_node(MEM_STAGING)
+    pinned = torch.frombuffer(host_view(pin_addr, MEM_STAGING),
+                              dtype=torch.uint8)
+    pageable = torch.frombuffer(host_view(pg_addr, MEM_STAGING),
+                                dtype=torch.uint8)
+    if pin_addr % 4096 or not pinned.is_pinned() or pageable.is_pinned():
+        raise RuntimeError(f"memory (b): staging node at 0x{pin_addr:x} "
+                           f"aligned {pin_addr % 4096 == 0}, pinned "
+                           f"{pinned.is_pinned()}; pageable pinned "
+                           f"{pageable.is_pinned()}")
+    if bool(pinned[:4096].any()):
+        raise RuntimeError("memory (b): the staging node was not first-touched")
+    pinned.copy_(torch.randint(0, 256, (MEM_STAGING,), dtype=torch.uint8))
+    pageable.copy_(pinned)
+    dev = torch.empty(MEM_STAGING, dtype=torch.uint8, device="cuda")
+
+    def gbps(fn):
+        times = []
+        for _ in range(MEM_COPY_ITERS + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        return MEM_STAGING / sorted(times[1:])[len(times[1:]) // 2] / 1e9
+
+    rates = {
+        "h2d_pinned": gbps(lambda: dev.copy_(pinned, non_blocking=True)),
+        "h2d_pageable": gbps(lambda: dev.copy_(pageable, non_blocking=True)),
+        "d2h_pinned": gbps(lambda: pinned.copy_(dev, non_blocking=True)),
+        "d2h_pageable": gbps(lambda: pageable.copy_(dev, non_blocking=True)),
+    }
+    if not torch.equal(pinned, pageable):
+        raise RuntimeError("memory (b): the round trips changed bytes")
+    # asynchrony: behind a device spin, the pinned copy returns at once
+    torch.cuda.synchronize()
+    torch.cuda._sleep(MEM_SPIN_CYCLES)
+    t0 = time.perf_counter()
+    dev.copy_(pinned, non_blocking=True)
+    ret_s = time.perf_counter() - t0
+    done = torch.cuda.current_stream().record_event()
+    pending = not done.query()
+    done.synchronize()
+    wait_s = time.perf_counter() - t0
+    if not pending:
+        raise RuntimeError("memory (b): the pinned copy had completed when "
+                           "it returned (it ran synchronously)")
+    st.deallocate_node(pin_addr, MEM_STAGING)
+    pg.deallocate_node(pg_addr, MEM_STAGING)
+    again = st.allocate_node(MEM_STAGING)       # unregistered, re-registered
+    st.deallocate_node(again, MEM_STAGING)
+    del dev
+    log(f"memory: (b) make_staging_allocator(): a {MEM_STAGING} B node, "
+        "page-aligned, first-touched, is_pinned() True (cudaHostRegister); "
+        f"GB/s (median of {MEM_COPY_ITERS}, CUDA events): H2D pinned "
+        f"{rates['h2d_pinned']:.2f} vs pageable {rates['h2d_pageable']:.2f}, "
+        f"D2H pinned {rates['d2h_pinned']:.2f} vs pageable "
+        f"{rates['d2h_pageable']:.2f}; behind a device spin the pinned H2D "
+        f"returned in {ret_s * 1e3:.3f} ms with the copy still pending "
+        f"(complete {wait_s * 1e3:.1f} ms later) [{card}]")
+    return rates
+
+
+def mem_buffers(torch, card):
+    """(c) ``Buffers`` on the framework: a second block for a second view."""
+    from tpulab_torch.engine.buffers import Buffers
+
+    bufs = Buffers(1024, block_size=1024)
+    v1, v2 = bufs._carve(800), bufs._carve(800)
+    depth = bufs._stack.depth
+    if depth != 2 or not (v1.is_pinned() and v2.is_pinned()):
+        raise RuntimeError(f"memory (c): Buffers(1024) gave two 800 B views "
+                           f"from {depth} block(s), pinned "
+                           f"{v1.is_pinned()} / {v2.is_pinned()}")
+    v1.fill_(1)
+    v2.fill_(2)
+    if int(v1.sum()) != 800 or int(v2.sum()) != 1600:
+        raise RuntimeError("memory (c): the two views overlap")
+    bufs.reset()
+    cached = bufs._arena.cached_blocks
+    if bufs._stack.depth != 0 or cached != 2:
+        raise RuntimeError(f"memory (c): reset left depth "
+                           f"{bufs._stack.depth}, {cached} cached blocks")
+    bufs.release()
+    log("memory: (c) Buffers(1024, block_size=1024): two 800 B views from "
+        "two page-locked blocks (a second block pushed), both back on "
+        f"reset() ({cached} cached), returned by release() [{card}]")
+
+
+def window_nll(torch, logits, tokens, overlap):
+    """Mean NLL of a window's continuation (the carried-over context
+    skipped), as examples/04_long_context_stream.py scores it."""
+    logp = logits[0, overlap - 1:-1].float()
+    nxt = tokens[0, overlap:]
+    return (torch.logsumexp(logp, -1)
+            - logp.gather(-1, nxt[:, None])[:, 0]).mean()
+
+
+def mem_stream(torch, card):
+    """(d) a 16,384-token stream through ``CudaCyclicWindowedStack`` at
+    Llama-3-8B width, each window's forward on kernel 2."""
+    import numpy as np
+
+    import tpulab_torch.memory as tm
+    from tpulab_torch.core.thread_pool import ThreadPool
+    from tpulab_torch.cuda import make_staging_allocator
+    from tpulab_torch.cuda.cyclic_buffer import CudaCyclicWindowedStack
+    from tpulab_torch.models.transformer import (causal_attention,
+                                                 transformer_apply)
+    from tpulab_torch.ops.flash_attention import (flash_attention,
+                                                  make_flash_attention_fn)
+
+    c, s = LLAMA3_8B, MEM_STREAM
+    t0 = time.perf_counter()
+    params = full_width_params(torch, c["n_layers"], torch.bfloat16, seed=0)
+    tree_s = time.perf_counter() - t0
+    stride = s["window"] - s["overlap"]
+    n_win = (s["tokens"] - s["overlap"]) // stride
+    stream = np.random.default_rng(s["seed"]).integers(
+        0, c["vocab"], s["tokens"], dtype=np.int32)
+    expect = torch.from_numpy(stream).cuda()
+    fwd = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+               compute_dtype=torch.bfloat16, n_kv_heads=c["n_kv_heads"],
+               rope_theta=c["rope_theta"])
+    flash = make_flash_attention_fn(causal=True)
+
+    def nll_of(tokens, attention_fn):
+        with torch.inference_mode():
+            logits = transformer_apply(params, {"tokens": tokens},
+                                       attention_fn=attention_fn,
+                                       **fwd)["logits"]
+            return window_nll(torch, logits, tokens, s["overlap"])
+
+    nll_of(expect[None, :s["window"]].long(), flash)    # warm-up
+    torch.cuda.synchronize()
+    nll, same = {}, {}
+
+    def compute(win_id, dev):
+        lo = win_id * stride
+        same[win_id] = (dev == expect[lo:lo + s["window"]]).all()
+        nll[win_id] = nll_of(dev[None].long(), flash)
+        return nll[win_id]
+
+    staging = make_staging_allocator()
+    desc = tm.make_allocator(staging).allocate_descriptor(
+        (s["window_count"] * stride + s["overlap"]) * 4)
+    most = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPool(1) as pool:
+        stk = CudaCyclicWindowedStack(
+            desc, s["window_count"], s["window"] * 4, s["overlap"] * 4,
+            compute_fn=compute, dtype=torch.int32, executor=pool)
+        for i in range(0, s["tokens"], s["chunk"]):
+            stk.append(stream[i:i + s["chunk"]].tobytes())
+            most = max(most, stk._cursor)
+        stk.sync_all()
+    stream_s = time.perf_counter() - t0
+    launches = flash_attention.launches
+    staged = (staging.live_allocations, desc.size)
+    stk.release()
+    if sorted(nll) != list(range(n_win)):
+        raise RuntimeError(f"memory (d): windows {sorted(nll)}, want "
+                           f"{n_win}")
+    if launches != c["n_layers"] * n_win:
+        raise RuntimeError(f"memory (d): kernel 2 launches {launches} != "
+                           f"{c['n_layers']} x {n_win} windows")
+    bad = [w for w in range(n_win) if not bool(same[w])]
+    if bad:
+        raise RuntimeError(f"memory (d): windows {bad} computed on bytes "
+                           "other than the ones appended (a slot rewritten "
+                           "under its asynchronous copy)")
+    if most > desc.size or staged[0] != 1:
+        raise RuntimeError(f"memory (d): host staging reached {most} B of "
+                           f"a {desc.size} B descriptor ({staged[0]} nodes)")
+    diffs = []
+    for w in range(n_win):
+        lo = w * stride
+        plain = nll_of(expect[None, lo:lo + s["window"]].long(),
+                       causal_attention)
+        got, want = float(nll[w]), float(plain)
+        if not (math.isfinite(got) and abs(got - want) <= MEM_NLL_TOL):
+            raise RuntimeError(f"memory (d): window {w} NLL {got:.6f} with "
+                               f"kernel 2 against {want:.6f} plain "
+                               f"(tolerance {MEM_NLL_TOL})")
+        diffs.append(abs(got - want))
+    del params
+    torch.cuda.empty_cache()
+    tok_s = s["tokens"] / stream_s
+    log(f"memory: (d) {s['tokens']} int32 tokens (seed {s['seed']}) through "
+        f"CudaCyclicWindowedStack over a {desc.size} B pinned descriptor "
+        f"({s['window_count']} windows of {s['window']} tokens, overlap "
+        f"{s['overlap']}; appended {s['chunk']} at a time, one executor "
+        f"thread) at Llama-3-8B width (bf16, tree drawn in {tree_s:.1f} s): "
+        f"{n_win} windows, each on the bytes appended; window NLLs "
+        f"{[round(float(nll[w]), 4) for w in range(n_win)]}, max |flash - "
+        f"plain| {max(diffs):.3e} (<= {MEM_NLL_TOL}); kernel 2 launches "
+        f"{launches} == {c['n_layers']} x {n_win}; host staging at most "
+        f"{most} of {desc.size} B in {staged[0]} node; {tok_s:.1f} "
+        f"tokens/s ({stream_s:.2f} s) [{card}]")
+    return launches, tok_s
+
+
+def mem_tools(torch, card):
+    """(e) the two tools as subprocesses on the card's default device."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from tpulab_torch.engine.runtime import Runtime
+    from tpulab_torch.models import build_model
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_onnx_util
+
+    tmp = tempfile.mkdtemp(prefix="memory-")
+    try:
+        out = os.path.join(tmp, "rn50.engine")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "tpulab_torch.tools.build_engine",
+             "--model", "resnet50", "--max-batch",
+             str(MEM_ENGINE_MAX_BATCH), "--out", out],
+            cwd=HERE, capture_output=True, text=True, timeout=600)
+        build_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise RuntimeError(f"memory (e): build_engine exited "
+                               f"{run.returncode}: {run.stderr[-2000:]}")
+        rep = json.loads(run.stdout)
+        if rep["buckets"] != [1, 2] or sorted(os.listdir(out)) != [
+                "bucket_1.pt2", "bucket_2.pt2", "params.npz", "spec.json",
+                "tree.json"]:
+            raise RuntimeError(f"memory (e): artifact {rep} "
+                               f"{sorted(os.listdir(out))}")
+        t0 = time.perf_counter()
+        loaded = Runtime().load_engine(out)
+        load_s = time.perf_counter() - t0
+        mem = Runtime().compile_model(build_model(
+            "resnet50", max_batch_size=MEM_ENGINE_MAX_BATCH))
+        x = card_images(torch, 2, 31)
+        got = loaded(2, {"input": x})["logits"]
+        want = mem(2, {"input": x})["logits"]
+        if not torch.equal(got, want):
+            raise RuntimeError("memory (e): the artifact's logits differ "
+                               "from the in-memory model's at bucket 2 (max "
+                               f"{float((got - want).abs().max()):.3e})")
+        del loaded, mem
+        onnx_path = os.path.join(tmp, "resnet50.onnx")
+        with open(onnx_path, "wb") as f:
+            f.write(torch_onnx_util.resnet50_graph(IMPORT["seed"], 1000,
+                                                   224)[0])
+        t0 = time.perf_counter()
+        summ = subprocess.run(
+            [sys.executable, "-m", "tpulab_torch.tools.onnx_summary",
+             onnx_path], cwd=HERE, capture_output=True, text=True,
+            timeout=300)
+        summ_s = time.perf_counter() - t0
+        rep2 = json.loads(summ.stdout) if summ.stdout else {}
+        if summ.returncode != 0 or rep2.get("importable") is not True:
+            raise RuntimeError(f"memory (e): onnx_summary exited "
+                               f"{summ.returncode}: {summ.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"memory: (e) python -m tpulab_torch.tools.build_engine --model "
+        f"resnet50 --max-batch {MEM_ENGINE_MAX_BATCH} (the card, no --device):"
+        f" buckets {rep['buckets']}, {rep['weights_bytes']} weight bytes, "
+        f"build_s {rep['build_s']}, {build_s:.1f} s as a process; "
+        f"load_engine without apply_fn in {load_s:.2f} s: bucket 2 logits "
+        "bit for bit the in-memory model's; python -m "
+        f"tpulab_torch.tools.onnx_summary on phase 16's ResNet-50 ONNX: "
+        f"importable, {rep2['nodes']} nodes, {rep2['weight_bytes']} weight "
+        f"bytes, exit 0 in {summ_s:.1f} s [{card}]")
+    return build_s, load_s
+
+
+def mem_device_info(torch, card):
+    """(f) ``DeviceInfo`` on the card against nvidia-smi and torch."""
+    from tpulab_torch.cuda import DeviceInfo
+
+    name = card.rsplit(",", 1)[0].strip()
+    kind = DeviceInfo.device_kind()
+    _free, total = torch.cuda.mem_get_info()
+    info = DeviceInfo.memory_info()
+    cpus = DeviceInfo.cpu_affinity()
+    attrs = DeviceInfo.attributes()
+    problems = []
+    if kind != name:
+        problems.append(f"device_kind {kind!r} != nvidia-smi's {name!r}")
+    if info.bytes_limit != total:
+        problems.append(f"bytes_limit {info.bytes_limit} != {total}")
+    if DeviceInfo.peak_flops("bf16") != 989.4e12:
+        problems.append(f"peak_flops bf16 {DeviceInfo.peak_flops('bf16')}")
+    if not cpus or max(cpus) >= (os.cpu_count() or 1):
+        problems.append(f"cpu_affinity {list(cpus)}")
+    if DeviceInfo.alignment() != 256 or DeviceInfo.coords() is not None:
+        problems.append("alignment / coords")
+    if problems:
+        raise RuntimeError("memory (f): " + "; ".join(problems))
+    log(f"memory: (f) DeviceInfo: count {DeviceInfo.count()}, device_kind "
+        f"{kind!r} == nvidia-smi's; memory_info in use {info.bytes_in_use}, "
+        f"limit {info.bytes_limit} == mem_get_info's total, peak "
+        f"{info.peak_bytes_in_use}; peak_flops bf16 "
+        f"{DeviceInfo.peak_flops('bf16'):.4g}, int8 "
+        f"{DeviceInfo.peak_flops('int8'):.4g}; cpu_affinity {len(cpus)} CPUs "
+        f"({min(cpus)}-{max(cpus)}) of {os.cpu_count()}; attributes "
+        f"{attrs} [{card}]")
+
+
+def phase_memory(torch, card):
+    """The memory library and the device layer's memory side (module
+    docstring, phase 17).  Returns kernel 2's launches over (d)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    for label, fn in (("a", mem_arenas), ("b", mem_staging),
+                      ("c", mem_buffers), ("d", mem_stream),
+                      ("e", mem_tools), ("f", mem_device_info)):
+        t0 = time.perf_counter()
+        res = fn(torch, card)
+        secs[label] = time.perf_counter() - t0
+        if label == "d":
+            launches = res[0]
+    log(f"memory: phase {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"({k}) {v:.1f}" for k, v in secs.items())
+        + f") [{card}]")
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  e4m3=None):
     """One kernel's line: times of its main case, the max error over
@@ -8124,6 +8613,7 @@ def main(argv=None) -> int:
     par_launches = phase_parallel(torch, card)
     shard_launches, shard_flash = phase_sharded(torch, card)
     rows_launches = phase_rows(torch, card)
+    mem_launches = phase_memory(torch, card)
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -8159,7 +8649,8 @@ def main(argv=None) -> int:
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
-                     + par_launches + shard_flash + rows_launches[1],
+                     + par_launches + shard_flash + rows_launches[1]
+                     + mem_launches,
                      rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
@@ -8168,7 +8659,8 @@ def main(argv=None) -> int:
                      "step's forwards, 32 x 3, and the 2-layer f32 and "
                      "checkpoint steps) + the sharded phase's split-plan "
                      "owner, both ranks (H 16 a rank) + the rows phase's "
-                     "split-plan prefills"),
+                     "split-plan prefills + the memory phase's stream "
+                     "(32 x its windows)"),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,

@@ -59,6 +59,7 @@ from tpulab_torch.engine.infer_bench import InferBench
 from tpulab_torch.engine.inference_manager import InferenceManager
 from tpulab_torch.engine.model import (Model, default_batch_buckets,
                                        tree_leaves)
+from tpulab_torch.memory import OutOfMemory
 from tpulab_torch.models import available_models, build_model
 from tpulab_torch.models.convert import tree_from_numpy
 from tpulab_torch.models.mnist import make_mnist
@@ -314,7 +315,7 @@ def test_bindings_carve_fill_roundtrip():
     assert b.device_inputs["Input3"].data_ptr() == \
         b.host_input_tensors["Input3"].data_ptr()        # the CPU: no copy
     buffers.reset()
-    with pytest.raises(MemoryError):
+    with pytest.raises(OutOfMemory):      # tpulab's: a view past the block
         Buffers(1024, device="cpu").create_bindings(m, batch_size=4)
 
 

@@ -81,7 +81,20 @@ def test_importing_every_module_loads_no_jax_or_tpulab():
             "tpulab_torch.fleet.bench", "tpulab_torch.fleet.election",
             "tpulab_torch.fleet.control", "tpulab_torch.fleet.observer",
             "tpulab_torch.kvfabric", "tpulab_torch.kvfabric.fabric",
-            "tpulab_torch.kvfabric.bench"} <= set(mods)
+            "tpulab_torch.kvfabric.bench", "tpulab_torch.memory",
+            "tpulab_torch.memory.literals", "tpulab_torch.memory.memory_type",
+            "tpulab_torch.memory.debugging", "tpulab_torch.memory.descriptor",
+            "tpulab_torch.memory.raw_allocators", "tpulab_torch.memory.block",
+            "tpulab_torch.memory.arena", "tpulab_torch.memory.allocator",
+            "tpulab_torch.memory.memory_pool",
+            "tpulab_torch.memory.transactional", "tpulab_torch.memory.bfit",
+            "tpulab_torch.memory.trackers", "tpulab_torch.memory.raii",
+            "tpulab_torch.memory.shm", "tpulab_torch.cuda.memory_types",
+            "tpulab_torch.cuda.copy", "tpulab_torch.cuda.device_info",
+            "tpulab_torch.cuda.cyclic_buffer",
+            "tpulab_torch.core.cyclic_buffer", "tpulab_torch.core.dtypes",
+            "tpulab_torch.core.threads", "tpulab_torch.tools.onnx_summary",
+            "tpulab_torch.tools.build_engine"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

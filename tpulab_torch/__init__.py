@@ -8,8 +8,15 @@ holds that rule).
 
 Layer map (mirrors tpulab's)::
 
-    tpulab_torch.core     host utilities (deadlines, pools, thread pools)
-    tpulab_torch.cuda     device layer (platform, allocators, sync, transfers)
+    tpulab_torch.memory   the allocator framework (memory kinds,
+                          descriptors, raw / block / arena / transactional /
+                          best-fit allocators, trackers, shared memory)
+    tpulab_torch.core     host runtime (pools, thread pools, batchers,
+                          affinity, thread policies, dtypes, deadlines,
+                          cyclic windowed streams)
+    tpulab_torch.cuda     device layer (platform, DeviceInfo, memory kinds,
+                          allocators and pinned staging, sync, copies,
+                          transfers, the device windowed stack)
     tpulab_torch.models   transformer, ResNet, ViT, MNIST, the registry and
                           the weight bridge from tpulab trees
     tpulab_torch.ops      hand-written CUDA kernels and their plain versions
@@ -32,6 +39,8 @@ Layer map (mirrors tpulab's)::
     tpulab_torch.serving  admission control, the per-tenant fair queue
     tpulab_torch.utils    request tracing (torch.profiler, NVTX, Chrome
                           traces)
+    tpulab_torch.tools    python -m tpulab_torch.tools.onnx_summary /
+                          .build_engine (the import preflight, artifacts)
 
 Top-level serving API (tpulab's quickstart)::
 

@@ -190,3 +190,12 @@ def make_serving_pool(items: Iterable[T] = (),
     """The serving pools' constructor: the Python :class:`Pool` (tpulab
     picks its native futex pool here when the C++ core is built)."""
     return Pool(items, on_return)
+
+
+class UniquePool(Pool[T]):
+    """Pool whose items are exclusively owned while out
+    (reference v4::UniquePool pool.h:640-775).  In Python exclusivity is by
+    convention — ``pop_unique`` returns the same RAII handle but ``detach`` is
+    the supported way to take ownership out."""
+
+    pop_unique = Pool.pop

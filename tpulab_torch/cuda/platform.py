@@ -19,6 +19,29 @@ def device_count() -> int:
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
+def devices() -> tuple:
+    """Every CUDA device of this process (tpulab's ``devices()``)."""
+    return tuple(torch.device("cuda", i) for i in range(device_count()))
+
+
+def local_device(index: int = 0) -> torch.device:
+    """A CUDA device by index; raises when it does not exist."""
+    devs = devices()
+    if index >= len(devs):
+        raise IndexError(f"device {index} out of range ({len(devs)} available)")
+    return devs[index]
+
+
+def platform_name() -> str:
+    """``"cuda"`` with a card, ``"cpu"`` without."""
+    return "cuda" if device_count() else "cpu"
+
+
+def is_cuda() -> bool:
+    """A CUDA card is present (tpulab's ``is_tpu``)."""
+    return platform_name() == "cuda"
+
+
 def default_device() -> torch.device:
     """The first CUDA device; raises when there is none."""
     if not torch.cuda.is_available():

@@ -2,6 +2,9 @@
 
 - :func:`cuda_sync_standard` blocks until a CUDA event (or the work
   behind a tree of tensors) has completed: tpulab's ``tpu_sync_standard``.
+  :func:`cuda_sync_async` is its yielding twin for event-loop handlers
+  (``tpu_sync_async``) and :class:`CudaSync` the policy object choosing
+  between them (``TpuSync``; reference cuda_sync<ThreadType>).
 - :class:`EventPoller` is one thread watching many in-flight CUDA events;
   ``watch(event, callback)`` fires ``callback()`` once the event has
   completed.  The infer pipeline uses it to return an execution token the
@@ -19,6 +22,7 @@ Callbacks run on the poller thread and must be tiny (pool pushes).
 
 from __future__ import annotations
 
+import asyncio
 import collections
 import logging
 import threading
@@ -41,6 +45,37 @@ def cuda_sync_standard(x: Any) -> Any:
                 and t.is_cuda}:
         torch.cuda.synchronize(dev)
     return x
+
+
+async def cuda_sync_async(x: Any, poll_s: float = 0.0) -> Any:
+    """Yielding sync (reference cuda_sync<userspace_threads>: poll +
+    yield): a ``torch.cuda.Event`` is polled; for tensors (a tensor or a
+    dict of them) an event recorded on each CUDA device's current stream
+    is.  Returns ``x``."""
+    if isinstance(x, torch.cuda.Event):
+        events = [x]
+    else:
+        leaves = x.values() if isinstance(x, dict) else [x]
+        events = []
+        for dev in {t.device for t in leaves if isinstance(t, torch.Tensor)
+                    and t.is_cuda}:
+            events.append(torch.cuda.current_stream(dev).record_event())
+    for evt in events:
+        while not evt.query():
+            await asyncio.sleep(poll_s)
+    return x
+
+
+class CudaSync:
+    """Policy object mirroring cuda_sync<ThreadType> selection."""
+
+    @staticmethod
+    def standard(x: Any) -> Any:
+        return cuda_sync_standard(x)
+
+    @staticmethod
+    def userspace(x: Any, poll_s: float = 0.0):
+        return cuda_sync_async(x, poll_s)
 
 
 class EventPoller:

@@ -1,5 +1,6 @@
 """Device<->host transfers on a side CUDA stream (the port of
-``tpulab/tpu/transfer.py`` and ``tpulab/tpu/copy.py``).
+``tpulab/tpu/transfer.py``; the plain copies of ``tpulab/tpu/copy.py``
+live in :mod:`tpulab_torch.cuda.copy` and are re-exported here).
 
 :class:`TransferEngine` runs the write-behind copies of the host KV tier
 and the device-to-host copies of the infer pipeline.  ``fetch(tree)`` is
@@ -38,6 +39,8 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 
+from tpulab_torch.cuda.copy import (  # noqa: F401 (re-exported)
+    copy_device_to_device, copy_to_device, copy_to_host)
 from tpulab_torch.cuda.platform import resolve_device
 
 log = logging.getLogger("tpulab_torch.cuda")
@@ -217,24 +220,3 @@ class TransferEngine:
                 pairs = None
                 fut.set_result(value)
             value = rebuild = None
-
-
-def copy_to_device(host: torch.Tensor, device=None,
-                   non_blocking: bool = True) -> torch.Tensor:
-    """Host -> device on the caller's current stream (tpulab's
-    ``copy_to_device``): returns at once when ``host`` is page-locked."""
-    return host.to(resolve_device(device), non_blocking=non_blocking)
-
-
-def copy_to_host(tensor: torch.Tensor,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Device -> host, blocking; into ``out`` when given."""
-    if out is None:
-        return tensor.detach().to("cpu", copy=True)
-    out.copy_(tensor)
-    return out
-
-
-def copy_device_to_device(tensor: torch.Tensor, device) -> torch.Tensor:
-    """Device -> another device."""
-    return tensor.to(resolve_device(device))

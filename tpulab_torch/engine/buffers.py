@@ -1,15 +1,18 @@
 """Buffers / Bindings: per-request host staging and device tensors (the
 port of ``tpulab/engine/buffers.py``).
 
-- :class:`Buffers` is one pool slot: one host staging block (page-locked
-  in front of a CUDA device, so host-to-device and device-to-host copies
-  run asynchronously; plain memory on the CPU, where PyTorch refuses
-  ``pin_memory``) and, on CUDA, the stream its input copies run on.  It
-  carves 64-byte-aligned views off the block with a bump offset;
-  :meth:`Buffers.reset` rewinds the offset and runs as the pool's
-  ``on_return`` hook.  A bump offset over one block is all this needs, so
-  tpulab's ``memory/arena.py`` and ``memory/block.py`` (its block stack)
-  are not ported.
+- :class:`Buffers` is one pool slot: a host staging stack, as tpulab's
+  (a ``BlockStack`` over a cached ``BlockArena`` of ``block_size`` blocks
+  from the staging allocator: page-locked in front of a CUDA device, so
+  host-to-device and device-to-host copies run asynchronously; plain
+  first-touched memory on the CPU) and, on CUDA, the stream its input
+  copies run on.  It carves 64-byte-aligned views off the top block and
+  pushes a new block when the top is full; :meth:`Buffers.reset` gives
+  every block back to the arena and runs as the pool's ``on_return``
+  hook; :meth:`Buffers.release` also returns the cached blocks
+  (``shrink_to_fit``).  tpulab's native staging stack is not carried
+  (ROADMAP decisions: Python pools only), nor its ``coalesce_h2d``
+  (decisions: no H2D coalescing), which raises.
 - :class:`Bindings` carves one view per input and output binding at the
   request's bucket: numpy views for the caller's fill, torch views of the
   same bytes for the copies.  ``copy_to_device`` enqueues the inputs'
@@ -26,45 +29,55 @@ import numpy as np
 import torch
 
 from tpulab_torch import chaos
+from tpulab_torch.cuda.allocators import make_staging_allocator
 from tpulab_torch.cuda.platform import resolve_device
 from tpulab_torch.cuda.sync import cuda_sync_standard
 from tpulab_torch.engine.model import Model
 from tpulab_torch.engine.runtime import torch_dtype
+from tpulab_torch.memory.arena import BlockArena, BlockStack
+from tpulab_torch.memory.block import FixedSizeBlockAllocator
+from tpulab_torch.memory.descriptor import host_view
 
 #: alignment of every carved view
 ALIGN = 64
 
 
 class Buffers:
-    """One pool slot of staging memory."""
+    """One pool slot of staging memory (reference FixedBuffers)."""
 
-    def __init__(self, host_stack_bytes: int, device=None):
+    def __init__(self, host_stack_bytes: int, device=None, block_size: int = 0,
+                 transfer_engine=None, coalesce_h2d: bool = False):
+        if coalesce_h2d:
+            raise NotImplementedError(
+                "coalesce_h2d: CUDA copies have no per-transfer round trip "
+                "to amortize (ROADMAP decisions: no H2D coalescing)")
         self.device = resolve_device(device)
-        cuda = self.device.type == "cuda"
-        self._block = torch.empty(host_stack_bytes, dtype=torch.uint8,
-                                  pin_memory=cuda)
-        self._offset = 0
-        self.stream = torch.cuda.Stream(device=self.device) if cuda else None
-
-    @property
-    def capacity(self) -> int:
-        return self._block.numel()
+        self._arena = BlockArena(FixedSizeBlockAllocator(
+            make_staging_allocator(self.device),
+            block_size or host_stack_bytes), cached=True)
+        self._stack = BlockStack(self._arena)
+        self.transfer_engine = transfer_engine
+        self.coalesce_h2d = coalesce_h2d
+        self.stream = (torch.cuda.Stream(device=self.device)
+                       if self.device.type == "cuda" else None)
 
     def create_bindings(self, model: Model, batch_size: int) -> "Bindings":
         """Carve per-binding staging views for one request."""
         return Bindings(self, model, batch_size)
 
     def _carve(self, nbytes: int) -> torch.Tensor:
-        start = -(-self._offset // ALIGN) * ALIGN
-        if start + nbytes > self.capacity:
-            raise MemoryError(f"staging block of {self.capacity} bytes "
-                              f"cannot carve {nbytes} more at {start}")
-        self._offset = start + nbytes
-        return self._block[start:start + nbytes]
+        addr = self._stack.allocate(nbytes, alignment=ALIGN)
+        return torch.frombuffer(host_view(addr, nbytes), dtype=torch.uint8)
 
     def reset(self) -> None:
         """Return all carved memory (the pool's ``on_return`` hook)."""
-        self._offset = 0
+        self._stack.reset()
+
+    def release(self) -> None:
+        """Return every block, cached ones included, to the staging
+        allocator."""
+        self._stack.reset()
+        self._arena.shrink_to_fit()
 
 
 class Bindings:

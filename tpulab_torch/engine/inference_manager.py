@@ -122,7 +122,8 @@ class InferenceManager:
         self._transfer_engine = TransferEngine()
         self._event_poller = EventPoller()
         self._buffers_pool = make_serving_pool(
-            (Buffers(stack_bytes, self.device)
+            (Buffers(stack_bytes, self.device,
+                     transfer_engine=self._transfer_engine)
              for _ in range(self.max_buffers)),
             on_return=Buffers.reset)
         self._exec_tokens = make_serving_pool(range(self.max_executions))
