@@ -11,8 +11,9 @@ raises and the script exits non-zero without printing a result:
    CUDA versions.  TF32 is switched off for matmuls and cuDNN.
 2. build   — the three kernel sources under ``tpulab_torch/ops/csrc/``
    (with the shared headers ``common.cuh`` and ``attn_wgmma.cuh``)
-   compiled by ``nvcc``, one process per source, all started together;
-   build seconds, registers and spills per kernel.
+   compiled by ``nvcc`` (``--split-compile=0``), one process per source,
+   all started together; build seconds, registers and spills per
+   kernel.
 3. kernels — every kernel's wrapper on the card held against its plain
    PyTorch version, with the tolerance set by the output dtype (f32
    rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3), and a
@@ -486,6 +487,36 @@ raises and the script exits non-zero without printing a result:
    is nvidia-smi's, ``bytes_limit`` is ``mem_get_info``'s total,
    ``peak_flops("bf16")`` 989.4e12, ``cpu_affinity`` CPUs of this host.
 
+18. dtypes — f16 compute and f16 / e5m2 pages, and the programs users
+   run, last.  (a) On the serving geometry (Hq 32, Hkv 8, D 128, page
+   16, 8 lanes x 128 pages): kernel 1 over f16 q / f16 pages, bf16 and
+   f16 q / e5m2 pages (all_decode, chunk_over_ctx, verify_k8; the
+   ``wgmma`` body in q's type) and the two mixed ``fma`` cells (bf16 q /
+   f16 pages, f16 q / bf16 pages; all_decode); kernel 3 over the three
+   pools at 8 x 1024 and 1 x 2048; kernel 2 at f16, T 2048 (H 32) and T
+   1024 (H 16), causal; each against its plain version on the same
+   bytes (f16 rtol 2e-3, atol 1e-3), relaunched bit for bit, e5m2 pools
+   relaunched over 0x7F (NaN) in every dead position without a bit
+   moving, a skipped page and a dropped diagonal tile rejected; times
+   beside the bf16 and e4m3 rows of phase 3 and SDPA at f16 (n/a for
+   e5m2 and mixed types).  Kernels 1 and 2 at D 32 (``ex07``'s heads) on
+   their ``fma`` body.  (b) The card's ``.to(float16 / float8_e5m2 /
+   float8_e4m3fn)`` over every bf16 and f16 pattern and the f32 specials
+   equals the CPU's on every number (its NaN codes differ: counted), and
+   ``to_kv_dtype`` equals the CPU's on every input.  (c) At Llama-3-8B
+   width (8 layers, seed 0), under both plans: an f16-compute serve
+   (f16 pages) of a 4-request burst, and a bf16 serve over e5m2 pages
+   with its one lane's victim preempted to the host tier and restored;
+   launches by form (``wgmma f16`` / ``wgmma bf16``) == n_layers x the
+   forward steps (kernel 1) and the prefills (kernel 2); each stream
+   against the same batcher on plain attention, equal or within twice
+   the kernel-vs-plain noise of the plain replay's top.  (d) ``python -m
+   tpulab_torch.examples.ex07_llm_server --oneshot`` at its default
+   width and with ``--kv-fp8`` (its own client, 16 greedy tokens),
+   ``ex30_python_api`` and ``ex04_long_context_stream``, at once; then
+   ``ex00_basic_infer --model resnet50 --batch-size 8 --seconds 3``;
+   each exits 0 with its own printed checks.
+
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -497,6 +528,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import sys
 import time
 
@@ -518,8 +550,12 @@ PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}   # dense tensor-core bf16; f32 FMA
 # relative per weight, averaged over the keys a row sees), and both sides
 # round the output to bf16 at the end, so a last-place flip (2^-8 to
 # 2^-7 relative) is the expected difference; rtol 8e-3 allows one and
-# atol 4e-3 covers outputs near zero.
-TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3)}
+# atol 4e-3 covers outputs near zero.  f16: the same two roundings in
+# f16 (P to f16, 2^-12 relative; the output, a last-place flip 2^-11 to
+# 2^-10 relative): rtol 2e-3 allows a flip of outputs in [1, 4), atol
+# 1e-3 covers outputs near zero.
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3),
+       "float16": (2e-3, 1e-3)}
 # the split and ragged plans may pick different greedy tokens only where
 # the two best f32 logits lie closer than this (their logits differ by
 # ~1e-5: summation order)
@@ -635,7 +671,8 @@ def sdpa_decode_ms(torch, timer, q, pool, tables, vis, rep):
     kd, vd = (x.transpose(1, 2).to(q.dtype).contiguous() for x in (kd, vd))
     qd = q.transpose(1, 2).contiguous()
     mask = torch.zeros(vis.shape, dtype=q.dtype, device="cuda")
-    mask = mask.masked_fill(~vis, -1e30)[:, None]
+    neg = max(-1e30, torch.finfo(q.dtype).min)   # f16 holds -65504 at most
+    mask = mask.masked_fill(~vis, neg)[:, None]
     return timer(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask), iters=5)
 
@@ -837,7 +874,7 @@ def flash_case(torch, timer, rng, b, h, d, t, dname, causal, planted):
                                                   flash_body)
 
     dt = getattr(torch, dname)
-    kind = "bf16" if dt == torch.bfloat16 else "f32"
+    kind = "f32" if dt == torch.float32 else "bf16"   # f16's peak is bf16's
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (b, t, h, d)).astype(np.float32)).cuda().to(dt) for _ in range(3))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -8516,12 +8553,624 @@ def phase_memory(torch, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+# (a) the new dtype cases of kernels 1 and 3 on the serving geometry: the
+# tensor-core cells (q, pages) with their cases, then kernel 1's two mixed
+# fma cells; kernel 3's (lanes, inclusive position) cases
+DT_RAGGED = (("f16/f16", "float16", "float16", ("all_decode",
+                                                 "chunk_over_ctx",
+                                                 "verify_k8")),
+             ("bf16/e5m2", "bfloat16", "float8_e5m2", ("all_decode",
+                                                        "chunk_over_ctx",
+                                                        "verify_k8")),
+             ("f16/e5m2", "float16", "float8_e5m2", ("all_decode",
+                                                      "chunk_over_ctx",
+                                                      "verify_k8")),
+             ("bf16/f16", "bfloat16", "float16", ("all_decode",)),
+             ("f16/bf16", "float16", "bfloat16", ("all_decode",)))
+DT_PAGED = (("f16/f16", "float16", "float16"),
+            ("bf16/e5m2", "bfloat16", "float8_e5m2"),
+            ("f16/e5m2", "float16", "float8_e5m2"))
+DT_PAGED_CASES = ((8, 1023), (1, 2047))
+# (c) the serves at Llama-3-8B width, depth cut to DT_LAYERS
+DT_LAYERS = 8
+DT_BURST = (700, 300, 64, 16)        # prompt lengths of the burst
+DT_STEPS = 16
+DT_SAMPLED = dict(temperature=0.8, seed=2020)   # the burst's last request
+DT_VICTIM, DT_VICTIM_STEPS, DT_HI = 1000, 24, 200
+DT_KV_OFFLOAD = 1 << 30
+
+
+def beside_ms(rows, kernel, case, dtypes):
+    """The time of an earlier row of the same case (None if there is
+    none)."""
+    return next((r["ms"] for r in rows.get(kernel, ())
+                 if (r["case"], r["dtypes"]) == (case, dtypes)), None)
+
+
+def fmt_ms(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
+def dtype_kernels(torch, timer, rows):
+    """(a) Kernels 1 and 3 over f16 and e5m2 pools and f16 q, kernel 2 at
+    f16: each case against its plain version on the same bytes, relaunched
+    bit for bit on its stated body; e5m2 pools also relaunched over a copy
+    with 0x7F (NaN) in every dead position, which must not move a bit; a
+    skipped page (kernels 1 and 3) and a dropped diagonal tile (kernel 2)
+    rejected.  Times beside the same case's bf16 and e4m3 rows and, for
+    f16 K/V, SDPA at f16 (no library call takes e5m2 K/V, nor mixed q and
+    K/V types: "n/a")."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_splits)
+    from tpulab_torch.ops.ragged_attention import (
+        _sm_count, ragged_body, ragged_paged_attention,
+        ragged_paged_attention_reference, ragged_splits)
+
+    g = RA_GEOM
+    rng = np.random.default_rng(18)
+    pool32, tables = serving_pool(torch, np, rng)
+    n_sm = _sm_count(torch.cuda.current_device())
+    cases = dict((n, (q, kv)) for n, q, kv in ra_cases())
+    t = g["mp"] * g["s"]
+    new = {"ragged": [], "paged": [], "flash": []}
+    pools = {name: pool32.to(getattr(torch, name))
+             for name in ("float16", "float8_e5m2", "bfloat16")}
+    del pool32
+
+    def row(kernel, case, dname, body, err, ms, plain_ms, bound_ms, by,
+            lib_ms):
+        r = dict(case=case, dtypes=dname, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                 library_ms=lib_ms, body=body,
+                 bf16_ms=beside_ms(rows, kernel, case, "bf16/bf16"),
+                 e4m3_ms=beside_ms(rows, kernel, case, "bf16/e4m3"))
+        new[kernel].append(r)
+        log(f"dtypes: {kernel} {case:<14} {dname:<9} {body:<10} "
+            f"err={err:.2e} kernel={ms:.4f} plain={plain_ms:.4f} "
+            f"bound={bound_ms:.4f} ({by}) ms; beside bf16/bf16 "
+            f"{fmt_ms(r['bf16_ms'])}, bf16/e4m3 {fmt_ms(r['e4m3_ms'])} | "
+            f"yardstick, unused by the port: sdpa={fmt_ms(lib_ms)} ms")
+
+    def poisoned_equal(label, call, pool, tab, first_dead, got):
+        if pool.dtype != torch.float8_e5m2:
+            return
+        bad = nan_dead_tails(torch, pool, tab, first_dead)
+        if not torch.equal(call(bad), got):
+            raise AssertionError(f"{label}: 0x7F in dead positions changed "
+                                 "the output")
+
+    for dname, q_name, kv_name, names in DT_RAGGED:
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        pool = pools[kv_name]
+        kind = "f32" if q_dt == torch.float32 else "bf16"
+        for name in names:
+            q_lens_l, kv_lens_l = cases[name]
+            m = max(q_lens_l)
+            q = torch.from_numpy(rng.standard_normal(
+                (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda()
+            q = q.to(q_dt)
+            q_lens, kv_lens = (torch.tensor(x, dtype=torch.int32,
+                                            device="cuda")
+                               for x in (q_lens_l, kv_lens_l))
+            args = (q, pool, tables, q_lens, kv_lens)
+            body = ragged_body(q_dt, kv_dt, g["d"])
+            splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"],
+                                   g["s"], n_sm, body)
+            label = f"ragged {name} {dname}"
+            got = launch_twice(torch, label, ragged_paged_attention,
+                               lambda: ragged_paged_attention(*args), body)
+            err = check_close(torch, label, got,
+                              ragged_paged_attention_reference(*args))
+            poisoned_equal(label, lambda p: ragged_paged_attention(
+                q, p, tables, q_lens, kv_lens), pool, tables, kv_lens, got)
+            if name == "all_decode":
+                skip = torch.cat([tables[:, :5], tables[:, 6:],
+                                  tables[:, :1]], 1)
+                check_rejects(torch, f"ragged skipped page, 1024 context, "
+                              f"{dname}", got,
+                              ragged_paged_attention_reference(
+                                  q, pool, skip, q_lens, kv_lens - g["s"]))
+            ms = timer(lambda: ragged_paged_attention(*args), iters=20)
+            plain_ms = timer(lambda: ragged_paged_attention_reference(*args),
+                             iters=3, warmup=1)
+            lib_ms = None
+            if q_dt == kv_dt:
+                pos = (kv_lens - q_lens)[:, None] + torch.arange(
+                    m, device="cuda")
+                ar = torch.arange(t, device="cuda")[None, None]
+                vis = (ar <= pos[..., None]) & (ar < kv_lens[:, None, None])
+                lib_ms = sdpa_decode_ms(torch, timer, q, pool, tables, vis,
+                                        g["hq"] // g["hkv"])
+            bound_ms, by = ra_bound(q_lens_l, kv_lens_l, m, q.element_size(),
+                                    pool.element_size(), kind)
+            row("ragged", name, dname, f"{body} x{splits}", err, ms,
+                plain_ms, bound_ms, by, lib_ms)
+
+    for dname, q_name, kv_name in DT_PAGED:
+        q_dt = getattr(torch, q_name)
+        pool = pools[kv_name]
+        for lanes, pos in DT_PAGED_CASES:
+            tab = tables[:lanes]
+            q = torch.from_numpy(rng.standard_normal(
+                (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+            lengths = torch.full((lanes,), pos, dtype=torch.int32,
+                                 device="cuda")
+            args = (q, pool, tab, lengths)
+            case = f"{lanes} x {pos + 1}"
+            label = f"paged {case} {dname}"
+            splits = paged_splits(lanes, g["hkv"], g["mp"], g["s"], n_sm)
+            got = launch_twice(torch, label, paged_decode_attention,
+                               lambda: paged_decode_attention(*args))
+            err = check_close(torch, label, got,
+                              paged_decode_attention_reference(*args))
+            poisoned_equal(label, lambda p: paged_decode_attention(
+                q, p, tab, lengths), pool, tab, lengths + 1, got)
+            if lanes == 8:
+                skip = torch.cat([tab[:, :5], tab[:, 6:], tab[:, :1]], 1)
+                check_rejects(torch, f"paged skipped page, 1024 context, "
+                              f"{dname}", got,
+                              paged_decode_attention_reference(
+                                  q, pool, skip, lengths - g["s"]))
+            ms = timer(lambda: paged_decode_attention(*args), iters=20)
+            plain_ms = timer(lambda: paged_decode_attention_reference(*args),
+                             iters=3, warmup=1)
+            lib_ms = None
+            if q_dt == pool.dtype:
+                vis = (torch.arange(t, device="cuda")[None, None]
+                       <= lengths[:, None, None])
+                lib_ms = sdpa_decode_ms(torch, timer, q[:, None], pool, tab,
+                                        vis, g["hq"] // g["hkv"])
+            n_ctx = lanes * (pos + 1)
+            bound_ms, by = bound(
+                n_ctx * g["hkv"] * g["d"] * 2 * pool.element_size()
+                + 2 * lanes * g["hq"] * g["d"] * q.element_size()
+                + lanes * g["mp"] * 4 + lanes * 4,
+                4 * g["d"] * g["hq"] * n_ctx, "f32")
+            row("paged", case, dname, f"ring x{splits}", err, ms, plain_ms,
+                bound_ms, by, lib_ms)
+    del pools
+
+    # D 32 (ex07_llm_server's default heads: Hq 8, Hkv 2): the fma body
+    # of kernel 1 over bf16 and e4m3 pages (its two serves in (d)), and
+    # kernel 2's f32 and bf16 fma body
+    from tpulab_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_reference,
+                                                  flash_body)
+    g32 = dict(b=8, hq=8, hkv=2, d=32, s=16, mp=64)
+    drng = np.random.default_rng(32)
+    n32 = g32["b"] * g32["mp"] + 1
+    pool32 = torch.from_numpy(drng.standard_normal(
+        (n32, 2, g32["s"], g32["hkv"], g32["d"])).astype(np.float32)).cuda()
+    tab32 = torch.from_numpy((drng.permutation(n32 - 1) + 1).astype(
+        np.int32).reshape(g32["b"], g32["mp"])).cuda()
+    for q_name, kv_name, m in (("bfloat16", "bfloat16", 1),
+                               ("bfloat16", "float8_e4m3fn", 1),
+                               ("bfloat16", "bfloat16", 64)):
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        q = torch.from_numpy(drng.standard_normal(
+            (g32["b"], m, g32["hq"], g32["d"])).astype(np.float32)).cuda()
+        args = (q.to(q_dt), pool32.to(kv_dt), tab32,
+                torch.full((g32["b"],), m, dtype=torch.int32, device="cuda"),
+                torch.full((g32["b"],), 1000, dtype=torch.int32,
+                           device="cuda"))
+        label = (f"ragged D 32 {m} x 1000 {dtype_name(q_dt)}/"
+                 f"{dtype_name(kv_dt)}")
+        got = launch_twice(torch, label, ragged_paged_attention,
+                           lambda: ragged_paged_attention(*args), "fma")
+        err = check_close(torch, label, got,
+                          ragged_paged_attention_reference(*args))
+        log(f"dtypes: {label}: fma body, err={err:.2e}, relaunch "
+            "bit-identical")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        q, k, v = (torch.from_numpy(drng.standard_normal(
+            (1, 512, 8, 32)).astype(np.float32)).cuda().to(dt)
+                   for _ in range(3))
+        label = f"flash D 32 T=512 causal {dname}"
+        got = launch_twice(torch, label, flash_attention,
+                           lambda: flash_attention(q, k, v),
+                           flash_body(dt, 32))
+        err = check_close(torch, label, got,
+                          flash_attention_reference(q, k, v))
+        log(f"dtypes: {label}: fma body, err={err:.2e}, relaunch "
+            "bit-identical")
+    del pool32
+
+    frng = np.random.default_rng(19)
+    for b, h, d, tlen in ((FA_GEOM["b"], FA_GEOM["h"], FA_GEOM["d"],
+                           FA_TS[-1]),
+                          (FA_RANK["b"], FA_RANK["h"], FA_RANK["d"],
+                           FA_RANK["t"])):
+        r = flash_case(torch, timer, frng, b, h, d, tlen, "float16", True,
+                       True)
+        r["bf16_ms"] = beside_ms(rows, "flash", r["case"], "bfloat16")
+        new["flash"].append(r)
+        log(f"dtypes: flash {r['case']} float16 beside bfloat16 "
+            f"{fmt_ms(r['bf16_ms'])} ms")
+    return new
+
+
+def dtype_casts(torch):
+    """(b) The card's casts to float16, float8_e5m2 and float8_e4m3fn over
+    every bf16 and f16 pattern and the f32 specials (1 << 20 random f32
+    bit patterns among them, NaN payloads included) against the CPU's:
+    ``Tensor.to`` bit for bit on every number (its NaN codes differ on the
+    card: counted), and the batcher's ``to_kv_dtype`` bit for bit on
+    every input."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import to_kv_dtype
+
+    pats = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    specials = torch.tensor(
+        [0.0, -0.0, 57344.0, -57344.0, 61439.0, 61440.0, 61441.0, 65504.0,
+         65519.0, 65520.0, -65520.0, 1e6, -1e30, float("inf"),
+         float("-inf"), float("nan"), -float("nan"), 2.0 ** -16,
+         2.0 ** -17, 2.0 ** -24, 2.0 ** -25, 1e-30, 448.0, 464.0,
+         464.00003], dtype=torch.float32)
+    rand = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 1 << 32, 1 << 20, dtype=np.uint64).astype(np.uint32).view(
+            np.float32))
+    n, nan_codes = 0, {}
+    for src in (pats.view(torch.bfloat16), pats.view(torch.float16),
+                torch.cat([specials, rand])):
+        num = ~torch.isnan(src)
+        for dt in (torch.float16, torch.float8_e5m2, torch.float8_e4m3fn):
+            key = f"{dtype_name(src.dtype)} -> {dtype_name(dt)}"
+            for name, cast in (("to_kv_dtype", lambda x: to_kv_dtype(x, dt)),
+                               (".to", lambda x: x.to(dt))):
+                cpu = cast(src).view(torch.uint8).reshape(src.numel(), -1)
+                card = cast(src.cuda()).cpu().view(torch.uint8).reshape(
+                    src.numel(), -1)
+                same = (cpu == card).all(-1)
+                if name == "to_kv_dtype" and not same.all():
+                    at = (~same).nonzero().flatten()[:4]
+                    raise AssertionError(
+                        f"{key} to_kv_dtype: the card's bits differ from "
+                        f"the CPU's at {int((~same).sum())} inputs, e.g. "
+                        f"{src[at].tolist()}: CPU {cpu[at].tolist()}, "
+                        f"card {card[at].tolist()}")
+                if not same[num].all():
+                    raise AssertionError(f"{key} .to: the card's bits differ "
+                                         "from the CPU's on a number")
+                if name == ".to":
+                    nan_codes[key] = int((~same).sum())
+            n += src.numel()
+    log(f"dtypes: casts on the card == on the CPU bit for bit over every "
+        f"bf16 and f16 pattern and {specials.numel()} f32 specials + "
+        f"{rand.numel()} random f32 bit patterns ({n} values): "
+        f"to_kv_dtype on every input; .to on every number, its NaN codes "
+        f"differing on the card at {nan_codes} inputs (to_kv_dtype gives "
+        f"jnp's)")
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The batcher's attention on the kernels' plain versions, on the
+    card: the ragged wrapper's name in ``engine.paged`` and the flash
+    module's forward swapped for their references (no kernel launches)."""
+    import tpulab_torch.engine.paged as paged
+    from tpulab_torch.ops.ragged_attention import \
+        ragged_paged_attention_reference
+
+    fa = sys.modules["tpulab_torch.ops.flash_attention"]
+    saved = paged.ragged_paged_attention, fa._forward
+    paged.ragged_paged_attention = ragged_paged_attention_reference
+    fa._forward = fa.flash_attention_reference
+    try:
+        yield
+    finally:
+        paged.ragged_paged_attention, fa._forward = saved
+
+
+def held_to_plain(torch, params, kw, label, prompt, want, got, kv_dtype,
+                  sampling=None):
+    """``got`` (the kernels) equals ``want`` (the plain attention); or,
+    from the first step where they differ, every pick of both lies within
+    twice that position's path noise below the plain replay's top score.
+    The noise is the largest distance one logit moves between a ragged
+    forward over a fresh ``kv_dtype`` pool on the kernels and the same
+    forward on their plain versions (teacher-forced on each stream's own
+    prefix).  Returns a note for the log."""
+    import numpy as np
+
+    if got == want:
+        return None
+    n = min(len(want), len(got))
+    i = next((j for j in range(n) if want[j] != got[j]), n)
+    if i == n:
+        raise AssertionError(f"{label}: lengths {len(want)} != {len(got)}")
+    worst = 0.0
+    for stream in (want, got):
+        seq = np.concatenate([prompt, np.asarray(stream[:-1],
+                                                 np.int32)])[None]
+        kern = replay_logits(torch, params, kw, seq, kv_dtype,
+                             tail=len(stream)).float()
+        with plain_attention():
+            plain = replay_logits(torch, params, kw, seq, kv_dtype,
+                                  tail=len(stream)).float()
+        noise = (kern - plain).abs().amax(-1)
+        scores, scale = sampled_scores(torch, plain, sampling,
+                                       len(prompt) - 1)
+        noise = noise * scale
+        picks = torch.tensor(stream, device=plain.device)
+        gap = scores.amax(-1) - scores.gather(1, picks[:, None])[:, 0]
+        bad = [(j, float(gap[j]), float(noise[j]))
+               for j in range(i, len(stream)) if gap[j] > 2 * noise[j]]
+        if bad:
+            raise AssertionError(f"{label}: picks (step, gap, noise) {bad} "
+                                 "lie over twice the kernel-vs-plain path "
+                                 "noise below the plain top score")
+        worst = max(worst, float((gap[i:] / noise[i:].clamp_min(1e-30))
+                                 .max()))
+    return (f"{label} differs from step {i}, every pick from there on "
+            f"within {worst:.2f} x the kernel-vs-plain path noise")
+
+
+def dtype_batcher(torch, params, compute, kv_dtype, plan, offload):
+    from tpulab_torch.engine.paged import ContinuousBatcher
+
+    c = LLAMA3_8B
+    cfg = dict(SERVE, **(SPLIT if plan == "split" else {}))
+    if offload:
+        cfg.update(lanes=1, kv_offload=DT_KV_OFFLOAD)
+    return ContinuousBatcher(params, n_heads=c["n_heads"],
+                             n_layers=DT_LAYERS, n_kv_heads=c["n_kv_heads"],
+                             rope_theta=c["rope_theta"],
+                             compute_dtype=compute, kv_dtype=kv_dtype,
+                             device="cuda", **cfg)
+
+
+def dtype_serve(torch, params, compute, kv_dtype, plan, card):
+    """One serve on the kernels (every count set to 0 just before, read
+    just after) and the same on plain attention; returns the kernels'
+    launches by form.  f16 compute: the burst; bf16 over e5m2 pages: one
+    lane, a victim outranked at its 4th token, swapped to the host tier
+    and restored."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import SamplingParams
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = LLAMA3_8B
+    kw = dict(n_heads=c["n_heads"], n_layers=DT_LAYERS,
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=compute)
+    offload = kv_dtype == torch.float8_e5m2
+    rng = np.random.default_rng(20)
+    label = (f"{plan} plan, {dtype_name(compute)} compute over "
+             f"{dtype_name(kv_dtype or compute)} pages")
+    if offload:
+        prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+                   for n in (DT_VICTIM, DT_HI)]
+        samplings = [None, None]
+    else:
+        prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+                   for n in DT_BURST]
+        samplings = [None] * (len(DT_BURST) - 1) + [SamplingParams(
+            device=True, **DT_SAMPLED)]
+
+    def run(cb):
+        if offload:
+            return preempted_run(cb, prompts[0], prompts[1],
+                                 DT_VICTIM_STEPS)
+        with cb._cv:
+            futs = [cb.submit(p, DT_STEPS, **({"sampling": s} if s else {}))
+                    for p, s in zip(prompts, samplings)]
+        return [list(f.result(timeout=600)) for f in futs]
+
+    cb = dtype_batcher(torch, params, compute, kv_dtype, plan, offload)
+    try:
+        for fn in (ragged_paged_attention, flash_attention):
+            fn.launches = 0
+            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+            fn.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
+        before = (cb.forward_steps, cb.prefill_forwards)
+        t0 = time.perf_counter()
+        got = run(cb)
+        wall = time.perf_counter() - t0
+        forms = {"ragged": dict(ragged_paged_attention.launches_by_form),
+                 "flash": dict(flash_attention.launches_by_form)}
+        steps = cb.forward_steps - before[0]
+        prefills = cb.prefill_forwards - before[1]
+        tier = None
+        if offload:
+            mgr = cb.kv_offload
+            if not mgr.drain(60):
+                raise AssertionError(f"{label}: write-behind stuck")
+            tier = (cb.preemptions, mgr.swap_outs, mgr.swap_ins,
+                    mgr.swap_failures, mgr.swap_drops, cb.prompt_fills)
+        balanced = cb.pool.free_pages == cb.pool.n_pages - 1
+    finally:
+        cb.shutdown()
+    cb = dtype_batcher(torch, params, compute, kv_dtype, plan, offload)
+    try:
+        with plain_attention():
+            want = run(cb)
+    finally:
+        cb.shutdown()
+    form = "wgmma f16" if compute == torch.float16 else "wgmma bf16"
+    ra = forms["ragged"]
+    fa = forms["flash"]
+    if ra != {k: (DT_LAYERS * steps if k == form else 0) for k in ra}:
+        raise AssertionError(f"{label}: ragged launches by form {ra}, want "
+                             f"{DT_LAYERS} x {steps} on {form}")
+    if fa != {k: (DT_LAYERS * prefills if k == form else 0) for k in fa}:
+        raise AssertionError(f"{label}: flash launches by form {fa}, want "
+                             f"{DT_LAYERS} x {prefills} on {form}")
+    if (plan == "split") != (prefills > 0) or not balanced:
+        raise AssertionError(f"{label}: {prefills} prefill forwards, pages "
+                             f"balanced {balanced}")
+    if tier is not None and tier != (1, 1, 1, 0, 0, 2):
+        raise AssertionError(f"{label}: (preemptions, swap-outs, swap-ins, "
+                             f"failures, drops, prompt fills) {tier}, want "
+                             "(1, 1, 1, 0, 0, 2)")
+    notes = []
+    for i, (p, s) in enumerate(zip(prompts, samplings)):
+        if any(not 0 <= t < c["vocab"] for t in got[i]):
+            raise AssertionError(f"{label}: token outside [0, vocab)")
+        note = held_to_plain(torch, params, kw, f"{label} request {i}", p,
+                             want[i], got[i], kv_dtype or compute, s)
+        if note:
+            notes.append(note)
+    n_tok = sum(len(x) for x in got)
+    log(f"dtypes: {label}: {len(got)} requests, {n_tok} tokens in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tok/s; kernel 1 {form} "
+        f"{ra[form]} = {DT_LAYERS} x {steps} forward steps, kernel 2 "
+        f"{form} {fa[form]} = {DT_LAYERS} x {prefills} prefills"
+        + (f"; host tier (preemptions, swap-outs, swap-ins, failures, "
+           f"drops, prompt fills) {tier}" if tier else "")
+        + "; streams against the plain attention: "
+        + ("; ".join(notes) if notes else "identical") + f" [{card}]")
+    return forms
+
+
+def dtype_serves(torch, card):
+    """(c) At Llama-3-8B width (DT_LAYERS layers, random weights, seed
+    0), under both plans: an f16-compute serve (f16 pages by default) of
+    a short burst, and a bf16 serve over e5m2 pages with one lane
+    preempted to the host tier and restored; each against the same
+    batcher on plain attention."""
+    params = full_width_params(torch, DT_LAYERS, torch.float16, 0)
+    total = {"ragged": {}, "flash": {}}
+    for compute, kv_dtype in ((torch.float16, None),
+                              (torch.bfloat16, torch.float8_e5m2)):
+        if compute == torch.bfloat16:
+            params = tree_cast(params, compute)
+        for plan in ("ragged", "split"):
+            forms = dtype_serve(torch, params, compute, kv_dtype, plan,
+                                card)
+            for kernel, by in forms.items():
+                for k, n in by.items():
+                    total[kernel][k] = total[kernel].get(k, 0) + n
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def example_run(args, timeout=300):
+    """``python -m tpulab_torch.examples.<args>`` from the checkout;
+    returns (seconds, stdout) or raises with the tail of stderr."""
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          f"tpulab_torch.examples.{args[0]}", *args[1:]],
+                         capture_output=True, text=True, timeout=timeout,
+                         env=env, cwd=HERE)
+    if out.returncode != 0:
+        raise AssertionError(f"{' '.join(args)} exited {out.returncode}:\n"
+                             f"{out.stderr[-3000:]}")
+    return time.perf_counter() - t0, out.stdout
+
+
+def example_llm(extra):
+    """``ex07_llm_server --oneshot`` on the card at its default width with
+    ``extra`` flags, driven by its own client mode (16 greedy tokens);
+    the server must exit 0 after the request.  Returns (seconds, tokens,
+    the server's banner)."""
+    import subprocess
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "tpulab_torch.examples.ex07_llm_server",
+         "--port", "0", "--oneshot", *extra], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=HERE)
+    try:
+        seen = []
+        for line in srv.stdout:
+            seen.append(line)
+            if "LLM server on :" in line:
+                break
+        else:
+            raise AssertionError("ex07 server died at startup:\n"
+                                 + "".join(seen)[-3000:])
+        banner = seen[-1].strip()
+        port = banner.split("LLM server on :")[1].split()[0]
+        _, out = example_run(["ex07_llm_server", "--connect",
+                              f"localhost:{port}", "--prompt", "1,2,3,4",
+                              "--steps", "16"], timeout=180)
+        toks = out.split("\n")[0].split()
+        rest = srv.stdout.read()
+        if srv.wait(timeout=60) != 0:
+            raise AssertionError(f"ex07 server {extra} exited "
+                                 f"{srv.returncode}: {rest[-2000:]}")
+    finally:
+        srv.kill()
+    if (len(toks) != 16 or not out.strip().endswith("done")
+            or "kernel=True" not in banner):
+        raise AssertionError(f"ex07 {extra}: client printed {out!r}, "
+                             f"server {banner!r}")
+    return time.perf_counter() - t0, [int(t) for t in toks], banner
+
+
+def dtype_examples(card):
+    """(d) The entry points users run, each a subprocess on the card:
+    ``ex07_llm_server --oneshot`` at its default width and with
+    ``--kv-fp8`` (its own client's 16 greedy tokens), ``ex30_python_api``
+    and ``ex04_long_context_stream`` at their defaults, all four at once;
+    then ``ex00_basic_infer --model resnet50 --batch-size 8 --seconds 3``
+    alone.  Each exits 0 with its own printed checks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as ex:
+        llm = [ex.submit(example_llm, extra) for extra in ([], ["--kv-fp8"])]
+        api = ex.submit(example_run, ["ex30_python_api"])
+        stream = ex.submit(example_run, ["ex04_long_context_stream"])
+        (s07, t07, b07), (s08, t08, b08) = (f.result() for f in llm)
+        s30, out30 = api.result()
+        s04, out04 = stream.result()
+    if "remote == local: OK" not in out30:
+        raise AssertionError(f"ex30: {out30[-1000:]}")
+    m = re.search(r"scored (\d+) overlapping windows", out04)
+    if not m or int(m.group(1)) < 1 or "generated continuation" not in out04:
+        raise AssertionError(f"ex04: {out04[-1000:]}")
+    s00, out00 = example_run(["ex00_basic_infer", "--model", "resnet50",
+                              "--batch-size", "8", "--seconds", "3"])
+    rate = json.loads(out00.strip().splitlines()[-1])["inf/sec"]
+    if not rate > 0:
+        raise AssertionError(f"ex00: {out00[-1000:]}")
+    log(f"dtypes: examples: ex07 default {s07:.1f} s ({b07}; tokens "
+        f"{t07}), ex07 --kv-fp8 {s08:.1f} s (tokens {t08}), ex30 {s30:.1f} "
+        f"s (remote == local: OK), ex04 {s04:.1f} s ({m.group(0)}) — these "
+        f"four at once; then ex00 resnet50 batch 8 {s00:.1f} s, "
+        f"{rate:.1f} inf/s [{card}]")
+
+
+def phase_dtypes(torch, timer, rows, card):
+    """Phase 18: f16 compute and f16 / e5m2 pages through kernels 1-3,
+    the casts, the serves, and the examples users run."""
+    t0 = time.perf_counter()
+    new = dtype_kernels(torch, timer, rows)
+    log(f"dtypes: (a) kernels {time.perf_counter() - t0:.1f} s")
+    dtype_casts(torch)
+    t1 = time.perf_counter()
+    forms = dtype_serves(torch, card)
+    log(f"dtypes: (c) serves {time.perf_counter() - t1:.1f} s; launches "
+        f"by form {forms}")
+    t1 = time.perf_counter()
+    dtype_examples(card)
+    log(f"dtypes: (d) examples {time.perf_counter() - t1:.1f} s")
+    log(f"dtypes: phase {time.perf_counter() - t0:.1f} s")
+    return new, forms
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
-                 e4m3=None):
+                 extra=None, forms=None):
     """One kernel's line: times of its main case, the max error over
     that case's dtype mix, (kernels with several bodies) the body, with
-    its split count, that ran each case, and the main case over an e4m3
-    pool (``e4m3``: its case and dtype mix)."""
+    its split count, that ran each case, the main case in other dtypes
+    (``extra``: key -> its case and dtype mix, e.g. ``"e4m3"``, ``"f16"``,
+    ``"e5m2"``) and phase 18's main-path launches by form (``forms``)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -8533,11 +9182,14 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
     if "body" in row:   # "<body> x<splits>" ragged and paged, "<body>" flash
         entry["bodies"] = {f"{r['case']} {r['dtypes']}": r["body"]
                            for r in rows}
-    if e4m3:
-        r = next(r for r in rows if (r["case"], r["dtypes"]) == e4m3)
-        entry["e4m3"] = {k: r[k] for k in (
+    for key, want in (extra or {}).items():
+        r = next(r for r in rows if (r["case"], r["dtypes"]) == want)
+        entry[key] = {k: r[k] for k in (
             "case", "dtypes", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "bf16_pool_ms")}
+            "bound_by", "library_ms", "bf16_pool_ms", "bf16_ms", "e4m3_ms")
+            if k in r}
+    if forms is not None:
+        entry["phase18_launches_by_form"] = forms
     return entry
 
 
@@ -8614,6 +9266,10 @@ def main(argv=None) -> int:
     shard_launches, shard_flash = phase_sharded(torch, card)
     rows_launches = phase_rows(torch, card)
     mem_launches = phase_memory(torch, card)
+    dt_rows, dt_forms = phase_dtypes(
+        torch, timer, {k: rows[k] + e4m3_rows.get(k, []) for k in rows},
+        card)
+    dt_launches = {k: sum(v.values()) for k, v in dt_forms.items()}
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -8627,8 +9283,9 @@ def main(argv=None) -> int:
                      + st["disagg"] + hbm_launches + svc_launches
                      + obs_launches + batch_launches + fleet_launches
                      + fab["ragged"] + shard_launches + rows_launches[0]
-                     + import_launches,
-                     rows["ragged"] + e4m3_rows["ragged"],
+                     + import_launches + dt_launches["ragged"],
+                     rows["ragged"] + e4m3_rows["ragged"]
+                     + dt_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
@@ -8642,16 +9299,22 @@ def main(argv=None) -> int:
                      "{\"model\": 1} serve and every rank of its "
                      "{\"model\": 2} launch ((c) bf16, (d) int8, (e) "
                      "split plan, (f) weight swap) + the rows phase + the "
-                     "import phase's HF Llama serve (4 layers)",
-                     ("all_decode", "bf16/e4m3")),
+                     "import phase's HF Llama serve (4 layers) + the "
+                     "dtypes phase's serves (f16 compute, bf16 over e5m2 "
+                     "pages; 8 layers, both plans)",
+                     {"e4m3": ("all_decode", "bf16/e4m3"),
+                      "f16": ("all_decode", "f16/f16"),
+                      "e5m2": ("all_decode", "bf16/e5m2")},
+                     dt_forms["ragged"]),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
                      + par_launches + shard_flash + rows_launches[1]
-                     + mem_launches,
-                     rows["flash"], (f"T={FA_TS[-1]} causal", "bfloat16"),
+                     + mem_launches + dt_launches["flash"],
+                     rows["flash"] + dt_rows["flash"],
+                     (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
                      "fabric phase's owner and fallback prefills + the "
@@ -8660,15 +9323,21 @@ def main(argv=None) -> int:
                      "checkpoint steps) + the sharded phase's split-plan "
                      "owner, both ranks (H 16 a rank) + the rows phase's "
                      "split-plan prefills + the memory phase's stream "
-                     "(32 x its windows)"),
+                     "(32 x its windows) + the dtypes phase's split-plan "
+                     "serves (f16 and bf16, 8 layers)",
+                     {"f16": (f"T={FA_TS[-1]} causal", "float16")},
+                     dt_forms["flash"]),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,
-                     rows["paged"] + e4m3_rows["paged"],
+                     rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"],
                      ("8 x 1024", "bf16/bf16"),
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
                      "decode op over every layer of a model-written pool, "
-                     "bf16 and e4m3", ("8 x 1024", "bf16/e4m3")),
+                     "bf16 and e4m3",
+                     {"e4m3": ("8 x 1024", "bf16/e4m3"),
+                      "f16": ("8 x 1024", "f16/f16"),
+                      "e5m2": ("8 x 1024", "bf16/e5m2")}),
     ]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)

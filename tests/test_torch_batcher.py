@@ -414,8 +414,10 @@ def test_split_plan_defaults(lm):
 @pytest.mark.parametrize("kw,item", [
     (dict(use_kernel=False), "split dispatch"),
     (dict(hbm=object(), mesh=object()), "HBM economy"),
-    (dict(kv_dtype=torch.float8_e5m2), "fp8 KV"),
-    (dict(kv_dtype=torch.float16), "float16 KV"),
+    # pages no kernel reads: float16 and e5m2 pages serve now
+    # (tests/test_torch_kv_dtypes.py); the cases keep their ids
+    (dict(kv_dtype=torch.float8_e4m3fnuz), "float8_e4m3fnuz: no kernel"),
+    (dict(kv_dtype=torch.float64), "float64: no kernel reads"),
 ], ids=["kw0-split dispatch", "kw4-HBM economy", "kw5-fp8 KV",
         "kw7-float16 KV"])
 def test_unported_arguments_raise(lm, kw, item):

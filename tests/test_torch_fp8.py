@@ -16,8 +16,8 @@
   tpulab's greedy and device-sampled streams under both plans, with the
   host KV tier (a preempted lane restored) and, within the port, with
   speculation; the pool is a quarter of the f32 pool's bytes.
-- Unported page dtypes raise ``NotImplementedError``; a conflicting pool
-  raises tpulab's ``ValueError``.
+- A conflicting pool raises tpulab's ``ValueError`` (f16 and e5m2 pages:
+  ``tests/test_torch_kv_dtypes.py``).
 - The host tier round trip of an e4m3 pool is bit-exact, and an e4m3
   wire blob is byte-identical to tpulab's.
 """
@@ -337,13 +337,6 @@ def test_e4m3_speculative_equals_plain_blocks(lm, plan):
 
 
 # -- refusals -------------------------------------------------------------------
-@pytest.mark.parametrize("dtype", [torch.float8_e5m2, torch.float16])
-def test_unported_page_dtypes_raise(lm, dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousBatcher(lm[1], compute_dtype=torch.float32, device="cpu",
-                          kv_dtype=dtype, **CFG)
-
-
 def test_conflicting_pool_raises(lm):
     pool = PagedKVPool(9, 8, N_LAYERS, N_HEADS, D_MODEL // N_HEADS,
                        torch.bfloat16, "cpu")

@@ -176,7 +176,8 @@ def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
     past a lane's inclusive length (the tail of its last live page and
     every dead page) set to NaN (0x7F in an e4m3 pool)."""
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
-          "float8_e4m3fn": torch.float8_e4m3fn}
+          "float8_e4m3fn": torch.float8_e4m3fn, "float16": torch.float16,
+          "float8_e5m2": torch.float8_e5m2}
     s, d = 16, 128
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -189,7 +190,7 @@ def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
     lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     dead = torch.arange(mp * s, device=dev)[None] > lengths[:, None]
     lane, p = dead.nonzero(as_tuple=True)
-    if pool.dtype == torch.float8_e4m3fn:    # e4m3's NaN code
+    if pool.element_size() == 1:    # e4m3's and e5m2's NaN code
         pool.view(torch.uint8)[tables[lane, p // s].long(), :, p % s] = 0x7F
     else:
         pool[tables[lane, p // s].long(), :, p % s] = float("nan")
@@ -199,7 +200,8 @@ def _card_args(dtypes, lengths, b, mp, seed, g=4, hkv=8):
 def _check_on_card(args):
     """Two launches: bit-identical, finite, one count each, and equal to
     the plain version at the output dtype's tolerance (f32 1e-4; bf16
-    rtol 8e-3, one last-place flip, atol 4e-3 near zero)."""
+    rtol 8e-3, one last-place flip, atol 4e-3 near zero; f16 rtol 2e-3,
+    atol 1e-3, the same in f16's ulp)."""
     n0 = paged_decode_attention.launches
     got = paged_decode_attention(*args)
     again = paged_decode_attention(*args)
@@ -208,15 +210,17 @@ def _check_on_card(args):
     assert torch.equal(got, again)
     assert torch.isfinite(got).all()
     want = paged_decode_attention_reference(*args)
-    rtol, atol = ((8e-3, 4e-3) if got.dtype == torch.bfloat16
-                  else (1e-4, 1e-4))
+    rtol, atol = {torch.bfloat16: (8e-3, 4e-3),
+                  torch.float16: (2e-3, 1e-3)}.get(got.dtype, (1e-4, 1e-4))
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 
 
 _DTYPES = [("bfloat16", "bfloat16"), ("float32", "float32"),
            ("float32", "bfloat16"), ("bfloat16", "float8_e4m3fn"),
-           ("float32", "float8_e4m3fn")]
+           ("float32", "float8_e4m3fn"), ("float16", "float16"),
+           ("bfloat16", "float8_e5m2"), ("float16", "float8_e5m2"),
+           ("float16", "bfloat16"), ("bfloat16", "float16")]
 
 
 @pytest.mark.cuda

@@ -40,7 +40,9 @@ torch.set_num_threads(2)
 
 _DT = {"float32": (jnp and jnp.float32, torch.float32),
        "bfloat16": (jnp and jnp.bfloat16, torch.bfloat16),
-       "float8_e4m3fn": (jnp and jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+       "float8_e4m3fn": (jnp and jnp.float8_e4m3fn, torch.float8_e4m3fn),
+       "float16": (jnp and jnp.float16, torch.float16),
+       "float8_e5m2": (jnp and jnp.float8_e5m2, torch.float8_e5m2)}
 E4M3 = torch.float8_e4m3fn
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -169,13 +171,20 @@ def test_gather_attend_matches_plain_version():
                                     ("float32", "float32"),
                                     ("float32", "bfloat16"),
                                     ("bfloat16", "float8_e4m3fn"),
-                                    ("float32", "float8_e4m3fn")])
+                                    ("float32", "float8_e4m3fn"),
+                                    ("float16", "float16"),
+                                    ("float16", "float8_e5m2"),
+                                    ("bfloat16", "float8_e5m2"),
+                                    ("float16", "float8_e4m3fn"),
+                                    ("float16", "bfloat16"),
+                                    ("bfloat16", "float16")])
 def test_cuda_kernel_matches_plain_version(dtypes):
     """On the card: the CUDA kernel against its plain version, with every
     launch counted.  The tolerance follows the OUTPUT dtype: f32 sums the
     same values in another order, 1e-4; bf16 also rounds P to bf16 before
     P V on the tensor cores, and both round the output to bf16: one
-    last-place flip (rtol 8e-3) with atol 4e-3 near zero."""
+    last-place flip (rtol 8e-3) with atol 4e-3 near zero; f16 the same in
+    f16's ulp (rtol 2e-3, atol 1e-3)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,7 +202,8 @@ def test_cuda_kernel_matches_plain_version(dtypes):
     torch.cuda.synchronize()
     assert ragged_paged_attention.launches == n0 + 1
     want = ragged_paged_attention_reference(*args)
-    rtol, atol = (8e-3, 4e-3) if q_dt == torch.bfloat16 else (1e-4, 1e-4)
+    rtol, atol = {torch.bfloat16: (8e-3, 4e-3),
+                  torch.float16: (2e-3, 1e-3)}.get(q_dt, (1e-4, 1e-4))
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
 

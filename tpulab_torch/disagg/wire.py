@@ -14,9 +14,9 @@ Layout (all little-endian)::
            | payload_crc32 u32 | payload (C-contiguous tensor bytes)
 
 The JSON header carries ``dtype`` (tpulab's numpy name: ``"float32"``,
-``"bfloat16"``, ``"float16"``, ``"float8_e4m3fn"``), ``shape``,
-``page_size``, ``length``, ``digest`` (hex), ``first_token`` and optional
-extras, sorted by key — so a decode replica with a DIFFERENT pool
+``"bfloat16"``, ``"float16"``, ``"float8_e4m3fn"``, ``"float8_e5m2"``),
+``shape``, ``page_size``, ``length``, ``digest`` (hex), ``first_token``
+and optional extras, sorted by key — so a decode replica with a DIFFERENT pool
 geometry rejects the shipment (:class:`WireFormatError`) instead of
 scattering foreign bytes into its pool.  The CRC32 covers the payload: a
 corrupted shipment is detected at import, never promoted into a lane.
@@ -45,7 +45,8 @@ _CRC = struct.Struct("<I")
 #: tpulab's numpy dtype names <-> torch dtypes (the port's own table: the
 #: card's machine has no ml_dtypes, so bf16 never passes through numpy)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn}
+          "float16": torch.float16, "float8_e4m3fn": torch.float8_e4m3fn,
+          "float8_e5m2": torch.float8_e5m2}
 _NAMES = {dt: name for name, dt in DTYPES.items()}
 
 

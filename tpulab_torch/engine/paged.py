@@ -40,7 +40,8 @@ submit_shipped` are the two halves of disaggregated serving
 (:mod:`tpulab_torch.disagg`).
 
 Pages may store a narrower dtype than the compute path
-(``kv_dtype=torch.float8_e4m3fn``): every write rounds through
+(``kv_dtype=torch.float8_e4m3fn``, ``float8_e5m2``, ``float16``): every
+write rounds through
 :func:`to_kv_dtype`, tpulab's cast bit for bit, and the kernels read the
 narrow pages themselves.  Weight-only int8 trees serve unchanged: the
 forwards dequantize through ``qmat``.
@@ -117,7 +118,8 @@ from tpulab_torch.models.transformer import (
     causal_attention, qmat, repeat_kv, split_qkv,
     transformer_forward_collect_kv, weight_shape)
 from tpulab_torch.ops.flash_attention import make_flash_attention_fn
-from tpulab_torch.ops.ragged_attention import (KV_CODE, pool_bytes,
+from tpulab_torch.ops.ragged_attention import (KV_CODE, check_built,
+                                               pool_bytes,
                                                ragged_paged_attention)
 
 _log = logging.getLogger("tpulab_torch.engine")
@@ -469,17 +471,62 @@ def _gather_attend(q, k_layer, v_layer, tables, qpos, compute_dtype):
 _E4M3_ROUND_LIMIT = 464.0
 
 
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """Each element's sign bit (uint8 0 or 1), read from its bits: the
+    card's ``torch.signbit`` does not read a NaN's."""
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}[x.element_size()]
+    return (x.view(ints) < 0).to(torch.uint8)
+
+
+def _f16_nan_bits(x: torch.Tensor) -> torch.Tensor:
+    """The f16 NaN jnp's cast gives for each element of an f32 or bf16
+    ``x`` (int16 bits): the sign, the quiet bit and the top mantissa bits
+    of the source's payload."""
+    if x.dtype == torch.float32:
+        b = x.view(torch.int32)
+        code = (((b >> 16) & 0x8000) | 0x7E00
+                | ((b & 0x7FFFFF) >> 13))
+    else:
+        b = x.view(torch.int16).to(torch.int32) & 0xFFFF
+        code = (b & 0x8000) | 0x7E00 | ((b & 0x7F) << 3)
+    return torch.where(code >= 0x8000, code - 0x10000, code).to(torch.int16)
+
+
 def to_kv_dtype(x: torch.Tensor, dtype) -> torch.Tensor:
     """``x`` cast to a pool's page dtype as tpulab casts it (``x.astype(
-    kv_pool.dtype)``).  For ``float8_e4m3fn`` that is ml_dtypes' cast:
-    round to nearest even, and NaN (code 0x7F, 0xFF when negative) where
-    |x| > 464 or x is +-inf, where ``Tensor.to`` saturates to +-448.
+    kv_pool.dtype)``), with the same bits on the CPU and on the card.
+    ``Tensor.to`` gives jnp's bits for every number but not everywhere
+    for NaN, whose code jnp takes from the source dtype and ``.to`` from
+    the device (the card's makes every f16 NaN 0x7FFF and drops the sign
+    of an fp8 NaN from f16).  So NaN (and what rounds to it) gets jnp's
+    code here:
+
+    - ``float8_e4m3fn``: round to nearest even; NaN (0x7F, 0xFF when
+      negative) where x is NaN, +-inf or |x| > 464, where ``.to``
+      saturates to +-448;
+    - ``float8_e5m2``: an f32 NaN is 0x7E under its sign, a bf16 or f16
+      NaN 0x7F;
+    - ``float16``: an f32 or bf16 NaN keeps its sign and the top of its
+      payload, quieted (:func:`_f16_nan_bits`).
+
     Other dtypes take a plain ``.to``."""
-    if dtype != torch.float8_e4m3fn:
-        return x.to(dtype)
-    bits = x.to(dtype).view(torch.uint8)
-    nan = (torch.signbit(x).to(torch.uint8) << 7) | 0x7F
-    return torch.where(x.abs() > _E4M3_ROUND_LIMIT, nan, bits).view(dtype)
+    if dtype == torch.float8_e4m3fn:
+        bits = x.to(dtype).view(torch.uint8)
+        nan = (_sign(x) << 7) | 0x7F
+        return torch.where((x.abs() > _E4M3_ROUND_LIMIT) | torch.isnan(x),
+                           nan, bits).view(dtype)
+    if dtype == torch.float8_e5m2:
+        bits = x.to(dtype).view(torch.uint8)
+        nan = ((_sign(x) << 7) | 0x7E
+               if x.dtype == torch.float32 else torch.tensor(
+                   0x7F, dtype=torch.uint8, device=x.device))
+        return torch.where(torch.isnan(x), nan, bits).view(dtype)
+    if dtype == torch.float16 and x.dtype in (torch.float32,
+                                              torch.bfloat16):
+        bits = x.to(dtype).view(torch.int16)
+        return torch.where(torch.isnan(x), _f16_nan_bits(x),
+                           bits).view(dtype)
+    return x.to(dtype)
 
 
 def _write_kv(kv_pool, layer, page_idx, slot_idx, k, v):
@@ -1242,8 +1289,11 @@ class ContinuousBatcher:
     or a tpulab-keyed tree of tensors, float or weight-only int8
     (:func:`~tpulab_torch.models.quantization.quantize_transformer_params`).
     ``kv_dtype`` (``None``: the compute dtype) is the pages' dtype:
-    float32, bfloat16 or float8_e4m3fn, written through
-    :func:`to_kv_dtype` and upcast by the kernels as they read.
+    float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, written
+    through :func:`to_kv_dtype` and upcast by the kernels as they read.
+    ``compute_dtype`` (``None``: bfloat16) is float32, bfloat16 or
+    float16 on the card; a CUDA batcher refuses at construction a dtype
+    or head dim its kernels are not built for.
     ``device=None`` means the CUDA card (raises without one); tests pass
     ``device="cpu"``.
 
@@ -1318,14 +1368,12 @@ class ContinuousBatcher:
         if mesh is not None and pool is not None and pool.mesh is not mesh:
             raise ValueError("provided pool was built on a different mesh "
                              "than the batcher's")
-        # the page dtypes the kernels read (e5m2 and float16 pages are
-        # ROADMAP queue 1, left for later)
+        # the page dtypes the kernels read
         if kv_dtype is not None and kv_dtype not in KV_CODE:
             raise NotImplementedError(
-                f"kv_dtype={_dtype_name(kv_dtype)} is not ported to "
-                "tpulab_torch (ROADMAP queue 1, left for later: e5m2 fp8 KV "
-                "and float16 KV pages); pages store float32, bfloat16 or "
-                "float8_e4m3fn")
+                f"kv_dtype={_dtype_name(kv_dtype)}: no kernel reads such "
+                "pages; pages store float32, bfloat16, float16, "
+                "float8_e4m3fn or float8_e5m2")
         # pages may store a NARROWER dtype than the compute path: writes
         # round on scatter (to_kv_dtype), the kernels upcast as they read,
         # and attention math stays f32
@@ -1356,6 +1404,9 @@ class ContinuousBatcher:
             device = mesh_device(mesh)
         self.device = (pool.device if pool is not None
                        else resolve_device(device))
+        if self.device.type == "cuda":
+            check_built(compute_dtype, kv_dtype,
+                        weight_shape(tree["layer0"]["wqkv"])[0] // n_heads)
         self.lanes = lanes
         self.max_len = max_len
         self.page_size = page_size

@@ -20,7 +20,9 @@
 // Two bodies; the caller names one (flash_attention.py `flash_body`), and
 // the launcher refuses a body that does not fit the dtype and D:
 //
-// * `flash_fwd_wgmma_kernel<D>`, bf16 with D 64 or 128: a block of three
+// * `flash_fwd_wgmma_kernel<D, E>`, bf16 or f16 (E) with D 64 or 128, on
+//   the tensor cores in E (`wgmma ... f32.bf16.bf16` or `f32.f16.f16`;
+//   the tensor maps name E's TMA data type): a block of three
 //   warpgroups owns 128 query rows of one (b, h), heaviest causal tile
 //   first.  Warpgroup 0 is the producer: one thread issues TMA loads of
 //   the Q tile and of a 3-stage ring of 64-key K and V tiles (two boxes
@@ -28,19 +30,21 @@
 //   tensor map of the strided (B, T, H, D) view, with full/empty
 //   mbarriers, and gives its registers up (setmaxnreg).  Warpgroups 1 and
 //   2 each take 64 rows and run the shared tile step (attn_wgmma.cuh):
-//   S = Q K^T and O += P V on `wgmma`, P in bf16 from registers, the
+//   S = Q K^T and O += P V on `wgmma`, P in E from registers, the
 //   online softmax in f32 registers.  The k-walk stops at the causal limit
 //   min(T, q0 + 128); rows past T are zero-filled by TMA and never stored;
 //   keys past T or past a row's position weigh 0.  Scores are scaled in
 //   f32 after the product, so besides f32 summation order the one new
-//   rounding against the plain version is P to bf16.
-// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 with D 256: every
-//   product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before the dot.  One block per (64-row query tile,
-//   b * H + h), heaviest first; K and V tiles staged by cp.async, double-
-//   buffered; a 16 x 16 thread grid holds 4 rows x BK/16 keys of S and
-//   4 rows x D/16 dims of O in registers, P through shared memory.  D 256
-//   stays here in bf16 because its O accumulator (128 f32 a thread) with S
-//   does not fit the tensor-core tile's register budget.
+//   rounding against the plain version is P to E.
+// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 or f16 with D 32 or 256:
+//   every product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before
+//   the dot.  One block per (64-row query tile, b * H + h), heaviest
+//   first; K and V tiles staged by cp.async, double-buffered; a 16 x 16
+//   thread grid holds 4 rows x BK/16 keys of S and 4 rows x D/16 dims of
+//   O in registers, P through shared memory.  D 256 stays here in bf16 and
+//   f16 because its O accumulator (128 f32 a thread) with S does not fit
+//   the tensor-core tile's register budget; D 32 because the tile's
+//   swizzled layout is built of 64-column blocks.
 
 #include <cuda.h>
 
@@ -263,6 +267,8 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
              int B, int Tlen, int H, const long long* st, int causal,
              float sm_scale, cudaStream_t s) {
   switch (D) {
+    case 32:
+      return launch<T, 32>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
     case 64:
       return launch<T, 64>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
     case 128:
@@ -293,14 +299,14 @@ struct Smem {
   static constexpr size_t bytes = BAR + 8 * (2 * NST + 1) + 1024;  // + align
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
-                           __nv_bfloat16* __restrict__ out, int Tlen, int H,
+                           E* __restrict__ out, int Tlen, int H,
                            int causal, float scale_log2) {
-  using Tile = wg::AttnTile<D>;
+  using Tile = wg::AttnTile<D, E>;
   using L = Smem<D>;
   constexpr int BK = Tile::BK;
   constexpr int NCB = D / 64;                    // 64-column boxes per row
@@ -388,12 +394,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int r = row_lo + Tile::row(i);
       if (r >= Tlen) continue;
       const float inv = 1.f / fmaxf(t.l[i], 1e-30f);
-      __nv_bfloat16* o = out + (((size_t)b * Tlen + r) * H + h) * D;
+      E* o = out + (((size_t)b * Tlen + r) * H + h) * D;
 #pragma unroll
       for (int cc = 0; cc < D / 8; ++cc)
-        *reinterpret_cast<__nv_bfloat162*>(o + Tile::col(cc, 0)) =
-            __floats2bfloat162_rn(t.o[4 * cc + 2 * i] * inv,
-                                  t.o[4 * cc + 2 * i + 1] * inv);
+        wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
+                      t.o[4 * cc + 2 * i + 1] * inv);
     }
   }
 }
@@ -425,10 +430,12 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// A 4-d map {D, H, T, B} over a strided bf16 (B, T, H, D) view; the box is
-// 64 columns x 1 head x 64 rows x 1, swizzled 128B; rows past T read 0.
-int make_map(CUtensorMap* map, const void* base, int B, int Tlen, int H,
-             int D, long long sb, long long st, long long sh) {
+// A 4-d map {D, H, T, B} over a strided 16-bit (B, T, H, D) view of TMA
+// data type `dt` (bf16 or f16); the box is 64 columns x 1 head x 64 rows x
+// 1, swizzled 128B; rows past T read 0.
+int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base,
+             int B, int Tlen, int H, int D, long long sb, long long st,
+             long long sh) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Tlen,
@@ -437,7 +444,7 @@ int make_map(CUtensorMap* map, const void* base, int B, int Tlen, int H,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  CUresult r = fn(map, dt, 4,
                   const_cast<void*>(base), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -445,23 +452,29 @@ int make_map(CUtensorMap* map, const void* base, int B, int Tlen, int H,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int D, typename E>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Tlen, int H, const long long* st, int causal, float sm_scale,
            cudaStream_t stream) {
+  const CUtensorMapDataType dt = wg::is_f16<E>
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv;
-  if (int e = make_map(&mq, q, B, Tlen, H, D, st[0], st[1], st[2])) return e;
-  if (int e = make_map(&mk, k, B, Tlen, H, D, st[3], st[4], st[5])) return e;
-  if (int e = make_map(&mv, v, B, Tlen, H, D, st[6], st[7], st[8])) return e;
+  if (int e = make_map(&mq, dt, q, B, Tlen, H, D, st[0], st[1], st[2]))
+    return e;
+  if (int e = make_map(&mk, dt, k, B, Tlen, H, D, st[3], st[4], st[5]))
+    return e;
+  if (int e = make_map(&mv, dt, v, B, Tlen, H, D, st[6], st[7], st[8]))
+    return e;
   const size_t smem = Smem<D>::bytes;
-  auto kern = flash_fwd_wgmma_kernel<D>;
+  auto kern = flash_fwd_wgmma_kernel<D, E>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int n_qt = (Tlen + BQ - 1) / BQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 grid(B * H, n_qt);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out), Tlen, H, causal,
+      mq, mk, mv, static_cast<E*>(out), Tlen, H, causal,
       sm_scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -473,29 +486,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // C interface (bound with ctypes).  q, k, v (B, T, H, D) with element
 // strides (b, t, h) given in that order for q, then k, then v (the last
 // dim contiguous, rows 16-byte aligned); out (B, T, H, D) contiguous.
-// body 1 is the tensor-core body (bf16, D 64 or 128), body 0 the CUDA-core
-// body (f32 with D 64, 128 or 256, and bf16 with D 256).  Returns 0 or a cudaError_t code;
-// -1 for a body, dtype and head dim the kernel is not built for.
+// q_code is the one dtype's code (0 f32, 1 bf16, 2 f16).  body 1 is the
+// tensor-core body (bf16 or f16, D 64 or 128), body 0 the CUDA-core body
+// (f32 with D 32, 64, 128 or 256, and bf16 or f16 with D 32 or 256).  Returns 0 or
+// a cudaError_t code; -1 for a body, dtype and head dim the kernel is not
+// built for.
 extern "C" int tpulab_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int T,
     int H, int D, long long qsb, long long qst, long long qsh, long long ksb,
     long long kst, long long ksh, long long vsb, long long vst, long long vsh,
-    int causal, int bf16, int body, float sm_scale, void* stream) {
+    int causal, int q_code, int body, float sm_scale, void* stream) {
   if (B == 0 || T == 0 || H == 0) return 0;
   const long long st[9] = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == 1) {
-    if (!bf16) return -1;
-    if (D == 64)
-      return tc::launch<64>(q, k, v, out, B, T, H, st, causal, sm_scale, s);
-    if (D == 128)
-      return tc::launch<128>(q, k, v, out, B, T, H, st, causal, sm_scale, s);
-    return -1;
-  }
-  if (body != 0) return -1;
-  if (bf16)   // D 64 and 128 run the tensor-core body
-    return D == 256 ? launch<__nv_bfloat16, 256>(q, k, v, out, B, T, H, st,
-                                                 causal, sm_scale, s)
-                    : -1;
-  return launch_t<float>(D, q, k, v, out, B, T, H, st, causal, sm_scale, s);
+  return with_q_type(q_code, [&](auto tag) {
+    using T16 = typename decltype(tag)::type;
+    if constexpr (std::is_same<T16, float>::value) {
+      return body == 0 ? launch_t<float>(D, q, k, v, out, B, T, H, st,
+                                         causal, sm_scale, s)
+                       : -1;
+    } else {
+      if (body == 1 && D == 64)
+        return tc::launch<64, T16>(q, k, v, out, B, T, H, st, causal,
+                                   sm_scale, s);
+      if (body == 1 && D == 128)
+        return tc::launch<128, T16>(q, k, v, out, B, T, H, st, causal,
+                                    sm_scale, s);
+      if (body == 0 && D == 256)   // D 64 and 128 run the tensor-core body
+        return launch<T16, 256>(q, k, v, out, B, T, H, st, causal, sm_scale,
+                                s);
+      if (body == 0 && D == 32)
+        return launch<T16, 32>(q, k, v, out, B, T, H, st, causal, sm_scale,
+                               s);
+      return -1;
+    }
+  });
 }

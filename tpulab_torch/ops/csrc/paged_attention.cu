@@ -3,11 +3,13 @@
 // Replaces the Pallas TPU kernel `_paged_attn` / `_paged_attn_kernel`
 // (tpulab/ops/paged_attention.py:221 and :76): one query token per lane
 // attends its own block table of KV pages in the fused (P, 2, S, Hkv, D)
-// pool, MHA or grouped-query.  Pages are f32, bf16 or e4m3 (tpulab's pool
-// may be narrower than the compute dtype; the Pallas body upcasts what it
-// reads, :184-185): the consumers convert each value to f32 as they read
-// it (e4m3 -> f16 -> f32, exact), and an e4m3 stage is half a bf16
-// stage's bytes, its rows D bytes, copied in the same 16-byte chunks.
+// pool, MHA or grouped-query.  q is f32, bf16 or f16; pages are f32,
+// bf16, f16, e4m3 or e5m2 (tpulab's pool may be narrower than the compute
+// dtype; the Pallas body upcasts what it reads, :184-185): the consumers
+// convert each value to f32 as they read it (fp8 -> f16 -> f32, exact),
+// and an fp8 stage is half a 16-bit stage's bytes, its rows D bytes,
+// copied in the same 16-byte chunks.  Every (q, page) mix runs this one
+// body, its math in f32.
 //
 // What it computes.  lengths[b] is the lane's CURRENT POSITION, inclusive
 // (not a count, unlike the ragged kernel's kv_lens): positions
@@ -389,67 +391,51 @@ int launch_g(const void* q, const void* pool, const int* tables,
                                Hkv, P, S, MP, n_split, sm_scale, st);
 }
 
-// kv: the pool's dtype code (0 f32, 1 bf16, 2 e4m3).
+// q code `qc` (0 f32, 1 bf16, 2 f16) over page code `kv` (0 f32, 1 bf16,
+// 2 e4m3, 3 e5m2, 4 f16): every mix.
 template <int D>
-int launch_d(int q_bf16, int kv, const void* q, const void* pool,
+int launch_d(int qc, int kv, const void* q, const void* pool,
              const int* tables, const int* lengths, void* out, void* scratch,
              int B, int Hq, int Hkv, int P, int S, int MP, int n_split,
              float sm_scale, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (q_bf16) {
-    if (kv == 0)
-      return launch_g<bf, float, D>(q, pool, tables, lengths, out, scratch,
-                                    B, Hq, Hkv, P, S, MP, n_split, sm_scale,
-                                    st);
-    if (kv == 1)
-      return launch_g<bf, bf, D>(q, pool, tables, lengths, out, scratch, B,
-                                 Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-    if (kv == 2)
-      return launch_g<bf, e4m3, D>(q, pool, tables, lengths, out, scratch, B,
-                                   Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-    return -1;
-  }
-  if (kv == 0)
-    return launch_g<float, float, D>(q, pool, tables, lengths, out, scratch,
-                                     B, Hq, Hkv, P, S, MP, n_split, sm_scale,
-                                     st);
-  if (kv == 1)
-    return launch_g<float, bf, D>(q, pool, tables, lengths, out, scratch, B,
+  return with_q_type(qc, [&](auto qt) {
+    return with_kv_type(kv, [&](auto kt) {
+      using QT = typename decltype(qt)::type;
+      using KVT = typename decltype(kt)::type;
+      return launch_g<QT, KVT, D>(q, pool, tables, lengths, out, scratch, B,
                                   Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-  if (kv == 2)
-    return launch_g<float, e4m3, D>(q, pool, tables, lengths, out, scratch,
-                                    B, Hq, Hkv, P, S, MP, n_split, sm_scale,
-                                    st);
-  return -1;
+    });
+  });
 }
 
 }  // namespace
 
 // C interface (bound with ctypes).  q (B, Hq, D) and out contiguous;
 // pool (P, 2, S, Hkv, D) contiguous and 16-byte aligned; tables (B, MP)
-// and lengths (B,) int32; kv the pool's dtype code (0 f32, 1 bf16, 2
-// e4m3), q f32 or bf16 (q_bf16).  n_split splits over each lane's context
+// and lengths (B,) int32; q_code q's dtype code (0 f32, 1 bf16, 2 f16),
+// kv the pool's (0 f32, 1 bf16, 2 e4m3, 3 e5m2, 4 f16).  n_split splits
+// over each lane's context
 // and, when n_split > 1, f32 scratch of n_split * B * Hq * (D + 2) values.
 // Returns 0 or a cudaError_t code; -1 for a head dim or group size the
 // kernel is not built for.
 extern "C" int tpulab_paged_decode_attention(
     const void* q, const void* pool, const int* tables, const int* lengths,
     void* out, void* scratch, int B, int Hq, int Hkv, int D, int P, int S,
-    int MP, int n_split, int q_bf16, int kv, float sm_scale,
+    int MP, int n_split, int q_code, int kv, float sm_scale,
     void* stream) {
   if (B == 0) return 0;
   if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_d<64>(q_bf16, kv, q, pool, tables, lengths, out,
+      return launch_d<64>(q_code, kv, q, pool, tables, lengths, out,
                           scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
     case 128:
-      return launch_d<128>(q_bf16, kv, q, pool, tables, lengths, out,
+      return launch_d<128>(q_code, kv, q, pool, tables, lengths, out,
                            scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale,
                            st);
     case 256:
-      return launch_d<256>(q_bf16, kv, q, pool, tables, lengths, out,
+      return launch_d<256>(q_code, kv, q, pool, tables, lengths, out,
                            scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale,
                            st);
     default:

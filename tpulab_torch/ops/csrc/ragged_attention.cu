@@ -8,12 +8,12 @@
 // What it computes.  Lane b holds q_lens[b] left-packed query rows; row j
 // sits at position kv_lens[b] - q_lens[b] + j and attends every position
 // <= its own through the lane's block table over the fused page pool
-// (P, 2, S, Hkv, D), whose pages are f32, bf16 or e4m3 (tpulab's pool may
-// store a narrower dtype than the compute path: the Pallas body upcasts
-// the pages it reads, :150-151, and so does every body here; e4m3 -> bf16
-// and -> f32 are exact).  Softmax is online, in f32.  Rows j >= q_lens[b] (and
-// lanes with kv_lens == 0) are written as zeros; no position >= kv_lens[b]
-// is ever read (a dead page may hold NaN).  There is no TF32 anywhere.
+// (P, 2, S, Hkv, D), whose pages are f32, bf16, f16, e4m3 or e5m2
+// (tpulab's pool may store a narrower dtype than the compute path: the
+// Pallas body upcasts the pages it reads, :150-151, and so does every
+// body here).  q is f32, bf16 or f16.  Softmax is online, in f32.  Rows
+// j >= q_lens[b] (and lanes with kv_lens == 0) are written as zeros; no
+// position >= kv_lens[b] is ever read (a dead page may hold NaN).  There is no TF32 anywhere.
 //
 // What bounds it on an H100.  At decode (8 lanes x 1024 context, Hkv 8,
 // D 128, bf16) a layer must read 33.6 MB of K/V for ~0.13 GFLOP: it is
@@ -28,24 +28,30 @@
 // (ragged_attention.py `ragged_body`, `ragged_splits`, functions of dtype
 // and shapes only); the launcher refuses a body that does not fit.
 //
-// * `ragged_attn_wgmma_kernel<D, KVT>`, bf16 q over a bf16 or e4m3 pool,
-//   D 64 or 128:
+// * `ragged_attn_wgmma_kernel<D, E, KVT>`, a 16-bit q (E: bf16 or f16) over
+//   pages whose upcast to E is exact (E itself, e4m3 or e5m2), D 64 or
+//   128, on the tensor cores in E (`wgmma ... f32.bf16.bf16` or
+//   `f32.f16.f16`; bf16 q over f16 pages and f16 q over bf16 pages run
+//   the fma body: neither upcast is exact):
 //   one warpgroup per (64-row tile, KV head, lane, split), latest rows
 //   first.  The Q tile and 64-key stages of K and V are gathered page by
 //   page with cp.async into the 128-byte-swizzled layout of
 //   attn_wgmma.cuh, double-buffered; a position past the last one the
 //   tile's rows see is zero-filled without a read, and the page index is
 //   clamped to [0, P).  Each stage is the shared tile step: S = Q K^T and
-//   O += P V on `wgmma`, P in bf16 from registers, online softmax in f32
-//   (scores scaled after the product; P to bf16 is the one rounding the
-//   plain version does not make).  An e4m3 pool's stages land raw (D
+//   O += P V on `wgmma`, P in E from registers, online softmax in f32
+//   (scores scaled after the product; P to E is the one rounding the
+//   plain version does not make).  An fp8 pool's stages land raw (D
 //   bytes a row) in a double-buffered staging ring instead; after the
-//   wait one pass turns each 16-byte e4m3 chunk into the two 16-byte bf16
+//   wait one pass turns each 16-byte fp8 chunk into the two 16-byte E
 //   chunks of the swizzled K or V tile (one tile each: the next stage is
-//   still in the ring), and the step is the bf16 one.  No fp8 `wgmma`:
-//   it takes both operands in fp8, so Q would be rounded to e4m3, which
-//   tpulab never does.  Staging costs 2 x 64 x D bytes a buffer, the bf16
-//   second K/V buffer it replaces: shared memory stays 5 tiles.
+//   still in the ring), and the step is the 16-bit one.  e4m3 -> f16 is
+//   one `cvt` a pair and e5m2 -> f16 a byte permute (an e5m2 byte is its
+//   f16's high byte); -> bf16 goes through f32, exact both ways.  No fp8
+//   `wgmma`: it takes both operands in fp8, so Q would be rounded to
+//   fp8, which tpulab never does.  Staging costs 2 x 64 x D bytes a
+//   buffer, the 16-bit second K/V buffer it replaces: shared memory stays
+//   5 tiles.
 // * Split-KV, for launches whose tiles do not fill the card (decode and
 //   verify: M * G <= 64 rows): the grid gains a split axis, and split i of
 //   n walks stages [i * n_st / n, (i + 1) * n_st / n) of the tile's own
@@ -53,9 +59,11 @@
 //   units, l) to scratch, and `ragged_attn_merge_kernel` combines them in
 //   split order: no atomics, so a launch is bit-reproducible.  With one
 //   split the tile writes the output directly.
-// * `ragged_attn_kernel<QT, KVT, D>`, f32 q over any pool, bf16 over f32,
-//   and bf16 over bf16 or e4m3 with D 256: every product an f32 FMA on
-//   CUDA cores (a chunk is 16 bytes: 4, 8 or 16 values), q scaled
+// * `ragged_attn_kernel<QT, KVT, D>`, f32 q over any pool, a 16-bit q over
+//   f32 pages or the other 16-bit type's, and every mix with D 32 or 256
+//   (a small model's heads, as tpulab's example server has): every
+//   product an f32 FMA on CUDA cores (a chunk is 16 bytes: 4, 8 or 16
+//   values), q scaled
 //   by 1/sqrt(D) before the dot.  One block per (32-row tile, KV head,
 //   lane); KT positions per stage through a cp.async double buffer; each
 //   warp owns whole query rows, a lane one key of QK^T and D/32 output
@@ -253,38 +261,26 @@ int launch(const void* q, const void* pool, const int* tables,
   return (int)cudaGetLastError();
 }
 
-// kv: the pool's dtype code (0 f32, 1 bf16, 2 e4m3).  bf16 q over a bf16
-// or e4m3 pool runs here at D 256 only (D 64 and 128 run the tensor-core
-// body).
+// The fma body for q code `qc` over page code `kv`: the mixes the
+// tensor-core body does not take at D 64 and 128, every mix at D 32 and
+// 256.
 template <int D>
-int launch_d(int q_bf16, int kv, const void* q, const void* pool,
+int launch_d(int qc, int kv, const void* q, const void* pool,
              const int* tables, const int* q_lens, const int* kv_lens,
              void* out, int B, int M, int Hq, int Hkv, int P, int S, int MP,
              float sm_scale, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  if (q_bf16 && kv) {
-    if constexpr (D == 256) {
-      if (kv == 1)
-        return launch<bf, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
-                                 Hq, Hkv, P, S, MP, sm_scale, st);
-      if (kv == 2)
-        return launch<bf, e4m3, D>(q, pool, tables, q_lens, kv_lens, out, B,
-                                   M, Hq, Hkv, P, S, MP, sm_scale, st);
-    }
-    return -1;
-  }
-  if (q_bf16)
-    return launch<bf, float, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
-                                Hq, Hkv, P, S, MP, sm_scale, st);
-  if (kv == 1)
-    return launch<float, bf, D>(q, pool, tables, q_lens, kv_lens, out, B, M,
-                                Hq, Hkv, P, S, MP, sm_scale, st);
-  if (kv == 2)
-    return launch<float, e4m3, D>(q, pool, tables, q_lens, kv_lens, out, B,
+  return with_q_type(qc, [&](auto qt) {
+    return with_kv_type(kv, [&](auto kt) {
+      using QT = typename decltype(qt)::type;
+      using KVT = typename decltype(kt)::type;
+      if constexpr ((D == 64 || D == 128) && tensor_core_pair<QT, KVT>) {
+        return -1;
+      } else {
+        return launch<QT, KVT, D>(q, pool, tables, q_lens, kv_lens, out, B,
                                   M, Hq, Hkv, P, S, MP, sm_scale, st);
-  if (kv != 0) return -1;
-  return launch<float, float, D>(q, pool, tables, q_lens, kv_lens, out, B,
-                                 M, Hq, Hkv, P, S, MP, sm_scale, st);
+      }
+    });
+  });
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -296,27 +292,46 @@ constexpr int NTHREADS = 128;
 template <int D, typename KVT>
 struct Smem {
   static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
-  static constexpr bool kE4M3 = sizeof(KVT) == 1;
+  static constexpr bool kFP8 = sizeof(KVT) == 1;
   static constexpr int Q = 0;                  // [TILE]
-  // bf16 pool: K and V tiles double-buffered.  e4m3 pool: one K and one
+  // 16-bit pool: K and V tiles double-buffered.  fp8 pool: one K and one
   // V tile, and the staging ring of raw stages behind them.
   static constexpr int K = TILE;               // [2][TILE] / [TILE]
-  static constexpr int V = kE4M3 ? 2 * TILE : 3 * TILE;
-  static constexpr int STG = 3 * TILE;         // e4m3: [2][K, V][64][D] bytes
+  static constexpr int V = kFP8 ? 2 * TILE : 3 * TILE;
+  static constexpr int STG = 3 * TILE;         // fp8: [2][K, V][64][D] bytes
   static constexpr int STG_BUF = 2 * 64 * D;   // one staged stage, K then V
   static constexpr size_t bytes = 5 * TILE + 1024;   // + alignment
-  static_assert(!kE4M3 || STG + 2 * STG_BUF <= 5 * TILE,
+  static_assert(!kFP8 || STG + 2 * STG_BUF <= 5 * TILE,
                 "the staging ring fits the second K/V buffer's room");
 };
 
-// One staged e4m3 stage (K rows, then V rows; D bytes a row) into the
-// swizzled bf16 K and V tiles: 16 e4m3 values -> two 16-byte bf16 chunks.
-template <int D>
-__device__ __forceinline__ void e4m3_stage_to_tiles(const unsigned char* stg,
-                                                    unsigned char* k_tile,
-                                                    unsigned char* v_tile) {
+// Eight 16-bit E values from the fp8 pairs w[0..3] (16 values, the first
+// in the low byte of w[0]): o[j] holds values 2j and 2j + 1.  To f16 the
+// pair's f16 bits are the result; to bf16 through f32 (exact).
+template <typename E, typename F8>
+__device__ __forceinline__ void fp8x16_to_e(const uint32_t (&w)[4],
+                                            uint32_t (&o)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t pair = w[j / 2] >> (16 * (j % 2));
+    if constexpr (wg::is_f16<E>) {
+      o[j] = fp8x2_to_h2bits<F8>(pair);
+    } else {
+      const float2 f = fp8x2_to_float2<F8>(pair);
+      o[j] = wg::pack_bf16(f.x, f.y);
+    }
+  }
+}
+
+// One staged fp8 stage (K rows, then V rows; D bytes a row) into the
+// swizzled E (bf16 or f16) K and V tiles: 16 fp8 values -> two 16-byte E
+// chunks.
+template <int D, typename E, typename F8>
+__device__ __forceinline__ void fp8_stage_to_tiles(const unsigned char* stg,
+                                                   unsigned char* k_tile,
+                                                   unsigned char* v_tile) {
   constexpr int BK = wg::AttnTile<D>::BK;
-  constexpr int CPR8 = D / 16;                  // 16-byte e4m3 chunks a row
+  constexpr int CPR8 = D / 16;                  // 16-byte fp8 chunks a row
   for (int c = threadIdx.x; c < 2 * BK * CPR8; c += NTHREADS) {
     const int kv = c / (BK * CPR8), rem = c % (BK * CPR8);
     const int t = rem / CPR8, ch = rem % CPR8;
@@ -324,11 +339,7 @@ __device__ __forceinline__ void e4m3_stage_to_tiles(const unsigned char* stg,
         *reinterpret_cast<const uint4*>(stg + (kv * BK + t) * D + ch * 16);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
     uint32_t o[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 f = e4m3x2_to_float2(w[j / 2] >> (16 * (j % 2)));
-      o[j] = wg::pack_bf16(f.x, f.y);
-    }
+    fp8x16_to_e<E, F8>(w, o);
     unsigned char* tile = kv ? v_tile : k_tile;
     *reinterpret_cast<uint4*>(tile + wg::swz(t, 2 * ch, BK)) =
         make_uint4(o[0], o[1], o[2], o[3]);
@@ -337,19 +348,19 @@ __device__ __forceinline__ void e4m3_stage_to_tiles(const unsigned char* stg,
   }
 }
 
-template <int D, typename KVT>
+template <int D, typename E, typename KVT>
 __global__ void __launch_bounds__(NTHREADS)
-    ragged_attn_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+    ragged_attn_wgmma_kernel(const E* __restrict__ q,
                              const KVT* __restrict__ pool,
                              const int* __restrict__ tables,
                              const int* __restrict__ q_lens,
                              const int* __restrict__ kv_lens,
-                             __nv_bfloat16* __restrict__ out,
+                             E* __restrict__ out,
                              float* __restrict__ part_o,
                              float* __restrict__ part_ml, int B, int M,
                              int Hq, int Hkv, int P, int S, int MP,
                              int n_split, float scale_log2) {
-  using Tile = wg::AttnTile<D>;
+  using Tile = wg::AttnTile<D, E>;
   using L = Smem<D, KVT>;
   constexpr int BK = Tile::BK;
   constexpr int CPR = D / 8;                    // 16-byte chunks per Q row
@@ -397,7 +408,7 @@ __global__ void __launch_bounds__(NTHREADS)
     const int r = r_base + RSTEP * i;
     const int rr = row0 + r, j = rr / G, g = rr - j * G;
     const bool valid = rr < rows_total && j < qn;
-    const __nv_bfloat16* src =
+    const E* src =
         valid ? q + (((size_t)b * M + j) * Hq + hk * G + g) * D + ch * 8 : q;
     cp_async16(sm + L::Q + wg::swz(r, ch, BQ), src, valid ? 16 : 0);
   }
@@ -420,7 +431,7 @@ __global__ void __launch_bounds__(NTHREADS)
                       kch * EPC
                 : pool;
       unsigned char *kd, *vd;
-      if constexpr (L::kE4M3) {     // raw rows into the staging ring
+      if constexpr (L::kFP8) {      // raw rows into the staging ring
         kd = sm + L::STG + buf * L::STG_BUF + t * D + kch * 16;
         vd = kd + BK * D;
       } else {                      // straight into the swizzled tiles
@@ -452,10 +463,10 @@ __global__ void __launch_bounds__(NTHREADS)
     cp_async_commit();
     cp_async_wait_1();
     int tb = buf;                        // the K/V tile buffer the step reads
-    if constexpr (L::kE4M3) {
+    if constexpr (L::kFP8) {
       __syncthreads();                   // every thread's raw rows landed
-      e4m3_stage_to_tiles<D>(sm + L::STG + buf * L::STG_BUF, sm + L::K,
-                             sm + L::V);
+      fp8_stage_to_tiles<D, E, KVT>(sm + L::STG + buf * L::STG_BUF,
+                                    sm + L::K, sm + L::V);
       tb = 0;
     }
     wg::fence_proxy_async();
@@ -482,12 +493,11 @@ __global__ void __launch_bounds__(NTHREADS)
     const size_t orow = ((size_t)b * M + j) * Hq + hk * G + g;
     if (n_split == 1) {
       const float inv = j < qn ? 1.f / fmaxf(t.l[i], 1e-30f) : 0.f;
-      __nv_bfloat16* o = out + orow * D;
+      E* o = out + orow * D;
 #pragma unroll
       for (int cc = 0; cc < D / 8; ++cc)
-        *reinterpret_cast<__nv_bfloat162*>(o + Tile::col(cc, 0)) =
-            __floats2bfloat162_rn(t.o[4 * cc + 2 * i] * inv,
-                                  t.o[4 * cc + 2 * i + 1] * inv);
+        wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
+                      t.o[4 * cc + 2 * i + 1] * inv);
     } else if (j < qn) {
       const size_t prow = (size_t)split * B * M * Hq + orow;
       float* o = part_o + prow * D;
@@ -504,12 +514,12 @@ __global__ void __launch_bounds__(NTHREADS)
 
 // Combine the splits of each (lane, row, query head) in split order; rows
 // j >= q_lens[b] are zeros.  One warp per row, D/32 dims a lane.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(128)
     ragged_attn_merge_kernel(const float* __restrict__ part_o,
                              const float* __restrict__ part_ml,
                              const int* __restrict__ q_lens,
-                             __nv_bfloat16* __restrict__ out, int B, int M,
+                             E* __restrict__ out, int B, int M,
                              int Hq, int n_split) {
   constexpr int DPL = D / 32;
   const int row = blockIdx.x * 4 + threadIdx.x / 32;
@@ -536,19 +546,18 @@ __global__ void __launch_bounds__(128)
     }
   }
   const float inv = 1.f / fmaxf(den, 1e-30f);
-  __nv_bfloat16* o = out + (size_t)row * D + lane * DPL;
+  E* o = out + (size_t)row * D + lane * DPL;
 #pragma unroll
-  for (int x = 0; x < DPL; ++x) o[x] = __float2bfloat16(acc[x] * inv);
+  for (int x = 0; x < DPL; ++x) o[x] = from_f<E>(acc[x] * inv);
 }
 
-template <int D, typename KVT>
+template <int D, typename E, typename KVT>
 int launch(const void* q, const void* pool, const int* tables,
            const int* q_lens, const int* kv_lens, void* out, void* scratch,
            int B, int M, int Hq, int Hkv, int P, int S, int MP, int n_split,
            float sm_scale, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
   const size_t smem = Smem<D, KVT>::bytes;
-  auto kern = ragged_attn_wgmma_kernel<D, KVT>;
+  auto kern = ragged_attn_wgmma_kernel<D, E, KVT>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int G = Hq / Hkv;
@@ -560,74 +569,80 @@ int launch(const void* q, const void* pool, const int* tables,
     return (int)cudaErrorInvalidConfiguration;
   dim3 grid((M * G + BQ - 1) / BQ, Hkv, B * n_split);
   kern<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const KVT*>(pool), tables,
-      q_lens, kv_lens, static_cast<bf*>(out), part_o, part_ml, B, M, Hq, Hkv,
+      static_cast<const E*>(q), static_cast<const KVT*>(pool), tables,
+      q_lens, kv_lens, static_cast<E*>(out), part_o, part_ml, B, M, Hq, Hkv,
       P, S, MP, n_split, sm_scale * 1.4426950408889634f);
   if (n_split == 1) return (int)cudaGetLastError();
   if (cudaError_t e = cudaGetLastError()) return (int)e;
-  ragged_attn_merge_kernel<D><<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
-      part_o, part_ml, q_lens, static_cast<bf*>(out), B, M, Hq, n_split);
+  ragged_attn_merge_kernel<D, E>
+      <<<(unsigned)((rows + 3) / 4), 128, 0, stream>>>(
+          part_o, part_ml, q_lens, static_cast<E*>(out), B, M, Hq, n_split);
   return (int)cudaGetLastError();
 }
 
-template <typename KVT>
-int launch_d(const void* q, const void* pool, const int* tables,
-             const int* q_lens, const int* kv_lens, void* out, void* scratch,
-             int B, int M, int Hq, int Hkv, int D, int P, int S, int MP,
-             int n_split, float sm_scale, cudaStream_t st) {
-  if (D == 64)
-    return launch<64, KVT>(q, pool, tables, q_lens, kv_lens, out, scratch, B,
-                           M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-  if (D == 128)
-    return launch<128, KVT>(q, pool, tables, q_lens, kv_lens, out, scratch,
-                            B, M, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
-  return -1;
+// The tensor-core body for q code `qc` over page code `kv` (only the
+// pairs of `tensor_core_pair`), D 64 or 128.
+int launch_tc(int qc, int kv, const void* q, const void* pool,
+              const int* tables, const int* q_lens, const int* kv_lens,
+              void* out, void* scratch, int B, int M, int Hq, int Hkv, int D,
+              int P, int S, int MP, int n_split, float sm_scale,
+              cudaStream_t st) {
+  return with_q_type(qc, [&](auto qt) {
+    return with_kv_type(kv, [&](auto kt) {
+      using E = typename decltype(qt)::type;
+      using KVT = typename decltype(kt)::type;
+      if constexpr (tensor_core_pair<E, KVT>) {
+        if (D == 64)
+          return launch<64, E, KVT>(q, pool, tables, q_lens, kv_lens, out,
+                                    scratch, B, M, Hq, Hkv, P, S, MP, n_split,
+                                    sm_scale, st);
+        if (D == 128)
+          return launch<128, E, KVT>(q, pool, tables, q_lens, kv_lens, out,
+                                     scratch, B, M, Hq, Hkv, P, S, MP,
+                                     n_split, sm_scale, st);
+      }
+      return -1;
+    });
+  });
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// C interface (bound with ctypes).  kv is the pool's dtype code: 0 f32, 1
-// bf16, 2 e4m3.  body 1 is the tensor-core body (bf16 q over a bf16 or
-// e4m3 pool, D 64 or 128) with `n_split` splits over the context and, when
-// n_split > 1, f32 scratch of n_split * B * M * Hq * (D + 2) values; body
-// 0 the CUDA-core body (an f32 q or pool at D 64, 128 or 256, and bf16
-// over bf16 or e4m3 at D 256; n_split 1).
-// Returns 0 or a cudaError_t code; -1 for a body, dtype and head dim the
-// kernel is not built for.
+// C interface (bound with ctypes).  q_code is q's dtype code (0 f32, 1
+// bf16, 2 f16), kv the pool's (0 f32, 1 bf16, 2 e4m3, 3 e5m2, 4 f16).
+// body 1 is the tensor-core body (a bf16 or f16 q over pages of its own
+// type, e4m3 or e5m2, D 64 or 128) with `n_split` splits over the context
+// and, when n_split > 1, f32 scratch of n_split * B * M * Hq * (D + 2)
+// values; body 0 the CUDA-core body (every other mix at D 64 or 128, and
+// every mix at D 32 and 256; n_split 1).  Returns 0 or a cudaError_t code; -1
+// for a body, dtype pair and head dim the kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
     const int* kv_lens, void* out, void* scratch, int B, int M, int Hq,
-    int Hkv, int D, int P, int S, int MP, int q_bf16, int kv, int body,
+    int Hkv, int D, int P, int S, int MP, int q_code, int kv, int body,
     int n_split, float sm_scale, void* stream) {
   if (B == 0 || M == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (body == 1) {
-    if (!q_bf16) return -1;
-    if (kv == 1)
-      return tc::launch_d<__nv_bfloat16>(q, pool, tables, q_lens, kv_lens,
-                                         out, scratch, B, M, Hq, Hkv, D, P, S,
-                                         MP, n_split, sm_scale, st);
-    if (kv == 2)
-      return tc::launch_d<e4m3>(q, pool, tables, q_lens, kv_lens, out,
-                                scratch, B, M, Hq, Hkv, D, P, S, MP, n_split,
-                                sm_scale, st);
-    return -1;
-  }
+  if (body == 1)
+    return tc::launch_tc(q_code, kv, q, pool, tables, q_lens, kv_lens, out,
+                         scratch, B, M, Hq, Hkv, D, P, S, MP, n_split,
+                         sm_scale, st);
   if (body != 0 || n_split != 1) return -1;
   switch (D) {
+    case 32:
+      return launch_d<32>(q_code, kv, q, pool, tables, q_lens, kv_lens,
+                          out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     case 64:
-      return launch_d<64>(q_bf16, kv, q, pool, tables, q_lens, kv_lens,
+      return launch_d<64>(q_code, kv, q, pool, tables, q_lens, kv_lens,
                           out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     case 128:
-      return launch_d<128>(q_bf16, kv, q, pool, tables, q_lens,
-                           kv_lens, out, B, M, Hq, Hkv, P, S, MP, sm_scale,
-                           st);
+      return launch_d<128>(q_code, kv, q, pool, tables, q_lens, kv_lens,
+                           out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     case 256:
-      return launch_d<256>(q_bf16, kv, q, pool, tables, q_lens,
-                           kv_lens, out, B, M, Hq, Hkv, P, S, MP, sm_scale,
-                           st);
+      return launch_d<256>(q_code, kv, q, pool, tables, q_lens, kv_lens,
+                           out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     default:
       return -1;
   }

@@ -11,10 +11,13 @@ CUDA tensors launch the hand-written Hopper kernel
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
 version: a build or launch failure raises.  The kernel has two bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
-(bf16 on the tensor cores, D 64 or 128) and ``"fma"`` (f32 FMAs on CUDA
-cores: f32, and bf16 with D 256).  ``flash_attention.launches`` counts
-kernel launches and ``flash_attention.launches_by_body`` splits them by
-body (the plain version counts in neither).
+(bf16 or f16 on the tensor cores in that type, D 64 or 128) and
+``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 with D 32 or
+256).
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_body`` splits them by body and
+``flash_attention.launches_by_form`` by ``"wgmma bf16"``, ``"wgmma
+f16"`` or ``"fma"`` (the plain version counts in none).
 
 ``block_q`` / ``block_k`` keep tpulab's contract (they clamp to ``T`` and
 must divide it, else ``ValueError``) but do not shape the kernel, which
@@ -32,8 +35,9 @@ import math
 
 import torch
 
-_FLOATS = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128, 256)
+from tpulab_torch.ops.ragged_attention import HEAD_DIMS as _HEAD_DIMS
+from tpulab_torch.ops.ragged_attention import FORMS, Q_CODE, body_form
+
 _WGMMA_HEAD_DIMS = (64, 128)
 _BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
 _NEG = -1e30
@@ -60,18 +64,20 @@ def _check(q, k, v):
     if q.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[3]} not built (want one of "
                          f"{_HEAD_DIMS})")
-    if q.dtype not in _FLOATS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in Q_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype} / k {k.dtype} / v {v.dtype}: the "
-                        "kernel takes one dtype, float32 or bfloat16")
+                        "kernel takes one dtype, float32, bfloat16 or "
+                        "float16")
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} on {x.device}, q on {q.device}")
 
 
 def flash_body(dtype, head_dim: int) -> str:
-    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 with D 64 or
-    128, else ``"fma"``.  A function of dtype and head dim only."""
-    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 or f16 with
+    D 64 or 128, else ``"fma"``.  A function of dtype and head dim only."""
+    if (dtype in (torch.bfloat16, torch.float16)
+            and head_dim in _WGMMA_HEAD_DIMS):
         return "wgmma"
     return "fma"
 
@@ -121,8 +127,8 @@ def _forward(q, k, v, causal: bool):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.tpulab_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, h, d, *strides, int(causal),
-            int(q.dtype == torch.bfloat16), _BODY_CODE[body],
+            b, t, h, d, *strides, int(causal), Q_CODE[q.dtype],
+            _BODY_CODE[body],
             1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()
@@ -130,6 +136,7 @@ def _forward(q, k, v, causal: bool):
                            f"{msg}")
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1
+    flash_attention.launches_by_form[body_form(body, q.dtype)] += 1
     return out
 
 
@@ -215,6 +222,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
+flash_attention.launches_by_form = dict.fromkeys(FORMS, 0)
 
 
 def make_flash_attention_fn(causal: bool = True, block_q: int = 128,

@@ -12,9 +12,9 @@ kernel's ``kv_lens``.  Tables are padded with the scratch page 0.
 (``csrc/paged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`paged_decode_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  q is float32 or bfloat16; the pool float32,
-bfloat16 or float8_e4m3fn, upcast to f32 as the kernel reads it.  One
-body serves every dtype mix and head dim: a
+launch failure raises.  q is float32, bfloat16 or float16; the pool
+float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, upcast to f32
+as the kernel reads it.  One body serves every dtype mix and head dim: a
 producer warp fills a ring of 32-position stages with 16-byte async
 copies tracked by mbarriers, and the consumer warps (one a ring slot)
 run the online softmax on f32 FMAs.
@@ -36,11 +36,11 @@ import math
 
 import torch
 
-from tpulab_torch.ops.ragged_attention import (KV_CODE, _sm_count,
-                                               gather_pages)
+from tpulab_torch.ops.ragged_attention import (KV_CODE, Q_CODE, _sm_count,
+                                               check_built, gather_pages)
 
-_FLOATS = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (64, 128, 256)
+#: head dims the kernel is built for
+HEAD_DIMS = (64, 128, 256)
 _MAX_GROUP = 8
 STAGE_POSITIONS = 32    # positions of a stage: one a consumer lane
 ROUND_STAGES = 4        # stages a round (the ring's slots at bf16 D <= 128)
@@ -106,12 +106,7 @@ def _check(q, kv_pool, tables, lengths):
     if hq // hkv > _MAX_GROUP:
         raise ValueError(f"group size {hq // hkv} not built (at most "
                          f"{_MAX_GROUP} query heads per KV head)")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built (want one of {_HEAD_DIMS})")
-    if q.dtype not in _FLOATS or kv_pool.dtype not in KV_CODE:
-        raise TypeError(f"q {q.dtype} / pool {kv_pool.dtype}: the kernel "
-                        "takes a float32 or bfloat16 q over a float32, "
-                        "bfloat16 or float8_e4m3fn pool")
+    check_built(q.dtype, kv_pool.dtype, d, HEAD_DIMS)
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} for {b} lanes")
@@ -172,7 +167,7 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
             q.data_ptr(), kv_pool.data_ptr(), tables.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(), b, hq, hkv, d,
-            n_pages, s, mp, n_split, int(q.dtype == torch.bfloat16),
+            n_pages, s, mp, n_split, Q_CODE[q.dtype],
             KV_CODE[kv_pool.dtype], 1.0 / math.sqrt(d), stream)
     if rc != 0:
         msg = lib.tpulab_cuda_error_string(rc).decode()

@@ -11,19 +11,21 @@ shape is ``q_lens == 1, kv_lens == position + 1``.
 (``csrc/ragged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`ragged_paged_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
-launch failure raises.  q is float32 or bfloat16; the pool float32,
-bfloat16 or float8_e4m3fn, whose pages the kernel upcasts as it reads
-them (every e4m3 value is a bf16 value).  The kernel has two bodies,
-chosen by :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"``
-(bf16 q over a bf16 or e4m3 pool on the bf16 tensor cores, D 64 or 128)
-and ``"fma"`` (f32 FMAs on CUDA cores: every other mix, and D 256).  A
-``"wgmma"`` launch whose tiles do not fill the card splits each lane's
+launch failure raises.  q is float32, bfloat16 or float16; the pool
+float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, whose pages
+the kernel upcasts as it reads them.  The kernel has two bodies, chosen
+by :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
+tensor cores in q's 16-bit type, D 64 or 128, over pages whose upcast to
+that type is exact: bf16 q over bf16, e4m3 or e5m2 pages, f16 q over
+f16, e4m3 or e5m2 pages) and ``"fma"`` (f32 FMAs on CUDA cores: every
+other mix, and D 32 and 256).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
 context into :func:`ragged_splits` parts (split-KV) and merges them in a
 second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
 (one per call, merge included) and
 ``ragged_paged_attention.launches_by_body`` splits them by body,
 ``ragged_paged_attention.launches_by_geom`` by ``"<body> x<splits>"``
-(the plain version counts in none).
+and ``ragged_paged_attention.launches_by_form`` by ``"wgmma bf16"``,
+``"wgmma f16"`` or ``"fma"`` (the plain version counts in none).
 """
 
 from __future__ import annotations
@@ -35,11 +37,21 @@ import math
 
 import torch
 
-_FLOATS = (torch.float32, torch.bfloat16)
-#: the pool dtypes and the C launcher's code for each
-KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-_HEAD_DIMS = (64, 128, 256)
+#: the q dtypes and the C launchers' code for each (kernels 1, 2 and 3)
+Q_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the pool dtypes and the C launchers' code for each (kernels 1 and 3)
+KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+           torch.float8_e5m2: 3, torch.float16: 4}
+#: head dims the kernels are built for (D 32 and 256 on the fma body only)
+HEAD_DIMS = (32, 64, 128, 256)
 _WGMMA_HEAD_DIMS = (64, 128)
+#: the pages each 16-bit q type reads on its tensor cores: those whose
+#: upcast to q's type is exact (e4m3 and e5m2 are bf16 and f16 values;
+#: f16 -> bf16 loses range bits and bf16 -> f16 exponent range)
+WGMMA_PAGES = {
+    torch.bfloat16: (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2),
+    torch.float16: (torch.float16, torch.float8_e4m3fn, torch.float8_e5m2),
+}
 _BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
 TILE_ROWS = 64       # query rows (j, g) of one wgmma tile
 STAGE_KEYS = 64      # key positions of one wgmma stage
@@ -47,14 +59,37 @@ MAX_SPLITS = 16
 
 
 def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
-    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 q over a
-    bf16 or e4m3 pool with D 64 or 128, else ``"fma"``.  A function of
-    dtypes and head dim only."""
-    if (q_dtype == torch.bfloat16
-            and kv_dtype in (torch.bfloat16, torch.float8_e4m3fn)
-            and head_dim in _WGMMA_HEAD_DIMS):
+    """The kernel body a CUDA call runs: ``"wgmma"`` for a bf16 or f16 q
+    over the pages of ``WGMMA_PAGES[q_dtype]`` with D 64 or 128, else
+    ``"fma"``.  A function of dtypes and head dim only."""
+    if (head_dim in _WGMMA_HEAD_DIMS
+            and kv_dtype in WGMMA_PAGES.get(q_dtype, ())):
         return "wgmma"
     return "fma"
+
+
+def check_built(q_dtype, kv_dtype, head_dim: int,
+                head_dims=HEAD_DIMS) -> None:
+    """Raise unless the kernels are built for this q dtype, page dtype
+    and head dim (every q of ``Q_CODE`` over every page of ``KV_CODE``,
+    every D of ``head_dims``): a CUDA batcher refuses at construction
+    what its kernels would refuse at their first launch."""
+    if q_dtype not in Q_CODE or kv_dtype not in KV_CODE:
+        raise TypeError(f"q {q_dtype} / pool {kv_dtype}: the kernels take "
+                        "a float32, bfloat16 or float16 q over a float32, "
+                        "bfloat16, float16, float8_e4m3fn or float8_e5m2 "
+                        "pool")
+    if head_dim not in head_dims:
+        raise ValueError(f"head dim {head_dim} not built (want one of "
+                         f"{head_dims})")
+
+
+def body_form(body: str, q_dtype) -> str:
+    """``"wgmma bf16"`` / ``"wgmma f16"`` (the tensor cores' input type)
+    or ``"fma"``: the key of a wrapper's ``launches_by_form``."""
+    if body != "wgmma":
+        return body
+    return "wgmma f16" if q_dtype == torch.float16 else "wgmma bf16"
 
 
 def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
@@ -84,8 +119,9 @@ def _sm_count(index: int) -> int:
 
 def pool_bytes(kv: torch.Tensor) -> torch.Tensor:
     """A page store as the tensor its gathers and scatters index: a
-    ``uint8`` view of an fp8 store (torch has no fp8 ``index_copy_`` or
-    ``masked_fill`` on the CPU), else the store itself."""
+    ``uint8`` view of an fp8 store, e4m3 or e5m2 (torch has no fp8
+    ``index_copy_`` or ``masked_fill`` on the CPU), else the store
+    itself."""
     return kv.view(torch.uint8) if kv.element_size() == 1 else kv
 
 
@@ -141,12 +177,7 @@ def _check(q, kv_pool, tables, q_lens, kv_lens):
     if kv_pool.shape[4] != d or hq % hkv:
         raise ValueError(f"head geometry mismatch: q {tuple(q.shape)}, "
                          f"pool {tuple(kv_pool.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built (want one of {_HEAD_DIMS})")
-    if q.dtype not in _FLOATS or kv_pool.dtype not in KV_CODE:
-        raise TypeError(f"q {q.dtype} / pool {kv_pool.dtype}: the kernel "
-                        "takes a float32 or bfloat16 q over a float32, "
-                        "bfloat16 or float8_e4m3fn pool")
+    check_built(q.dtype, kv_pool.dtype, d)
     if tables.dim() != 2 or tables.shape[0] != b:
         raise ValueError(f"tables {tuple(tables.shape)} for {b} lanes")
     if q_lens.shape != (b,) or kv_lens.shape != (b,):
@@ -213,7 +244,7 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
             q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             b, m, hq, hkv, d, n_pages, s, mp,
-            int(q.dtype == torch.bfloat16), KV_CODE[kv_pool.dtype],
+            Q_CODE[q.dtype], KV_CODE[kv_pool.dtype],
             _BODY_CODE[body], n_split,
             1.0 / math.sqrt(d), stream)
     if rc != 0:
@@ -222,12 +253,15 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
                            f"body, {n_split} splits): {msg}")
     ragged_paged_attention.launches += 1
     ragged_paged_attention.launches_by_body[body] += 1
+    ragged_paged_attention.launches_by_form[body_form(body, q.dtype)] += 1
     geom = f"{body} x{n_split}"
     by_geom = ragged_paged_attention.launches_by_geom
     by_geom[geom] = by_geom.get(geom, 0) + 1
     return out
 
 
+FORMS = ("fma", "wgmma bf16", "wgmma f16")
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
+ragged_paged_attention.launches_by_form = dict.fromkeys(FORMS, 0)
 ragged_paged_attention.launches_by_geom = {}
