@@ -76,7 +76,9 @@ raises and the script exits non-zero without printing a result:
    predicted length), and an int8 tree's speculating batcher against
    plain blocks, under the margin rule over an e4m3 replay.
 5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
-   (32 layers, random bf16 weights from a seed) serves a greedy /
+   (8 of its 32 layers, cut for the script's time limit: ``SERVE_MODEL``,
+   which phases 8, 9, 11 and 12 share; random bf16 weights from a seed)
+   serves a greedy /
    stop-token / device-sampled / logprobs / host-sampled / streaming
    request mix under the ragged plan, then (that batcher shut down) under
    the split plan (``ragged=False``: flash prefill, then K-blocks); then
@@ -94,17 +96,17 @@ raises and the script exits non-zero without printing a result:
    two priority-10 requests once every victim has emitted its first
    token) on a batcher with the host tier (1 GiB) and one without:
    swap-outs == swap-ins == 2, no failure or drop, one prompt fill per
-   request on the tier side and more without it, ragged launches == 32 x
+   request on the tier side and more without it, ragged launches == 8 x
    forward steps, pages balanced; swap bytes and times, each victim's
    resume time, and a synced round trip at each evicted lane's page
    count.  Then a disagg serve: a prefill and a decode batcher ship three
    prompts (1500, 700, 64 tokens) through the wire; zero prompt fills on
    the decode side.  Then the speculative serve: layers
-   4-31's wo / w2 scaled by 0.05 in place (trained-model emulation), an
+   4-7's wo / w2 scaled by 0.05 in place (trained-model emulation), an
    8-request x 64-step mix (greedy, stop token, logprobs, device-sampled;
    no host-sampled lane) through a plain batcher and one with the
    early-exit draft of 4 layers (two page tables a lane); per mode runs
-   2 and 3 identical, ragged launches == 32 x forward steps + 4 x draft
+   2 and 3 identical, ragged launches == 8 x forward steps + 4 x draft
    forward steps, all on ``wgmma``, every page home at the end, and
    speculation really ran; tok/s, tokens per decode dispatch, host syncs
    per token and acceptance side by side.
@@ -188,7 +190,7 @@ raises and the script exits non-zero without printing a result:
    after 4 tokens (its lane free within the dispatch in flight and one
    tick); an out-of-vocab prompt (INVALID_ARGUMENT) and an unknown model
    (UNKNOWN_MODEL); ``drain`` with an open stream (readiness off, returns
-   after the stream).  Kernel 1's launches over the drive == 32 x its
+   after the stream).  Kernel 1's launches over the drive == 8 x its
    forward steps, all ``wgmma``; the service's mean stage profile.
 9. obs     — the observability plane at full width, phase 5's model and
    config.  (a) ``benchmark_obs_overhead`` on the ragged-plan bf16
@@ -208,21 +210,22 @@ raises and the script exits non-zero without printing a result:
    ``engine.step=delay:0.02+999`` (kept as ``deadline``); Debug
    mid-stream shows the live lane and the hbm and flight sections;
    Debug with ``profile_ticks=4`` returns a directory whose
-   ``trace.json`` holds 32 x the captured forward steps of kernel 1
+   ``trace.json`` holds 8 x the captured forward steps of kernel 1
    launches; after it, on the main thread, arming under another
    profiler session raises and that session traces the card (kernel 1
    of the request it covers); then a second ``profile_ticks=4`` capture
-   holds 32 x its forward steps again; a
+   holds 8 x its forward steps again; a
    ``start_metrics_server(port=0)`` scrape on
    127.0.0.1 whose TTFT count equals the first tokens served and whose
    ``tpulab_chaos_injections_total{point="engine.step"}`` equals the
    schedules' trips; the watchdog healthy after 3+ canaries while
    serving, then a canary spinning on its own stream past the deadline
    turns Health not-ready within deadline + period and the restored
-   canary ready again.  (c) Kernel 1's launches over the phase == 32 x
+   canary ready again.  (c) Kernel 1's launches over the phase == 8 x
    every forward step of its batchers, all ``wgmma``.
 
-10. batch  — the offline batch lane at full width: phase 5's ragged bf16
+10. batch  — the offline batch lane at Llama-3-8B's widths, 8 of its 32
+   layers (cut for the script's time limit): phase 5's ragged bf16
    batcher (8 lanes, ``max_len`` 2048, page 16, K <= 8, chunk 256, 1025
    pages) with a 2 GiB host tier, behind an ``AdmissionController``
    (the batcher as its load source).  Three ``BatchJob``s share one
@@ -243,16 +246,16 @@ raises and the script exits non-zero without printing a result:
    or from the first difference every pick of both within the bf16 noise
    (phase 7's rule under the item's sampler: the Gumbel-perturbed scores
    for device sampling, the draw's cumulative interval for host
-   sampling); every lane and page home; kernel 1's launches == 32 x the
+   sampling); every lane and page home; kernel 1's launches == 8 x the
    forward steps, all ``wgmma``.  Printed: ``soak_utilization``, items/s,
    online TTFT p50 / p99 soaking against alone, the resume's seconds to
    its first token.
 11. fleet  — replica processes over gRPC sockets.  The parent frees its
    card memory first; ``SubprocessReplicaProvider`` starts three
    ``python -m tpulab_torch.fleet.replica_main`` processes at
-   Llama-3-8B width (32 layers, bf16, untied head, seed 0, 4 lanes,
-   ``max_len`` 2048, page 16, prefix cache on; each about 16 GB of
-   weights, 1.08 GB of pages and its scratch), one with
+   Llama-3-8B width (phase 5's 8 layers, bf16, untied head, seed 0, 4
+   lanes, ``max_len`` 2048, page 16, prefix cache on; each about 5.6 GB
+   of weights, 0.27 GB of pages and its scratch), one with
    ``TPULAB_CHAOS=rpc.stream=kill@8``; nvidia-smi's used memory sampled
    each second.  (a) one lone greedy 512 x 32 request straight to each
    of the two plain replicas: the same tokens bit for bit.  (b) a
@@ -274,19 +277,19 @@ raises and the script exits non-zero without printing a result:
    newest: its stream finishes during the SIGUSR1 drain (the same tokens
    as the others'), SIGTERM exits 0, no death is recorded.  Kernel 1:
    each replica's Debug snapshot (its wrapper's launch count and its
-   forward steps) read before it retires, launches == 32 x forward
+   forward steps) read before it retires, launches == 8 x forward
    steps, all ``wgmma``; the killed replica's are lost and printed so.
    Printed: spawn to first Status, the failover gap, TTFT through the
    set against direct, the drain's seconds, peak memory.
 12. fabric — the fleet KV fabric and the multi-router control plane at
-   Llama-3-8B width: one bf16 tree (seed 0) under two split-plan
+   Llama-3-8B width (phase 5's 8 layers): one bf16 tree (seed 0) under two split-plan
    batchers (``ragged=False``: flash prefill; 4 lanes, ``max_len`` 2048,
    page 16, K <= 8, a 2 GiB host tier, ``kv_publish=True``), A and B,
    each served on a loopback socket with ``serve(kvfabric=KVFabric(...),
    fleet=...)`` (HRW homes over 256-token prefixes, the cost gate off so
    that every eligible pull is taken and timed).  (a) a 1024-token prompt
    homed on A, served there greedy and device-sampled (T 0.8), then on
-   B: B pulls it through A's FetchKV behavior in process (134 MB, past
+   B: B pulls it through A's FetchKV behavior in process (34 MB, past
    gRPC's default 4 MiB receive limit) — no prefill and no kernel 2 on
    B, pulls 2, degrades 0, 1024 tokens saved each; four concurrent B
    requests for a new A-homed prompt make one fetch.  (b) over the
@@ -306,8 +309,8 @@ raises and the script exits non-zero without printing a result:
    free KV pages, free HBM bytes, kernels; the controller; the SLO
    document; the ``FederationMetrics`` exposition), then A shut down:
    fleetz reports it as data and a B request homed on A degrades to a
-   local prefill.  Kernel 1 == 32 x the forward steps of A, B and C,
-   kernel 2 == 32 x their prefill forwards; every stream equals its
+   local prefill.  Kernel 1 == 8 x the forward steps of A, B and C,
+   kernel 2 == 8 x their prefill forwards; every stream equals its
    reference or passes phase 7's bf16 noise rule.  Printed: pull ms and
    GB/s, TTFT pulled against a cold local prefill, the socket pull, the
    takeover seconds, the fleetz scrape, peak memory.
@@ -353,24 +356,25 @@ raises and the script exits non-zero without printing a result:
    non-zero with "need 2 devices, have 1".
 
 14. sharded — the paged serving path under a tensor-parallel mesh at
-   Llama-3-8B width (32 layers, random bf16 weights from phase 5's seed;
+   Llama-3-8B's widths (8 of its 32 layers, cut for the script's time
+   limit; random bf16 weights from phase 5's seed;
    8 lanes, ``max_len`` 2048, page 16, K <= 8, the ragged plan): 8
    requests (prompts of 1000 ... 16 tokens x 32 steps, even ones greedy,
    odd ones device-sampled at T 0.8), after a 2-token warm-up request,
    through ``ContinuousBatcher`` at (a) ``mesh=None`` and (b) ``mesh=make_mesh({"model": 1})`` on an NCCL
-   group of one rank: streams bit-identical, kernel 1 launches == 32 x
+   group of one rank: streams bit-identical, kernel 1 launches == 16 x
    forward steps, all on ``wgmma``.  (c) two spawned ranks share the
    card over gloo's CUDA collectives (``multihost.initialize(...,
    backend="gloo")``; NCCL takes one rank a card), each cutting its
    shards of the same weights leaf by leaf on the card (Hq 16, Hkv 4 a
    rank) and serving the mix on ``{"model": 2}``: each rank's kernel 1
-   launches == 32 x the coordinator's forward steps, and every stream
+   launches == 16 x the coordinator's forward steps, and every stream
    equals mesh=None's or passes phase 7's bf16 noise rule; tok/s and
    peak memory per rank.  The same two ranks then run (e) the split plan
    (``ragged=False``, no chunking) as a KV-fabric owner
    (``kv_publish``): four greedy prompts (1000, 500, 200, 64 tokens) x 8
    steps, kernel 2 on each rank's 16 query heads: kernel 2 launches per
-   rank == 32 x the prefills and kernel 1 == 32 x the forward steps, all
+   rank == 16 x the prefills and kernel 1 == 16 x the forward steps, all
    ``wgmma``, one publish a prompt, the streams against (a)'s under the
    noise rule; the 1000-token prompt's blob is pulled into a mesh=None
    batcher (no prefill there) whose continuation matches the owner's
@@ -387,7 +391,8 @@ raises and the script exits non-zero without printing a result:
    x the forward steps, all ``wgmma``; streams equal or within the noise
    rule over an int8 replay.
 15. rows   — tpulab's eleven bench rows through the port's functions,
-   each once, its JSON on a line of its own.  At Llama-3-8B width on one
+   each once, its JSON on a line of its own.  At Llama-3-8B's widths, 8
+   of its 32 layers (cut for the script's time limit), on one
    bf16 tree (seed 0): ``benchmark_decode_dispatch`` (K 1 / 4 / 8 / 16,
    4 lanes x 32 steps, prompt 8; tpulab's 48 steps cut for time),
    ``benchmark_speculative_decode`` (k 8, 2 lanes x 32 steps, cut the
@@ -398,12 +403,13 @@ raises and the script exits non-zero without printing a result:
    a pass; the int8 tree quantized from the same one).  At tpulab's own
    geometry: ``benchmark_decode_kernel_sweep`` (d 1024, 4 layers, page
    32; (8, 2048), (32, 2048), (8, 8192), (8, 16384)) and the dense
-   ``benchmark_speculative``.  At the arguments of tpulab's bench.py,
-   f32, at d_model 256 over 4 heads where bench.py's d_model 64 would
-   give head dim 16 (no kernel is built for it): ``benchmark_kv_offload``
-   (4 + 4 requests, 20 steps), ``benchmark_disagg`` (8 x 48 tokens x 8
-   steps), ``benchmark_hbm_arbiter`` (12 requests) and
-   ``benchmark_multi_model`` (6 switches x 8 steps).  The batchers each
+   ``benchmark_speculative``.  At the arguments and widths of tpulab's
+   bench.py, f32: ``benchmark_kv_offload`` (4 + 4 requests, 20 steps),
+   ``benchmark_disagg`` (8 x 48 tokens x 8 steps) and
+   ``benchmark_multi_model`` (6 switches x 8 steps) at d_model 64 over 4
+   heads (head dim 16: every kernel 1 and 2 launch on the ``fma`` body at
+   D 16), ``benchmark_hbm_arbiter`` (12 requests) at its own d_model
+   256.  The batchers each
    row builds are recorded; the phase fails on any ``error`` key, a
    tok/s <= 0, kernel 1 launches other than n_layers x forward steps (+
    draft layers x draft forwards + the speculative row's block-size
@@ -479,9 +485,9 @@ raises and the script exits non-zero without printing a result:
    x windows, each NLL within 5e-2 nats of the plain attention's forward
    of the same window, the host staging never past the descriptor;
    tokens/s.  (e) ``python -m tpulab_torch.tools.build_engine --model
-   resnet50 --max-batch 2`` as a subprocess (the card by default): its
+   resnet50 --max-batch 1`` as a subprocess (the card by default): its
    artifact, loaded with no ``apply_fn``, gives the in-memory model's
-   logits bit for bit at bucket 2; ``python -m
+   logits bit for bit at its one bucket; ``python -m
    tpulab_torch.tools.onnx_summary`` on phase 16's ResNet-50 ONNX
    (written again) exits 0, importable.  (f) ``DeviceInfo``: the name
    is nvidia-smi's, ``bytes_limit`` is ``mem_get_info``'s total,
@@ -517,6 +523,33 @@ raises and the script exits non-zero without printing a result:
    ``ex00_basic_infer --model resnet50 --batch-size 8 --seconds 3``;
    each exits 0 with its own printed checks.
 
+19. small  — tpulab's own small-model geometry, last: d_model 32 over 2
+   heads (its tests and five bench rows) and bench.py's d_model 64 over
+   4 heads, both head dim 16.  (a) Kernel 1 at D 16 for every (q, page)
+   pair the port builds (q f32 / bf16 / f16 over f32 / bf16 / f16 / e4m3
+   / e5m2 pages) at the rows' decode (2 lanes x 40 positions, Hq 2 = Hkv
+   2, page 8), a prompt chunk (f32) and 8 lanes x 1024 (f32, a skipped
+   page rejected); kernel 2 at D 16, T 32 (the rows' split-plan prefill,
+   H 2), causal and full, f32 / bf16 / f16, and T 2048 causal f32 (a
+   dropped diagonal tile rejected); kernel 3 at D 16 and D 32 for every
+   pair at 2 x 40 and at 8 x 1024 (f32), and past 8 query heads a KV
+   head at D 128, bf16, 8 x 1024: G 16 (Hq 32 over Hkv 2) and MQA (Hq 32
+   over 1).  Each against its plain version at phase 3's tolerances,
+   relaunched bit for bit on its body (``fma``; kernel 3's ``ring``),
+   timed beside the plain version, its bound and SDPA where q and pages
+   share a dtype.  (b) With ``device=None`` at their own widths and
+   bench.py's non-degraded arguments: ``benchmark_failover_recovery``
+   (prompt 24, 24 steps, kill at 8), ``benchmark_prefix_affinity`` (36
+   requests x 6 steps), ``benchmark_fleet_obs`` (24 x 6),
+   ``benchmark_kv_fabric`` (24 x 4), ``benchmark_batch_soak`` (4 cycles,
+   24 items), each over loopback gRPC servers in process, and
+   ``benchmark_sharded_decode`` at its defaults (d_model 64, 4 heads,
+   f32) with ``model_shards=1`` on an NCCL group of one rank: no error
+   key, rates > 0, every parity and completeness flag True, kernel 1
+   launches == 2 x the batchers' forward steps and kernel 2 == 2 x their
+   split-plan prefills, every launch at D 16 and kernel 1's on ``fma``
+   (the wrappers' ``launches_by_head_dim``).
+
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -525,6 +558,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import math
 import os
@@ -537,6 +571,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Meta-Llama-3-8B's config.json geometry (random weights)
 LLAMA3_8B = dict(vocab=128256, d_model=4096, n_heads=32, n_kv_heads=8,
                  d_ff=14336, n_layers=32, rope_theta=500000.0)
+#: the serving phases' depth (serve, service, obs, fleet, fabric):
+#: Llama-3-8B's widths at 8 of its 32 layers, cut for the script's time
+#: limit; the hbm phase keeps all 32 (its capacity is sized on the tree)
+SERVE_LAYERS = 8
+SERVE_MODEL = dict(LLAMA3_8B, n_layers=SERVE_LAYERS)
 SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
              prefill_chunk=256)
 # the split plan: one full-prompt flash prefill per request, then K-blocks
@@ -560,6 +599,9 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (8e-3, 4e-3),
 # the two best f32 logits lie closer than this (their logits differ by
 # ~1e-5: summation order)
 MARGIN_TOL = 1e-3
+# seconds into the run at which every thread's stack goes to stderr (the
+# run is stopped at 1200 s)
+STACKS_AT_S = 1140
 
 
 def log(*a):
@@ -725,11 +767,10 @@ def ra_cases():
     ]
 
 
-def ra_bound(q_lens, kv_lens, m, q_es, kv_es, kind):
+def ra_bound(q_lens, kv_lens, m, q_es, kv_es, kind, g=RA_GEOM):
     """K/V rows each lane's queries can see plus valid q rows read once,
     the whole output written once; 4*D*Hq operations per (query, visible
     key) pair."""
-    g = RA_GEOM
     kv_bytes = sum(kv if q else 0 for q, kv in zip(q_lens, kv_lens)) \
         * g["hkv"] * g["d"] * 2 * kv_es
     q_bytes = sum(q_lens) * g["hq"] * g["d"] * q_es
@@ -741,10 +782,20 @@ def ra_bound(q_lens, kv_lens, m, q_es, kv_es, kind):
                  4 * g["d"] * g["hq"] * pairs, kind)
 
 
-def serving_pool(torch, np, rng):
-    """An f32 pool at the serving geometry and scattered page tables, as
-    a long-running pool hands them out."""
-    g = RA_GEOM
+def pd_bound(lanes, pos, q_es, kv_es, kind, g=RA_GEOM):
+    """Kernel 3 at ``lanes`` lanes, each at inclusive position ``pos``:
+    the live K/V rows, q and the output, the tables and lengths, once;
+    4*D*Hq operations per (lane, visible position)."""
+    n_ctx = lanes * (pos + 1)
+    return bound(n_ctx * g["hkv"] * g["d"] * 2 * kv_es
+                 + 2 * lanes * g["hq"] * g["d"] * q_es
+                 + lanes * g["mp"] * 4 + lanes * 4,
+                 4 * g["d"] * g["hq"] * n_ctx, kind)
+
+
+def serving_pool(torch, np, rng, g=RA_GEOM):
+    """An f32 pool at the serving geometry (or ``g``) and scattered page
+    tables, as a long-running pool hands them out."""
     n_pages = g["b"] * g["mp"] + 1
     pool32 = torch.from_numpy(rng.standard_normal(
         (n_pages, 2, g["s"], g["hkv"], g["d"])).astype(np.float32)).cuda()
@@ -1025,12 +1076,8 @@ def phase_paged(torch, timer):
                    <= lengths[:, None, None])
             lib_ms = sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
                                     vis, g["hq"] // g["hkv"])
-            n_ctx = lanes * (pos + 1)
-            bound_ms, bound_by = bound(
-                n_ctx * g["hkv"] * g["d"] * 2 * pool.element_size()
-                + 2 * lanes * g["hq"] * g["d"] * q.element_size()
-                + lanes * g["mp"] * 4 + lanes * 4,
-                4 * g["d"] * g["hq"] * n_ctx, kind)
+            bound_ms, bound_by = pd_bound(lanes, pos, q.element_size(),
+                                          pool.element_size(), kind)
             rows.append(dict(case=case, dtypes=dname, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=lib_ms,
@@ -2123,7 +2170,7 @@ def serve_plan(torch, model, prompts, plan, card, profile, kv_dtype=None,
     from tpulab_torch.ops.flash_attention import flash_attention
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     counted = {"ragged": ragged_paged_attention, "flash": flash_attention}
     metrics = Metrics()
     cfg = dict(SERVE, **(SPLIT if plan == "split" else {}))
@@ -2270,7 +2317,7 @@ def serve_kvtier(torch, model, card):
     from tpulab_torch.engine.paged import ContinuousBatcher
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     rng = np.random.default_rng(11)
     victims = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
                for n in VICTIMS]
@@ -2392,7 +2439,7 @@ def serve_disagg(torch, model, card):
     from tpulab_torch.engine.paged import ContinuousBatcher
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     rng = np.random.default_rng(12)
     prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
                for n in (1500, 700, 64)]
@@ -2489,7 +2536,7 @@ def serve_spec(torch, model, card, profile):
     from tpulab_torch.models.transformer import early_exit_draft
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     with torch.inference_mode():
         for layer in model.layers[SPEC_DRAFT_LAYERS:]:
             layer.wo.mul_(SPEC_TAIL_SCALE)
@@ -2593,7 +2640,7 @@ def serve_spec(torch, model, card, profile):
 
 def forward_device_ms(torch, params, kv_dtype, card, label):
     """Device time of one decode forward (``paged_decode_step``) at the
-    serve's width, 32 layers, 8 lanes at position 1023 over a
+    serve's width and depth, 8 lanes at position 1023 over a
     ``kv_dtype`` pool: the kernels' device time summed over 3 profiled
     forwards (torch.profiler, CUDA activity) / 3, by class; and the
     forward's stream time (CUDA events, mean of 3)."""
@@ -2603,7 +2650,7 @@ def forward_device_ms(torch, params, kv_dtype, card, label):
 
     from tpulab_torch.engine.paged import PagedKVPool, paged_decode_step
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     b, mp, s = 8, 64, 16
     pool = PagedKVPool(b * mp + 1, s, c["n_layers"], c["n_kv_heads"],
                        c["d_model"] // c["n_heads"], kv_dtype, "cuda")
@@ -2658,7 +2705,7 @@ def phase_serve(torch, card, profile=False):
                                                   transformer_param_bytes)
     from tpulab_torch.models.transformer import Transformer
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     t0 = time.perf_counter()
     model = Transformer(full_width_params(torch, c["n_layers"],
                                           torch.bfloat16, seed=0),
@@ -2666,7 +2713,8 @@ def phase_serve(torch, card, profile=False):
                         rope_theta=c["rope_theta"])
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"serve: Llama-3-8B geometry, {n_params / 1e9:.3f} B params bf16, "
+    log(f"serve: Llama-3-8B geometry at {c['n_layers']} of its 32 layers, "
+        f"{n_params / 1e9:.3f} B params bf16, "
         f"random init {time.perf_counter() - t0:.1f} s; weights "
         f"{transformer_param_bytes(model) / 1e9:.3f} GB")
     rng = np.random.default_rng(7)
@@ -4416,7 +4464,7 @@ def phase_service(torch, card):
     from tpulab_torch.rpc.server import LocalServicerContext
     from tpulab_torch.serving import AdmissionConfig, AdmissionController
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     t_phase = time.perf_counter()
     torch.backends.cudnn.benchmark = False     # the same kernels each call
     torch.cuda.empty_cache()
@@ -4899,7 +4947,7 @@ def obs_bench(torch, params, kw, card):
     the launch count is read)."""
     from tpulab_torch.obs import benchmark_obs_overhead
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     row = benchmark_obs_overhead(
         vocab=c["vocab"], n_heads=c["n_heads"], n_layers=c["n_layers"],
         n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
@@ -4957,7 +5005,7 @@ def phase_obs(torch, card):
                                             start_metrics_server)
     from tpulab_torch.utils.watchdog import DeviceWatchdog
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
@@ -5219,6 +5267,9 @@ def phase_obs(torch, card):
 # 2 GiB host tier behind an AdmissionController; one checkpoint file for
 # three jobs (one sampling config a job): 8 greedy items, 7 device-sampled
 # and 1 host-sampled, prompts of 256 ... 768 tokens x 48 steps
+#: the batch lane's depth: Llama-3-8B's 32 layers cut to 8 for the
+#: script's time limit
+BATCH_LAYERS = 8
 BATCH_STEPS = 48
 BATCH_LENS = (256, 768, 320, 704, 384, 640, 448, 576, 512, 288, 736, 352,
               672, 416, 608, 480)
@@ -5291,7 +5342,7 @@ def phase_batch(torch, card):
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
     from tpulab_torch.serving import AdmissionConfig, AdmissionController
 
-    c = LLAMA3_8B
+    c = dict(LLAMA3_8B, n_layers=BATCH_LAYERS)
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
@@ -5528,7 +5579,7 @@ FLEET_HOLD_STEPS = 64           # the stream held through the drain
 
 
 def replica_args():
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     return ("--device", "cuda", "--dtype", "bf16", "--vocab", str(c["vocab"]),
             "--d-model", str(c["d_model"]), "--n-heads", str(c["n_heads"]),
             "--n-kv-heads", str(c["n_kv_heads"]),
@@ -5605,7 +5656,7 @@ def phase_fleet(torch, card):
     from tpulab_torch.utils.metrics import FleetMetrics, ReplicaSetMetrics
     from tpulab_torch.utils.tracing import ChromeTraceRecorder
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     t_phase = time.perf_counter()
     if importlib.util.find_spec("grpc") is None:
         raise AssertionError("fleet: grpc is not installed: the replica "
@@ -5937,7 +5988,7 @@ def phase_fleet(torch, card):
 FAB_LANES = 4
 FAB_PROMPT, FAB_STEPS = 1024, 32
 FAB_AFFINITY = 256
-FAB_SOCKET_OK, FAB_SOCKET_BIG = 16, 512   # one page; 32 pages (64 MiB)
+FAB_SOCKET_OK, FAB_SOCKET_BIG = 16, 512   # one page; 32 pages (16 MiB)
 FAB_KV_OFFLOAD = 2 << 30
 FAB_SAMPLED = dict(temperature=0.8, seed=4321)
 FAB_TTL_S, FAB_TICK_S = 1.0, 0.1
@@ -5948,7 +5999,7 @@ FAB_ELECT_PROMPT, FAB_ELECT_STEPS = 64, 8
 class FetchRoute:
     """A fabric member as the fetcher's client.  With ``mode["socket"]``
     False the FetchKV request goes through the owner's server behavior in
-    process (``Server.invoke``): a 1024-token pull is 134 MB, past the
+    process (``Server.invoke``): a 1024-token pull is 34 MB, past the
     4 MiB a gRPC client receives by default.  With it True the request
     rides ``RemoteInferenceManager.fetch_kv`` over the socket.  Counts
     the fetches and keeps the errors the client saw; ``gate`` (if set)
@@ -6075,7 +6126,7 @@ def phase_fabric(torch, card):
     from tpulab_torch.utils.metrics import (FederationMetrics, FleetMetrics,
                                             KVFabricMetrics)
 
-    c = LLAMA3_8B
+    c = SERVE_MODEL
     t_phase = time.perf_counter()
     if importlib.util.find_spec("grpc") is None:
         raise AssertionError("fabric: grpc is not installed: the replicas "
@@ -7011,6 +7062,9 @@ def phase_parallel(torch, card):
 # ---------------------------------------------------------------- phase 14
 # the sharded serve: phase 5's Llama-3-8B geometry, 8 requests (even
 # ones greedy, odd ones device-sampled) x SHARD_STEPS
+#: the sharded phase's model: Llama-3-8B's widths at 8 of its 32 layers
+#: (cut for the script's time limit)
+SHARD_MODEL = dict(LLAMA3_8B, n_layers=8)
 SHARD_SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
                    prefill_chunk=256)
 SHARD_PROMPTS = (1000, 700, 500, 300, 200, 128, 64, 16)
@@ -7038,7 +7092,7 @@ SHARD_BLOB_BYTES = 2 << 30
 def shard_specs(np):
     """(name, prompt, device-sampling seed or None) of the phase's mix."""
     rng = np.random.default_rng(14)
-    return [(f"r{i}", rng.integers(0, LLAMA3_8B["vocab"], (n,), np.int32),
+    return [(f"r{i}", rng.integers(0, SHARD_MODEL["vocab"], (n,), np.int32),
              SHARD_SEED + i if i % 2 else None)
             for i, n in enumerate(SHARD_PROMPTS)]
 
@@ -7194,7 +7248,7 @@ def shard_swap(torch, cb, prompt):
 
 
 def shard_kw(torch):
-    c = LLAMA3_8B
+    c = SHARD_MODEL
     return dict(n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
                 n_layers=c["n_layers"], rope_theta=c["rope_theta"],
                 compute_dtype=torch.bfloat16, **SHARD_SERVE)
@@ -7227,7 +7281,7 @@ def sharded_rank(rank, world, store, out_dir):
     multihost.initialize(f"file://{store}", world, rank, backend="gloo")
     stage("group up")
     mesh = make_mesh({"model": world})
-    c = LLAMA3_8B
+    c = SHARD_MODEL
     params = init_transformer_shards(
         mesh, c["vocab"], c["d_model"], c["n_heads"], c["n_layers"],
         c["d_ff"], seed=0, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
@@ -7375,7 +7429,7 @@ def phase_sharded(torch, card):
     from tpulab_torch.parallel import make_mesh, multihost
 
     ra = ragged_paged_attention
-    c = LLAMA3_8B
+    c = SHARD_MODEL
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -7527,7 +7581,7 @@ def sharded_int8(torch, ranks, specs, qparams, ref, kw_dense, card):
     """(d): each rank holds half the int8 bytes; kernel 1 launches per
     rank == n_layers x the forward steps; the streams of the mesh=None
     int8 serve, or the bf16 noise rule over an int8 replay."""
-    n_layers = LLAMA3_8B["n_layers"]
+    n_layers = SHARD_MODEL["n_layers"]
     d = ranks[0]["d"]
     for r in ranks:
         if SHARD_RANKS * r["d"]["int8_bytes"] != r["d"]["int8_whole"]:
@@ -7568,7 +7622,7 @@ def sharded_publish(torch, ranks, specs, params, ref, kw, kw_dense, tmp,
     from tpulab_torch.disagg import KVShipper
     from tpulab_torch.engine.paged import ContinuousBatcher
 
-    n_layers = LLAMA3_8B["n_layers"]
+    n_layers = SHARD_MODEL["n_layers"]
     e = ranks[0]["e"]
     pub = [specs[i] for i in SHARD_PUB]
     if e["kv_publishes"] != len(pub) or e["prefill_forwards"] != len(pub):
@@ -7608,7 +7662,7 @@ def sharded_publish(torch, ranks, specs, params, ref, kw, kw_dense, tmp,
     same = sum(e["outs"][n] == ref[n][:SHARD_PUB_STEPS] for n, _, _ in pub)
     log(f"sharded: (e) the split plan at {{\"model\": {SHARD_RANKS}}} as "
         f"a fabric owner (kernel 2 on each rank's "
-        f"{LLAMA3_8B['n_heads'] // SHARD_RANKS} query heads), prompts "
+        f"{SHARD_MODEL['n_heads'] // SHARD_RANKS} query heads), prompts "
         f"{[len(p) for _, p, _ in pub]} x {SHARD_PUB_STEPS} steps in "
         f"{e['wall_s']:.2f} s: kernel 2 launches per rank {flash} == "
         f"{n_layers} x {e['prefill_forwards']} prefills, kernel 1 {ragged} "
@@ -7668,6 +7722,9 @@ def sharded_swap(ranks, card):
 # tpulab's bench rows on the card.  The serving rows at Llama-3-8B width
 # over one bf16 tree (phase 5's seed); the kernel sweep at tpulab's own
 # geometry; the host-tier rows at the arguments of tpulab's bench.py.
+#: the 8B-width rows' depth: 32 layers cut to 8 for the script's time
+#: limit (as phase 18's serves)
+ROWS_LAYERS = 8
 ROWS_DECODE_DISPATCH = dict(ks=(1, 4, 8, 16), lanes=4, steps=32,
                             prompt_len=8)
 ROWS_SPEC_DECODE = dict(k=8, lanes=2, steps=32,
@@ -7679,10 +7736,8 @@ ROWS_LLM_DECODE = dict(lanes=8, ctx=1024, page_size=16, iters=64)
 ROWS_SWEEP = dict(n_heads=8, n_layers=4, d_model=1024, page_size=32,
                   combos=((8, 2048), (32, 2048), (8, 8192), (8, 16384)))
 # tpulab's bench.py runs kv_offload, disagg and multi_model at their
-# default d_model 64 over 4 heads: head dim 16, which no kernel is built
-# for (64, 128, 256).  They run at hbm_arbiter's own width, d_model 256
-# over 4 heads (head dim 64); everything else is bench.py's.
-ROWS_HOST_WIDTH = dict(d_model=256, n_heads=4)
+# default d_model 64 over 4 heads (head dim 16, kernels 1 and 2's fma
+# body) and hbm_arbiter at its own d_model 256
 ROWS_KV_OFFLOAD = dict(n_low=4, n_hi=4, steps=20)
 ROWS_DISAGG = dict(n_requests=8, prompt_len=48, steps=8)
 ROWS_HBM = dict(n_llm=12)
@@ -7763,12 +7818,13 @@ def row_errors(row, path=""):
 
 
 def row_rates(row, path=""):
-    """Every ``*tok_s`` value of a row, at any depth."""
+    """Every ``*tok_s``, ``*tokens_s`` and ``*req_s`` value of a row, at
+    any depth."""
     out = {}
     items = row.items() if isinstance(row, dict) else enumerate(row)
     for k, v in items:
         here = f"{path}/{k}"
-        if isinstance(k, str) and k.endswith("tok_s"):
+        if isinstance(k, str) and k.endswith(("tok_s", "tokens_s", "req_s")):
             out[here] = v
         elif isinstance(v, (dict, list)):
             out.update(row_rates(v, here))
@@ -7802,19 +7858,22 @@ def hold_flag(torch, label, flag, rule, pairs, params, kw):
     return "; ".join(notes)
 
 
-def run_row(torch, name, fn, kw, expect, bf16=False):
+def run_row(torch, name, fn, kw, expect, bf16=False, head_dim=None):
     """``fn(**kw)`` once with kernels 1 and 2 counted from 0 and the
     batchers recorded; prints the row's JSON on its own line.  ``expect``
     (BatcherLog, row) -> (kernel 1 launches, kernel 2 launches) the row
-    must have made.  Fails on an error key, a tok/s <= 0, or launches
+    must have made.  Fails on an error key, a rate <= 0, or launches
     other than expected (with ``bf16`` every kernel 1 launch on
-    ``wgmma``)."""
+    ``wgmma``; with ``head_dim`` every launch of both at that D, kernel
+    1's on ``fma``)."""
     from tpulab_torch.ops.flash_attention import flash_attention
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
     for k in (ragged_paged_attention, flash_attention):
         k.launches = 0
         k.launches_by_body = dict.fromkeys(k.launches_by_body, 0)
+        k.launches_by_form = dict.fromkeys(k.launches_by_form, 0)
+        k.launches_by_head_dim = {}
     t0 = time.perf_counter()
     with BatcherLog() as rec:
         row = fn(**kw)
@@ -7835,9 +7894,18 @@ def run_row(torch, name, fn, kw, expect, bf16=False):
         raise AssertionError(f"rows: {name}: kernel 1 launches {ra} (by "
                              f"body {by_body}), kernel 2 {fl}; want "
                              f"{want_ra}, {want_fl}")
+    dims = [dict(k.launches_by_head_dim)
+            for k in (ragged_paged_attention, flash_attention)]
+    if head_dim is not None and (
+            by_body["fma"] != ra
+            or dims != [{head_dim: n} if n else {} for n in (ra, fl)]):
+        raise AssertionError(f"rows: {name}: kernel 1 by body {by_body}, "
+                             f"by head dim {dims[0]}, kernel 2 by head dim "
+                             f"{dims[1]}; want all at D {head_dim}, kernel "
+                             "1 on fma")
     log(f"rows: {name}: {secs:.1f} s; {len(rec.made)} batchers; kernel 1 "
-        f"launches {ra} {by_body}, kernel 2 {fl}, as counted from the "
-        "batchers' forwards")
+        f"launches {ra} {by_body} by head dim {dims[0]}, kernel 2 {fl} by "
+        f"head dim {dims[1]}, as counted from the batchers' forwards")
     return row, rec, secs, (ra, fl)
 
 
@@ -7910,7 +7978,7 @@ def phase_rows(torch, card):
 
     t_phase = time.perf_counter()
     c = LLAMA3_8B
-    L = c["n_layers"]
+    L = ROWS_LAYERS
     # the rows' own widths; the tree (``params=``) carries the rest
     width = dict(vocab=c["vocab"], d_model=c["d_model"],
                  n_heads=c["n_heads"], n_layers=L, n_kv_heads=c["n_kv_heads"],
@@ -7918,17 +7986,17 @@ def phase_rows(torch, card):
     t0 = time.perf_counter()
     params = full_width_params(torch, L, torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    log(f"rows: Llama-3-8B-width bf16 tree {time.perf_counter() - t0:.1f} "
-        "s")
+    log(f"rows: Llama-3-8B-width bf16 tree, {L} layers, "
+        f"{time.perf_counter() - t0:.1f} s")
     kw8 = dict(n_heads=c["n_heads"], n_layers=L, n_kv_heads=c["n_kv_heads"],
                rope_theta=c["rope_theta"], compute_dtype=torch.bfloat16)
     bf = torch.bfloat16
     rows, secs, notes = {}, {}, {}
     launches = [0, 0]
 
-    def row(name, fn, kw, expect, bf16=False):
+    def row(name, fn, kw, expect, bf16=False, head_dim=None):
         rows[name], rec, secs[name], n = run_row(torch, name, fn, kw,
-                                                 expect, bf16)
+                                                 expect, bf16, head_dim)
         launches[0] += n[0]
         launches[1] += n[1]
         return rows[name], rec
@@ -8025,7 +8093,8 @@ def phase_rows(torch, card):
     else:
         notes["speculative"] = "equal"
 
-    # the host-tier rows, f32 at head dim 64, on trees drawn here (seed 0)
+    # the host-tier rows, f32, on trees drawn here (seed 0): bench.py's
+    # d_model 64 over 4 heads (head dim 16), hbm_arbiter its own d 256
     def small_tree(vocab, d_model, n_heads, n_layers):
         return init_transformer_params(vocab, d_model, n_heads, n_layers,
                                        4 * d_model, device="cuda")
@@ -8034,15 +8103,14 @@ def phase_rows(torch, card):
         return dict(n_heads=n_heads, n_layers=n_layers, n_kv_heads=n_heads,
                     compute_dtype=torch.float32)
 
-    hw = ROWS_HOST_WIDTH
     r, _ = row("kv_offload", benchmark_kv_offload,
-               dict(ROWS_KV_OFFLOAD, **hw, device="cuda",
-                    params=small_tree(256, hw["d_model"], hw["n_heads"], 2)),
-               batcher_launches(2))
-    tree = small_tree(256, hw["d_model"], hw["n_heads"], 2)
+               dict(ROWS_KV_OFFLOAD, device="cuda",
+                    params=small_tree(256, 64, 4, 2)),
+               batcher_launches(2), head_dim=16)
+    tree = small_tree(256, 64, 4, 2)
     r, rec = row("disagg", benchmark_disagg,
-                 dict(ROWS_DISAGG, **hw, params=tree, device="cuda"),
-                 batcher_launches(2))
+                 dict(ROWS_DISAGG, params=tree, device="cuda"),
+                 batcher_launches(2), head_dim=16)
     # a lost shipment falls back to a local prefill and still gives equal
     # tokens: the mechanism is held to its counts as the CPU test holds it
     d, n_req = r["disagg"], ROWS_DISAGG["n_requests"]
@@ -8071,8 +8139,8 @@ def phase_rows(torch, card):
                              "bit for bit)")
     # its own draw: the baseline's cold rebuild re-draws the weights
     r, _ = row("multi_model", benchmark_multi_model,
-               dict(ROWS_MULTI_MODEL, **hw, device="cuda"),
-               batcher_launches(2))
+               dict(ROWS_MULTI_MODEL, device="cuda"),
+               batcher_launches(2), head_dim=16)
     for k in ("parity", "llm_parity", "vit_parity"):
         notes[f"multi_model {k}"] = hold_flag(
             torch, f"multi_model {k}", r[k], "exact", [], None, None)
@@ -8106,7 +8174,7 @@ MEM_STREAM = dict(tokens=16384, window_count=4, window=2048, overlap=512,
                   chunk=512, seed=17)
 MEM_NLL_TOL = 5e-2   # nats, |window NLL flash - plain|, both bf16 (a mean
 #                      over 1536 tokens; per-token bf16 noise is 6-9e-2)
-MEM_ENGINE_MAX_BATCH = 2        # (e): two buckets, 1 and 2
+MEM_ENGINE_MAX_BATCH = 1        # (e): one bucket
 
 
 def mem_arenas(torch, card):
@@ -8451,9 +8519,8 @@ def mem_tools(torch, card):
             raise RuntimeError(f"memory (e): build_engine exited "
                                f"{run.returncode}: {run.stderr[-2000:]}")
         rep = json.loads(run.stdout)
-        if rep["buckets"] != [1, 2] or sorted(os.listdir(out)) != [
-                "bucket_1.pt2", "bucket_2.pt2", "params.npz", "spec.json",
-                "tree.json"]:
+        if rep["buckets"] != [1] or sorted(os.listdir(out)) != [
+                "bucket_1.pt2", "params.npz", "spec.json", "tree.json"]:
             raise RuntimeError(f"memory (e): artifact {rep} "
                                f"{sorted(os.listdir(out))}")
         t0 = time.perf_counter()
@@ -8461,12 +8528,12 @@ def mem_tools(torch, card):
         load_s = time.perf_counter() - t0
         mem = Runtime().compile_model(build_model(
             "resnet50", max_batch_size=MEM_ENGINE_MAX_BATCH))
-        x = card_images(torch, 2, 31)
-        got = loaded(2, {"input": x})["logits"]
-        want = mem(2, {"input": x})["logits"]
+        x = card_images(torch, 1, 31)
+        got = loaded(1, {"input": x})["logits"]
+        want = mem(1, {"input": x})["logits"]
         if not torch.equal(got, want):
             raise RuntimeError("memory (e): the artifact's logits differ "
-                               "from the in-memory model's at bucket 2 (max "
+                               "from the in-memory model's at bucket 1 (max "
                                f"{float((got - want).abs().max()):.3e})")
         del loaded, mem
         onnx_path = os.path.join(tmp, "resnet50.onnx")
@@ -8489,7 +8556,7 @@ def mem_tools(torch, card):
         f"resnet50 --max-batch {MEM_ENGINE_MAX_BATCH} (the card, no --device):"
         f" buckets {rep['buckets']}, {rep['weights_bytes']} weight bytes, "
         f"build_s {rep['build_s']}, {build_s:.1f} s as a process; "
-        f"load_engine without apply_fn in {load_s:.2f} s: bucket 2 logits "
+        f"load_engine without apply_fn in {load_s:.2f} s: bucket 1 logits "
         "bit for bit the in-memory model's; python -m "
         f"tpulab_torch.tools.onnx_summary on phase 16's ResNet-50 ONNX: "
         f"importable, {rep2['nodes']} nodes, {rep2['weight_bytes']} weight "
@@ -8724,12 +8791,8 @@ def dtype_kernels(torch, timer, rows):
                        <= lengths[:, None, None])
                 lib_ms = sdpa_decode_ms(torch, timer, q[:, None], pool, tab,
                                         vis, g["hq"] // g["hkv"])
-            n_ctx = lanes * (pos + 1)
-            bound_ms, by = bound(
-                n_ctx * g["hkv"] * g["d"] * 2 * pool.element_size()
-                + 2 * lanes * g["hq"] * g["d"] * q.element_size()
-                + lanes * g["mp"] * 4 + lanes * 4,
-                4 * g["d"] * g["hq"] * n_ctx, "f32")
+            bound_ms, by = pd_bound(lanes, pos, q.element_size(),
+                                    pool.element_size(), "f32")
             row("paged", case, dname, f"ring x{splits}", err, ms, plain_ms,
                 bound_ms, by, lib_ms)
     del pools
@@ -9164,13 +9227,296 @@ def phase_dtypes(torch, timer, rows, card):
     return new, forms
 
 
+# ---------------------------------------------------------------- phase 19
+# tpulab's own small-model geometry: d_model 32 over 2 heads (its tests,
+# five bench rows), bench.py's d_model 64 over 4 (sharded_decode, the
+# host rows of phase 15): head dim 16, f32, on the fma bodies
+SM_SHORT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+            "float8_e4m3fn": "e4m3", "float8_e5m2": "e5m2"}
+SM_PAIRS = tuple((f"{SM_SHORT[q]}/{SM_SHORT[kv]}", q, kv)
+                 for q in ("float32", "bfloat16", "float16")
+                 for kv in SM_SHORT)
+#: the rows' batchers: 2 lanes, page 8, max_len 64 (8 pages a lane)
+SM_GEOM = dict(b=2, hq=2, hkv=2, d=16, s=8, mp=8)
+#: (case, q_lens, kv_lens) at SM_GEOM: a decode, a prompt chunk
+SM_RAGGED = (("decode 2 x 40", [1, 1], [40, 33]),
+             ("chunk 2 x 24", [24, 18], [24, 18]))
+#: a long decode at D 16: 8 lanes x 1024 positions, page 16
+SM_LONG = dict(b=8, hq=2, hkv=2, d=16, s=16, mp=64)
+#: kernel 3's groups past 8 at D 128, bf16: (case, Hq, Hkv)
+SM_GROUPS = (("G16 8 x 1024", 32, 2), ("MQA 8 x 1024", 32, 1))
+SM_FLASH_T = 32         # the split plan's prefill bucket of an 18-token prompt
+SM_LAYERS = 2
+#: the rows at bench.py's non-degraded arguments, with the flags that must
+#: be True ("a/b": row["a"]["b"])
+SM_ROWS = (
+    ("failover_recovery", "tpulab_torch.rpc.replica",
+     dict(prompt_len=24, steps=24, kill_at=8),
+     ("resume_on/parity", "resume_off/parity")),
+    ("prefix_affinity", "tpulab_torch.fleet.bench",
+     dict(n_requests=36, steps=6),
+     ("affinity_off/parity", "affinity_off/complete", "affinity_on/parity",
+      "affinity_on/complete")),
+    ("fleet_obs", "tpulab_torch.fleet.bench", dict(n_requests=24, steps=6),
+     ("off/complete", "armed/complete")),
+    ("kv_fabric", "tpulab_torch.kvfabric.bench",
+     dict(n_requests=24, steps=4), ("fabric_off/parity", "fabric_on/parity")),
+    ("batch_soak", "tpulab_torch.batch.bench",
+     dict(n_cycles=4, n_batch_items=24), ("batch_parity", "online_parity")),
+)
+SM_SHARDED_FLAGS = ("parity", "sampled_parity", "one_sync_per_dispatch")
+
+
+def small_row(torch, timer, wrapper, kernel, case, dname, call, plain, body,
+              bound_, lib=None):
+    """One phase 19 case: ``call`` (one launch of ``wrapper``) relaunched
+    bit for bit on ``body``, held against ``plain``, timed beside the
+    plain version, the bound and ``lib`` (SDPA, where one call computes
+    the same function)."""
+    label = f"small: {kernel} {case} {dname}"
+    got = launch_twice(torch, label, wrapper, call, body)
+    err = check_close(torch, label, got, plain())
+    ms = timer(call, iters=20)
+    plain_ms = timer(plain, iters=3, warmup=1)
+    lib_ms = None if lib is None else lib()
+    bound_ms, by = bound_
+    log(f"small: {kernel} {case:<20} {dname:<9} err={err:.2e} "
+        f"kernel={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f} ({by}) "
+        f"ms | yardstick, unused by the port: sdpa={fmt_ms(lib_ms)} ms")
+    return got, dict(case=case, dtypes=dname, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                     library_ms=lib_ms)
+
+
+def small_kernels(torch, timer):
+    """(a) Kernel 1 at D 16 for every (q, page) pair, kernel 2 at D 16 in
+    f32 / bf16 / f16, kernel 3 at D 16 and 32 for every pair and at G 16
+    and MQA (D 128), each against its plain version."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        group_blocks, paged_decode_attention,
+        paged_decode_attention_reference, paged_splits)
+    from tpulab_torch.ops.ragged_attention import (
+        _sm_count, ragged_body, ragged_paged_attention,
+        ragged_paged_attention_reference)
+
+    n_sm = _sm_count(torch.cuda.current_device())
+    rng = np.random.default_rng(21)
+    new = {"ragged": [], "flash": [], "paged": []}
+
+    def lens(x):
+        return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+    def ragged_case(g, pool32, tables, case, dname, q_name, kv_name, q_lens_l,
+                    kv_lens_l, planted=False):
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        pool = pool32.to(kv_dt)
+        m = max(q_lens_l)
+        q = torch.from_numpy(rng.standard_normal(
+            (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+        q_lens, kv_lens = lens(q_lens_l), lens(kv_lens_l)
+        args = (q, pool, tables, q_lens, kv_lens)
+        body = ragged_body(q_dt, kv_dt, g["d"])
+        if body != "fma":
+            raise AssertionError(f"small: ragged D {g['d']} {dname} on {body}")
+        lib = None
+        if q_dt == kv_dt:
+            t = g["mp"] * g["s"]
+            pos = (kv_lens - q_lens)[:, None] + torch.arange(m, device="cuda")
+            ar = torch.arange(t, device="cuda")[None, None]
+            vis = (ar <= pos[..., None]) & (ar < kv_lens[:, None, None])
+
+            def lib():
+                return sdpa_decode_ms(torch, timer, q, pool, tables, vis,
+                                      g["hq"] // g["hkv"])
+        kind = "f32" if q_dt == torch.float32 else "bf16"
+        got, r = small_row(
+            torch, timer, ragged_paged_attention, "ragged",
+            f"D{g['d']} {case}", dname,
+            lambda: ragged_paged_attention(*args),
+            lambda: ragged_paged_attention_reference(*args), body,
+            ra_bound(q_lens_l, kv_lens_l, m, q.element_size(),
+                     pool.element_size(), kind, g), lib)
+        if planted:
+            skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]],
+                             1)
+            check_rejects(torch, f"ragged skipped page, D {g['d']}, {dname}",
+                          got, ragged_paged_attention_reference(
+                              q, pool, skip, q_lens, kv_lens - g["s"]))
+        r["body"] = f"{body} x1"
+        new["ragged"].append(r)
+
+    g = SM_GEOM
+    pool32, tables = serving_pool(torch, np, rng, g)
+    for dname, q_name, kv_name in SM_PAIRS:
+        for case, q_lens_l, kv_lens_l in (
+                SM_RAGGED if dname == "f32/f32" else SM_RAGGED[:1]):
+            ragged_case(g, pool32, tables, case, dname, q_name, kv_name,
+                        q_lens_l, kv_lens_l)
+    g = SM_LONG
+    pool32, tables = serving_pool(torch, np, rng, g)
+    ragged_case(g, pool32, tables, "decode 8 x 1024", "f32/f32", "float32",
+                "float32", [1] * 8, [1024] * 8, planted=True)
+
+    # kernel 2: the rows' split-plan prefill (H 2, T 32), and T 2048
+    for dname in ("float32", "bfloat16", "float16"):
+        for causal in (True, False):
+            r = flash_case(torch, timer, rng, 1, 2, 16, SM_FLASH_T, dname,
+                           causal, False)
+            r["case"] = f"D16 {r['case']}"
+            new["flash"].append(r)
+    r = flash_case(torch, timer, rng, 1, 2, 16, 2048, "float32", True, True)
+    r["case"] = f"D16 {r['case']}"
+    new["flash"].append(r)
+    if {r["body"] for r in new["flash"]} != {"fma"}:
+        raise AssertionError("small: flash D 16 off the fma body")
+
+    def paged_case(g, pool32, tables, case, dname, q_name, kv_name, pos,
+                   planted=False):
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        pool = pool32.to(kv_dt)
+        lanes = tables.shape[0]
+        q = torch.from_numpy(rng.standard_normal(
+            (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+        lengths = lens([pos] * lanes)
+        args = (q, pool, tables, lengths)
+        splits = paged_splits(lanes, g["hkv"] * group_blocks(g["hq"],
+                                                             g["hkv"]),
+                              g["mp"], g["s"], n_sm)
+        lib = None
+        if q_dt == kv_dt:
+            vis = (torch.arange(g["mp"] * g["s"], device="cuda")[None, None]
+                   <= lengths[:, None, None])
+
+            def lib():
+                return sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
+                                      vis, g["hq"] // g["hkv"])
+        kind = "f32" if q_dt == torch.float32 else "bf16"
+        got, r = small_row(
+            torch, timer, paged_decode_attention, "paged", case, dname,
+            lambda: paged_decode_attention(*args),
+            lambda: paged_decode_attention_reference(*args), None,
+            pd_bound(lanes, pos, q.element_size(), pool.element_size(), kind,
+                     g), lib)
+        if planted:
+            skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]],
+                             1)
+            check_rejects(torch, f"paged skipped page, {case}, {dname}",
+                          got, paged_decode_attention_reference(
+                              q, pool, skip, lengths - g["s"]))
+        r["body"] = f"ring x{splits}"
+        new["paged"].append(r)
+
+    for d in (16, 32):
+        g = dict(SM_GEOM, d=d)
+        pool32, tables = serving_pool(torch, np, rng, g)
+        for dname, q_name, kv_name in SM_PAIRS:
+            paged_case(g, pool32, tables, f"D{d} 2 x 40", dname, q_name,
+                       kv_name, 39)
+        g = dict(SM_LONG, d=d)
+        pool32, tables = serving_pool(torch, np, rng, g)
+        paged_case(g, pool32, tables, f"D{d} 8 x 1024", "f32/f32", "float32",
+                   "float32", 1023, planted=True)
+    for case, hq, hkv in SM_GROUPS:
+        g = dict(RA_GEOM, hq=hq, hkv=hkv)
+        pool32, tables = serving_pool(torch, np, rng, g)
+        paged_case(g, pool32, tables, case, "bf16/bf16", "bfloat16",
+                   "bfloat16", 1023, planted=True)
+    del pool32
+    torch.cuda.empty_cache()
+    return new
+
+
+def flag_at(row, path):
+    for k in path.split("/"):
+        row = row[k]
+    return row
+
+
+def small_rows(torch):
+    """(b) The five rows at tpulab's small model and
+    ``benchmark_sharded_decode`` at its defaults on a one-rank NCCL group,
+    each with ``device=None`` (the card): no error, rates > 0, the flags
+    True, kernel 1 == 2 x the batchers' forward steps and kernel 2 == 2 x
+    their split-plan prefills, every launch at D 16 (kernel 1 on fma)."""
+    import importlib
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from tpulab_torch.engine.sharded import benchmark_sharded_decode
+    from tpulab_torch.parallel import multihost
+
+    rows, secs, launches = {}, {}, [0, 0]
+
+    def run(name, fn, kw, flags):
+        rows[name], _, secs[name], n = run_row(
+            torch, name, fn, kw, batcher_launches(SM_LAYERS), head_dim=16)
+        launches[0] += n[0]
+        launches[1] += n[1]
+        bad = {f: flag_at(rows[name], f) for f in flags
+               if flag_at(rows[name], f) is not True}
+        if bad:
+            raise AssertionError(f"small: {name} flags {bad}")
+
+    for name, module, kw, flags in SM_ROWS:
+        run(name, getattr(importlib.import_module(module),
+                          f"benchmark_{name}"), kw, flags)
+    tmp = tempfile.mkdtemp(prefix="small-sharded-")
+    try:
+        multihost.initialize(f"file://{tmp}/store", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError("small: the card's group is not NCCL")
+        run("sharded_decode", benchmark_sharded_decode,
+            dict(model_shards=1), SM_SHARDED_FLAGS)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    f = rows["failover_recovery"]
+    log("small: failover_recovery recovery gap ms on / off "
+        f"{f['resume_on']['recovery_gap_ms']} / "
+        f"{f['resume_off']['recovery_gap_ms']}, replayed "
+        f"{f['resume_on']['tokens_replayed']} / "
+        f"{f['resume_off']['tokens_replayed']}; prefix_affinity hit rate "
+        f"off / on {rows['prefix_affinity']['affinity_off']['hit_rate']} / "
+        f"{rows['prefix_affinity']['affinity_on']['hit_rate']}; kv_fabric "
+        "effective hit rate off / on "
+        f"{rows['kv_fabric']['fabric_off']['effective_hit_rate']} / "
+        f"{rows['kv_fabric']['fabric_on']['effective_hit_rate']}; "
+        f"batch_soak lift {rows['batch_soak']['tokens_s_lift']}; "
+        "sharded_decode tok/s single / {\"model\": 1} "
+        f"{rows['sharded_decode']['single']['tok_s']:.1f} / "
+        f"{rows['sharded_decode']['sharded']['tok_s']:.1f}")
+    log("small: seconds by row " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}))
+    return launches
+
+
+def phase_small(torch, timer, card):
+    """Phase 19: tpulab's own small-model geometry, kernels and rows."""
+    t0 = time.perf_counter()
+    new = small_kernels(torch, timer)
+    log(f"small: (a) kernels {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    launches = small_rows(torch)
+    log(f"small: (b) rows {time.perf_counter() - t1:.1f} s; kernel 1 "
+        f"launches {launches[0]}, kernel 2 {launches[1]}, all at D 16 "
+        f"[{card}]")
+    log(f"small: phase {time.perf_counter() - t0:.1f} s")
+    return new, launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
-                 extra=None, forms=None):
+                 extra=None, forms=None, small=None):
     """One kernel's line: times of its main case, the max error over
     that case's dtype mix, (kernels with several bodies) the body, with
-    its split count, that ran each case, the main case in other dtypes
+    its split count, that ran each case, other cases and dtypes
     (``extra``: key -> its case and dtype mix, e.g. ``"e4m3"``, ``"f16"``,
-    ``"e5m2"``) and phase 18's main-path launches by form (``forms``)."""
+    ``"d16"``), phase 18's main-path launches by form (``forms``) and
+    phase 19's at D 16 (``small``)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -9190,6 +9536,8 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
             if k in r}
     if forms is not None:
         entry["phase18_launches_by_form"] = forms
+    if small is not None:
+        entry["phase19_launches_d16"] = small
     return entry
 
 
@@ -9210,6 +9558,15 @@ def main(argv=None) -> int:
     from tpulab_torch.cuda.platform import card_name_and_power_limit
 
     t_all = time.perf_counter()
+    # a run still going near its 1200 s limit prints every thread's
+    # stack to stderr and goes on: the end of stderr then says where it
+    # was; each phase also stamps its end there
+    faulthandler.dump_traceback_later(STACKS_AT_S, exit=False)
+
+    def stamp(name):
+        print(f"chip_smoke: {name} done at {time.perf_counter() - t_all:.1f}"
+              " s", file=sys.stderr, flush=True)
+
     # phase 1: device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -9222,6 +9579,7 @@ def main(argv=None) -> int:
         "cuDNN")
 
     phase_build()
+    stamp("build")
 
     timer = Timer(torch)
     rows = {}
@@ -9235,6 +9593,7 @@ def main(argv=None) -> int:
     e4m3_rows = phase_e4m3_kernels(torch, timer, rows)
     log(f"kernels: e4m3 pools {time.perf_counter() - t0:.1f} s")
     phase_host(torch)
+    stamp("kernels")
 
     t0 = time.perf_counter()
     op_launches = phase_invariants(torch)
@@ -9251,25 +9610,42 @@ def main(argv=None) -> int:
     phase_spec_f32(torch)
     phase_int8_spec_f32(torch)
     log(f"invariants: phase {time.perf_counter() - t0:.1f} s")
+    stamp("invariants")
     t0 = time.perf_counter()
     st = phase_serve(torch, card, args.profile)
     log(f"serve: phase {time.perf_counter() - t0:.1f} s")
+    stamp("serve")
     phase_infer(torch, card)
+    stamp("infer")
     import_launches = phase_import(torch, card)
+    stamp("import")
     hbm_launches = phase_hbm(torch, card)
+    stamp("hbm")
     svc_launches = phase_service(torch, card)
+    stamp("service")
     obs_launches = phase_obs(torch, card)
+    stamp("obs")
     batch_launches = phase_batch(torch, card)
+    stamp("batch")
     fleet_launches = phase_fleet(torch, card)
+    stamp("fleet")
     fab = phase_fabric(torch, card)
+    stamp("fabric")
     par_launches = phase_parallel(torch, card)
+    stamp("parallel")
     shard_launches, shard_flash = phase_sharded(torch, card)
+    stamp("sharded")
     rows_launches = phase_rows(torch, card)
+    stamp("rows")
     mem_launches = phase_memory(torch, card)
+    stamp("memory")
     dt_rows, dt_forms = phase_dtypes(
         torch, timer, {k: rows[k] + e4m3_rows.get(k, []) for k in rows},
         card)
     dt_launches = {k: sum(v.values()) for k, v in dt_forms.items()}
+    stamp("dtypes")
+    sm_rows, sm_launches = phase_small(torch, timer, card)
+    stamp("small")
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -9283,9 +9659,10 @@ def main(argv=None) -> int:
                      + st["disagg"] + hbm_launches + svc_launches
                      + obs_launches + batch_launches + fleet_launches
                      + fab["ragged"] + shard_launches + rows_launches[0]
-                     + import_launches + dt_launches["ragged"],
+                     + import_launches + dt_launches["ragged"]
+                     + sm_launches[0],
                      rows["ragged"] + e4m3_rows["ragged"]
-                     + dt_rows["ragged"],
+                     + dt_rows["ragged"] + sm_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
@@ -9301,19 +9678,22 @@ def main(argv=None) -> int:
                      "split plan, (f) weight swap) + the rows phase + the "
                      "import phase's HF Llama serve (4 layers) + the "
                      "dtypes phase's serves (f16 compute, bf16 over e5m2 "
-                     "pages; 8 layers, both plans)",
+                     "pages; 8 layers, both plans) + the small phase's "
+                     "rows (D 16, fma)",
                      {"e4m3": ("all_decode", "bf16/e4m3"),
                       "f16": ("all_decode", "f16/f16"),
-                      "e5m2": ("all_decode", "bf16/e5m2")},
-                     dt_forms["ragged"]),
+                      "e5m2": ("all_decode", "bf16/e5m2"),
+                      "d16": ("D16 decode 8 x 1024", "f32/f32"),
+                      "d16_rows": ("D16 decode 2 x 40", "f32/f32")},
+                     dt_forms["ragged"], sm_launches[0]),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
                      + par_launches + shard_flash + rows_launches[1]
-                     + mem_launches + dt_launches["flash"],
-                     rows["flash"] + dt_rows["flash"],
+                     + mem_launches + dt_launches["flash"] + sm_launches[1],
+                     rows["flash"] + dt_rows["flash"] + sm_rows["flash"],
                      (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
@@ -9324,21 +9704,31 @@ def main(argv=None) -> int:
                      "owner, both ranks (H 16 a rank) + the rows phase's "
                      "split-plan prefills + the memory phase's stream "
                      "(32 x its windows) + the dtypes phase's split-plan "
-                     "serves (f16 and bf16, 8 layers)",
-                     {"f16": (f"T={FA_TS[-1]} causal", "float16")},
-                     dt_forms["flash"]),
+                     "serves (f16 and bf16, 8 layers) + the small phase's "
+                     "kv_fabric prefills (D 16, fma)",
+                     {"f16": (f"T={FA_TS[-1]} causal", "float16"),
+                      "d16": ("D16 T=2048 causal H=2", "float32"),
+                      "d16_rows": (f"D16 T={SM_FLASH_T} causal H=2",
+                                   "float32")},
+                     dt_forms["flash"], sm_launches[1]),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cu",
                      "tpulab/ops/paged_attention.py:221", op_launches,
-                     rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"],
+                     rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"]
+                     + sm_rows["paged"],
                      ("8 x 1024", "bf16/bf16"),
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
                      "decode op over every layer of a model-written pool, "
                      "bf16 and e4m3",
                      {"e4m3": ("8 x 1024", "bf16/e4m3"),
                       "f16": ("8 x 1024", "f16/f16"),
-                      "e5m2": ("8 x 1024", "bf16/e5m2")}),
+                      "e5m2": ("8 x 1024", "bf16/e5m2"),
+                      "d16": ("D16 8 x 1024", "f32/f32"),
+                      "d32": ("D32 8 x 1024", "f32/f32"),
+                      "g16": ("G16 8 x 1024", "bf16/bf16"),
+                      "mqa": ("MQA 8 x 1024", "bf16/bf16")}),
     ]
+    faulthandler.cancel_dump_traceback_later()
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,17 +2,23 @@
 
 A bench row submits each burst of requests from the calling thread while
 the batcher's scheduler thread runs; whether the scheduler's pass lands
-between two submits of one burst (so that the lanes start a round apart)
-is thread timing, in tpulab as in the port.  :func:`settled_schedulers`
-makes it deterministic in both: a scheduler thread woken from its idle
-wait lets :data:`SETTLE_S` pass, without its lock, before it takes its
-pass, so a burst submitted back to back is queued whole by then.
-:func:`head_first_bursts` makes the other order deterministic: the
-burst's first request decodes before the rest are queued.  The
-rows' code and the batchers' scheduling are otherwise untouched.
+between two submits of one burst (so that the lanes start a round apart),
+or before or after a burst sent on a streamed token, is thread timing,
+in tpulab as in the port.  :func:`settled_schedulers` makes it
+deterministic in both, without a clock: the threads that submit run in
+lockstep with the schedulers.  Such a client thread runs from its first
+``submit`` until it waits (on a future's result, an event, a semaphore:
+every such wait is a ``threading.Condition`` wait; or a thread join),
+and runs again from the moment it is notified; a scheduler takes no pass
+(its loop's hold of its condition) while a live client runs.  So every
+burst is queued whole, at the same point of the scheduler's walk, every
+time.  :func:`head_first_bursts` makes another order deterministic: the
+burst's first request decodes before the rest are queued.  The rows'
+code and the batchers' scheduling are otherwise untouched.
 """
 
 import contextlib
+import sys
 import threading
 import time
 import types
@@ -24,31 +30,136 @@ import pytest
 from tpulab.models.transformer import init_transformer_params as jax_init
 from tpulab_torch.models.convert import tree_from_numpy
 
-SETTLE_S = 0.05
+#: a guard, not a setting: the longest a scheduler waits for its clients.
+#: A client runs only until it next waits, so only a thread that blocks
+#: some other way reaches it, and the block then fails.
+CLIENT_GUARD_S = 60.0
+
+_real_wait = threading.Condition.wait
+_real_notify = threading.Condition.notify
+_real_join = threading.Thread.join
 
 
-class _SettlingCondition(threading.Condition):
-    def wait(self, timeout=None):
-        woken = super().wait(timeout)
-        if threading.current_thread().name == "cbatch":
-            self.release()
-            try:
-                time.sleep(SETTLE_S)
-            finally:
-                self.acquire()
-        return woken
+class _Clients:
+    """The threads that submit to a batcher (never a scheduler), each
+    running or waiting, and the schedulers' gate on them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.changed = threading.Condition(self.lock)
+        self.threads = {}          # ident -> Thread, every client
+        self.running = {}          # ident -> Thread, clients not waiting
+        self.stalls = 0
+
+    def submits(self):
+        t = threading.current_thread()
+        if not t.name.startswith("cbatch"):
+            with self.lock:
+                self.threads[t.ident] = self.running[t.ident] = t
+
+    def waits(self):
+        with self.lock:
+            self.running.pop(threading.get_ident(), None)
+            self.changed.notify_all()
+
+    def runs(self, idents):
+        with self.lock:
+            for i in idents:
+                if i in self.threads:
+                    self.running[i] = self.threads[i]
+
+    def settle(self):
+        """Return once no live client runs."""
+        waited = 0.0
+        with self.lock:
+            while any(t.is_alive() for t in self.running.values()):
+                if waited >= CLIENT_GUARD_S:
+                    self.stalls += 1
+                    return
+                _real_wait(self.changed, 0.01)   # a dead client wakes no one
+                waited += 0.01
+
+
+def _in_scheduler_loop():
+    """The caller of the caller is a scheduler thread's loop (the port's
+    ``_loop``, tpulab's ``_run``)."""
+    return (threading.current_thread().name == "cbatch"
+            and sys._getframe(2).f_code.co_name in ("_loop", "_run"))
 
 
 @contextlib.contextmanager
 def settled_schedulers(*modules):
     """Batchers built inside the block, in each of ``modules`` (tpulab's and
-    the port's ``engine.paged``), settle after each wake-up."""
+    the port's ``engine.paged``), take no pass while a client runs."""
+    clients = _Clients()
+
+    class SettlingCondition(threading.Condition):
+        def __enter__(self):
+            if _in_scheduler_loop():
+                clients.settle()
+            return super().__enter__()
+
+        def wait(self, timeout=None):
+            woken = super().wait(timeout)
+            if _in_scheduler_loop():
+                self.release()
+                try:
+                    clients.settle()
+                finally:
+                    self.acquire()
+            return woken
+
+    def waiting(self, timeout=None):
+        # every waiter in arrival order (the order notify wakes them in),
+        # kept under the condition's own lock like its waiter deque
+        ident = threading.get_ident()
+        queue = self.__dict__.setdefault("_arrivals", [])
+        queue.append(ident)
+        if ident in clients.threads:
+            clients.waits()
+        try:
+            return _real_wait(self, timeout)
+        finally:
+            if ident in queue:                  # timed out: not notified
+                queue.remove(ident)
+            clients.runs([ident])
+
+    def notifying(self, n=1):
+        queue = self.__dict__.get("_arrivals")
+        if queue:
+            woken, queue[:n] = queue[:n], []
+            clients.runs(woken)
+        return _real_notify(self, n)
+
+    def joining(self, timeout=None):
+        client = threading.get_ident() in clients.threads
+        if client:
+            clients.waits()
+        try:
+            return _real_join(self, timeout)
+        finally:
+            if client:
+                clients.runs([threading.get_ident()])
+
     proxy = types.SimpleNamespace(**vars(threading))
-    proxy.Condition = _SettlingCondition
+    proxy.Condition = SettlingCondition
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(threading.Condition, "wait", waiting)
+        mp.setattr(threading.Condition, "notify", notifying)
+        mp.setattr(threading.Thread, "join", joining)
         for m in modules:
             mp.setattr(m, "threading", proxy)
+            for name in ("submit", "submit_shipped"):
+                real = getattr(m.ContinuousBatcher, name)
+
+                def submitting(self, *a, _real=real, **kw):
+                    clients.submits()
+                    return _real(self, *a, **kw)
+                mp.setattr(m.ContinuousBatcher, name, submitting)
         yield
+    assert not clients.stalls, (
+        f"{clients.stalls} scheduler passes waited {CLIENT_GUARD_S} s for "
+        "a client that neither waited nor exited")
 
 
 @contextlib.contextmanager

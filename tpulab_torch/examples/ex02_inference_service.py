@@ -6,6 +6,9 @@ the server control lambda) + optional dynamic batching.
 
     python -m tpulab_torch.examples.ex02_inference_service --model resnet50 \
         --uint8 --port 50051 --metrics-port 9090 --batching
+
+The container image and Kubernetes manifest that run it on a GPU node
+are in ``tpulab_torch/examples/deploy/``.
 """
 
 import argparse
@@ -13,7 +16,9 @@ import argparse
 from tpulab_torch.examples._device import add_device_arg
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
+    """The service's command line (the deployment's manifest and image
+    pass tpulab's arguments)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="resnet50")
     ap.add_argument("--port", type=int, default=50051)
@@ -28,7 +33,11 @@ def main(argv=None):
                     action="store_false", default=True,
                     help="accepted for tpulab's command lines: the port "
                          "copies each input on its own either way")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     import numpy as np
     import tpulab_torch

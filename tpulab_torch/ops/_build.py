@@ -9,9 +9,12 @@ seconds)::
          -o <lib>.so csrc/<name>.cu
 
 ``--split-compile=0`` runs the device compiler's optimization passes on
-every CPU of the host: the kernels' 175 dtype and head-dim
-instantiations build in about half the time (40.2 s against 76.8 s on
-an H100's host, ``tools/kernel_ab.py``).
+every CPU of the host: the kernels' dtype and head-dim instantiations
+built in about half the time (175 of them in 40.2 s against 76.8 s on
+an H100's host, ``tools/kernel_ab.py``).  With D 16 on all three
+kernels and D 32 on the paged one, ``nvcc -Xptxas -v`` reports 259
+(ragged 79, flash 15, paged 165), built in 42.6-50.2 s wall on an
+H100's host (``chip_smoke.py``, the paged library the longest).
 
 The library lands in ``build/tpulab_torch/`` at the repository root (git
 ignores it), named by a hash of the source, the shared headers

@@ -121,11 +121,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
-// N consecutive values from shared memory as f32 (N even; the address
-// aligned to N values, up to 16 bytes).
+// N consecutive values from shared memory as f32 (N 1 or even; the
+// address aligned to N values, up to 16 bytes).  N 1 is one output dim a
+// lane of a P.V at D 16 or 32.
 template <int N>
 __device__ __forceinline__ void load_vals(const float* p, float* out) {
-  if constexpr (N % 4 == 0) {
+  if constexpr (N == 1) {
+    out[0] = *p;
+  } else if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N; i += 4) {
       float4 r = *reinterpret_cast<const float4*>(p + i);
@@ -193,11 +196,17 @@ __device__ __forceinline__ void load_vals16(const void* p, float* out) {
 template <int N>
 __device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
                                           float* out) {
-  load_vals16<N, __nv_bfloat162>(p, out);
+  if constexpr (N == 1)
+    out[0] = to_f(*p);
+  else
+    load_vals16<N, __nv_bfloat162>(p, out);
 }
 template <int N>
 __device__ __forceinline__ void load_vals(const __half* p, float* out) {
-  load_vals16<N, __half2>(p, out);
+  if constexpr (N == 1)
+    out[0] = to_f(*p);
+  else
+    load_vals16<N, __half2>(p, out);
 }
 
 // N fp8 values (N even; the address aligned to N values, up to 16).
@@ -229,11 +238,17 @@ __device__ __forceinline__ void load_vals8(const F8* p, float* out) {
 }
 template <int N>
 __device__ __forceinline__ void load_vals(const e4m3* p, float* out) {
-  load_vals8<N>(p, out);
+  if constexpr (N == 1)
+    out[0] = to_f(*p);
+  else
+    load_vals8<N>(p, out);
 }
 template <int N>
 __device__ __forceinline__ void load_vals(const e5m2* p, float* out) {
-  load_vals8<N>(p, out);
+  if constexpr (N == 1)
+    out[0] = to_f(*p);
+  else
+    load_vals8<N>(p, out);
 }
 
 // Opt a kernel into `smem` bytes of dynamic shared memory on the current

@@ -36,15 +36,17 @@
 //   keys past T or past a row's position weigh 0.  Scores are scaled in
 //   f32 after the product, so besides f32 summation order the one new
 //   rounding against the plain version is P to E.
-// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 or f16 with D 32 or 256:
+// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 or f16 with D 16, 32 or
+//   256:
 //   every product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before
 //   the dot.  One block per (64-row query tile, b * H + h), heaviest
 //   first; K and V tiles staged by cp.async, double-buffered; a 16 x 16
 //   thread grid holds 4 rows x BK/16 keys of S and 4 rows x D/16 dims of
-//   O in registers, P through shared memory.  D 256 stays here in bf16 and
-//   f16 because its O accumulator (128 f32 a thread) with S does not fit
-//   the tensor-core tile's register budget; D 32 because the tile's
-//   swizzled layout is built of 64-column blocks.
+//   O in registers, P through shared memory (at D 16 a thread holds one
+//   dim of O).  D 256 stays here in bf16 and f16 because its O
+//   accumulator (128 f32 a thread) with S does not fit the tensor-core
+//   tile's register budget; D 16 and 32 because the tile's swizzled
+//   layout is built of 64-column blocks.
 
 #include <cuda.h>
 
@@ -267,6 +269,8 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
              int B, int Tlen, int H, const long long* st, int causal,
              float sm_scale, cudaStream_t s) {
   switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
     case 32:
       return launch<T, 32>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
     case 64:
@@ -488,7 +492,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // dim contiguous, rows 16-byte aligned); out (B, T, H, D) contiguous.
 // q_code is the one dtype's code (0 f32, 1 bf16, 2 f16).  body 1 is the
 // tensor-core body (bf16 or f16, D 64 or 128), body 0 the CUDA-core body
-// (f32 with D 32, 64, 128 or 256, and bf16 or f16 with D 32 or 256).  Returns 0 or
+// (f32 with D 16, 32, 64, 128 or 256, and bf16 or f16 with D 16, 32 or
+// 256).  Returns 0 or
 // a cudaError_t code; -1 for a body, dtype and head dim the kernel is not
 // built for.
 extern "C" int tpulab_flash_attention(
@@ -517,6 +522,9 @@ extern "C" int tpulab_flash_attention(
                                 s);
       if (body == 0 && D == 32)
         return launch<T16, 32>(q, k, v, out, B, T, H, st, causal, sm_scale,
+                               s);
+      if (body == 0 && D == 16)
+        return launch<T16, 16>(q, k, v, out, B, T, H, st, causal, sm_scale,
                                s);
       return -1;
     }

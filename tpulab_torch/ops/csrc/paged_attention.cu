@@ -56,14 +56,24 @@
 //   NW, ... in slot w, each warp with its own online softmax state.  (A
 //   warp waits on a slot only after it consumed the slot's previous round
 //   itself, so a parity wait never sees a phase two rounds old.)  Lane t
-//   scores position t against every query head of the GQA group, padded
-//   to GP = 4 or 8 heads at compile time (zero query rows) so that every
-//   head's loads and FMAs interleave without branches; q is read from
-//   shared memory as broadcasts, the max is a shuffle reduction, and for
-//   P.V each lane owns D/32 output dims of every head and reads the
-//   weights back as broadcasts.  No block barrier per stage: a consumer
-//   waits on its slot's `full` barrier and releases it on `empty`.  The
-//   warps' states are merged once at the end.
+//   scores position t against every query head of the block's group,
+//   padded to GP = 4 or 8 heads at compile time (zero query rows) so that
+//   every head's loads and FMAs interleave without branches; q is read
+//   from shared memory as broadcasts, the max is a shuffle reduction, and
+//   for P.V each lane owns D/32 output dims of every head and reads the
+//   weights back as broadcasts.  Below D 32 (D 16: tpulab's own small
+//   model, d_model 32 over 2 heads) a lane owns one output dim and the
+//   warp's 32 / D lane groups take every (32 / D)-th position of P.V
+//   each; their sums meet through shuffles before the warps' merge.  No
+//   block barrier per stage: a consumer waits on its slot's `full`
+//   barrier and releases it on `empty`.  The warps' states are merged
+//   once at the end.
+// * Groups past 8 query heads a KV head (G 16, or MQA's Hq 32 over Hkv
+//   1): the grid's KV-head axis walks (KV head, block of GBLK = 8 query
+//   heads), so a block keeps the 8-head shared memory and registers of
+//   a smaller group, and each block of a group re-reads the KV head's
+//   pages (G / 8 times the bytes of one pass; the split rule counts the
+//   blocks).
 
 #include "attn_wgmma.cuh"
 #include "common.cuh"
@@ -73,7 +83,7 @@ namespace {
 using namespace tpulab;
 
 constexpr int KT = 32;                      // positions a stage: one a lane
-constexpr int MAXG = 8;                     // largest GQA group
+constexpr int GBLK = 8;                     // query heads a block
 constexpr float NEG = -1e30f;               // m before any position
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -109,10 +119,10 @@ struct Geometry {
   static constexpr int NW = STAGE <= 20000 ? 4 : STAGE <= 40000 ? 3 : 2;
   static constexpr int NTHREADS = (NW + 1) * 32;     // + the producer warp
   static constexpr size_t ring_bytes = (size_t)NW * STAGE;
-  static constexpr size_t q_bytes = sizeof(float) * MAXG * D;
-  static constexpr size_t p_bytes = sizeof(float) * NW * KT * MAXG;
+  static constexpr size_t q_bytes = sizeof(float) * GBLK * D;
+  static constexpr size_t p_bytes = sizeof(float) * NW * KT * GBLK;
   // the end-of-walk merge of the consumer warps reuses the ring
-  static constexpr size_t merge_bytes = sizeof(float) * NW * MAXG * (D + 2);
+  static constexpr size_t merge_bytes = sizeof(float) * NW * GBLK * (D + 2);
   static_assert(merge_bytes <= ring_bytes, "merge area must fit the ring");
   static constexpr size_t bar_off = ring_bytes + q_bytes + p_bytes;
   static constexpr size_t smem_bytes = bar_off + 2 * NW * sizeof(uint64_t);
@@ -128,14 +138,21 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
                         float* __restrict__ part_ml, int B, int Hq, int Hkv,
                         int P, int S, int MP, float scale_log2) {
   using Geo = Geometry<KVT, D>;
-  constexpr int NW = Geo::NW, LDB = Geo::LDB, DPL = D / 32;
+  constexpr int NW = Geo::NW, LDB = Geo::LDB;
+  constexpr int DPL = D >= 32 ? D / 32 : 1;           // P.V dims a lane
+  constexpr int PVL = D / DPL;                        // lanes with dims
+  constexpr int PVG = 32 / PVL;                       // P.V's key groups
   constexpr int EPC = 16 / sizeof(KVT);               // elements a 16 B chunk
   constexpr int CPR = Geo::ROW / 16;                  // chunks a row
 
   const int split = blockIdx.x, n_split = gridDim.x;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;                             // G <= GP
+  const int G = Hq / Hkv;
+  const int n_gb = (G + GBLK - 1) / GBLK;             // head blocks a group
+  const int hk = blockIdx.y / n_gb, g0 = blockIdx.y % n_gb * GBLK;
+  const int Gb = min(GBLK, G - g0);                   // this block's heads
+  const int b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pv_lane = lane % PVL, pv_grp = lane / PVL;
   // positions 0..lengths[b] are visible; the walk stops at the table's end
   const int n_pos = max(0, min(lengths[b] + 1, MP * S));
   const int n_st = (n_pos + KT - 1) / KT;
@@ -144,7 +161,7 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + Geo::ring_bytes);  // [GP][D]
-  float* ps = qs + MAXG * D;                             // [NW][KT][GP]
+  float* ps = qs + GBLK * D;                             // [NW][KT][GP]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Geo::bar_off);
   uint64_t* empty = full + NW;
 
@@ -195,11 +212,12 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
     return;
   }
 
-  // ---- consumers: the group's queries, scaled into log2 units; rows
-  // G..GP-1 are zeros
+  // ---- consumers: the block's queries, scaled into log2 units; rows
+  // Gb..GP-1 are zeros
   for (int idx = threadIdx.x; idx < GP * D; idx += NW * 32)
-    qs[idx] = idx < G * D
-                  ? to_f(q[((size_t)b * Hq + hk * G) * D + idx]) * scale_log2
+    qs[idx] = idx < Gb * D
+                  ? to_f(q[((size_t)b * Hq + hk * G + g0) * D + idx]) *
+                        scale_log2
                   : 0.f;
   consumers_sync<NW>();
 
@@ -259,11 +277,12 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
           make_float4(p[g], p[g + 1], p[g + 2], p[g + 3]);
     __syncwarp();
     // P.V over the live rows only: this lane's D/32 dims of every head
+    // (below D 32, its dim over its group's rows)
 #pragma unroll 4
-    for (int t = 0; t < nv; ++t) {
+    for (int t = pv_grp; t < nv; t += PVG) {
       float vf[DPL], pt[GP];
-      load_vals<DPL>(reinterpret_cast<const KVT*>(vb + t * LDB) + lane * DPL,
-                     vf);
+      load_vals<DPL>(
+          reinterpret_cast<const KVT*>(vb + t * LDB) + pv_lane * DPL, vf);
       load_vals<GP>(pw + t * GP, pt);
 #pragma unroll
       for (int g = 0; g < GP; ++g)
@@ -274,7 +293,14 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
     if (lane == 0) wg::mbar_arrive(&empty[warp]);
   }
 #pragma unroll
-  for (int g = 0; g < GP; ++g) l_r[g] = warp_sum(l_r[g]);
+  for (int g = 0; g < GP; ++g) {
+    l_r[g] = warp_sum(l_r[g]);
+#pragma unroll
+    for (int off = PVL; off < 32; off <<= 1)      // P.V's key groups
+#pragma unroll
+      for (int x = 0; x < DPL; ++x)
+        acc[g][x] += __shfl_xor_sync(0xffffffffu, acc[g][x], off);
+  }
   consumers_sync<NW>();                 // every stage landed and was read
 
   // merge the consumer warps' states (the ring is free now)
@@ -287,13 +313,15 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
       cm[warp * GP + g] = m_r[g];
       cl[warp * GP + g] = l_r[g];
     }
+    if (pv_grp == 0) {
 #pragma unroll
-    for (int x = 0; x < DPL; ++x)
-      ca[((size_t)warp * GP + g) * D + lane * DPL + x] = acc[g][x];
+      for (int x = 0; x < DPL; ++x)
+        ca[((size_t)warp * GP + g) * D + pv_lane * DPL + x] = acc[g][x];
+    }
   }
   consumers_sync<NW>();
   const size_t rows = (size_t)B * Hq;
-  for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
+  for (int idx = threadIdx.x; idx < Gb * D; idx += NW * 32) {
     const int g = idx / D, d = idx % D;
     float mx = NEG;
 #pragma unroll
@@ -305,7 +333,7 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
       den += cl[w * GP + g] * sc;
       o += ca[((size_t)w * GP + g) * D + d] * sc;
     }
-    const size_t row = (size_t)b * Hq + hk * G + g;
+    const size_t row = (size_t)b * Hq + hk * G + g0 + g;
     if (n_split == 1) {
       out[row * D + d] = from_f<QT>(o / fmaxf(den, 1e-30f));
     } else {
@@ -318,16 +346,16 @@ __global__ void __launch_bounds__(Geometry<KVT, D>::NTHREADS)
 }
 
 // Combine the splits of each (lane, query head) in split order.  One warp
-// a row, D/32 dims a lane.
+// a row, D/32 dims a lane (one below D 32, lanes past D idle).
 template <typename QT, int D>
 __global__ void __launch_bounds__(128)
     paged_decode_merge_kernel(const float* __restrict__ part_o,
                               const float* __restrict__ part_ml,
                               QT* __restrict__ out, int rows, int n_split) {
-  constexpr int DPL = D / 32;
+  constexpr int DPL = D >= 32 ? D / 32 : 1;
   const int row = blockIdx.x * 4 + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
+  if (row >= rows || lane * DPL >= D) return;
   float mx = NEG;
   for (int s = 0; s < n_split; ++s)
     mx = fmaxf(mx, part_ml[((size_t)s * rows + row) * 2]);
@@ -359,13 +387,14 @@ int launch(const void* q, const void* pool, const int* tables,
   auto kern = paged_decode_kernel<QT, KVT, D, GP>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
-  if (B > 65535 || Hkv > 65535 || n_split < 1 ||
+  const int n_gb = (Hq / Hkv + GBLK - 1) / GBLK;
+  if (B > 65535 || (long long)Hkv * n_gb > 65535 || n_split < 1 ||
       (n_split > 1 && scratch == nullptr))
     return (int)cudaErrorInvalidConfiguration;
   const int rows = B * Hq;
   float* part_o = static_cast<float*>(scratch);
   float* part_ml = part_o + (size_t)n_split * rows * D;
-  dim3 grid(n_split, Hkv, B);
+  dim3 grid(n_split, Hkv * n_gb, B);
   kern<<<grid, Geometry<KVT, D>::NTHREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KVT*>(pool), tables,
       lengths, static_cast<QT*>(out), part_o, part_ml, B, Hq, Hkv, P, S, MP,
@@ -377,8 +406,8 @@ int launch(const void* q, const void* pool, const int* tables,
   return (int)cudaGetLastError();
 }
 
-// The group padded to GP = 4 or 8 query heads (a smaller group computes
-// zero rows it never writes).
+// A block's heads padded to GP = 4 or 8 (a smaller group computes zero
+// rows it never writes; a larger one runs blocks of 8).
 template <typename QT, typename KVT, int D>
 int launch_g(const void* q, const void* pool, const int* tables,
              const int* lengths, void* out, void* scratch, int B, int Hq,
@@ -416,17 +445,23 @@ int launch_d(int qc, int kv, const void* q, const void* pool,
 // kv the pool's (0 f32, 1 bf16, 2 e4m3, 3 e5m2, 4 f16).  n_split splits
 // over each lane's context
 // and, when n_split > 1, f32 scratch of n_split * B * Hq * (D + 2) values.
-// Returns 0 or a cudaError_t code; -1 for a head dim or group size the
-// kernel is not built for.
+// Any group size Hq / Hkv; D 16, 32, 64, 128 or 256.  Returns 0 or a
+// cudaError_t code; -1 for a head dim the kernel is not built for.
 extern "C" int tpulab_paged_decode_attention(
     const void* q, const void* pool, const int* tables, const int* lengths,
     void* out, void* scratch, int B, int Hq, int Hkv, int D, int P, int S,
     int MP, int n_split, int q_code, int kv, float sm_scale,
     void* stream) {
   if (B == 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv || Hq / Hkv > MAXG) return -1;
+  if (Hkv <= 0 || Hq % Hkv) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_d<16>(q_code, kv, q, pool, tables, lengths, out,
+                          scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
+    case 32:
+      return launch_d<32>(q_code, kv, q, pool, tables, lengths, out,
+                          scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale, st);
     case 64:
       return launch_d<64>(q_code, kv, q, pool, tables, lengths, out,
                           scratch, B, Hq, Hkv, P, S, MP, n_split, sm_scale, st);

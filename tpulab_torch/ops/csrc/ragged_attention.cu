@@ -60,14 +60,17 @@
 //   split order: no atomics, so a launch is bit-reproducible.  With one
 //   split the tile writes the output directly.
 // * `ragged_attn_kernel<QT, KVT, D>`, f32 q over any pool, a 16-bit q over
-//   f32 pages or the other 16-bit type's, and every mix with D 32 or 256
-//   (a small model's heads, as tpulab's example server has): every
+//   f32 pages or the other 16-bit type's, and every mix with D 16, 32 or
+//   256 (a small model's heads: D 16 is tpulab's own test and bench
+//   model, d_model 32 over 2 heads; D 32 its example server's): every
 //   product an f32 FMA on CUDA cores (a chunk is 16 bytes: 4, 8 or 16
-//   values), q scaled
+//   values; at D 16 a row is 1 to 4 chunks), q scaled
 //   by 1/sqrt(D) before the dot.  One block per (32-row tile, KV head,
 //   lane); KT positions per stage through a cp.async double buffer; each
 //   warp owns whole query rows, a lane one key of QK^T and D/32 output
-//   dims of P.V.
+//   dims of P.V.  Below D 32 a lane owns one output dim and the warp's
+//   32 / D lane groups take every (32 / D)-th key of P.V each; their
+//   sums meet through shuffles before the store.
 
 #include "attn_wgmma.cuh"
 #include "common.cuh"
@@ -99,7 +102,9 @@ struct Geometry {
   static constexpr int EPC = 16 / sizeof(KVT);  // elements per 16B chunk
   static constexpr int CPR = D / EPC;           // chunks per K or V row
   static constexpr int LD = D + EPC;            // padded smem row stride
-  static constexpr int DPL = D / 32;            // output dims per lane
+  static constexpr int DPL = D >= 32 ? D / 32 : 1;   // output dims a lane
+  static constexpr int PVL = D / DPL;           // lanes with output dims
+  static constexpr int PVG = 32 / PVL;          // key groups of P.V
   static constexpr size_t kv_bytes = 2ull * 2 * KT * LD * sizeof(KVT);
   static constexpr size_t smem_bytes =
       kv_bytes + sizeof(float) * TILE_ROWS * D;
@@ -115,11 +120,12 @@ __global__ void __launch_bounds__(NWARPS * 32)
                        float sm_scale) {
   using Geo = Geometry<KVT, D>;
   constexpr int EPC = Geo::EPC, CPR = Geo::CPR, LD = Geo::LD;
-  constexpr int DPL = Geo::DPL;
+  constexpr int DPL = Geo::DPL, PVL = Geo::PVL, PVG = Geo::PVG;
 
   const int tile = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pv_lane = lane % PVL, pv_grp = lane / PVL;   // P.V's dims, keys
   const int qn = q_lens[b], kvn = kv_lens[b];
   const int start = kvn - qn;                 // position of query row 0
   const int row0 = tile * TILE_ROWS;
@@ -218,11 +224,15 @@ __global__ void __launch_bounds__(NWARPS * 32)
       m_r[k] = m_new;
 #pragma unroll
       for (int x = 0; x < DPL; ++x) acc[k][x] *= alpha;
-      for (int t = 0; t < nvis; ++t) {
+      for (int t0k = 0; t0k < nvis; t0k += PVG) {
+        const int t = t0k + pv_grp;          // <= 31: t0k <= 31 - pv_grp
         const float pt = __shfl_sync(0xffffffffu, p, t);
-        const KVT* vr = vb + t * LD + lane * DPL;
+        if (t < nvis) {
+          const KVT* vr = vb + t * LD + pv_lane * DPL;
 #pragma unroll
-        for (int x = 0; x < DPL; ++x) acc[k][x] = fmaf(pt, to_f(vr[x]), acc[k][x]);
+          for (int x = 0; x < DPL; ++x)
+            acc[k][x] = fmaf(pt, to_f(vr[x]), acc[k][x]);
+        }
       }
     }
     __syncthreads();         // buffer `buf` is refilled by stage s + 2
@@ -233,9 +243,16 @@ __global__ void __launch_bounds__(NWARPS * 32)
   for (int k = 0; k < ROWS_PER_WARP; ++k) {
     const int i = k * NWARPS + warp;
     const int r = row0 + i;
-    if (r >= rows_total) continue;
+    if (r >= rows_total) continue;                       // warp-uniform
+#pragma unroll
+    for (int off = PVL; off < 32; off <<= 1)             // the key groups
+#pragma unroll
+      for (int x = 0; x < DPL; ++x)
+        acc[k][x] += __shfl_xor_sync(0xffffffffu, acc[k][x], off);
+    if (pv_grp) continue;
     const int j = r / G, g = r % G;
-    QT* o = out + (((size_t)b * M + j) * Hq + hk * G + g) * D + lane * DPL;
+    QT* o = out + (((size_t)b * M + j) * Hq + hk * G + g) * D +
+            pv_lane * DPL;
     const float inv = 1.f / fmaxf(l_r[k], 1e-30f);
 #pragma unroll
     for (int x = 0; x < DPL; ++x)
@@ -262,8 +279,8 @@ int launch(const void* q, const void* pool, const int* tables,
 }
 
 // The fma body for q code `qc` over page code `kv`: the mixes the
-// tensor-core body does not take at D 64 and 128, every mix at D 32 and
-// 256.
+// tensor-core body does not take at D 64 and 128, every mix at D 16, 32
+// and 256.
 template <int D>
 int launch_d(int qc, int kv, const void* q, const void* pool,
              const int* tables, const int* q_lens, const int* kv_lens,
@@ -616,7 +633,7 @@ int launch_tc(int qc, int kv, const void* q, const void* pool,
 // type, e4m3 or e5m2, D 64 or 128) with `n_split` splits over the context
 // and, when n_split > 1, f32 scratch of n_split * B * M * Hq * (D + 2)
 // values; body 0 the CUDA-core body (every other mix at D 64 or 128, and
-// every mix at D 32 and 256; n_split 1).  Returns 0 or a cudaError_t code; -1
+// every mix at D 16, 32 and 256; n_split 1).  Returns 0 or a cudaError_t code; -1
 // for a body, dtype pair and head dim the kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
@@ -631,6 +648,9 @@ extern "C" int tpulab_ragged_paged_attention(
                          sm_scale, st);
   if (body != 0 || n_split != 1) return -1;
   switch (D) {
+    case 16:
+      return launch_d<16>(q_code, kv, q, pool, tables, q_lens, kv_lens,
+                          out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);
     case 32:
       return launch_d<32>(q_code, kv, q, pool, tables, q_lens, kv_lens,
                           out, B, M, Hq, Hkv, P, S, MP, sm_scale, st);

@@ -12,12 +12,13 @@ CUDA tensors launch the hand-written Hopper kernel
 version: a build or launch failure raises.  The kernel has two bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
 (bf16 or f16 on the tensor cores in that type, D 64 or 128) and
-``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 with D 32 or
-256).
+``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 with D 16, 32
+or 256).
 ``flash_attention.launches`` counts kernel launches,
-``flash_attention.launches_by_body`` splits them by body and
+``flash_attention.launches_by_body`` splits them by body,
 ``flash_attention.launches_by_form`` by ``"wgmma bf16"``, ``"wgmma
-f16"`` or ``"fma"`` (the plain version counts in none).
+f16"`` or ``"fma"`` and ``flash_attention.launches_by_head_dim`` by D
+(the plain version counts in none).
 
 ``block_q`` / ``block_k`` keep tpulab's contract (they clamp to ``T`` and
 must divide it, else ``ValueError``) but do not shape the kernel, which
@@ -137,6 +138,8 @@ def _forward(q, k, v, causal: bool):
     flash_attention.launches += 1
     flash_attention.launches_by_body[body] += 1
     flash_attention.launches_by_form[body_form(body, q.dtype)] += 1
+    by_dim = flash_attention.launches_by_head_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     return out
 
 
@@ -223,6 +226,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
 flash_attention.launches_by_form = dict.fromkeys(FORMS, 0)
+flash_attention.launches_by_head_dim = {}
 
 
 def make_flash_attention_fn(causal: bool = True, block_q: int = 128,

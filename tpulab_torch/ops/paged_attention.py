@@ -17,10 +17,13 @@ float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, upcast to f32
 as the kernel reads it.  One body serves every dtype mix and head dim: a
 producer warp fills a ring of 32-position stages with 16-byte async
 copies tracked by mbarriers, and the consumer warps (one a ring slot)
-run the online softmax on f32 FMAs.
-Where the (KV head, lane) blocks do not fill the card, each lane's
-context is split into :func:`paged_splits` parts (split-KV) whose f32
-partials a second, small kernel merges in split order.
+run the online softmax on f32 FMAs.  Any GQA group: a block takes up to
+``GROUP_BLOCK`` query heads of one KV head, and a larger group (G 16,
+MQA's 32 over 1) runs :func:`group_blocks` blocks a KV head, each over
+the KV head's pages.
+Where the (KV head, head block, lane) blocks do not fill the card, each
+lane's context is split into :func:`paged_splits` parts (split-KV) whose
+f32 partials a second, small kernel merges in split order.
 ``paged_decode_attention.launches`` counts calls that launched (one per
 call, merge included).  tpulab's ``g_pages`` / ``nbuf`` (pages per DMA
 block and the pipeline depth in TPU VMEM) are not taken: the kernel
@@ -39,9 +42,9 @@ import torch
 from tpulab_torch.ops.ragged_attention import (KV_CODE, Q_CODE, _sm_count,
                                                check_built, gather_pages)
 
-#: head dims the kernel is built for
-HEAD_DIMS = (64, 128, 256)
-_MAX_GROUP = 8
+#: query heads one block of the kernel takes (its shared memory and
+#: registers are sized for 8); a larger group runs several blocks
+GROUP_BLOCK = 8
 STAGE_POSITIONS = 32    # positions of a stage: one a consumer lane
 ROUND_STAGES = 4        # stages a round (the ring's slots at bf16 D <= 128)
 MAX_SPLITS = 16
@@ -52,8 +55,10 @@ def paged_splits(b: int, hkv: int, mp: int, page_size: int,
     """How many parts the kernel splits each lane's context into.
 
     A function of shapes and the SM count only, never of ``lengths`` or
-    timing, so equal shapes give equal splits and bit-equal results.  One
-    split when the (KV head, lane) blocks already fill the card;
+    timing, so equal shapes give equal splits and bit-equal results.
+    ``hkv`` is the grid's KV-head axis: KV heads x :func:`group_blocks`
+    (the KV heads themselves up to G 8).  One split when the (KV head,
+    lane) blocks already fill the card;
     otherwise enough splits for about two blocks per SM (two fit at
     once), at most one per round of four 32-position stages over the
     table (``mp * page_size`` positions, 128 a round) and at most
@@ -63,6 +68,12 @@ def paged_splits(b: int, hkv: int, mp: int, page_size: int,
         return 1
     rounds = -(-mp * page_size // (STAGE_POSITIONS * ROUND_STAGES))
     return max(1, min(2 * n_sm // blocks, rounds, MAX_SPLITS))
+
+
+def group_blocks(hq: int, hkv: int) -> int:
+    """Blocks of ``GROUP_BLOCK`` query heads the kernel runs for each KV
+    head: 1 up to G 8, 2 at G 16, 4 at MQA's 32 over 1."""
+    return -(-(hq // hkv) // GROUP_BLOCK)
 
 
 def paged_decode_attention_reference(q, kv_pool, tables, lengths):
@@ -103,10 +114,7 @@ def _check(q, kv_pool, tables, lengths):
         raise ValueError(f"q heads {hq} not divisible by kv heads {hkv}, or "
                          f"head dims differ: q {tuple(q.shape)}, pool "
                          f"{tuple(kv_pool.shape)}")
-    if hq // hkv > _MAX_GROUP:
-        raise ValueError(f"group size {hq // hkv} not built (at most "
-                         f"{_MAX_GROUP} query heads per KV head)")
-    check_built(q.dtype, kv_pool.dtype, d, HEAD_DIMS)
+    check_built(q.dtype, kv_pool.dtype, d)
     if tables.dim() != 2 or tables.shape[0] != b or lengths.shape != (b,):
         raise ValueError(f"tables {tuple(tables.shape)} / lengths "
                          f"{tuple(lengths.shape)} for {b} lanes")
@@ -151,7 +159,8 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
     tables = tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     mp = tables.shape[1]
-    n_split = paged_splits(b, hkv, mp, s, _sm_count(q.device.index))
+    n_split = paged_splits(b, hkv * group_blocks(hq, hkv), mp, s,
+                           _sm_count(q.device.index))
     out = torch.empty_like(q)
     # f32 partials of every split: O (b, hq, d), then (m, l) per row.
     # Freed on return: the caching allocator hands the block out again
@@ -175,5 +184,6 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
                            f"({n_split} splits): {msg}")
     paged_decode_attention.launches += 1
     return out
+
 
 paged_decode_attention.launches = 0

@@ -18,14 +18,16 @@ by :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
 tensor cores in q's 16-bit type, D 64 or 128, over pages whose upcast to
 that type is exact: bf16 q over bf16, e4m3 or e5m2 pages, f16 q over
 f16, e4m3 or e5m2 pages) and ``"fma"`` (f32 FMAs on CUDA cores: every
-other mix, and D 32 and 256).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
+other mix, and D 16, 32 and 256).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
 context into :func:`ragged_splits` parts (split-KV) and merges them in a
 second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
 (one per call, merge included) and
 ``ragged_paged_attention.launches_by_body`` splits them by body,
 ``ragged_paged_attention.launches_by_geom`` by ``"<body> x<splits>"``
 and ``ragged_paged_attention.launches_by_form`` by ``"wgmma bf16"``,
-``"wgmma f16"`` or ``"fma"`` (the plain version counts in none).
+``"wgmma f16"`` or ``"fma"``, and
+``ragged_paged_attention.launches_by_head_dim`` by D (the plain version
+counts in none).
 """
 
 from __future__ import annotations
@@ -42,8 +44,11 @@ Q_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the pool dtypes and the C launchers' code for each (kernels 1 and 3)
 KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
            torch.float8_e5m2: 3, torch.float16: 4}
-#: head dims the kernels are built for (D 32 and 256 on the fma body only)
-HEAD_DIMS = (32, 64, 128, 256)
+#: head dims the kernels are built for (D 16, 32 and 256 on the fma body
+#: only; D 16 is tpulab's own small model, d_model 32 over 2 heads).
+#: Other head dims tpulab's kernels would take (80, 96, ...) are refused:
+#: no code of tpulab's uses them.
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _WGMMA_HEAD_DIMS = (64, 128)
 #: the pages each 16-bit q type reads on its tensor cores: those whose
 #: upcast to q's type is exact (e4m3 and e5m2 are bf16 and f16 values;
@@ -68,20 +73,20 @@ def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
     return "fma"
 
 
-def check_built(q_dtype, kv_dtype, head_dim: int,
-                head_dims=HEAD_DIMS) -> None:
+def check_built(q_dtype, kv_dtype, head_dim: int) -> None:
     """Raise unless the kernels are built for this q dtype, page dtype
     and head dim (every q of ``Q_CODE`` over every page of ``KV_CODE``,
-    every D of ``head_dims``): a CUDA batcher refuses at construction
-    what its kernels would refuse at their first launch."""
+    every D of ``HEAD_DIMS``, all three kernels alike): a CUDA batcher
+    refuses at construction what its kernels would refuse at their
+    first launch."""
     if q_dtype not in Q_CODE or kv_dtype not in KV_CODE:
         raise TypeError(f"q {q_dtype} / pool {kv_dtype}: the kernels take "
                         "a float32, bfloat16 or float16 q over a float32, "
                         "bfloat16, float16, float8_e4m3fn or float8_e5m2 "
                         "pool")
-    if head_dim not in head_dims:
+    if head_dim not in HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not built (want one of "
-                         f"{head_dims})")
+                         f"{HEAD_DIMS})")
 
 
 def body_form(body: str, q_dtype) -> str:
@@ -257,6 +262,8 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     geom = f"{body} x{n_split}"
     by_geom = ragged_paged_attention.launches_by_geom
     by_geom[geom] = by_geom.get(geom, 0) + 1
+    by_dim = ragged_paged_attention.launches_by_head_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     return out
 
 
@@ -265,3 +272,4 @@ ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
 ragged_paged_attention.launches_by_form = dict.fromkeys(FORMS, 0)
 ragged_paged_attention.launches_by_geom = {}
+ragged_paged_attention.launches_by_head_dim = {}
