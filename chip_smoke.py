@@ -9,11 +9,12 @@ raises and the script exits non-zero without printing a result:
 
 1. device  — the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions.  TF32 is switched off for matmuls and cuDNN.
-2. build   — the three kernel sources under ``tpulab_torch/ops/csrc/``
-   (with the shared headers ``common.cuh`` and ``attn_wgmma.cuh``)
-   compiled by ``nvcc`` (``--split-compile=0``), one process per source,
-   all started together; build seconds, registers and spills per
-   kernel.
+2. build   — the three kernel libraries under ``tpulab_torch/ops/csrc/``
+   (with the shared headers ``common.cuh`` and ``attn_wgmma.cuh``, and
+   each kernel's own ``.cuh``) compiled by ``nvcc``
+   (``--split-compile=0``), one process per translation unit (kernels 1
+   and 3 have two: their padded head-dim forms in ``*_padded.cu``), all
+   started together; build seconds, registers and spills per kernel.
 3. kernels — every kernel's wrapper on the card held against its plain
    PyTorch version, with the tolerance set by the output dtype (f32
    rtol = atol = 1e-4; bf16 rtol 8e-3, one bf16 ulp, atol 4e-3), and a
@@ -76,7 +77,7 @@ raises and the script exits non-zero without printing a result:
    predicted length), and an int8 tree's speculating batcher against
    plain blocks, under the margin rule over an e4m3 replay.
 5. serve   — ``ContinuousBatcher`` at the full width of Meta-Llama-3-8B
-   (8 of its 32 layers, cut for the script's time limit: ``SERVE_MODEL``,
+   (6 of its 32 layers, cut for the script's time limit: ``SERVE_MODEL``,
    which phases 8, 9, 11 and 12 share; random bf16 weights from a seed)
    serves a greedy /
    stop-token / device-sampled / logprobs / host-sampled / streaming
@@ -224,7 +225,7 @@ raises and the script exits non-zero without printing a result:
    canary ready again.  (c) Kernel 1's launches over the phase == 8 x
    every forward step of its batchers, all ``wgmma``.
 
-10. batch  — the offline batch lane at Llama-3-8B's widths, 8 of its 32
+10. batch  — the offline batch lane at Llama-3-8B's widths, 4 of its 32
    layers (cut for the script's time limit): phase 5's ragged bf16
    batcher (8 lanes, ``max_len`` 2048, page 16, K <= 8, chunk 256, 1025
    pages) with a 2 GiB host tier, behind an ``AdmissionController``
@@ -253,7 +254,7 @@ raises and the script exits non-zero without printing a result:
 11. fleet  — replica processes over gRPC sockets.  The parent frees its
    card memory first; ``SubprocessReplicaProvider`` starts three
    ``python -m tpulab_torch.fleet.replica_main`` processes at
-   Llama-3-8B width (phase 5's 8 layers, bf16, untied head, seed 0, 4
+   Llama-3-8B width (phase 5's 6 layers, bf16, untied head, seed 0, 4
    lanes, ``max_len`` 2048, page 16, prefix cache on; each about 5.6 GB
    of weights, 0.27 GB of pages and its scratch), one with
    ``TPULAB_CHAOS=rpc.stream=kill@8``; nvidia-smi's used memory sampled
@@ -282,7 +283,7 @@ raises and the script exits non-zero without printing a result:
    Printed: spawn to first Status, the failover gap, TTFT through the
    set against direct, the drain's seconds, peak memory.
 12. fabric — the fleet KV fabric and the multi-router control plane at
-   Llama-3-8B width (phase 5's 8 layers): one bf16 tree (seed 0) under two split-plan
+   Llama-3-8B width (phase 5's 6 layers): one bf16 tree (seed 0) under two split-plan
    batchers (``ragged=False``: flash prefill; 4 lanes, ``max_len`` 2048,
    page 16, K <= 8, a 2 GiB host tier, ``kv_publish=True``), A and B,
    each served on a loopback socket with ``serve(kvfabric=KVFabric(...),
@@ -356,7 +357,7 @@ raises and the script exits non-zero without printing a result:
    non-zero with "need 2 devices, have 1".
 
 14. sharded — the paged serving path under a tensor-parallel mesh at
-   Llama-3-8B's widths (8 of its 32 layers, cut for the script's time
+   Llama-3-8B's widths (4 of its 32 layers, cut for the script's time
    limit; random bf16 weights from phase 5's seed;
    8 lanes, ``max_len`` 2048, page 16, K <= 8, the ragged plan): 8
    requests (prompts of 1000 ... 16 tokens x 32 steps, even ones greedy,
@@ -391,7 +392,7 @@ raises and the script exits non-zero without printing a result:
    x the forward steps, all ``wgmma``; streams equal or within the noise
    rule over an int8 replay.
 15. rows   — tpulab's eleven bench rows through the port's functions,
-   each once, its JSON on a line of its own.  At Llama-3-8B's widths, 8
+   each once, its JSON on a line of its own.  At Llama-3-8B's widths, 6
    of its 32 layers (cut for the script's time limit), on one
    bf16 tree (seed 0): ``benchmark_decode_dispatch`` (K 1 / 4 / 8 / 16,
    4 lanes x 32 steps, prompt 8; tpulab's 48 steps cut for time),
@@ -510,7 +511,7 @@ raises and the script exits non-zero without printing a result:
    float8_e4m3fn)`` over every bf16 and f16 pattern and the f32 specials
    equals the CPU's on every number (its NaN codes differ: counted), and
    ``to_kv_dtype`` equals the CPU's on every input.  (c) At Llama-3-8B
-   width (8 layers, seed 0), under both plans: an f16-compute serve
+   width (4 layers, seed 0), under both plans: an f16-compute serve
    (f16 pages) of a 4-request burst, and a bf16 serve over e5m2 pages
    with its one lane's victim preempted to the host tier and restored;
    launches by form (``wgmma f16`` / ``wgmma bf16``) == n_layers x the
@@ -549,6 +550,40 @@ raises and the script exits non-zero without printing a result:
    launches == 2 x the batchers' forward steps and kernel 2 == 2 x their
    split-plan prefills, every launch at D 16 and kernel 1's on ``fma``
    (the wrappers' ``launches_by_head_dim``).
+20. head dims — every head dim tpulab's kernels take.  (a) Kernel 1 on
+   ``wgmma`` at D 80 (Phi-2's attention: Hq 32 = Hkv 32), 96 (Phi-3-mini's,
+   32 over 32) and 112 (Hq 32 over Hkv 8), 8 lanes x 128 pages of 16, at
+   all_decode, chunk_over_ctx and verify_k8 in bf16, and all_decode f16
+   and bf16 over e4m3 pages at D 96; on ``fma`` at D 24, 48 and 100
+   (all_decode f32, bf16 at D 100, bf16 over e4m3 at D 24: rows of 200 and
+   24 bytes); kernel 2 at B 1, T 2048, H 32, causal on ``wgmma`` at D 80,
+   96 (bf16 and f16) and 112, on ``fma`` at D 24, 48 and 100 (f32);
+   kernel 3 at 8 x 1024 at each of those head dims, and at D 25 and 75
+   over an odd count of split rows (one lane, 1 and 3 heads, 384
+   positions: three splits).  Each against its plain version, relaunched
+   bit for bit, timed beside the plain version, the bound and SDPA; a
+   planted error per kernel rejected.  (b)
+   ``ContinuousBatcher`` at Phi-3-mini's published widths (``PHI3_MINI``:
+   d_model 3072, 32 heads and 32 KV heads, D 96, all 32 layers, SwiGLU
+   8192, vocab 32064, untied, rope_theta 10000; random bf16 weights from
+   a seed, 3.82 B parameters) serves four greedy requests of 100-400
+   tokens x 24 under the ragged plan (K-blocks of 8), again with K = 1,
+   and under the split plan with K 8 and K 1, then four of 60-240 tokens
+   (one prompt chunk each) under the ragged plan with K 8 and K 1; 8
+   lanes, page 16, max_len 2048 (1025 pages, 6.45 GB of KV), chunk 256.
+   Every kernel 1 launch ``wgmma bf16`` at D 96 (== 32 x forward steps),
+   every kernel 2 launch of the split plan too (== 32 x prefills).  K 1
+   equals K 8 token for token where the two run the same forwards: the
+   split plan, and the ragged plan over one-chunk prompts (every decode
+   token from a decode step, across three K-blocks).  The ragged K 1
+   serve over 100-400 tokens and the split serve are held against the
+   ragged K 8 streams by the bf16 noise rule: with two-chunk prompts the
+   ragged plan's K 1 and K 8 serves take different tokens from the mixed
+   round's ragged forward (other matrix shapes than a decode step's);
+   tok/s recorded, not claimed.  Then phase
+   4's invariants on these weights (2 of the layers): the K = 8 block
+   == 8 chained steps bit for bit, the mixed step == the ragged forward,
+   and kernel 3's decode op over the model-written D 96 pool.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -572,9 +607,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LLAMA3_8B = dict(vocab=128256, d_model=4096, n_heads=32, n_kv_heads=8,
                  d_ff=14336, n_layers=32, rope_theta=500000.0)
 #: the serving phases' depth (serve, service, obs, fleet, fabric):
-#: Llama-3-8B's widths at 8 of its 32 layers, cut for the script's time
-#: limit; the hbm phase keeps all 32 (its capacity is sized on the tree)
-SERVE_LAYERS = 8
+#: Llama-3-8B's widths at 6 of its 32 layers, cut for the script's time
+#: limit (more than the speculating serve's 4-layer draft); the hbm
+#: phase keeps all 32 (its capacity is sized on the tree)
+SERVE_LAYERS = 6
 SERVE_MODEL = dict(LLAMA3_8B, n_layers=SERVE_LAYERS)
 SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
              prefill_chunk=256)
@@ -689,6 +725,15 @@ def launch_twice(torch, label, wrapper, call, body=None):
     if not torch.equal(got, again):
         raise AssertionError(f"{label}: a second launch is not bit-identical")
     return got
+
+
+def reset_counts(*wrappers):
+    """Every launch count of the wrappers set to 0."""
+    for fn in wrappers:
+        fn.launches = 0
+        fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
+        fn.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
+        fn.launches_by_head_dim = {}
 
 
 def bound(nbytes, ops, kind):
@@ -1264,11 +1309,13 @@ def full_width_params(torch, n_layers, dtype, seed):
         tie_embeddings=False, device="cuda", dtype=dtype)
 
 
-def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
-    """The K-block and mixed-step invariants at full width, 2 layers (bf16
-    weights and pool, or the given f32 ``params`` over a ``kv_dtype``
-    pool), then the paged_decode_attention op over the same pool; returns
-    that op path's launch count."""
+def phase_invariants(torch, params=None, compute=None, kv_dtype=None,
+                     model=LLAMA3_8B):
+    """The K-block and mixed-step invariants at full width (``model``'s,
+    Llama-3-8B's by default), 2 layers (bf16 weights and pool, or the
+    given ``params`` in ``compute`` over a ``kv_dtype`` pool), then the
+    paged_decode_attention op over the same pool; returns that op path's
+    launch count."""
     import numpy as np
 
     from tpulab_torch.engine.paged import (PagedKVPool, paged_decode_block,
@@ -1278,7 +1325,7 @@ def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
     from tpulab_torch.engine.prng import device_sample_tokens
     from tpulab_torch.ops.ragged_attention import pool_bytes as bits
 
-    c = LLAMA3_8B
+    c = model
     n_layers = 2
     compute = compute or torch.bfloat16
     kv_dtype = kv_dtype or compute
@@ -1319,7 +1366,7 @@ def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
                                  f"+ device pick: {diff}")
         del kv_d
         launches = decode_op_path(torch, rng, kv_c, tables, kv_lens - 1,
-                                  compute)
+                                  compute, c)
         rem = torch.tensor([8, 3, 8, 8, 5, 8, 8, 8], device="cuda")
         stops = torch.full((b, 2), -1, dtype=torch.long, device="cuda")
         stops[2, 0] = int(nt[2])        # lane 2 stops when it repeats
@@ -1346,7 +1393,9 @@ def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
                 and (blk[0] >= 0).all() and (blk[0] < c["vocab"]).all()):
             raise AssertionError("decode block emitted invalid tokens")
     emitted = blk[2].sum(1).tolist()
-    log(f"invariants: full width, {n_layers} layers, {dtype_name(compute)} "
+    log(f"invariants: full width (d_model {c['d_model']}, D "
+        f"{c['d_model'] // c['n_heads']}), {n_layers} layers, "
+        f"{dtype_name(compute)} "
         f"over a {dtype_name(kv_dtype)} pool: K-block(k=8) == 8 chained "
         f"steps bit for bit (emitted per lane {emitted}); mixed step == "
         "ragged forward + device pick")
@@ -1358,7 +1407,8 @@ def phase_invariants(torch, params=None, compute=None, kv_dtype=None):
     return launches
 
 
-def decode_op_path(torch, rng, kv, tables, positions, q_dtype):
+def decode_op_path(torch, rng, kv, tables, positions, q_dtype,
+                   model=LLAMA3_8B):
     """The public ``paged_decode_attention`` op driven over every layer of
     a model-written pool (the path's launches are counted from 0), then
     held against the ragged kernel at decode shape and the plain version
@@ -1367,7 +1417,7 @@ def decode_op_path(torch, rng, kv, tables, positions, q_dtype):
         paged_decode_attention, paged_decode_attention_reference)
     from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 
-    c = LLAMA3_8B
+    c = model
     b = tables.shape[0]
     q = torch.from_numpy(rng.standard_normal(
         (b, c["n_heads"], c["d_model"] // c["n_heads"])).astype(
@@ -5267,9 +5317,9 @@ def phase_obs(torch, card):
 # 2 GiB host tier behind an AdmissionController; one checkpoint file for
 # three jobs (one sampling config a job): 8 greedy items, 7 device-sampled
 # and 1 host-sampled, prompts of 256 ... 768 tokens x 48 steps
-#: the batch lane's depth: Llama-3-8B's 32 layers cut to 8 for the
+#: the batch lane's depth: Llama-3-8B's 32 layers cut to 4 for the
 #: script's time limit
-BATCH_LAYERS = 8
+BATCH_LAYERS = 4
 BATCH_STEPS = 48
 BATCH_LENS = (256, 768, 320, 704, 384, 640, 448, 576, 512, 288, 736, 352,
               672, 416, 608, 480)
@@ -7062,9 +7112,9 @@ def phase_parallel(torch, card):
 # ---------------------------------------------------------------- phase 14
 # the sharded serve: phase 5's Llama-3-8B geometry, 8 requests (even
 # ones greedy, odd ones device-sampled) x SHARD_STEPS
-#: the sharded phase's model: Llama-3-8B's widths at 8 of its 32 layers
+#: the sharded phase's model: Llama-3-8B's widths at 4 of its 32 layers
 #: (cut for the script's time limit)
-SHARD_MODEL = dict(LLAMA3_8B, n_layers=8)
+SHARD_MODEL = dict(LLAMA3_8B, n_layers=4)
 SHARD_SERVE = dict(lanes=8, max_len=2048, page_size=16, decode_block=8,
                    prefill_chunk=256)
 SHARD_PROMPTS = (1000, 700, 500, 300, 200, 128, 64, 16)
@@ -7722,9 +7772,9 @@ def sharded_swap(ranks, card):
 # tpulab's bench rows on the card.  The serving rows at Llama-3-8B width
 # over one bf16 tree (phase 5's seed); the kernel sweep at tpulab's own
 # geometry; the host-tier rows at the arguments of tpulab's bench.py.
-#: the 8B-width rows' depth: 32 layers cut to 8 for the script's time
-#: limit (as phase 18's serves)
-ROWS_LAYERS = 8
+#: the 8B-width rows' depth: 32 layers cut to 6 for the script's time
+#: limit (more than the speculative row's 4-layer draft)
+ROWS_LAYERS = 6
 ROWS_DECODE_DISPATCH = dict(ks=(1, 4, 8, 16), lanes=4, steps=32,
                             prompt_len=8)
 ROWS_SPEC_DECODE = dict(k=8, lanes=2, steps=32,
@@ -8640,7 +8690,7 @@ DT_PAGED = (("f16/f16", "float16", "float16"),
             ("f16/e5m2", "float16", "float8_e5m2"))
 DT_PAGED_CASES = ((8, 1023), (1, 2047))
 # (c) the serves at Llama-3-8B width, depth cut to DT_LAYERS
-DT_LAYERS = 8
+DT_LAYERS = 4
 DT_BURST = (700, 300, 64, 16)        # prompt lengths of the burst
 DT_STEPS = 16
 DT_SAMPLED = dict(temperature=0.8, seed=2020)   # the burst's last request
@@ -9029,10 +9079,7 @@ def dtype_serve(torch, params, compute, kv_dtype, plan, card):
 
     cb = dtype_batcher(torch, params, compute, kv_dtype, plan, offload)
     try:
-        for fn in (ragged_paged_attention, flash_attention):
-            fn.launches = 0
-            fn.launches_by_body = dict.fromkeys(fn.launches_by_body, 0)
-            fn.launches_by_form = dict.fromkeys(fn.launches_by_form, 0)
+        reset_counts(ragged_paged_attention, flash_attention)
         before = (cb.forward_steps, cb.prefill_forwards)
         t0 = time.perf_counter()
         got = run(cb)
@@ -9268,24 +9315,125 @@ SM_SHARDED_FLAGS = ("parity", "sampled_parity", "one_sync_per_dispatch")
 
 
 def small_row(torch, timer, wrapper, kernel, case, dname, call, plain, body,
-              bound_, lib=None):
-    """One phase 19 case: ``call`` (one launch of ``wrapper``) relaunched
-    bit for bit on ``body``, held against ``plain``, timed beside the
-    plain version, the bound and ``lib`` (SDPA, where one call computes
-    the same function)."""
-    label = f"small: {kernel} {case} {dname}"
+              bound_, lib=None, tag="small"):
+    """One phase 19 or 20 case (``tag`` heads its log lines): ``call``
+    (one launch of ``wrapper``) relaunched bit for bit on ``body``, held
+    against ``plain``, timed beside the plain version, the bound and
+    ``lib`` (SDPA, where one call computes the same function)."""
+    label = f"{tag}: {kernel} {case} {dname}"
     got = launch_twice(torch, label, wrapper, call, body)
     err = check_close(torch, label, got, plain())
     ms = timer(call, iters=20)
     plain_ms = timer(plain, iters=3, warmup=1)
     lib_ms = None if lib is None else lib()
     bound_ms, by = bound_
-    log(f"small: {kernel} {case:<20} {dname:<9} err={err:.2e} "
+    log(f"{tag}: {kernel} {case:<20} {dname:<9} err={err:.2e} "
         f"kernel={ms:.4f} plain={plain_ms:.4f} bound={bound_ms:.4f} ({by}) "
         f"ms | yardstick, unused by the port: sdpa={fmt_ms(lib_ms)} ms")
     return got, dict(case=case, dtypes=dname, max_abs_err=err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                      library_ms=lib_ms)
+
+
+def card_lens(torch, x):
+    return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+
+def ragged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
+               kv_name, q_lens_l, kv_lens_l, want_body, tag,
+               planted=False):
+    """A kernel 1 row at geometry ``g`` over ``pool32`` cast to the page
+    dtype (:func:`small_row`), which must run ``want_body``; with
+    ``planted``, a kernel that skipped page 5 of every lane is
+    rejected."""
+    import numpy as np
+
+    from tpulab_torch.ops.ragged_attention import (
+        _sm_count, ragged_body, ragged_paged_attention,
+        ragged_paged_attention_reference, ragged_splits)
+
+    q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+    pool = pool32.to(kv_dt)
+    m = max(q_lens_l)
+    q = torch.from_numpy(rng.standard_normal(
+        (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+    q_lens, kv_lens = card_lens(torch, q_lens_l), card_lens(torch, kv_lens_l)
+    args = (q, pool, tables, q_lens, kv_lens)
+    body = ragged_body(q_dt, kv_dt, g["d"])
+    if body != want_body:
+        raise AssertionError(f"{tag}: ragged D {g['d']} {dname} on {body}")
+    splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"], g["s"],
+                           _sm_count(torch.cuda.current_device()), body)
+    lib = None
+    if q_dt == kv_dt:
+        t = g["mp"] * g["s"]
+        pos = (kv_lens - q_lens)[:, None] + torch.arange(m, device="cuda")
+        ar = torch.arange(t, device="cuda")[None, None]
+        vis = (ar <= pos[..., None]) & (ar < kv_lens[:, None, None])
+
+        def lib():
+            return sdpa_decode_ms(torch, timer, q, pool, tables, vis,
+                                  g["hq"] // g["hkv"])
+    kind = "f32" if q_dt == torch.float32 else "bf16"
+    got, r = small_row(
+        torch, timer, ragged_paged_attention, "ragged", f"D{g['d']} {case}",
+        dname, lambda: ragged_paged_attention(*args),
+        lambda: ragged_paged_attention_reference(*args), body,
+        ra_bound(q_lens_l, kv_lens_l, m, q.element_size(),
+                 pool.element_size(), kind, g), lib, tag)
+    if planted:
+        skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]], 1)
+        check_rejects(torch, f"ragged skipped page, D {g['d']}, {dname}",
+                      got, ragged_paged_attention_reference(
+                          q, pool, skip, q_lens, kv_lens - g["s"]))
+    r["body"] = f"{body} x{splits}"
+    return r
+
+
+def paged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
+              kv_name, pos, tag, planted=False):
+    """A kernel 3 row at geometry ``g``, every lane at inclusive position
+    ``pos`` (:func:`small_row` on its one body); with ``planted``, a
+    skipped page is rejected."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        group_blocks, paged_decode_attention,
+        paged_decode_attention_reference, paged_splits)
+    from tpulab_torch.ops.ragged_attention import _sm_count
+
+    q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+    pool = pool32.to(kv_dt)
+    lanes = tables.shape[0]
+    q = torch.from_numpy(rng.standard_normal(
+        (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
+    lengths = card_lens(torch, [pos] * lanes)
+    args = (q, pool, tables, lengths)
+    splits = paged_splits(lanes, g["hkv"] * group_blocks(g["hq"], g["hkv"]),
+                          g["mp"], g["s"],
+                          _sm_count(torch.cuda.current_device()))
+    lib = None
+    if q_dt == kv_dt:
+        vis = (torch.arange(g["mp"] * g["s"], device="cuda")[None, None]
+               <= lengths[:, None, None])
+
+        def lib():
+            return sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
+                                  vis, g["hq"] // g["hkv"])
+    kind = "f32" if q_dt == torch.float32 else "bf16"
+    got, r = small_row(
+        torch, timer, paged_decode_attention, "paged", case, dname,
+        lambda: paged_decode_attention(*args),
+        lambda: paged_decode_attention_reference(*args), None,
+        pd_bound(lanes, pos, q.element_size(), pool.element_size(), kind, g),
+        lib, tag)
+    if planted:
+        skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]], 1)
+        check_rejects(torch, f"paged skipped page, {case}, {dname}", got,
+                      paged_decode_attention_reference(
+                          q, pool, skip, lengths - g["s"]))
+    r["body"] = f"ring x{splits}"
+    return r
 
 
 def small_kernels(torch, timer):
@@ -9294,58 +9442,14 @@ def small_kernels(torch, timer):
     and MQA (D 128), each against its plain version."""
     import numpy as np
 
-    from tpulab_torch.ops.paged_attention import (
-        group_blocks, paged_decode_attention,
-        paged_decode_attention_reference, paged_splits)
-    from tpulab_torch.ops.ragged_attention import (
-        _sm_count, ragged_body, ragged_paged_attention,
-        ragged_paged_attention_reference)
-
-    n_sm = _sm_count(torch.cuda.current_device())
     rng = np.random.default_rng(21)
     new = {"ragged": [], "flash": [], "paged": []}
 
-    def lens(x):
-        return torch.tensor(x, dtype=torch.int32, device="cuda")
-
-    def ragged_case(g, pool32, tables, case, dname, q_name, kv_name, q_lens_l,
-                    kv_lens_l, planted=False):
-        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
-        pool = pool32.to(kv_dt)
-        m = max(q_lens_l)
-        q = torch.from_numpy(rng.standard_normal(
-            (g["b"], m, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
-        q_lens, kv_lens = lens(q_lens_l), lens(kv_lens_l)
-        args = (q, pool, tables, q_lens, kv_lens)
-        body = ragged_body(q_dt, kv_dt, g["d"])
-        if body != "fma":
-            raise AssertionError(f"small: ragged D {g['d']} {dname} on {body}")
-        lib = None
-        if q_dt == kv_dt:
-            t = g["mp"] * g["s"]
-            pos = (kv_lens - q_lens)[:, None] + torch.arange(m, device="cuda")
-            ar = torch.arange(t, device="cuda")[None, None]
-            vis = (ar <= pos[..., None]) & (ar < kv_lens[:, None, None])
-
-            def lib():
-                return sdpa_decode_ms(torch, timer, q, pool, tables, vis,
-                                      g["hq"] // g["hkv"])
-        kind = "f32" if q_dt == torch.float32 else "bf16"
-        got, r = small_row(
-            torch, timer, ragged_paged_attention, "ragged",
-            f"D{g['d']} {case}", dname,
-            lambda: ragged_paged_attention(*args),
-            lambda: ragged_paged_attention_reference(*args), body,
-            ra_bound(q_lens_l, kv_lens_l, m, q.element_size(),
-                     pool.element_size(), kind, g), lib)
-        if planted:
-            skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]],
-                             1)
-            check_rejects(torch, f"ragged skipped page, D {g['d']}, {dname}",
-                          got, ragged_paged_attention_reference(
-                              q, pool, skip, q_lens, kv_lens - g["s"]))
-        r["body"] = f"{body} x1"
-        new["ragged"].append(r)
+    def ragged_case(g, pool32, tables, case, dname, q_name, kv_name,
+                    q_lens_l, kv_lens_l, planted=False):
+        new["ragged"].append(ragged_row(
+            torch, timer, rng, g, pool32, tables, case, dname, q_name,
+            kv_name, q_lens_l, kv_lens_l, "fma", "small", planted))
 
     g = SM_GEOM
     pool32, tables = serving_pool(torch, np, rng, g)
@@ -9374,39 +9478,9 @@ def small_kernels(torch, timer):
 
     def paged_case(g, pool32, tables, case, dname, q_name, kv_name, pos,
                    planted=False):
-        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
-        pool = pool32.to(kv_dt)
-        lanes = tables.shape[0]
-        q = torch.from_numpy(rng.standard_normal(
-            (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
-        lengths = lens([pos] * lanes)
-        args = (q, pool, tables, lengths)
-        splits = paged_splits(lanes, g["hkv"] * group_blocks(g["hq"],
-                                                             g["hkv"]),
-                              g["mp"], g["s"], n_sm)
-        lib = None
-        if q_dt == kv_dt:
-            vis = (torch.arange(g["mp"] * g["s"], device="cuda")[None, None]
-                   <= lengths[:, None, None])
-
-            def lib():
-                return sdpa_decode_ms(torch, timer, q[:, None], pool, tables,
-                                      vis, g["hq"] // g["hkv"])
-        kind = "f32" if q_dt == torch.float32 else "bf16"
-        got, r = small_row(
-            torch, timer, paged_decode_attention, "paged", case, dname,
-            lambda: paged_decode_attention(*args),
-            lambda: paged_decode_attention_reference(*args), None,
-            pd_bound(lanes, pos, q.element_size(), pool.element_size(), kind,
-                     g), lib)
-        if planted:
-            skip = torch.cat([tables[:, :5], tables[:, 6:], tables[:, :1]],
-                             1)
-            check_rejects(torch, f"paged skipped page, {case}, {dname}",
-                          got, paged_decode_attention_reference(
-                              q, pool, skip, lengths - g["s"]))
-        r["body"] = f"ring x{splits}"
-        new["paged"].append(r)
+        new["paged"].append(paged_row(
+            torch, timer, rng, g, pool32, tables, case, dname, q_name,
+            kv_name, pos, "small", planted))
 
     for d in (16, 32):
         g = dict(SM_GEOM, d=d)
@@ -9509,14 +9583,279 @@ def phase_small(torch, timer, card):
     return new, launches
 
 
+# ---------------------------------------------------------------- phase 20
+# Every head dim tpulab's kernels take.  Public Llama-architecture models
+# at head dims other than 64 and 128: Phi-3-mini
+# (microsoft/Phi-3-mini-4k-instruct, config.json: hidden_size 3072 over
+# 32 heads and 32 KV heads, D 96, 32 layers, intermediate 8192, vocab
+# 32064, untied, rope_theta 10000; its sliding_window 2047 never applies
+# under max_len 2048 with these prompts) and Phi-2 (2560 over 32 heads, D
+# 80: its block is not tpulab's, so its widths drive the kernels alone)
+PHI3_MINI = dict(vocab=32064, d_model=3072, n_heads=32, n_kv_heads=32,
+                 d_ff=8192, n_layers=32, rope_theta=10000.0)
+HD_WGMMA = (dict(RA_GEOM, hq=32, hkv=32, d=80),     # Phi-2's attention
+            dict(RA_GEOM, hq=32, hkv=32, d=96),     # Phi-3-mini's
+            dict(RA_GEOM, d=112))                   # Hq 32 over Hkv 8
+HD_FMA = tuple(dict(RA_GEOM, d=d) for d in (24, 48, 100))
+HD_CASES = ("all_decode", "chunk_over_ctx", "verify_k8")
+HD_PROMPTS = (100, 200, 300, 400)       # the serve's prompt lengths
+HD_SHORT = (60, 120, 180, 240)          # one prompt chunk each
+HD_STEPS = 24
+
+
+def head_dim_kernels(torch, timer):
+    """(a) Kernel 1 on ``wgmma`` at D 80 / 96 / 112 (all_decode,
+    chunk_over_ctx, verify_k8 in bf16; all_decode f16/f16 and bf16/e4m3 at
+    D 96) and on ``fma`` at D 24 / 48 / 100 (all_decode f32, and bf16 at D
+    100 and bf16 over e4m3 pages at D 24: rows of 200 and 24 bytes); kernel
+    2 at T 2048, H 32, causal on ``wgmma`` at D 80 / 96 / 112 in bf16 (and
+    D 96 f16) and on ``fma`` at D 24 / 48 / 100 in f32; kernel 3 at 8 x
+    1024 at every one of those head dims.  Each held against its plain
+    version, relaunched bit for bit, timed beside the plain version, the
+    bound and SDPA; one planted error per kernel rejected."""
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    tag = "head dims"
+    new = {"ragged": [], "flash": [], "paged": []}
+    ra = dict((name, (q, kv)) for name, q, kv in ra_cases())
+    for g in HD_WGMMA + HD_FMA:
+        wgmma = g in HD_WGMMA
+        pool32, tables = serving_pool(torch, np, rng, g)
+        mixes = ((("bf16/bf16", "bfloat16", "bfloat16", HD_CASES),)
+                 if wgmma else
+                 (("f32/f32", "float32", "float32", HD_CASES[:1]),))
+        if g["d"] == 96:
+            mixes += (("f16/f16", "float16", "float16", HD_CASES[:1]),
+                      ("bf16/e4m3", "bfloat16", "float8_e4m3fn",
+                       HD_CASES[:1]))
+        elif g["d"] == 100:
+            mixes += (("bf16/bf16", "bfloat16", "bfloat16", HD_CASES[:1]),)
+        elif g["d"] == 24:
+            mixes += (("bf16/e4m3", "bfloat16", "float8_e4m3fn",
+                       HD_CASES[:1]),)
+        for dname, q_name, kv_name, cases in mixes:
+            for case in cases:
+                new["ragged"].append(ragged_row(
+                    torch, timer, rng, g, pool32, tables, case, dname,
+                    q_name, kv_name, *ra[case],
+                    "wgmma" if wgmma else "fma", tag,
+                    planted=g["d"] in (96, 100) and dname == "f32/f32"
+                    or (g["d"] == 96 and case == "all_decode"
+                        and dname == "bf16/bf16")))
+        for dname, q_name, kv_name, _ in mixes[:1]:
+            new["paged"].append(paged_row(
+                torch, timer, rng, g, pool32, tables, f"D{g['d']} 8 x 1024",
+                dname, q_name, kv_name, 1023, tag, planted=g["d"] == 96))
+        del pool32
+    for g in HD_WGMMA + HD_FMA:
+        for dname in (("bfloat16",) + (("float16",) if g["d"] == 96 else ())
+                      if g in HD_WGMMA else ("float32",)):
+            r = flash_case(torch, timer, rng, 1, g["hq"], g["d"], 2048,
+                           dname, True, g["d"] == 96 and dname == "bfloat16")
+            if r["body"] != ("wgmma" if g in HD_WGMMA else "fma"):
+                raise AssertionError(f"{tag}: flash D {g['d']} {dname} on "
+                                     f"{r['body']}")
+            r["case"] = f"D{g['d']} {r['case']}"
+            new["flash"].append(r)
+    odd_splits_paged(torch, rng, tag)
+    torch.cuda.empty_cache()
+    return new
+
+
+def odd_splits_paged(torch, rng, tag):
+    """Kernel 3 at an odd head dim over an odd count of split rows (one
+    lane, Hq = Hkv = 1 or 3, 384 positions: three splits), f32 and bf16:
+    the O partials end on an odd float, and the (m, l) pairs after them
+    are read and written as float2.  Each against its plain version and
+    relaunched bit for bit."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_splits)
+    from tpulab_torch.ops.ragged_attention import _sm_count
+
+    s, mp = 8, 48
+    for d, h in ((25, 1), (75, 3)):
+        n_split = paged_splits(1, h, mp, s,
+                               _sm_count(torch.cuda.current_device()))
+        if n_split * h * d % 2 != 1:
+            raise AssertionError(f"{tag}: kernel 3 D {d} H {h}: {n_split} "
+                                 "splits give an even count of partials")
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.from_numpy(rng.standard_normal((1, h, d)).astype(
+                np.float32)).cuda().to(dt)
+            pool = torch.from_numpy(rng.standard_normal(
+                (mp + 1, 2, s, h, d)).astype(np.float32)).cuda().to(dt)
+            tables = torch.arange(1, mp + 1, dtype=torch.int32,
+                                  device="cuda")[None]
+            args = (q, pool, tables, card_lens(torch, [mp * s - 1]))
+            got = paged_decode_attention(*args)
+            again = paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            label = f"{tag}: kernel 3 D {d} H {h} {dtype_name(dt)}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: relaunch differs")
+            err = check_close(torch, label, got,
+                              paged_decode_attention_reference(*args))
+            log(f"{label}, {n_split} splits over {mp * s} positions: == "
+                f"plain (max err {err:.2e}), relaunch bit for bit")
+
+
+def head_dim_serve(torch, card):
+    """(b) ``ContinuousBatcher`` at Phi-3-mini's published widths (all 32
+    layers, random bf16 weights from a seed): four greedy requests of
+    HD_PROMPTS tokens x HD_STEPS under the ragged plan with K-blocks of
+    8 and with K = 1 and under the split plan with K 8 and K 1, then
+    four of HD_SHORT tokens (one prompt chunk each) under the ragged plan
+    with K 8 and K 1.  Every kernel 1 launch on ``wgmma bf16`` at D 96
+    (== 32 x forward steps), every kernel 2 launch of the split plan too
+    (== 32 x prefills).  K 1 == K 8 token for token where both take each
+    decode token from a decode step (the split plan; the ragged plan
+    over one-chunk prompts); the ragged K 1 serve over two-chunk prompts
+    and the split serve against the ragged K 8 streams under the bf16
+    noise rule (the ragged K 1 and K 8 serves take different tokens
+    from the mixed round's ragged forward, of other matrix shapes than a
+    decode step's).  Then the
+    same-backend invariants on these weights (:func:`phase_invariants`,
+    2 of the layers): the K = 8 block == 8 chained steps bit for bit, the
+    mixed step == the ragged forward, and kernel 3's decode op over the
+    model-written D 96 pool.  Returns the launches, by kernel, form and
+    head dim."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.models.transformer import init_transformer_params
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = PHI3_MINI
+    d = c["d_model"] // c["n_heads"]
+    params = init_transformer_params(
+        c["vocab"], c["d_model"], c["n_heads"], c["n_layers"], c["d_ff"],
+        seed=22, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, device="cuda", dtype=torch.bfloat16)
+    n_params = sum(x.numel() for _, x in par_leaves(params))
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(96)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in HD_PROMPTS]
+    short = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+             for n in HD_SHORT]
+    k1 = dict(decode_block=1)
+    form = "wgmma bf16"
+    streams, total = {}, {"ragged": {}, "flash": {}}
+    for plan, cfg, reqs in (
+            ("ragged", SERVE, prompts),
+            ("ragged K=1", dict(SERVE, **k1), prompts),
+            ("split", dict(SERVE, **SPLIT), prompts),
+            ("split K=1", dict(SERVE, **SPLIT, **k1), prompts),
+            ("ragged one-chunk", SERVE, short),
+            ("ragged one-chunk K=1", dict(SERVE, **k1), short)):
+        cb = ContinuousBatcher(params, device="cuda", **kw, **cfg)
+        try:
+            pool_gb = cb.pool.kv.numel() * cb.pool.kv.element_size() / 1e9
+            reset_counts(ragged_paged_attention, flash_attention)
+            before = (cb.forward_steps, cb.prefill_forwards)
+            t0 = time.perf_counter()
+            with cb._cv:
+                futs = [cb.submit(p, HD_STEPS) for p in reqs]
+            streams[plan] = [list(f.result(timeout=600)) for f in futs]
+            wall = time.perf_counter() - t0
+            got = {}
+            for name, fn in (("ragged", ragged_paged_attention),
+                             ("flash", flash_attention)):
+                got[name] = (fn.launches, dict(fn.launches_by_form),
+                             dict(fn.launches_by_head_dim))
+            steps = cb.forward_steps - before[0]
+            prefills = cb.prefill_forwards - before[1]
+        finally:
+            cb.shutdown()
+        want = {"ragged": c["n_layers"] * steps,
+                "flash": c["n_layers"] * prefills}
+        for name, (n, by_form, by_dim) in got.items():
+            if (n != want[name]
+                    or by_form != {k: n if k == form else 0
+                                   for k in by_form}
+                    or by_dim != ({d: n} if n else {})):
+                raise AssertionError(
+                    f"head dims: Phi-3-mini {plan}: {name} launches {n} "
+                    f"(want {want[name]}), by form {by_form}, by head dim "
+                    f"{by_dim}: want every one {form} at D {d}")
+            for k, v in ((form, n), (f"D{d}", n)):
+                total[name][k] = total[name].get(k, 0) + v
+        split = plan.startswith("split")
+        if split != (prefills > 0) or (not split and got["flash"][0]):
+            raise AssertionError(f"head dims: Phi-3-mini {plan}: "
+                                 f"{prefills} prefill forwards")
+        if any(len(x) != HD_STEPS or not all(0 <= t < c["vocab"] for t in x)
+               for x in streams[plan]):
+            raise AssertionError(f"head dims: Phi-3-mini {plan}: a stream "
+                                 "of the wrong length or a token outside "
+                                 "[0, vocab)")
+        n_tok = sum(len(x) for x in streams[plan])
+        log(f"head dims: Phi-3-mini width ({n_params / 1e9:.2f} B "
+            f"parameters, bf16, {c['n_layers']} layers, D {d}), {plan} "
+            f"plan: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s"
+            f" = {n_tok / wall:.1f} tok/s (recorded, not claimed); pool "
+            f"{pool_gb:.2f} GB; kernel 1 {got['ragged'][0]} = "
+            f"{c['n_layers']} x {steps} forward steps, kernel 2 "
+            f"{got['flash'][0]} = {c['n_layers']} x {prefills} prefills, "
+            f"all {form} at D {d} [{card}]")
+    for plan, k8 in (("split K=1", "split"),
+                     ("ragged one-chunk K=1", "ragged one-chunk")):
+        if streams[plan] != streams[k8]:
+            first = [next((j for j, (a, b) in enumerate(zip(x, y))
+                           if a != b), None)
+                     for x, y in zip(streams[k8], streams[plan])]
+            raise AssertionError(f"head dims: Phi-3-mini {plan} != {k8} "
+                                 f"(first differing step per request "
+                                 f"{first})")
+        log(f"head dims: Phi-3-mini {plan} == {k8}: identical streams "
+            f"({len(streams[plan])} x {HD_STEPS} tokens, three K-blocks)")
+    for plan in ("ragged K=1", "split"):
+        notes = [same_or_bf16_noise(torch, params, kw,
+                                    f"{plan} vs ragged, {len(p)}-token "
+                                    "prompt", p, a, b)
+                 for p, a, b in zip(prompts, streams["ragged"],
+                                    streams[plan])]
+        notes = [n for n in notes if n]
+        log(f"head dims: Phi-3-mini {plan} vs ragged (K = 8): "
+            + ("; ".join(notes) if notes else "identical streams"))
+    total["paged"] = {"D96": phase_invariants(torch, params, torch.bfloat16,
+                                              model=c)}
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_head_dims(torch, timer, card):
+    """Phase 20: every head dim tpulab's kernels take, kernels and a
+    Phi-3-mini-width serve."""
+    t0 = time.perf_counter()
+    new = head_dim_kernels(torch, timer)
+    log(f"head dims: (a) kernels {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    launches = head_dim_serve(torch, card)
+    log(f"head dims: (b) Phi-3-mini serves and invariants "
+        f"{time.perf_counter() - t1:.1f} s;"
+        f" launches {json.dumps(launches)} [{card}]")
+    log(f"head dims: phase {time.perf_counter() - t0:.1f} s")
+    return new, launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
-                 extra=None, forms=None, small=None):
+                 extra=None, forms=None, small=None, head_dims=None):
     """One kernel's line: times of its main case, the max error over
     that case's dtype mix, (kernels with several bodies) the body, with
     its split count, that ran each case, other cases and dtypes
     (``extra``: key -> its case and dtype mix, e.g. ``"e4m3"``, ``"f16"``,
-    ``"d16"``), phase 18's main-path launches by form (``forms``) and
-    phase 19's at D 16 (``small``)."""
+    ``"d16"``), phase 18's main-path launches by form (``forms``),
+    phase 19's at D 16 (``small``) and phase 20's Phi-3-mini serve's by
+    form and head dim (``head_dims``)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -9538,6 +9877,8 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
         entry["phase18_launches_by_form"] = forms
     if small is not None:
         entry["phase19_launches_d16"] = small
+    if head_dims is not None:
+        entry["phase20_launches"] = head_dims
     return entry
 
 
@@ -9646,10 +9987,12 @@ def main(argv=None) -> int:
     stamp("dtypes")
     sm_rows, sm_launches = phase_small(torch, timer, card)
     stamp("small")
+    hd_rows, hd_launches = phase_head_dims(torch, timer, card)
+    stamp("head dims")
 
     kernels = [
         kernel_entry("ragged_paged_attention",
-                     "tpulab_torch/ops/csrc/ragged_attention.cu",
+                     "tpulab_torch/ops/csrc/ragged_attention.cuh",
                      "tpulab/ops/ragged_attention.py:190",
                      st["ragged"]["launches"]["ragged"]
                      + st["int8 ragged"]["launches"]["ragged"]
@@ -9660,9 +10003,10 @@ def main(argv=None) -> int:
                      + obs_launches + batch_launches + fleet_launches
                      + fab["ragged"] + shard_launches + rows_launches[0]
                      + import_launches + dt_launches["ragged"]
-                     + sm_launches[0],
+                     + sm_launches[0] + hd_launches["ragged"]["D96"],
                      rows["ragged"] + e4m3_rows["ragged"]
-                     + dt_rows["ragged"] + sm_rows["ragged"],
+                     + dt_rows["ragged"] + sm_rows["ragged"]
+                     + hd_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
@@ -9678,22 +10022,38 @@ def main(argv=None) -> int:
                      "split plan, (f) weight swap) + the rows phase + the "
                      "import phase's HF Llama serve (4 layers) + the "
                      "dtypes phase's serves (f16 compute, bf16 over e5m2 "
-                     "pages; 8 layers, both plans) + the small phase's "
-                     "rows (D 16, fma)",
+                     "pages; 4 layers, both plans) + the small phase's "
+                     "rows (D 16, fma) + the head dims phase's "
+                     "Phi-3-mini-width serves (D 96, wgmma bf16; 32 "
+                     "layers, both plans, K = 8 and K = 1)",
                      {"e4m3": ("all_decode", "bf16/e4m3"),
                       "f16": ("all_decode", "f16/f16"),
                       "e5m2": ("all_decode", "bf16/e5m2"),
                       "d16": ("D16 decode 8 x 1024", "f32/f32"),
-                      "d16_rows": ("D16 decode 2 x 40", "f32/f32")},
-                     dt_forms["ragged"], sm_launches[0]),
+                      "d16_rows": ("D16 decode 2 x 40", "f32/f32"),
+                      "d80": ("D80 all_decode", "bf16/bf16"),
+                      "d96": ("D96 all_decode", "bf16/bf16"),
+                      "d96_chunk": ("D96 chunk_over_ctx", "bf16/bf16"),
+                      "d96_verify": ("D96 verify_k8", "bf16/bf16"),
+                      "d96_f16": ("D96 all_decode", "f16/f16"),
+                      "d96_e4m3": ("D96 all_decode", "bf16/e4m3"),
+                      "d112": ("D112 all_decode", "bf16/bf16"),
+                      "fma_d24": ("D24 all_decode", "f32/f32"),
+                      "fma_d48": ("D48 all_decode", "f32/f32"),
+                      "fma_d100": ("D100 all_decode", "f32/f32"),
+                      "fma_d100_bf16": ("D100 all_decode", "bf16/bf16")},
+                     dt_forms["ragged"], sm_launches[0],
+                     hd_launches["ragged"]),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
                      st["split"]["launches"]["flash"]
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
                      + par_launches + shard_flash + rows_launches[1]
-                     + mem_launches + dt_launches["flash"] + sm_launches[1],
-                     rows["flash"] + dt_rows["flash"] + sm_rows["flash"],
+                     + mem_launches + dt_launches["flash"] + sm_launches[1]
+                     + hd_launches["flash"].get("D96", 0),
+                     rows["flash"] + dt_rows["flash"] + sm_rows["flash"]
+                     + hd_rows["flash"],
                      (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
@@ -9704,29 +10064,47 @@ def main(argv=None) -> int:
                      "owner, both ranks (H 16 a rank) + the rows phase's "
                      "split-plan prefills + the memory phase's stream "
                      "(32 x its windows) + the dtypes phase's split-plan "
-                     "serves (f16 and bf16, 8 layers) + the small phase's "
-                     "kv_fabric prefills (D 16, fma)",
+                     "serves (f16 and bf16, 4 layers) + the small phase's "
+                     "kv_fabric prefills (D 16, fma) + the head dims "
+                     "phase's Phi-3-mini-width split-plan prefills (D 96, "
+                     "wgmma bf16, 32 layers)",
                      {"f16": (f"T={FA_TS[-1]} causal", "float16"),
                       "d16": ("D16 T=2048 causal H=2", "float32"),
                       "d16_rows": (f"D16 T={SM_FLASH_T} causal H=2",
-                                   "float32")},
-                     dt_forms["flash"], sm_launches[1]),
+                                   "float32"),
+                      "d80": ("D80 T=2048 causal", "bfloat16"),
+                      "d96": ("D96 T=2048 causal", "bfloat16"),
+                      "d96_f16": ("D96 T=2048 causal", "float16"),
+                      "d112": ("D112 T=2048 causal", "bfloat16"),
+                      "fma_d24": ("D24 T=2048 causal", "float32"),
+                      "fma_d48": ("D48 T=2048 causal", "float32"),
+                      "fma_d100": ("D100 T=2048 causal", "float32")},
+                     dt_forms["flash"], sm_launches[1],
+                     hd_launches["flash"]),
         kernel_entry("paged_decode_attention",
-                     "tpulab_torch/ops/csrc/paged_attention.cu",
-                     "tpulab/ops/paged_attention.py:221", op_launches,
+                     "tpulab_torch/ops/csrc/paged_attention.cuh",
+                     "tpulab/ops/paged_attention.py:221",
+                     op_launches + hd_launches["paged"]["D96"],
                      rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"]
-                     + sm_rows["paged"],
+                     + sm_rows["paged"] + hd_rows["paged"],
                      ("8 x 1024", "bf16/bf16"),
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
                      "decode op over every layer of a model-written pool, "
-                     "bf16 and e4m3",
+                     "bf16 and e4m3, and the head dims phase's "
+                     "Phi-3-mini-width pool (D 96)",
                      {"e4m3": ("8 x 1024", "bf16/e4m3"),
                       "f16": ("8 x 1024", "f16/f16"),
                       "e5m2": ("8 x 1024", "bf16/e5m2"),
                       "d16": ("D16 8 x 1024", "f32/f32"),
                       "d32": ("D32 8 x 1024", "f32/f32"),
                       "g16": ("G16 8 x 1024", "bf16/bf16"),
-                      "mqa": ("MQA 8 x 1024", "bf16/bf16")}),
+                      "mqa": ("MQA 8 x 1024", "bf16/bf16"),
+                      "d80": ("D80 8 x 1024", "bf16/bf16"),
+                      "d96": ("D96 8 x 1024", "bf16/bf16"),
+                      "d112": ("D112 8 x 1024", "bf16/bf16"),
+                      "d24": ("D24 8 x 1024", "f32/f32"),
+                      "d48": ("D48 8 x 1024", "f32/f32"),
+                      "d100": ("D100 8 x 1024", "f32/f32")}),
     ]
     faulthandler.cancel_dump_traceback_later()
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -13,7 +13,8 @@ differs), bf16 2e-2 and f16 2e-3 (the output rounds to q's type at
 different points), as the existing kernel tests hold them.
 
 A paged ``ContinuousBatcher`` at ``tests/test_paged.py``'s widths (and
-its MQA variant) gives tpulab's greedy tokens under both plans.
+its MQA variant), and at head dims 96 and 80 (MQA), gives tpulab's
+greedy tokens under both plans.
 
 The CUDA forms have no CPU mode: their cases are marked ``cuda`` and
 skip without a card; there they hold each form against its plain
@@ -49,8 +50,8 @@ from tpulab_torch.ops.paged_attention import (
     GROUP_BLOCK, group_blocks, paged_decode_attention,
     paged_decode_attention_reference, paged_splits)
 from tpulab_torch.ops.ragged_attention import (
-    HEAD_DIMS, KV_CODE, Q_CODE, check_built, ragged_body,
-    ragged_paged_attention, ragged_paged_attention_reference)
+    KV_CODE, MAX_HEAD_DIM, Q_CODE, WGMMA_PAGES, check_built, head_dim_built,
+    ragged_body, ragged_paged_attention, ragged_paged_attention_reference)
 
 torch.set_num_threads(2)
 
@@ -209,16 +210,29 @@ def test_d16_is_built_on_the_fma_body(q_dt, kv_dt):
 
 
 def test_head_dims_of_the_three_kernels():
-    """One tuple for all three kernels; a head dim outside it, such as
-    tpulab's 80 or 96, is still refused, by the wrappers too."""
-    assert HEAD_DIMS == (16, 32, 64, 128, 256)
+    """One rule for all three kernels: every head dim from 1 to 256, as
+    tpulab's kernels take any (80, 96, ...); past 256 refused, by the
+    wrappers too.  The tensor-core bodies take the multiples of 16 from
+    64 to 128 for the 16-bit pairs, the fma bodies everything else."""
+    assert MAX_HEAD_DIM == 256
     assert set(Q_CODE) == {getattr(torch, n) for n in Q_DTYPES}
     assert set(KV_CODE) == {getattr(torch, n) for n in KV_DTYPES}
-    for d in (8, 80, 96, 100):
-        for dt in (torch.float32, torch.bfloat16):
+    for q_dt, kv_dt in PAIRS:
+        q, kv = getattr(torch, q_dt), getattr(torch, kv_dt)
+        for d in range(1, MAX_HEAD_DIM + 1):
+            check_built(q, kv, d)
+            assert head_dim_built(d)
+            want = ("wgmma" if kv in WGMMA_PAGES.get(q, ())
+                    and d in (64, 80, 96, 112, 128) else "fma")
+            assert ragged_body(q, kv, d) == want
+            if q == kv:
+                assert flash_body(q, d) == (
+                    "fma" if q == torch.float32 else want)
+        for d in (264, 512):
+            assert not head_dim_built(d)
             with pytest.raises(ValueError, match="not built"):
-                check_built(dt, dt, d)
-    q, pool, tables = _inputs(0, 1, 1, 2, 2, 80, 8, 2)
+                check_built(q, kv, d)
+    q, pool, tables = _inputs(0, 1, 1, 2, 2, 264, 8, 2)
     with pytest.raises(ValueError, match="not built"):
         pa._check(torch.from_numpy(q[:, 0]), torch.from_numpy(pool),
                   torch.from_numpy(tables), torch.tensor([3]))
@@ -245,10 +259,14 @@ def test_the_batcher_takes_d16_where_the_card_would():
 
 
 # --------------------------------------------------------- the batcher
-#: tests/test_paged.py's model and its MQA variant
+#: tests/test_paged.py's model and its MQA variant; head dim 96
+#: (Phi-3-mini's) and 80 (Phi-2's) under MQA
 LMS = {"mha": dict(vocab=64, d_model=32, n_heads=2, n_layers=2, d_ff=64),
        "mqa": dict(vocab=64, d_model=64, n_heads=4, n_layers=2, d_ff=64,
-                   n_kv_heads=1)}
+                   n_kv_heads=1),
+       "d96": dict(vocab=64, d_model=192, n_heads=2, n_layers=2, d_ff=128),
+       "d80_mqa": dict(vocab=64, d_model=160, n_heads=2, n_layers=2,
+                       d_ff=128, n_kv_heads=1)}
 
 
 @pytest.mark.parametrize("plan", ["ragged", "split"])

@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Time kernels 1 and 3 of several checkouts on the same card, each run in
-a fresh process, in the order given (for example A B C C B A).
+"""Time kernels 1-3 of several checkouts on the same card, each run in a
+fresh process, in the order given (for example A B B A), and hold their
+outputs bit for bit.
 
-    python3 tools/kernel_ab.py build/parent . build/nosplit \
-        build/nosplit . build/parent
+    python3 tools/kernel_ab.py build/parent . . build/parent
 
 Each run builds the kernels of its own checkout (``phase_build``: the
 build seconds of each library are printed) and runs ``chip_smoke.py``'s
 ``phase_ragged`` and ``phase_paged`` (CUDA events, L2 flushed), keeping
 the rows of every dtype mix at all_decode, chunk_over_ctx, long_decode
-and verify_k8 (kernel 1) and the bf16 rows of kernel 3.  A checkout is a
-directory holding ``chip_smoke.py`` and ``tpulab_torch/`` (the parent
-commit unpacked with ``git archive``, or this one).  The summary prints
-each row's milliseconds run by run, with the card's name and power limit.
-Needs a CUDA card.
+and verify_k8 (kernel 1) and the bf16 rows of kernel 3; then, at every
+head dim the kernels were compiled for before any other (D 16, 32, 64,
+128 and 256), kernel 1 at 8 lanes x 1024 decode, kernel 2 at T 2048 H 8
+causal and kernel 3 at 8 x 1024, each in f32 and bf16 (kernel 1 and 3
+also bf16 over e4m3 pages), timed the same way, and the SHA-256 of the
+outputs of those calls and of smaller ones at ragged edges (f16 too).
+A checkout is a directory holding ``chip_smoke.py`` and ``tpulab_torch/``
+(the parent commit unpacked with ``git archive``, or this one).  The
+summary prints each row's milliseconds run by run, whether every run's
+outputs equal the first's bit for bit, and the card's name and power
+limit.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,9 +32,13 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 RUN = r"""
-import io, json, sys, contextlib, torch
+import io, json, sys, contextlib, hashlib
+import numpy as np, torch
 sys.path.insert(0, '.')
 import chip_smoke as c
+from tpulab_torch.ops.flash_attention import flash_attention
+from tpulab_torch.ops.paged_attention import paged_decode_attention
+from tpulab_torch.ops.ragged_attention import ragged_paged_attention
 torch.backends.cuda.matmul.allow_tf32 = False
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
@@ -43,7 +53,64 @@ rows = {f"ragged {x['case']} {x['dtypes']}": x['ms'] for x in r
                          'long_decode')}
 rows.update({f"paged {x['case']} {x['dtypes']}": x['ms'] for x in p
              if x['dtypes'] == 'bf16/bf16'})
-print('AB ' + json.dumps({'build': build, 'rows': rows}), flush=True)
+
+digests = {}
+def digest(key, out):
+    torch.cuda.synchronize()
+    raw = out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    digests[key] = hashlib.sha256(raw).hexdigest()[:16]
+
+def lens(x):
+    return torch.tensor(x, dtype=torch.int32, device='cuda')
+
+MIXES = (('f32/f32', torch.float32, torch.float32),
+         ('bf16/bf16', torch.bfloat16, torch.bfloat16),
+         ('bf16/e4m3', torch.bfloat16, torch.float8_e4m3fn))
+for d in (16, 32, 64, 128, 256):
+    rng = np.random.default_rng(d)
+    g = dict(c.RA_GEOM, d=d)
+    pool32, tables = c.serving_pool(torch, np, rng, g)
+    q32 = torch.from_numpy(rng.standard_normal(
+        (8, 9, g['hq'], d)).astype(np.float32)).cuda()
+    for name, q_dt, kv_dt in MIXES + (('f16/f16', torch.float16,
+                                       torch.float16),):
+        pool, q = pool32.to(kv_dt), q32.to(q_dt)
+        timed = name != 'f16/f16'
+        for case, ql, kl in (('decode', [1] * 8, [1024] * 8),
+                             ('edges', [9, 1, 3, 0, 9, 1, 2, 9],
+                              [9, 17, 300, 0, 1033, 2048, 64, 100])):
+            m = max(ql)
+            args = (q[:, :m].contiguous(), pool, tables, lens(ql), lens(kl))
+            digest(f'ragged D{d} {case} {name}',
+                   ragged_paged_attention(*args))
+            if timed and case == 'decode':
+                rows[f'ragged D{d} decode 8 x 1024 {name}'] = t(
+                    lambda: ragged_paged_attention(*args), iters=20)
+        for lanes, pos in ((8, 1023), (3, 100)):
+            args = (q[:lanes, 0].contiguous(), pool, tables[:lanes],
+                    lens([pos] * lanes))
+            digest(f'paged D{d} {lanes} x {pos + 1} {name}',
+                   paged_decode_attention(*args))
+            if timed and lanes == 8:
+                rows[f'paged D{d} 8 x 1024 {name}'] = t(
+                    lambda: paged_decode_attention(*args), iters=20)
+        del pool
+    del pool32
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for tl, causal in ((2048, True), (200, False)):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (1, tl, 8, d)).astype(np.float32)).cuda().to(dt)
+                for _ in range(3))
+            name = str(dt).split('.')[-1]
+            digest(f'flash D{d} T={tl} {name}',
+                   flash_attention(q, k, v, causal=causal, block_q=tl,
+                                   block_k=tl))
+            if tl == 2048 and dt != torch.float16:
+                rows[f'flash D{d} T=2048 H 8 causal {name}'] = t(
+                    lambda: flash_attention(q, k, v, causal=True), iters=10)
+    torch.cuda.empty_cache()
+print('AB ' + json.dumps({'build': build, 'rows': rows, 'digests': digests}),
+      flush=True)
 """
 
 
@@ -62,13 +129,19 @@ def main(argv=None) -> int:
         if out.returncode != 0 or not line:
             raise SystemExit(f"run {i} in {d} failed:\n{out.stderr[-3000:]}")
         rec = json.loads(line[0][3:])
-        res.append((d, rec["rows"]))
+        res.append((d, rec["rows"], rec["digests"]))
         print(f"run {i} {d}: " + "; ".join(rec["build"]), flush=True)
     for key in sorted(res[0][1]):
         print(f"{key}: " + " | ".join(f"{d} {rows[key]:.4f}"
-                                      for d, rows in res))
+                                      for d, rows, _ in res))
+    first = res[0][2]
+    differ = sorted(k for _, _, dig in res[1:] for k in first
+                    if dig.get(k) != first[k])
+    print(f"outputs: {len(first)} calls a run; "
+          + (f"DIFFER from run 0 at {differ}" if differ
+             else "every run equal to run 0 bit for bit"), flush=True)
     print(card_name_and_power_limit(0), flush=True)
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

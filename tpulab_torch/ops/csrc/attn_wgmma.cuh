@@ -8,9 +8,14 @@
 // instruction shapes are the same, and only the `wgmma` type suffix, the
 // packing of P and the output's rounding differ.
 //
-// The layout.  A 16-bit operand tile of R rows x D columns (D a multiple of
-// 64) is stored as D/64 column blocks, each R rows of 128 bytes, block c
-// at byte c * R * 128.  Inside each 1024-byte group of 8 rows, the 16-byte
+// The layout.  A 16-bit operand tile of R rows x D columns (D 64 or 128,
+// the tile's width) is stored as D/64 column blocks, each R rows of 128
+// bytes, block c at byte c * R * 128.  A head dim of 80, 96 or 112 lives
+// in a 128-wide tile whose last block is partly filled: its columns past
+// the head dim are zero in shared memory (the ragged kernel zeroes them
+// once, TMA fills them with zeros as it reads past the row), so they add
+// nothing to Q K^T, and P V's columns past the head dim are never
+// stored.  Inside each 1024-byte group of 8 rows, the 16-byte
 // chunk j of row r sits at chunk j ^ (r % 8): the pattern that TMA writes
 // under CU_TENSOR_MAP_SWIZZLE_128B and that descriptor layout type 1
 // (128B swizzle) reads.  Tiles start on 1024-byte boundaries.  Q and K are
@@ -18,14 +23,17 @@
 // transposed through its descriptor, so P V needs no transpose in memory.
 //
 // The step.  A warpgroup (128 threads) owns 64 query rows.  S = Q K^T is
-// D/16 m64n64k16 products into 32 f32 registers a thread; the thread holds
+// one m64n64k16 product per 16 columns of the head dim (D/16 at D 64 and
+// 128, 5 to 7 at 80 to 112: the zero columns' steps are skipped) into 32
+// f32 registers a thread; the thread holds
 // rows r and r + 8 (r = 16 * warp + lane / 4) at columns 8c + 2(lane % 4)
 // + {0, 1}, so a row's max and sum are reduced over the four lanes that
 // share lane / 4.  Scores are scaled by log2(e)/sqrt(D) in f32 after the
 // product; masked keys score -inf and weigh exactly 0.  P is rounded to
 // E (bf16 or f16) in registers, where the S accumulator layout is already the A
 // operand layout of the next product: O += P V is BK/16 m64nDk16 products
-// with A from registers.  The online softmax keeps m and l in f32.
+// with A from registers (n = 128 for a head dim of 80 to 112: the columns
+// past it are dropped at the store).  The online softmax keeps m and l in f32.
 #pragma once
 
 #include "common.cuh"
@@ -226,12 +234,24 @@ __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// Zero 16-byte chunks [c0, c1) of every row of an R-row swizzled tile (the
+// columns past a head dim of 80, 96 or 112), by `nthreads` threads.
+__device__ __forceinline__ void zero_chunks(unsigned char* tile, int rows,
+                                            int c0, int c1, int tid,
+                                            int nthreads) {
+  const int n = c1 - c0;
+  for (int i = tid; i < rows * n; i += nthreads)
+    *reinterpret_cast<uint4*>(tile + swz(i / n, c0 + i % n, rows)) =
+        make_uint4(0u, 0u, 0u, 0u);
+}
+
 // ---- the consumer's tile ----
 // A warpgroup's 64 query rows against stages of BK = 64 keys.  Q, K and V
-// tiles are 64 rows x D of E (bf16 or f16) in the swizzled layout above.
+// tiles are 64 rows x D of E (bf16 or f16) in the swizzled layout above;
+// D is the tile's width, the head dim is D or (D 128) 80, 96 or 112.
 template <int D, typename E = __nv_bfloat16>
 struct AttnTile {
-  static_assert(D == 64 || D == 128, "the tensor-core tile takes D 64 or 128");
+  static_assert(D == 64 || D == 128, "the tensor-core tile is 64 or 128 wide");
   static constexpr int BK = 64;
   static constexpr int TILE_BYTES = 64 * D * 2;   // one 64-row 16-bit tile
   static constexpr int NO = D / 2;                // O floats a thread
@@ -257,17 +277,21 @@ struct AttnTile {
   }
 
   // One stage.  q, k, v: shared-memory addresses of the tiles;
-  // scale_log2 = log2(e) / sqrt(D); visible(i, key) says whether this
-  // thread's row i (0 or 1, at tile row row(i)) sees the stage's key
-  // `key`, and is asked only when kMask (some row may not see some key).
+  // scale_log2 = log2(e) / sqrt(head dim); visible(i, key) says whether
+  // this thread's row i (0 or 1, at tile row row(i)) sees the stage's key
+  // `key`, and is asked only when kMask (some row may not see some key);
+  // k16 = head dim / 16, the products of Q K^T (the columns past it are
+  // zeros).
   template <bool kMask, class Visible>
   __device__ __forceinline__ void step(uint32_t q, uint32_t k, uint32_t v,
                                        float scale_log2,
-                                       const Visible& visible) {
+                                       const Visible& visible,
+                                       int k16 = D / 16) {
     float s[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if (kk >= k16) break;
       const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
       wgmma_ss_m64n64k16<E>(s, smem_desc(q + off, 16, 1024),
                          smem_desc(k + off, 16, 1024), kk);

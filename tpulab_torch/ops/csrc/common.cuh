@@ -9,6 +9,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <initializer_list>
 #include <type_traits>
 
 namespace tpulab {
@@ -111,6 +112,111 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(gmem), "r"(src_bytes));
 }
+// One `w`-byte chunk (w 16, 8, 4, 2 or 1; both addresses aligned to w)
+// from global to shared memory, zeros when !valid: cp.async for 4 bytes
+// and more (its zero fill reads nothing), a plain load and store below.
+// The rows of a head dim whose row bytes are not a multiple of 16 (D 100
+// in bf16, D 24 in fp8) are copied in the widest chunks they allow.
+__device__ __forceinline__ void copy_chunk(void* smem, const void* gmem,
+                                           int w, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? w : 0;
+  if (w == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  } else if (w == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  } else if (w == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  } else if (w == 2) {
+    *static_cast<uint16_t*>(smem) =
+        valid ? *static_cast<const uint16_t*>(gmem) : uint16_t(0);
+  } else {
+    *static_cast<uint8_t*>(smem) =
+        valid ? *static_cast<const uint8_t*>(gmem) : uint8_t(0);
+  }
+}
+// The chunks of a padded fma body's rows: `rows` rows of `row_bytes`
+// each in chunks of `cw` bytes, chunk c by thread c % `nthreads` (this
+// one `tid`), which calls f(row, the chunk's byte offset in the row) to
+// copy that chunk of the row's K and V.  Every thread makes the same
+// number of calls when `nthreads` divides `rows`.
+template <typename F>
+__device__ __forceinline__ void for_row_chunks(int rows, int row_bytes,
+                                               int cw, int tid, int nthreads,
+                                               F f) {
+  const int cpw = row_bytes / cw;
+  for (int c = tid; c < rows * cpw; c += nthreads) f(c / cpw, c % cpw * cw);
+}
+// The widest chunk (16, 8, 4, 2 or 1 bytes) that divides every value of
+// `v` (byte offsets: a base address, strides, a row's bytes).
+inline int copy_width(std::initializer_list<unsigned long long> v) {
+  int w = 16;
+  for (unsigned long long x : v)
+    while (x % w) w /= 2;
+  return w;
+}
+// Zero `bytes` (a multiple of 16) of shared memory from `p` (16-byte
+// aligned), by `nthreads` threads of which this is `tid`.
+__device__ __forceinline__ void zero_smem(void* p, size_t bytes, int tid,
+                                          int nthreads) {
+  uint4* q = static_cast<uint4*>(p);
+  for (size_t i = tid; i < bytes / 16; i += nthreads)
+    q[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The fma bodies' shared-memory width for a head dim that none of them is
+// compiled for exactly (D 16, 32, 64, 128 and 256 are): the next of 32,
+// 64, 128 and 256.  Columns from D to the width stay zero in shared
+// memory and are never stored.
+inline int padded_width(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+constexpr int MAX_HEAD_DIM = 256;
+// q's element type taken at run time (its launcher code: 0 f32, 1 bf16,
+// 2 f16): the padded fma bodies of kernels 1 and 3 read q once and write
+// their output once, so one instantiation serves the three q types.
+struct AnyQ {};
+// Element i of q (type QT, or AnyQ with code qc) as f32, and the store
+// of an f32 value into element i of an output of that type.
+template <typename QT>
+__device__ __forceinline__ float q_load(const QT* p, size_t i, int qc) {
+  if constexpr (std::is_same<QT, AnyQ>::value) {
+    const void* v = p;
+    return qc == 0   ? static_cast<const float*>(v)[i]
+           : qc == 1 ? to_f(static_cast<const __nv_bfloat16*>(v)[i])
+                     : to_f(static_cast<const __half*>(v)[i]);
+  } else {
+    return to_f(p[i]);
+  }
+}
+template <typename QT>
+__device__ __forceinline__ void q_store(QT* p, size_t i, int qc, float x) {
+  if constexpr (std::is_same<QT, AnyQ>::value) {
+    void* v = p;
+    if (qc == 0)
+      static_cast<float*>(v)[i] = x;
+    else if (qc == 1)
+      static_cast<__nv_bfloat16*>(v)[i] = from_f<__nv_bfloat16>(x);
+    else
+      static_cast<__half*>(v)[i] = from_f<__half>(x);
+  } else {
+    p[i] = from_f<QT>(x);
+  }
+}
+// Call `f` with a compile-time padded width (an integral constant).
+template <class F>
+int with_padded_width(int d, F&& f) {
+  switch (padded_width(d)) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return f(std::integral_constant<int, 256>{});
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -273,7 +379,10 @@ inline int enable_smem(Kernel kern, size_t smem,
 
 // Each library's error text for a launch's return code: -1 means a body,
 // dtype or shape the kernel is not built for, anything else a cudaError_t.
-extern "C" const char* tpulab_cuda_error_string(int code) {
+// Weak: every translation unit of a library that includes this header
+// defines it, and the link keeps one.
+extern "C" __attribute__((weak)) const char* tpulab_cuda_error_string(
+    int code) {
   return code < 0 ? "not built for this body, dtype or shape"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -20,7 +20,8 @@
 // Two bodies; the caller names one (flash_attention.py `flash_body`), and
 // the launcher refuses a body that does not fit the dtype and D:
 //
-// * `flash_fwd_wgmma_kernel<D, E>`, bf16 or f16 (E) with D 64 or 128, on
+// * `flash_fwd_wgmma_kernel<D, E, kPad>`, bf16 or f16 (E) with head dim
+//   64, 80, 96, 112 or 128, on
 //   the tensor cores in E (`wgmma ... f32.bf16.bf16` or `f32.f16.f16`;
 //   the tensor maps name E's TMA data type): a block of three
 //   warpgroups owns 128 query rows of one (b, h), heaviest causal tile
@@ -35,9 +36,14 @@
 //   min(T, q0 + 128); rows past T are zero-filled by TMA and never stored;
 //   keys past T or past a row's position weigh 0.  Scores are scaled in
 //   f32 after the product, so besides f32 summation order the one new
-//   rounding against the plain version is P to E.
-// * `flash_fwd_kernel<T, D>`, f32 (any D) and bf16 or f16 with D 16, 32 or
-//   256:
+//   rounding against the plain version is P to E.  A head dim of 80, 96
+//   or 112 (kPad) runs the 128-wide tile: the tensor maps' inner
+//   dimension is the head dim, so the box at column 64 reads past it and
+//   TMA fills those columns with zeros, the Q K^T products stop at the
+//   head dim and the output's columns past it are not stored.
+// * `flash_fwd_kernel<T, D, kPad>`, f32 (any D) and bf16 or f16 with any
+//   other head dim (D 16, 32, 256, and every D that is not 64 to 128 in
+//   steps of 16):
 //   every product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before
 //   the dot.  One block per (64-row query tile, b * H + h), heaviest
 //   first; K and V tiles staged by cp.async, double-buffered; a 16 x 16
@@ -46,7 +52,13 @@
 //   dim of O).  D 256 stays here in bf16 and f16 because its O
 //   accumulator (128 f32 a thread) with S does not fit the tensor-core
 //   tile's register budget; D 16 and 32 because the tile's swizzled
-//   layout is built of 64-column blocks.
+//   layout is built of 64-column blocks.  It is compiled for D 16, 32, 64,
+//   128 and 256 exactly; any other head dim (kPad) runs the instantiation
+//   of the next width of 32, 64, 128 and 256 with the head dim taken at
+//   run time: K/V shared memory holds zeros past it (cleared once), rows
+//   are copied in the widest chunks the views' addresses and strides
+//   allow (16 bytes down to 1), and the output's columns past it are not
+//   stored.
 
 #include <cuda.h>
 
@@ -77,15 +89,18 @@ struct Geometry {
   static constexpr size_t smem_bytes = q_bytes + kv_bytes + p_bytes;
 };
 
-template <typename T, int D>
+// D is the shared-memory width; the head dim HD is D, or (kPad) `dh` <= D
+// with K/V rows copied in chunks of `cw` bytes.
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, int Tlen,
                      int H, long long qsb, long long qst, long long qsh,
                      long long ksb, long long kst, long long ksh,
                      long long vsb, long long vst, long long vsh, int causal,
-                     float sm_scale) {
+                     float sm_scale, int dh, int cw) {
   using Geo = Geometry<T, D>;
+  const int HD = kPad ? dh : D;
   constexpr int EPC = Geo::EPC, CPR = Geo::CPR, LD = Geo::LD;
   constexpr int BK = Geo::BK, TN = Geo::TN, DPT = Geo::DPT, LDP = Geo::LDP;
 
@@ -112,6 +127,23 @@ __global__ void __launch_bounds__(NTHREADS)
 
   auto load_stage = [&](int stage, int buf) {
     const int t0 = stage * BK;
+    if constexpr (kPad) {    // rows of HD * sizeof(T) bytes, cw a chunk
+      for_row_chunks(BK, HD * (int)sizeof(T), cw, tid, NTHREADS,
+                     [&](int t, int off) {
+        const int pos = t0 + t;
+        const bool valid = pos < kend;
+        const T* ksrc = valid ? kb + pos * kst : kb;
+        const T* vsrc = valid ? vb + pos * vst : vb;
+        const size_t row = ((size_t)buf * BK + t) * LD;
+        copy_chunk(reinterpret_cast<unsigned char*>(ks + row) + off,
+                   reinterpret_cast<const unsigned char*>(ksrc) + off, cw,
+                   valid);
+        copy_chunk(reinterpret_cast<unsigned char*>(vs + row) + off,
+                   reinterpret_cast<const unsigned char*>(vsrc) + off, cw,
+                   valid);
+      });
+      return;
+    }
     for (int c = tid; c < 2 * BK * CPR; c += NTHREADS) {
       const int kv = c / (BK * CPR);
       const int rem = c % (BK * CPR);
@@ -126,14 +158,21 @@ __global__ void __launch_bounds__(NTHREADS)
     }
   };
 
+  if constexpr (kPad) {      // K/V columns past the head dim stay zero
+    zero_smem(ks, Geo::kv_bytes, tid, NTHREADS);
+    __syncthreads();
+  }
   if (n_stages > 0) load_stage(0, 0);
   cp_async_commit();
 
-  // the query tile, scaled, in f32; rows past T are zeros
+  // the query tile, scaled, in f32; rows past T (and columns past the
+  // head dim) are zeros
   for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
     const int i = idx / D, d = idx % D;
     const int r = q0 + i;
-    qs[idx] = r < Tlen ? to_f(qb[(long long)r * qst + d]) * sm_scale : 0.f;
+    qs[idx] = r < Tlen && (!kPad || d < HD)
+                  ? to_f(qb[(long long)r * qst + d]) * sm_scale
+                  : 0.f;
   }
 
   float m_r[TM], l_r[TM], acc[TM][DPT];
@@ -240,49 +279,74 @@ __global__ void __launch_bounds__(NTHREADS)
     const int r = q0 + ty * TM + i;
     if (r >= Tlen) continue;
     const float den = fmaxf(l_r[i], 1e-30f);
-    T* o = out + (((size_t)b * Tlen + r) * H + h) * D + tx * DPT;
+    T* o = out + (((size_t)b * Tlen + r) * H + h) * HD + tx * DPT;
 #pragma unroll
-    for (int x = 0; x < DPT; ++x) o[x] = from_f<T>(acc[i][x] / den);
+    for (int x = 0; x < DPT; ++x)
+      if (!kPad || tx * DPT + x < HD) o[x] = from_f<T>(acc[i][x] / den);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Tlen, int H, const long long* st, int causal, float sm_scale,
-           cudaStream_t stream) {
+           int dh, cudaStream_t stream) {
   const size_t smem = Geometry<T, D>::smem_bytes;
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<T, D, kPad>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int n_qt = (Tlen + BQ - 1) / BQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidConfiguration;
+  // the widest chunk every K/V row start allows: the bases and the byte
+  // strides of both views, and a row's bytes
+  const unsigned long long es = sizeof(T);
+  const int cw = copy_width(
+      {(unsigned long long)(uintptr_t)k, (unsigned long long)(uintptr_t)v,
+       (unsigned long long)st[3] * es, (unsigned long long)st[4] * es,
+       (unsigned long long)st[5] * es, (unsigned long long)st[6] * es,
+       (unsigned long long)st[7] * es, (unsigned long long)st[8] * es,
+       (unsigned long long)dh * es});
+  if (!kPad && cw < 16) return (int)cudaErrorMisalignedAddress;
   dim3 grid(B * H, n_qt);
   kern<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Tlen, H, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, sm_scale);
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], causal, sm_scale, dh,
+      cw);
   return (int)cudaGetLastError();
 }
 
+// The fma body at D 16, 32, 64, 128 or 256 (compiled for D), or at any
+// other head dim up to 256 on the width padded_width(D).
 template <typename T>
 int launch_t(int D, const void* q, const void* k, const void* v, void* out,
              int B, int Tlen, int H, const long long* st, int causal,
              float sm_scale, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
+      return launch<T, 16, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                  sm_scale, D, s);
     case 32:
-      return launch<T, 32>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, B, Tlen, H, st, causal, sm_scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, out, B, Tlen, H, st, causal, sm_scale,
-                            s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, B, Tlen, H, st, causal, sm_scale,
-                            s);
-    default:
+      return launch<T, 32, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                  sm_scale, D, s);
+    case 64:    // bf16 and f16 run the tensor-core body at 64 and 128
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 64, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                    sm_scale, D, s);
       return -1;
+    case 128:
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 128, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                     sm_scale, D, s);
+      return -1;
+    case 256:
+      return launch<T, 256, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                   sm_scale, D, s);
+    default:
+      if (D < 1 || D > MAX_HEAD_DIM) return -1;
+      return with_padded_width(D, [&](auto w) {
+        return launch<T, decltype(w)::value, true>(
+            q, k, v, out, B, Tlen, H, st, causal, sm_scale, D, s);
+      });
   }
 }
 
@@ -303,15 +367,18 @@ struct Smem {
   static constexpr size_t bytes = BAR + 8 * (2 * NST + 1) + 1024;  // + align
 };
 
-template <int D, typename E>
+// D is the tile's width; the head dim HD is D, or (kPad, D 128) `dh`: 80,
+// 96 or 112.
+template <int D, typename E, bool kPad>
 __global__ void __launch_bounds__(NTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            E* __restrict__ out, int Tlen, int H,
-                           int causal, float scale_log2) {
+                           int causal, float scale_log2, int dh) {
   using Tile = wg::AttnTile<D, E>;
   using L = Smem<D>;
+  const int HD = kPad ? dh : D;                  // the head dim
   constexpr int BK = Tile::BK;
   constexpr int NCB = D / 64;                    // 64-column boxes per row
   constexpr uint32_t BOX = 64 * 128;             // bytes of one box
@@ -385,9 +452,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           return kpos < Tlen && (!causal || kpos <= row_lo + Tile::row(i));
         };
         if (k0 + BK > Tlen || (causal && k0 + BK - 1 > row_lo))
-          t.template step<true>(qa, ka, va, scale_log2, visible);
+          t.template step<true>(qa, ka, va, scale_log2, visible, HD / 16);
         else
-          t.template step<false>(qa, ka, va, scale_log2, visible);
+          t.template step<false>(qa, ka, va, scale_log2, visible, HD / 16);
       }
       __syncwarp();
       if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&empty[slot]);
@@ -398,11 +465,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int r = row_lo + Tile::row(i);
       if (r >= Tlen) continue;
       const float inv = 1.f / fmaxf(t.l[i], 1e-30f);
-      E* o = out + (((size_t)b * Tlen + r) * H + h) * D;
+      E* o = out + (((size_t)b * Tlen + r) * H + h) * HD;
 #pragma unroll
       for (int cc = 0; cc < D / 8; ++cc)
-        wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
-                      t.o[4 * cc + 2 * i + 1] * inv);
+        if (!kPad || cc < HD / 8)
+          wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
+                        t.o[4 * cc + 2 * i + 1] * inv);
     }
   }
 }
@@ -436,7 +504,7 @@ EncodeTiled encode_fn() {
 
 // A 4-d map {D, H, T, B} over a strided 16-bit (B, T, H, D) view of TMA
 // data type `dt` (bf16 or f16); the box is 64 columns x 1 head x 64 rows x
-// 1, swizzled 128B; rows past T read 0.
+// 1, swizzled 128B; rows past T and columns past D read 0.
 int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base,
              int B, int Tlen, int H, int D, long long sb, long long st,
              long long sh) {
@@ -456,22 +524,22 @@ int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D, typename E>
+template <int D, typename E, bool kPad>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Tlen, int H, const long long* st, int causal, float sm_scale,
-           cudaStream_t stream) {
+           int dh, cudaStream_t stream) {
   const CUtensorMapDataType dt = wg::is_f16<E>
                                      ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap mq, mk, mv;
-  if (int e = make_map(&mq, dt, q, B, Tlen, H, D, st[0], st[1], st[2]))
+  if (int e = make_map(&mq, dt, q, B, Tlen, H, dh, st[0], st[1], st[2]))
     return e;
-  if (int e = make_map(&mk, dt, k, B, Tlen, H, D, st[3], st[4], st[5]))
+  if (int e = make_map(&mk, dt, k, B, Tlen, H, dh, st[3], st[4], st[5]))
     return e;
-  if (int e = make_map(&mv, dt, v, B, Tlen, H, D, st[6], st[7], st[8]))
+  if (int e = make_map(&mv, dt, v, B, Tlen, H, dh, st[6], st[7], st[8]))
     return e;
   const size_t smem = Smem<D>::bytes;
-  auto kern = flash_fwd_wgmma_kernel<D, E>;
+  auto kern = flash_fwd_wgmma_kernel<D, E, kPad>;
   static std::atomic<bool> smem_set[MAX_DEVICES];
   if (int e = enable_smem(kern, smem, smem_set)) return e;
   const int n_qt = (Tlen + BQ - 1) / BQ;
@@ -479,7 +547,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid(B * H, n_qt);
   kern<<<grid, NTHREADS, smem, stream>>>(
       mq, mk, mv, static_cast<E*>(out), Tlen, H, causal,
-      sm_scale * 1.4426950408889634f);
+      sm_scale * 1.4426950408889634f, dh);
   return (int)cudaGetLastError();
 }
 
@@ -491,10 +559,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // strides (b, t, h) given in that order for q, then k, then v (the last
 // dim contiguous, rows 16-byte aligned); out (B, T, H, D) contiguous.
 // q_code is the one dtype's code (0 f32, 1 bf16, 2 f16).  body 1 is the
-// tensor-core body (bf16 or f16, D 64 or 128), body 0 the CUDA-core body
-// (f32 with D 16, 32, 64, 128 or 256, and bf16 or f16 with D 16, 32 or
-// 256).  Returns 0 or
-// a cudaError_t code; -1 for a body, dtype and head dim the kernel is not
+// tensor-core body (bf16 or f16, D 64, 80, 96, 112 or 128), body 0 the
+// CUDA-core body (f32 with any D from 1 to 256, and bf16 or f16 with any
+// other D up to 256; rows 16-byte aligned at D 16, 32, 64, 128 and 256,
+// any alignment of the element size at the others).  Returns 0 or a
+// cudaError_t code; -1 for a body, dtype and head dim the kernel is not
 // built for.
 extern "C" int tpulab_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int T,
@@ -511,21 +580,19 @@ extern "C" int tpulab_flash_attention(
                                          causal, sm_scale, s)
                        : -1;
     } else {
+      const bool tc_dim = D % 16 == 0 && D >= 64 && D <= 128;
       if (body == 1 && D == 64)
-        return tc::launch<64, T16>(q, k, v, out, B, T, H, st, causal,
-                                   sm_scale, s);
+        return tc::launch<64, T16, false>(q, k, v, out, B, T, H, st, causal,
+                                          sm_scale, D, s);
       if (body == 1 && D == 128)
-        return tc::launch<128, T16>(q, k, v, out, B, T, H, st, causal,
-                                    sm_scale, s);
-      if (body == 0 && D == 256)   // D 64 and 128 run the tensor-core body
-        return launch<T16, 256>(q, k, v, out, B, T, H, st, causal, sm_scale,
-                                s);
-      if (body == 0 && D == 32)
-        return launch<T16, 32>(q, k, v, out, B, T, H, st, causal, sm_scale,
-                               s);
-      if (body == 0 && D == 16)
-        return launch<T16, 16>(q, k, v, out, B, T, H, st, causal, sm_scale,
-                               s);
+        return tc::launch<128, T16, false>(q, k, v, out, B, T, H, st, causal,
+                                           sm_scale, D, s);
+      if (body == 1 && tc_dim)     // 80, 96, 112 on the 128-wide tile
+        return tc::launch<128, T16, true>(q, k, v, out, B, T, H, st, causal,
+                                          sm_scale, D, s);
+      if (body == 0 && !tc_dim)    // the tensor-core dims run body 1
+        return launch_t<T16>(D, q, k, v, out, B, T, H, st, causal, sm_scale,
+                             s);
       return -1;
     }
   });

@@ -11,9 +11,9 @@ CUDA tensors launch the hand-written Hopper kernel
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
 version: a build or launch failure raises.  The kernel has two bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
-(bf16 or f16 on the tensor cores in that type, D 64 or 128) and
-``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 with D 16, 32
-or 256).
+(bf16 or f16 on the tensor cores in that type, D 64, 80, 96, 112 or 128)
+and ``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 at every
+other D up to 256).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_body`` splits them by body,
 ``flash_attention.launches_by_form`` by ``"wgmma bf16"``, ``"wgmma
@@ -36,10 +36,10 @@ import math
 
 import torch
 
-from tpulab_torch.ops.ragged_attention import HEAD_DIMS as _HEAD_DIMS
-from tpulab_torch.ops.ragged_attention import FORMS, Q_CODE, body_form
+from tpulab_torch.ops.ragged_attention import (FORMS, MAX_HEAD_DIM, Q_CODE,
+                                               WGMMA_HEAD_DIMS, body_form,
+                                               head_dim_built)
 
-_WGMMA_HEAD_DIMS = (64, 128)
 _BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
 _NEG = -1e30
 
@@ -62,9 +62,9 @@ def _check(q, k, v):
         raise ValueError("want q, k, v of one (B, T, H, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
-    if q.shape[3] not in _HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[3]} not built (want one of "
-                         f"{_HEAD_DIMS})")
+    if not head_dim_built(q.shape[3]):
+        raise ValueError(f"head dim {q.shape[3]} not built (want 1 to "
+                         f"{MAX_HEAD_DIM})")
     if q.dtype not in Q_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype} / k {k.dtype} / v {v.dtype}: the "
                         "kernel takes one dtype, float32, bfloat16 or "
@@ -76,20 +76,25 @@ def _check(q, k, v):
 
 def flash_body(dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 or f16 with
-    D 64 or 128, else ``"fma"``.  A function of dtype and head dim only."""
+    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16), else ``"fma"``.
+    A function of dtype and head dim only."""
     if (dtype in (torch.bfloat16, torch.float16)
-            and head_dim in _WGMMA_HEAD_DIMS):
+            and head_dim in WGMMA_HEAD_DIMS):
         return "wgmma"
     return "fma"
 
 
 def _rows_aligned(x) -> bool:
-    """Last dim contiguous, every row 16-byte aligned and every stride
-    positive (cp.async; TMA's tensor map takes strides that are non-zero
-    multiples of 16 bytes)."""
+    """Last dim contiguous, every stride positive and, where a row's
+    bytes are a multiple of 16, every row 16-byte aligned (cp.async in
+    16-byte chunks; TMA's tensor map takes strides that are non-zero
+    multiples of 16 bytes).  Rows of other head dims (D 100 in bf16) are
+    copied in the widest chunks their alignment allows."""
     epc = 16 // x.element_size()
-    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(s > 0 and s % epc == 0 for s in x.stride()[:3]))
+    if x.stride(3) != 1 or any(s <= 0 for s in x.stride()[:3]):
+        return False
+    return x.shape[3] % epc != 0 or (
+        x.data_ptr() % 16 == 0 and all(s % epc == 0 for s in x.stride()[:3]))
 
 
 @functools.lru_cache(maxsize=None)

@@ -162,11 +162,13 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
     n_split = paged_splits(b, hkv * group_blocks(hq, hkv), mp, s,
                            _sm_count(q.device.index))
     out = torch.empty_like(q)
-    # f32 partials of every split: O (b, hq, d), then (m, l) per row.
+    # f32 partials of every split: O (b, hq, d), then (m, l) per row at
+    # an even offset (one float of padding after an odd count of O).
     # Freed on return: the caching allocator hands the block out again
     # only to later work on this stream, which runs after the merge.
-    scratch = (torch.empty(n_split * b * hq * (d + 2), dtype=torch.float32,
-                           device=q.device)
+    n_o = n_split * b * hq * d
+    scratch = (torch.empty(n_o + n_o % 2 + n_split * b * hq * 2,
+                           dtype=torch.float32, device=q.device)
                if n_split > 1 else None)
     # the launch goes to the calling thread's current device
     same = q.device.index == torch.cuda.current_device()

@@ -13,12 +13,14 @@ version, :func:`ragged_paged_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
 launch failure raises.  q is float32, bfloat16 or float16; the pool
 float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, whose pages
-the kernel upcasts as it reads them.  The kernel has two bodies, chosen
-by :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
-tensor cores in q's 16-bit type, D 64 or 128, over pages whose upcast to
-that type is exact: bf16 q over bf16, e4m3 or e5m2 pages, f16 q over
+the kernel upcasts as it reads them.  Every head dim from 1 to
+``MAX_HEAD_DIM`` (256) is built, as tpulab's kernels take any.  The
+kernel has two bodies, chosen by :func:`ragged_body` from dtypes and
+head dim alone: ``"wgmma"`` (the tensor cores in q's 16-bit type, D of
+``WGMMA_HEAD_DIMS``: 64 to 128 in steps of 16, over pages whose upcast
+to that type is exact: bf16 q over bf16, e4m3 or e5m2 pages, f16 q over
 f16, e4m3 or e5m2 pages) and ``"fma"`` (f32 FMAs on CUDA cores: every
-other mix, and D 16, 32 and 256).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
+other mix, and every other D).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
 context into :func:`ragged_splits` parts (split-KV) and merges them in a
 second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
 (one per call, merge included) and
@@ -44,12 +46,13 @@ Q_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the pool dtypes and the C launchers' code for each (kernels 1 and 3)
 KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
            torch.float8_e5m2: 3, torch.float16: 4}
-#: head dims the kernels are built for (D 16, 32 and 256 on the fma body
-#: only; D 16 is tpulab's own small model, d_model 32 over 2 heads).
-#: Other head dims tpulab's kernels would take (80, 96, ...) are refused:
-#: no code of tpulab's uses them.
-HEAD_DIMS = (16, 32, 64, 128, 256)
-_WGMMA_HEAD_DIMS = (64, 128)
+#: the largest head dim the kernels are built for: every D from 1 to it
+#: runs on the card (D 16 is tpulab's own small model, d_model 32 over 2
+#: heads; 80 Phi-2's, 96 Phi-3-mini's)
+MAX_HEAD_DIM = 256
+#: head dims of the tensor-core bodies (kernels 1 and 2): 80, 96 and 112
+#: run the 128-wide tile with its columns past D zero
+WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
 #: the pages each 16-bit q type reads on its tensor cores: those whose
 #: upcast to q's type is exact (e4m3 and e5m2 are bf16 and f16 values;
 #: f16 -> bf16 loses range bits and bf16 -> f16 exponent range)
@@ -65,28 +68,36 @@ MAX_SPLITS = 16
 
 def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: ``"wgmma"`` for a bf16 or f16 q
-    over the pages of ``WGMMA_PAGES[q_dtype]`` with D 64 or 128, else
-    ``"fma"``.  A function of dtypes and head dim only."""
-    if (head_dim in _WGMMA_HEAD_DIMS
+    over the pages of ``WGMMA_PAGES[q_dtype]`` with D of
+    ``WGMMA_HEAD_DIMS``, else ``"fma"``.  A function of dtypes and head
+    dim only."""
+    if (head_dim in WGMMA_HEAD_DIMS
             and kv_dtype in WGMMA_PAGES.get(q_dtype, ())):
         return "wgmma"
     return "fma"
 
 
+def head_dim_built(head_dim: int) -> bool:
+    """Whether the three kernels take this head dim: any integer from 1
+    to ``MAX_HEAD_DIM``."""
+    return 1 <= head_dim <= MAX_HEAD_DIM
+
+
 def check_built(q_dtype, kv_dtype, head_dim: int) -> None:
     """Raise unless the kernels are built for this q dtype, page dtype
     and head dim (every q of ``Q_CODE`` over every page of ``KV_CODE``,
-    every D of ``HEAD_DIMS``, all three kernels alike): a CUDA batcher
-    refuses at construction what its kernels would refuse at their
-    first launch."""
+    every D from 1 to ``MAX_HEAD_DIM``, all three kernels alike): a CUDA
+    batcher refuses at construction what its kernels would refuse at
+    their first launch."""
     if q_dtype not in Q_CODE or kv_dtype not in KV_CODE:
         raise TypeError(f"q {q_dtype} / pool {kv_dtype}: the kernels take "
                         "a float32, bfloat16 or float16 q over a float32, "
                         "bfloat16, float16, float8_e4m3fn or float8_e5m2 "
                         "pool")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim} not built (want one of "
-                         f"{HEAD_DIMS})")
+    if not head_dim_built(head_dim):
+        raise ValueError(f"head dim {head_dim} not built (want 1 to "
+                         f"{MAX_HEAD_DIM}; ROADMAP: \"Forms of the three "
+                         "kernels the port does not build\")")
 
 
 def body_form(body: str, q_dtype) -> str:
