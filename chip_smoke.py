@@ -2191,7 +2191,8 @@ def check_plan(plan, st, n_layers, n_requests):
                              f"{st['prefill_forwards']}")
     for name, n in st["launches"].items():
         # the serve is bf16 at D 128: every launch takes the wgmma body
-        if st["by_body"][name] != {"fma": 0, "wgmma": n}:
+        if st["by_body"][name] != {k: n if k == "wgmma" else 0
+                                   for k in st["by_body"][name]}:
             raise AssertionError(f"{plan}: {name} launches by body "
                                  f"{st['by_body'][name]}, want all {n} "
                                  "on wgmma")
@@ -2654,8 +2655,9 @@ def serve_spec(torch, model, card, profile):
             ra = st["launches"]["ragged"]
             want = (c["n_layers"] * st["forward_steps"]
                     + SPEC_DRAFT_LAYERS * st["draft_forward_steps"])
-            if ra != want or st["by_body"]["ragged"] != {"fma": 0,
-                                                         "wgmma": ra}:
+            by_body = st["by_body"]["ragged"]
+            if ra != want or by_body != {k: ra if k == "wgmma" else 0
+                                         for k in by_body}:
                 raise AssertionError(
                     f"{mode} serve: ragged launches {ra} (by body "
                     f"{st['by_body']['ragged']}), want {c['n_layers']} x "
@@ -7522,7 +7524,8 @@ def phase_sharded(torch, card):
             raise AssertionError(f"sharded: the M 1 streams {bad} differ "
                                  "from mesh=None")
         if launches != c["n_layers"] * steps or ra.launches_by_body != {
-                "fma": 0, "wgmma": launches}:
+                k: launches if k == "wgmma" else 0
+                for k in ra.launches_by_body}:
             raise AssertionError(f"sharded: kernel 1 launches {launches} "
                                  f"({ra.launches_by_body}) != "
                                  f"{c['n_layers']} x {steps}")
@@ -9363,7 +9366,8 @@ def ragged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
     if body != want_body:
         raise AssertionError(f"{tag}: ragged D {g['d']} {dname} on {body}")
     splits = ragged_splits(g["b"], m, g["hq"], g["hkv"], g["mp"], g["s"],
-                           _sm_count(torch.cuda.current_device()), body)
+                           _sm_count(torch.cuda.current_device()), body,
+                           g["d"])
     lib = None
     if q_dt == kv_dt:
         t = g["mp"] * g["s"]
@@ -9398,8 +9402,8 @@ def paged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
     import numpy as np
 
     from tpulab_torch.ops.paged_attention import (
-        group_blocks, paged_decode_attention,
-        paged_decode_attention_reference, paged_splits)
+        paged_decode_attention, paged_decode_attention_reference, paged_form,
+        paged_n_split)
     from tpulab_torch.ops.ragged_attention import _sm_count
 
     q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
@@ -9409,9 +9413,8 @@ def paged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
         (lanes, g["hq"], g["d"])).astype(np.float32)).cuda().to(q_dt)
     lengths = card_lens(torch, [pos] * lanes)
     args = (q, pool, tables, lengths)
-    splits = paged_splits(lanes, g["hkv"] * group_blocks(g["hq"], g["hkv"]),
-                          g["mp"], g["s"],
-                          _sm_count(torch.cuda.current_device()))
+    splits = paged_n_split(lanes, g["hq"], g["hkv"], g["d"], g["mp"], g["s"],
+                           _sm_count(torch.cuda.current_device()))
     lib = None
     if q_dt == kv_dt:
         vis = (torch.arange(g["mp"] * g["s"], device="cuda")[None, None]
@@ -9432,7 +9435,7 @@ def paged_row(torch, timer, rng, g, pool32, tables, case, dname, q_name,
         check_rejects(torch, f"paged skipped page, {case}, {dname}", got,
                       paged_decode_attention_reference(
                           q, pool, skip, lengths - g["s"]))
-    r["body"] = f"ring x{splits}"
+    r["body"] = f"{paged_form(g['d'])} x{splits}"
     return r
 
 
@@ -9847,15 +9850,349 @@ def phase_head_dims(torch, timer, card):
     return new, launches
 
 
+# ---------------------------------------------------------------- phase 21
+# DeepSeek-V4-Flash's attention (deepseek-ai/DeepSeek-V4-Flash,
+# config.json: head_dim 512, 64 query heads over num_key_value_heads 1)
+# and sarvam-105b's latent heads (sarvamai/sarvam-105b, config.json: MLA,
+# head_dim 576 = kv_lora_rank 512 + qk_rope_head_dim 64, 64 heads): their
+# blocks are not tpulab's, so their attention geometries drive the kernels
+# alone.  The serve: Llama-3-8B's widths (d_model 4096, SwiGLU 14336,
+# vocab 128256, untied, rope_theta 5e5, 32 layers) with its attention
+# regrouped to DeepSeek-V4-Flash's head geometry, 8 query heads of D 512
+# over one KV head (not a public model: tpulab's transformer ties D to
+# d_model / n_heads)
+PAST_MODEL = dict(LLAMA3_8B, n_heads=8, n_kv_heads=1)
+PAST_SERVE_GEOM = dict(RA_GEOM, hq=8, hkv=1)
+PAST_DSV4 = dict(RA_GEOM, hq=64, hkv=1, d=512)
+PAST_SARVAM = dict(RA_GEOM, hq=64, hkv=1, d=576)
+PAST_DIMS = (257, 320, 384, 512, 576, 1024)
+PAST_PROMPTS = (100, 200, 300, 400)     # the serve's prompt lengths
+PAST_STEPS = 16
+SHORT_DT = {"float32": "f32", "bfloat16": "bf16", "float16": "f16",
+            "float8_e4m3fn": "e4m3", "float8_e5m2": "e5m2"}
+ALL_MIXES = tuple((f"{SHORT_DT[q]}/{SHORT_DT[kv]}", q, kv)
+                  for q in ("float32", "bfloat16", "float16")
+                  for kv in ("float32", "bfloat16", "float16",
+                             "float8_e4m3fn", "float8_e5m2"))
+SMEM_LIMIT = 232448         # bytes of shared memory a block can use
+
+
+def past_mixes(d):
+    """Kernel 1's (q, page) mixes at head dim ``d``: all fifteen at D
+    512, a subset elsewhere (f32/f32, bf16/bf16 and f16/e5m2 at 257, 320
+    and 384; bf16/bf16 and f32/e4m3 at 576 and 1024)."""
+    if d == 512:
+        return ALL_MIXES
+    keep = (("f32/f32", "bf16/bf16", "f16/e5m2") if d < 512
+            else ("bf16/bf16", "f32/e4m3"))
+    return tuple(m for m in ALL_MIXES if m[0] in keep)
+
+
+def wide_attributes(torch):
+    """Each wide instantiation's registers and dynamic shared memory
+    (``cudaFuncGetAttributes``), which must fit a block's 227 KB."""
+    import ctypes
+
+    from tpulab_torch.ops import paged_attention as pa_mod
+    from tpulab_torch.ops import ragged_attention as ra_mod
+    from tpulab_torch.ops.flash_attention import _lib as fa_lib
+
+    codes = {"ragged": (ra_mod._lib(), ra_mod.KV_CODE),
+             "paged": (pa_mod._lib(), ra_mod.KV_CODE),
+             "flash": (fa_lib(), ra_mod.Q_CODE)}
+    for name, (lib, table) in codes.items():
+        fn = getattr(lib, f"tpulab_{name}_wide_attributes")
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for dt, code in table.items():
+            out = (ctypes.c_int * 3)()
+            rc = fn(code, out)
+            if rc != 0:
+                raise AssertionError(f"past 256: {name} wide attributes "
+                                     f"({dt}): error {rc}")
+            regs, smem, local = out
+            if smem > SMEM_LIMIT:
+                raise AssertionError(f"past 256: {name} wide {dt}: {smem} "
+                                     f"bytes of shared memory > "
+                                     f"{SMEM_LIMIT}")
+            log(f"past 256: fma-wide {name:<6} {dtype_name(dt):<13} "
+                f"{regs} registers, {smem} bytes of dynamic shared memory "
+                f"(limit {SMEM_LIMIT}), {local} bytes of local memory a "
+                "thread")
+
+
+def odd_splits_wide(torch, rng, tag):
+    """Kernels 1 and 3's wide form at an odd head dim over an odd count
+    of split rows (one lane, Hq = Hkv = 1 or 3, 384 positions: three
+    splits), f32 and bf16 over e5m2: the O partials end on an odd float,
+    and the (m, l) pairs after them are read and written as float2.
+    Each against its plain version and relaunched bit for bit."""
+    import numpy as np
+
+    from tpulab_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+        paged_n_split)
+    from tpulab_torch.ops.ragged_attention import (
+        _sm_count, ragged_paged_attention, ragged_paged_attention_reference,
+        ragged_splits)
+
+    s, mp = 8, 48
+    n_sm = _sm_count(torch.cuda.current_device())
+    for d, h in ((257, 1), (257, 3), (325, 3)):
+        n_split = paged_n_split(1, h, h, d, mp, s, n_sm)
+        if (n_split != ragged_splits(1, 1, h, h, mp, s, n_sm, "fma-wide", d)
+                or n_split * h * d % 2 != 1):
+            raise AssertionError(f"{tag}: D {d} H {h}: {n_split} splits give "
+                                 "an even count of partials")
+        for q_dt, kv_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.float8_e5m2)):
+            q = torch.from_numpy(rng.standard_normal((1, h, d)).astype(
+                np.float32)).cuda().to(q_dt)
+            pool = torch.from_numpy(rng.standard_normal(
+                (mp + 1, 2, s, h, d)).astype(np.float32)).cuda().to(kv_dt)
+            tables = torch.arange(1, mp + 1, dtype=torch.int32,
+                                  device="cuda")[None]
+            n = mp * s
+            for kernel, call, plain in (
+                    ("kernel 3", lambda: paged_decode_attention(
+                        q, pool, tables, card_lens(torch, [n - 1])),
+                     lambda: paged_decode_attention_reference(
+                         q, pool, tables, card_lens(torch, [n - 1]))),
+                    ("kernel 1", lambda: ragged_paged_attention(
+                        q[:, None], pool, tables, card_lens(torch, [1]),
+                        card_lens(torch, [n]))[:, 0],
+                     lambda: ragged_paged_attention_reference(
+                         q[:, None], pool, tables, card_lens(torch, [1]),
+                         card_lens(torch, [n]))[:, 0])):
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                label = (f"{tag}: {kernel} D {d} H {h} "
+                         f"{SHORT_DT[dtype_name(q_dt)]}/"
+                         f"{SHORT_DT[dtype_name(kv_dt)]}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{label}: relaunch differs")
+                err = check_close(torch, label, got, plain())
+                log(f"{label}, {n_split} splits over {n} positions: == "
+                    f"plain (max err {err:.2e}), relaunch bit for bit")
+
+
+def past_kernels(torch, timer):
+    """(a) Kernel 1's all_decode (8 lanes x 1024, 8 query heads over one)
+    at D 257, 320, 384, 512, 576, 1024 over the mixes of
+    :func:`past_mixes`, and once at D 2048 (bf16/bf16); DeepSeek-V4-
+    Flash's attention (Hq 64 over 1, D 512: all_decode and
+    chunk_over_ctx) and sarvam-105b's D 576 (all_decode), bf16; kernel 3
+    at 8 x 1024 at each of those head dims (bf16/bf16; f32/f32 at 257,
+    bf16/e4m3 at 512) and at both public geometries; kernel 2 at T 2048,
+    causal, H 8 at each D (f32 at 257, bf16 elsewhere, f16 and f32 at
+    512) and DeepSeek-V4-Flash's H 64 at D 512, bf16.  Each on the
+    ``fma-wide`` form, held against its plain version, relaunched bit for
+    bit, timed beside the plain version, the bound and SDPA; one planted
+    error per kernel rejected; then the odd splits."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    tag = "past 256"
+    new = {"ragged": [], "flash": [], "paged": []}
+    ra = dict((name, (q, kv)) for name, q, kv in ra_cases())
+    for d in PAST_DIMS + (2048,):
+        g = dict(PAST_SERVE_GEOM, d=d)
+        pool32, tables = serving_pool(torch, np, rng, g)
+        mixes = (past_mixes(d) if d != 2048
+                 else tuple(m for m in ALL_MIXES if m[0] == "bf16/bf16"))
+        for dname, q_name, kv_name in mixes:
+            new["ragged"].append(ragged_row(
+                torch, timer, rng, g, pool32, tables, "all_decode", dname,
+                q_name, kv_name, *ra["all_decode"], "fma-wide", tag,
+                planted=d == 512 and dname == "bf16/bf16"))
+        publics = (("dsv4", PAST_DSV4, ("all_decode", "chunk_over_ctx")),
+                   ("sarvam", PAST_SARVAM, ("all_decode",)))
+        for pname, pg, cases in publics:
+            if pg["d"] != d:
+                continue
+            for case in cases:
+                new["ragged"].append(ragged_row(
+                    torch, timer, rng, pg, pool32, tables, f"{pname} {case}",
+                    "bf16/bf16", "bfloat16", "bfloat16", *ra[case],
+                    "fma-wide", tag))
+            new["paged"].append(paged_row(
+                torch, timer, rng, pg, pool32, tables,
+                f"D{d} {pname} 8 x 1024", "bf16/bf16", "bfloat16",
+                "bfloat16", 1023, tag))
+        if d != 2048:
+            paged_mixes = (("bf16/bf16", "bfloat16", "bfloat16"),)
+            if d == 257:
+                paged_mixes += (("f32/f32", "float32", "float32"),)
+            elif d == 512:
+                paged_mixes += (("bf16/e4m3", "bfloat16", "float8_e4m3fn"),)
+            for dname, q_name, kv_name in paged_mixes:
+                new["paged"].append(paged_row(
+                    torch, timer, rng, g, pool32, tables,
+                    f"D{d} 8 x 1024", dname, q_name, kv_name, 1023, tag,
+                    planted=d == 512 and dname == "bf16/bf16"))
+        del pool32, tables
+    for d, h, dname in ([(d, 8, "float32" if d == 257 else "bfloat16")
+                         for d in PAST_DIMS]
+                        + [(512, 8, "float16"), (512, 8, "float32"),
+                           (512, 64, "bfloat16")]):
+        log(f"{tag}: kernel 2 at D {d}, H {h}, T 2048, causal, {dname}:")
+        r = flash_case(torch, timer, rng, 1, h, d, 2048, dname, True,
+                       d == 512 and h == 64)
+        if r["body"] != "fma-wide":
+            raise AssertionError(f"{tag}: flash D {d} {dname} on "
+                                 f"{r['body']}")
+        r["case"] = f"D{d} {r['case']}"
+        new["flash"].append(r)
+    odd_splits_wide(torch, rng, tag)
+    torch.cuda.empty_cache()
+    return new
+
+
+def past_serve(torch, card):
+    """(b) ``ContinuousBatcher`` at Llama-3-8B's widths with 8 query
+    heads of D 512 over one KV head (all 32 layers, random bf16 weights
+    from a seed): four greedy requests of PAST_PROMPTS tokens x
+    PAST_STEPS under the ragged plan (K-blocks of 8), then the split
+    plan with K 8 and K 1.  Every kernel 1 launch on ``fma-wide`` at D
+    512 (== 32 x forward steps), every kernel 2 launch of the split plan
+    too (== 32 x prefills).  Split K 1 == split K 8 token for token;
+    ragged against split under the bf16 noise rule.  Then the
+    same-backend invariants on these weights (:func:`phase_invariants`,
+    2 of the layers), kernel 3's decode op over the model-written D 512
+    pool among them.  Returns the launches, by kernel, form and head
+    dim."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.models.transformer import init_transformer_params
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.paged_attention import paged_decode_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = PAST_MODEL
+    d = c["d_model"] // c["n_heads"]
+    params = init_transformer_params(
+        c["vocab"], c["d_model"], c["n_heads"], c["n_layers"], c["d_ff"],
+        seed=23, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, device="cuda", dtype=torch.bfloat16)
+    n_params = sum(x.numel() for _, x in par_leaves(params))
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(512)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in PAST_PROMPTS]
+    form = "fma-wide"
+    streams, total = {}, {"ragged": {}, "flash": {}}
+    for plan, cfg in (("ragged", SERVE), ("split", dict(SERVE, **SPLIT)),
+                      ("split K=1", dict(SERVE, **SPLIT, decode_block=1))):
+        cb = ContinuousBatcher(params, device="cuda", **kw, **cfg)
+        try:
+            pool_gb = cb.pool.kv.numel() * cb.pool.kv.element_size() / 1e9
+            reset_counts(ragged_paged_attention, flash_attention)
+            before = (cb.forward_steps, cb.prefill_forwards)
+            t0 = time.perf_counter()
+            with cb._cv:
+                futs = [cb.submit(p, PAST_STEPS) for p in prompts]
+            streams[plan] = [list(f.result(timeout=600)) for f in futs]
+            wall = time.perf_counter() - t0
+            got = {}
+            for name, fn in (("ragged", ragged_paged_attention),
+                             ("flash", flash_attention)):
+                got[name] = (fn.launches, dict(fn.launches_by_form),
+                             dict(fn.launches_by_head_dim))
+            steps = cb.forward_steps - before[0]
+            prefills = cb.prefill_forwards - before[1]
+        finally:
+            cb.shutdown()
+        want = {"ragged": c["n_layers"] * steps,
+                "flash": c["n_layers"] * prefills}
+        for name, (n, by_form, by_dim) in got.items():
+            if (n != want[name]
+                    or by_form != {k: n if k == form else 0
+                                   for k in by_form}
+                    or by_dim != ({d: n} if n else {})):
+                raise AssertionError(
+                    f"past 256: D 512 {plan}: {name} launches {n} (want "
+                    f"{want[name]}), by form {by_form}, by head dim "
+                    f"{by_dim}: want every one {form} at D {d}")
+            for k, v in ((form, n), (f"D{d}", n)):
+                total[name][k] = total[name].get(k, 0) + v
+        split = plan.startswith("split")
+        if split != (prefills > 0) or (not split and got["flash"][0]):
+            raise AssertionError(f"past 256: D 512 {plan}: {prefills} "
+                                 "prefill forwards")
+        if any(len(x) != PAST_STEPS or not all(0 <= t < c["vocab"]
+                                               for t in x)
+               for x in streams[plan]):
+            raise AssertionError(f"past 256: D 512 {plan}: a stream of the "
+                                 "wrong length or a token outside [0, "
+                                 "vocab)")
+        n_tok = sum(len(x) for x in streams[plan])
+        log(f"past 256: D 512 serve ({n_params / 1e9:.2f} B parameters, "
+            f"bf16, {c['n_layers']} layers, {c['n_heads']} heads of D {d} "
+            f"over {c['n_kv_heads']}), {plan} plan: {len(prompts)} "
+            f"requests, {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tok/s (recorded, not claimed); pool "
+            f"{pool_gb:.2f} GB; kernel 1 {got['ragged'][0]} = "
+            f"{c['n_layers']} x {steps} forward steps, kernel 2 "
+            f"{got['flash'][0]} = {c['n_layers']} x {prefills} prefills, "
+            f"all {form} at D {d} [{card}]")
+    if streams["split K=1"] != streams["split"]:
+        first = [next((j for j, (a, b) in enumerate(zip(x, y)) if a != b),
+                      None)
+                 for x, y in zip(streams["split"], streams["split K=1"])]
+        raise AssertionError(f"past 256: D 512 split K=1 != split K=8 "
+                             f"(first differing step per request {first})")
+    log(f"past 256: D 512 split K=1 == split K=8: identical streams "
+        f"({len(prompts)} x {PAST_STEPS} tokens)")
+    notes = [same_or_bf16_noise(torch, params, kw,
+                                f"split vs ragged, {len(p)}-token prompt",
+                                p, a, b)
+             for p, a, b in zip(prompts, streams["ragged"],
+                                streams["split"])]
+    notes = [n for n in notes if n]
+    log("past 256: D 512 split vs ragged: "
+        + ("; ".join(notes) if notes else "identical streams"))
+    paged_decode_attention.launches_by_form = dict.fromkeys(
+        paged_decode_attention.launches_by_form, 0)
+    n_op = phase_invariants(torch, params, torch.bfloat16, model=c)
+    if paged_decode_attention.launches_by_form[form] != n_op:
+        raise AssertionError(f"past 256: the decode op's {n_op} launches "
+                             f"were not all {form}")
+    total["paged"] = {form: n_op, f"D{d}": n_op}
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_past_256(torch, timer, card):
+    """Phase 21: head dims past 256 on kernels 1-3, kernels and a D 512
+    serve at Llama-3-8B's widths."""
+    t0 = time.perf_counter()
+    wide_attributes(torch)
+    new = past_kernels(torch, timer)
+    log(f"past 256: (a) kernels {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    launches = past_serve(torch, card)
+    log(f"past 256: (b) D 512 serves and invariants "
+        f"{time.perf_counter() - t1:.1f} s; launches "
+        f"{json.dumps(launches)} [{card}]")
+    log(f"past 256: phase {time.perf_counter() - t0:.1f} s")
+    return new, launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
-                 extra=None, forms=None, small=None, head_dims=None):
+                 extra=None, forms=None, small=None, head_dims=None,
+                 past_256=None):
     """One kernel's line: times of its main case, the max error over
     that case's dtype mix, (kernels with several bodies) the body, with
     its split count, that ran each case, other cases and dtypes
     (``extra``: key -> its case and dtype mix, e.g. ``"e4m3"``, ``"f16"``,
     ``"d16"``), phase 18's main-path launches by form (``forms``),
-    phase 19's at D 16 (``small``) and phase 20's Phi-3-mini serve's by
-    form and head dim (``head_dims``)."""
+    phase 19's at D 16 (``small``), phase 20's Phi-3-mini serve's by
+    form and head dim (``head_dims``) and phase 21's D 512 serve's
+    (``past_256``)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -9879,6 +10216,8 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
         entry["phase19_launches_d16"] = small
     if head_dims is not None:
         entry["phase20_launches"] = head_dims
+    if past_256 is not None:
+        entry["phase21_launches"] = past_256
     return entry
 
 
@@ -9989,6 +10328,8 @@ def main(argv=None) -> int:
     stamp("small")
     hd_rows, hd_launches = phase_head_dims(torch, timer, card)
     stamp("head dims")
+    pd_rows, pd_launches = phase_past_256(torch, timer, card)
+    stamp("past 256")
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -10003,10 +10344,11 @@ def main(argv=None) -> int:
                      + obs_launches + batch_launches + fleet_launches
                      + fab["ragged"] + shard_launches + rows_launches[0]
                      + import_launches + dt_launches["ragged"]
-                     + sm_launches[0] + hd_launches["ragged"]["D96"],
+                     + sm_launches[0] + hd_launches["ragged"]["D96"]
+                     + pd_launches["ragged"]["D512"],
                      rows["ragged"] + e4m3_rows["ragged"]
                      + dt_rows["ragged"] + sm_rows["ragged"]
-                     + hd_rows["ragged"],
+                     + hd_rows["ragged"] + pd_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
@@ -10025,7 +10367,9 @@ def main(argv=None) -> int:
                      "pages; 4 layers, both plans) + the small phase's "
                      "rows (D 16, fma) + the head dims phase's "
                      "Phi-3-mini-width serves (D 96, wgmma bf16; 32 "
-                     "layers, both plans, K = 8 and K = 1)",
+                     "layers, both plans, K = 8 and K = 1) + the past-256 "
+                     "phase's D 512 serves (fma-wide; Llama-3-8B widths, "
+                     "8 heads over 1, 32 layers, both plans)",
                      {"e4m3": ("all_decode", "bf16/e4m3"),
                       "f16": ("all_decode", "f16/f16"),
                       "e5m2": ("all_decode", "bf16/e5m2"),
@@ -10041,9 +10385,23 @@ def main(argv=None) -> int:
                       "fma_d24": ("D24 all_decode", "f32/f32"),
                       "fma_d48": ("D48 all_decode", "f32/f32"),
                       "fma_d100": ("D100 all_decode", "f32/f32"),
-                      "fma_d100_bf16": ("D100 all_decode", "bf16/bf16")},
+                      "fma_d100_bf16": ("D100 all_decode", "bf16/bf16"),
+                      "wide_d257": ("D257 all_decode", "f32/f32"),
+                      "wide_d320": ("D320 all_decode", "bf16/bf16"),
+                      "wide_d384": ("D384 all_decode", "bf16/bf16"),
+                      "wide_d512": ("D512 all_decode", "bf16/bf16"),
+                      "wide_d512_f32": ("D512 all_decode", "f32/f32"),
+                      "wide_d512_e4m3": ("D512 all_decode", "bf16/e4m3"),
+                      "wide_d576": ("D576 all_decode", "bf16/bf16"),
+                      "wide_d1024": ("D1024 all_decode", "bf16/bf16"),
+                      "wide_d2048": ("D2048 all_decode", "bf16/bf16"),
+                      "wide_dsv4": ("D512 dsv4 all_decode", "bf16/bf16"),
+                      "wide_dsv4_chunk": ("D512 dsv4 chunk_over_ctx",
+                                          "bf16/bf16"),
+                      "wide_sarvam": ("D576 sarvam all_decode",
+                                      "bf16/bf16")},
                      dt_forms["ragged"], sm_launches[0],
-                     hd_launches["ragged"]),
+                     hd_launches["ragged"], pd_launches["ragged"]),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
@@ -10051,9 +10409,10 @@ def main(argv=None) -> int:
                      + st["int8 split"]["launches"]["flash"] + fab["flash"]
                      + par_launches + shard_flash + rows_launches[1]
                      + mem_launches + dt_launches["flash"] + sm_launches[1]
-                     + hd_launches["flash"].get("D96", 0),
+                     + hd_launches["flash"].get("D96", 0)
+                     + pd_launches["flash"].get("D512", 0),
                      rows["flash"] + dt_rows["flash"] + sm_rows["flash"]
-                     + hd_rows["flash"],
+                     + hd_rows["flash"] + pd_rows["flash"],
                      (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
@@ -10067,7 +10426,8 @@ def main(argv=None) -> int:
                      "serves (f16 and bf16, 4 layers) + the small phase's "
                      "kv_fabric prefills (D 16, fma) + the head dims "
                      "phase's Phi-3-mini-width split-plan prefills (D 96, "
-                     "wgmma bf16, 32 layers)",
+                     "wgmma bf16, 32 layers) + the past-256 phase's D 512 "
+                     "split-plan prefills (fma-wide, 32 layers)",
                      {"f16": (f"T={FA_TS[-1]} causal", "float16"),
                       "d16": ("D16 T=2048 causal H=2", "float32"),
                       "d16_rows": (f"D16 T={SM_FLASH_T} causal H=2",
@@ -10078,20 +10438,34 @@ def main(argv=None) -> int:
                       "d112": ("D112 T=2048 causal", "bfloat16"),
                       "fma_d24": ("D24 T=2048 causal", "float32"),
                       "fma_d48": ("D48 T=2048 causal", "float32"),
-                      "fma_d100": ("D100 T=2048 causal", "float32")},
+                      "fma_d100": ("D100 T=2048 causal", "float32"),
+                      "wide_d257": ("D257 T=2048 causal H=8", "float32"),
+                      "wide_d512": ("D512 T=2048 causal H=8", "bfloat16"),
+                      "wide_d512_f16": ("D512 T=2048 causal H=8",
+                                        "float16"),
+                      "wide_d512_f32": ("D512 T=2048 causal H=8",
+                                        "float32"),
+                      "wide_d576": ("D576 T=2048 causal H=8", "bfloat16"),
+                      "wide_d1024": ("D1024 T=2048 causal H=8",
+                                     "bfloat16"),
+                      "wide_dsv4": ("D512 T=2048 causal H=64",
+                                    "bfloat16")},
                      dt_forms["flash"], sm_launches[1],
-                     hd_launches["flash"]),
+                     hd_launches["flash"], pd_launches["flash"]),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cuh",
                      "tpulab/ops/paged_attention.py:221",
-                     op_launches + hd_launches["paged"]["D96"],
+                     op_launches + hd_launches["paged"]["D96"]
+                     + pd_launches["paged"]["D512"],
                      rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"]
-                     + sm_rows["paged"] + hd_rows["paged"],
+                     + sm_rows["paged"] + hd_rows["paged"]
+                     + pd_rows["paged"],
                      ("8 x 1024", "bf16/bf16"),
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
                      "decode op over every layer of a model-written pool, "
-                     "bf16 and e4m3, and the head dims phase's "
-                     "Phi-3-mini-width pool (D 96)",
+                     "bf16 and e4m3, the head dims phase's "
+                     "Phi-3-mini-width pool (D 96) and the past-256 "
+                     "phase's D 512 pool (fma-wide)",
                      {"e4m3": ("8 x 1024", "bf16/e4m3"),
                       "f16": ("8 x 1024", "f16/f16"),
                       "e5m2": ("8 x 1024", "bf16/e5m2"),
@@ -10104,7 +10478,15 @@ def main(argv=None) -> int:
                       "d112": ("D112 8 x 1024", "bf16/bf16"),
                       "d24": ("D24 8 x 1024", "f32/f32"),
                       "d48": ("D48 8 x 1024", "f32/f32"),
-                      "d100": ("D100 8 x 1024", "f32/f32")}),
+                      "d100": ("D100 8 x 1024", "f32/f32"),
+                      "wide_d257": ("D257 8 x 1024", "f32/f32"),
+                      "wide_d512": ("D512 8 x 1024", "bf16/bf16"),
+                      "wide_d512_e4m3": ("D512 8 x 1024", "bf16/e4m3"),
+                      "wide_d1024": ("D1024 8 x 1024", "bf16/bf16"),
+                      "wide_dsv4": ("D512 dsv4 8 x 1024", "bf16/bf16"),
+                      "wide_sarvam": ("D576 sarvam 8 x 1024",
+                                      "bf16/bf16")},
+                     past_256=pd_launches["paged"]),
     ]
     faulthandler.cancel_dump_traceback_later()
     log(f"total {time.perf_counter() - t_all:.1f} s")

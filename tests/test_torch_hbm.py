@@ -501,6 +501,25 @@ def test_model_acquire_demotes_live_idle_kv_matches_tpulab(lm):
         assert st[k] == wst[k], k
 
 
+def _land_write_behind(arb, mux, name):
+    """The batcher's grow probes wait, on the scheduler thread, for a
+    write-behind eviction of ``name`` to land before they return (state,
+    not time): a probe that starts the eviction is denied, and the next
+    probe's grant depends on the copy having landed, which under load
+    can take longer than the burst takes to run on the small pool."""
+    request = arb.request
+
+    def request_landed(tenant, tag, nbytes, timeout=None, probe=False):
+        granted = request(tenant, tag, nbytes, timeout=timeout, probe=probe)
+        end = time.monotonic() + 60
+        while (not granted and mux.state_of(name) == "swapping_out"
+               and time.monotonic() < end):
+            time.sleep(0.001)
+        return granted
+
+    arb.request = request_landed
+
+
 def _burst_trace(lm, jax_side):
     """tpulab's direction 2 (``tests/test_hbm.py:249``)."""
     batcher, arb_cls, mux_cls, params, kw = _side(jax_side, lm)
@@ -512,8 +531,13 @@ def _burst_trace(lm, jax_side):
     resizes = _record_resizes(cb.pool)
     mux = mux_cls(b.param_bytes(), hbm=arb)
     mux.register("b", b)
+    _land_write_behind(arb, mux, "b")
     try:
-        futs = [cb.submit(p, 16) for p in BURST]
+        # both requests queued before the scheduler's next tick: the burst
+        # is their overlap (a second request that arrives after the first
+        # has finished fits the 4-page pool, and nothing grows)
+        with cb._cv:
+            futs = [cb.submit(p, 16) for p in BURST]
         got = [[int(t) for t in f.result(timeout=120)] for f in futs]
         assert mux.drain()
         after_burst = dict(

@@ -50,7 +50,7 @@ from tpulab_torch.ops.paged_attention import (
     GROUP_BLOCK, group_blocks, paged_decode_attention,
     paged_decode_attention_reference, paged_splits)
 from tpulab_torch.ops.ragged_attention import (
-    KV_CODE, MAX_HEAD_DIM, Q_CODE, WGMMA_PAGES, check_built, head_dim_built,
+    FMA_WIDTH, KV_CODE, Q_CODE, WGMMA_PAGES, check_built, head_dim_built,
     ragged_body, ragged_paged_attention, ragged_paged_attention_reference)
 
 torch.set_num_threads(2)
@@ -210,16 +210,17 @@ def test_d16_is_built_on_the_fma_body(q_dt, kv_dt):
 
 
 def test_head_dims_of_the_three_kernels():
-    """One rule for all three kernels: every head dim from 1 to 256, as
-    tpulab's kernels take any (80, 96, ...); past 256 refused, by the
+    """One rule for all three kernels: every head dim from 1 up, as
+    tpulab's kernels take any (80, 96, 512, ...); D 0 refused, by the
     wrappers too.  The tensor-core bodies take the multiples of 16 from
-    64 to 128 for the 16-bit pairs, the fma bodies everything else."""
-    assert MAX_HEAD_DIM == 256
+    64 to 128 for the 16-bit pairs, the fma bodies everything else up to
+    256, the wide form every D past it."""
+    assert FMA_WIDTH == 256
     assert set(Q_CODE) == {getattr(torch, n) for n in Q_DTYPES}
     assert set(KV_CODE) == {getattr(torch, n) for n in KV_DTYPES}
     for q_dt, kv_dt in PAIRS:
         q, kv = getattr(torch, q_dt), getattr(torch, kv_dt)
-        for d in range(1, MAX_HEAD_DIM + 1):
+        for d in range(1, FMA_WIDTH + 1):
             check_built(q, kv, d)
             assert head_dim_built(d)
             want = ("wgmma" if kv in WGMMA_PAGES.get(q, ())
@@ -229,10 +230,15 @@ def test_head_dims_of_the_three_kernels():
                 assert flash_body(q, d) == (
                     "fma" if q == torch.float32 else want)
         for d in (264, 512):
-            assert not head_dim_built(d)
-            with pytest.raises(ValueError, match="not built"):
-                check_built(q, kv, d)
-    q, pool, tables = _inputs(0, 1, 1, 2, 2, 264, 8, 2)
+            assert head_dim_built(d)
+            check_built(q, kv, d)
+            assert ragged_body(q, kv, d) == "fma-wide"
+            if q == kv:
+                assert flash_body(q, d) == "fma-wide"
+        assert not head_dim_built(0)
+        with pytest.raises(ValueError, match="not built"):
+            check_built(q, kv, 0)
+    q, pool, tables = _inputs(0, 1, 1, 2, 2, 0, 8, 2)
     with pytest.raises(ValueError, match="not built"):
         pa._check(torch.from_numpy(q[:, 0]), torch.from_numpy(pool),
                   torch.from_numpy(tables), torch.tensor([3]))

@@ -24,7 +24,7 @@ against tpulab on the CPU.
   pages, and f16 compute with its default (f16) pages.
 - The host tier round trip of f16 and e5m2 pools is bit-exact, and their
   wire blobs are byte-identical to tpulab's.
-- A combination the kernels are not built for (D 264, a float64 q, int8
+- A combination the kernels are not built for (D 0, a float64 q, int8
   pages) is refused by :func:`check_built`, and a page dtype no kernel
   reads by the batcher.
 """
@@ -251,7 +251,7 @@ def test_body_table(cell):
 
 
 @pytest.mark.parametrize("combo,exc", [
-    ((torch.float16, F16, 264), ValueError),
+    ((torch.float16, F16, 0), ValueError),
     ((torch.float64, F16, 128), TypeError),
     ((torch.bfloat16, torch.int8, 128), TypeError)])
 def test_unbuilt_combination_raises(combo, exc):

@@ -10,8 +10,10 @@ build seconds of each library are printed) and runs ``chip_smoke.py``'s
 ``phase_ragged`` and ``phase_paged`` (CUDA events, L2 flushed), keeping
 the rows of every dtype mix at all_decode, chunk_over_ctx, long_decode
 and verify_k8 (kernel 1) and the bf16 rows of kernel 3; then, at every
-head dim the kernels were compiled for before any other (D 16, 32, 64,
-128 and 256), kernel 1 at 8 lanes x 1024 decode, kernel 2 at T 2048 H 8
+head dim the kernels are compiled for exactly (D 16, 32, 64, 128 and
+256) and at three padded ones (24 and 100 on the fma bodies' padded
+widths, 96 on the 128-wide tensor-core tile in bf16 and f16 and on the
+padded fma width in f32), kernel 1 at 8 lanes x 1024 decode, kernel 2 at T 2048 H 8
 causal and kernel 3 at 8 x 1024, each in f32 and bf16 (kernel 1 and 3
 also bf16 over e4m3 pages), timed the same way, and the SHA-256 of the
 outputs of those calls and of smaller ones at ragged edges (f16 too).
@@ -66,7 +68,7 @@ def lens(x):
 MIXES = (('f32/f32', torch.float32, torch.float32),
          ('bf16/bf16', torch.bfloat16, torch.bfloat16),
          ('bf16/e4m3', torch.bfloat16, torch.float8_e4m3fn))
-for d in (16, 32, 64, 128, 256):
+for d in (16, 24, 32, 64, 96, 100, 128, 256):
     rng = np.random.default_rng(d)
     g = dict(c.RA_GEOM, d=d)
     pool32, tables = c.serving_pool(torch, np, rng, g)

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
 Each library ``<name>`` is compiled by ``nvcc`` from the translation
-units :data:`UNITS` lists for it, in parallel (``csrc/<name>.cu``, and
-for kernels 1 and 3 their padded head-dim forms in
-``csrc/<name>_padded.cu``), into a shared library with a plain C
+units :data:`UNITS` lists for it, in parallel (``csrc/<name>.cu``, for
+kernels 1 and 3 their padded head-dim forms in ``csrc/<name>_padded.cu``,
+and for all three the wide form of every head dim past 256 in
+``csrc/<name>_wide.cu``), into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
@@ -64,9 +65,11 @@ def _nvcc() -> str:
 
 #: each library's translation units under ``csrc/``
 UNITS = {
-    "ragged_attention": ("ragged_attention.cu", "ragged_attention_padded.cu"),
-    "flash_attention": ("flash_attention.cu",),
-    "paged_attention": ("paged_attention.cu", "paged_attention_padded.cu"),
+    "ragged_attention": ("ragged_attention.cu", "ragged_attention_padded.cu",
+                         "ragged_attention_wide.cu"),
+    "flash_attention": ("flash_attention.cu", "flash_attention_wide.cu"),
+    "paged_attention": ("paged_attention.cu", "paged_attention_padded.cu",
+                        "paged_attention_wide.cu"),
 }
 
 

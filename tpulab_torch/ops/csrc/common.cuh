@@ -167,14 +167,15 @@ __device__ __forceinline__ void zero_smem(void* p, size_t bytes, int tid,
     q[i] = make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The fma bodies' shared-memory width for a head dim that none of them is
-// compiled for exactly (D 16, 32, 64, 128 and 256 are): the next of 32,
-// 64, 128 and 256.  Columns from D to the width stay zero in shared
-// memory and are never stored.
+// The fma bodies' shared-memory width for a head dim from 1 to FMA_WIDTH
+// that none of them is compiled for exactly (D 16, 32, 64, 128 and 256
+// are): the next of 32, 64, 128 and 256.  Columns from D to the width stay
+// zero in shared memory and are never stored.  Past FMA_WIDTH every head
+// dim runs the wide form instead (wide_attention.cuh).
+constexpr int FMA_WIDTH = 256;
 inline int padded_width(int d) {
-  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : FMA_WIDTH;
 }
-constexpr int MAX_HEAD_DIM = 256;
 // q's element type taken at run time (its launcher code: 0 f32, 1 bf16,
 // 2 f16): the padded fma bodies of kernels 1 and 3 read q once and write
 // their output once, so one instantiation serves the three q types.
@@ -206,14 +207,16 @@ __device__ __forceinline__ void q_store(QT* p, size_t i, int qc, float x) {
     p[i] = from_f<QT>(x);
   }
 }
-// Call `f` with a compile-time padded width (an integral constant).
+// Call `f` with a compile-time padded width (an integral constant); -1
+// for a head dim outside 1 to FMA_WIDTH.
 template <class F>
 int with_padded_width(int d, F&& f) {
+  if (d < 1 || d > FMA_WIDTH) return -1;
   switch (padded_width(d)) {
     case 32: return f(std::integral_constant<int, 32>{});
     case 64: return f(std::integral_constant<int, 64>{});
     case 128: return f(std::integral_constant<int, 128>{});
-    default: return f(std::integral_constant<int, 256>{});
+    default: return f(std::integral_constant<int, FMA_WIDTH>{});
   }
 }
 

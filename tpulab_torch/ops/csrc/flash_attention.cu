@@ -17,8 +17,8 @@
 // q, k, v and o are 67 MB, 20 us at 3.35 TB/s.  It is bound by operations,
 // so the bf16 products belong on the tensor cores.
 //
-// Two bodies; the caller names one (flash_attention.py `flash_body`), and
-// the launcher refuses a body that does not fit the dtype and D:
+// Three bodies; the caller names one (flash_attention.py `flash_body`),
+// and the launcher refuses a body that does not fit the dtype and D:
 //
 // * `flash_fwd_wgmma_kernel<D, E, kPad>`, bf16 or f16 (E) with head dim
 //   64, 80, 96, 112 or 128, on
@@ -59,6 +59,10 @@
 //   are copied in the widest chunks the views' addresses and strides
 //   allow (16 bytes down to 1), and the output's columns past it are not
 //   stored.
+// * `dense_wide_kernel<T>` (wide_attention.cuh, flash_attention_wide.cu),
+//   every dtype at every head dim past 256: 32 query rows a block, the
+//   output in slabs of 256 columns on a ((b, h) x slab, q tile) grid, each
+//   block recomputing its rows' scores over the whole head dim.
 
 #include <cuda.h>
 
@@ -342,7 +346,6 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
       return launch<T, 256, false>(q, k, v, out, B, Tlen, H, st, causal,
                                    sm_scale, D, s);
     default:
-      if (D < 1 || D > MAX_HEAD_DIM) return -1;
       return with_padded_width(D, [&](auto w) {
         return launch<T, decltype(w)::value, true>(
             q, k, v, out, B, Tlen, H, st, causal, sm_scale, D, s);
@@ -562,9 +565,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // tensor-core body (bf16 or f16, D 64, 80, 96, 112 or 128), body 0 the
 // CUDA-core body (f32 with any D from 1 to 256, and bf16 or f16 with any
 // other D up to 256; rows 16-byte aligned at D 16, 32, 64, 128 and 256,
-// any alignment of the element size at the others).  Returns 0 or a
+// any alignment of the element size at the others), body 2 the wide form
+// (every dtype at every D past 256, any alignment of the element size;
+// wide_attention.cuh).  Returns 0 or a
 // cudaError_t code; -1 for a body, dtype and head dim the kernel is not
 // built for.
+namespace tpulab {
+// Every head dim past FMA_WIDTH (256): the wide form (wide_attention.cuh),
+// defined in flash_attention_wide.cu (a second translation unit of the
+// same library).  -1 for a head dim up to FMA_WIDTH or an unknown dtype.
+int flash_wide(int q_code, const void* q, const void* k, const void* v,
+               void* out, int B, int T, int H, int D, const long long* st,
+               int causal, float sm_scale, cudaStream_t s);
+}  // namespace tpulab
+
 extern "C" int tpulab_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int T,
     int H, int D, long long qsb, long long qst, long long qsh, long long ksb,
@@ -573,6 +587,9 @@ extern "C" int tpulab_flash_attention(
   if (B == 0 || T == 0 || H == 0) return 0;
   const long long st[9] = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 2)
+    return flash_wide(q_code, q, k, v, out, B, T, H, D, st, causal, sm_scale,
+                      s);
   return with_q_type(q_code, [&](auto tag) {
     using T16 = typename decltype(tag)::type;
     if constexpr (std::is_same<T16, float>::value) {

@@ -83,7 +83,9 @@
 //   that add nothing to the scores or P.V; rows are copied in the widest
 //   chunks their bytes allow (16 bytes down to 1, plain stores and a
 //   plain mbarrier arrival below 4), and the columns past the head dim
-//   are not stored.
+//   are not stored.  Every head dim past 256 runs the wide form of
+//   wide_attention.cuh instead (`paged_wide`, paged_attention_wide.cu):
+//   kernel 1's wide kernel over one query row a lane, its own split-KV.
 
 #pragma once
 
@@ -517,12 +519,19 @@ int launch_d(int qc, int kv, const void* q, const void* pool,
 }  // namespace
 
 namespace tpulab {
-// Any head dim up to 256 the body is not compiled for exactly, on its
-// padded width: defined in paged_attention_padded.cu (a second
+// Any head dim up to FMA_WIDTH (256) the body is not compiled for exactly,
+// on its padded width: defined in paged_attention_padded.cu (a second
 // translation unit of the same library, so nvcc builds both at once).
-// Arguments as the C interface's; -1 for a head dim past 256.
+// Arguments as the C interface's; -1 for a head dim past FMA_WIDTH.
 int paged_padded(int qc, int kv, const void* q, const void* pool,
                  const int* tables, const int* lengths, void* out,
                  void* scratch, int B, int Hq, int Hkv, int D, int P, int S,
                  int MP, int n_split, float sm_scale, cudaStream_t st);
+// Every head dim past FMA_WIDTH: the wide form (wide_attention.cuh),
+// defined in paged_attention_wide.cu (a third translation unit).
+// Arguments as the C interface's; -1 for a head dim up to FMA_WIDTH.
+int paged_wide(int qc, int kv, const void* q, const void* pool,
+               const int* tables, const int* lengths, void* out,
+               void* scratch, int B, int Hq, int Hkv, int D, int P, int S,
+               int MP, int n_split, float sm_scale, cudaStream_t st);
 }  // namespace tpulab

@@ -2,7 +2,8 @@
 // interface and the forms compiled for their head dim exactly (the
 // tensor-core body at D 64 and 128, the fma body at D 16, 32, 64, 128 and
 // 256).  The kernels, and what they replace and compute, are in
-// ragged_attention.cuh; the padded forms in ragged_attention_padded.cu.
+// ragged_attention.cuh; the padded forms in ragged_attention_padded.cu,
+// the wide form (every D past 256) in ragged_attention_wide.cu.
 
 #include "ragged_attention.cuh"
 
@@ -49,8 +50,11 @@ int launch_tc(int qc, int kv, const void* q, const void* pool,
 // over the context and, when n_split > 1, f32 scratch of n_split * B * M *
 // Hq * (D + 2) values; body 0 the CUDA-core body (every other mix at
 // those head dims, and every mix at any other D from 1 to 256; n_split
-// 1).  Returns 0 or a cudaError_t code; -1 for a body, dtype pair and
-// head dim the kernel is not built for.
+// 1); body 2 the wide form (every mix at every D past 256, wide_attention.cuh)
+// with `n_split` splits and, when n_split > 1, f32 scratch of n_split * B
+// * M * Hq * D values, one more when that count is odd, then n_split * B *
+// M * Hq (m, l) pairs.  Returns 0 or a cudaError_t code; -1 for a body,
+// dtype pair and head dim the kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
     const int* kv_lens, void* out, void* scratch, int B, int M, int Hq,
@@ -62,6 +66,10 @@ extern "C" int tpulab_ragged_paged_attention(
     return launch_tc(q_code, kv, q, pool, tables, q_lens, kv_lens, out,
                      scratch, B, M, Hq, Hkv, D, P, S, MP, n_split, sm_scale,
                      st);
+  if (body == 2)
+    return ragged_wide(q_code, kv, q, pool, tables, q_lens, kv_lens, out,
+                       scratch, B, M, Hq, Hkv, D, P, S, MP, n_split, sm_scale,
+                       st);
   if (body != 0 || n_split != 1) return -1;
   switch (D) {
     case 16:

@@ -83,6 +83,11 @@
 //   the widest chunks their bytes allow (16 down to 1: D 100 in bf16 is
 //   200-byte rows, copied 8 bytes at a time), and the output's columns
 //   past it are not stored.
+// * Every head dim past 256 (body 2, DeepSeek-V4-Flash's 512, sarvam-105b's
+//   576, ...) runs the wide form of wide_attention.cuh for every mix
+//   (`ragged_wide`, ragged_attention_wide.cu): the output in slabs of 256
+//   columns, the scores recomputed over the whole head dim by each slab's
+//   blocks, split-KV where the blocks do not fill the card.
 
 #pragma once
 
@@ -685,7 +690,7 @@ namespace tpulab {
 // in ragged_attention_padded.cu (a second translation unit of the same
 // library, so nvcc builds both at once): the tensor-core body at D 80,
 // 96 and 112 for the pairs of `tensor_core_pair`, and the fma body at any
-// other D up to 256 on its padded width.  Arguments as the C interface's;
+// other D up to FMA_WIDTH (256) on its padded width.  Arguments as the C interface's;
 // -1 for a dtype pair or head dim neither takes.
 int ragged_tc_padded(int qc, int kv, const void* q, const void* pool,
                      const int* tables, const int* q_lens, const int* kv_lens,
@@ -697,4 +702,13 @@ int ragged_fma_padded(int qc, int kv, const void* q, const void* pool,
                       const int* kv_lens, void* out, int B, int M, int Hq,
                       int Hkv, int D, int P, int S, int MP, float sm_scale,
                       cudaStream_t st);
+// Every head dim past FMA_WIDTH (256) for every (q, page) pair: the wide
+// form (wide_attention.cuh), defined in ragged_attention_wide.cu (a third
+// translation unit).  Arguments as the C interface's; -1 for a head dim
+// up to FMA_WIDTH.
+int ragged_wide(int qc, int kv, const void* q, const void* pool,
+                const int* tables, const int* q_lens, const int* kv_lens,
+                void* out, void* scratch, int B, int M, int Hq, int Hkv,
+                int D, int P, int S, int MP, int n_split, float sm_scale,
+                cudaStream_t st);
 }  // namespace tpulab

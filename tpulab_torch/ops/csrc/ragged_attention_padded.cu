@@ -32,7 +32,6 @@ int ragged_fma_padded(int qc, int kv, const void* q, const void* pool,
                       const int* kv_lens, void* out, int B, int M, int Hq,
                       int Hkv, int D, int P, int S, int MP, float sm_scale,
                       cudaStream_t st) {
-  if (D < 1 || D > MAX_HEAD_DIM) return -1;
   return with_padded_width(D, [&](auto w) {
     return launch_d<decltype(w)::value, true>(qc, kv, q, pool, tables,
                                               q_lens, kv_lens, out, B, M, Hq,

@@ -11,14 +11,17 @@ CUDA tensors launch the hand-written Hopper kernel
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
 version: a build or launch failure raises.  The kernel has two bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
-(bf16 or f16 on the tensor cores in that type, D 64, 80, 96, 112 or 128)
-and ``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 at every
-other D up to 256).
+(bf16 or f16 on the tensor cores in that type, D 64, 80, 96, 112 or 128),
+``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 at every other D
+up to 256) and ``"fma-wide"`` (every dtype at every D past 256: the
+output's columns in slabs of 256, each block recomputing its rows'
+scores over the whole head dim; ``csrc/wide_attention.cuh``).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_body`` splits them by body,
 ``flash_attention.launches_by_form`` by ``"wgmma bf16"``, ``"wgmma
-f16"`` or ``"fma"`` and ``flash_attention.launches_by_head_dim`` by D
-(the plain version counts in none).
+f16"``, ``"fma"`` or ``"fma-wide"`` and
+``flash_attention.launches_by_head_dim`` by D (the plain version counts
+in none).
 
 ``block_q`` / ``block_k`` keep tpulab's contract (they clamp to ``T`` and
 must divide it, else ``ValueError``) but do not shape the kernel, which
@@ -36,11 +39,13 @@ import math
 
 import torch
 
-from tpulab_torch.ops.ragged_attention import (FORMS, MAX_HEAD_DIM, Q_CODE,
-                                               WGMMA_HEAD_DIMS, body_form,
-                                               head_dim_built)
+from tpulab_torch.ops.ragged_attention import (FMA_WIDTH, FORMS,
+                                               MAX_ADDRESSABLE_HEAD_DIM,
+                                               Q_CODE, WGMMA_HEAD_DIMS,
+                                               body_form, head_dim_built)
 
-_BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
+# the C launcher's `body` argument
+_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2}
 _NEG = -1e30
 
 
@@ -64,7 +69,7 @@ def _check(q, k, v):
                          f"{tuple(v.shape)}")
     if not head_dim_built(q.shape[3]):
         raise ValueError(f"head dim {q.shape[3]} not built (want 1 to "
-                         f"{MAX_HEAD_DIM})")
+                         f"{MAX_ADDRESSABLE_HEAD_DIM})")
     if q.dtype not in Q_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype} / k {k.dtype} / v {v.dtype}: the "
                         "kernel takes one dtype, float32, bfloat16 or "
@@ -76,12 +81,13 @@ def _check(q, k, v):
 
 def flash_body(dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 or f16 with
-    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16), else ``"fma"``.
-    A function of dtype and head dim only."""
+    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16), ``"fma-wide"``
+    for every D past ``FMA_WIDTH``, else ``"fma"``.  A function of dtype
+    and head dim only."""
     if (dtype in (torch.bfloat16, torch.float16)
             and head_dim in WGMMA_HEAD_DIMS):
         return "wgmma"
-    return "fma"
+    return "fma-wide" if head_dim > FMA_WIDTH else "fma"
 
 
 def _rows_aligned(x) -> bool:

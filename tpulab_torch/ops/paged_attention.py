@@ -14,18 +14,24 @@ version, :func:`paged_decode_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
 launch failure raises.  q is float32, bfloat16 or float16; the pool
 float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, upcast to f32
-as the kernel reads it.  One body serves every dtype mix and head dim: a
-producer warp fills a ring of 32-position stages with 16-byte async
-copies tracked by mbarriers, and the consumer warps (one a ring slot)
-run the online softmax on f32 FMAs.  Any GQA group: a block takes up to
-``GROUP_BLOCK`` query heads of one KV head, and a larger group (G 16,
-MQA's 32 over 1) runs :func:`group_blocks` blocks a KV head, each over
-the KV head's pages.
+as the kernel reads it.  One body, ``"ring"``, serves every dtype mix and
+head dim up to ``FMA_WIDTH`` (256): a producer warp fills a ring of
+32-position stages with 16-byte async copies tracked by mbarriers, and
+the consumer warps (one a ring slot) run the online softmax on f32 FMAs.
+Every D past 256 runs ``"fma-wide"``, kernel 1's wide form over one
+query row a lane (``csrc/wide_attention.cuh``; its splits
+:func:`~tpulab_torch.ops.ragged_attention.wide_splits`).  Any GQA
+group: a block takes up to ``GROUP_BLOCK`` query heads of one KV head,
+and a larger group (G 16, MQA's 32 over 1) runs :func:`group_blocks`
+blocks a KV head, each over the KV head's pages.
 Where the (KV head, head block, lane) blocks do not fill the card, each
 lane's context is split into :func:`paged_splits` parts (split-KV) whose
 f32 partials a second, small kernel merges in split order.
 ``paged_decode_attention.launches`` counts calls that launched (one per
-call, merge included).  tpulab's ``g_pages`` / ``nbuf`` (pages per DMA
+call, merge included), ``paged_decode_attention.launches_by_form`` by
+``"ring"`` or ``"fma-wide"`` and
+``paged_decode_attention.launches_by_head_dim`` by D.  tpulab's
+``g_pages`` / ``nbuf`` (pages per DMA
 block and the pipeline depth in TPU VMEM) are not taken: the kernel
 stages its own tiles in shared memory.
 """
@@ -39,8 +45,10 @@ import math
 
 import torch
 
-from tpulab_torch.ops.ragged_attention import (KV_CODE, Q_CODE, _sm_count,
-                                               check_built, gather_pages)
+from tpulab_torch.ops.ragged_attention import (FMA_WIDTH, KV_CODE, Q_CODE,
+                                               WIDE_ROWS, _sm_count,
+                                               check_built, gather_pages,
+                                               wide_slabs, wide_splits)
 
 #: query heads one block of the kernel takes (its shared memory and
 #: registers are sized for 8); a larger group runs several blocks
@@ -68,6 +76,25 @@ def paged_splits(b: int, hkv: int, mp: int, page_size: int,
         return 1
     rounds = -(-mp * page_size // (STAGE_POSITIONS * ROUND_STAGES))
     return max(1, min(2 * n_sm // blocks, rounds, MAX_SPLITS))
+
+
+def paged_form(head_dim: int) -> str:
+    """``"ring"`` up to ``FMA_WIDTH``, ``"fma-wide"`` past it."""
+    return "fma-wide" if head_dim > FMA_WIDTH else "ring"
+
+
+def paged_n_split(b: int, hq: int, hkv: int, d: int, mp: int,
+                  page_size: int, n_sm: int) -> int:
+    """The split count a CUDA call at these shapes runs: the ring's
+    :func:`paged_splits` over its (KV head, head block, lane) blocks, or
+    at D past 256 :func:`wide_splits` over the wide form's (tile, slab,
+    KV head, lane) blocks, a tile ``WIDE_ROWS`` query heads of one KV
+    head."""
+    if d > FMA_WIDTH:
+        tiles = -(-(hq // hkv) // WIDE_ROWS)
+        return wide_splits(tiles * wide_slabs(d) * hkv * b, mp * page_size,
+                           n_sm)
+    return paged_splits(b, hkv * group_blocks(hq, hkv), mp, page_size, n_sm)
 
 
 def group_blocks(hq: int, hkv: int) -> int:
@@ -159,8 +186,7 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
     tables = tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     mp = tables.shape[1]
-    n_split = paged_splits(b, hkv * group_blocks(hq, hkv), mp, s,
-                           _sm_count(q.device.index))
+    n_split = paged_n_split(b, hq, hkv, d, mp, s, _sm_count(q.device.index))
     out = torch.empty_like(q)
     # f32 partials of every split: O (b, hq, d), then (m, l) per row at
     # an even offset (one float of padding after an odd count of O).
@@ -185,7 +211,12 @@ def paged_decode_attention(q, kv_pool, tables, lengths):
         raise RuntimeError(f"paged_decode_attention launch failed "
                            f"({n_split} splits): {msg}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_form[paged_form(d)] += 1
+    by_dim = paged_decode_attention.launches_by_head_dim
+    by_dim[d] = by_dim.get(d, 0) + 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_form = {"ring": 0, "fma-wide": 0}
+paged_decode_attention.launches_by_head_dim = {}

@@ -13,21 +13,24 @@ version, :func:`ragged_paged_attention_reference`, only for tensors on
 the CPU.  A CUDA tensor never reaches the plain version: a build or
 launch failure raises.  q is float32, bfloat16 or float16; the pool
 float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, whose pages
-the kernel upcasts as it reads them.  Every head dim from 1 to
-``MAX_HEAD_DIM`` (256) is built, as tpulab's kernels take any.  The
-kernel has two bodies, chosen by :func:`ragged_body` from dtypes and
-head dim alone: ``"wgmma"`` (the tensor cores in q's 16-bit type, D of
-``WGMMA_HEAD_DIMS``: 64 to 128 in steps of 16, over pages whose upcast
-to that type is exact: bf16 q over bf16, e4m3 or e5m2 pages, f16 q over
-f16, e4m3 or e5m2 pages) and ``"fma"`` (f32 FMAs on CUDA cores: every
-other mix, and every other D).  A ``"wgmma"`` launch whose tiles do not fill the card splits each lane's
-context into :func:`ragged_splits` parts (split-KV) and merges them in a
-second, small kernel.  ``ragged_paged_attention.launches`` counts calls that launched
-(one per call, merge included) and
-``ragged_paged_attention.launches_by_body`` splits them by body,
-``ragged_paged_attention.launches_by_geom`` by ``"<body> x<splits>"``
-and ``ragged_paged_attention.launches_by_form`` by ``"wgmma bf16"``,
-``"wgmma f16"`` or ``"fma"``, and
+the kernel upcasts as it reads them.  Every head dim from 1 up is built,
+as tpulab's kernels take any.  The kernel has three bodies, chosen by
+:func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
+tensor cores in q's 16-bit type, D of ``WGMMA_HEAD_DIMS``: 64 to 128 in
+steps of 16, over pages whose upcast to that type is exact: bf16 q over
+bf16, e4m3 or e5m2 pages, f16 q over f16, e4m3 or e5m2 pages), ``"fma"``
+(f32 FMAs on CUDA cores: every other mix, and every other D up to
+``FMA_WIDTH``, 256) and ``"fma-wide"`` (every mix at every D past 256:
+the output's columns in slabs of ``WIDE_COLS``, each block recomputing
+its rows' scores over the whole head dim; ``csrc/wide_attention.cuh``).
+A ``"wgmma"`` or ``"fma-wide"`` launch whose blocks do not fill the card
+splits each lane's context into :func:`ragged_splits` parts (split-KV)
+and merges them in a second, small kernel.
+``ragged_paged_attention.launches`` counts calls that launched (one per
+call, merge included) and ``ragged_paged_attention.launches_by_body``
+splits them by body, ``ragged_paged_attention.launches_by_geom`` by
+``"<body> x<splits>"`` and ``ragged_paged_attention.launches_by_form``
+by ``"wgmma bf16"``, ``"wgmma f16"``, ``"fma"`` or ``"fma-wide"``, and
 ``ragged_paged_attention.launches_by_head_dim`` by D (the plain version
 counts in none).
 """
@@ -46,10 +49,18 @@ Q_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the pool dtypes and the C launchers' code for each (kernels 1 and 3)
 KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
            torch.float8_e5m2: 3, torch.float16: 4}
-#: the largest head dim the kernels are built for: every D from 1 to it
-#: runs on the card (D 16 is tpulab's own small model, d_model 32 over 2
-#: heads; 80 Phi-2's, 96 Phi-3-mini's)
-MAX_HEAD_DIM = 256
+#: the widest of the fma bodies (kernels 1-3): every D from 1 to it runs
+#: on them (D 16 is tpulab's own small model, d_model 32 over 2 heads; 80
+#: Phi-2's, 96 Phi-3-mini's), every D past it on the wide form
+FMA_WIDTH = 256
+#: the C launchers take the head dim as a 32-bit int
+MAX_ADDRESSABLE_HEAD_DIM = 2**31 - 1
+#: the wide form's slab of output columns (and chunk of Q and K columns)
+#: and its query rows a block
+WIDE_COLS = 256
+WIDE_ROWS = 32
+#: the least key positions a wide-form split walks (four stages)
+WIDE_SPLIT_POSITIONS = 128
 #: head dims of the tensor-core bodies (kernels 1 and 2): 80, 96 and 112
 #: run the 128-wide tile with its columns past D zero
 WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
@@ -60,7 +71,8 @@ WGMMA_PAGES = {
     torch.bfloat16: (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2),
     torch.float16: (torch.float16, torch.float8_e4m3fn, torch.float8_e5m2),
 }
-_BODY_CODE = {"fma": 0, "wgmma": 1}     # the C launcher's `body` argument
+# the C launcher's `body` argument
+_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2}
 TILE_ROWS = 64       # query rows (j, g) of one wgmma tile
 STAGE_KEYS = 64      # key positions of one wgmma stage
 MAX_SPLITS = 16
@@ -69,26 +81,45 @@ MAX_SPLITS = 16
 def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: ``"wgmma"`` for a bf16 or f16 q
     over the pages of ``WGMMA_PAGES[q_dtype]`` with D of
-    ``WGMMA_HEAD_DIMS``, else ``"fma"``.  A function of dtypes and head
-    dim only."""
+    ``WGMMA_HEAD_DIMS``, ``"fma-wide"`` for every D past ``FMA_WIDTH``,
+    else ``"fma"``.  A function of dtypes and head dim only."""
     if (head_dim in WGMMA_HEAD_DIMS
             and kv_dtype in WGMMA_PAGES.get(q_dtype, ())):
         return "wgmma"
-    return "fma"
+    return "fma-wide" if head_dim > FMA_WIDTH else "fma"
 
 
 def head_dim_built(head_dim: int) -> bool:
     """Whether the three kernels take this head dim: any integer from 1
-    to ``MAX_HEAD_DIM``."""
-    return 1 <= head_dim <= MAX_HEAD_DIM
+    up (to ``MAX_ADDRESSABLE_HEAD_DIM``, the C launchers' 32-bit int), as
+    tpulab's kernels take any."""
+    return 1 <= head_dim <= MAX_ADDRESSABLE_HEAD_DIM
+
+
+def wide_slabs(head_dim: int) -> int:
+    """Slabs of ``WIDE_COLS`` output columns the wide form's grid walks."""
+    return -(-head_dim // WIDE_COLS)
+
+
+def wide_splits(blocks: int, positions: int, n_sm: int) -> int:
+    """How many parts the wide form splits each lane's context into
+    (kernels 1 and 3), ``blocks`` its (tile, slab, KV head, lane) blocks
+    over a table of ``positions``: one split when the blocks already fill
+    the card; otherwise enough for about two blocks per SM, at most one
+    per ``WIDE_SPLIT_POSITIONS`` positions and at most ``MAX_SPLITS``.  A
+    function of shapes and the SM count only."""
+    if blocks >= n_sm:
+        return 1
+    return max(1, min(2 * n_sm // blocks,
+                      -(-positions // WIDE_SPLIT_POSITIONS), MAX_SPLITS))
 
 
 def check_built(q_dtype, kv_dtype, head_dim: int) -> None:
     """Raise unless the kernels are built for this q dtype, page dtype
     and head dim (every q of ``Q_CODE`` over every page of ``KV_CODE``,
-    every D from 1 to ``MAX_HEAD_DIM``, all three kernels alike): a CUDA
-    batcher refuses at construction what its kernels would refuse at
-    their first launch."""
+    every D from 1 up, all three kernels alike): a CUDA batcher refuses
+    at construction what its kernels would refuse at their first
+    launch."""
     if q_dtype not in Q_CODE or kv_dtype not in KV_CODE:
         raise TypeError(f"q {q_dtype} / pool {kv_dtype}: the kernels take "
                         "a float32, bfloat16 or float16 q over a float32, "
@@ -96,21 +127,25 @@ def check_built(q_dtype, kv_dtype, head_dim: int) -> None:
                         "pool")
     if not head_dim_built(head_dim):
         raise ValueError(f"head dim {head_dim} not built (want 1 to "
-                         f"{MAX_HEAD_DIM}; ROADMAP: \"Forms of the three "
-                         "kernels the port does not build\")")
+                         f"{MAX_ADDRESSABLE_HEAD_DIM}: the C launchers "
+                         "take it as a 32-bit int)")
 
 
 def body_form(body: str, q_dtype) -> str:
-    """``"wgmma bf16"`` / ``"wgmma f16"`` (the tensor cores' input type)
-    or ``"fma"``: the key of a wrapper's ``launches_by_form``."""
+    """``"wgmma bf16"`` / ``"wgmma f16"`` (the tensor cores' input type),
+    ``"fma"`` or ``"fma-wide"``: the key of a wrapper's
+    ``launches_by_form``."""
     if body != "wgmma":
         return body
     return "wgmma f16" if q_dtype == torch.float16 else "wgmma bf16"
 
 
 def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
-                  page_size: int, n_sm: int, body: str = "wgmma") -> int:
-    """How many parts the ``"wgmma"`` body splits each lane's context into.
+                  page_size: int, n_sm: int, body: str = "wgmma",
+                  head_dim: int = 0) -> int:
+    """How many parts the ``"wgmma"`` body splits each lane's context into
+    (the ``"fma-wide"`` body: :func:`wide_splits` over its blocks at
+    ``head_dim``; the ``"fma"`` body: one).
 
     A function of shapes and the SM count only, never of ``kv_lens`` or
     timing, so equal shapes give equal splits and bit-equal results.  One
@@ -118,6 +153,10 @@ def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
     256-row mixed round does; otherwise enough splits for about two blocks
     per SM (two fit at once), at most one per 64-key stage of the longest
     context (``mp * page_size``) and at most ``MAX_SPLITS``."""
+    if body == "fma-wide":
+        tiles = -(-m * (hq // hkv) // WIDE_ROWS)
+        return wide_splits(tiles * wide_slabs(head_dim) * hkv * b,
+                           mp * page_size, n_sm)
     if body != "wgmma":
         return 1
     tiles = -(-m * (hq // hkv) // TILE_ROWS)
@@ -243,12 +282,15 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     mp = tables.shape[1]
     body = ragged_body(q.dtype, kv_pool.dtype, d)
     n_split = ragged_splits(b, m, hq, hkv, mp, s, _sm_count(q.device.index),
-                            body)
+                            body, d)
     out = torch.empty_like(q)
-    # f32 partials of every split: O (b, m, hq, d), then (m, l) per row.
-    # Freed on return: the caching allocator hands the block out again
-    # only to later work on this stream, which runs after the merge.
-    scratch = (torch.empty(n_split * b * m * hq * (d + 2),
+    # f32 partials of every split: O (b, m, hq, d), then (m, l) per row at
+    # an even offset (one float of padding after an odd count of O: the
+    # wide form's odd head dims).  Freed on return: the caching allocator
+    # hands the block out again only to later work on this stream, which
+    # runs after the merge.
+    n_o = n_split * b * m * hq * d
+    scratch = (torch.empty(n_o + n_o % 2 + n_split * b * m * hq * 2,
                            dtype=torch.float32, device=q.device)
                if n_split > 1 else None)
     # the launch goes to the calling thread's current device
@@ -278,7 +320,7 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     return out
 
 
-FORMS = ("fma", "wgmma bf16", "wgmma f16")
+FORMS = ("fma", "wgmma bf16", "wgmma f16", "fma-wide")
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
 ragged_paged_attention.launches_by_form = dict.fromkeys(FORMS, 0)
