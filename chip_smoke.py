@@ -9877,6 +9877,16 @@ ALL_MIXES = tuple((f"{SHORT_DT[q]}/{SHORT_DT[kv]}", q, kv)
 SMEM_LIMIT = 232448         # bytes of shared memory a block can use
 
 
+def wide_body(q_name, kv_name, d):
+    """The body kernels 1 and 2 must run past 256: ``"wgmma-wide"`` for a
+    bf16 or f16 q over pages of its own type, e4m3 or e5m2 at a D that is
+    a multiple of 16, else ``"fma-wide"`` (kernel 2: ``kv_name`` is q's
+    own dtype)."""
+    tc = (q_name in ("bfloat16", "float16")
+          and kv_name in (q_name, "float8_e4m3fn", "float8_e5m2"))
+    return "wgmma-wide" if tc and d % 16 == 0 else "fma-wide"
+
+
 def past_mixes(d):
     """Kernel 1's (q, page) mixes at head dim ``d``: all fifteen at D
     512, a subset elsewhere (f32/f32, bf16/bf16 and f16/e5m2 at 257, 320
@@ -9888,14 +9898,31 @@ def past_mixes(d):
     return tuple(m for m in ALL_MIXES if m[0] in keep)
 
 
+#: head dims at which each wide instantiation's shared memory is read
+ATTR_DIMS = (272, 320, 512, 576, 640, 656, 1024, 2048, 4096)
+
+
 def wide_attributes(torch):
-    """Each wide instantiation's registers and dynamic shared memory
-    (``cudaFuncGetAttributes``), which must fit a block's 227 KB."""
+    """Each wide instantiation's registers, dynamic shared memory and
+    local memory (``cudaFuncGetAttributes``): the fma form's one a page
+    (or flash) type, the tensor-core form's one a (q, page) pair (kernel
+    1) or dtype (kernel 2) at each of ``ATTR_DIMS``.  Each must fit a
+    block's 227 KB with no local memory (spills)."""
     import ctypes
 
     from tpulab_torch.ops import paged_attention as pa_mod
     from tpulab_torch.ops import ragged_attention as ra_mod
     from tpulab_torch.ops.flash_attention import _lib as fa_lib
+
+    def check(label, rc, out):
+        if rc != 0:
+            raise AssertionError(f"past 256: {label} attributes: error {rc}")
+        regs, smem, local = out
+        if smem > SMEM_LIMIT or local:
+            raise AssertionError(f"past 256: {label}: {smem} bytes of "
+                                 f"shared memory (limit {SMEM_LIMIT}), "
+                                 f"{local} bytes of local memory")
+        return regs, smem, local
 
     codes = {"ragged": (ra_mod._lib(), ra_mod.KV_CODE),
              "paged": (pa_mod._lib(), ra_mod.KV_CODE),
@@ -9906,19 +9933,34 @@ def wide_attributes(torch):
         fn.restype = ctypes.c_int
         for dt, code in table.items():
             out = (ctypes.c_int * 3)()
-            rc = fn(code, out)
-            if rc != 0:
-                raise AssertionError(f"past 256: {name} wide attributes "
-                                     f"({dt}): error {rc}")
-            regs, smem, local = out
-            if smem > SMEM_LIMIT:
-                raise AssertionError(f"past 256: {name} wide {dt}: {smem} "
-                                     f"bytes of shared memory > "
-                                     f"{SMEM_LIMIT}")
+            regs, smem, local = check(f"{name} fma-wide {dt}", fn(code, out),
+                                      out)
             log(f"past 256: fma-wide {name:<6} {dtype_name(dt):<13} "
                 f"{regs} registers, {smem} bytes of dynamic shared memory "
                 f"(limit {SMEM_LIMIT}), {local} bytes of local memory a "
                 "thread")
+    rag = codes["ragged"][0].tpulab_ragged_wgmma_wide_attributes
+    rag.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fla = codes["flash"][0].tpulab_flash_wgmma_wide_attributes
+    fla.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    pairs = [("ragged", q, kv) for q in (torch.bfloat16, torch.float16)
+             for kv in (q, torch.float8_e4m3fn, torch.float8_e5m2)]
+    pairs += [("flash", q, q) for q in (torch.bfloat16, torch.float16)]
+    for name, q, kv in pairs:
+        seen = []
+        for d in ATTR_DIMS:
+            out = (ctypes.c_int * 3)()
+            rc = (rag(ra_mod.Q_CODE[q], ra_mod.KV_CODE[kv], d, out)
+                  if name == "ragged" else fla(ra_mod.Q_CODE[q], d, out))
+            seen.append(check(f"{name} wgmma-wide {q}/{kv} D {d}", rc, out))
+        label = (f"{SHORT_DT[dtype_name(q)]}/{SHORT_DT[dtype_name(kv)]}"
+                 if name == "ragged" else SHORT_DT[dtype_name(q)])
+        log(f"past 256: wgmma-wide {name:<6} {label:<9} {seen[0][0]} "
+            f"registers, {seen[0][2]} bytes of local memory a thread; "
+            "dynamic shared memory "
+            + ", ".join(f"D {d} {smem}" for d, (_, smem, _) in
+                        zip(ATTR_DIMS, seen))
+            + f" (limit {SMEM_LIMIT})")
 
 
 def odd_splits_wide(torch, rng, tag):
@@ -9979,16 +10021,19 @@ def odd_splits_wide(torch, rng, tag):
 def past_kernels(torch, timer):
     """(a) Kernel 1's all_decode (8 lanes x 1024, 8 query heads over one)
     at D 257, 320, 384, 512, 576, 1024 over the mixes of
-    :func:`past_mixes`, and once at D 2048 (bf16/bf16); DeepSeek-V4-
-    Flash's attention (Hq 64 over 1, D 512: all_decode and
+    :func:`past_mixes`, and once at D 2048 (bf16/bf16), with its
+    chunk_over_ctx and verify_k8 at the D 512 serve's geometry (bf16);
+    DeepSeek-V4-Flash's attention (Hq 64 over 1, D 512: all_decode and
     chunk_over_ctx) and sarvam-105b's D 576 (all_decode), bf16; kernel 3
     at 8 x 1024 at each of those head dims (bf16/bf16; f32/f32 at 257,
     bf16/e4m3 at 512) and at both public geometries; kernel 2 at T 2048,
     causal, H 8 at each D (f32 at 257, bf16 elsewhere, f16 and f32 at
-    512) and DeepSeek-V4-Flash's H 64 at D 512, bf16.  Each on the
-    ``fma-wide`` form, held against its plain version, relaunched bit for
-    bit, timed beside the plain version, the bound and SDPA; one planted
-    error per kernel rejected; then the odd splits."""
+    512) and DeepSeek-V4-Flash's H 64 at D 512, bf16.  Each on the body
+    :func:`wide_body` names (``wgmma-wide`` for the 16-bit pairs whose
+    upcast is exact, ``fma-wide`` for the rest and for kernel 3), held
+    against its plain version, relaunched bit for bit, timed beside the
+    plain version, the bound and SDPA; one planted error rejected in
+    each body of each kernel; then the odd splits."""
     import numpy as np
 
     rng = np.random.default_rng(23)
@@ -10003,8 +10048,14 @@ def past_kernels(torch, timer):
         for dname, q_name, kv_name in mixes:
             new["ragged"].append(ragged_row(
                 torch, timer, rng, g, pool32, tables, "all_decode", dname,
-                q_name, kv_name, *ra["all_decode"], "fma-wide", tag,
-                planted=d == 512 and dname == "bf16/bf16"))
+                q_name, kv_name, *ra["all_decode"],
+                wide_body(q_name, kv_name, d), tag,
+                planted=d == 512 and dname in ("bf16/bf16", "f32/f32")))
+        if d == 512:        # the D 512 serve's own chunk and verify rows
+            for case in ("chunk_over_ctx", "verify_k8"):
+                new["ragged"].append(ragged_row(
+                    torch, timer, rng, g, pool32, tables, case, "bf16/bf16",
+                    "bfloat16", "bfloat16", *ra[case], "wgmma-wide", tag))
         publics = (("dsv4", PAST_DSV4, ("all_decode", "chunk_over_ctx")),
                    ("sarvam", PAST_SARVAM, ("all_decode",)))
         for pname, pg, cases in publics:
@@ -10014,7 +10065,7 @@ def past_kernels(torch, timer):
                 new["ragged"].append(ragged_row(
                     torch, timer, rng, pg, pool32, tables, f"{pname} {case}",
                     "bf16/bf16", "bfloat16", "bfloat16", *ra[case],
-                    "fma-wide", tag))
+                    wide_body("bfloat16", "bfloat16", d), tag))
             new["paged"].append(paged_row(
                 torch, timer, rng, pg, pool32, tables,
                 f"D{d} {pname} 8 x 1024", "bf16/bf16", "bfloat16",
@@ -10037,8 +10088,8 @@ def past_kernels(torch, timer):
                            (512, 64, "bfloat16")]):
         log(f"{tag}: kernel 2 at D {d}, H {h}, T 2048, causal, {dname}:")
         r = flash_case(torch, timer, rng, 1, h, d, 2048, dname, True,
-                       d == 512 and h == 64)
-        if r["body"] != "fma-wide":
+                       d == 512 and (h == 64 or dname == "float32"))
+        if r["body"] != wide_body(dname, dname, d):
             raise AssertionError(f"{tag}: flash D {d} {dname} on "
                                  f"{r['body']}")
         r["case"] = f"D{d} {r['case']}"
@@ -10053,14 +10104,14 @@ def past_serve(torch, card):
     heads of D 512 over one KV head (all 32 layers, random bf16 weights
     from a seed): four greedy requests of PAST_PROMPTS tokens x
     PAST_STEPS under the ragged plan (K-blocks of 8), then the split
-    plan with K 8 and K 1.  Every kernel 1 launch on ``fma-wide`` at D
-    512 (== 32 x forward steps), every kernel 2 launch of the split plan
-    too (== 32 x prefills).  Split K 1 == split K 8 token for token;
+    plan with K 8 and K 1.  Every kernel 1 launch on ``wgmma-wide bf16``
+    at D 512 (== 32 x forward steps), every kernel 2 launch of the split
+    plan too (== 32 x prefills).  Split K 1 == split K 8 token for token;
     ragged against split under the bf16 noise rule.  Then the
     same-backend invariants on these weights (:func:`phase_invariants`,
     2 of the layers), kernel 3's decode op over the model-written D 512
-    pool among them.  Returns the launches, by kernel, form and head
-    dim."""
+    pool among them (kernel 3: ``fma-wide``).  Returns the launches, by
+    kernel, form and head dim."""
     import numpy as np
 
     from tpulab_torch.engine.paged import ContinuousBatcher
@@ -10082,7 +10133,7 @@ def past_serve(torch, card):
     rng = np.random.default_rng(512)
     prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
                for n in PAST_PROMPTS]
-    form = "fma-wide"
+    form = "wgmma-wide bf16"
     streams, total = {}, {"ragged": {}, "flash": {}}
     for plan, cfg in (("ragged", SERVE), ("split", dict(SERVE, **SPLIT)),
                       ("split K=1", dict(SERVE, **SPLIT, decode_block=1))):
@@ -10157,10 +10208,10 @@ def past_serve(torch, card):
     paged_decode_attention.launches_by_form = dict.fromkeys(
         paged_decode_attention.launches_by_form, 0)
     n_op = phase_invariants(torch, params, torch.bfloat16, model=c)
-    if paged_decode_attention.launches_by_form[form] != n_op:
+    if paged_decode_attention.launches_by_form["fma-wide"] != n_op:
         raise AssertionError(f"past 256: the decode op's {n_op} launches "
-                             f"were not all {form}")
-    total["paged"] = {form: n_op, f"D{d}": n_op}
+                             "were not all fma-wide")
+    total["paged"] = {"fma-wide": n_op, f"D{d}": n_op}
     del params
     torch.cuda.empty_cache()
     return total
@@ -10368,8 +10419,8 @@ def main(argv=None) -> int:
                      "rows (D 16, fma) + the head dims phase's "
                      "Phi-3-mini-width serves (D 96, wgmma bf16; 32 "
                      "layers, both plans, K = 8 and K = 1) + the past-256 "
-                     "phase's D 512 serves (fma-wide; Llama-3-8B widths, "
-                     "8 heads over 1, 32 layers, both plans)",
+                     "phase's D 512 serves (wgmma-wide bf16; Llama-3-8B "
+                     "widths, 8 heads over 1, 32 layers, both plans)",
                      {"e4m3": ("all_decode", "bf16/e4m3"),
                       "f16": ("all_decode", "f16/f16"),
                       "e5m2": ("all_decode", "bf16/e5m2"),
@@ -10392,6 +10443,11 @@ def main(argv=None) -> int:
                       "wide_d512": ("D512 all_decode", "bf16/bf16"),
                       "wide_d512_f32": ("D512 all_decode", "f32/f32"),
                       "wide_d512_e4m3": ("D512 all_decode", "bf16/e4m3"),
+                      "wide_d512_f16": ("D512 all_decode", "f16/f16"),
+                      "wide_d512_mixed": ("D512 all_decode", "bf16/f16"),
+                      "wide_d512_chunk": ("D512 chunk_over_ctx",
+                                          "bf16/bf16"),
+                      "wide_d512_verify": ("D512 verify_k8", "bf16/bf16"),
                       "wide_d576": ("D576 all_decode", "bf16/bf16"),
                       "wide_d1024": ("D1024 all_decode", "bf16/bf16"),
                       "wide_d2048": ("D2048 all_decode", "bf16/bf16"),
@@ -10427,7 +10483,7 @@ def main(argv=None) -> int:
                      "kv_fabric prefills (D 16, fma) + the head dims "
                      "phase's Phi-3-mini-width split-plan prefills (D 96, "
                      "wgmma bf16, 32 layers) + the past-256 phase's D 512 "
-                     "split-plan prefills (fma-wide, 32 layers)",
+                     "split-plan prefills (wgmma-wide bf16, 32 layers)",
                      {"f16": (f"T={FA_TS[-1]} causal", "float16"),
                       "d16": ("D16 T=2048 causal H=2", "float32"),
                       "d16_rows": (f"D16 T={SM_FLASH_T} causal H=2",
@@ -10487,6 +10543,48 @@ def main(argv=None) -> int:
                       "wide_sarvam": ("D576 sarvam 8 x 1024",
                                       "bf16/bf16")},
                      past_256=pd_launches["paged"]),
+        # the tensor-core wide form of kernels 1 and 2: its rows of phase
+        # 21 (a), its launches those of the D 512 serves of phase 21 (b)
+        kernel_entry("ragged_paged_attention wgmma-wide",
+                     "tpulab_torch/ops/csrc/wide_wgmma.cuh",
+                     "tpulab/ops/ragged_attention.py:190",
+                     pd_launches["ragged"]["wgmma-wide bf16"],
+                     [r for r in pd_rows["ragged"]
+                      if r["body"].startswith("wgmma-wide")],
+                     ("D512 all_decode", "bf16/bf16"),
+                     "all_decode bf16/bf16 at D 512, 8 lanes x 1024, 8 "
+                     "query heads over 1; launches: the past-256 phase's "
+                     "D 512 serves (Llama-3-8B widths, 32 layers, both "
+                     "plans)",
+                     {"chunk": ("D512 chunk_over_ctx", "bf16/bf16"),
+                      "verify": ("D512 verify_k8", "bf16/bf16"),
+                      "f16": ("D512 all_decode", "f16/f16"),
+                      "e4m3": ("D512 all_decode", "bf16/e4m3"),
+                      "d320": ("D320 all_decode", "bf16/bf16"),
+                      "d576": ("D576 all_decode", "bf16/bf16"),
+                      "d1024": ("D1024 all_decode", "bf16/bf16"),
+                      "d2048": ("D2048 all_decode", "bf16/bf16"),
+                      "dsv4": ("D512 dsv4 all_decode", "bf16/bf16"),
+                      "dsv4_chunk": ("D512 dsv4 chunk_over_ctx",
+                                     "bf16/bf16"),
+                      "sarvam": ("D576 sarvam all_decode", "bf16/bf16")},
+                     past_256=pd_launches["ragged"]),
+        kernel_entry("flash_attention wgmma-wide",
+                     "tpulab_torch/ops/csrc/wide_wgmma.cuh",
+                     "tpulab/ops/flash_attention.py:80",
+                     pd_launches["flash"].get("wgmma-wide bf16", 0),
+                     [r for r in pd_rows["flash"]
+                      if r["body"] == "wgmma-wide"],
+                     ("D512 T=2048 causal H=8", "bfloat16"),
+                     "B 1, T 2048, H 8, D 512, causal, bf16; launches: "
+                     "the past-256 phase's D 512 split-plan prefills (32 "
+                     "layers)",
+                     {"f16": ("D512 T=2048 causal H=8", "float16"),
+                      "d320": ("D320 T=2048 causal H=8", "bfloat16"),
+                      "d576": ("D576 T=2048 causal H=8", "bfloat16"),
+                      "d1024": ("D1024 T=2048 causal H=8", "bfloat16"),
+                      "dsv4": ("D512 T=2048 causal H=64", "bfloat16")},
+                     past_256=pd_launches["flash"]),
     ]
     faulthandler.cancel_dump_traceback_later()
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -232,9 +232,14 @@ def test_head_dims_of_the_three_kernels():
         for d in (264, 512):
             assert head_dim_built(d)
             check_built(q, kv, d)
-            assert ragged_body(q, kv, d) == "fma-wide"
+            # past 256 the tensor-core pairs take the wide wgmma form at
+            # a D that is a multiple of 16 (512, not 264)
+            wide = ("wgmma-wide" if kv in WGMMA_PAGES.get(q, ())
+                    and d % 16 == 0 else "fma-wide")
+            assert ragged_body(q, kv, d) == wide
             if q == kv:
-                assert flash_body(q, d) == "fma-wide"
+                assert flash_body(q, d) == (
+                    "fma-wide" if q == torch.float32 else wide)
         assert not head_dim_built(0)
         with pytest.raises(ValueError, match="not built"):
             check_built(q, kv, 0)

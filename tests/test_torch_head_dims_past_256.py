@@ -4,7 +4,10 @@ tpulab's kernels take the head dim as a parameter with no upper limit
 (``tpulab/ops/ragged_attention.py``, ``flash_attention.py``,
 ``paged_attention.py``); DeepSeek-V4-Flash's attention has 64 query heads
 of D 512 over one KV head, sarvam-105b's latent heads are 576 wide.  The
-port runs every D past 256 on the wide fma form (``"fma-wide"``,
+port runs every D past 256 on a wide form: the 16-bit pairs whose upcast
+is exact at a D that is a multiple of 16 on the tensor cores
+(``"wgmma-wide"``, ``csrc/wide_wgmma.cuh``; kernels 1 and 2), every other
+pair and D, and kernel 3, on the wide fma form (``"fma-wide"``,
 ``tpulab_torch/ops/csrc/wide_attention.cuh``: the output's columns in
 slabs of 256, each block recomputing its rows' scores over the whole
 head dim).  Here on the CPU each wrapper takes its plain version, held
@@ -138,13 +141,18 @@ def test_paged_past_256_matches_tpulab(d, q_dt, kv_dt, hq, hkv):
 # ---------------------------------------------------------- the host rules
 @pytest.mark.parametrize("d", (257, 512, 576, 1024, 2048))
 def test_wide_form_is_built_past_256(d):
-    """Every D past 256 is built, for every (q, page) pair, on the wide
-    form of all three kernels."""
+    """Every D past 256 is built, for every (q, page) pair, on a wide form
+    of all three kernels: the tensor-core one for the 16-bit pairs whose
+    upcast is exact at a D that is a multiple of 16 (kernels 1 and 2),
+    the fma one for every other pair and D, and for kernel 3."""
     for q in ra.Q_CODE:
+        tc = q != torch.float32 and d % 16 == 0
         for kv in ra.KV_CODE:
             check_built(q, kv, d)
-            assert ragged_body(q, kv, d) == "fma-wide"
-        assert flash_body(q, d) == "fma-wide"
+            assert ragged_body(q, kv, d) == (
+                "wgmma-wide" if tc and kv in ra.WGMMA_PAGES[q]
+                else "fma-wide")
+        assert flash_body(q, d) == ("wgmma-wide" if tc else "fma-wide")
     assert head_dim_built(d) and paged_form(d) == "fma-wide"
     assert paged_form(FMA_WIDTH) == "ring"
     assert wide_slabs(d) == -(-d // WIDE_COLS) >= 2
@@ -241,17 +249,21 @@ def _ragged_args(dev, d, q_dt, kv_dt, hq, hkv, seed):
 @pytest.mark.parametrize("d", [257, 320, 384, 512, 576, 1024])
 @pytest.mark.parametrize("q_dt,kv_dt", CARD_PAIRS)
 def test_cuda_ragged_past_256(d, q_dt, kv_dt):
-    """Kernel 1's wide form against its plain version at every (q, page)
-    pair, rows past q_lens zeros, a second launch bit-identical."""
+    """Kernel 1's wide forms against their plain version at every (q,
+    page) pair (the tensor-core pairs at D % 16 == 0 on ``"wgmma-wide"``,
+    the others on ``"fma-wide"``), rows past q_lens zeros, a second
+    launch bit-identical."""
     dev = _card()
     args = _ragged_args(dev, d, q_dt, kv_dt, 8, 1, d)
+    form = ra.body_form(ragged_body(args[0].dtype, args[1].dtype, d),
+                        args[0].dtype)
     n0 = dict(ra.ragged_paged_attention.launches_by_form)
     got = ragged_paged_attention(*args)
     again = ragged_paged_attention(*args)
     torch.cuda.synchronize()
     ran = {f: n - n0[f]
            for f, n in ra.ragged_paged_attention.launches_by_form.items()}
-    assert ran == {f: 2 if f == "fma-wide" else 0 for f in ran}
+    assert ran == {f: 2 if f == form else 0 for f in ran}
     assert torch.equal(got, again)
     _card_close(got, ragged_paged_attention_reference(*args))
     for lane, n in enumerate(CARD_LENS[0]):
@@ -282,21 +294,23 @@ def test_cuda_ragged_past_256_split_counts(d, hkv, n_split, monkeypatch):
 @pytest.mark.parametrize("t", [1, 63, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_past_256(d, dtype, t, causal):
-    """Kernel 2's wide form against its plain version, and on a strided
-    view (k, v slices of one fused tensor)."""
+    """Kernel 2's wide forms against their plain version (bf16 and f16
+    at D % 16 == 0 on ``"wgmma-wide"``, the others on ``"fma-wide"``),
+    and on a strided view (k, v slices of one fused tensor)."""
     dev = _card()
     rng = np.random.default_rng(d + t)
     dt = getattr(torch, dtype)
     qkv = torch.from_numpy(rng.standard_normal((2, t, 3, 2, d)).astype(
         np.float32)).to(dev, dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    form = ra.body_form(flash_body(dt, d), dt)
     n0 = dict(flash_attention.launches_by_form)
     got = flash_attention(q, k, v, causal=causal, block_q=t, block_k=t)
     again = flash_attention(q, k, v, causal=causal, block_q=t, block_k=t)
     torch.cuda.synchronize()
     ran = {f: n - n0[f]
            for f, n in flash_attention.launches_by_form.items()}
-    assert ran == {f: 2 if f == "fma-wide" else 0 for f in ran}
+    assert ran == {f: 2 if f == form else 0 for f in ran}
     assert torch.equal(got, again)
     _card_close(got, flash_attention_reference(q, k, v, causal))
 

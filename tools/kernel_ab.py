@@ -6,7 +6,7 @@ outputs bit for bit.
     python3 tools/kernel_ab.py build/parent . . build/parent
 
 Each run builds the kernels of its own checkout (``phase_build``: the
-build seconds of each library are printed) and runs ``chip_smoke.py``'s
+build seconds of each library are printed) and runs its ``chip_smoke.py``'s
 ``phase_ragged`` and ``phase_paged`` (CUDA events, L2 flushed), keeping
 the rows of every dtype mix at all_decode, chunk_over_ctx, long_decode
 and verify_k8 (kernel 1) and the bf16 rows of kernel 3; then, at every
@@ -17,6 +17,15 @@ padded fma width in f32), kernel 1 at 8 lanes x 1024 decode, kernel 2 at T 2048 
 causal and kernel 3 at 8 x 1024, each in f32 and bf16 (kernel 1 and 3
 also bf16 over e4m3 pages), timed the same way, and the SHA-256 of the
 outputs of those calls and of smaller ones at ragged edges (f16 too).
+Past 256: kernel 1 at 8 lanes x 1024 (decode, and a 256-row chunk where
+the pair runs ``wgmma-wide``) at D 257 and 512 over f32/f32, bf16/f16,
+bf16/bf16 and bf16/e4m3 pages with 8 query heads over one, and
+DeepSeek-V4-Flash's and sarvam-105b's 64 heads over one at D 512 / 576
+in bf16; kernel 3 at 8 x 1024 at D 257 and 512; kernel 2 at T 2048, H 8,
+causal, at D 512 (bf16, f16, f32), 576 and 264 (bf16) and at H 64, D 512.
+Outputs of the pairs the checkout runs on ``wgmma-wide`` are held against
+the same checkout's first run (a parent runs them on ``fma-wide``); every
+other output against run 0's.
 A checkout is a directory holding ``chip_smoke.py`` and ``tpulab_torch/``
 (the parent commit unpacked with ``git archive``, or this one).  The
 summary prints each row's milliseconds run by run, whether every run's
@@ -111,6 +120,69 @@ for d in (16, 24, 32, 64, 96, 100, 128, 256):
                 rows[f'flash D{d} T=2048 H 8 causal {name}'] = t(
                     lambda: flash_attention(q, k, v, causal=True), iters=10)
     torch.cuda.empty_cache()
+
+# past 256: the forms the tensor-core wide form left alone (f32 and the
+# mixed 16-bit pairs, D not a multiple of 16, kernel 3) must equal run 0's
+# outputs bit for bit; the pairs it took ("changed:") equal those of the
+# checkout's own first run, and are timed against the parent's fma-wide
+def dtn(t):
+    return str(t).split('.')[-1]
+def wide_body(q_name, kv_name, d):   # this tree's rule, for every checkout
+    tc = (q_name in ('bfloat16', 'float16')
+          and kv_name in (q_name, 'float8_e4m3fn', 'float8_e5m2'))
+    return 'wgmma-wide' if tc and d % 16 == 0 else 'fma-wide'
+for d, hq in ((257, 8), (512, 8), (512, 64), (576, 64)):
+    rng = np.random.default_rng(d + hq)
+    g = dict(c.RA_GEOM, hq=hq, hkv=1, d=d)
+    pool32, tables = c.serving_pool(torch, np, rng, g)
+    q32 = torch.from_numpy(rng.standard_normal(
+        (8, 256, hq, d)).astype(np.float32)).cuda()
+    mixes = ((torch.float32, torch.float32), (torch.bfloat16, torch.float16),
+             (torch.bfloat16, torch.bfloat16),
+             (torch.bfloat16, torch.float8_e4m3fn))
+    if hq == 64:
+        mixes = ((torch.bfloat16, torch.bfloat16),)
+    for q_dt, kv_dt in mixes:
+        pool, q = pool32.to(kv_dt), q32.to(q_dt)
+        name = f'{dtn(q_dt)}/{dtn(kv_dt)}'
+        changed = ('changed:' if wide_body(dtn(q_dt), dtn(kv_dt), d)
+                   == 'wgmma-wide' else '')
+        cases = (('decode', 1, 1024), ('chunk', 256, 1024))
+        if hq == 8 and not changed:
+            cases = cases[:1]
+        for case, m, kv in cases:
+            if hq == 64 and d == 576 and case == 'chunk':
+                continue
+            args = (q[:, :m].contiguous(), pool, tables, lens([m] * 8),
+                    lens([kv] * 8))
+            key = f'ragged wide D{d} Hq{hq} {case} {name}'
+            digest(changed + key, ragged_paged_attention(*args))
+            if changed or case == 'decode':
+                rows[key] = t(lambda: ragged_paged_attention(*args),
+                              iters=3 if case == 'chunk' else 20)
+        if hq == 8 and q_dt == kv_dt:
+            args = (q[:, 0].contiguous(), pool, tables, lens([1023] * 8))
+            digest(f'paged wide D{d} 8 x 1024 {name}',
+                   paged_decode_attention(*args))
+            rows[f'paged wide D{d} 8 x 1024 {name}'] = t(
+                lambda: paged_decode_attention(*args), iters=20)
+        del pool
+    del pool32
+    torch.cuda.empty_cache()
+for d, dt, h in ((512, torch.bfloat16, 8), (512, torch.float16, 8),
+                 (576, torch.bfloat16, 8), (512, torch.bfloat16, 64),
+                 (512, torch.float32, 8), (264, torch.bfloat16, 8)):
+    rng = np.random.default_rng(d + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, 2048, h, d)).astype(np.float32)).cuda().to(dt)
+        for _ in range(3))
+    changed = 'changed:' if wide_body(dtn(dt), dtn(dt), d) == \
+        'wgmma-wide' else ''
+    key = f'flash wide D{d} T=2048 H {h} causal {dtn(dt)}'
+    digest(changed + key, flash_attention(q, k, v, causal=True))
+    rows[key] = t(lambda: flash_attention(q, k, v, causal=True), iters=5)
+    del q, k, v
+    torch.cuda.empty_cache()
 print('AB ' + json.dumps({'build': build, 'rows': rows, 'digests': digests}),
       flush=True)
 """
@@ -136,12 +208,20 @@ def main(argv=None) -> int:
     for key in sorted(res[0][1]):
         print(f"{key}: " + " | ".join(f"{d} {rows[key]:.4f}"
                                       for d, rows, _ in res))
+    # "changed:" outputs are held against the first run of the same
+    # checkout, every other one against run 0
     first = res[0][2]
-    differ = sorted(k for _, _, dig in res[1:] for k in first
-                    if dig.get(k) != first[k])
-    print(f"outputs: {len(first)} calls a run; "
-          + (f"DIFFER from run 0 at {differ}" if differ
-             else "every run equal to run 0 bit for bit"), flush=True)
+    own = {}
+    for d, _, dig in res:
+        own.setdefault(d, dig)
+    differ = sorted({k for d, _, dig in res[1:] for k in dig
+                     if dig[k] != (own[d] if k.startswith("changed:")
+                                   else first).get(k)})
+    n_same = sum(not k.startswith("changed:") for k in first)
+    print(f"outputs: {len(first)} calls a run ({n_same} held against run "
+          f"0, {len(first) - n_same} against the checkout's first run); "
+          + (f"DIFFER at {differ}" if differ
+             else "every run equal bit for bit"), flush=True)
     print(card_name_and_power_limit(0), flush=True)
     return 1 if differ else 0
 

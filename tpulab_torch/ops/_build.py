@@ -3,8 +3,9 @@
 Each library ``<name>`` is compiled by ``nvcc`` from the translation
 units :data:`UNITS` lists for it, in parallel (``csrc/<name>.cu``, for
 kernels 1 and 3 their padded head-dim forms in ``csrc/<name>_padded.cu``,
-and for all three the wide form of every head dim past 256 in
-``csrc/<name>_wide.cu``), into a shared library with a plain C
+for all three the wide fma form of every head dim past 256 in
+``csrc/<name>_wide.cu``, and for kernels 1 and 2 its tensor-core twin in
+``csrc/<name>_wgmma_wide.cu``), into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds)::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
@@ -66,8 +67,10 @@ def _nvcc() -> str:
 #: each library's translation units under ``csrc/``
 UNITS = {
     "ragged_attention": ("ragged_attention.cu", "ragged_attention_padded.cu",
-                         "ragged_attention_wide.cu"),
-    "flash_attention": ("flash_attention.cu", "flash_attention_wide.cu"),
+                         "ragged_attention_wide.cu",
+                         "ragged_attention_wgmma_wide.cu"),
+    "flash_attention": ("flash_attention.cu", "flash_attention_wide.cu",
+                        "flash_attention_wgmma_wide.cu"),
     "paged_attention": ("paged_attention.cu", "paged_attention_padded.cu",
                         "paged_attention_wide.cu"),
 }

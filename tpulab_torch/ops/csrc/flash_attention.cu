@@ -17,7 +17,7 @@
 // q, k, v and o are 67 MB, 20 us at 3.35 TB/s.  It is bound by operations,
 // so the bf16 products belong on the tensor cores.
 //
-// Three bodies; the caller names one (flash_attention.py `flash_body`),
+// Four bodies; the caller names one (flash_attention.py `flash_body`),
 // and the launcher refuses a body that does not fit the dtype and D:
 //
 // * `flash_fwd_wgmma_kernel<D, E, kPad>`, bf16 or f16 (E) with head dim
@@ -59,15 +59,18 @@
 //   are copied in the widest chunks the views' addresses and strides
 //   allow (16 bytes down to 1), and the output's columns past it are not
 //   stored.
+// * `dense_wgmma_wide_kernel<E>` (wide_wgmma.cuh,
+//   flash_attention_wgmma_wide.cu), bf16 or f16 at every head dim past 256
+//   that is a multiple of 16: 64 query rows and up to 512 output columns a
+//   block on the tensor cores, scores once a block.
 // * `dense_wide_kernel<T>` (wide_attention.cuh, flash_attention_wide.cu),
-//   every dtype at every head dim past 256: 32 query rows a block, the
+//   every other dtype and head dim past 256: 32 query rows a block, the
 //   output in slabs of 256 columns on a ((b, h) x slab, q tile) grid, each
 //   block recomputing its rows' scores over the whole head dim.
 
-#include <cuda.h>
-
 #include "attn_wgmma.cuh"
 #include "common.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
@@ -478,54 +481,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (no -lcuda at link time).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult st = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &st);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &st);
-#endif
-    return (e == cudaSuccess && st == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d map {D, H, T, B} over a strided 16-bit (B, T, H, D) view of TMA
-// data type `dt` (bf16 or f16); the box is 64 columns x 1 head x 64 rows x
-// 1, swizzled 128B; rows past T and columns past D read 0.
-int make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base,
-             int B, int Tlen, int H, int D, long long sb, long long st,
-             long long sh) {
-  EncodeTiled fn = encode_fn();
-  if (!fn) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Tlen,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, dt, 4,
-                  const_cast<void*>(base), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
+using tma::make_map;
 
 template <int D, typename E, bool kPad>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
@@ -565,9 +521,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // tensor-core body (bf16 or f16, D 64, 80, 96, 112 or 128), body 0 the
 // CUDA-core body (f32 with any D from 1 to 256, and bf16 or f16 with any
 // other D up to 256; rows 16-byte aligned at D 16, 32, 64, 128 and 256,
-// any alignment of the element size at the others), body 2 the wide form
-// (every dtype at every D past 256, any alignment of the element size;
-// wide_attention.cuh).  Returns 0 or a
+// any alignment of the element size at the others), body 2 the wide fma
+// form (every dtype at every D past 256, any alignment of the element
+// size; wide_attention.cuh), body 3 the tensor-core wide form (bf16 or
+// f16 at every D past 256 that is a multiple of 16, rows 16-byte aligned;
+// wide_wgmma.cuh).  Returns 0 or a
 // cudaError_t code; -1 for a body, dtype and head dim the kernel is not
 // built for.
 namespace tpulab {
@@ -577,6 +535,14 @@ namespace tpulab {
 int flash_wide(int q_code, const void* q, const void* k, const void* v,
                void* out, int B, int T, int H, int D, const long long* st,
                int causal, float sm_scale, cudaStream_t s);
+// bf16 and f16 at every head dim past FMA_WIDTH that is a multiple of 16:
+// the tensor-core wide form (wide_wgmma.cuh), defined in
+// flash_attention_wgmma_wide.cu (a third translation unit).  -1 for f32 or
+// another head dim.
+int flash_wgmma_wide(int q_code, const void* q, const void* k, const void* v,
+                     void* out, int B, int T, int H, int D,
+                     const long long* st, int causal, float sm_scale,
+                     cudaStream_t s);
 }  // namespace tpulab
 
 extern "C" int tpulab_flash_attention(
@@ -587,6 +553,9 @@ extern "C" int tpulab_flash_attention(
   if (B == 0 || T == 0 || H == 0) return 0;
   const long long st[9] = {qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 3)
+    return flash_wgmma_wide(q_code, q, k, v, out, B, T, H, D, st, causal,
+                            sm_scale, s);
   if (body == 2)
     return flash_wide(q_code, q, k, v, out, B, T, H, D, st, causal, sm_scale,
                       s);

@@ -50,10 +50,12 @@ int launch_tc(int qc, int kv, const void* q, const void* pool,
 // over the context and, when n_split > 1, f32 scratch of n_split * B * M *
 // Hq * (D + 2) values; body 0 the CUDA-core body (every other mix at
 // those head dims, and every mix at any other D from 1 to 256; n_split
-// 1); body 2 the wide form (every mix at every D past 256, wide_attention.cuh)
-// with `n_split` splits and, when n_split > 1, f32 scratch of n_split * B
-// * M * Hq * D values, one more when that count is odd, then n_split * B *
-// M * Hq (m, l) pairs.  Returns 0 or a cudaError_t code; -1 for a body,
+// 1); body 2 the wide fma form (every mix at every D past 256,
+// wide_attention.cuh) and body 3 the tensor-core wide form (the pairs of
+// body 1 at every D past 256 that is a multiple of 16, wide_wgmma.cuh),
+// each with `n_split` splits and, when n_split > 1, f32 scratch of n_split
+// * B * M * Hq * D values, one more when that count is odd, then n_split *
+// B * M * Hq (m, l) pairs.  Returns 0 or a cudaError_t code; -1 for a body,
 // dtype pair and head dim the kernel is not built for.
 extern "C" int tpulab_ragged_paged_attention(
     const void* q, const void* pool, const int* tables, const int* q_lens,
@@ -66,6 +68,10 @@ extern "C" int tpulab_ragged_paged_attention(
     return launch_tc(q_code, kv, q, pool, tables, q_lens, kv_lens, out,
                      scratch, B, M, Hq, Hkv, D, P, S, MP, n_split, sm_scale,
                      st);
+  if (body == 3)
+    return ragged_wgmma_wide(q_code, kv, q, pool, tables, q_lens, kv_lens,
+                             out, scratch, B, M, Hq, Hkv, D, P, S, MP,
+                             n_split, sm_scale, st);
   if (body == 2)
     return ragged_wide(q_code, kv, q, pool, tables, q_lens, kv_lens, out,
                        scratch, B, M, Hq, Hkv, D, P, S, MP, n_split, sm_scale,

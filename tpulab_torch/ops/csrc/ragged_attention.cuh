@@ -83,11 +83,16 @@
 //   the widest chunks their bytes allow (16 down to 1: D 100 in bf16 is
 //   200-byte rows, copied 8 bytes at a time), and the output's columns
 //   past it are not stored.
-// * Every head dim past 256 (body 2, DeepSeek-V4-Flash's 512, sarvam-105b's
-//   576, ...) runs the wide form of wide_attention.cuh for every mix
-//   (`ragged_wide`, ragged_attention_wide.cu): the output in slabs of 256
-//   columns, the scores recomputed over the whole head dim by each slab's
-//   blocks, split-KV where the blocks do not fill the card.
+// * Every head dim past 256 (DeepSeek-V4-Flash's 512, sarvam-105b's 576,
+//   ...): the pairs of the tensor-core body at a head dim that is a
+//   multiple of 16 run the tensor-core wide form of wide_wgmma.cuh (body
+//   3, `ragged_wgmma_wide`, ragged_attention_wgmma_wide.cu: scores once a
+//   block, split over two consumer warpgroups, P V over up to 512 output
+//   columns a block); every other mix and head dim the wide fma form of
+//   wide_attention.cuh (body 2, `ragged_wide`, ragged_attention_wide.cu:
+//   the output in slabs of 256 columns, the scores recomputed over the
+//   whole head dim by each slab's blocks).  Both split the context where
+//   the blocks do not fill the card.
 
 #pragma once
 
@@ -711,4 +716,13 @@ int ragged_wide(int qc, int kv, const void* q, const void* pool,
                 void* out, void* scratch, int B, int M, int Hq, int Hkv,
                 int D, int P, int S, int MP, int n_split, float sm_scale,
                 cudaStream_t st);
+// Every head dim past FMA_WIDTH that is a multiple of 16 for the pairs of
+// `tensor_core_pair`: the tensor-core wide form (wide_wgmma.cuh), defined
+// in ragged_attention_wgmma_wide.cu (a fourth translation unit).
+// Arguments as the C interface's; -1 for another pair or head dim.
+int ragged_wgmma_wide(int qc, int kv, const void* q, const void* pool,
+                      const int* tables, const int* q_lens,
+                      const int* kv_lens, void* out, void* scratch, int B,
+                      int M, int Hq, int Hkv, int D, int P, int S, int MP,
+                      int n_split, float sm_scale, cudaStream_t st);
 }  // namespace tpulab

@@ -51,6 +51,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "wide_merge.cuh"
 
 namespace tpulab {
 namespace wide {
@@ -63,7 +64,6 @@ constexpr int RPW = 4;                  // query rows a warp
 constexpr int ROWS = NWARPS * RPW;      // query rows a block
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int DPL = W / 32;             // a lane's output columns of a slab
-constexpr float NEG = -1e30f;
 
 template <typename KVT>
 struct Geometry {
@@ -365,40 +365,6 @@ __global__ void __launch_bounds__(NTHREADS)
              (limit + KT - 1) / KT, sm_scale, cw, 0);
 }
 
-// Combine the splits of each row in split order; rows past a lane's
-// q_lens (q_lens non-null) are zeros.  One warp a row, its lanes striding
-// the head dim.
-__global__ void __launch_bounds__(128)
-    wide_merge_kernel(const float* __restrict__ part_o,
-                      const float* __restrict__ part_ml,
-                      const int* __restrict__ q_lens, AnyQ* __restrict__ out,
-                      int M, int Hq, size_t rows, int n_split, int dh,
-                      int qc) {
-  const size_t row = (size_t)blockIdx.x * 4 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bool live =
-      !q_lens || (int)(row / Hq % M) < q_lens[row / ((size_t)M * Hq)];
-  float mx = NEG;
-  for (int s = 0; s < n_split; ++s)
-    mx = fmaxf(mx, part_ml[(s * rows + row) * 2]);
-  float den = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float2 ml =
-        *reinterpret_cast<const float2*>(part_ml + (s * rows + row) * 2);
-    den += expf(ml.x - mx) * ml.y;
-  }
-  const float inv = 1.f / fmaxf(den, 1e-30f);
-  for (int d = lane; d < dh; d += 32) {
-    float o = 0.f;
-    if (live)
-      for (int s = 0; s < n_split; ++s)
-        o += expf(part_ml[(s * rows + row) * 2] - mx) *
-             part_o[(s * rows + row) * dh + d];
-    q_store(out, row * dh + d, qc, o * inv);
-  }
-}
-
 // A wide kernel's registers a thread, dynamic shared memory and local
 // memory a thread (spills) into out[0..2], from cudaFuncGetAttributes.
 // Returns 0 or a cudaError_t code.
@@ -443,7 +409,7 @@ inline int launch_paged(int qc, int kv, const void* q, const void* pool,
         copy_width({(unsigned long long)D * sizeof(KVT)}), qc);
     if (n_split == 1) return (int)cudaGetLastError();
     if (cudaError_t e = cudaGetLastError()) return (int)e;
-    wide_merge_kernel<<<(unsigned)((rows + 3) / 4), 128, 0, st>>>(
+    wide_merge_kernel<false><<<(unsigned)((rows + 3) / 4), 128, 0, st>>>(
         part_o, part_ml, q_lens, static_cast<AnyQ*>(out), M, Hq, rows,
         n_split, D, qc);
     return (int)cudaGetLastError();

@@ -9,17 +9,21 @@ does) and returns (B, T, H, D) in q's dtype, causal or not.
 CUDA tensors launch the hand-written Hopper kernel
 (``csrc/flash_attention.cu``); CPU tensors take the plain version,
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
-version: a build or launch failure raises.  The kernel has two bodies,
+version: a build or launch failure raises.  The kernel has four bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
 (bf16 or f16 on the tensor cores in that type, D 64, 80, 96, 112 or 128),
 ``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 at every other D
-up to 256) and ``"fma-wide"`` (every dtype at every D past 256: the
-output's columns in slabs of 256, each block recomputing its rows'
-scores over the whole head dim; ``csrc/wide_attention.cuh``).
+up to 256), ``"wgmma-wide"`` (bf16 or f16 at every D past 256 that is a
+multiple of 16: the tensor cores, 64 query rows and up to 512 output
+columns a block, the scores computed once a block;
+``csrc/wide_wgmma.cuh``) and ``"fma-wide"`` (every other dtype and D past
+256: the output's columns in slabs of 256, each block recomputing its
+rows' scores over the whole head dim; ``csrc/wide_attention.cuh``).
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_body`` splits them by body,
 ``flash_attention.launches_by_form`` by ``"wgmma bf16"``, ``"wgmma
-f16"``, ``"fma"`` or ``"fma-wide"`` and
+f16"``, ``"fma"``, ``"fma-wide"``, ``"wgmma-wide bf16"`` or
+``"wgmma-wide f16"`` and
 ``flash_attention.launches_by_head_dim`` by D (the plain version counts
 in none).
 
@@ -42,10 +46,11 @@ import torch
 from tpulab_torch.ops.ragged_attention import (FMA_WIDTH, FORMS,
                                                MAX_ADDRESSABLE_HEAD_DIM,
                                                Q_CODE, WGMMA_HEAD_DIMS,
-                                               body_form, head_dim_built)
+                                               WGMMA_WIDE_ALIGN, body_form,
+                                               head_dim_built)
 
 # the C launcher's `body` argument
-_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2}
+_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2, "wgmma-wide": 3}
 _NEG = -1e30
 
 
@@ -80,14 +85,17 @@ def _check(q, k, v):
 
 
 def flash_body(dtype, head_dim: int) -> str:
-    """The kernel body a CUDA call runs: ``"wgmma"`` for bf16 or f16 with
-    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16), ``"fma-wide"``
-    for every D past ``FMA_WIDTH``, else ``"fma"``.  A function of dtype
-    and head dim only."""
-    if (dtype in (torch.bfloat16, torch.float16)
-            and head_dim in WGMMA_HEAD_DIMS):
-        return "wgmma"
-    return "fma-wide" if head_dim > FMA_WIDTH else "fma"
+    """The kernel body a CUDA call runs: for bf16 or f16, ``"wgmma"`` with
+    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16) and
+    ``"wgmma-wide"`` with D past ``FMA_WIDTH`` that is a multiple of
+    ``WGMMA_WIDE_ALIGN``; ``"fma-wide"`` for every other D past
+    ``FMA_WIDTH``, else ``"fma"``.  A function of dtype and head dim
+    only."""
+    tensor_cores = dtype in (torch.bfloat16, torch.float16)
+    if head_dim > FMA_WIDTH:
+        return ("wgmma-wide" if tensor_cores
+                and head_dim % WGMMA_WIDE_ALIGN == 0 else "fma-wide")
+    return "wgmma" if tensor_cores and head_dim in WGMMA_HEAD_DIMS else "fma"
 
 
 def _rows_aligned(x) -> bool:

@@ -14,23 +14,28 @@ the CPU.  A CUDA tensor never reaches the plain version: a build or
 launch failure raises.  q is float32, bfloat16 or float16; the pool
 float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, whose pages
 the kernel upcasts as it reads them.  Every head dim from 1 up is built,
-as tpulab's kernels take any.  The kernel has three bodies, chosen by
+as tpulab's kernels take any.  The kernel has four bodies, chosen by
 :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
 tensor cores in q's 16-bit type, D of ``WGMMA_HEAD_DIMS``: 64 to 128 in
 steps of 16, over pages whose upcast to that type is exact: bf16 q over
 bf16, e4m3 or e5m2 pages, f16 q over f16, e4m3 or e5m2 pages), ``"fma"``
 (f32 FMAs on CUDA cores: every other mix, and every other D up to
-``FMA_WIDTH``, 256) and ``"fma-wide"`` (every mix at every D past 256:
-the output's columns in slabs of ``WIDE_COLS``, each block recomputing
-its rows' scores over the whole head dim; ``csrc/wide_attention.cuh``).
-A ``"wgmma"`` or ``"fma-wide"`` launch whose blocks do not fill the card
-splits each lane's context into :func:`ragged_splits` parts (split-KV)
-and merges them in a second, small kernel.
+``FMA_WIDTH``, 256), ``"wgmma-wide"`` (the pairs of ``"wgmma"`` at every
+D past 256 that is a multiple of 16: the tensor cores, 64 query rows and
+up to 512 output columns a block, the scores computed once a block;
+``csrc/wide_wgmma.cuh``) and ``"fma-wide"`` (every other mix and D past
+256: the output's columns in slabs of ``WIDE_COLS``, each block
+recomputing its rows' scores over the whole head dim;
+``csrc/wide_attention.cuh``).  A ``"wgmma"``, ``"wgmma-wide"`` or
+``"fma-wide"`` launch whose blocks do not fill the card splits each
+lane's context into :func:`ragged_splits` parts (split-KV) and merges
+them in a second, small kernel.
 ``ragged_paged_attention.launches`` counts calls that launched (one per
 call, merge included) and ``ragged_paged_attention.launches_by_body``
 splits them by body, ``ragged_paged_attention.launches_by_geom`` by
 ``"<body> x<splits>"`` and ``ragged_paged_attention.launches_by_form``
-by ``"wgmma bf16"``, ``"wgmma f16"``, ``"fma"`` or ``"fma-wide"``, and
+by ``"wgmma bf16"``, ``"wgmma f16"``, ``"fma"``, ``"fma-wide"``,
+``"wgmma-wide bf16"`` or ``"wgmma-wide f16"``, and
 ``ragged_paged_attention.launches_by_head_dim`` by D (the plain version
 counts in none).
 """
@@ -61,6 +66,21 @@ WIDE_COLS = 256
 WIDE_ROWS = 32
 #: the least key positions a wide-form split walks (four stages)
 WIDE_SPLIT_POSITIONS = 128
+#: the tensor-core wide form (kernels 1 and 2, D past ``FMA_WIDTH`` that
+#: is a multiple of this): its query rows and key positions a block, its
+#: output columns a block, and the shared-memory plan that
+#: ``csrc/wide_wgmma.cuh`` (``make_plan``) computes, mirrored by
+#: :func:`wgmma_wide_plan`
+WGMMA_WIDE_ALIGN = 16
+WGMMA_WIDE_ROWS = 64
+WGMMA_WIDE_BLOCK_COLS = 512
+WGMMA_WIDE_SMEM_LIMIT = 232448          # bytes a block can use (227 KB)
+_WW_HALF = 64 * 128                     # a 64 x 64 16-bit tile
+_WW_UNIT = 2 * _WW_HALF                 # a ring slot
+_WW_LAG = 2                             # units in flight a consumer
+_WW_RING = _WW_LAG + 2                  # slots a consumer (two consumers)
+_WW_XBUF = 32 * 128 * 4                 # one consumer's partial scores
+_WW_BARS = 128                          # kernel 2's mbarriers
 #: head dims of the tensor-core bodies (kernels 1 and 2): 80, 96 and 112
 #: run the 128-wide tile with its columns past D zero
 WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
@@ -72,21 +92,24 @@ WGMMA_PAGES = {
     torch.float16: (torch.float16, torch.float8_e4m3fn, torch.float8_e5m2),
 }
 # the C launcher's `body` argument
-_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2}
+_BODY_CODE = {"fma": 0, "wgmma": 1, "fma-wide": 2, "wgmma-wide": 3}
 TILE_ROWS = 64       # query rows (j, g) of one wgmma tile
 STAGE_KEYS = 64      # key positions of one wgmma stage
 MAX_SPLITS = 16
 
 
 def ragged_body(q_dtype, kv_dtype, head_dim: int) -> str:
-    """The kernel body a CUDA call runs: ``"wgmma"`` for a bf16 or f16 q
-    over the pages of ``WGMMA_PAGES[q_dtype]`` with D of
-    ``WGMMA_HEAD_DIMS``, ``"fma-wide"`` for every D past ``FMA_WIDTH``,
-    else ``"fma"``.  A function of dtypes and head dim only."""
-    if (head_dim in WGMMA_HEAD_DIMS
-            and kv_dtype in WGMMA_PAGES.get(q_dtype, ())):
-        return "wgmma"
-    return "fma-wide" if head_dim > FMA_WIDTH else "fma"
+    """The kernel body a CUDA call runs: for a bf16 or f16 q over the
+    pages of ``WGMMA_PAGES[q_dtype]``, ``"wgmma"`` with D of
+    ``WGMMA_HEAD_DIMS`` and ``"wgmma-wide"`` with D past ``FMA_WIDTH``
+    that is a multiple of ``WGMMA_WIDE_ALIGN``; ``"fma-wide"`` for every
+    other D past ``FMA_WIDTH``, else ``"fma"``.  A function of dtypes and
+    head dim only."""
+    tensor_cores = kv_dtype in WGMMA_PAGES.get(q_dtype, ())
+    if head_dim > FMA_WIDTH:
+        return ("wgmma-wide" if tensor_cores
+                and head_dim % WGMMA_WIDE_ALIGN == 0 else "fma-wide")
+    return "wgmma" if tensor_cores and head_dim in WGMMA_HEAD_DIMS else "fma"
 
 
 def head_dim_built(head_dim: int) -> bool:
@@ -99,6 +122,23 @@ def head_dim_built(head_dim: int) -> bool:
 def wide_slabs(head_dim: int) -> int:
     """Slabs of ``WIDE_COLS`` output columns the wide form's grid walks."""
     return -(-head_dim // WIDE_COLS)
+
+
+def wgmma_wide_plan(head_dim: int) -> dict:
+    """The tensor-core wide form's shared-memory plan at ``head_dim``, as
+    ``make_plan`` in ``csrc/wide_wgmma.cuh`` computes it: 64-column
+    chunks of the head dim (``nch``), whether Q's chunks stay resident
+    (else each S unit carries its own), column blocks of the grid
+    (``n_cb``) and the dynamic shared memory a block asks for
+    (``bytes``: Q if resident, two rings of ``_WW_RING`` 16 KB slots, the
+    16 KB score swap, 128 bytes of mbarriers, 1 KB of alignment)."""
+    nch = -(-head_dim // 64)
+    rest = 2 * _WW_RING * _WW_UNIT + _WW_XBUF + _WW_BARS + 1024
+    resident = nch * _WW_HALF + rest <= WGMMA_WIDE_SMEM_LIMIT
+    n_vu = -(-nch // 2)
+    return dict(nch=nch, resident=resident,
+                n_cb=-(-n_vu // (WGMMA_WIDE_BLOCK_COLS // 128)),
+                bytes=(nch * _WW_HALF if resident else 0) + rest)
 
 
 def wide_splits(blocks: int, positions: int, n_sm: int) -> int:
@@ -132,12 +172,12 @@ def check_built(q_dtype, kv_dtype, head_dim: int) -> None:
 
 
 def body_form(body: str, q_dtype) -> str:
-    """``"wgmma bf16"`` / ``"wgmma f16"`` (the tensor cores' input type),
-    ``"fma"`` or ``"fma-wide"``: the key of a wrapper's
-    ``launches_by_form``."""
-    if body != "wgmma":
+    """``"wgmma bf16"`` / ``"wgmma f16"`` and ``"wgmma-wide bf16"`` /
+    ``"wgmma-wide f16"`` (the tensor cores' input type), ``"fma"`` or
+    ``"fma-wide"``: the key of a wrapper's ``launches_by_form``."""
+    if body not in ("wgmma", "wgmma-wide"):
         return body
-    return "wgmma f16" if q_dtype == torch.float16 else "wgmma bf16"
+    return f"{body} {'f16' if q_dtype == torch.float16 else 'bf16'}"
 
 
 def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
@@ -145,7 +185,9 @@ def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
                   head_dim: int = 0) -> int:
     """How many parts the ``"wgmma"`` body splits each lane's context into
     (the ``"fma-wide"`` body: :func:`wide_splits` over its blocks at
-    ``head_dim``; the ``"fma"`` body: one).
+    ``head_dim``; the ``"wgmma-wide"`` body: enough for about one block
+    per SM, its blocks being (64-row tile, column block, KV head, lane)
+    and one fitting an SM at once; the ``"fma"`` body: one).
 
     A function of shapes and the SM count only, never of ``kv_lens`` or
     timing, so equal shapes give equal splits and bit-equal results.  One
@@ -157,13 +199,19 @@ def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
         tiles = -(-m * (hq // hkv) // WIDE_ROWS)
         return wide_splits(tiles * wide_slabs(head_dim) * hkv * b,
                            mp * page_size, n_sm)
+    stages = -(-mp * page_size // STAGE_KEYS)
+    if body == "wgmma-wide":
+        tiles = -(-m * (hq // hkv) // WGMMA_WIDE_ROWS)
+        blocks = tiles * wgmma_wide_plan(head_dim)["n_cb"] * hkv * b
+        if blocks >= n_sm:
+            return 1
+        return max(1, min(-(-n_sm // blocks), stages, MAX_SPLITS))
     if body != "wgmma":
         return 1
     tiles = -(-m * (hq // hkv) // TILE_ROWS)
     blocks = tiles * hkv * b
     if blocks >= n_sm:
         return 1
-    stages = -(-mp * page_size // STAGE_KEYS)
     return max(1, min(2 * n_sm // blocks, stages, MAX_SPLITS))
 
 
@@ -320,7 +368,8 @@ def ragged_paged_attention(q, kv_pool, tables, q_lens, kv_lens):
     return out
 
 
-FORMS = ("fma", "wgmma bf16", "wgmma f16", "fma-wide")
+FORMS = ("fma", "wgmma bf16", "wgmma f16", "fma-wide", "wgmma-wide bf16",
+         "wgmma-wide f16")
 ragged_paged_attention.launches = 0
 ragged_paged_attention.launches_by_body = dict.fromkeys(_BODY_CODE, 0)
 ragged_paged_attention.launches_by_form = dict.fromkeys(FORMS, 0)
