@@ -584,6 +584,28 @@ raises and the script exits non-zero without printing a result:
    4's invariants on these weights (2 of the layers): the K = 8 block
    == 8 chained steps bit for bit, the mixed step == the ragged forward,
    and kernel 3's decode op over the model-written D 96 pool.
+21. past 256 — head dims past 256 on kernels 1-3 and a D 512 serve
+   (:func:`phase_past_256`).
+22. d256 — kernels 1 and 2 at D 144-256 on the tensor cores
+   (:func:`phase_d256`).  (a) Each new instantiation's registers, shared
+   and local memory; kernel 1 at Gemma-2-9B's geometry (8 lanes x 1024,
+   16 query heads over 8, D 256) over bf16, bf16/e4m3, f16 and f16/e5m2
+   pages, its chunk_over_ctx and verify_k8, Gemma-7B's MHA, and D 144,
+   160, 192 and 208; kernel 2 at B 1, T 2048, H 16, causal at those head
+   dims (f16 and full at D 256, T 1024); each on ``wgmma``, against its
+   plain version, relaunched bit for bit, timed beside the plain version,
+   the bound and SDPA, a planted error per kernel rejected; then kernel
+   2's f32 ``fma`` body at D 64, 128 and 256, f16 at D 128 (H 32) and the
+   ``fma-wide`` bf16 form at D 264 beside SDPA.  (b)
+   ``ContinuousBatcher`` at Llama-3-8B's widths with Gemma-2-9B's head
+   geometry (16 heads of D 256 over 8; all 32 layers, random bf16
+   weights, 8.30 B parameters) serves four greedy requests of 100-400
+   tokens x 16 under the ragged plan and the split plan at K 8 and K 1;
+   every kernel 1 and 2 launch ``wgmma bf16`` at D 256; split K 1 ==
+   K 8 token for token but where a near tie flips a pick, ragged against
+   split under the bf16 noise rule (the ragged plan's mixed rounds run
+   other matmul shapes); then phase 4's invariants on these weights,
+   kernel 3's decode op over the model-written D 256 pool among them.
 
 The line before the last is the kernels JSON, the last line
 ``{"ok": true, "device": {...}}``.
@@ -10233,17 +10255,288 @@ def phase_past_256(torch, timer, card):
     return new, launches
 
 
+# ---------------------------------------------------------------- phase 22
+# Gemma-2-9B's attention (google/gemma-2-9b, config.json:
+# num_attention_heads 16, num_key_value_heads 8, head_dim 256; Gemma-3-12B
+# has the same) and Gemma-7B's (google/gemma-7b: 16 heads of D 256, MHA).
+# The serve: Llama-3-8B's widths (d_model 4096, SwiGLU 14336, vocab
+# 128256, untied, rope_theta 5e5, 32 layers) with its attention regrouped
+# to Gemma-2-9B's head geometry, 16 query heads of D 256 over 8 KV heads
+# (not a public model: tpulab's transformer ties D to d_model / n_heads;
+# Gemma's logit soft-capping and sliding window are not tpulab's)
+GEMMA_MODEL = dict(LLAMA3_8B, n_heads=16, n_kv_heads=8)
+GEMMA_GEOM = dict(RA_GEOM, hq=16, hkv=8, d=256)
+GEMMA7B_GEOM = dict(RA_GEOM, hq=16, hkv=16, d=256)
+MID_DIMS = (144, 160, 192, 208)     # the narrower head dims of the new tiles
+MID_PROMPTS = (100, 200, 300, 400)  # the serve's prompt lengths
+MID_STEPS = 16
+
+
+def mid_kernels(torch, timer):
+    """(a) Kernel 1 at Gemma-2-9B's geometry (8 lanes x 1024, Hq 16 over
+    8, D 256): all_decode over bf16/bf16, bf16/e4m3, f16/f16 and
+    f16/e5m2, chunk_over_ctx and verify_k8 in bf16; Gemma-7B's MHA (16
+    over 16) all_decode; all_decode bf16 at D 144, 160, 192 and 208.
+    Kernel 2 at B 1, T 2048, H 16, causal: D 256 bf16 and f16, full D 256
+    bf16, bf16 at D 144, 160, 192 and 208, and T 1024 at D 256.  Each on
+    ``"wgmma"``, held against its plain version, relaunched bit for bit,
+    timed beside the plain version, the bound and SDPA; one planted error
+    rejected in each kernel.  Then rows that earlier tables lacked:
+    kernel 2's f32 ``fma`` body at D 64, 128 and 256 (T 2048, H 32,
+    causal), f16 at D 128 (T 2048, H 32, causal) and the ``fma-wide``
+    bf16 form at D 264 (H 8), each beside SDPA."""
+    import numpy as np
+
+    rng = np.random.default_rng(25)
+    tag = "d256"
+    new = {"ragged": [], "flash": []}
+    ra = dict((name, (q, kv)) for name, q, kv in ra_cases())
+    pool32, tables = serving_pool(torch, np, rng, GEMMA_GEOM)
+    for dname, q_name, kv_name in (
+            ("bf16/bf16", "bfloat16", "bfloat16"),
+            ("bf16/e4m3", "bfloat16", "float8_e4m3fn"),
+            ("f16/f16", "float16", "float16"),
+            ("f16/e5m2", "float16", "float8_e5m2")):
+        cases = ("all_decode", "chunk_over_ctx", "verify_k8") \
+            if dname == "bf16/bf16" else ("all_decode",)
+        for case in cases:
+            new["ragged"].append(ragged_row(
+                torch, timer, rng, GEMMA_GEOM, pool32, tables, case, dname,
+                q_name, kv_name, *ra[case], "wgmma", tag,
+                planted=case == "all_decode" and dname == "bf16/bf16"))
+    del pool32, tables
+    for g, label in ((GEMMA7B_GEOM, "gemma7b"),) + tuple(
+            (dict(GEMMA_GEOM, d=d), None) for d in MID_DIMS):
+        pool32, tables = serving_pool(torch, np, rng, g)
+        r = ragged_row(torch, timer, rng, g, pool32, tables,
+                       f"{label} all_decode" if label else "all_decode",
+                       "bf16/bf16", "bfloat16", "bfloat16",
+                       *ra["all_decode"], "wgmma", tag)
+        new["ragged"].append(r)
+        del pool32, tables
+    torch.cuda.empty_cache()
+    for d, t, dname, causal in ([(256, 2048, "bfloat16", True),
+                                 (256, 2048, "float16", True),
+                                 (256, 2048, "bfloat16", False)]
+                                + [(d, 2048, "bfloat16", True)
+                                   for d in MID_DIMS]
+                                + [(256, 1024, "bfloat16", True)]):
+        log(f"{tag}: kernel 2 at D {d}, H 16, T {t}, "
+            f"{'causal' if causal else 'full'}, {dname}:")
+        r = flash_case(torch, timer, rng, 1, 16, d, t, dname, causal,
+                       planted=d == 256 and t == 2048 and causal
+                       and dname == "bfloat16")
+        if r["body"] != "wgmma":
+            raise AssertionError(f"{tag}: flash D {d} {dname} on {r['body']}")
+        r["case"] = f"D{d} {r['case']}"
+        new["flash"].append(r)
+    for d, h, dname, body in ((64, 32, "float32", "fma"),
+                              (128, 32, "float32", "fma"),
+                              (256, 32, "float32", "fma"),
+                              (128, 32, "float16", "wgmma"),
+                              (264, 8, "bfloat16", "fma-wide")):
+        log(f"{tag}: kernel 2 at D {d}, H {h}, T 2048, causal, {dname} "
+            f"({body}; a row the tables lacked):")
+        r = flash_case(torch, timer, rng, 1, h, d, 2048, dname, True, False)
+        if r["body"] != body:
+            raise AssertionError(f"{tag}: flash D {d} {dname} on {r['body']}")
+        r["case"] = f"D{d} {r['case']}"
+        new["flash"].append(r)
+    torch.cuda.empty_cache()
+    return new
+
+
+def mid_attributes(torch):
+    """Each instantiation of the new tiles: registers, dynamic shared
+    memory and local memory (``cudaFuncGetAttributes``); each must fit a
+    block's 227 KB with no local memory (spills)."""
+    import ctypes
+
+    from tpulab_torch.ops import ragged_attention as ra_mod
+    from tpulab_torch.ops.flash_attention import _lib as fa_lib
+
+    rag = ra_mod._lib().tpulab_ragged_wgmma_attributes
+    rag.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fla = fa_lib().tpulab_flash_wgmma_attributes
+    fla.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    pairs = [("ragged", q, kv) for q in (torch.bfloat16, torch.float16)
+             for kv in (q, torch.float8_e4m3fn, torch.float8_e5m2)]
+    pairs += [("flash", q, q) for q in (torch.bfloat16, torch.float16)]
+    for name, q, kv in pairs:
+        seen = []
+        for d in (176, 192, 240, 256):
+            out = (ctypes.c_int * 3)()
+            rc = (rag(ra_mod.Q_CODE[q], ra_mod.KV_CODE[kv], d, out)
+                  if name == "ragged" else fla(ra_mod.Q_CODE[q], d, out))
+            regs, smem, local = out
+            if rc != 0 or smem > SMEM_LIMIT or local:
+                raise AssertionError(
+                    f"d256: {name} wgmma {q}/{kv} D {d}: error {rc}, {smem} "
+                    f"bytes of shared memory (limit {SMEM_LIMIT}), {local} "
+                    "bytes of local memory")
+            seen.append((d, regs, smem))
+        label = (f"{SHORT_DT[dtype_name(q)]}/{SHORT_DT[dtype_name(kv)]}"
+                 if name == "ragged" else SHORT_DT[dtype_name(q)])
+        log(f"d256: wgmma {name:<6} {label:<9} "
+            + ", ".join(f"D {d} ({'exact' if d in (192, 256) else 'padded'})"
+                        f" {regs} registers {smem} bytes"
+                        for d, regs, smem in seen)
+            + f" of dynamic shared memory (limit {SMEM_LIMIT}), no local "
+            "memory")
+
+
+def mid_serve(torch, card):
+    """(b) ``ContinuousBatcher`` at Llama-3-8B's widths with 16 query
+    heads of D 256 over 8 KV heads (all 32 layers, random bf16 weights
+    from a seed): four greedy requests of MID_PROMPTS tokens x MID_STEPS
+    under the ragged plan (K-blocks of 8), then the split plan with K 8
+    and K 1.  Every kernel 1 launch on ``wgmma bf16`` at D 256 (== 32 x
+    forward steps), every kernel 2 launch of the split plan too (== 32 x
+    prefills).  Split K 1 == split K 8 token for token, where a near tie
+    flips no pick (:func:`same_or_near_tie`); ragged against split under
+    the bf16 noise rule (:func:`same_or_bf16_noise`).  Then the same-backend invariants on these weights
+    (:func:`phase_invariants`, 2 of the layers), kernel 3's decode op over
+    the model-written D 256 pool among them.  Returns the launches, by
+    kernel, form and head dim."""
+    import numpy as np
+
+    from tpulab_torch.engine.paged import ContinuousBatcher
+    from tpulab_torch.models.transformer import init_transformer_params
+    from tpulab_torch.ops.flash_attention import flash_attention
+    from tpulab_torch.ops.paged_attention import paged_decode_attention
+    from tpulab_torch.ops.ragged_attention import ragged_paged_attention
+
+    c = GEMMA_MODEL
+    d = c["d_model"] // c["n_heads"]
+    params = init_transformer_params(
+        c["vocab"], c["d_model"], c["n_heads"], c["n_layers"], c["d_ff"],
+        seed=25, n_kv_heads=c["n_kv_heads"], ffn="swiglu",
+        tie_embeddings=False, device="cuda", dtype=torch.bfloat16)
+    n_params = sum(x.numel() for _, x in par_leaves(params))
+    kw = dict(n_heads=c["n_heads"], n_layers=c["n_layers"],
+              n_kv_heads=c["n_kv_heads"], rope_theta=c["rope_theta"],
+              compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(256)
+    prompts = [rng.integers(0, c["vocab"], (n,)).astype(np.int32)
+               for n in MID_PROMPTS]
+    form = "wgmma bf16"
+    streams, total = {}, {"ragged": {}, "flash": {}}
+    for plan, cfg in (("ragged", SERVE), ("split", dict(SERVE, **SPLIT)),
+                      ("split K=1", dict(SERVE, **SPLIT, decode_block=1))):
+        cb = ContinuousBatcher(params, device="cuda", **kw, **cfg)
+        try:
+            pool_gb = cb.pool.kv.numel() * cb.pool.kv.element_size() / 1e9
+            reset_counts(ragged_paged_attention, flash_attention)
+            before = (cb.forward_steps, cb.prefill_forwards)
+            t0 = time.perf_counter()
+            with cb._cv:
+                futs = [cb.submit(p, MID_STEPS) for p in prompts]
+            streams[plan] = [list(f.result(timeout=600)) for f in futs]
+            wall = time.perf_counter() - t0
+            got = {}
+            for name, fn in (("ragged", ragged_paged_attention),
+                             ("flash", flash_attention)):
+                got[name] = (fn.launches, dict(fn.launches_by_form),
+                             dict(fn.launches_by_head_dim))
+            steps = cb.forward_steps - before[0]
+            prefills = cb.prefill_forwards - before[1]
+        finally:
+            cb.shutdown()
+        want = {"ragged": c["n_layers"] * steps,
+                "flash": c["n_layers"] * prefills}
+        for name, (n, by_form, by_dim) in got.items():
+            if (n != want[name]
+                    or by_form != {k: n if k == form else 0
+                                   for k in by_form}
+                    or by_dim != ({d: n} if n else {})):
+                raise AssertionError(
+                    f"d256: {plan}: {name} launches {n} (want "
+                    f"{want[name]}), by form {by_form}, by head dim "
+                    f"{by_dim}: want every one {form} at D {d}")
+            for k, v in ((form, n), (f"D{d}", n)):
+                total[name][k] = total[name].get(k, 0) + v
+        split = plan.startswith("split")
+        if split != (prefills > 0) or (not split and got["flash"][0]):
+            raise AssertionError(f"d256: {plan}: {prefills} prefill "
+                                 "forwards")
+        if any(len(x) != MID_STEPS or not all(0 <= t < c["vocab"]
+                                              for t in x)
+               for x in streams[plan]):
+            raise AssertionError(f"d256: {plan}: a stream of the wrong "
+                                 "length or a token outside [0, vocab)")
+        n_tok = sum(len(x) for x in streams[plan])
+        log(f"d256: Gemma-2-9B-geometry serve ({n_params / 1e9:.2f} B "
+            f"parameters, bf16, {c['n_layers']} layers, {c['n_heads']} "
+            f"heads of D {d} over {c['n_kv_heads']}), {plan} plan: "
+            f"{len(prompts)} requests, {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} tok/s (recorded, not claimed); pool "
+            f"{pool_gb:.2f} GB; kernel 1 {got['ragged'][0]} = "
+            f"{c['n_layers']} x {steps} forward steps, kernel 2 "
+            f"{got['flash'][0]} = {c['n_layers']} x {prefills} prefills, "
+            f"all {form} at D {d} [{card}]")
+    notes = [same_or_near_tie(torch, params, kw,
+                              f"split K=1 vs K=8, {len(p)}-token prompt", p,
+                              x, y)
+             for p, x, y in zip(prompts, streams["split"],
+                                streams["split K=1"])]
+    notes = [n for n in notes if n]
+    log("d256: split K=1 == split K=8: "
+        + ("; ".join(notes) if notes else
+           f"identical streams ({len(prompts)} x {MID_STEPS} tokens)"))
+    # the ragged plan's mixed rounds decode some lanes beside other
+    # lanes' prompt chunks: other matmul shapes than the split plan's
+    # decode steps, so bf16 roundings differ (a pick margin of 0.10 flipped
+    # a token at step 4 of the 100-token prompt on the card); held, as
+    # phases 20 and 21 hold it, by the bf16 noise rule
+    notes = [same_or_bf16_noise(torch, params, kw,
+                                f"ragged vs split, {len(p)}-token prompt",
+                                p, x, y)
+             for p, x, y in zip(prompts, streams["split"],
+                                streams["ragged"])]
+    notes = [n for n in notes if n]
+    log("d256: ragged vs split: "
+        + ("; ".join(notes) if notes else
+           f"identical streams ({len(prompts)} x {MID_STEPS} tokens)"))
+    paged_decode_attention.launches_by_form = dict.fromkeys(
+        paged_decode_attention.launches_by_form, 0)
+    n_op = phase_invariants(torch, params, torch.bfloat16, model=c)
+    if paged_decode_attention.launches_by_form["ring"] != n_op:
+        raise AssertionError(f"d256: the decode op's {n_op} launches were "
+                             "not all on the ring")
+    total["paged"] = {"ring": n_op, f"D{d}": n_op}
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_d256(torch, timer, card):
+    """Phase 22: kernels 1 and 2 at D 144-256 on the tensor cores, kernels
+    and a Gemma-2-9B-geometry serve at Llama-3-8B's widths."""
+    t0 = time.perf_counter()
+    mid_attributes(torch)
+    new = mid_kernels(torch, timer)
+    log(f"d256: (a) kernels {time.perf_counter() - t0:.1f} s [{card}]")
+    t1 = time.perf_counter()
+    launches = mid_serve(torch, card)
+    log(f"d256: (b) D 256 serves and invariants "
+        f"{time.perf_counter() - t1:.1f} s; launches "
+        f"{json.dumps(launches)} [{card}]")
+    log(f"d256: phase {time.perf_counter() - t0:.1f} s")
+    return new, launches
+
+
 def kernel_entry(name, source, replaces, launches, rows, main, case,
                  extra=None, forms=None, small=None, head_dims=None,
-                 past_256=None):
+                 past_256=None, d256=None):
     """One kernel's line: times of its main case, the max error over
     that case's dtype mix, (kernels with several bodies) the body, with
     its split count, that ran each case, other cases and dtypes
     (``extra``: key -> its case and dtype mix, e.g. ``"e4m3"``, ``"f16"``,
     ``"d16"``), phase 18's main-path launches by form (``forms``),
     phase 19's at D 16 (``small``), phase 20's Phi-3-mini serve's by
-    form and head dim (``head_dims``) and phase 21's D 512 serve's
-    (``past_256``)."""
+    form and head dim (``head_dims``), phase 21's D 512 serve's
+    (``past_256``) and phase 22's Gemma-2-9B-geometry serve's
+    (``d256``)."""
     row = next(r for r in rows if (r["case"], r["dtypes"]) == main)
     entry = dict(name=name, route="cuda", source=source, replaces=replaces,
                  launches=launches,
@@ -10269,6 +10562,8 @@ def kernel_entry(name, source, replaces, launches, rows, main, case,
         entry["phase20_launches"] = head_dims
     if past_256 is not None:
         entry["phase21_launches"] = past_256
+    if d256 is not None:
+        entry["phase22_launches"] = d256
     return entry
 
 
@@ -10381,6 +10676,8 @@ def main(argv=None) -> int:
     stamp("head dims")
     pd_rows, pd_launches = phase_past_256(torch, timer, card)
     stamp("past 256")
+    md_rows, md_launches = phase_d256(torch, timer, card)
+    stamp("d256")
 
     kernels = [
         kernel_entry("ragged_paged_attention",
@@ -10396,10 +10693,12 @@ def main(argv=None) -> int:
                      + fab["ragged"] + shard_launches + rows_launches[0]
                      + import_launches + dt_launches["ragged"]
                      + sm_launches[0] + hd_launches["ragged"]["D96"]
-                     + pd_launches["ragged"]["D512"],
+                     + pd_launches["ragged"]["D512"]
+                     + md_launches["ragged"]["D256"],
                      rows["ragged"] + e4m3_rows["ragged"]
                      + dt_rows["ragged"] + sm_rows["ragged"]
-                     + hd_rows["ragged"] + pd_rows["ragged"],
+                     + hd_rows["ragged"] + pd_rows["ragged"]
+                     + md_rows["ragged"],
                      ("all_decode", "bf16/bf16"),
                      "all_decode bf16/bf16, 8 lanes x 1024 context; "
                      "launches: ragged-plan serve run + int8/e4m3 ragged- "
@@ -10420,7 +10719,9 @@ def main(argv=None) -> int:
                      "Phi-3-mini-width serves (D 96, wgmma bf16; 32 "
                      "layers, both plans, K = 8 and K = 1) + the past-256 "
                      "phase's D 512 serves (wgmma-wide bf16; Llama-3-8B "
-                     "widths, 8 heads over 1, 32 layers, both plans)",
+                     "widths, 8 heads over 1, 32 layers, both plans) + the "
+                     "d256 phase's Gemma-2-9B-geometry serves (wgmma bf16 "
+                     "at D 256; 16 heads over 8, 32 layers, both plans)",
                      {"e4m3": ("all_decode", "bf16/e4m3"),
                       "f16": ("all_decode", "f16/f16"),
                       "e5m2": ("all_decode", "bf16/e5m2"),
@@ -10455,9 +10756,11 @@ def main(argv=None) -> int:
                       "wide_dsv4_chunk": ("D512 dsv4 chunk_over_ctx",
                                           "bf16/bf16"),
                       "wide_sarvam": ("D576 sarvam all_decode",
-                                      "bf16/bf16")},
+                                      "bf16/bf16"),
+                      "d256": ("D256 all_decode", "bf16/bf16")},
                      dt_forms["ragged"], sm_launches[0],
-                     hd_launches["ragged"], pd_launches["ragged"]),
+                     hd_launches["ragged"], pd_launches["ragged"],
+                     md_launches["ragged"]),
         kernel_entry("flash_attention",
                      "tpulab_torch/ops/csrc/flash_attention.cu",
                      "tpulab/ops/flash_attention.py:80",
@@ -10466,9 +10769,11 @@ def main(argv=None) -> int:
                      + par_launches + shard_flash + rows_launches[1]
                      + mem_launches + dt_launches["flash"] + sm_launches[1]
                      + hd_launches["flash"].get("D96", 0)
-                     + pd_launches["flash"].get("D512", 0),
+                     + pd_launches["flash"].get("D512", 0)
+                     + md_launches["flash"].get("D256", 0),
                      rows["flash"] + dt_rows["flash"] + sm_rows["flash"]
-                     + hd_rows["flash"] + pd_rows["flash"],
+                     + hd_rows["flash"] + pd_rows["flash"]
+                     + md_rows["flash"],
                      (f"T={FA_TS[-1]} causal", "bfloat16"),
                      "B 1, T 2048, H 32, D 128, causal, bf16; launches: "
                      "split-plan serve runs, bf16 and int8/e4m3, + the "
@@ -10483,7 +10788,9 @@ def main(argv=None) -> int:
                      "kv_fabric prefills (D 16, fma) + the head dims "
                      "phase's Phi-3-mini-width split-plan prefills (D 96, "
                      "wgmma bf16, 32 layers) + the past-256 phase's D 512 "
-                     "split-plan prefills (wgmma-wide bf16, 32 layers)",
+                     "split-plan prefills (wgmma-wide bf16, 32 layers) + "
+                     "the d256 phase's Gemma-2-9B-geometry split-plan "
+                     "prefills (wgmma bf16 at D 256, 32 layers)",
                      {"f16": (f"T={FA_TS[-1]} causal", "float16"),
                       "d16": ("D16 T=2048 causal H=2", "float32"),
                       "d16_rows": (f"D16 T={SM_FLASH_T} causal H=2",
@@ -10505,14 +10812,23 @@ def main(argv=None) -> int:
                       "wide_d1024": ("D1024 T=2048 causal H=8",
                                      "bfloat16"),
                       "wide_dsv4": ("D512 T=2048 causal H=64",
+                                    "bfloat16"),
+                      "d256": ("D256 T=2048 causal H=16", "bfloat16"),
+                      "f16_reread": ("D128 T=2048 causal", "float16"),
+                      "fma_d64_f32": ("D64 T=2048 causal", "float32"),
+                      "fma_d128_f32": ("D128 T=2048 causal", "float32"),
+                      "fma_d256_f32": ("D256 T=2048 causal", "float32"),
+                      "wide_d264": ("D264 T=2048 causal H=8",
                                     "bfloat16")},
                      dt_forms["flash"], sm_launches[1],
-                     hd_launches["flash"], pd_launches["flash"]),
+                     hd_launches["flash"], pd_launches["flash"],
+                     md_launches["flash"]),
         kernel_entry("paged_decode_attention",
                      "tpulab_torch/ops/csrc/paged_attention.cuh",
                      "tpulab/ops/paged_attention.py:221",
                      op_launches + hd_launches["paged"]["D96"]
-                     + pd_launches["paged"]["D512"],
+                     + pd_launches["paged"]["D512"]
+                     + md_launches["paged"]["D256"],
                      rows["paged"] + e4m3_rows["paged"] + dt_rows["paged"]
                      + sm_rows["paged"] + hd_rows["paged"]
                      + pd_rows["paged"],
@@ -10520,8 +10836,9 @@ def main(argv=None) -> int:
                      "8 lanes x 1024 positions, bf16/bf16; launches: the "
                      "decode op over every layer of a model-written pool, "
                      "bf16 and e4m3, the head dims phase's "
-                     "Phi-3-mini-width pool (D 96) and the past-256 "
-                     "phase's D 512 pool (fma-wide)",
+                     "Phi-3-mini-width pool (D 96), the past-256 "
+                     "phase's D 512 pool (fma-wide) and the d256 phase's "
+                     "Gemma-2-9B-geometry pool (D 256, ring)",
                      {"e4m3": ("8 x 1024", "bf16/e4m3"),
                       "f16": ("8 x 1024", "f16/f16"),
                       "e5m2": ("8 x 1024", "bf16/e5m2"),
@@ -10542,7 +10859,8 @@ def main(argv=None) -> int:
                       "wide_dsv4": ("D512 dsv4 8 x 1024", "bf16/bf16"),
                       "wide_sarvam": ("D576 sarvam 8 x 1024",
                                       "bf16/bf16")},
-                     past_256=pd_launches["paged"]),
+                     past_256=pd_launches["paged"],
+                     d256=md_launches["paged"]),
         # the tensor-core wide form of kernels 1 and 2: its rows of phase
         # 21 (a), its launches those of the D 512 serves of phase 21 (b)
         kernel_entry("ragged_paged_attention wgmma-wide",
@@ -10585,6 +10903,50 @@ def main(argv=None) -> int:
                       "d1024": ("D1024 T=2048 causal H=8", "bfloat16"),
                       "dsv4": ("D512 T=2048 causal H=64", "bfloat16")},
                      past_256=pd_launches["flash"]),
+        # the tensor-core body's 192- and 256-wide tiles of kernels 1 and
+        # 2: their rows of phase 22 (a), their launches those of the
+        # Gemma-2-9B-geometry serves of phase 22 (b)
+        kernel_entry("ragged_paged_attention wgmma 256",
+                     "tpulab_torch/ops/csrc/ragged_attention_wgmma_256.cu",
+                     "tpulab/ops/ragged_attention.py:190",
+                     md_launches["ragged"]["wgmma bf16"],
+                     [r for r in md_rows["ragged"]
+                      if r["body"].startswith("wgmma ")],
+                     ("D256 all_decode", "bf16/bf16"),
+                     "all_decode bf16/bf16 at D 256, 8 lanes x 1024, 16 "
+                     "query heads over 8 (Gemma-2-9B's); launches: the "
+                     "d256 phase's Gemma-2-9B-geometry serves "
+                     "(Llama-3-8B widths, 32 layers, both plans)",
+                     {"chunk": ("D256 chunk_over_ctx", "bf16/bf16"),
+                      "verify": ("D256 verify_k8", "bf16/bf16"),
+                      "e4m3": ("D256 all_decode", "bf16/e4m3"),
+                      "f16": ("D256 all_decode", "f16/f16"),
+                      "e5m2": ("D256 all_decode", "f16/e5m2"),
+                      "gemma7b": ("D256 gemma7b all_decode", "bf16/bf16"),
+                      "d144": ("D144 all_decode", "bf16/bf16"),
+                      "d160": ("D160 all_decode", "bf16/bf16"),
+                      "d192": ("D192 all_decode", "bf16/bf16"),
+                      "d208": ("D208 all_decode", "bf16/bf16")},
+                     d256=md_launches["ragged"]),
+        kernel_entry("flash_attention wgmma 256",
+                     "tpulab_torch/ops/csrc/flash_attention.cu",
+                     "tpulab/ops/flash_attention.py:80",
+                     md_launches["flash"].get("wgmma bf16", 0),
+                     [r for r in md_rows["flash"]
+                      if r["body"] == "wgmma"
+                      and int(r["case"].split()[0][1:]) > 128],
+                     ("D256 T=2048 causal H=16", "bfloat16"),
+                     "B 1, T 2048, H 16, D 256, causal, bf16; launches: "
+                     "the d256 phase's Gemma-2-9B-geometry split-plan "
+                     "prefills (32 layers)",
+                     {"f16": ("D256 T=2048 causal H=16", "float16"),
+                      "full": ("D256 T=2048 full H=16", "bfloat16"),
+                      "t1024": ("D256 T=1024 causal H=16", "bfloat16"),
+                      "d144": ("D144 T=2048 causal H=16", "bfloat16"),
+                      "d160": ("D160 T=2048 causal H=16", "bfloat16"),
+                      "d192": ("D192 T=2048 causal H=16", "bfloat16"),
+                      "d208": ("D208 T=2048 causal H=16", "bfloat16")},
+                     d256=md_launches["flash"]),
     ]
     faulthandler.cancel_dump_traceback_later()
     log(f"total {time.perf_counter() - t_all:.1f} s")

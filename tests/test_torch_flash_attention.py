@@ -134,11 +134,12 @@ def test_attention_fn_in_transformer():
 
 @pytest.mark.parametrize("dtype,d,body", [
     ("bfloat16", 128, "wgmma"), ("bfloat16", 64, "wgmma"),
-    ("bfloat16", 256, "fma"), ("float32", 128, "fma"),
+    ("bfloat16", 256, "wgmma"), ("float32", 128, "fma"),
     ("float32", 64, "fma"), ("float32", 256, "fma")])
 def test_body_rule(dtype, d, body):
-    """bf16 with D 64 or 128 runs on the tensor cores; f32 (no TF32) and
-    D 256 keep the CUDA-core body."""
+    """bf16 with D 64, 128 or 256 runs on the tensor cores (D 256 on the
+    256-wide tile since Gemma-width serves); f32 (no TF32) keeps the
+    CUDA-core body."""
     assert flash_body(getattr(torch, dtype), d) == body
 
 
@@ -193,7 +194,7 @@ def test_cuda_bodies_on_strided_views(t, d):
     h = 8 if t == 2048 else 4
     q, k, v = _strided_qkv(t * d, t, h, d, torch.bfloat16)
     body = flash_body(torch.bfloat16, d)
-    assert body == ("fma" if d == 256 else "wgmma")
+    assert body == "wgmma"
     for causal in (True, False):
         n0 = dict(flash_attention.launches_by_body)
         got = flash_attention(q, k, v, causal=causal, block_q=t, block_k=t)

@@ -50,8 +50,9 @@ from tpulab_torch.ops.paged_attention import (
     GROUP_BLOCK, group_blocks, paged_decode_attention,
     paged_decode_attention_reference, paged_splits)
 from tpulab_torch.ops.ragged_attention import (
-    FMA_WIDTH, KV_CODE, Q_CODE, WGMMA_PAGES, check_built, head_dim_built,
-    ragged_body, ragged_paged_attention, ragged_paged_attention_reference)
+    FMA_WIDTH, KV_CODE, Q_CODE, WGMMA_HEAD_DIMS, WGMMA_PAGES, check_built,
+    head_dim_built, ragged_body, ragged_paged_attention,
+    ragged_paged_attention_reference)
 
 torch.set_num_threads(2)
 
@@ -213,9 +214,10 @@ def test_head_dims_of_the_three_kernels():
     """One rule for all three kernels: every head dim from 1 up, as
     tpulab's kernels take any (80, 96, 512, ...); D 0 refused, by the
     wrappers too.  The tensor-core bodies take the multiples of 16 from
-    64 to 128 for the 16-bit pairs, the fma bodies everything else up to
+    64 to 256 for the 16-bit pairs, the fma bodies everything else up to
     256, the wide form every D past it."""
     assert FMA_WIDTH == 256
+    assert WGMMA_HEAD_DIMS == tuple(range(64, 257, 16))
     assert set(Q_CODE) == {getattr(torch, n) for n in Q_DTYPES}
     assert set(KV_CODE) == {getattr(torch, n) for n in KV_DTYPES}
     for q_dt, kv_dt in PAIRS:
@@ -224,7 +226,7 @@ def test_head_dims_of_the_three_kernels():
             check_built(q, kv, d)
             assert head_dim_built(d)
             want = ("wgmma" if kv in WGMMA_PAGES.get(q, ())
-                    and d in (64, 80, 96, 112, 128) else "fma")
+                    and d in WGMMA_HEAD_DIMS else "fma")
             assert ragged_body(q, kv, d) == want
             if q == kv:
                 assert flash_body(q, d) == (

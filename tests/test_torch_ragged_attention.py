@@ -216,16 +216,16 @@ SERVE = dict(hq=32, hkv=8, mp=128, page_size=16)   # chip_smoke's serve
 @pytest.mark.parametrize("q_dt,kv_dt,d,body", [
     ("bfloat16", "bfloat16", 128, "wgmma"),
     ("bfloat16", "bfloat16", 64, "wgmma"),
-    ("bfloat16", "bfloat16", 256, "fma"),
+    ("bfloat16", "bfloat16", 256, "wgmma"),
     ("float32", "float32", 128, "fma"),
     ("float32", "bfloat16", 128, "fma"),
     ("bfloat16", "float32", 128, "fma"),
     ("bfloat16", "float8_e4m3fn", 128, "wgmma"),
     ("bfloat16", "float8_e4m3fn", 64, "wgmma"),
-    ("bfloat16", "float8_e4m3fn", 256, "fma"),
+    ("bfloat16", "float8_e4m3fn", 256, "wgmma"),
     ("float32", "float8_e4m3fn", 128, "fma")])
 def test_body_rule(q_dt, kv_dt, d, body):
-    """Only bf16 q over a bf16 or e4m3 pool (D 64 or 128) goes to the
+    """Only bf16 q over a bf16 or e4m3 pool (D 64, 128 or 256) goes to the
     tensor cores (e4m3 pages upcast to bf16 first, exactly); f32 products
     keep f32 FMAs (no TF32)."""
     assert ragged_body(getattr(torch, q_dt), getattr(torch, kv_dt), d) == body

@@ -23,9 +23,17 @@ bf16/bf16 and bf16/e4m3 pages with 8 query heads over one, and
 DeepSeek-V4-Flash's and sarvam-105b's 64 heads over one at D 512 / 576
 in bf16; kernel 3 at 8 x 1024 at D 257 and 512; kernel 2 at T 2048, H 8,
 causal, at D 512 (bf16, f16, f32), 576 and 264 (bf16) and at H 64, D 512.
+D 144-256 at Gemma-2-9B's head geometry (16 query heads over 8): kernel
+1 at 8 lanes x 1024 decode at D 144, 160, 192, 208 and 256 in bf16 (at
+D 256 also bf16 over e4m3, f16 and f16 over e5m2 pages, a 256-row chunk
+and the K 8 verify rows), kernel 2 at T 2048, H 16, causal at those head
+dims (D 256: f16, full, T 1024), each beside SDPA on the same inputs (a
+yardstick: the same call in every checkout); kernel 2's ``fma-wide``
+D 264 row beside SDPA too.
 Outputs of the pairs the checkout runs on ``wgmma-wide`` are held against
-the same checkout's first run (a parent runs them on ``fma-wide``); every
-other output against run 0's.
+the same checkout's first run (a parent runs them on ``fma-wide``), and
+so are those of the 16-bit tensor-core pairs at D 144-256 (``wgmma`` in
+this tree, ``fma`` in its parent); every other output against run 0's.
 A checkout is a directory holding ``chip_smoke.py`` and ``tpulab_torch/``
 (the parent commit unpacked with ``git archive``, or this one).  The
 summary prints each row's milliseconds run by run, whether every run's
@@ -74,6 +82,17 @@ def digest(key, out):
 def lens(x):
     return torch.tensor(x, dtype=torch.int32, device='cuda')
 
+def dtn(t):
+    return str(t).split('.')[-1]
+
+def mid(q_dt, kv_dt, d):
+    # D 144-256 on the 16-bit pairs of the tensor-core body: "wgmma" in
+    # this tree, "fma" in its parent (held against the checkout's own first
+    # run, "changed:")
+    tc = (q_dt in (torch.bfloat16, torch.float16)
+          and kv_dt in (q_dt, torch.float8_e4m3fn, torch.float8_e5m2))
+    return 'changed:' if tc and d % 16 == 0 and 144 <= d <= 256 else ''
+
 MIXES = (('f32/f32', torch.float32, torch.float32),
          ('bf16/bf16', torch.bfloat16, torch.bfloat16),
          ('bf16/e4m3', torch.bfloat16, torch.float8_e4m3fn))
@@ -92,7 +111,7 @@ for d in (16, 24, 32, 64, 96, 100, 128, 256):
                               [9, 17, 300, 0, 1033, 2048, 64, 100])):
             m = max(ql)
             args = (q[:, :m].contiguous(), pool, tables, lens(ql), lens(kl))
-            digest(f'ragged D{d} {case} {name}',
+            digest(mid(q_dt, kv_dt, d) + f'ragged D{d} {case} {name}',
                    ragged_paged_attention(*args))
             if timed and case == 'decode':
                 rows[f'ragged D{d} decode 8 x 1024 {name}'] = t(
@@ -113,7 +132,7 @@ for d in (16, 24, 32, 64, 96, 100, 128, 256):
                 (1, tl, 8, d)).astype(np.float32)).cuda().to(dt)
                 for _ in range(3))
             name = str(dt).split('.')[-1]
-            digest(f'flash D{d} T={tl} {name}',
+            digest(mid(dt, dt, d) + f'flash D{d} T={tl} {name}',
                    flash_attention(q, k, v, causal=causal, block_q=tl,
                                    block_k=tl))
             if tl == 2048 and dt != torch.float16:
@@ -121,12 +140,67 @@ for d in (16, 24, 32, 64, 96, 100, 128, 256):
                     lambda: flash_attention(q, k, v, causal=True), iters=10)
     torch.cuda.empty_cache()
 
+# D 144-256 at Gemma-2-9B's head geometry (16 query heads over 8): kernel
+# 1 at 8 lanes x 1024 (decode; at D 256 also a 256-row chunk and the K 8
+# verify rows, and f16 / fp8 pages), kernel 2 at T 2048, H 16, causal
+# (D 256: f16, full, T 1024), each beside SDPA (a yardstick, the same
+# call in every checkout)
+for d in (144, 160, 192, 208, 256):
+    rng = np.random.default_rng(1000 + d)
+    g = dict(c.RA_GEOM, hq=16, hkv=8, d=d)
+    pool32, tables = c.serving_pool(torch, np, rng, g)
+    q32 = torch.from_numpy(rng.standard_normal(
+        (8, 256, 16, d)).astype(np.float32)).cuda()
+    mixes = (('bf16/bf16', torch.bfloat16, torch.bfloat16),)
+    cases = (('decode', 1, 1024),)
+    if d == 256:
+        mixes += (('bf16/e4m3', torch.bfloat16, torch.float8_e4m3fn),
+                  ('f16/f16', torch.float16, torch.float16),
+                  ('f16/e5m2', torch.float16, torch.float8_e5m2))
+        cases += (('chunk', 256, 1024), ('verify_k8', 9, 1033))
+    for name, q_dt, kv_dt in mixes:
+        pool, q = pool32.to(kv_dt), q32.to(q_dt)
+        for case, m, kv in (cases if name == 'bf16/bf16' else cases[:1]):
+            args = (q[:, :m].contiguous(), pool, tables, lens([m] * 8),
+                    lens([kv] * 8))
+            key = f'ragged mid D{d} Hq16/8 {case} {name}'
+            digest(mid(q_dt, kv_dt, d) + key, ragged_paged_attention(*args))
+            rows[key] = t(lambda: ragged_paged_attention(*args),
+                          iters=5 if case == 'chunk' else 20)
+            if q_dt == kv_dt:
+                pos = torch.arange(m, device='cuda')[None] + (kv - m)
+                vis = (torch.arange(g['mp'] * g['s'], device='cuda')[
+                    None, None] <= pos[..., None]).expand(8, m, -1)
+                rows['sdpa ' + key] = c.sdpa_decode_ms(
+                    torch, t, args[0], pool, tables, vis, 2)
+        del pool
+    del pool32
+    torch.cuda.empty_cache()
+    flash = [(2048, True, torch.bfloat16)]
+    if d == 256:
+        flash += [(2048, True, torch.float16), (2048, False, torch.bfloat16),
+                  (1024, True, torch.bfloat16)]
+    for tl, causal, dt in flash:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, tl, 16, d)).astype(np.float32)).cuda().to(dt)
+            for _ in range(3))
+        key = (f"flash mid D{d} T={tl} H 16 {'causal' if causal else 'full'}"
+               f" {dtn(dt)}")
+        digest(mid(dt, dt, d) + key,
+               flash_attention(q, k, v, causal=causal))
+        rows[key] = t(lambda: flash_attention(q, k, v, causal=causal),
+                      iters=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rows['sdpa ' + key] = t(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters=5)
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
 # past 256: the forms the tensor-core wide form left alone (f32 and the
 # mixed 16-bit pairs, D not a multiple of 16, kernel 3) must equal run 0's
 # outputs bit for bit; the pairs it took ("changed:") equal those of the
 # checkout's own first run, and are timed against the parent's fma-wide
-def dtn(t):
-    return str(t).split('.')[-1]
 def wide_body(q_name, kv_name, d):   # this tree's rule, for every checkout
     tc = (q_name in ('bfloat16', 'float16')
           and kv_name in (q_name, 'float8_e4m3fn', 'float8_e5m2'))
@@ -181,6 +255,12 @@ for d, dt, h in ((512, torch.bfloat16, 8), (512, torch.float16, 8),
     key = f'flash wide D{d} T=2048 H {h} causal {dtn(dt)}'
     digest(changed + key, flash_attention(q, k, v, causal=True))
     rows[key] = t(lambda: flash_attention(q, k, v, causal=True), iters=5)
+    if d == 264:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        rows['sdpa ' + key] = t(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=5)
+        del qt, kt, vt
     del q, k, v
     torch.cuda.empty_cache()
 print('AB ' + json.dumps({'build': build, 'rows': rows, 'digests': digests}),

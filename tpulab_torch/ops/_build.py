@@ -3,7 +3,8 @@
 Each library ``<name>`` is compiled by ``nvcc`` from the translation
 units :data:`UNITS` lists for it, in parallel (``csrc/<name>.cu``, for
 kernels 1 and 3 their padded head-dim forms in ``csrc/<name>_padded.cu``,
-for all three the wide fma form of every head dim past 256 in
+for kernel 1 its tensor-core body at D 144-256 in
+``csrc/<name>_wgmma_256.cu``, for all three the wide fma form of every head dim past 256 in
 ``csrc/<name>_wide.cu``, and for kernels 1 and 2 its tensor-core twin in
 ``csrc/<name>_wgmma_wide.cu``), into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds)::
@@ -67,6 +68,7 @@ def _nvcc() -> str:
 #: each library's translation units under ``csrc/``
 UNITS = {
     "ragged_attention": ("ragged_attention.cu", "ragged_attention_padded.cu",
+                         "ragged_attention_wgmma_256.cu",
                          "ragged_attention_wide.cu",
                          "ragged_attention_wgmma_wide.cu"),
     "flash_attention": ("flash_attention.cu", "flash_attention_wide.cu",

@@ -8,14 +8,15 @@
 // instruction shapes are the same, and only the `wgmma` type suffix, the
 // packing of P and the output's rounding differ.
 //
-// The layout.  A 16-bit operand tile of R rows x D columns (D 64 or 128,
-// the tile's width) is stored as D/64 column blocks, each R rows of 128
-// bytes, block c at byte c * R * 128.  A head dim of 80, 96 or 112 lives
-// in a 128-wide tile whose last block is partly filled: its columns past
-// the head dim are zero in shared memory (the ragged kernel zeroes them
-// once, TMA fills them with zeros as it reads past the row), so they add
-// nothing to Q K^T, and P V's columns past the head dim are never
-// stored.  Inside each 1024-byte group of 8 rows, the 16-byte
+// The layout.  A 16-bit operand tile of R rows x D columns (D 64, 128,
+// 192 or 256, the tile's width) is stored as D/64 column blocks, each R
+// rows of 128 bytes, block c at byte c * R * 128.  A head dim that is a
+// multiple of 16 under the width (80-112 in the 128-wide tile, 144-176
+// in the 192-wide, 208-240 in the 256-wide) fills its last block or
+// blocks partly: the columns past the head dim are zero in shared memory
+// (the ragged kernel zeroes them once, TMA fills them with zeros as it
+// reads past the row), so they add nothing to Q K^T, and P V's columns
+// past the head dim are never stored.  Inside each 1024-byte group of 8 rows, the 16-byte
 // chunk j of row r sits at chunk j ^ (r % 8): the pattern that TMA writes
 // under CU_TENSOR_MAP_SWIZZLE_128B and that descriptor layout type 1
 // (128B swizzle) reads.  Tiles start on 1024-byte boundaries.  Q and K are
@@ -23,17 +24,22 @@
 // transposed through its descriptor, so P V needs no transpose in memory.
 //
 // The step.  A warpgroup (128 threads) owns 64 query rows.  S = Q K^T is
-// one m64n64k16 product per 16 columns of the head dim (D/16 at D 64 and
-// 128, 5 to 7 at 80 to 112: the zero columns' steps are skipped) into 32
+// one m64n64k16 product per 16 columns of the head dim (the zero columns'
+// steps are skipped: 5 at D 80, 9 at D 144) into 32
 // f32 registers a thread; the thread holds
 // rows r and r + 8 (r = 16 * warp + lane / 4) at columns 8c + 2(lane % 4)
 // + {0, 1}, so a row's max and sum are reduced over the four lanes that
 // share lane / 4.  Scores are scaled by log2(e)/sqrt(D) in f32 after the
 // product; masked keys score -inf and weigh exactly 0.  P is rounded to
 // E (bf16 or f16) in registers, where the S accumulator layout is already the A
-// operand layout of the next product: O += P V is BK/16 m64nDk16 products
-// with A from registers (n = 128 for a head dim of 80 to 112: the columns
-// past it are dropped at the store).  The online softmax keeps m and l in f32.
+// operand layout of the next product: O += P V is BK/16 products with A
+// from registers at n = the tile's width (m64n64k16 or m64n128k16; the
+// 192- and 256-wide tiles issue m64n128k16 on columns 0-127 and m64n64k16
+// or m64n128k16 on the rest, each into its own slice of O; a head dim
+// under the width multiplies the zero columns too and drops them at the
+// store).  O is D/2 f32 registers a thread: 128 at width 256, which with
+// S and P fits one thread's 255 only in a block of at most two
+// warpgroups.  The online softmax keeps m and l in f32.
 #pragma once
 
 #include "common.cuh"
@@ -225,6 +231,35 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// The same wait that, after 20 s, traps: a lost TMA or a ring that
+// deadlocks then fails the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (n == 0)
+        t0 = now;
+      else if (now - t0 > 20000000000ull)
+        __trap();
+    }
+  }
+}
+// Named barrier `id` over `n` threads (a multiple of 32).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -248,10 +283,12 @@ __device__ __forceinline__ void zero_chunks(unsigned char* tile, int rows,
 // ---- the consumer's tile ----
 // A warpgroup's 64 query rows against stages of BK = 64 keys.  Q, K and V
 // tiles are 64 rows x D of E (bf16 or f16) in the swizzled layout above;
-// D is the tile's width, the head dim is D or (D 128) 80, 96 or 112.
+// D is the tile's width, the head dim is D or a multiple of 16 under it
+// and past the next narrower width.
 template <int D, typename E = __nv_bfloat16>
 struct AttnTile {
-  static_assert(D == 64 || D == 128, "the tensor-core tile is 64 or 128 wide");
+  static_assert(D == 64 || D == 128 || D == 192 || D == 256,
+                "the tensor-core tile is 64, 128, 192 or 256 wide");
   static constexpr int BK = 64;
   static constexpr int TILE_BYTES = 64 * D * 2;   // one 64-row 16-bit tile
   static constexpr int NO = D / 2;                // O floats a thread
@@ -347,10 +384,23 @@ struct AttnTile {
       const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
                              p[4 * kk + 3]};
       const uint64_t dv = smem_desc(v + kk * 16 * 128, 64 * 128, 1024);
-      if constexpr (D == 64)
+      if constexpr (D == 64) {
         wgmma_rs_m64n64k16<E>(o, a, dv);
-      else
+      } else if constexpr (D == 128) {
         wgmma_rs_m64n128k16<E>(o, a, dv);
+      } else {
+        // columns 0-127 into o[0..63]; past 128 (two more 64-column
+        // blocks of V, 16 KB on) into o[64..]
+        wgmma_rs_m64n128k16<E>(*reinterpret_cast<float(*)[64]>(o), a, dv);
+        const uint64_t dv2 =
+            smem_desc(v + 2 * 64 * 128 + kk * 16 * 128, 64 * 128, 1024);
+        if constexpr (D == 192)
+          wgmma_rs_m64n64k16<E>(*reinterpret_cast<float(*)[32]>(o + 64), a,
+                                dv2);
+        else
+          wgmma_rs_m64n128k16<E>(*reinterpret_cast<float(*)[64]>(o + 64), a,
+                                 dv2);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -176,6 +176,25 @@ constexpr int FMA_WIDTH = 256;
 inline int padded_width(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : FMA_WIDTH;
 }
+// The tensor-core bodies' tile width (kernels 1 and 2) for a head dim
+// that is a multiple of 16 from 64 to 256: 64, 128, 192 or 256, the head
+// dim's columns past it zero in shared memory; 0 for any other head dim.
+inline int wgmma_width(int d) {
+  if (d % 16 || d < 64 || d > 256) return 0;
+  return d == 64 ? 64 : d <= 128 ? 128 : d <= 192 ? 192 : 256;
+}
+// A kernel's registers a thread, the dynamic shared memory `smem` it is
+// launched with and its local memory a thread into out[0..2]; 0 or a
+// cudaError_t code.
+template <class Kern>
+int kernel_attributes(Kern kern, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  if (cudaError_t e = cudaFuncGetAttributes(&a, kern)) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)smem;
+  out[2] = (int)a.localSizeBytes;
+  return 0;
+}
 // q's element type taken at run time (its launcher code: 0 f32, 1 bf16,
 // 2 f16): the padded fma bodies of kernels 1 and 3 read q once and write
 // their output once, so one instantiation serves the three q types.

@@ -20,40 +20,49 @@
 // Four bodies; the caller names one (flash_attention.py `flash_body`),
 // and the launcher refuses a body that does not fit the dtype and D:
 //
-// * `flash_fwd_wgmma_kernel<D, E, kPad>`, bf16 or f16 (E) with head dim
-//   64, 80, 96, 112 or 128, on
+// * `flash_fwd_wgmma_kernel<D, E, kPad>`, bf16 or f16 (E) with every head
+//   dim from 64 to 256 that is a multiple of 16, on
 //   the tensor cores in E (`wgmma ... f32.bf16.bf16` or `f32.f16.f16`;
-//   the tensor maps name E's TMA data type): a block of three
-//   warpgroups owns 128 query rows of one (b, h), heaviest causal tile
-//   first.  Warpgroup 0 is the producer: one thread issues TMA loads of
-//   the Q tile and of a 3-stage ring of 64-key K and V tiles (two boxes
-//   of 64 columns per 128-column row, 128-byte swizzle) through a 4-d
-//   tensor map of the strided (B, T, H, D) view, with full/empty
-//   mbarriers, and gives its registers up (setmaxnreg).  Warpgroups 1 and
-//   2 each take 64 rows and run the shared tile step (attn_wgmma.cuh):
-//   S = Q K^T and O += P V on `wgmma`, P in E from registers, the
-//   online softmax in f32 registers.  The k-walk stops at the causal limit
+//   the tensor maps name E's TMA data type): a block owns 128 query rows
+//   of one (b, h), heaviest causal tile first, two consumer warpgroups of
+//   64 rows each running the shared tile step (attn_wgmma.cuh): S = Q K^T
+//   and O += P V on `wgmma`, P in E from registers, the online softmax in
+//   f32 registers.  One thread issues TMA loads of the Q tiles and of a
+//   ring of 64-key K and V tiles (64-column boxes, 128-byte swizzle)
+//   through a 4-d tensor map of the strided (B, T, H, D) view, with
+//   full/empty mbarriers.  Through the 128-wide tile that thread is in a
+//   third, producer warpgroup, which gives its registers up (setmaxnreg),
+//   and three stages are in flight.  On the 192- and 256-wide tiles (D
+//   144-256: Gemma's and GPT-J's 256) O is 96 or 128 f32 registers a
+//   thread, and ptxas held a 384-thread block to 168 a thread whatever
+//   setmaxnreg asked (PERF.md), so there is no producer: thread 0
+//   of consumer 0 issues the loads, each stage's slot refilled once both
+//   consumers' warps have arrived on its `empty` (3 stages at width 192,
+//   2 at 256; 192 KB of shared memory either way).  What bounds it there
+//   is what bounds it at D 128: operations (T 2048, H 16, D 256, causal:
+//   34.4 GFLOP, 35 us), which the `fma` body ran at the CUDA cores' f32
+//   rate.  The k-walk stops at the causal limit
 //   min(T, q0 + 128); rows past T are zero-filled by TMA and never stored;
 //   keys past T or past a row's position weigh 0.  Scores are scaled in
 //   f32 after the product, so besides f32 summation order the one new
-//   rounding against the plain version is P to E.  A head dim of 80, 96
-//   or 112 (kPad) runs the 128-wide tile: the tensor maps' inner
-//   dimension is the head dim, so the box at column 64 reads past it and
+//   rounding against the plain version is P to E.  A head dim under the
+//   tile's width (kPad: 80-112, 144-176, 208-240) runs with the tensor
+//   maps' inner dimension at the head dim, so the boxes read past it and
 //   TMA fills those columns with zeros, the Q K^T products stop at the
-//   head dim and the output's columns past it are not stored.
+//   head dim, P V runs at n = the width and the output's columns past
+//   the head dim are not stored.
 // * `flash_fwd_kernel<T, D, kPad>`, f32 (any D) and bf16 or f16 with any
-//   other head dim (D 16, 32, 256, and every D that is not 64 to 128 in
-//   steps of 16):
+//   other head dim (D 16, 32, and every D up to 256 that is not a
+//   multiple of 16 from 64 up):
 //   every product an f32 FMA on CUDA cores, q scaled by 1/sqrt(D) before
 //   the dot.  One block per (64-row query tile, b * H + h), heaviest
 //   first; K and V tiles staged by cp.async, double-buffered; a 16 x 16
 //   thread grid holds 4 rows x BK/16 keys of S and 4 rows x D/16 dims of
 //   O in registers, P through shared memory (at D 16 a thread holds one
-//   dim of O).  D 256 stays here in bf16 and f16 because its O
-//   accumulator (128 f32 a thread) with S does not fit the tensor-core
-//   tile's register budget; D 16 and 32 because the tile's swizzled
-//   layout is built of 64-column blocks.  It is compiled for D 16, 32, 64,
-//   128 and 256 exactly; any other head dim (kPad) runs the instantiation
+//   dim of O).  D 16 and 32 stay here in bf16 and f16 because the
+//   tensor-core tile's swizzled layout is built of 64-column blocks.  It
+//   is compiled for D 16, 32, 64, 128 and 256 exactly (64, 128 and 256
+//   for f32 only); any other head dim (kPad) runs the instantiation
 //   of the next width of 32, 64, 128 and 256 with the head dim taken at
 //   run time: K/V shared memory holds zeros past it (cleared once), rows
 //   are copied in the widest chunks the views' addresses and strides
@@ -322,8 +331,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-// The fma body at D 16, 32, 64, 128 or 256 (compiled for D), or at any
-// other head dim up to 256 on the width padded_width(D).
+// The fma body at D 16, 32, 64, 128 or 256 (compiled for D; 64, 128 and
+// 256 for f32 only), or at any other head dim up to 256 on the width
+// padded_width(D).
 template <typename T>
 int launch_t(int D, const void* q, const void* k, const void* v, void* out,
              int B, int Tlen, int H, const long long* st, int causal,
@@ -345,9 +355,11 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
         return launch<T, 128, false>(q, k, v, out, B, Tlen, H, st, causal,
                                      sm_scale, D, s);
       return -1;
-    case 256:
-      return launch<T, 256, false>(q, k, v, out, B, Tlen, H, st, causal,
-                                   sm_scale, D, s);
+    case 256:   // bf16 and f16 run the tensor-core body at 256
+      if constexpr (std::is_same<T, float>::value)
+        return launch<T, 256, false>(q, k, v, out, B, Tlen, H, st, causal,
+                                     sm_scale, D, s);
+      return -1;
     default:
       return with_padded_width(D, [&](auto w) {
         return launch<T, decltype(w)::value, true>(
@@ -360,11 +372,20 @@ int launch_t(int D, const void* q, const void* k, const void* v, void* out,
 namespace tc {
 
 constexpr int BQ = 128;        // query rows per block: two consumer warpgroups
-constexpr int NST = 3;         // K/V stages in flight
-constexpr int NTHREADS = 384;  // producer + two consumers
 
+// Through width 128 the block is three warpgroups: a TMA producer that
+// gives its registers up (setmaxnreg) and two consumers, three K/V stages
+// in flight.  Past it (D 144-256) O is 96 or 128 f32 registers a thread,
+// and ptxas holds a 384-thread block to 168 registers a thread whatever
+// setmaxnreg asks (PERF.md): the block is the two consumers alone
+// (256 threads, up to 255 registers each), thread 0 of consumer 0
+// issuing the loads, with three stages at width 192 and two at 256 (Q 48
+// or 64 KB, a stage 48 or 64 KB: 192 KB either way).
 template <int D>
 struct Smem {
+  static constexpr bool kProducer = D <= 128;
+  static constexpr int NTHREADS = kProducer ? 384 : 256;
+  static constexpr int NST = D <= 192 ? 3 : 2;   // K/V stages in flight
   static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
   static constexpr int Q = 0;                    // [2][TILE]
   static constexpr int K = 2 * TILE;             // [NST][TILE]
@@ -373,10 +394,11 @@ struct Smem {
   static constexpr size_t bytes = BAR + 8 * (2 * NST + 1) + 1024;  // + align
 };
 
-// D is the tile's width; the head dim HD is D, or (kPad, D 128) `dh`: 80,
-// 96 or 112.
+// D is the tile's width; the head dim HD is D, or (kPad) `dh`: a multiple
+// of 16 under D and past the next narrower width (80-112, 144-176,
+// 208-240).
 template <int D, typename E, bool kPad>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Smem<D>::NTHREADS, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
@@ -384,6 +406,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                            int causal, float scale_log2, int dh) {
   using Tile = wg::AttnTile<D, E>;
   using L = Smem<D>;
+  constexpr int NST = L::NST;
   const int HD = kPad ? dh : D;                  // the head dim
   constexpr int BK = Tile::BK;
   constexpr int NCB = D / 64;                    // 64-column boxes per row
@@ -412,72 +435,108 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   __syncthreads();
 
+  // by one thread: the Q tiles of the warpgroups with rows, and stage s's
+  // K and V tiles into its ring slot
+  auto load_q = [&]() {
+    wg::mbar_expect_tx(qbar, n_cons * NCB * BOX);
+    for (int c = 0; c < n_cons; ++c)
+      for (int cb = 0; cb < NCB; ++cb)
+        wg::tma_load_4d(sm + L::Q + c * L::TILE + cb * BOX, &tq, qbar,
+                        cb * 64, h, q0 + 64 * c, b);
+  };
+  auto load_stage = [&](int s) {
+    const int slot = s % NST;
+    wg::mbar_expect_tx(&full[slot], 2 * NCB * BOX);
+    for (int cb = 0; cb < NCB; ++cb) {
+      wg::tma_load_4d(sm + L::K + slot * L::TILE + cb * BOX, &tk,
+                      &full[slot], cb * 64, h, s * BK, b);
+      wg::tma_load_4d(sm + L::V + slot * L::TILE + cb * BOX, &tv,
+                      &full[slot], cb * 64, h, s * BK, b);
+    }
+  };
+
   const int wgi = threadIdx.x / 128;
-  if (wgi == 0) {
-    // ---- producer ----
-    wg::setmaxnreg_dec<40>();
-    if (threadIdx.x == 0) {
-      wg::mbar_expect_tx(qbar, n_cons * NCB * BOX);
-      for (int c = 0; c < n_cons; ++c)
-        for (int cb = 0; cb < NCB; ++cb)
-          wg::tma_load_4d(sm + L::Q + c * L::TILE + cb * BOX, &tq, qbar,
-                          cb * 64, h, q0 + 64 * c, b);
-      for (int s = 0; s < n_stages; ++s) {
-        const int slot = s % NST;
-        if (s >= NST) wg::mbar_wait(&empty[slot], ((s / NST) - 1) & 1);
-        wg::mbar_expect_tx(&full[slot], 2 * NCB * BOX);
-        for (int cb = 0; cb < NCB; ++cb) {
-          wg::tma_load_4d(sm + L::K + slot * L::TILE + cb * BOX, &tk,
-                          &full[slot], cb * 64, h, s * BK, b);
-          wg::tma_load_4d(sm + L::V + slot * L::TILE + cb * BOX, &tv,
-                          &full[slot], cb * 64, h, s * BK, b);
+  int c = wgi;                                   // this consumer
+  if constexpr (L::kProducer) {
+    if (wgi == 0) {
+      // ---- producer ----
+      wg::setmaxnreg_dec<40>();
+      if (threadIdx.x == 0) {
+        load_q();
+        for (int s = 0; s < n_stages; ++s) {
+          if (s >= NST) wg::mbar_wait(&empty[s % NST], ((s / NST) - 1) & 1);
+          load_stage(s);
         }
       }
+      return;
     }
-  } else {
-    // ---- consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63 ----
     wg::setmaxnreg_inc<232>();
-    const int c = wgi - 1;
-    if (c >= n_cons) return;
-    const int row_lo = q0 + 64 * c;
-    const int my_end = causal ? min(Tlen, row_lo + 64) : Tlen;
-    const int my_stages = (my_end + BK - 1) / BK;
-    const uint32_t qa = wg::smem_u32(sm + L::Q + c * L::TILE);
-    Tile t;
-    t.init();
+    c = wgi - 1;
+  } else {
+    // thread 0 (consumer 0 always has rows) loads Q and the first NST
+    // stages now, each later stage once every warp is done with the one
+    // that held its slot (below)
+    if (threadIdx.x == 0) {
+      load_q();
+      for (int s = 0; s < min(NST, n_stages); ++s) load_stage(s);
+    }
+  }
+  // ---- consumers: warpgroup c owns rows q0 + 64c .. q0 + 64c + 63 ----
+  if (c >= n_cons) return;
+  const int row_lo = q0 + 64 * c;
+  const int my_end = causal ? min(Tlen, row_lo + 64) : Tlen;
+  const int my_stages = (my_end + BK - 1) / BK;
+  const uint32_t qa = wg::smem_u32(sm + L::Q + c * L::TILE);
+  Tile t;
+  t.init();
+  if constexpr (L::kProducer)
     wg::mbar_wait(qbar, 0);
-    for (int s = 0; s < n_stages; ++s) {
-      const int slot = s % NST;
-      wg::mbar_wait(&full[slot], (s / NST) & 1);
-      if (s < my_stages) {
-        const int k0 = s * BK;
-        const uint32_t ka = wg::smem_u32(sm + L::K + slot * L::TILE);
-        const uint32_t va = wg::smem_u32(sm + L::V + slot * L::TILE);
-        auto visible = [&](int i, int key) {
-          const int kpos = k0 + key;
-          return kpos < Tlen && (!causal || kpos <= row_lo + Tile::row(i));
-        };
-        if (k0 + BK > Tlen || (causal && k0 + BK - 1 > row_lo))
-          t.template step<true>(qa, ka, va, scale_log2, visible, HD / 16);
-        else
-          t.template step<false>(qa, ka, va, scale_log2, visible, HD / 16);
+  else
+    wg::mbar_wait_or_trap(qbar, 0);
+  for (int s = 0; s < n_stages; ++s) {
+    const int slot = s % NST;
+    if constexpr (!L::kProducer) {
+      // stage s - 1's slot takes stage s - 1 + NST once every warp of
+      // both consumers has arrived on its `empty` (consumer 0 is at most
+      // one stage ahead of consumer 1)
+      if (threadIdx.x == 0 && s >= 1 && s - 1 + NST < n_stages) {
+        wg::mbar_wait_or_trap(&empty[(s - 1) % NST], ((s - 1) / NST) & 1);
+        load_stage(s - 1 + NST);
       }
       __syncwarp();
-      if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&empty[slot]);
+      wg::mbar_wait_or_trap(&full[slot], (s / NST) & 1);
+      __syncwarp();            // the warp's `wgmma`s issue converged
+    } else {
+      wg::mbar_wait(&full[slot], (s / NST) & 1);
     }
-    t.finish();
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row_lo + Tile::row(i);
-      if (r >= Tlen) continue;
-      const float inv = 1.f / fmaxf(t.l[i], 1e-30f);
-      E* o = out + (((size_t)b * Tlen + r) * H + h) * HD;
-#pragma unroll
-      for (int cc = 0; cc < D / 8; ++cc)
-        if (!kPad || cc < HD / 8)
-          wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
-                        t.o[4 * cc + 2 * i + 1] * inv);
+    if (s < my_stages) {
+      const int k0 = s * BK;
+      const uint32_t ka = wg::smem_u32(sm + L::K + slot * L::TILE);
+      const uint32_t va = wg::smem_u32(sm + L::V + slot * L::TILE);
+      auto visible = [&](int i, int key) {
+        const int kpos = k0 + key;
+        return kpos < Tlen && (!causal || kpos <= row_lo + Tile::row(i));
+      };
+      if (k0 + BK > Tlen || (causal && k0 + BK - 1 > row_lo))
+        t.template step<true>(qa, ka, va, scale_log2, visible, HD / 16);
+      else
+        t.template step<false>(qa, ka, va, scale_log2, visible, HD / 16);
     }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) wg::mbar_arrive(&empty[slot]);
+  }
+  t.finish();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row_lo + Tile::row(i);
+    if (r >= Tlen) continue;
+    const float inv = 1.f / fmaxf(t.l[i], 1e-30f);
+    E* o = out + (((size_t)b * Tlen + r) * H + h) * HD;
+#pragma unroll
+    for (int cc = 0; cc < D / 8; ++cc)
+      if (!kPad || cc < HD / 8)
+        wg::store2<E>(o + Tile::col(cc, 0), t.o[4 * cc + 2 * i] * inv,
+                      t.o[4 * cc + 2 * i + 1] * inv);
   }
 }
 
@@ -504,7 +563,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int n_qt = (Tlen + BQ - 1) / BQ;
   if (n_qt > 65535) return (int)cudaErrorInvalidConfiguration;
   dim3 grid(B * H, n_qt);
-  kern<<<grid, NTHREADS, smem, stream>>>(
+  kern<<<grid, Smem<D>::NTHREADS, smem, stream>>>(
       mq, mk, mv, static_cast<E*>(out), Tlen, H, causal,
       sm_scale * 1.4426950408889634f, dh);
   return (int)cudaGetLastError();
@@ -518,10 +577,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // strides (b, t, h) given in that order for q, then k, then v (the last
 // dim contiguous, rows 16-byte aligned); out (B, T, H, D) contiguous.
 // q_code is the one dtype's code (0 f32, 1 bf16, 2 f16).  body 1 is the
-// tensor-core body (bf16 or f16, D 64, 80, 96, 112 or 128), body 0 the
-// CUDA-core body (f32 with any D from 1 to 256, and bf16 or f16 with any
-// other D up to 256; rows 16-byte aligned at D 16, 32, 64, 128 and 256,
-// any alignment of the element size at the others), body 2 the wide fma
+// tensor-core body (bf16 or f16, every D from 64 to 256 that is a
+// multiple of 16), body 0 the CUDA-core body (f32 with any D from 1 to
+// 256, and bf16 or f16 with any other D up to 256; rows 16-byte aligned
+// at D 16, 32, 64, 128 and 256, any alignment of the element size at the
+// others), body 2 the wide fma
 // form (every dtype at every D past 256, any alignment of the element
 // size; wide_attention.cuh), body 3 the tensor-core wide form (bf16 or
 // f16 at every D past 256 that is a multiple of 16, rows 16-byte aligned;
@@ -566,20 +626,64 @@ extern "C" int tpulab_flash_attention(
                                          causal, sm_scale, s)
                        : -1;
     } else {
-      const bool tc_dim = D % 16 == 0 && D >= 64 && D <= 128;
-      if (body == 1 && D == 64)
-        return tc::launch<64, T16, false>(q, k, v, out, B, T, H, st, causal,
-                                          sm_scale, D, s);
-      if (body == 1 && D == 128)
-        return tc::launch<128, T16, false>(q, k, v, out, B, T, H, st, causal,
-                                           sm_scale, D, s);
-      if (body == 1 && tc_dim)     // 80, 96, 112 on the 128-wide tile
-        return tc::launch<128, T16, true>(q, k, v, out, B, T, H, st, causal,
-                                          sm_scale, D, s);
-      if (body == 0 && !tc_dim)    // the tensor-core dims run body 1
-        return launch_t<T16>(D, q, k, v, out, B, T, H, st, causal, sm_scale,
-                             s);
+      const int w = wgmma_width(D);  // the tensor-core dims run body 1
+      if (body == 0)
+        return w ? -1 : launch_t<T16>(D, q, k, v, out, B, T, H, st, causal,
+                                      sm_scale, s);
+      if (body != 1) return -1;
+      switch (w) {   // a head dim under its tile's width: kPad
+        case 64:
+          return tc::launch<64, T16, false>(q, k, v, out, B, T, H, st,
+                                            causal, sm_scale, D, s);
+        case 128:
+          return D == 128 ? tc::launch<128, T16, false>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s)
+                          : tc::launch<128, T16, true>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s);
+        case 192:
+          return D == 192 ? tc::launch<192, T16, false>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s)
+                          : tc::launch<192, T16, true>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s);
+        case 256:
+          return D == 256 ? tc::launch<256, T16, false>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s)
+                          : tc::launch<256, T16, true>(
+                                q, k, v, out, B, T, H, st, causal, sm_scale,
+                                D, s);
+        default:
+          return -1;
+      }
+    }
+  });
+}
+
+// The tensor-core body's attributes for dtype code `q_code` (1 bf16, 2
+// f16) at head dim `d` (a multiple of 16 from 144 to 256): registers a
+// thread, dynamic shared memory bytes and local memory bytes a thread
+// into out[0..2].  0, a cudaError_t code, or -1 for f32 or another head
+// dim.
+extern "C" int tpulab_flash_wgmma_attributes(int q_code, int d, int* out) {
+  const int w = wgmma_width(d);
+  if (w < 192) return -1;
+  return with_q_type(q_code, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    if constexpr (std::is_same<E, float>::value) {
       return -1;
+    } else {
+      const bool pad = d != w;
+      if (w == 192)
+        return kernel_attributes(pad ? tc::flash_fwd_wgmma_kernel<192, E, true>
+                                     : tc::flash_fwd_wgmma_kernel<192, E, false>,
+                                 tc::Smem<192>::bytes, out);
+      return kernel_attributes(pad ? tc::flash_fwd_wgmma_kernel<256, E, true>
+                                   : tc::flash_fwd_wgmma_kernel<256, E, false>,
+                               tc::Smem<256>::bytes, out);
     }
   });
 }

@@ -3,7 +3,9 @@
 // tensor-core body at D 64 and 128, the fma body at D 16, 32, 64, 128 and
 // 256).  The kernels, and what they replace and compute, are in
 // ragged_attention.cuh; the padded forms in ragged_attention_padded.cu,
-// the wide form (every D past 256) in ragged_attention_wide.cu.
+// the tensor-core body at D 144-256 in ragged_attention_wgmma_256.cu,
+// the wide forms (every D past 256) in ragged_attention_wide.cu and
+// ragged_attention_wgmma_wide.cu.
 
 #include "ragged_attention.cuh"
 
@@ -13,12 +15,17 @@ using namespace tpulab;
 
 // The tensor-core body for q code `qc` over page code `kv` (only the
 // pairs of `tensor_core_pair`) at D 64 or 128; D 80, 96 and 112 run the
-// 128-wide tile (`ragged_tc_padded`).
+// 128-wide tile (`ragged_tc_padded`), D 144 to 256 the 192- and 256-wide
+// tiles (`ragged_tc_256`).
 int launch_tc(int qc, int kv, const void* q, const void* pool,
               const int* tables, const int* q_lens, const int* kv_lens,
               void* out, void* scratch, int B, int M, int Hq, int Hkv, int D,
               int P, int S, int MP, int n_split, float sm_scale,
               cudaStream_t st) {
+  if (D > 128)
+    return ragged_tc_256(qc, kv, q, pool, tables, q_lens, kv_lens, out,
+                         scratch, B, M, Hq, Hkv, D, P, S, MP, n_split,
+                         sm_scale, st);
   if (D != 64 && D != 128)
     return ragged_tc_padded(qc, kv, q, pool, tables, q_lens, kv_lens, out,
                             scratch, B, M, Hq, Hkv, D, P, S, MP, n_split,
@@ -46,11 +53,11 @@ int launch_tc(int qc, int kv, const void* q, const void* pool,
 // C interface (bound with ctypes).  q_code is q's dtype code (0 f32, 1
 // bf16, 2 f16), kv the pool's (0 f32, 1 bf16, 2 e4m3, 3 e5m2, 4 f16).
 // body 1 is the tensor-core body (a bf16 or f16 q over pages of its own
-// type, e4m3 or e5m2, D 64, 80, 96, 112 or 128) with `n_split` splits
-// over the context and, when n_split > 1, f32 scratch of n_split * B * M *
-// Hq * (D + 2) values; body 0 the CUDA-core body (every other mix at
-// those head dims, and every mix at any other D from 1 to 256; n_split
-// 1); body 2 the wide fma form (every mix at every D past 256,
+// type, e4m3 or e5m2, every D from 64 to 256 that is a multiple of 16)
+// with `n_split` splits over the context and, when n_split > 1, f32
+// scratch of n_split * B * M * Hq * (D + 2) values; body 0 the CUDA-core
+// body (every other mix at those head dims, and every mix at any other D
+// from 1 to 256; n_split 1); body 2 the wide fma form (every mix at every D past 256,
 // wide_attention.cuh) and body 3 the tensor-core wide form (the pairs of
 // body 1 at every D past 256 that is a multiple of 16, wide_wgmma.cuh),
 // each with `n_split` splits and, when n_split > 1, f32 scratch of n_split

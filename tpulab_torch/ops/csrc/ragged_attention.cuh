@@ -30,7 +30,8 @@
 //
 // * `ragged_attn_wgmma_kernel<D, E, KVT, kPad>`, a 16-bit q (E: bf16 or
 //   f16) over pages whose upcast to E is exact (E itself, e4m3 or e5m2),
-//   head dim 64, 80, 96, 112 or 128, on the tensor cores in E (`wgmma ... f32.bf16.bf16` or
+//   every head dim from 64 to 256 that is a multiple of 16, on the tensor
+//   cores in E (`wgmma ... f32.bf16.bf16` or
 //   `f32.f16.f16`; bf16 q over f16 pages and f16 q over bf16 pages run
 //   the fma body: neither upcast is exact):
 //   one warpgroup per (64-row tile, KV head, lane, split), latest rows
@@ -51,11 +52,19 @@
 //   `wgmma`: it takes both operands in fp8, so Q would be rounded to
 //   fp8, which tpulab never does.  Staging costs 2 x 64 x D bytes a
 //   buffer, the 16-bit second K/V buffer it replaces: shared memory stays
-//   5 tiles.  A head dim of 80, 96 or 112 (kPad: Phi-3-mini's 96,
-//   Phi-2's 80) runs the 128-wide tile: its padded columns are zeroed
-//   once per buffer at the start and never copied, the Q K^T products
-//   stop at the head dim, and the output's columns past it are not
-//   stored.
+//   5 tiles.  The tile is 64, 128, 192 or 256 wide; a head dim under its
+//   width (kPad: Phi-2's 80 and Phi-3-mini's 96 in the 128-wide tile,
+//   144-176 in the 192-wide, 208-240 in the 256-wide) has its padded
+//   columns zeroed once per buffer at the start and never copied, the Q
+//   K^T products stop at the head dim, and the output's columns past it
+//   are not stored; P V runs at n = the width.  Past width 128 (Gemma's
+//   D 256: ragged_attention_wgmma_256.cu) O is 96 or 128 f32 registers a
+//   thread, which the one-warpgroup block holds (no producer warpgroup
+//   to share the register file with), and the 120 or 160 KB of shared
+//   memory leave one block an SM, so `ragged_splits` aims at one block
+//   an SM there instead of two.  What bounds it is as at D 128: bytes
+//   at decode (8 lanes x 1024 over 8 KV heads of D 256, bf16: 67 MB,
+//   20 us), operations for a 256-row chunk.
 // * Split-KV, for launches whose tiles do not fill the card (decode and
 //   verify: M * G <= 64 rows): the grid gains a split axis, and split i of
 //   n walks stages [i * n_st / n, (i + 1) * n_st / n) of the tile's own
@@ -333,10 +342,11 @@ int launch(const void* q, const void* pool, const int* tables,
 }
 
 // The fma body for q code `qc` over page code `kv`: the mixes the
-// tensor-core body does not take at D 64 and 128, every mix at D 16, 32
-// and 256 (compiled for D), and (kPad) every mix at any other head dim
+// tensor-core body does not take at D 64, 128 and 256, every mix at D 16
+// and 32 (compiled for D), and (kPad) every mix at any other head dim
 // `dh` up to 256 on the width D = padded_width(dh) with q's type taken at
-// run time.
+// run time (`ragged_body` sends the tensor-core pairs at a multiple of 16
+// from 80 to 240 to the tensor-core body instead).
 template <int D, bool kPad = false>
 int launch_d(int qc, int kv, const void* q, const void* pool,
              const int* tables, const int* q_lens, const int* kv_lens,
@@ -355,7 +365,8 @@ int launch_d(int qc, int kv, const void* q, const void* pool,
       return with_kv_type(kv, [&](auto kt) {
         using QT = typename decltype(qt)::type;
         using KVT = typename decltype(kt)::type;
-        if constexpr ((D == 64 || D == 128) && tensor_core_pair<QT, KVT>) {
+        if constexpr ((D == 64 || D == 128 || D == 256) &&
+                      tensor_core_pair<QT, KVT>) {
           return -1;
         } else {
           return launch<QT, KVT, D, false>(q, pool, tables, q_lens, kv_lens,
@@ -376,6 +387,8 @@ constexpr int NTHREADS = 128;
 template <int D, typename KVT>
 struct Smem {
   static constexpr int TILE = wg::AttnTile<D>::TILE_BYTES;
+  // 5 tiles: 40, 80, 120 and 160 KB at widths 64, 128, 192 and 256, so
+  // two blocks fit an SM through width 128 and one past it
   static constexpr bool kFP8 = sizeof(KVT) == 1;
   static constexpr int Q = 0;                  // [TILE]
   // 16-bit pool: K and V tiles double-buffered.  fp8 pool: one K and one
@@ -432,8 +445,14 @@ __device__ __forceinline__ void fp8_stage_to_tiles(const unsigned char* stg,
   }
 }
 
-// D is the tile's width; the head dim HD is D, or (kPad, D 128) `dh`: 80,
-// 96 or 112.
+// The least power of two >= n: a row's copy lanes.
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// D is the tile's width; the head dim HD is D, or (kPad) `dh`: a multiple
+// of 16 under D and past the next narrower width (80-112, 144-176,
+// 208-240).
 template <int D, typename E, typename KVT, bool kPad>
 __global__ void __launch_bounds__(NTHREADS)
     ragged_attn_wgmma_kernel(const E* __restrict__ q,
@@ -478,19 +497,23 @@ __global__ void __launch_bounds__(NTHREADS)
   unsigned char* sm = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_tc) + 1023) & ~uintptr_t(1023));
 
-  // Copies: thread tid moves 16-byte chunk tid % CPR of rows tid / CPR +
+  // Copies: thread tid moves 16-byte chunk tid % QL of rows tid / QL +
   // RSTEP * i, so it works out one row's address (and one page index) per
   // K/V pair of chunks, and a stage's page lookups are independent loads.
-  // K/V rows follow the same pattern with their own chunk count.
-  constexpr int RSTEP = NTHREADS / CPR;          // Q rows a pass covers
+  // K/V rows follow the same pattern with their own chunk count.  QL and
+  // KL are the rows' chunk counts rounded up to a power of two, so that
+  // they divide the 128 threads (width 192: 24 chunks a 16-bit row, 32
+  // lanes; the lanes past the row copy nothing).
+  constexpr int QL = pow2_at_least(CPR), KL = pow2_at_least(KCPR);
+  constexpr int RSTEP = NTHREADS / QL;           // Q rows a pass covers
   constexpr int RPT = BQ / RSTEP;                // Q rows a thread copies
-  constexpr int KRSTEP = NTHREADS / KCPR;        // K/V rows a pass covers
+  constexpr int KRSTEP = NTHREADS / KL;          // K/V rows a pass covers
   constexpr int KRPT = BK / KRSTEP;              // K/V rows a thread copies
-  const int ch = tid % CPR, r_base = tid / CPR;
-  const int kch = tid % KCPR, kr_base = tid / KCPR;
+  const int ch = tid % QL, r_base = tid / QL;
+  const int kch = tid % KL, kr_base = tid / KL;
   // this thread's chunks inside the head dim (kPad: the others stay zero)
-  const bool q_live = !kPad || ch < HD / 8;
-  const bool kv_live = !kPad || kch < HD / EPC;
+  const bool q_live = kPad ? ch < HD / 8 : (QL == CPR || ch < CPR);
+  const bool kv_live = kPad ? kch < HD / EPC : (KL == KCPR || kch < KCPR);
   if constexpr (kPad) {
     // zero the columns past the head dim of the Q tile and of every K and
     // V tile buffer once (fp8: the tiles the staged stages convert into)
@@ -707,6 +730,15 @@ int ragged_fma_padded(int qc, int kv, const void* q, const void* pool,
                       const int* kv_lens, void* out, int B, int M, int Hq,
                       int Hkv, int D, int P, int S, int MP, float sm_scale,
                       cudaStream_t st);
+// The tensor-core body on the 192- and 256-wide tiles (D 144 to 256 in
+// steps of 16) for the pairs of `tensor_core_pair`, defined in
+// ragged_attention_wgmma_256.cu.  Arguments as the C interface's; -1 for
+// another pair or head dim.
+int ragged_tc_256(int qc, int kv, const void* q, const void* pool,
+                  const int* tables, const int* q_lens, const int* kv_lens,
+                  void* out, void* scratch, int B, int M, int Hq, int Hkv,
+                  int D, int P, int S, int MP, int n_split, float sm_scale,
+                  cudaStream_t st);
 // Every head dim past FMA_WIDTH (256) for every (q, page) pair: the wide
 // form (wide_attention.cuh), defined in ragged_attention_wide.cu (a third
 // translation unit).  Arguments as the C interface's; -1 for a head dim

@@ -126,35 +126,6 @@ __host__ __device__ inline Plan make_plan(int dh) {
   return p;
 }
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-// Spin until the phase of parity `parity` of `bar` has completed; after
-// 20 s of waiting trap, so that a lost TMA fails the launch instead of
-// holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = wg::smem_u32(bar);
-  uint64_t t0 = 0;
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023) == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-      if (n == 0)
-        t0 = now;
-      else if (now - t0 > 20000000000ull)
-        __trap();
-    }
-  }
-}
 // Wait until at most N of this thread's cp.async groups are pending.
 template <int N>
 __device__ __forceinline__ void cp_async_wait_n() {
@@ -400,9 +371,9 @@ __device__ __forceinline__ void walk(const Rows& tl, E* __restrict__ out,
   auto acquire = [&](int u) -> uint32_t {
     unsigned char* slot = ring + (u % RING) * UNIT;
     if constexpr (kTMA) {
-      if (u == 0 && pl.resident) mbar_wait(qbar, 0);
-      mbar_wait(&full[w * RING + u % RING], (u / RING) & 1);
-      bar_sync(1 + w, 128);
+      if (u == 0 && pl.resident) wg::mbar_wait_or_trap(qbar, 0);
+      wg::mbar_wait_or_trap(&full[w * RING + u % RING], (u / RING) & 1);
+      wg::bar_sync(1 + w, 128);
     } else {
       cp_async_wait_n<LAG - 1>();
       if constexpr (kFP8) {
@@ -429,7 +400,7 @@ __device__ __forceinline__ void walk(const Rows& tl, E* __restrict__ out,
       if (u == 0)
         __syncthreads();     // Q was copied by both consumers
       else
-        bar_sync(1 + w, 128);
+        wg::bar_sync(1 + w, 128);
     }
     issue(u + LAG);
     return wg::smem_u32(slot);
@@ -509,7 +480,7 @@ __device__ __forceinline__ void walk(const Rows& tl, E* __restrict__ out,
 #pragma unroll
       for (int x = 0; x < 32; ++x) xbuf[x * 128 + ct] = s[x];
     }
-    bar_sync(3, 256);
+    wg::bar_sync(3, 256);
     if (w == 0) {
 #pragma unroll
       for (int x = 0; x < 32; ++x) {
@@ -517,7 +488,7 @@ __device__ __forceinline__ void walk(const Rows& tl, E* __restrict__ out,
         xbuf[x * 128 + ct] = s[x];
       }
     }
-    bar_sync(3, 256);
+    wg::bar_sync(3, 256);
     if (w == 1) {
 #pragma unroll
       for (int x = 0; x < 32; ++x) s[x] = xbuf[x * 128 + ct];
@@ -682,12 +653,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // at head dim `dh` and local memory a thread into out[0..2].
 template <class Kern>
 int attributes(Kern kern, int dh, int* out) {
-  cudaFuncAttributes a;
-  if (cudaError_t e = cudaFuncGetAttributes(&a, kern)) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)make_plan(dh).bytes;
-  out[2] = (int)a.localSizeBytes;
-  return 0;
+  return kernel_attributes(kern, make_plan(dh).bytes, out);
 }
 
 // Kernel 1's tensor-core wide form for q code `qc` (1 bf16, 2 f16) over

@@ -11,7 +11,9 @@ CUDA tensors launch the hand-written Hopper kernel
 :func:`flash_attention_reference`.  A CUDA tensor never reaches the plain
 version: a build or launch failure raises.  The kernel has four bodies,
 chosen by :func:`flash_body` from dtype and head dim alone: ``"wgmma"``
-(bf16 or f16 on the tensor cores in that type, D 64, 80, 96, 112 or 128),
+(bf16 or f16 on the tensor cores in that type, every D from 64 to 256
+that is a multiple of 16: 128 query rows a block over tiles 64, 128, 192
+or 256 wide; past 128 two consumer warpgroups and no producer),
 ``"fma"`` (f32 FMAs on CUDA cores: f32, and bf16 or f16 at every other D
 up to 256), ``"wgmma-wide"`` (bf16 or f16 at every D past 256 that is a
 multiple of 16: the tensor cores, 64 query rows and up to 512 output
@@ -86,7 +88,7 @@ def _check(q, k, v):
 
 def flash_body(dtype, head_dim: int) -> str:
     """The kernel body a CUDA call runs: for bf16 or f16, ``"wgmma"`` with
-    D of ``WGMMA_HEAD_DIMS`` (64 to 128 in steps of 16) and
+    D of ``WGMMA_HEAD_DIMS`` (64 to 256 in steps of 16) and
     ``"wgmma-wide"`` with D past ``FMA_WIDTH`` that is a multiple of
     ``WGMMA_WIDE_ALIGN``; ``"fma-wide"`` for every other D past
     ``FMA_WIDTH``, else ``"fma"``.  A function of dtype and head dim

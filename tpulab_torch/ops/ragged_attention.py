@@ -16,7 +16,7 @@ float32, bfloat16, float16, float8_e4m3fn or float8_e5m2, whose pages
 the kernel upcasts as it reads them.  Every head dim from 1 up is built,
 as tpulab's kernels take any.  The kernel has four bodies, chosen by
 :func:`ragged_body` from dtypes and head dim alone: ``"wgmma"`` (the
-tensor cores in q's 16-bit type, D of ``WGMMA_HEAD_DIMS``: 64 to 128 in
+tensor cores in q's 16-bit type, D of ``WGMMA_HEAD_DIMS``: 64 to 256 in
 steps of 16, over pages whose upcast to that type is exact: bf16 q over
 bf16, e4m3 or e5m2 pages, f16 q over f16, e4m3 or e5m2 pages), ``"fma"``
 (f32 FMAs on CUDA cores: every other mix, and every other D up to
@@ -81,9 +81,14 @@ _WW_LAG = 2                             # units in flight a consumer
 _WW_RING = _WW_LAG + 2                  # slots a consumer (two consumers)
 _WW_XBUF = 32 * 128 * 4                 # one consumer's partial scores
 _WW_BARS = 128                          # kernel 2's mbarriers
-#: head dims of the tensor-core bodies (kernels 1 and 2): 80, 96 and 112
-#: run the 128-wide tile with its columns past D zero
-WGMMA_HEAD_DIMS = (64, 80, 96, 112, 128)
+#: head dims of the tensor-core bodies (kernels 1 and 2): every multiple
+#: of 16 from 64 to 256, on tiles 64, 128, 192 or 256 wide (80-112 run
+#: the 128-wide tile, 144-176 the 192-wide, 208-240 the 256-wide, with
+#: their columns past D zero)
+WGMMA_HEAD_DIMS = tuple(range(64, FMA_WIDTH + 1, 16))
+#: past this width a tensor-core block of kernel 1 takes 120 or 160 KB of
+#: shared memory (five 64-row tiles), so one fits an SM instead of two
+WGMMA_TWO_BLOCKS_WIDTH = 128
 #: the pages each 16-bit q type reads on its tensor cores: those whose
 #: upcast to q's type is exact (e4m3 and e5m2 are bf16 and f16 values;
 #: f16 -> bf16 loses range bits and bf16 -> f16 exponent range)
@@ -194,7 +199,11 @@ def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
     split when the (tile, KV head, lane) blocks already fill the card, as a
     256-row mixed round does; otherwise enough splits for about two blocks
     per SM (two fit at once), at most one per 64-key stage of the longest
-    context (``mp * page_size``) and at most ``MAX_SPLITS``."""
+    context (``mp * page_size``) and at most ``MAX_SPLITS``.  Past
+    ``WGMMA_TWO_BLOCKS_WIDTH`` (D 144-256) one ``"wgmma"`` block fits an
+    SM, so the aim is one block per SM: at decode of 8 lanes over 8 KV
+    heads, 2 splits (128 blocks, one wave) instead of 4 (256 blocks, two
+    waves)."""
     if body == "fma-wide":
         tiles = -(-m * (hq // hkv) // WIDE_ROWS)
         return wide_splits(tiles * wide_slabs(head_dim) * hkv * b,
@@ -212,7 +221,8 @@ def ragged_splits(b: int, m: int, hq: int, hkv: int, mp: int,
     blocks = tiles * hkv * b
     if blocks >= n_sm:
         return 1
-    return max(1, min(2 * n_sm // blocks, stages, MAX_SPLITS))
+    per_sm = 2 if head_dim <= WGMMA_TWO_BLOCKS_WIDTH else 1
+    return max(1, min(per_sm * n_sm // blocks, stages, MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
